@@ -2,7 +2,8 @@
 
 The preprocessing half of ``repro.data.augment`` (``upsample``,
 ``normalize``, ``device_preprocess``). The random augmentations (crop,
-flip, Mixup/CutMix) are training-only and come with the training slice.
+flip, Mixup/CutMix) are training-only and are not ported yet (ROADMAP
+item 9).
 """
 from __future__ import annotations
 

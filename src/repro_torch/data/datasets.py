@@ -1,23 +1,24 @@
-"""CIFAR-10/100 evaluation source (host side, numpy, uint8).
+"""CIFAR-10/100 train and test sources (host side, numpy, uint8).
 
-The eval half of ``repro.data.datasets``, byte-identical to it: images stay
-uint8 at the native 32 px grid on the host, and the upsample to the model
-resolution plus the normalisation run on the device
+``repro.data.datasets``, byte-identical to it: images stay uint8 at the
+native 32 px grid on the host, and the upsample to the model resolution
+plus the normalisation run on the device
 (``data/augment.py::device_preprocess``) from the source's :class:`Preproc`.
 
 Two backing stores behind one interface:
 
-- **Disk** (``data_dir`` holds the python-pickle batches): the test split
-  of ``cifar-10-batches-py`` or ``cifar-100-python``. The directory must
-  hold the train files too, as the reference requires, so the same
-  ``--data-dir`` is accepted by both packages; the train split is read by
-  the training slice, not here.
-- **Procedural** (no ``data_dir``; never downloads): a fixed eval split
-  drawn from ``default_rng((seed, 0xE7A1))`` through the class-conditional
-  generator and quantised to uint8 through the inverse normalisation.
+- **Disk** (``data_dir`` holds the python-pickle batches): the train and
+  test splits of ``cifar-10-batches-py`` or ``cifar-100-python``, loaded
+  once as raw uint8.
+- **Procedural** (no ``data_dir``; never downloads): train batches are
+  pure in the batch seed (the class-conditional generator, quantised to
+  uint8 through the inverse normalisation); the eval split is fixed, drawn
+  from ``default_rng((seed, 0xE7A1))``.
 
-The final non-divisible eval batch is zero-padded to the static batch
-shape with a ``mask`` leaf (1 = real example).
+``train_batch(batch, seed=...)`` is pure in ``seed`` (the pipeline derives
+it from the data cursor), and ``pool`` restricts the sampled index pool for
+weak scaling. The final non-divisible eval batch is zero-padded to the
+static batch shape with a ``mask`` leaf (1 = real example).
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ _STATS = {"cifar10": (CIFAR10_MEAN, CIFAR10_STD),
           "cifar100": (CIFAR100_MEAN, CIFAR100_STD)}
 
 PROCEDURAL_EVAL_SIZE = 500
+PROCEDURAL_TRAIN_SIZE = 4096
 
 
 @dataclass(frozen=True)
@@ -125,12 +127,23 @@ def padded_eval_batches(images: np.ndarray, labels: np.ndarray,
         yield {"images": img, "labels": lab, "mask": mask}
 
 
+def _check_pool(pool: Optional[int], size: int) -> int:
+    if pool is None:
+        return size
+    if not 0 < pool <= size:
+        raise ValueError(
+            f"sample pool {pool} out of range for a split of {size} "
+            f"examples")
+    return pool
+
+
 class CIFARSource:
-    """CIFAR-10/100 eval split, uint8 at the native 32 px grid."""
+    """CIFAR-10/100 train and test splits, uint8 at the native 32 px grid."""
 
     def __init__(self, name: str = "cifar10", *,
                  data_dir: Optional[str] = None, seed: int = 0,
                  resolution: Optional[int] = None,
+                 train_size: Optional[int] = None,
                  eval_size: Optional[int] = None):
         if name not in _STATS:
             raise ValueError(f"unknown CIFAR dataset {name!r}; "
@@ -160,25 +173,52 @@ class CIFARSource:
                 f"generator")
         self.procedural = found is None
         if found is not None:
-            _, test_file, key = found
+            train_files, test_file, key = found
+            ti, tl = _load_split(train_files, key)
             ei, el = _load_split([test_file], key)
-            self._eval_images = ei
-            self._eval_labels = el.astype(np.int32)
-            if eval_size:
-                self._eval_images = self._eval_images[:eval_size]
-                self._eval_labels = self._eval_labels[:eval_size]
+            self._train_images = ti[:train_size or None]
+            self._train_labels = tl.astype(np.int32)[:train_size or None]
+            self._eval_images = ei[:eval_size or None]
+            self._eval_labels = el.astype(np.int32)[:eval_size or None]
         else:
-            n_eval = eval_size or PROCEDURAL_EVAL_SIZE
-            x, labels = class_conditional_images(
-                self.spec, n_eval, np.random.default_rng((self.seed, 0xE7A1)),
-                resolution=32)
-            self._eval_images = quantize_images(x, self.mean, self.std)
-            self._eval_labels = labels
+            self._train_images = self._train_labels = None
+            self._train_size = train_size or PROCEDURAL_TRAIN_SIZE
+            self._eval_images, self._eval_labels = self._procedural_examples(
+                np.random.default_rng((self.seed, 0xE7A1)),
+                eval_size or PROCEDURAL_EVAL_SIZE)
+
+    def _procedural_examples(self, rng: np.random.Generator, n: int):
+        """Class-conditional uint8 images at the native 32 px grid."""
+        x, labels = class_conditional_images(self.spec, n, rng,
+                                             resolution=32)
+        return quantize_images(x, self.mean, self.std), labels
 
     @property
     def preproc(self) -> Preproc:
         return Preproc(mean=self.mean, std=self.std,
                        native_resolution=self.native_resolution)
+
+    @property
+    def train_size(self) -> int:
+        if self.procedural:
+            return self._train_size
+        return len(self._train_labels)
+
+    def train_batch(self, batch: int, *, seed: int,
+                    pool: Optional[int] = None) -> dict:
+        """One un-augmented uint8 train batch, pure in ``seed``: disk mode
+        draws a with-replacement sample of the first ``pool`` examples,
+        procedural mode synthesises the batch from the seed (``pool`` only
+        validates there). The draw order is the reference's
+        (``datasets.py:289-312``)."""
+        rng = np.random.default_rng(seed)
+        _check_pool(pool, self.train_size)
+        if self.procedural:
+            images, labels = self._procedural_examples(rng, batch)
+        else:
+            idx = rng.integers(0, pool or len(self._train_labels), (batch,))
+            images, labels = self._train_images[idx], self._train_labels[idx]
+        return {"images": images, "labels": labels}
 
     @property
     def eval_size(self) -> int:
@@ -188,3 +228,16 @@ class CIFARSource:
         """The test split in order, uint8 at the native grid, padded."""
         return padded_eval_batches(self._eval_images, self._eval_labels,
                                    batch)
+
+
+def make_source(dataset: str, *, data_dir: Optional[str] = None,
+                seed: int = 0, resolution: Optional[int] = None,
+                train_size: Optional[int] = None,
+                eval_size: Optional[int] = None):
+    """``None`` for the synthetic fp32 stream, a :class:`CIFARSource`
+    otherwise (the switch ``launch/train.py`` flips on ``--dataset``)."""
+    if dataset == "synthetic":
+        return None
+    return CIFARSource(dataset, data_dir=data_dir, seed=seed,
+                       resolution=resolution, train_size=train_size,
+                       eval_size=eval_size)

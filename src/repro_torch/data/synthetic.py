@@ -3,7 +3,8 @@
 A copy of ``repro.data.synthetic``'s image generator: the port may not
 import the JAX package, and the bytes must match it exactly. The draw order
 (labels, then noise; templates from ``default_rng(1234)``) is the contract
-that the procedural CIFAR splits derive from.
+that the procedural CIFAR splits and the legacy fp32 stream
+(``make_image_batch``) derive from.
 """
 from __future__ import annotations
 
@@ -47,3 +48,12 @@ def class_conditional_images(spec: DatasetSpec, n: int,
     up = np.tile(up, (1, reps, reps, 1))[:, :res, :res]
     noise = rng.normal(0, 0.7, (n, res, res, 3)).astype(np.float32)
     return (up + noise).astype(np.float32), labels.astype(np.int32)
+
+
+def make_image_batch(spec: DatasetSpec, batch: int, *, seed: int,
+                     resolution: int | None = None) -> dict:
+    """One seeded batch of pre-normalised fp32 class-conditional images at
+    ``resolution`` (the legacy synthetic stream)."""
+    images, labels = class_conditional_images(
+        spec, batch, np.random.default_rng(seed), resolution)
+    return {"images": images, "labels": labels}

@@ -1,13 +1,21 @@
-"""K1, the flash-attention forward: the wrapper around ``csrc/flash_fwd.cu``.
+"""Flash attention: the wrappers around ``csrc/flash_fwd.cu`` (K1) and
+``csrc/flash_bwd.cu`` (K2, K3), and the autograd Function that joins them.
 
-The port of ``repro/kernels/flash_attention.py:_fwd_kernel`` (public
-``flash_attention_fwd`` / ``flash_attention``). On a CUDA tensor the
-wrapper launches the hand-written kernel or raises; only tensors on the CPU
-take the plain version, ``kernels/ref.py::ref_attention``. The backward
-kernels (K2, K3) come with the training slice.
+The port of ``repro/kernels/flash_attention.py``: ``flash_attention_fwd``
+launches K1 (``_fwd_kernel``), ``flash_attention_bwd_dq`` K2
+(``_dq_kernel``) and ``flash_attention_bwd_dkv`` K3 (``_dkv_kernel``).
+:class:`FlashAttention` is the port of the reference's custom-VJP harness
+(``kernels/vjp.py``, ``_flash_fwd``/``_flash_bwd``): its forward is K1 and
+saves the fp32 lse, its backward is K2 then K3, so gradients never come
+from autograd through the forward. On a CUDA tensor each wrapper launches
+its hand-written kernel or raises; only tensors on the CPU take the plain
+versions, ``kernels/ref.py::ref_attention`` and ``ref_attention_bwd``.
 
-``flash_attention_fwd.launches`` counts kernel launches (CPU calls do not
-count), so a run can show that its attention went through the kernel.
+Each wrapper's ``.launches`` counts kernel launches (CPU calls do not
+count), so a run can show that its attention went through the kernels.
+``kernel_layout.copies`` counts the output gradients whose strides the
+backward kernels do not take and that were therefore copied to a
+contiguous buffer.
 """
 from __future__ import annotations
 
@@ -16,12 +24,26 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import ref_attention
+from repro_torch.kernels.ref import ref_attention, ref_attention_bwd
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_MAX = 65535           # grid.y (heads) and grid.z (batch)
 _ALIGN = 8                  # element strides: the kernel moves 8-element chunks
+
+
+def _lib_bwd():
+    lib = build.load("flash_bwd")
+    if lib.repro_flash_bwd_dq.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.repro_flash_bwd_dq, lib.repro_flash_bwd_dkv):
+            fn.argtypes = ([i32, i32] + [ptr] * 8 + [i32] * 5
+                           + [ctypes.POINTER(ctypes.c_longlong)]
+                           + [i32, i32, ctypes.c_float, ptr])
+            fn.restype = i32
+        lib.repro_cuda_error_string.argtypes = [i32]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _lib():
@@ -51,8 +73,17 @@ def check_shapes(q, k, v):
                          f"kv heads")
 
 
+def _check_strides(name, x):
+    if x.stride(-1) != 1 or any(st % _ALIGN for st in x.stride()[:3]) \
+            or x.data_ptr() % 16:
+        raise ValueError(
+            f"{name}: the kernel needs a contiguous last dim, the other "
+            f"strides multiples of {_ALIGN} elements and a 16-byte "
+            f"aligned start; got strides {x.stride()}")
+
+
 def check_kernel_inputs(q, k, v):
-    """What the CUDA kernel takes; anything else raises (never falls back)."""
+    """What the CUDA kernels take; anything else raises (never falls back)."""
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
         raise ValueError(f"kernel dtypes are float32 or bfloat16, all equal;"
                          f" got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -65,12 +96,14 @@ def check_kernel_inputs(q, k, v):
     if min(q.shape[2], k.shape[2]) < 1:
         raise ValueError("empty sequence")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(-1) != 1 or any(st % _ALIGN for st in x.stride()[:3]) \
-                or x.data_ptr() % 16:
-            raise ValueError(
-                f"{name}: the kernel needs a contiguous last dim, the other "
-                f"strides multiples of {_ALIGN} elements and a 16-byte "
-                f"aligned start; got strides {x.stride()}")
+        _check_strides(name, x)
+
+
+def _check_device(*xs):
+    dev = xs[0].device
+    if dev.type != "cuda" or any(x.device != dev for x in xs):
+        raise ValueError(f"flash attention runs on cuda (kernel) or cpu "
+                         f"(plain); got {[str(x.device) for x in xs]}")
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=0):
@@ -81,9 +114,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0):
     if q.device.type == "cpu":
         out, lse = ref_attention(q, k, v, causal=causal, window=window)
         return out.to(q.dtype), lse
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash attention runs on cuda (kernel) or cpu "
-                         f"(plain); got {q.device}, {k.device}, {v.device}")
+    _check_device(q, k, v)
     check_kernel_inputs(q, k, v)
     b, h, s, d = q.shape
     kh, t = k.shape[1], k.shape[2]
@@ -108,6 +139,132 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0):
 flash_attention_fwd.launches = 0
 
 
+def _bwd_inputs(q, k, v, lse, do):
+    """Checks shared by K2 and K3; returns dO in a layout they take."""
+    check_shapes(q, k, v)
+    _check_device(q, k, v, lse, do)
+    check_kernel_inputs(q, k, v)
+    if do.shape != q.shape or lse.shape != q.shape[:3]:
+        raise ValueError(f"dO must be {tuple(q.shape)} and lse "
+                         f"{tuple(q.shape[:3])}; got {tuple(do.shape)}, "
+                         f"{tuple(lse.shape)}")
+    if do.dtype != q.dtype or lse.dtype != torch.float32 or \
+            not lse.is_contiguous():
+        raise ValueError(f"dO in q's dtype {q.dtype}, lse contiguous "
+                         f"float32; got {do.dtype}, {lse.dtype}")
+    return kernel_layout(do)
+
+
+def kernel_layout(do):
+    """``do`` itself when K2/K3 take its strides, else a contiguous copy
+    (a copy, not a fallback: the kernels still run), counted in
+    ``kernel_layout.copies``."""
+    try:
+        _check_strides("dO", do)
+        return do
+    except ValueError:
+        kernel_layout.copies += 1
+        # a fresh buffer: contiguous and aligned (``contiguous()`` would
+        # hand back a contiguous view with a misaligned start as it is)
+        return do.clone(memory_format=torch.contiguous_format)
+
+
+kernel_layout.copies = 0
+
+
+def _launch(fn, name, args):
+    """Call ``fn`` of the K2/K3 library on the current stream of the
+    tensors' card (``args[2]`` is q); tensors pass as their pointers."""
+    lib = _lib_bwd()
+    with torch.cuda.device(args[2].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, fn)(*[a.data_ptr() if isinstance(a, torch.Tensor)
+                                 else a for a in args], stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib.repro_cuda_error_string(err).decode())
+
+
+def _strides(*xs):
+    vals = [st for x in xs for st in x.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, do, *, causal=True, window=0):
+    """K2: (dq (B,H,S,D) in q's dtype and memory layout, Δ = rowsum(dO∘O)
+    (B,H,S) fp32) from the forward's ``out`` and fp32 ``lse``."""
+    if q.device.type == "cpu":
+        dq, _, _, delta = ref_attention_bwd(q, k, v, out, lse, do,
+                                            causal=causal, window=window)
+        return dq, delta
+    do = _bwd_inputs(q, k, v, lse, do)
+    _check_device(q, out)
+    if out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(f"out must be {tuple(q.shape)} {q.dtype}; got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    _check_strides("out", out)
+    b, h, s, d = q.shape
+    dq = torch.empty_like(q)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _launch("repro_flash_bwd_dq", "flash_bwd_dq", (
+        _DTYPE_CODE[q.dtype], d, q, k, v, out, do, lse, dq, delta, b, h,
+        k.shape[1], s, k.shape[2], _strides(q, k, v, do, out, dq),
+        int(bool(causal)), int(window), d ** -0.5))
+    flash_attention_bwd_dq.launches += 1
+    return dq, delta
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
+                            window=0):
+    """K3: (dk, dv), each in its primal's dtype and memory layout, summed
+    over the GQA group, from the fp32 ``lse`` and K2's ``delta``."""
+    if q.device.type == "cpu":
+        _, dk, dv, _ = ref_attention_bwd(q, k, v, None, lse, do,
+                                         causal=causal, window=window,
+                                         delta=delta)
+        return dk, dv
+    do = _bwd_inputs(q, k, v, lse, do)
+    if delta.shape != lse.shape or delta.dtype != torch.float32 or \
+            not delta.is_contiguous() or delta.device != q.device:
+        raise ValueError("delta must be a contiguous float32 (B,H,S) "
+                         "tensor on q's device")
+    b, h, s, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("repro_flash_bwd_dkv", "flash_bwd_dkv", (
+        _DTYPE_CODE[q.dtype], d, q, k, v, do, lse, delta, dk, dv, b, h,
+        k.shape[1], s, k.shape[2], _strides(q, k, v, do, dk, dv),
+        int(bool(causal)), int(window), d ** -0.5))
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """``out = attention(q, k, v)`` with K1 forward and the K2, K3
+    backward (the reference's ``_flash_fwd``/``_flash_bwd``,
+    ``flash_attention.py:617-629``). The forward saves (q, k, v, out, lse);
+    the backward returns dq, dk and dv in the primals' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        kw = {"causal": ctx.causal, "window": ctx.window}
+        dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, do, **kw)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, window=0):
-    """q (B,H,S,D), k/v (B,KH,T,D) -> (B,H,S,D) in q's dtype."""
-    return flash_attention_fwd(q, k, v, causal=causal, window=window)[0]
+    """q (B,H,S,D), k/v (B,KH,T,D) -> (B,H,S,D) in q's dtype,
+    differentiable through :class:`FlashAttention`."""
+    return FlashAttention.apply(q, k, v, causal, window)

@@ -1,5 +1,5 @@
-"""The ViT branches of ``repro.models.transformer``: init, forward, loss and
-eval counts.
+"""The ViT branches of ``repro.models.transformer``: init, forward, the
+training loss and the eval counts.
 
 Parameters keep the reference's layout so weights cross without
 transposes: dense weights are (in, out) and applied as ``x @ w``, the
@@ -126,6 +126,47 @@ def _xent(logits, labels, mask=None):
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
+def _soft_xent(logits, labels, *, smoothing=0.0):
+    """Mean cross-entropy against a soft (B, C) target, with optional
+    uniform label smoothing ``y <- (1 - eps) * y + eps / C``. Hard int
+    labels are one-hotted first (the smoothing-only case)."""
+    logits = logits.to(torch.float32)
+    num_classes = logits.shape[-1]
+    if labels.ndim == logits.ndim - 1:
+        y = torch.nn.functional.one_hot(labels.long(), num_classes).to(
+            torch.float32)
+    else:
+        y = labels.to(torch.float32)
+    if smoothing:
+        y = y * (1.0 - smoothing) + smoothing / num_classes
+    logp = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
+    return (-(y * logp).sum(dim=-1)).mean()
+
+
+def loss_from_logits(cfg, logits, batch):
+    """``(loss, metrics)`` of the vit branch of the reference's
+    ``loss_from_logits`` (``transformer.py:600-640``): ``_soft_xent`` for
+    soft labels or label smoothing, else ``_xent``; metrics ``acc``,
+    ``moe_aux`` (0: a ViT has no MoE) and ``loss``."""
+    _check_vit(cfg)
+    labels = batch["labels"]
+    soft = labels.ndim == 2             # Mixup/CutMix soft-label batches
+    if soft or cfg.label_smoothing > 0.0:
+        loss = _soft_xent(logits, labels, smoothing=cfg.label_smoothing)
+    else:
+        loss = _xent(logits, labels)
+    hard = labels.argmax(-1) if soft else labels.long()
+    moe_aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    loss = loss + moe_aux
+    acc = (logits.argmax(-1) == hard).to(torch.float32).mean()
+    return loss, {"acc": acc, "moe_aux": moe_aux, "loss": loss}
+
+
+def loss_fn(cfg, params, batch):
+    """Scalar training loss and its metrics for a preprocessed batch."""
+    return loss_from_logits(cfg, forward(cfg, params, batch), batch)
+
+
 def classification_counts(logits, labels, mask=None, *, topk=5):
     """Integer top-1/top-5/count plus the fp32 NLL sum of one eval batch.
 
@@ -155,8 +196,8 @@ def classification_counts(logits, labels, mask=None, *, topk=5):
 
 class ViT(nn.Module):
     """Holds the params as nested submodules, so ``state_dict()`` keys are
-    the reference's dotted paths. Eval-only for now: the params do not
-    require grad."""
+    the reference's dotted paths. The params are trainable fp32 leaves;
+    eval runs under ``torch.inference_mode()`` and records no graph."""
 
     def __init__(self, cfg, params):
         super().__init__()
@@ -169,8 +210,7 @@ class ViT(nn.Module):
                 if name not in mod._modules:
                     mod.add_module(name, nn.Module())
                 mod = mod._modules[name]
-            mod.register_parameter(leaf, nn.Parameter(value,
-                                                      requires_grad=False))
+            mod.register_parameter(leaf, nn.Parameter(value))
 
     def params(self):
         return dict(self.named_parameters())

@@ -1,6 +1,7 @@
-"""The port's eval CLI (``repro_torch.launch.train``) on the CPU: it writes
-the reference's metrics row, refuses training, and never runs on the CPU
-unless asked to."""
+"""The port's CLI (``repro_torch.launch.train``) in its eval mode on the
+CPU: it writes the reference's metrics row, refuses the training options
+that are not ported yet, and never runs on the CPU unless asked to. Its
+training mode is tested in ``tests/test_torch_train.py``."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -43,8 +44,11 @@ def test_kernels_flag_does_not_change_cpu_counts():
 
 
 def test_training_steps_are_refused():
-    with pytest.raises(SystemExit, match="slice 2"):
-        main(ARGS[:1] + ["--steps", "1", "--device", "cpu"])
+    """Training steps run since slice 2; steps that need an option of the
+    reference the port does not have yet are refused, never run without
+    it."""
+    with pytest.raises(SystemExit, match="not yet ported"):
+        main(ARGS[:1] + ["--steps", "1", "--augment", "--device", "cpu"])
 
 
 def test_cuda_is_the_default_and_never_falls_back():

@@ -91,7 +91,8 @@ def test_logits_match_reference(smoke, use_kernels):
     vit = _port_vit(tree, use_kernels)
     got = vit({"images": torch.from_numpy(images)})
     assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=ATOL)
 
 
 def test_classification_counts_match_reference():
