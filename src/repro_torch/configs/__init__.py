@@ -1,19 +1,20 @@
 """Architecture registry for the port: ``--arch <id>`` resolution.
 
-Only the paper's ViT-B/16 is ported so far; the other architectures of
-``repro.configs`` raise a clear error until their slice lands.
+The paper's ViT-B/16 and the dense decoder ChatGLM3-6B are ported; the
+other architectures of ``repro.configs`` raise a clear error until their
+slice lands.
 """
 from __future__ import annotations
 
-from repro_torch.configs import vit_b16
+from repro_torch.configs import chatglm3_6b, vit_b16
 from repro_torch.configs.base import EngineConfig, ModelConfig
 
-REGISTRY = {vit_b16.ARCH_ID: vit_b16}
+REGISTRY = {m.ARCH_ID: m for m in (vit_b16, chatglm3_6b)}
 
 # the reference registry's other archs (repro/configs/__init__.py)
 NOT_YET_PORTED = (
     "deepseek-v3-671b", "qwen2.5-14b", "qwen2-vl-72b", "hubert-xlarge",
-    "glm4-9b", "zamba2-2.7b", "chatglm3-6b", "gemma3-12b", "rwkv6-7b",
+    "glm4-9b", "zamba2-2.7b", "gemma3-12b", "rwkv6-7b",
     "granite-moe-3b-a800m",
 )
 

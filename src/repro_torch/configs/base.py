@@ -1,10 +1,13 @@
-"""Model and engine configuration (the ViT subset of ``repro.configs.base``).
+"""Model and engine configuration (the ViT and dense-decoder subset of
+``repro.configs.base``).
 
 Field names and defaults follow the JAX package, so a config can be
-compared field by field with its reference. Fields the ported path does
-not read (rope, MoE, SSM, serving knobs; ZeRO, pipeline and checkpoint
-settings) are left out until a slice needs them; ``use_kernels`` stands in
-for the reference's ``use_pallas``.
+compared field by field with its reference. Fields the ported paths do
+not read (MoE, MLA, SSM, softcap, M-RoPE, serving knobs; ZeRO, pipeline and
+checkpoint settings) are left out until a slice needs them; ``use_kernels``
+stands in for the reference's ``use_pallas``. A config that asks for a
+branch no slice has ported (tied embeddings, the embedding scale, M-RoPE,
+another family or activation) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -12,20 +15,36 @@ import dataclasses
 from dataclasses import dataclass
 
 
+_ARCH_TYPES = ("vit", "dense")
+_ROPE_STYLES = ("full", "half", "none")
+_ACTS = ("swiglu", "gelu")
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                  # only "vit" is ported
+    arch_type: str                  # vit | dense are ported
     num_layers: int
     d_model: int
     num_heads: int
     num_kv_heads: int
     d_ff: int
+    vocab_size: int
     head_dim: int = 0               # 0 -> d_model // num_heads
     causal: bool = True
+
+    # --- attention flavour ------------------------------------------------
+    qkv_bias: bool = False
+    rope_style: str = "full"        # full | half | none (mrope not ported)
+    rope_theta: float = 10000.0
     sliding_window: int = 0         # 0 = full attention
     global_every: int = 0           # every Nth layer full, the rest local
+
+    # --- embeddings / head --------------------------------------------
+    tie_embeddings: bool = False    # not ported
     norm_eps: float = 1e-5
+    act: str = "swiglu"             # swiglu | gelu
+    embed_scale: bool = False       # not ported
 
     # --- ViT ------------------------------------------------------------
     image_size: int = 0
@@ -44,6 +63,19 @@ class ModelConfig:
             raise ValueError(
                 f"{self.name}: num_heads {self.num_heads} not divisible by "
                 f"kv heads {self.num_kv_heads}")
+        unported = [
+            (self.arch_type not in _ARCH_TYPES,
+             f"arch_type {self.arch_type!r}"),
+            (self.tie_embeddings, "tied embeddings"),
+            (self.embed_scale, "the embedding scale"),
+            (self.rope_style not in _ROPE_STYLES,
+             f"rope_style {self.rope_style!r}"),
+            (self.act not in _ACTS, f"act {self.act!r}"),
+        ]
+        for needed, what in unported:
+            if needed:
+                raise NotImplementedError(
+                    f"{self.name}: {what} is not yet ported to repro_torch")
 
     def layer_windows(self):
         """Per-layer sliding window (0 = full), gemma3-style local:global."""

@@ -18,11 +18,14 @@ def config() -> ModelConfig:
         num_kv_heads=12,
         head_dim=64,
         d_ff=3072,
+        vocab_size=0,
         causal=False,
+        rope_style="none",
         image_size=224,
         patch_size=16,
         num_classes=10,              # CIFAR-10 default; overridden per dataset
         norm_eps=1e-6,
+        act="gelu",
     )
 
 

@@ -2,8 +2,9 @@
 the anomaly guard, and the no-grad eval step (``repro/core/engine.py``).
 
 ``Trainer`` owns the optimizer and the LR schedule and runs
-``train_step(state, batch)``: each microbatch is finished on the device
-(upsample and normalise, ``device_preprocess``), goes forward and backward
+``train_step(state, batch)`` for either family: each microbatch is
+finished on the device (upsample and normalise a uint8 image batch,
+``device_preprocess``; token batches pass through), goes forward and backward
 through the compute view of the params (bf16 matrices under
 ``cast_params_bf16``), and the fp32 mean gradient feeds the hand-written
 optimizer. ``Evaluator`` runs the eval loop under
@@ -147,6 +148,10 @@ class Trainer:
 class Evaluator:
     def __init__(self, cfg, vit: model.ViT, *, ecfg: EngineConfig = None,
                  preproc=None, device="cuda"):
+        if cfg.arch_type != "vit":
+            raise NotImplementedError(
+                f"{cfg.name}: the eval loop counts classes; only the vit "
+                f"branch has one")
         self.cfg = cfg
         self.ecfg = ecfg or EngineConfig()
         self.preproc = preproc

@@ -6,6 +6,8 @@ function of ``(seed, epoch, index)``, so the TrainState data cursor
 §IV-A protocol) shrinks the epoch and restricts the sampled index pool.
 Batches stay numpy on the host; the engine moves them to the device. The
 two-stage ``Prefetcher`` and the fault-injection sites are not ported yet.
+``kind="token"`` is the LM stream (``make_token_batch``) behind the same
+cursor contract.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import struct
 import zlib
 from typing import Iterator, Optional, Tuple
 
-from repro_torch.data.synthetic import DatasetSpec, make_image_batch
+from repro_torch.data.synthetic import DatasetSpec, make_image_batch, \
+    make_token_batch
 
 
 def batch_seed(seed: int, epoch: int, i: int) -> int:
@@ -24,22 +27,30 @@ def batch_seed(seed: int, epoch: int, i: int) -> int:
 
 
 class DataPipeline:
-    def __init__(self, *, global_batch: int, seed: int = 0,
-                 dataset: Optional[DatasetSpec] = None,
+    def __init__(self, *, global_batch: int, kind: str = "image",
+                 seed: int = 0, dataset: Optional[DatasetSpec] = None,
+                 vocab: int = 0, seq_len: int = 0,
                  resolution: Optional[int] = None,
                  weak_scaling_frac: float = 1.0, epoch_size: int = 0,
                  source=None):
-        """Image batches from ``source`` (a :class:`CIFARSource`: uint8 at
-        the native grid, from its train split) or, without one, the
-        spec-shaped pre-normalised fp32 synthetic stream.
-        ``weak_scaling_frac`` is the fraction of the split used: it shortens
-        the epoch and restricts the pool batches sample from. (The
-        reference's ``kind="token"`` stream comes with the LM slice.)"""
+        """``kind="image"``: batches from ``source`` (a :class:`CIFARSource`:
+        uint8 at the native grid, from its train split) or, without one,
+        the spec-shaped pre-normalised fp32 synthetic stream.
+        ``kind="token"``: (global_batch, seq_len) int32 tokens below
+        ``vocab``. ``weak_scaling_frac`` is the fraction of the split used:
+        it shortens the epoch and restricts the pool batches sample from."""
+        if kind not in ("image", "token"):
+            raise ValueError(f"kind must be 'image' or 'token': {kind!r}")
+        if source is not None and kind != "image":
+            raise ValueError("dataset sources only back the image kind")
         if not 0.0 < weak_scaling_frac <= 1.0:
             raise ValueError(
                 f"weak_scaling_frac must be in (0, 1]: {weak_scaling_frac}")
+        self.kind = kind
         self.global_batch = global_batch
         self.seed = seed
+        self.vocab = vocab
+        self.seq_len = seq_len
         self.dataset = source.spec if source is not None else dataset
         self.source = source
         self.resolution = source.resolution if source is not None \
@@ -65,6 +76,9 @@ class DataPipeline:
                 f"batch_index {index} out of range for epoch of "
                 f"{self.steps_per_epoch} steps")
         seed = batch_seed(self.seed, epoch, index)
+        if self.kind == "token":
+            return make_token_batch(self.vocab, self.global_batch,
+                                    self.seq_len, seed=seed)
         if self.source is not None:
             return self.source.train_batch(self.global_batch, seed=seed,
                                            pool=self.sample_pool)

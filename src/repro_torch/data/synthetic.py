@@ -1,10 +1,10 @@
-"""Deterministic class-conditional synthetic images (numpy, host side).
+"""Deterministic synthetic images and tokens (numpy, host side).
 
-A copy of ``repro.data.synthetic``'s image generator: the port may not
-import the JAX package, and the bytes must match it exactly. The draw order
-(labels, then noise; templates from ``default_rng(1234)``) is the contract
-that the procedural CIFAR splits and the legacy fp32 stream
-(``make_image_batch``) derive from.
+A copy of ``repro.data.synthetic``'s image and token generators: the port
+may not import the JAX package, and the bytes must match it exactly. The
+draw order (labels, then noise; templates from ``default_rng(1234)``) is the
+contract that the procedural CIFAR splits and the legacy fp32 stream
+(``make_image_batch``) derive from; the LM stream is ``make_token_batch``.
 """
 from __future__ import annotations
 
@@ -57,3 +57,15 @@ def make_image_batch(spec: DatasetSpec, batch: int, *, seed: int,
     images, labels = class_conditional_images(
         spec, batch, np.random.default_rng(seed), resolution)
     return {"images": images, "labels": labels}
+
+
+def make_token_batch(vocab: int, batch: int, seq: int, *, seed: int):
+    """One seeded (batch, seq) int32 token batch: an order-2 Markov-ish
+    stream (half the tokens follow ``(prev * 31 + 7) % vocab``), so the
+    next token is partly learnable."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, vocab, (batch, seq))
+    shifted = np.roll(base, 1, axis=1)
+    mix = rng.random((batch, seq)) < 0.5
+    toks = np.where(mix, (shifted * 31 + 7) % vocab, base)
+    return {"tokens": toks.astype(np.int32)}

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import fused_rmsnorm as _fused_rmsnorm
 
 
 def flash_mha(q, k, v, *, causal=True, window=0):
@@ -16,3 +17,10 @@ def flash_mha(q, k, v, *, causal=True, window=0):
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=causal, window=window)
     return out.transpose(1, 2)
+
+
+def fused_rmsnorm(x, scale, *, eps=1e-6):
+    """x (..., D) -> rmsnorm(x) * scale in x's dtype. Differentiable
+    through ``FusedRMSNorm``: K4 forward saving the fp32 rinv, K5 backward
+    for dx and dscale."""
+    return _fused_rmsnorm(x, scale, eps=eps)

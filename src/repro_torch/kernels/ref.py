@@ -6,6 +6,9 @@ holds the kernel against on the card. It follows
 ``repro/kernels/ref.py::ref_attention`` and also returns the fp32 lse.
 ``ref_attention_bwd`` is the plain version of K2 and K3
 (``csrc/flash_bwd.cu``), in the same two roles for the backward.
+``ref_rmsnorm_fwd`` and ``ref_rmsnorm_bwd`` are the plain versions of K4
+and K5 (``csrc/rmsnorm.cu``); ``ref_rmsnorm`` is the JAX package's oracle
+``repro/kernels/ref.py::ref_rmsnorm``.
 """
 from __future__ import annotations
 
@@ -88,3 +91,38 @@ def ref_attention_bwd(q, k, v, out, lse, do, *, causal=True, window=0,
     dv = torch.einsum("bkgst,bkgsd->bktd", p, dof)
     return (dq.reshape(b, h, s, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype), delta.reshape(b, h, s))
+
+
+def ref_rmsnorm(x, scale, eps=1e-6):
+    """``x / sqrt(mean(x²) + eps) * scale`` over the last dim, fp32 math,
+    cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return ((xf / torch.sqrt(var + eps)) * scale.to(torch.float32)
+            ).to(x.dtype)
+
+
+def ref_rmsnorm_fwd(x, scale, eps=1e-6):
+    """K4's function, as the Pallas ``_fwd_kernel`` computes it:
+    ``rinv = 1 / sqrt(mean(x²) + eps)`` per row in fp32 and ``out = x ·
+    rinv · scale`` in x's dtype. Returns ``(out (..., D), rinv (rows,)
+    fp32)``, rows being the product of x's leading dims."""
+    xf = x.to(torch.float32).reshape(-1, x.shape[-1])
+    rinv = 1.0 / torch.sqrt((xf * xf).mean(dim=-1) + eps)
+    out = (xf * rinv[:, None]) * scale.to(torch.float32)
+    return out.to(x.dtype).reshape(x.shape), rinv
+
+
+def ref_rmsnorm_bwd(x, scale, rinv, dy):
+    """K5's function, by the formula of the Pallas ``_bwd_kernel`` in fp32
+    (not by autograd): ``dx = rinv·(dy∘s) − rinv³/D·x·rowsum(dy∘s∘x)`` in
+    x's dtype and ``dscale = Σ_rows dy∘x∘rinv`` in scale's dtype."""
+    d = x.shape[-1]
+    xf = x.to(torch.float32).reshape(-1, d)
+    dyf = dy.to(torch.float32).reshape(-1, d)
+    r = rinv.to(torch.float32)[:, None]
+    dys = dyf * scale.to(torch.float32)
+    dot = (dys * xf).sum(dim=-1, keepdim=True)
+    dx = r * dys - (r * r * r * (1.0 / d)) * xf * dot
+    dscale = (dyf * xf * r).sum(dim=0)
+    return dx.to(x.dtype).reshape(x.shape), dscale.to(scale.dtype)

@@ -8,6 +8,13 @@ legacy fp32 synthetic stream, and evaluates on the held-out split:
     PYTHONPATH=src python -m repro_torch.launch.train --arch vit-b16 \\
         --steps 10 --batch 128 --accum 2 --eval-every 10 --eval-batch 128
 
+A decoder (``--arch chatglm3-6b``) trains on the synthetic token stream of
+``--seq`` tokens per sequence (an epoch of ``--batch`` x ``--steps``
+sequences, as the reference sizes it); ``--layers`` cuts the depth:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
+        --layers 4 --seq 1024 --batch 8 --accum 2 --steps 10
+
 prints the reference's ``[train] step ... loss= gnorm= lr=`` and
 ``[eval ] step ... top1=... top5=... loss=... (n/N)`` lines and, with
 ``--metrics-out``, writes the same metrics rows (train rows every
@@ -32,7 +39,7 @@ from repro_torch.core.engine import Evaluator, Trainer, resolve_device, \
 from repro_torch.data.datasets import make_source
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.data.synthetic import DATASETS
-from repro_torch.models.transformer import ViT, init_params
+from repro_torch.models.transformer import Transformer, init_params
 
 # the reference's options that wait for a later slice: flag -> (argparse
 # kwargs, what it needs)
@@ -87,6 +94,10 @@ def parse_args(argv=None):
     ap.add_argument("--eval-size", type=int, default=0,
                     help="truncate the eval split to N examples (0 = all)")
     ap.add_argument("--label-smoothing", type=float, default=0.0)
+    ap.add_argument("--seq", type=int, default=128,
+                    help="tokens per sequence (decoder archs)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="override cfg.num_layers (0 = config default)")
     ap.add_argument("--dtype", default="",
                     help="override the compute dtype (bfloat16 | float32)")
     ap.add_argument("--log-every", type=int, default=10)
@@ -99,7 +110,8 @@ def parse_args(argv=None):
                          "updates of the same batch")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--no-kernels", action="store_true",
-                    help="naive attention instead of the CUDA flash kernels")
+                    help="naive attention and plain norms instead of the "
+                         "CUDA kernels")
     for flag, (kw, _) in NOT_YET_PORTED.items():
         ap.add_argument(flag, default=None, help="not yet ported", **kw)
     args = ap.parse_args(argv)
@@ -119,16 +131,21 @@ def main(argv=None):
     cfg = cfg.replace(use_kernels=not args.no_kernels)
     if args.dtype:
         cfg = cfg.replace(dtype=args.dtype)
-    source = make_source(args.dataset, data_dir=args.data_dir or None,
-                         seed=args.seed, resolution=cfg.image_size,
-                         train_size=args.train_size or None,
-                         eval_size=args.eval_size or None)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
+    vit = cfg.arch_type == "vit"
+    source = None
+    if vit:
+        source = make_source(args.dataset, data_dir=args.data_dir or None,
+                             seed=args.seed, resolution=cfg.image_size,
+                             train_size=args.train_size or None,
+                             eval_size=args.eval_size or None)
+        spec = source.spec if source is not None else DATASETS["cifar10"]
+        cfg = cfg.replace(num_classes=spec.num_classes,
+                          label_smoothing=args.label_smoothing)
     if args.eval_every and source is None:
         raise SystemExit("[train] --eval-every needs a real dataset "
-                         "(--dataset cifar10|cifar100)")
-    spec = source.spec if source is not None else DATASETS["cifar10"]
-    cfg = cfg.replace(num_classes=spec.num_classes,
-                      label_smoothing=args.label_smoothing)
+                         "(--dataset cifar10|cifar100 on a vit arch)")
     ecfg = EngineConfig(
         train_batch_size=args.batch, gradient_accumulation_steps=args.accum,
         optimizer=args.optimizer, lr=args.lr, total_steps=args.steps,
@@ -137,15 +154,21 @@ def main(argv=None):
         guard_max_skips=args.guard_max_skips)
     preproc = source.preproc if source is not None else None
     trainer = Trainer(cfg, ecfg, preproc=preproc, device=device)
-    vit = ViT(cfg, init_params(cfg, seed=args.seed, device=device))
-    state = trainer.init_state(vit.params())
-    n_params = sum(p.numel() for p in vit.parameters())
+    model = Transformer(cfg, init_params(cfg, seed=args.seed, device=device))
+    state = trainer.init_state(model.params())
+    n_params = sum(p.numel() for p in model.parameters())
     print(f"[train] arch={cfg.name} params={n_params / 1e6:.1f}M "
-          f"device={device} dtype={cfg.dtype} kernels="
-          f"{'on' if cfg.use_kernels else 'off'} micro_batch="
+          f"layers={cfg.num_layers} device={device} dtype={cfg.dtype} "
+          f"kernels={'on' if cfg.use_kernels else 'off'} micro_batch="
           f"{ecfg.derived_micro_batch(1)} accum={args.accum} "
           f"opt={args.optimizer}")
-    if source is not None:
+    if not vit:
+        print(f"[train] tokens: seq={args.seq} vocab={cfg.vocab_size}")
+        pipe = DataPipeline(kind="token", global_batch=args.batch,
+                            vocab=max(cfg.vocab_size, 2), seq_len=args.seq,
+                            epoch_size=args.batch * args.steps,
+                            seed=args.seed)
+    elif source is not None:
         print(f"[train] dataset={source.name} "
               f"{'procedural' if source.procedural else 'disk'} "
               f"train={source.train_size} eval={source.eval_size}")
@@ -158,7 +181,7 @@ def main(argv=None):
     hist = []
     t0 = time.time()
     eval_batch = args.eval_batch or args.batch
-    ev = Evaluator(cfg, vit, ecfg=ecfg, preproc=preproc, device=device) \
+    ev = Evaluator(cfg, model, ecfg=ecfg, preproc=preproc, device=device) \
         if args.eval_every else None
     last_eval_step = -1
 

@@ -1,15 +1,17 @@
 """Multi-head attention on (B, S, H, hd) tensors (``repro.models.attention``).
 
 ``attention_block`` projects with ``x @ w`` (weights stored (in, out)),
-then sends the product to the flash kernel (``kernels.ops.flash_mha``) when
-``cfg.use_kernels`` is set, else to the naive :func:`sdpa`. ViT has no qkv
-bias and no rope.
+adds the qkv bias and rotates q and k (the decoders; ViT has neither),
+then sends the product to the flash kernels (``kernels.ops.flash_mha``,
+which take causal masks and GQA) when ``cfg.use_kernels`` is set, else to
+the naive :func:`sdpa`. Decode caches and the logit softcap are not ported.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.ops import flash_mha
+from repro_torch.models.rope import apply_rope
 
 NEG_INF = -2.0 ** 30   # finite: keeps fully-masked rows NaN-free
 
@@ -44,14 +46,23 @@ def sdpa(q, k, v, mask):
     return out.reshape(b, s, h, v.shape[-1])
 
 
-def attention_block(p, x, cfg, *, window):
-    """p: this layer's {wq, wk, wv, wo}; x (B,S,D) in the compute dtype."""
+def attention_block(p, x, cfg, *, window, positions=None):
+    """p: this layer's {wq, wk, wv, wo} (and {bq, bk, bv} with
+    ``cfg.qkv_bias``); x (B,S,D) in the compute dtype; positions (B,S) for
+    the rope (unused when ``cfg.rope_style`` is "none")."""
     b, s, _ = x.shape
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(b, s, h, hd)
-    k = (x @ p["wk"].to(dt)).reshape(b, s, kh, hd)
-    v = (x @ p["wv"].to(dt)).reshape(b, s, kh, hd)
+    q, k, v = (x @ p[w].to(dt) for w in ("wq", "wk", "wv"))
+    if cfg.qkv_bias:
+        q, k, v = (t + p[bias].to(dt)
+                   for t, bias in zip((q, k, v), ("bq", "bk", "bv")))
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, kh, hd)
+    v = v.reshape(b, s, kh, hd)
+    if cfg.rope_style != "none":
+        q, k = apply_rope(q, k, positions, style=cfg.rope_style,
+                          theta=cfg.rope_theta)
     if cfg.use_kernels:
         out = flash_mha(q, k, v, causal=cfg.causal, window=window)
     else:

@@ -1,13 +1,15 @@
-"""The ViT branches of ``repro.models.transformer``: init, forward, the
-training loss and the eval counts.
+"""The ViT and dense-decoder branches of ``repro.models.transformer``:
+init, forward, the training loss and the eval counts.
 
 Parameters keep the reference's layout so weights cross without
 transposes: dense weights are (in, out) and applied as ``x @ w``, the
 per-layer params are stacked on a leading L axis under ``stack``, and the
 flat keys are the reference pytree's dotted paths (``embed.patch_w``,
-``stack.attn.wq``, ``head.b``, ...). Params are fp32; each is cast to
-``cfg.dtype`` where it is used. The reference scans over layers; here a
-Python loop runs them, with each layer's window a Python int.
+``embed.tok``, ``stack.attn.wq``, ``stack.mlp.w_gate``, ``head.w``, ...).
+Params are fp32; each is cast to ``cfg.dtype`` where it is used. The
+reference scans over layers; here a Python loop runs them, with each
+layer's window a Python int. The ViT normalises with LayerNorm, the
+decoder with RMSNorm (through K4/K5 when ``cfg.use_kernels``).
 """
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ import torch
 import torch.nn as nn
 
 from repro_torch.models.attention import attention_block
-from repro_torch.models.mlp import mlp
-from repro_torch.models.norms import layernorm
+from repro_torch.models.mlp import is_gated, mlp
+from repro_torch.models.norms import layernorm, rmsnorm
 from repro_torch.models.params import dense_init, embed_init, ones, zeros
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -28,57 +30,93 @@ def compute_dtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def _check_vit(cfg):
-    if cfg.arch_type != "vit":
-        raise NotImplementedError(
-            f"{cfg.name}: only the vit branch is ported (arch_type "
-            f"{cfg.arch_type!r})")
+def _is_vit(cfg) -> bool:
+    """The ViT branch, else the dense decoder (the config admits no other
+    family: ``ModelConfig`` raises on one)."""
+    return cfg.arch_type == "vit"
 
 
 def init_params(cfg, *, seed=0, device="cuda"):
     """Flat {dotted key: fp32 tensor} params, drawn from a CPU generator
     seeded with ``seed`` in a fixed order, then moved to ``device``."""
-    _check_vit(cfg)
     gen = None if torch.device(device).type == "meta" else \
         torch.Generator().manual_seed(seed)
     kw = {"generator": gen, "device": device}
     d, L = cfg.d_model, cfg.num_layers
     h, kh, hd, ff = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
-    n_patch = (cfg.image_size // cfg.patch_size) ** 2
-    p = {
-        "embed.patch_w": dense_init((cfg.patch_size ** 2 * 3, d), **kw),
-        "embed.patch_b": zeros((d,), device=device),
-        "embed.cls": zeros((1, 1, d), device=device),
-        "embed.pos": embed_init((n_patch + 1, d), **kw),
-    }
+    vit = _is_vit(cfg)
+    if vit:
+        n_patch = (cfg.image_size // cfg.patch_size) ** 2
+        p = {
+            "embed.patch_w": dense_init((cfg.patch_size ** 2 * 3, d), **kw),
+            "embed.patch_b": zeros((d,), device=device),
+            "embed.cls": zeros((1, 1, d), device=device),
+            "embed.pos": embed_init((n_patch + 1, d), **kw),
+        }
+    else:
+        p = {"embed.tok": embed_init((cfg.vocab_size, d), **kw)}
+    # LayerNorm has a bias, RMSNorm only a scale (_init_norm)
     for ln in ("ln1", "ln2"):
         p[f"stack.{ln}.scale"] = ones((L, d), device=device)
-        p[f"stack.{ln}.bias"] = zeros((L, d), device=device)
+        if vit:
+            p[f"stack.{ln}.bias"] = zeros((L, d), device=device)
     p["stack.attn.wq"] = dense_init((L, d, h * hd), **kw)
     p["stack.attn.wk"] = dense_init((L, d, kh * hd), **kw)
     p["stack.attn.wv"] = dense_init((L, d, kh * hd), **kw)
     p["stack.attn.wo"] = dense_init((L, h * hd, d), **kw)
+    if cfg.qkv_bias:
+        p["stack.attn.bq"] = zeros((L, h * hd), device=device)
+        p["stack.attn.bk"] = zeros((L, kh * hd), device=device)
+        p["stack.attn.bv"] = zeros((L, kh * hd), device=device)
+    gated = is_gated(cfg.act)
+    if gated:
+        p["stack.mlp.w_gate"] = dense_init((L, d, ff), **kw)
     p["stack.mlp.w_up"] = dense_init((L, d, ff), **kw)
-    p["stack.mlp.b_up"] = zeros((L, ff), device=device)
     p["stack.mlp.w_out"] = dense_init((L, ff, d), **kw)
-    p["stack.mlp.b_out"] = zeros((L, d), device=device)
+    if not gated:
+        p["stack.mlp.b_up"] = zeros((L, ff), device=device)
+        p["stack.mlp.b_out"] = zeros((L, d), device=device)
     p["final_norm.scale"] = ones((d,), device=device)
-    p["final_norm.bias"] = zeros((d,), device=device)
-    p["head.w"] = dense_init((d, cfg.num_classes), **kw)
-    p["head.b"] = zeros((cfg.num_classes,), device=device)
+    if vit:
+        p["final_norm.bias"] = zeros((d,), device=device)
+        p["head.w"] = dense_init((d, cfg.num_classes), **kw)
+        p["head.b"] = zeros((cfg.num_classes,), device=device)
+    else:
+        p["head.w"] = dense_init((d, cfg.vocab_size), **kw)
     return p
 
 
+def _apply_norm(cfg, params, prefix, h):
+    """LayerNorm for the ViT, RMSNorm for the decoder, with the params
+    under ``prefix`` (``final_norm.`` or one layer's ``ln1.``/``ln2.``)."""
+    if _is_vit(cfg):
+        return layernorm(h, params[prefix + "scale"], params[prefix + "bias"],
+                         cfg.norm_eps)
+    return rmsnorm(h, params[prefix + "scale"], cfg.norm_eps,
+                   use_kernels=cfg.use_kernels)
+
+
 def _layer(params, prefix, i):
-    """Layer ``i``'s slice of the stacked params under ``prefix``."""
+    """The params under ``prefix`` with the prefix dropped: layer ``i``'s
+    slice of each stacked param, or the params themselves for ``i`` None."""
     n = len(prefix)
-    return {k[n:]: v[i] for k, v in params.items() if k.startswith(prefix)}
+    return {k[n:]: v if i is None else v[i] for k, v in params.items()
+            if k.startswith(prefix)}
 
 
-def _embed(cfg, params, images):
-    """NHWC patchify (reshape + transpose, then a matmul — not a conv),
-    a zero CLS token in front, and learned positions."""
+def _embed(cfg, params, batch):
+    """``(h (B,S,D) in the compute dtype, rope positions (B,S) or None)``.
+    ViT: NHWC patchify (reshape + transpose, then a matmul — not a conv),
+    a zero CLS token in front, and learned positions. Decoder: the token
+    embedding, positions 0..S-1."""
     dt = compute_dtype(cfg)
+    if not _is_vit(cfg):
+        tokens = batch["tokens"].long()
+        h = params["embed.tok"][tokens].to(dt)
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        return h, positions
+    images = batch["images"]
     b = images.shape[0]
     ps = cfg.patch_size
     n = cfg.image_size // ps
@@ -87,30 +125,33 @@ def _embed(cfg, params, images):
     h = patches @ params["embed.patch_w"].to(dt) + params["embed.patch_b"].to(dt)
     cls = params["embed.cls"].to(dt).expand(b, 1, cfg.d_model)
     h = torch.cat([cls, h], dim=1)
-    return h + params["embed.pos"].to(dt)[None]
+    return h + params["embed.pos"].to(dt)[None], None
 
 
 def _head(cfg, params, h):
-    h = layernorm(h, params["final_norm.scale"], params["final_norm.bias"],
-                  cfg.norm_eps)
-    cls = h[:, 0]
-    return cls @ params["head.w"].to(h.dtype) + params["head.b"].to(h.dtype)
+    """The final norm, then the CLS row's classifier (ViT) or the untied
+    LM head over every position."""
+    h = _apply_norm(cfg, params, "final_norm.", h)
+    if _is_vit(cfg):
+        cls = h[:, 0]
+        return cls @ params["head.w"].to(h.dtype) + \
+            params["head.b"].to(h.dtype)
+    return h @ params["head.w"].to(h.dtype)
 
 
 def forward(cfg, params, batch):
-    """Logits (B, num_classes) in the compute dtype for a preprocessed
-    float ``batch["images"]`` (B, H, W, 3). Pre-LN blocks:
-    ``h += attn(LN1 h)``, then ``h += mlp(LN2 h)``."""
-    _check_vit(cfg)
-    h = _embed(cfg, params, batch["images"])
+    """Logits in the compute dtype: (B, num_classes) for a preprocessed
+    float ``batch["images"]`` (B, H, W, 3), (B, S, vocab) for
+    ``batch["tokens"]`` (B, S). Pre-norm blocks: ``h += attn(norm1 h)``,
+    then ``h += mlp(norm2 h)``."""
+    h, positions = _embed(cfg, params, batch)
     for i, window in enumerate(cfg.layer_windows()):
-        ln1 = _layer(params, "stack.ln1.", i)
-        ln2 = _layer(params, "stack.ln2.", i)
-        a_in = layernorm(h, ln1["scale"], ln1["bias"], cfg.norm_eps)
-        h = h + attention_block(_layer(params, "stack.attn.", i), a_in, cfg,
-                                window=window)
-        m_in = layernorm(h, ln2["scale"], ln2["bias"], cfg.norm_eps)
-        h = h + mlp(_layer(params, "stack.mlp.", i), m_in)
+        layer = _layer(params, "stack.", i)
+        a_in = _apply_norm(cfg, layer, "ln1.", h)
+        h = h + attention_block(_layer(layer, "attn.", None), a_in, cfg,
+                                window=window, positions=positions)
+        m_in = _apply_norm(cfg, layer, "ln2.", h)
+        h = h + mlp(_layer(layer, "mlp.", None), m_in, cfg.act)
     return _head(cfg, params, h)
 
 
@@ -144,11 +185,20 @@ def _soft_xent(logits, labels, *, smoothing=0.0):
 
 
 def loss_from_logits(cfg, logits, batch):
-    """``(loss, metrics)`` of the vit branch of the reference's
-    ``loss_from_logits`` (``transformer.py:600-640``): ``_soft_xent`` for
-    soft labels or label smoothing, else ``_xent``; metrics ``acc``,
-    ``moe_aux`` (0: a ViT has no MoE) and ``loss``."""
-    _check_vit(cfg)
+    """``(loss, metrics)`` of the reference's ``loss_from_logits``
+    (``transformer.py:600-640``). ViT: ``_soft_xent`` for soft labels or
+    label smoothing, else ``_xent``; metrics ``acc``, ``moe_aux`` and
+    ``loss``. Decoder: next-token ``_xent`` with the labels shifted by one
+    and the last position masked; metrics ``moe_aux`` and ``loss``.
+    ``moe_aux`` is 0: no ported model has an MoE."""
+    moe_aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    if not _is_vit(cfg):
+        tok = batch["tokens"]
+        mask = torch.ones(tok.shape, dtype=torch.bool, device=tok.device)
+        mask[:, -1] = False
+        labels = torch.cat([tok[:, 1:], tok[:, -1:]], dim=1)
+        loss = _xent(logits, labels, mask) + moe_aux
+        return loss, {"moe_aux": moe_aux, "loss": loss}
     labels = batch["labels"]
     soft = labels.ndim == 2             # Mixup/CutMix soft-label batches
     if soft or cfg.label_smoothing > 0.0:
@@ -156,7 +206,6 @@ def loss_from_logits(cfg, logits, batch):
     else:
         loss = _xent(logits, labels)
     hard = labels.argmax(-1) if soft else labels.long()
-    moe_aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     loss = loss + moe_aux
     acc = (logits.argmax(-1) == hard).to(torch.float32).mean()
     return loss, {"acc": acc, "moe_aux": moe_aux, "loss": loss}
@@ -194,14 +243,14 @@ def classification_counts(logits, labels, mask=None, *, topk=5):
     }
 
 
-class ViT(nn.Module):
-    """Holds the params as nested submodules, so ``state_dict()`` keys are
-    the reference's dotted paths. The params are trainable fp32 leaves;
-    eval runs under ``torch.inference_mode()`` and records no graph."""
+class Transformer(nn.Module):
+    """Holds the params of either family as nested submodules, so
+    ``state_dict()`` keys are the reference's dotted paths. The params are
+    trainable fp32 leaves; eval runs under ``torch.inference_mode()`` and
+    records no graph."""
 
     def __init__(self, cfg, params):
         super().__init__()
-        _check_vit(cfg)
         self.cfg = cfg
         for key, value in params.items():
             *path, leaf = key.split(".")
@@ -217,3 +266,6 @@ class ViT(nn.Module):
 
     def forward(self, batch):
         return forward(self.cfg, self.params(), batch)
+
+
+ViT = Transformer       # the name the eval and training callers use
