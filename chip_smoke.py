@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels
 from this checkout, holds each against its plain PyTorch version, drives
-the port's main paths (ViT-B/16 eval and training, ChatGLM3-6B training) at
-full width through its CLI, and checks the results.
+the port's main paths (ViT-B/16 eval and training, ChatGLM3-6B and
+RWKV6-7B training) at full width through its CLI, and checks the results.
 
     python3 chip_smoke.py [--profile]
 
@@ -33,6 +33,15 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 6. K1-K3 at the decoder's attention shape (B 4, H 32, KH 2, S = T = 1024,
    D 128, causal) against their plain versions in bf16 and fp32, then
    timed as in phase 4 (SDPA with ``enable_gqa``).
+6b. K6 (with and without states) and K7 against ``ref_wkv6_fwd``/
+   ``ref_wkv6_bwd`` at the RWKV6 slice's shape (B 4, S 1024, H 64, P 64,
+   chunk 32; bf16 r/k/v with fp32 wlog, and fp32), the smoke shape, the
+   reference's WKV_CASES and strong decay (o and s_end within 5e-4 / 5e-2,
+   gradients 1e-3 / 0.3 with bf16 against the fp32 oracle, states 5e-4,
+   o also against the sequential ``ref_wkv6`` where S <= 128), K7 twice for
+   bitwise equal gradients, ``torch.autograd.grad`` through ``ops.wkv6``
+   (ragged, padded; and the slice's shape with no copy or pad); then both
+   timed at the slice's shape beside their plain versions and bounds.
 7. the eval slice: ``repro_torch.launch.train --arch vit-b16 --steps 0
    --eval-every 1 --eval-batch 128`` on procedural CIFAR-10 (500 examples,
    4 batches, the last mask-padded) with the launch counters reset just
@@ -54,10 +63,25 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    memory; kernel against naive path (plain RMSNorm, naive attention) on
    one microbatch of 4 x 1024 (fp32 within 2e-4; bf16 cosine >= 0.99);
    warm training tokens/s of both paths.
+10. the RWKV6 slice, after the decoder's tensors are freed: ``--arch
+   rwkv6-7b --layers 4 --seq 1024 --batch 8 --accum 2 --steps 10`` in bf16
+   with the counters reset just before and read just after (K6 and K7
+   10 x 2 x 4 = 80 each, K4 and K5 180 each, no attention, no layout copy
+   and no pad); every loss and grad-norm finite and ``step_ok`` 1; the
+   peak of allocated device memory; kernel against naive path (plain
+   RMSNorm, the chunked WKV6) on one microbatch of 4 x 1024 (bf16 cosine
+   >= 0.99; fp32 within 2e-4 with the group norm's eps raised to 1e-3,
+   and at the model's eps printed as a reading); warm training tokens/s of
+   both paths; then the run's first two steps replayed in process, and at
+   the params after each K6/K7 against their plain versions on the
+   model's own WKV6 inputs and cotangent and fp32 kernel against naive
+   gradients with the norm eps at 1e-3 (2e-4), with the bf16 and fp32
+   gradients' norms and cosines printed as readings.
 
 ``--profile`` adds a ``torch.profiler`` table of one warm training step of
 each training slice. The last lines are one JSON object for the kernels
-(K1-K3 with the decoder's numbers and the ViT's under ``vit``), the card's
+(K1-K3 with the decoder's numbers and the ViT's under ``vit``, K4/K5 with
+the RWKV6 run's launches and the decoder's beside them, K6/K7), the card's
 ``nvidia-smi`` name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
@@ -117,6 +141,44 @@ RMS_CASES = [
     ("odd D", (37, 1001), None),
     ("strided", (37, 1001), 1008),
 ]
+# the RWKV6 slice: rwkv6-7b at full width, cut to 4 layers, sequences of
+# 1024 tokens in micro-batches of 4; one WKV6 call there is B 4, S 1024,
+# H 64, P 64 in chunks of 32
+RWKV_LAYERS = 4
+RWKV_TRAIN_ARGS = ["--arch", "rwkv6-7b", "--layers", str(RWKV_LAYERS),
+                   "--seq", str(LM_SEQ), "--batch", "8", "--accum", "2",
+                   "--steps", "10", "--log-every", "1"]
+WKV_SHAPE = (4, LM_SEQ, 64, 64, 32)            # B, S, H, P, chunk
+WKV_TOL = {"float32": 5e-4, "bfloat16": 5e-2}  # tests/test_kernels.py:51-53
+WKV_GRAD_TOL = {"float32": 1e-3, "bfloat16": 0.3}  # test_kernel_grads.py
+WKV_STATES_TOL = 5e-4
+# K6/K7 on the model's own inputs, against the plain version on the same
+# (bf16) inputs, relative to each output's largest value: both sides sum in
+# fp32, and a bf16 output (dr, dk, dv) carries its own rounding, up to 2^-8
+# of an element
+WKV_REL_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
+# the norm eps of the fp32 kernel-vs-naive gate on RWKV6: at the model's
+# 1e-5 the per-head group norm amplifies fp32 rounding where a head-row's
+# variance is near eps, and two fp32 evaluations disagree beyond 2e-4
+RWKV_GATE_EPS = 1e-3
+# label, (B, S, H, P, chunk), r/k/v dtype, wlog dtype (None: r's): the
+# slice's shape with the model's fp32 wlog, the smoke config's (micro-batch
+# 4 x 64), the reference's WKV_CASES, and strong decay (wlog -8)
+WKV_CASES = [
+    ("rwkv6-7b", WKV_SHAPE, "bfloat16", "float32"),
+    ("rwkv6-7b", WKV_SHAPE, "float32", None),
+    ("smoke", (4, 64, 4, 32, 32), "bfloat16", "float32"),
+    ("smoke", (4, 64, 4, 32, 32), "float32", None),
+    ("ref", (1, 64, 2, 32, 16), "float32", None),
+    ("ref", (1, 64, 2, 32, 16), "bfloat16", None),
+    ("ref", (2, 128, 4, 64, 32), "float32", None),
+    ("ref", (2, 128, 4, 64, 32), "bfloat16", None),
+    ("ref", (1, 96, 2, 64, 32), "float32", None),
+    ("ref", (1, 96, 2, 64, 32), "bfloat16", None),
+    ("strong", (1, 128, 2, 32, 32), "float32", None),
+    ("strong", (1, 128, 2, 64, 32), "bfloat16", "float32"),
+]
+WKV_RAGGED = (2, 57, 3, 32, 16)
 TRAIN_ARGS = ["--arch", "vit-b16", "--steps", "10", "--batch", "128",
               "--accum", "2", "--eval-every", "10", "--eval-batch", "128",
               "--log-every", "1"]
@@ -245,12 +307,14 @@ def phase_build():
         kernel = name
         for line in log.splitlines():
             m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel|rmsnorm_"
-                          r"(?:fwd|bwd)_kernel|dscale_reduce_kernel)(?:I(f|"
-                          r"13__nv_bfloat16)(?:Li(\d+)E)?)?", line)
+                          r"(?:fwd|bwd)_kernel|dscale_reduce_kernel|wkv6_"
+                          r"(?:fwd|bwd)_kernel)(?:I((?:f|13__nv_bfloat16)+)"
+                          r"(?:Li(\d+)E)?)?", line)
             if m and "Compiling entry" in line:
-                args = [] if m.group(2) is None else \
-                    ["fp32" if m.group(2) == "f" else "bf16"]
-                args += [f"D={m.group(3)}"] if m.group(3) else []
+                types = re.findall(r"f|13__nv_bfloat16", m.group(2) or "")
+                args = ["fp32" if t == "f" else "bf16" for t in types]
+                args += [f"{'P' if 'wkv6' in m.group(1) else 'D'}="
+                         f"{m.group(3)}"] if m.group(3) else []
                 kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
             elif "registers" in line or "spill" in line:
                 print(f"[build] {kernel}: {line.strip()}")
@@ -619,34 +683,227 @@ def phase_rms(card):
     return out_rows
 
 
+def wkv6_work(shape, el, w_el):
+    """Bytes each WKV6 kernel must move (each input read once, each output
+    written once) and its fp32 operations at ``shape`` (B, S, H, P, chunk)
+    with ``el``-byte r/k/v and ``w_el``-byte wlog; an exp counts as one
+    operation, a multiply-add as two. Per (b, h) and chunk of cs rows and
+    its cs (cs - 1) / 2 live pairs (t, j), each pairwise decay
+    exp(lprev_t - L_j) counted once (a subtraction and an exp): K6 takes
+    4 cs P^2 + 2 P^2 for the carried state and its update, 7 per pair and
+    column (the decay 2, the att dot 3, att·v 2) and ~9 cs P elementwise;
+    K7 takes 8 cs P^2 + 4 P^2 for its four state products, 14 per pair and
+    column (the decay 2, att 3, dr_att 3, dk_att 2 with dA·decay shared,
+    dA 2, dv 2) and ~20 cs P elementwise. Returns {"fwd": with states,
+    "primal": without, "bwd"}."""
+    b, s, h, p, cs = shape
+    n, pp, bh = b * s * h * p, b * h * p * p, b * h
+    nc, pairs = s // cs, cs * (cs - 1) // 2
+    ins = 3 * n * el + n * w_el + h * p * 4
+    states = bh * nc * p * p * 4
+    fwd_ops = bh * nc * (4 * cs * p * p + 2 * p * p + 7 * pairs * p
+                         + 9 * cs * p)
+    bwd_ops = bh * nc * (8 * cs * p * p + 4 * p * p + 14 * pairs * p
+                         + 20 * cs * p)
+    primal = ins + 2 * pp * 4 + n * 4               # + s0, s_end, o
+    return {"fwd": (primal + states, fwd_ops), "primal": (primal, fwd_ops),
+            # + states, dO, dS_end; dr/dk/dv, dwlog, ds0, du partials
+            "bwd": (ins + states + n * 4 + pp * 4 + 3 * n * el + n * w_el
+                    + pp * 4 + bh * p * 4, bwd_ops)}
+
+
+def phase_wkv6(card):
+    """K6 (with and without states) and K7 against ``ref_wkv6_fwd``/
+    ``ref_wkv6_bwd`` at every case of WKV_CASES, o against the sequential
+    ``ref_wkv6`` where it is small, K7 twice for bitwise equal du and ds0,
+    the ragged case and the slice's shape through ``torch.autograd.grad``
+    of ``ops.wkv6``; then both kernels timed at the slice's shape beside
+    their plain versions and their bounds (no PyTorch call computes
+    WKV6)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.kernels.ref import ref_wkv6, ref_wkv6_bwd, ref_wkv6_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=gen)
+
+    def inputs(b, s, h, p, dtype, w_dtype, strong=False):
+        """r, k, v, wlog, u, s0 and fixed cotangents dO, dS_end, as the
+        reference's tests draw them."""
+        r, k, v = (randn(b, s, h, p).to(dtype) for _ in range(3))
+        wlog = torch.full((b, s, h, p), -8.0, device="cuda") if strong \
+            else -torch.exp(randn(b, s, h, p) - 0.5)
+        return (r, k, v, wlog.to(w_dtype), 0.3 * randn(h, p),
+                0.1 * randn(b, h, p, p), randn(b, s, h, p), randn(b, h, p, p))
+
+    wk.kernel_layout.copies = wk.pad_to_chunk.pads = 0
+    errs = {}
+    for label, (b, s, h, p, cs), dname, wname in WKV_CASES:
+        dtype = getattr(torch, dname)
+        w_dtype = getattr(torch, wname or dname)
+        r, k, v, w, u, s0, do, dse = inputs(b, s, h, p, dtype, w_dtype,
+                                            strong=label == "strong")
+        o, se, st = wk.wkv6_fwd(r, k, v, w, u, s0, chunk=cs,
+                                with_states=True)
+        o1, se1, st1 = wk.wkv6_fwd(r, k, v, w, u, s0, chunk=cs,
+                                   with_states=False)
+        g = wk.wkv6_bwd(r, k, v, w, u, st, do, dse, chunk=cs)
+        g2 = wk.wkv6_bwd(r, k, v, w, u, st, do, dse, chunk=cs)
+        torch.cuda.synchronize()
+        strong = label == "strong"
+        # strong decay in fp32 within 1e-3 (tests/test_kernel_grads.py:82-93)
+        tol, gtol = (1e-3, 1e-3) if strong and dname == "float32" else \
+            (WKV_TOL[dname], WKV_GRAD_TOL[dname])
+        want_o, want_se, want_st = ref_wkv6_fwd(r, k, v, w, u, s0, chunk=cs,
+                                                with_states=True)
+        # bf16 gradients against the fp32 oracle on the same (quantized)
+        # inputs, as tests/test_kernel_grads.py:72-79
+        f32 = [x.float() for x in (r, k, v, w)]
+        want_g = ref_wkv6_bwd(*f32, u, want_st, do, dse, chunk=cs)
+        res = {"o": close(o, want_o, tol), "s_end": close(se, want_se, tol),
+               "states": close(st, want_st, WKV_STATES_TOL)}
+        res.update({f"d{n}": close(x, y, gtol)
+                    for n, x, y in zip(("r", "k", "v", "wlog", "u", "s0"),
+                                       g, want_g)})
+        if s <= 128:        # the sequential oracle, a step at a time
+            res["o_seq"] = close(o, ref_wkv6(r, k, v, w, u, s0)[0], tol)
+        same = torch.equal(o, o1) and torch.equal(se, se1) and st1 is None
+        repeat = all(torch.equal(x, y) for x, y in zip(g, g2))
+        types = [x.dtype for x in g] == [dtype] * 3 + [
+            w_dtype, torch.float32, torch.float32] and \
+            o.dtype == se.dtype == st.dtype == torch.float32
+        ok = all(x[1] for x in res.values()) and same and repeat and types
+        print(f"[wkv6] {label:8s} {(b, s, h, p, cs)} {dname:8s} wlog "
+              f"{wname or dname}: " + " ".join(
+                  f"max|d{key}|={x[0]:.3e}" for key, x in res.items())
+              + f" (tol {tol} out, {gtol} grads, {WKV_STATES_TOL} states; "
+              f"rtol alike); "
+              f"primal-only K6 equal {same}; K7 bitwise repeatable {repeat}; "
+              f"dtypes {types} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"K6/K7 disagree with their plain versions on {label} "
+                 f"{dname}")
+        if label == "rwkv6-7b" and dtype == torch.bfloat16:
+            errs = {"fwd": max(res["o"][0], res["s_end"][0]),
+                    "bwd": max(res[f"d{n}"][0] for n in
+                               ("r", "k", "v", "wlog", "u", "s0"))}
+
+    # torch.autograd.grad through ops.wkv6: the ragged case (padded inside)
+    # against autograd of the sequential oracle in fp32, then the slice's
+    # shape in the model's dtypes against the plain backward
+    def grads(fn, xs, do, dse):
+        leaves = [x.detach().requires_grad_() for x in xs]
+        o, se = fn(*leaves)
+        return torch.autograd.grad((o.float() * do).sum()
+                                   + (se.float() * dse).sum(), leaves)
+
+    b, s, h, p, cs = WKV_RAGGED
+    xs = inputs(b, s, h, p, torch.float32, torch.float32)
+    got = grads(lambda *a: ops.wkv6(*a, chunk=cs), xs[:6], *xs[6:])
+    want = grads(ref_wkv6, xs[:6], *xs[6:])
+    res = [close(x, y, WKV_GRAD_TOL["float32"]) for x, y in zip(got, want)]
+    ok = all(x[1] for x in res) and wk.pad_to_chunk.pads == 1
+    print(f"[wkv6] autograd.grad(ops.wkv6) ragged {WKV_RAGGED} fp32 against "
+          f"autograd of ref_wkv6: max|dgrad|={max(x[0] for x in res):.3e} "
+          f"(tol {WKV_GRAD_TOL['float32']}); pads {wk.pad_to_chunk.pads} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("autograd through ops.wkv6 disagrees on the ragged case")
+    b, s, h, p, cs = WKV_SHAPE
+    wk.pad_to_chunk.pads = 0
+    xs = inputs(b, s, h, p, torch.bfloat16, torch.float32)
+    got = grads(lambda *a: ops.wkv6(*a, chunk=cs), xs[:6], *xs[6:])
+    st = ref_wkv6_fwd(*xs[:6], chunk=cs, with_states=True)[2]
+    want = ref_wkv6_bwd(*[x.float() for x in xs[:4]], xs[4], st, *xs[6:],
+                        chunk=cs)
+    res = [close(x, y, WKV_GRAD_TOL["bfloat16"]) for x, y in zip(got, want)]
+    ok = all(x[1] for x in res) and wk.pad_to_chunk.pads == 0 and \
+        wk.kernel_layout.copies == 0
+    print(f"[wkv6] autograd.grad(ops.wkv6) {WKV_SHAPE} bf16 r/k/v, fp32 "
+          f"wlog: max|dgrad|={max(x[0] for x in res):.3e} (tol "
+          f"{WKV_GRAD_TOL['bfloat16']}); layout copies "
+          f"{wk.kernel_layout.copies}, pads {wk.pad_to_chunk.pads} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("autograd through ops.wkv6 disagrees at the slice's shape, or "
+             "copied or padded")
+
+    r, k, v, w, u, s0, do, dse = inputs(b, s, h, p, torch.bfloat16,
+                                        torch.float32)
+    _, _, st = wk.wkv6_fwd(r, k, v, w, u, s0, chunk=cs, with_states=True)
+    ms = {"fwd": time_ms(lambda: wk.wkv6_fwd(r, k, v, w, u, s0, chunk=cs,
+                                             with_states=True)),
+          "primal": time_ms(lambda: wk.wkv6_fwd(r, k, v, w, u, s0, chunk=cs,
+                                                with_states=False)),
+          "bwd": time_ms(lambda: wk.wkv6_bwd(r, k, v, w, u, st, do, dse,
+                                             chunk=cs))}
+    plain = {"fwd": time_ms(lambda: ref_wkv6_fwd(r, k, v, w, u, s0, chunk=cs,
+                                                 with_states=True), reps=10),
+             "bwd": time_ms(lambda: ref_wkv6_bwd(r, k, v, w, u, st, do, dse,
+                                                 chunk=cs), reps=10)}
+    plain["primal"] = plain["fwd"]
+    work = wkv6_work(WKV_SHAPE, r.element_size(), w.element_size())
+    rows = {}
+    for key, name in (("fwd", "K6 wkv6_fwd (with states)"),
+                      ("primal", "K6 wkv6_fwd (primal only)"),
+                      ("bwd", "K7 wkv6_bwd")):
+        bound_ms, bound_by, how = bound(card, *work[key], rate="fp32")
+        print(f"[wkv6] {name} timing at {WKV_SHAPE} bf16 r/k/v, fp32 wlog "
+              f"on {card}: kernel {ms[key]:.4f} ms, plain {plain[key]:.4f} "
+              f"ms, no library call; bound {bound_ms:.4f} ms by {bound_by} "
+              f"({how})", flush=True)
+        rows[key] = {"ms": ms[key], "plain_ms": plain[key],
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+    out = []
+    for key, line in (("fwd", 57), ("bwd", 184)):
+        out.append({"name": f"wkv6_{key}", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+                    "replaces": f"src/repro/kernels/wkv6.py:{line}",
+                    "launches": None, "max_abs_err": errs[key], **rows[key],
+                    "library_ms": None})
+    out[0]["primal_only_ms"] = rows["primal"]["ms"]
+    return out
+
+
 def counters():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import wkv6 as wk
     return {"flash_fwd": fa.flash_attention_fwd,
             "flash_bwd_dq": fa.flash_attention_bwd_dq,
             "flash_bwd_dkv": fa.flash_attention_bwd_dkv,
             "rmsnorm_fwd": rms.fused_rmsnorm_fwd,
-            "rmsnorm_bwd": rms.fused_rmsnorm_bwd}
+            "rmsnorm_bwd": rms.fused_rmsnorm_bwd,
+            "wkv6_fwd": wk.wkv6_fwd, "wkv6_bwd": wk.wkv6_bwd}
 
 
 def run_cli(argv, expect, label):
     """Drive the CLI with every launch counter reset just before and read
-    just after; fails unless the counts are ``expect``. Returns (launches,
+    just after; fails unless the counts are ``expect`` (counters it does not
+    name must read 0) and nothing was copied or padded. Returns (launches,
     metrics rows)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import wkv6 as wk
     from repro_torch.launch.train import main as cli
+    expect = dict({name: 0 for name in counters()}, **expect)
     for fn in counters().values():
         fn.launches = 0
     fa.kernel_layout.copies = rms.row_layout.copies = 0
+    wk.kernel_layout.copies = wk.pad_to_chunk.pads = 0
     hist = cli(argv)
     launches = {name: fn.launches for name, fn in counters().items()}
-    copies = {"dO": fa.kernel_layout.copies, "rows": rms.row_layout.copies}
+    copies = {"dO": fa.kernel_layout.copies, "rows": rms.row_layout.copies,
+              "wkv6": wk.kernel_layout.copies,
+              "wkv6 pads": wk.pad_to_chunk.pads}
     print(f"[slice] {label}: launches {launches} (expected {expect}); "
-          f"layout copies {copies}", flush=True)
+          f"layout copies and pads {copies}", flush=True)
     if launches != expect or any(copies.values()):
-        fail(f"{label}: launches {launches}, layout copies {copies}; "
-             f"expected {expect} and no copy")
+        fail(f"{label}: launches {launches}, layout copies and pads "
+             f"{copies}; expected {expect} and no copy or pad")
     return launches, hist
 
 
@@ -748,27 +1005,32 @@ def new_vit(trainer):
     return ViT(trainer.cfg, init_params(trainer.cfg, seed=0, device="cuda"))
 
 
+def compare_grads(ga, gb, label):
+    """(max |ga - gb|, cosine of the flattened gradients, |ga|, |gb|), the
+    sums taken key by key in float64; fails if ``ga`` is not finite."""
+    import torch
+    d_max, dot, na, nb = 0.0, 0.0, 0.0, 0.0
+    for key, a in ga.items():
+        b = gb[key]
+        if not bool(torch.isfinite(a).all()):
+            fail(f"{label}: non-finite gradient {key}")
+        d_max = max(d_max, (a - b).abs().max().item())
+        a, b = a.double(), b.double()
+        dot += float((a * b).sum())
+        na += float((a * a).sum())
+        nb += float((b * b).sum())
+    return d_max, dot / (na * nb) ** 0.5, na ** 0.5, nb ** 0.5
+
+
 def grad_agreement(trainer_k, trainer_n, params, batch, dtype):
     """Loss and every parameter gradient of one device batch through the
     kernel path (``trainer_k``) and the naive path (``trainer_n``) on the
     same params. Returns (|dloss|, max |dgrad|, cosine of the flattened
     gradients, summed key by key in float64)."""
-    import torch
-
     gk, mk = trainer_k.grads(params, batch)
     gn, mn = trainer_n.grads(params, batch)
-    d_max, dot, nk, nn = 0.0, 0.0, 0.0, 0.0
-    for key, a in gk.items():
-        b = gn[key]
-        if not bool(torch.isfinite(a).all()):
-            fail(f"{dtype}: non-finite kernel-path gradient {key}")
-        d_max = max(d_max, (a - b).abs().max().item())
-        a, b = a.double(), b.double()
-        dot += float((a * b).sum())
-        nk += float((a * a).sum())
-        nn += float((b * b).sum())
-    return (abs(float(mk["loss"]) - float(mn["loss"])), d_max,
-            dot / (nk * nn) ** 0.5)
+    d_max, cos, _, _ = compare_grads(gk, gn, f"{dtype} kernel path")
+    return abs(float(mk["loss"]) - float(mn["loss"])), d_max, cos
 
 
 def compare_train_paths(dtype):
@@ -783,13 +1045,14 @@ def compare_train_paths(dtype):
     return grad_agreement(trainer_k, trainer_n, params, batch, dtype)
 
 
-def report_agreement(label, dtype, result):
+def report_agreement(label, dtype, result, tol=TOL_GRADS_F32, why=""):
+    """Gate one ``grad_agreement``: fp32 max |dgrad| within ``tol``, bf16
+    cosine at least MIN_COSINE_BF16."""
     d_loss, d_grad, cos = result
-    ok = d_grad <= TOL_GRADS_F32 if dtype == "float32" \
-        else cos >= MIN_COSINE_BF16
+    ok = d_grad <= tol if dtype == "float32" else cos >= MIN_COSINE_BF16
     print(f"[train] {label} {dtype} kernel vs naive: |dloss|={d_loss:.3e}, "
           f"max|dgrad|={d_grad:.3e}"
-          f"{f' (tol {TOL_GRADS_F32})' if dtype == 'float32' else ''}, "
+          f"{f' (tol {tol:.3e}{why})' if dtype == 'float32' else ''}, "
           f"gradient cosine {cos:.6f}"
           f"{f' (min {MIN_COSINE_BF16})' if dtype == 'bfloat16' else ''}"
           f" {'ok' if ok else 'FAIL'}", flush=True)
@@ -884,15 +1147,17 @@ def phase_train(profile):
     return launches
 
 
-def lm_setup(dtype, use_kernels, *, batch=8, accum=2):
-    """A full-width ChatGLM3-6B trainer cut to LM_LAYERS layers with the
-    CLI's engine settings for 10 steps, and its token pipeline."""
+def lm_setup(dtype, use_kernels, *, arch, layers, batch=8, accum=2,
+             **cfg_kw):
+    """A full-width ``arch`` decoder trainer cut to ``layers`` layers (and
+    any other config field in ``cfg_kw`` replaced) with the CLI's engine
+    settings for 10 steps, and its token pipeline."""
     from repro_torch.configs import EngineConfig, get_config
     from repro_torch.core.engine import Trainer
     from repro_torch.data.pipeline import DataPipeline
 
-    cfg = get_config("chatglm3-6b").replace(
-        num_layers=LM_LAYERS, dtype=dtype, use_kernels=use_kernels)
+    cfg = get_config(arch).replace(
+        num_layers=layers, dtype=dtype, use_kernels=use_kernels, **cfg_kw)
     ecfg = EngineConfig(train_batch_size=batch,
                         gradient_accumulation_steps=accum, total_steps=10,
                         warmup_steps=1)
@@ -903,61 +1168,245 @@ def lm_setup(dtype, use_kernels, *, batch=8, accum=2):
 
 def phase_lm_train(profile):
     """The decoder slice: ``--arch chatglm3-6b --layers 4 --seq 1024
-    --batch 8 --accum 2 --steps 10`` in bf16 through the CLI with the
-    launch counters reset just before and read just after (per step and
-    microbatch: K1-K3 once a layer, K4/K5 twice a layer and once for the
-    final norm); then kernel against naive path on one microbatch, and
-    warm training tokens/s of both paths."""
+    --batch 8 --accum 2 --steps 10`` (per step and microbatch: K1-K3 once a
+    layer, K4/K5 twice a layer and once for the final norm)."""
+    attn, norms = 10 * 2 * LM_LAYERS, 10 * 2 * (2 * LM_LAYERS + 1)
+    return decoder_train("chatglm3-6b", LM_LAYERS, LM_TRAIN_ARGS, {
+        "flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
+        "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}, "lm", profile)
+
+
+def phase_rwkv_train(profile):
+    """The RWKV6 slice: ``--arch rwkv6-7b --layers 4 --seq 1024 --batch 8
+    --accum 2 --steps 10`` (per step and microbatch: K6 and K7 once a
+    layer, K4/K5 twice a layer and once for the final norm, no attention),
+    with the fp32 gradient gate taken at the group norm's eps raised to
+    RWKV_GATE_EPS; then ``rwkv_after_steps``."""
+    wkv, norms = 10 * 2 * RWKV_LAYERS, 10 * 2 * (2 * RWKV_LAYERS + 1)
+    launches, hist = decoder_train(
+        "rwkv6-7b", RWKV_LAYERS, RWKV_TRAIN_ARGS, {
+            "wkv6_fwd": wkv, "wkv6_bwd": wkv, "rmsnorm_fwd": norms,
+            "rmsnorm_bwd": norms}, "rwkv", profile, fp32_eps=RWKV_GATE_EPS)
+    rwkv_after_steps(hist)
+    return launches
+
+
+def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None):
+    """A decoder's training slice at full width cut to ``layers`` layers:
+    ``argv`` (bf16, batch 8 x LM_SEQ, accum 2, 10 steps) through the CLI
+    with the launch counters reset just before and read just after
+    (``expect``), every loss and grad-norm finite and ``step_ok`` 1, the
+    peak of allocated device memory; then kernel against naive path (plain
+    RMSNorm and the naive attention or the chunked WKV6) on one
+    microbatch of 4 x LM_SEQ (fp32 within 2e-4; with ``fp32_eps`` the fp32
+    agreement at the model's own norm eps is printed ungated and the gate
+    holds a copy of the config with ``norm_eps=fp32_eps``; bf16 cosine >=
+    0.99), and warm training tokens/s of both paths. The previous phase's
+    tensors are freed first, so two models never stand together. Returns
+    (launches, the CLI's metrics rows)."""
+    import gc
     import math
     import torch
     from repro_torch.core.engine import to_device
     from repro_torch.models.transformer import init_params
 
-    attn, norms = 10 * 2 * LM_LAYERS, 10 * 2 * (2 * LM_LAYERS + 1)
-    expect = {"flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
-              "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+    free()
     torch.cuda.reset_peak_memory_stats()
-    launches, hist = run_cli(LM_TRAIN_ARGS, expect, "chatglm3-6b train")
+    launches, hist = run_cli(argv, expect, f"{arch} train")
     peak = torch.cuda.max_memory_allocated()
     if [r["step"] for r in hist] != list(range(10)):
-        fail(f"chatglm3-6b train: unexpected rows {hist}")
+        fail(f"{arch} train: unexpected rows {hist}")
     for r in hist:
         if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                 and r["step_ok"] == 1):
-            fail(f"chatglm3-6b train: bad step row {r}")
-    print(f"[lm] chatglm3-6b ({LM_LAYERS} layers, full width) losses "
+            fail(f"{arch} train: bad step row {r}")
+    print(f"[{tag}] {arch} ({layers} layers, full width) losses "
           f"{[round(r['loss'], 4) for r in hist]}; grad norms "
           f"{[round(r['grad_norm'], 3) for r in hist]}; step_ok all 1; "
           f"wall {hist[-1]['wall_s']} s (cold, init and first steps "
           f"included); torch.cuda.max_memory_allocated "
           f"{peak / 1e9:.2f} GB", flush=True)
+    free()
 
-    trainer, pipe = lm_setup("bfloat16", True)
+    kw = {"arch": arch, "layers": layers}
+    trainer, pipe = lm_setup("bfloat16", True, **kw)
     params = init_params(trainer.cfg, seed=0, device="cuda")
     for dtype in ("float32", "bfloat16"):
-        trainer_k, pipe = lm_setup(dtype, True, batch=4, accum=1)
-        trainer_n, _ = lm_setup(dtype, False, batch=4, accum=1)
+        trainer_k, pipe = lm_setup(dtype, True, batch=4, accum=1, **kw)
+        trainer_n, _ = lm_setup(dtype, False, batch=4, accum=1, **kw)
         batch = to_device(pipe.batch_at(0, 0), "cuda")
-        report_agreement(f"chatglm3-6b, one microbatch of 4 x {LM_SEQ},",
-                         dtype, grad_agreement(trainer_k, trainer_n, params,
-                                               batch, dtype))
+        result = grad_agreement(trainer_k, trainer_n, params, batch, dtype)
+        label = f"{arch}, one microbatch of 4 x {LM_SEQ},"
+        if fp32_eps is not None and dtype == "float32":
+            d_loss, d_grad, cos = result
+            print(f"[train] {label} float32 kernel vs naive at the model's "
+                  f"norm eps {trainer_k.cfg.norm_eps:g} (a reading, not "
+                  f"gated: the group norm amplifies fp32 rounding on "
+                  f"head-rows whose variance is near eps): |dloss|="
+                  f"{d_loss:.3e}, max|dgrad|={d_grad:.3e}, gradient cosine "
+                  f"{cos:.6f}", flush=True)
+            trainer_k, _ = lm_setup(dtype, True, batch=4, accum=1,
+                                    norm_eps=fp32_eps, **kw)
+            trainer_n, _ = lm_setup(dtype, False, batch=4, accum=1,
+                                    norm_eps=fp32_eps, **kw)
+            result = grad_agreement(trainer_k, trainer_n, params, batch,
+                                    dtype)
+            label += f" norm eps {fp32_eps:g},"
+        report_agreement(label, dtype, result)
+        free()
     rates = {}
     for label in ("kernel", "naive", "naive", "kernel"):
-        trainer, pipe = lm_setup("bfloat16", label == "kernel")
+        trainer, pipe = lm_setup("bfloat16", label == "kernel", **kw)
         rates.setdefault(label, []).append(train_rate(trainer, pipe, params))
+        free()
     for label, rs in rates.items():
         tps = sum(r[0] for r in rs) / len(rs) * LM_SEQ
         ms = sum(r[1] for r in rs) / len(rs)
-        print(f"[lm] chatglm3-6b bf16 warm training, {label} path: "
+        print(f"[{tag}] {arch} bf16 warm training, {label} path: "
               f"{tps:.1f} tokens/s, {ms:.2f} ms per optimizer step (batch "
               f"8 x {LM_SEQ}, accum 2; runs "
               f"{[round(r[0] * LM_SEQ, 1) for r in rs]} tokens/s)",
               flush=True)
     if profile:
-        trainer, pipe = lm_setup("bfloat16", True)
-        profile_step(f"chatglm3-6b ({LM_LAYERS} layers, bf16, batch 8 x "
-                     f"{LM_SEQ}, accum 2)", trainer, pipe, params)
-    return launches
+        trainer, pipe = lm_setup("bfloat16", True, **kw)
+        profile_step(f"{arch} ({layers} layers, bf16, batch 8 x {LM_SEQ}, "
+                     f"accum 2)", trainer, pipe, params)
+    return launches, hist
+
+
+def rwkv_after_steps(hist, steps=(1, 2)):
+    """The RWKV6 CLI run's first optimizer steps replayed in process (the
+    kernel path in bf16 with RWKV_TRAIN_ARGS' seed, stream and settings).
+    At the params after each of ``steps`` steps, on the first microbatch
+    (4 x LM_SEQ) of the next step's batch:
+    - K6/K7 against ``ref_wkv6_fwd``/``ref_wkv6_bwd`` on the WKV6 inputs
+      the bf16 kernel path gave K6 and the output cotangent its backward
+      gave K7, each output within WKV_REL_TOL of its largest plain value;
+    - fp32 kernel against naive path with the norm eps at RWKV_GATE_EPS,
+      max |dgrad| within 2e-4 (the gate);
+    - as readings: the smallest group-norm input variance of the bf16
+      forward beside the model's eps, the gradient norms and cosines of
+      bf16 kernel against bf16 naive path, bf16 against fp32 kernel path,
+      and fp32 kernel against naive path at the model's eps; the CLI run's
+      grad norm of that step (``hist``, the whole batch) beside them."""
+    import gc
+    import torch
+    from repro_torch.core.engine import to_device
+    from repro_torch.core.grad_accum import split_microbatches
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.kernels.ref import ref_wkv6_bwd, ref_wkv6_fwd
+    from repro_torch.models import rwkv6
+    from repro_torch.models.transformer import init_params
+
+    kw = {"arch": "rwkv6-7b", "layers": RWKV_LAYERS}
+    trainer, pipe = lm_setup("bfloat16", True, **kw)
+    state = trainer.init_state(init_params(trainer.cfg, seed=0,
+                                           device="cuda"))
+    trainers = {"bfloat16": {}, "float32": {}, "gate": {}}
+    for dtype, paths in trainers.items():
+        for kernels in (True, False):
+            paths[kernels] = lm_setup(
+                "float32" if dtype == "gate" else dtype, kernels, batch=4,
+                accum=1, **kw,
+                **({"norm_eps": RWKV_GATE_EPS} if dtype == "gate" else {}))[0]
+    wkv6, groupnorm = rwkv6.wkv6, rwkv6.groupnorm_heads
+    calls, variances = [], []
+
+    def spy_wkv6(r, k, v, wlog, u, s0, *, chunk):
+        o, s_end = wkv6(r, k, v, wlog, u, s0, chunk=chunk)
+        rec = {"xs": [x.detach().clone() for x in (r, k, v, wlog, u, s0)],
+               "chunk": chunk}
+        o.register_hook(lambda g: rec.update(do=g.detach().clone()))
+        calls.append(rec)
+        return o, s_end
+
+    def spy_groupnorm(x, *a):
+        var = x.detach().float().var(-1, unbiased=False)      # (B,S,H)
+        at = int(var.argmin())
+        variances.append((var.min().item(),
+                          at // var.shape[2] % var.shape[1]))
+        return groupnorm(x, *a)
+
+    names = ("o", "s_end", "states", "dr", "dk", "dv", "dwlog", "du", "ds0")
+    for step in range(max(steps)):
+        state, m = trainer.train_step(
+            state, to_device(pipe.batch_at(0, step), "cuda"))
+        if not m["step_ok"]:
+            fail(f"rwkv6-7b replay: step {step} was skipped by the guard")
+        n = step + 1
+        if n not in steps:
+            continue
+        batch = split_microbatches(
+            to_device(pipe.batch_at(0, n), "cuda"), 2)[0]
+        label = f"rwkv6-7b after {n} replayed step(s), microbatch 4 x {LM_SEQ}"
+        calls.clear()
+        variances.clear()
+        rwkv6.wkv6, rwkv6.groupnorm_heads = spy_wkv6, spy_groupnorm
+        try:
+            g16, _ = trainers["bfloat16"][True].grads(state.params, batch)
+        finally:
+            rwkv6.wkv6, rwkv6.groupnorm_heads = wkv6, groupnorm
+        worst = dict.fromkeys(names, 0.0)
+        ok = len(calls) == RWKV_LAYERS and all("do" in c for c in calls)
+        for rec in calls:
+            r, k, v, w, u, s0 = rec["xs"]
+            cs, do, dse = rec["chunk"], rec["do"], torch.zeros_like(s0)
+            o, se, st = wk.wkv6_fwd(r, k, v, w, u, s0, chunk=cs,
+                                    with_states=True)
+            got = (o, se, st) + tuple(wk.wkv6_bwd(r, k, v, w, u, st, do, dse,
+                                                  chunk=cs))
+            want = ref_wkv6_fwd(r, k, v, w, u, s0, chunk=cs,
+                                with_states=True)
+            want = tuple(want) + tuple(ref_wkv6_bwd(
+                *[x.float() for x in (r, k, v, w)], u, want[2], do, dse,
+                chunk=cs))
+            for name, a, b in zip(names, got, want):
+                top = b.float().abs().max().item()
+                rel = (a.float() - b.float()).abs().max().item() / top \
+                    if top > 0 else a.float().abs().max().item()
+                worst[name] = max(worst[name], rel)
+                ok = ok and rel <= WKV_REL_TOL[str(a.dtype)[6:]] and \
+                    bool(torch.isfinite(a).all())
+        calls.clear()
+        print(f"[rwkv] {label}: K6/K7 on the bf16 kernel path's own WKV6 "
+              f"inputs and output cotangent ({RWKV_LAYERS} calls), max "
+              f"|got - plain| / max |plain|: "
+              + " ".join(f"{key} {x:.3e}" for key, x in worst.items())
+              + f" (tol {WKV_REL_TOL} by the output's dtype) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"K6/K7 disagree with their plain versions on the model's "
+                 f"inputs after {n} step(s)")
+        var, pos = min(variances)
+        g32, _ = trainers["float32"][True].grads(state.params, batch)
+        readings = {"bf16 kernel vs fp32 kernel": compare_grads(
+            g16, g32, "bf16 kernel path")}
+        gn, _ = trainers["bfloat16"][False].grads(state.params, batch)
+        readings["bf16 kernel vs bf16 naive"] = compare_grads(
+            g16, gn, "bf16 kernel path")
+        del g16, gn
+        gn, _ = trainers["float32"][False].grads(state.params, batch)
+        readings["fp32 kernel vs fp32 naive"] = compare_grads(
+            g32, gn, "fp32 kernel path")
+        del g32, gn
+        print(f"[rwkv] {label} (readings, not gated): smallest group-norm "
+              f"input variance {var:.3e} at position {pos} (norm eps "
+              f"{trainer.cfg.norm_eps:g}); " + "; ".join(
+                  f"{key}: cosine {c:.6f}, max|dgrad| {d:.3e}, grad norms "
+                  f"{na:.3f} / {nb:.3f}"
+                  for key, (d, c, na, nb) in readings.items())
+              + f"; the CLI run's grad norm at step {n} (batch 8 x "
+              f"{LM_SEQ}): {hist[n]['grad_norm']:.3f}", flush=True)
+        report_agreement(f"{label}, norm eps {RWKV_GATE_EPS:g},", "float32",
+                         grad_agreement(trainers["gate"][True],
+                                        trainers["gate"][False],
+                                        state.params, batch, "float32"))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -968,10 +1417,12 @@ def main():
     vit_rows = [k1] + phase_k23(card.split(",")[0])
     rms_rows = phase_rms(card.split(",")[0])
     lm_attn = phase_lm_attention(card.split(",")[0])
+    wkv_rows = phase_wkv6(card.split(",")[0])
     profile = "--profile" in sys.argv[1:]
     phase_slice()
     vit_launches = phase_train(profile)
-    lm_launches = phase_lm_train(profile)
+    lm_launches, _ = phase_lm_train(profile)
+    rwkv_launches = phase_rwkv_train(profile)
     # K1-K3 run on both training paths: the row's numbers are the
     # decoder's (this slice's path), with the ViT's beside them under "vit"
     kernels = []
@@ -981,8 +1432,13 @@ def main():
         vit["launches"] = vit_launches[row["name"]]
         kernels.append(dict(row, **lm_attn[key],
                             launches=lm_launches[row["name"]], vit=vit))
+    # K4/K5 run on both decoder paths: the row's launches are the RWKV6
+    # run's (this slice's path), the ChatGLM3 run's beside them
     for row in rms_rows:
-        kernels.append(dict(row, launches=lm_launches[row["name"]]))
+        kernels.append(dict(row, launches=rwkv_launches[row["name"]],
+                            chatglm3_launches=lm_launches[row["name"]]))
+    for row in wkv_rows:
+        kernels.append(dict(row, launches=rwkv_launches[row["name"]]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     import torch

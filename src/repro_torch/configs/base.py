@@ -1,29 +1,45 @@
-"""Model and engine configuration (the ViT and dense-decoder subset of
-``repro.configs.base``).
+"""Model and engine configuration (the ViT, dense-decoder and RWKV6 subset
+of ``repro.configs.base``).
 
 Field names and defaults follow the JAX package, so a config can be
 compared field by field with its reference. Fields the ported paths do
-not read (MoE, MLA, SSM, softcap, M-RoPE, serving knobs; ZeRO, pipeline and
+not read (MoE, MLA, softcap, M-RoPE, serving knobs; ZeRO, pipeline and
 checkpoint settings) are left out until a slice needs them; ``use_kernels``
 stands in for the reference's ``use_pallas``. A config that asks for a
 branch no slice has ported (tied embeddings, the embedding scale, M-RoPE,
-another family or activation) raises ``NotImplementedError``.
+the mamba2, hybrid or MLA blocks, another family or activation) raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 
-_ARCH_TYPES = ("vit", "dense")
+_ARCH_TYPES = ("vit", "dense", "ssm")
+_BLOCK_KINDS = ("attn", "rwkv6")
 _ROPE_STYLES = ("full", "half", "none")
-_ACTS = ("swiglu", "gelu")
+_ACTS = ("swiglu", "gelu", "sqrelu")
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) / RWKV6 recurrent-block dimensions
+    (``repro/configs/base.py:41-49``, same fields and defaults; only the
+    RWKV6 block is ported)."""
+    state_dim: int = 64             # N (mamba2) / head_size (rwkv6)
+    head_dim: int = 64              # P per-head channel dim (mamba2)
+    expand: int = 2                 # d_inner = expand * d_model (mamba2)
+    conv_kernel: int = 4            # mamba2 short conv
+    chunk_size: int = 128           # chunked-scan block length
+    decay_lora: int = 64            # rwkv6 data-dependent decay bottleneck
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                  # vit | dense are ported
+    arch_type: str                  # vit | dense | ssm are ported
     num_layers: int
     d_model: int
     num_heads: int
@@ -31,6 +47,9 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0               # 0 -> d_model // num_heads
+
+    # --- block structure -------------------------------------------------
+    block_kind: str = "attn"        # attn | rwkv6 (mla, mamba2 not ported)
     causal: bool = True
 
     # --- attention flavour ------------------------------------------------
@@ -40,10 +59,13 @@ class ModelConfig:
     sliding_window: int = 0         # 0 = full attention
     global_every: int = 0           # every Nth layer full, the rest local
 
+    # --- sub-configs -------------------------------------------------------
+    ssm: Optional[SSMConfig] = None
+
     # --- embeddings / head --------------------------------------------
     tie_embeddings: bool = False    # not ported
     norm_eps: float = 1e-5
-    act: str = "swiglu"             # swiglu | gelu
+    act: str = "swiglu"             # swiglu | gelu | sqrelu
     embed_scale: bool = False       # not ported
 
     # --- ViT ------------------------------------------------------------
@@ -66,6 +88,11 @@ class ModelConfig:
         unported = [
             (self.arch_type not in _ARCH_TYPES,
              f"arch_type {self.arch_type!r}"),
+            (self.block_kind not in _BLOCK_KINDS,
+             f"block_kind {self.block_kind!r}"),
+            ((self.arch_type == "ssm") != (self.block_kind == "rwkv6"),
+             f"arch_type {self.arch_type!r} with block_kind "
+             f"{self.block_kind!r}"),
             (self.tie_embeddings, "tied embeddings"),
             (self.embed_scale, "the embedding scale"),
             (self.rope_style not in _ROPE_STYLES,
@@ -76,6 +103,8 @@ class ModelConfig:
             if needed:
                 raise NotImplementedError(
                     f"{self.name}: {what} is not yet ported to repro_torch")
+        if self.block_kind == "rwkv6" and self.ssm is None:
+            raise ValueError(f"{self.name}: an rwkv6 block needs ssm")
 
     def layer_windows(self):
         """Per-layer sliding window (0 = full), gemma3-style local:global."""

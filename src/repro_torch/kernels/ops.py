@@ -3,6 +3,8 @@ from __future__ import annotations
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import fused_rmsnorm as _fused_rmsnorm
+from repro_torch.kernels.wkv6 import WKV_CHUNK_MAX, pad_to_chunk
+from repro_torch.kernels.wkv6 import wkv6 as _wkv6
 
 
 def flash_mha(q, k, v, *, causal=True, window=0):
@@ -24,3 +26,17 @@ def fused_rmsnorm(x, scale, *, eps=1e-6):
     through ``FusedRMSNorm``: K4 forward saving the fp32 rinv, K5 backward
     for dx and dscale."""
     return _fused_rmsnorm(x, scale, eps=eps)
+
+
+def wkv6(r, k, v, wlog, u, s0, *, chunk):
+    """r/k/v/wlog (B,S,H,P), u (H,P), s0 (B,H,P,P) -> (o (B,S,H,P) fp32,
+    s_end (B,H,P,P) fp32). The chunk is clamped to ``WKV_CHUNK_MAX``
+    (``repro/kernels/vjp.py:124-130``) and S padded to a chunk multiple
+    with zero r/k/v and a zero log-decay, so the state and the gradients
+    pass the padded steps untouched. Differentiable through ``WKV6``: K6
+    forward, K7 backward."""
+    chunk = min(int(chunk), WKV_CHUNK_MAX)
+    s = r.shape[1]
+    r, k, v, wlog = pad_to_chunk((r, k, v, wlog), chunk)
+    o, s_end = _wkv6(r, k, v, wlog, u, s0, chunk=chunk)
+    return o[:, :s], s_end

@@ -8,11 +8,12 @@ legacy fp32 synthetic stream, and evaluates on the held-out split:
     PYTHONPATH=src python -m repro_torch.launch.train --arch vit-b16 \\
         --steps 10 --batch 128 --accum 2 --eval-every 10 --eval-batch 128
 
-A decoder (``--arch chatglm3-6b``) trains on the synthetic token stream of
-``--seq`` tokens per sequence (an epoch of ``--batch`` x ``--steps``
-sequences, as the reference sizes it); ``--layers`` cuts the depth:
+A decoder (``--arch chatglm3-6b``, or the recurrent ``--arch rwkv6-7b``)
+trains on the synthetic token stream of ``--seq`` tokens per sequence (an
+epoch of ``--batch`` x ``--steps`` sequences, as the reference sizes it);
+``--layers`` cuts the depth:
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
         --layers 4 --seq 1024 --batch 8 --accum 2 --steps 10
 
 prints the reference's ``[train] step ... loss= gnorm= lr=`` and
@@ -110,8 +111,8 @@ def parse_args(argv=None):
                          "updates of the same batch")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--no-kernels", action="store_true",
-                    help="naive attention and plain norms instead of the "
-                         "CUDA kernels")
+                    help="naive attention, plain norms and the chunked "
+                         "WKV6 instead of the CUDA kernels")
     for flag, (kw, _) in NOT_YET_PORTED.items():
         ap.add_argument(flag, default=None, help="not yet ported", **kw)
     args = ap.parse_args(argv)

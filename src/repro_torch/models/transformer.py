@@ -1,5 +1,6 @@
-"""The ViT and dense-decoder branches of ``repro.models.transformer``:
-init, forward, the training loss and the eval counts.
+"""The ViT, dense-decoder and RWKV6 branches of
+``repro.models.transformer``: init, forward, the training loss and the
+eval counts.
 
 Parameters keep the reference's layout so weights cross without
 transposes: dense weights are (in, out) and applied as ``x @ w``, the
@@ -9,7 +10,11 @@ flat keys are the reference pytree's dotted paths (``embed.patch_w``,
 Params are fp32; each is cast to ``cfg.dtype`` where it is used. The
 reference scans over layers; here a Python loop runs them, with each
 layer's window a Python int. The ViT normalises with LayerNorm, the
-decoder with RMSNorm (through K4/K5 when ``cfg.use_kernels``).
+decoders with RMSNorm (through K4/K5 when ``cfg.use_kernels``). The RWKV6
+branch (``block_kind == "rwkv6"``) replaces attention and MLP by the time
+mix and the channel mix (``models/rwkv6.py``; WKV6 through K6/K7 when
+``cfg.use_kernels``), under ``stack.time_mix.*`` and
+``stack.channel_mix.*``, and takes no positions.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ from repro_torch.models.attention import attention_block
 from repro_torch.models.mlp import is_gated, mlp
 from repro_torch.models.norms import layernorm, rmsnorm
 from repro_torch.models.params import dense_init, embed_init, ones, zeros
+from repro_torch.models.rwkv6 import init_rwkv6, init_rwkv6_channel_mix, \
+    rwkv6_channel_mix, rwkv6_time_mix
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -31,9 +38,13 @@ def compute_dtype(cfg) -> torch.dtype:
 
 
 def _is_vit(cfg) -> bool:
-    """The ViT branch, else the dense decoder (the config admits no other
-    family: ``ModelConfig`` raises on one)."""
+    """The ViT branch, else a decoder: dense or RWKV6 (the config admits no
+    other family: ``ModelConfig`` raises on one)."""
     return cfg.arch_type == "vit"
+
+
+def _is_rwkv(cfg) -> bool:
+    return cfg.block_kind == "rwkv6"
 
 
 def init_params(cfg, *, seed=0, device="cuda"):
@@ -60,6 +71,14 @@ def init_params(cfg, *, seed=0, device="cuda"):
         p[f"stack.{ln}.scale"] = ones((L, d), device=device)
         if vit:
             p[f"stack.{ln}.bias"] = zeros((L, d), device=device)
+    if _is_rwkv(cfg):
+        for name, group in (("time_mix", init_rwkv6(cfg, L, **kw)),
+                            ("channel_mix", init_rwkv6_channel_mix(cfg, L,
+                                                                   **kw))):
+            p.update({f"stack.{name}.{k}": v for k, v in group.items()})
+        p["final_norm.scale"] = ones((d,), device=device)
+        p["head.w"] = dense_init((d, cfg.vocab_size), **kw)
+        return p
     p["stack.attn.wq"] = dense_init((L, d, h * hd), **kw)
     p["stack.attn.wk"] = dense_init((L, d, kh * hd), **kw)
     p["stack.attn.wv"] = dense_init((L, d, kh * hd), **kw)
@@ -108,11 +127,13 @@ def _embed(cfg, params, batch):
     """``(h (B,S,D) in the compute dtype, rope positions (B,S) or None)``.
     ViT: NHWC patchify (reshape + transpose, then a matmul — not a conv),
     a zero CLS token in front, and learned positions. Decoder: the token
-    embedding, positions 0..S-1."""
+    embedding, positions 0..S-1 (None for RWKV6, which has none)."""
     dt = compute_dtype(cfg)
     if not _is_vit(cfg):
         tokens = batch["tokens"].long()
         h = params["embed.tok"][tokens].to(dt)
+        if _is_rwkv(cfg):
+            return h, None
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
         return h, positions
@@ -143,11 +164,18 @@ def forward(cfg, params, batch):
     """Logits in the compute dtype: (B, num_classes) for a preprocessed
     float ``batch["images"]`` (B, H, W, 3), (B, S, vocab) for
     ``batch["tokens"]`` (B, S). Pre-norm blocks: ``h += attn(norm1 h)``,
-    then ``h += mlp(norm2 h)``."""
+    then ``h += mlp(norm2 h)``; for RWKV6 ``h += time_mix(norm1 h)``, then
+    ``h += channel_mix(norm2 h)`` (``_run_rwkv_stack``)."""
     h, positions = _embed(cfg, params, batch)
     for i, window in enumerate(cfg.layer_windows()):
         layer = _layer(params, "stack.", i)
         a_in = _apply_norm(cfg, layer, "ln1.", h)
+        if _is_rwkv(cfg):
+            h = h + rwkv6_time_mix(_layer(layer, "time_mix.", None), a_in,
+                                   cfg)
+            h = h + rwkv6_channel_mix(_layer(layer, "channel_mix.", None),
+                                      _apply_norm(cfg, layer, "ln2.", h), cfg)
+            continue
         h = h + attention_block(_layer(layer, "attn.", None), a_in, cfg,
                                 window=window, positions=positions)
         m_in = _apply_norm(cfg, layer, "ln2.", h)
