@@ -11,9 +11,12 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 1. card: a CUDA device must be present; prints its name and power limit.
 2. build: compiles every kernel (``kernels/build.py``), timed, and prints
    each kernel's ``-Xptxas -v`` registers and spills.
-3. K1 against ``ref_attention`` on the card, at the ViT-B/16 eval shape
-   (bf16 and fp32), the smoke shape, ragged S, causal, GQA and windowed
-   cases; then times the kernel, the plain version and PyTorch's
+3. K1 against ``ref_attention`` on the card, at the ViT-B/16 eval shape,
+   the smoke shape, ragged S (1, 63, 130, 197), causal, GQA, windowed
+   (also with S > T, rows with no live key) and D 32 and 128 cases, each
+   in bf16 (the tensor-core route) and fp32 (the CUDA-core route), some in
+   the model's strided (B,S,H,D) layout; then times the kernel, the plain
+   version and PyTorch's
    ``scaled_dot_product_attention`` (a yardstick the port never calls) at
    the ViT-B/16 shape, beside the card's bound for the same work.
 4. K2 and K3 against ``ref_attention_bwd`` at the same cases, with the
@@ -31,8 +34,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    both timed at the decoder's shape beside the plain versions and
    ``F.rms_norm`` (a yardstick the port never calls).
 6. K1-K3 at the decoder's attention shape (B 4, H 32, KH 2, S = T = 1024,
-   D 128, causal) against their plain versions in bf16 and fp32, then
-   timed as in phase 4 (SDPA with ``enable_gqa``).
+   D 128, causal) against their plain versions in bf16 and fp32, K3 run
+   twice for bitwise equal dk and dv, then timed as in phase 4 (SDPA with
+   ``enable_gqa``).
 6b. K6 (with and without states) and K7 against ``ref_wkv6_fwd``/
    ``ref_wkv6_bwd`` at the RWKV6 slice's shape (B 4, S 1024, H 64, P 64,
    chunk 32; bf16 r/k/v with fp32 wlog, and fp32), the smoke shape, the
@@ -62,7 +66,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    grad-norm finite and ``step_ok`` 1; the peak of allocated device
    memory; kernel against naive path (plain RMSNorm, naive attention) on
    one microbatch of 4 x 1024 (fp32 within 2e-4; bf16 cosine >= 0.99);
-   warm training tokens/s of both paths.
+   warm training tokens/s of both paths, every kernel-path run faster
+   than every naive-path run.
 10. the RWKV6 slice, after the decoder's tensors are freed: ``--arch
    rwkv6-7b --layers 4 --seq 1024 --batch 8 --accum 2 --steps 10`` in bf16
    with the counters reset just before and read just after (K6 and K7
@@ -79,10 +84,13 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    gradients' norms and cosines printed as readings.
 
 ``--profile`` adds a ``torch.profiler`` table of one warm training step of
-each training slice. The last lines are one JSON object for the kernels
-(K1-K3 with the decoder's numbers and the ViT's under ``vit``, K4/K5 with
-the RWKV6 run's launches and the decoder's beside them, K6/K7), the card's
-``nvidia-smi`` name and power limit, and the ``ok`` line.
+each training slice, and at the end (after every timed phase) of one warm
+bf16 eval pass of the eval slice.
+The last lines are one JSON object for the kernels (K1-K3 with the
+decoder's numbers and the ViT's under ``vit``, K1 and K3 with the bf16
+time of their earlier CUDA-core design beside, K4/K5 with the RWKV6 run's
+launches and the decoder's beside them, K6/K7), the card's ``nvidia-smi``
+name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
 
@@ -182,20 +190,42 @@ WKV_RAGGED = (2, 57, 3, 32, 16)
 TRAIN_ARGS = ["--arch", "vit-b16", "--steps", "10", "--batch", "128",
               "--accum", "2", "--eval-every", "10", "--eval-batch", "128",
               "--log-every", "1"]
-# label, shape (None: the ViT-B/16 one), dtype, causal, window
+# label, shape (None: the ViT-B/16 one), dtype, causal, window, and whether
+# q, k, v (and dO) come as the model's (B,S,H,D) buffers seen as (B,H,S,D)
+# (the ViT cases always do in phase 4). bf16 takes the tensor-core kernels
+# and fp32 the CUDA-core ones, so every ragged, causal, windowed, GQA and
+# head-dim case runs in both.
 CASES = [
-    ("vit-b16", None, "bfloat16", False, 0),
-    ("vit-b16", None, "float32", False, 0),
-    ("smoke", (16, 4, 4, 65, 65, 32), "bfloat16", False, 0),
-    ("smoke", (16, 4, 4, 65, 65, 32), "float32", False, 0),
-    ("S=1", (4, 4, 4, 1, 1, 64), "float32", False, 0),
-    ("S=63", (4, 4, 4, 63, 63, 64), "float32", False, 0),
-    ("S=130", (4, 4, 4, 130, 130, 64), "float32", False, 0),
-    ("causal", (4, 4, 4, 130, 130, 64), "float32", True, 0),
-    ("gqa", (4, 8, 2, 197, 197, 64), "float32", False, 0),
-    ("window", (4, 4, 4, 130, 130, 64), "float32", True, 40),
-    ("D=128", (4, 4, 4, 130, 130, 128), "bfloat16", False, 0),
+    ("vit-b16", None, "bfloat16", False, 0, False),
+    ("vit-b16", None, "float32", False, 0, False),
+    ("smoke", (16, 4, 4, 65, 65, 32), "bfloat16", False, 0, False),
+    ("smoke", (16, 4, 4, 65, 65, 32), "float32", False, 0, False),
+    ("S=1", (4, 4, 4, 1, 1, 64), "float32", False, 0, False),
+    ("S=1", (4, 4, 4, 1, 1, 64), "bfloat16", False, 0, False),
+    ("S=63", (4, 4, 4, 63, 63, 64), "float32", False, 0, False),
+    ("S=63", (4, 4, 4, 63, 63, 64), "bfloat16", False, 0, False),
+    ("S=130", (4, 4, 4, 130, 130, 64), "float32", False, 0, False),
+    ("S=130", (4, 4, 4, 130, 130, 64), "bfloat16", False, 0, False),
+    ("causal", (4, 4, 4, 130, 130, 64), "float32", True, 0, False),
+    ("causal", (4, 4, 4, 130, 130, 64), "bfloat16", True, 0, False),
+    ("gqa", (4, 8, 2, 197, 197, 64), "float32", False, 0, False),
+    ("gqa", (4, 8, 2, 197, 197, 64), "bfloat16", False, 0, False),
+    ("gqa", (4, 8, 2, 197, 197, 64), "bfloat16", False, 0, True),
+    ("window", (4, 4, 4, 130, 130, 64), "float32", True, 40, False),
+    ("window", (4, 4, 4, 130, 130, 64), "bfloat16", True, 40, False),
+    ("S>T win", (2, 4, 2, 200, 70, 64), "float32", False, 30, False),
+    ("S>T win", (2, 4, 2, 200, 70, 64), "bfloat16", False, 30, True),
+    ("D=32", (2, 4, 2, 197, 197, 32), "float32", True, 0, False),
+    ("D=32", (2, 4, 2, 197, 197, 32), "bfloat16", True, 0, True),
+    ("D=128", (4, 4, 4, 130, 130, 128), "bfloat16", False, 0, False),
+    ("D=128", (2, 32, 2, 197, 197, 128), "float32", True, 0, False),
+    ("D=128", (2, 32, 2, 197, 197, 128), "bfloat16", True, 0, True),
 ]
+# K1 and K3 were redesigned for the tensor cores; their rows say so, and
+# PERF.md's kernel table keeps the earlier CUDA-core design's times
+REDESIGNED = ("flash_fwd", "flash_bwd_dkv")
+ROUTES = ("bf16: tensor cores (mma.sync m16n8k16, cp.async double "
+          "buffering); fp32: CUDA cores")
 
 
 def fail(msg):
@@ -306,13 +336,16 @@ def phase_build():
         # and register lines; name each kernel by function, dtype and D
         kernel = name
         for line in log.splitlines():
-            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel|rmsnorm_"
-                          r"(?:fwd|bwd)_kernel|dscale_reduce_kernel|wkv6_"
-                          r"(?:fwd|bwd)_kernel)(?:I((?:f|13__nv_bfloat16)+)"
-                          r"(?:Li(\d+)E)?)?", line)
+            m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_tc)?_kernel|"
+                          r"dkv_reduce_kernel|rmsnorm_(?:fwd|bwd)_kernel|"
+                          r"dscale_reduce_kernel|wkv6_(?:fwd|bwd)_kernel)"
+                          r"(?:I((?:f|13__nv_bfloat16)*)(?:Li(\d+)E)?)?",
+                          line)
             if m and "Compiling entry" in line:
                 types = re.findall(r"f|13__nv_bfloat16", m.group(2) or "")
                 args = ["fp32" if t == "f" else "bf16" for t in types]
+                if "_tc_" in m.group(1):    # the bf16 tensor-core route
+                    args = ["bf16"]
                 args += [f"{'P' if 'wkv6' in m.group(1) else 'D'}="
                          f"{m.group(3)}"] if m.group(3) else []
                 kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
@@ -326,18 +359,13 @@ def phase_k1(card):
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.ref import ref_attention
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def inputs(b, h, kh, s, t, d, dtype):
-        mk = lambda *shape: torch.randn(shape, device="cuda",  # noqa: E731
-                                        generator=gen).to(dtype)
-        return mk(b, h, s, d), mk(b, kh, t, d), mk(b, kh, t, d)
+    inputs = model_layout_inputs(torch.Generator(device="cuda").manual_seed(0))
 
     vit_err = None
-    for label, shape, dname, causal, window in CASES:
+    for label, shape, dname, causal, window, layout in CASES:
         shape = shape or VIT_SHAPE
         dtype = getattr(torch, dname)
-        q, k, v = inputs(*shape, dtype)
+        q, k, v, _ = inputs(*shape, dtype, model_layout=layout)
         out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         ref_out, ref_lse = ref_attention(q, k, v, causal=causal,
@@ -348,7 +376,8 @@ def phase_k1(card):
         ok = d_out <= tol and d_lse <= TOL_LSE and \
             bool(torch.isfinite(out).all())
         print(f"[k1] {label:8s} {shape} {dname:8s} causal={causal} "
-              f"window={window}: max|dout|={d_out:.3e} (tol {tol}) "
+              f"window={window} model layout={layout}: "
+              f"max|dout|={d_out:.3e} (tol {tol}) "
               f"max|dlse|={d_lse:.3e} (tol {TOL_LSE}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
@@ -356,7 +385,7 @@ def phase_k1(card):
         if label == "vit-b16" and dtype == torch.bfloat16:
             vit_err = d_out
 
-    q, k, v = inputs(*VIT_SHAPE, torch.bfloat16)
+    q, k, v, _ = inputs(*VIT_SHAPE, torch.bfloat16, model_layout=False)
     ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=False))
     plain_ms = time_ms(lambda: ref_attention(q, k, v, causal=False))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
@@ -385,11 +414,11 @@ def phase_k23(card):
     inputs = model_layout_inputs(torch.Generator(device="cuda").manual_seed(1))
 
     errs = {}
-    for label, shape, dname, causal, window in CASES:
+    for label, shape, dname, causal, window, layout in CASES:
         vit = shape is None
         shape = shape or TRAIN_SHAPE
         dtype, tol = getattr(torch, dname), TOL_OUT[dname]
-        q, k, v, do = inputs(*shape, dtype, model_layout=vit)
+        q, k, v, do = inputs(*shape, dtype, model_layout=vit or layout)
         kw = {"causal": causal, "window": window}
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, **kw)
@@ -400,7 +429,8 @@ def phase_k23(card):
         res.append(close(delta, want[3], TOL_DELTA))
         ok = all(r[1] for r in res)
         print(f"[k23] {label:8s} {shape} {dname:8s} causal={causal} "
-              f"window={window}: max|ddq|={res[0][0]:.3e} "
+              f"window={window} model layout={vit or layout}: "
+              f"max|ddq|={res[0][0]:.3e} "
               f"max|ddk|={res[1][0]:.3e} max|ddv|={res[2][0]:.3e} (tol "
               f"{tol}, rtol {tol}) max|ddelta|={res[3][0]:.3e} (tol "
               f"{TOL_DELTA}) {'ok' if ok else 'FAIL'}", flush=True)
@@ -527,7 +557,9 @@ def model_layout_inputs(gen):
 def phase_lm_attention(card):
     """K1, K2 and K3 at the decoder's attention shape (causal, GQA 32:2,
     head dim 128, S = T = 1024), where no earlier slice ran them: against
-    their plain versions in bf16 and fp32, then timed."""
+    their plain versions in bf16 and fp32, K3 run twice for bitwise equal
+    dk and dv (its bf16 route splits each GQA group over 4 CTAs and sums
+    their partials in a fixed order), then timed."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import ref_attention, ref_attention_bwd
@@ -541,7 +573,9 @@ def phase_lm_attention(card):
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, **kw)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
         torch.cuda.synchronize()
+        same = torch.equal(dk, dk2) and torch.equal(dv, dv2)
         ref_out, ref_lse = ref_attention(q, k, v, **kw)
         want = ref_attention_bwd(q, k, v, out, lse, do, **kw)
         res = {"out": close(out, ref_out, tol),
@@ -549,11 +583,12 @@ def phase_lm_attention(card):
                "dq": close(dq, want[0], tol), "dk": close(dk, want[1], tol),
                "dv": close(dv, want[2], tol),
                "delta": close(delta, want[3], TOL_DELTA)}
-        ok = all(r[1] for r in res.values())
+        ok = all(r[1] for r in res.values()) and same
         print(f"[lm-attn] {LM_ATTN_SHAPE} {dname} causal: " + " ".join(
             f"max|d{key}|={r[0]:.3e}" for key, r in res.items())
-            + f" (tol {tol}, rtol {tol}; lse and delta {TOL_LSE}) "
-            f"{'ok' if ok else 'FAIL'}", flush=True)
+            + f" (tol {tol}, rtol {tol}; lse and delta {TOL_LSE}); K3 run "
+            f"twice bitwise equal {same} {'ok' if ok else 'FAIL'}",
+            flush=True)
         if not ok:
             fail(f"K1-K3 disagree with their plain versions at the decoder "
                  f"shape in {dname}")
@@ -953,6 +988,34 @@ def compare_paths(cfg_name, dtype, n_batches):
         (rates[1] + rates[2]) / 2
 
 
+def profile_eval():
+    """One warm bf16 eval pass of the kernel path over the 500-example
+    split at batch EVAL_BATCH under torch.profiler: device time by kernel,
+    the largest first. It runs after every timed phase: a profiler session
+    slows the small-kernel ViT steps timed after it in the same process."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import Evaluator
+    from repro_torch.data.datasets import CIFARSource
+    from repro_torch.models.transformer import ViT, init_params
+
+    cfg = get_config("vit-b16").replace(dtype="bfloat16")
+    source = CIFARSource("cifar10", seed=0, resolution=cfg.image_size)
+    ev = Evaluator(cfg, ViT(cfg, init_params(cfg, seed=0, device="cuda")),
+                   preproc=source.preproc)
+    ev.evaluate(source.eval_batches(EVAL_BATCH))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ev.evaluate(source.eval_batches(EVAL_BATCH))
+        torch.cuda.synchronize()
+    table = prof.key_averages().table(sort_by="self_device_time_total",
+                                      row_limit=15)
+    print(f"[profile] one warm vit-b16 (bf16, batch {EVAL_BATCH}) eval "
+          f"pass:\n" + table, flush=True)
+
+
 def phase_slice():
     base = ["--steps", "0", "--eval-every", "1", "--eval-batch",
             str(EVAL_BATCH)]
@@ -1100,7 +1163,7 @@ def profile_step(label, trainer, pipe, params):
         state, _ = trainer.train_step(state, batches[2])
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="self_device_time_total",
-                                      row_limit=25)
+                                      row_limit=40)
     print(f"[profile] one warm {label} training step:\n" + table, flush=True)
 
 
@@ -1173,7 +1236,8 @@ def phase_lm_train(profile):
     attn, norms = 10 * 2 * LM_LAYERS, 10 * 2 * (2 * LM_LAYERS + 1)
     return decoder_train("chatglm3-6b", LM_LAYERS, LM_TRAIN_ARGS, {
         "flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
-        "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}, "lm", profile)
+        "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}, "lm", profile,
+        kernel_must_win=True)
 
 
 def phase_rwkv_train(profile):
@@ -1191,7 +1255,8 @@ def phase_rwkv_train(profile):
     return launches
 
 
-def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None):
+def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None,
+                  kernel_must_win=False):
     """A decoder's training slice at full width cut to ``layers`` layers:
     ``argv`` (bf16, batch 8 x LM_SEQ, accum 2, 10 steps) through the CLI
     with the launch counters reset just before and read just after
@@ -1201,7 +1266,9 @@ def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None):
     microbatch of 4 x LM_SEQ (fp32 within 2e-4; with ``fp32_eps`` the fp32
     agreement at the model's own norm eps is printed ungated and the gate
     holds a copy of the config with ``norm_eps=fp32_eps``; bf16 cosine >=
-    0.99), and warm training tokens/s of both paths. The previous phase's
+    0.99), and warm training tokens/s of both paths (with
+    ``kernel_must_win``, every kernel-path run faster than every naive-path
+    run, or the phase fails). The previous phase's
     tensors are freed first, so two models never stand together. Returns
     (launches, the CLI's metrics rows)."""
     import gc
@@ -1270,6 +1337,10 @@ def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None):
               f"8 x {LM_SEQ}, accum 2; runs "
               f"{[round(r[0] * LM_SEQ, 1) for r in rs]} tokens/s)",
               flush=True)
+    if kernel_must_win and min(r[0] for r in rates["kernel"]) <= \
+            max(r[0] for r in rates["naive"]):
+        fail(f"{arch}: a timed kernel-path run was not faster than every "
+             f"naive-path run")
     if profile:
         trainer, pipe = lm_setup("bfloat16", True, **kw)
         profile_step(f"{arch} ({layers} layers, bf16, batch 8 x {LM_SEQ}, "
@@ -1423,6 +1494,8 @@ def main():
     vit_launches = phase_train(profile)
     lm_launches, _ = phase_lm_train(profile)
     rwkv_launches = phase_rwkv_train(profile)
+    if profile:
+        profile_eval()
     # K1-K3 run on both training paths: the row's numbers are the
     # decoder's (this slice's path), with the ViT's beside them under "vit"
     kernels = []
@@ -1430,6 +1503,8 @@ def main():
         vit = {k: v for k, v in row.items()
                if k not in ("name", "route", "source", "replaces")}
         vit["launches"] = vit_launches[row["name"]]
+        if row["name"] in REDESIGNED:
+            row = dict(row, redesigned=True, routes=ROUTES)
         kernels.append(dict(row, **lm_attn[key],
                             launches=lm_launches[row["name"]], vit=vit))
     # K4/K5 run on both decoder paths: the row's launches are the RWKV6

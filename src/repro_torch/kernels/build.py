@@ -2,11 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch headers, so
 ``nvcc`` compiles it in seconds into ``build/kernels/lib<name>-<hash>.so``
-(the hash covers the source and the flags, so an edit rebuilds). The
-build happens at first use, from the sources in the checkout only; a
-failed build raises with the compiler's output. ``nvcc``'s ``-Xptxas -v``
-report (registers, shared memory, spills) is kept beside the library as
-``.log``.
+(the hash covers the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edit to any of them rebuilds). The build happens at first
+use, from the sources in the checkout only; a failed build raises with the
+compiler's output. ``nvcc``'s ``-Xptxas -v`` report (registers, shared
+memory, spills) is kept beside the library as ``.log``.
 """
 from __future__ import annotations
 
@@ -37,9 +37,13 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library for ``csrc/<name>.cu``, named by a digest of that source,
+    every ``csrc/*.cuh`` header (name and content) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict:

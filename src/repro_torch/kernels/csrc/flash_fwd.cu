@@ -11,37 +11,50 @@
 // S=T=197, D=64, bf16) the function must move q, k, v and o once (4 x 38.7
 // MB) and the fp32 lse (1.2 MB), 156.1 MB or 46.6 us at 3.35 TB/s; its two
 // products are 4*B*H*S*T*D = 15.3 GFLOP, 15.4 us at the 989 TFLOP/s bf16
-// tensor-core peak. The bytes bound it, by a factor of three.
+// tensor-core peak: bytes bound it, by a factor of three. At the ChatGLM3
+// shape (B=4, H=32, KH=2, S=T=1024, D=128, causal) the causal products are
+// 34.4 GFLOP, 34.8 us, against 71.8 MB (21.4 us): operations bound it.
 //
-// What this design does about it: each CTA reads its q tile once and each
-// K/V tile once (the 4 q tiles of one head re-read K/V from L2, not HBM),
-// writes O and lse once, and keeps the S x T scores and probabilities in
-// registers and shared memory only. The arithmetic runs on the fp32 CUDA
-// cores with fp32 probabilities, as the TPU kernel's fp32 upcast does, not
-// on the tensor cores: this first version is bound by fp32 FMA issue, well
-// above the memory bound. wgmma, TMA and warp specialisation are later work.
+// Two routes, by dtype (the `dtype` code of repro_flash_fwd):
 //
-// Layout: one CTA of 128 threads per (64-row q tile, head, batch). Thread t
-// owns query rows 4*(t/8) .. +3 of the tile; for the scores it owns keys
-// (t%8) + 8j of each 64-key tile, and for O the float4 column groups
-// (t%8) + 8jj. The 8 threads that share rows are neighbouring lanes, so row
-// max and row sum reduce with three xor shuffles. Tiles are staged in
-// shared memory as fp32; Q and K rows are padded by 4 floats so that the
-// eight column groups read eight rows at once without bank conflicts.
+// bf16, flash_fwd_tc_kernel (the main path): the FlashAttention-2 loop on
+// the tensor cores. One CTA of 4 warps per (64-row q tile, head, batch);
+// each warp owns 16 query rows. The Q tile stays in shared memory; 64-key
+// K and V tiles stream through two shared-memory buffers with cp.async
+// (16-byte copies, rows past T zero-filled), the next tile in flight while
+// the current one is used. S = Q K^T and O += P V run on mma.sync m16n8k16
+// (bf16 in, fp32 accumulators) fed by ldmatrix from rows padded to D + 8
+// elements; S, the online-softmax max and sum, and O stay in registers,
+// reduced across the 4 lanes of a quad. P is rounded to bf16 in registers
+// to become the A operand of P V, as ref_attention and the model's naive
+// sdpa round it. Only tiles that hold a masked pair pay for the mask
+// (flash_attention.py:117 _block_needs_mask), and the ragged tails skip
+// what they can: a warp whose rows lie past S, and key blocks past T.
+// CTAs launch q tile by q tile across every head; causal q tiles in
+// reverse, so the tiles that see the most keys start first. O is staged
+// through the warp's own Q rows and written with 16-byte stores. Where
+// D <= 64 the registers are capped so that four CTAs share an SM, at the
+// cost of a few spilled bytes. With 64 x 64 tiles and one 16-row block per
+// warp, the ldmatrix traffic and the latency of short loops (4 key tiles
+// at S = 197) hold it well above its bound; wgmma, TMA, larger tiles and
+// warp specialisation are later work.
+//
+// fp32, flash_fwd_kernel: scalar fp32 FMAs on the CUDA cores, as the TPU
+// kernel's fp32 upcast does; the tensor cores' TF32 would round the inputs
+// to 10 mantissa bits and miss the 1e-4 gate. Thread t owns query rows
+// 4*(t/8) .. +3 of the tile; for the scores it owns keys (t%8) + 8j of
+// each 64-key tile, and for O the float4 column groups (t%8) + 8jj; row
+// max and sum reduce with three xor shuffles. Tiles are staged as fp32,
+// Q and K rows padded by 4 floats against bank conflicts.
+//
 // Element strides are passed in, so the caller can hand in the model's
 // (B,S,H,D) layout as a (B,H,S,D) view without a transposing copy.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BM = 64;    // query rows per CTA
-constexpr int BN = 64;    // keys per K/V tile (the loader assumes BN == BM)
-constexpr int NT = 128;   // threads per CTA: 16 row groups x 8 column groups
-constexpr float NEG_INF = -1073741824.0f;   // -2**30, the reference's mask
-constexpr float LSE_BIG = 1073741824.0f;    // lse of a fully-masked row
+constexpr int NT = 128;   // threads per CTA
 
 struct Params {
   const void* q;
@@ -58,84 +71,14 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 c = *reinterpret_cast<const float4*>(p + 4);
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = c.x; x[5] = c.y; x[6] = c.z; x[7] = c.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h2[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-__device__ __forceinline__ float lane_of(const float4& v, int u) {
-  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ float row_max8(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-}
-
-__device__ __forceinline__ float row_sum8(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x + __shfl_xor_sync(0xffffffffu, x, 4);
-}
-
-// Stage a 64-row tile of width D as fp32 in shared memory (row stride ld_s),
-// from global rows ld_g elements apart. Rows at `rows` and beyond are zero:
-// a masked probability is exactly 0, and 0 * NaN from stale memory would
-// poison the sums (the guard at flash_attention.py:262-263).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld_s, const T* src,
-                                          long long ld_g, int rows) {
-  constexpr int CPR = D / 8;   // 8-element chunks per row
-#pragma unroll 4
-  for (int c = threadIdx.x; c < BM * CPR; c += NT) {
-    const int r = c / CPR;
-    const int col = (c % CPR) * 8;
-    float x[8];
-    if (r < rows) {
-      load8(src + r * ld_g + col, x);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) x[i] = 0.f;
-    }
-    float4* d4 = reinterpret_cast<float4*>(dst + r * ld_s + col);
-    d4[0] = make_float4(x[0], x[1], x[2], x[3]);
-    d4[1] = make_float4(x[4], x[5], x[6], x[7]);
-  }
-}
-
 template <int D>
 constexpr int smem_bytes() {
   return (BM * (D + 4) + BN * (D + 4) + BN * D + BM * (BN + 4)) *
          static_cast<int>(sizeof(float));
 }
 
+
+// The fp32 route: scalar FMAs on the CUDA cores, tiles staged as fp32.
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   constexpr int LDQ = D + 4;   // padded Q/K row stride (floats)
@@ -156,7 +99,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   const T* kg = static_cast<const T*>(p.k) + bb * p.k_sb + kvh * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + bb * p.v_sb + kvh * p.v_sh;
 
-  load_tile<T, D>(Qs, LDQ, qg, p.q_ss, min(BM, p.s - q0));
+  load_tile<T, D, NT>(Qs, LDQ, qg, p.q_ss, min(BM, p.s - q0));
 
   const int tid = threadIdx.x;
   const int r0 = (tid >> 3) * 4;
@@ -181,8 +124,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   for (int kt = k_lo; kt < k_hi; kt += BN) {
     __syncthreads();   // every thread is done with the previous tile
     const int kv_rows = min(BN, p.t - kt);
-    load_tile<T, D>(Ks, LDQ, kg + kt * p.k_ss, p.k_ss, kv_rows);
-    load_tile<T, D>(Vs, D, vg + kt * p.v_ss, p.v_ss, kv_rows);
+    load_tile<T, D, NT>(Ks, LDQ, kg + kt * p.k_ss, p.k_ss, kv_rows);
+    load_tile<T, D, NT>(Vs, D, vg + kt * p.v_ss, p.v_ss, kv_rows);
     __syncthreads();
 
     // scores of rows r0+i against keys kt + cg + 8j
@@ -295,26 +238,276 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+// One warp's step over one key tile of the bf16 forward: S = Q K^T for
+// its 16 rows, the online softmax, O += P V. With RAGGED (the tile runs
+// past T) key blocks past T skip their products; their probabilities are
+// masked to 0, so the result is the same.
+template <int D, bool RAGGED>
+__device__ __forceinline__ void fwd_tile(const Params& p, const bf16* Qs,
+                                         const bf16* Kb, const bf16* Vb,
+                                         int q0, int kt, float sl2,
+                                         float (&o)[D / 8][4], float (&m)[2],
+                                         float (&l)[2]) {
+  constexpr int LD = D + 8;
+  constexpr int NB = BN / 8;
+  constexpr int ND = D / 8;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int c = lane & 3;
+  const int row0 = warp * 16 + (lane >> 2);
+  const int keys_live = p.t - kt;
+
+  // S = Q K^T: the warp's 16 rows against the tile's 64 keys
+  float s[NB][4];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 16) {
+    uint32_t a[4];
+    load_a(a, Qs, LD, warp * 16, kk, lane);
+#pragma unroll
+    for (int nb = 0; nb < NB; nb += 2) {
+      if (RAGGED && nb * 8 >= keys_live) break;
+      uint32_t b[4];
+      load_b_nmajor(b, Kb, LD, nb * 8, kk, lane);
+      mma_bf16(s[nb], a, b[0], b[1]);
+      mma_bf16(s[nb + 1], a, b[2], b[3]);
+    }
+  }
+
+  // mask (only where the tile holds a masked pair), online softmax
+  // on the unscaled scores: p = 2^(s sl2 - m sl2), one FMA each
+  const bool masked = tile_needs_mask(p, q0, BM, kt, BN);
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (masked && !live(p, q0 + row0 + (e >> 1) * 8,
+                          kt + nb * 8 + 2 * c + (e & 1)))
+        s[nb][e] = NEG_INF;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
+    }
+  float msl[2];   // the new max times sl2
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float alpha = exp2f((m[r] - mx[r]) * sl2);
+    m[r] = mx[r];
+    msl[r] = mx[r] * sl2;
+    l[r] *= alpha;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      o[nd][2 * r] *= alpha;
+      o[nd][2 * r + 1] *= alpha;
+    }
+  }
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // a masked pair is exactly 0, also in a row with no live key yet
+      const float pv = s[nb][e] == NEG_INF
+                           ? 0.f
+                           : exp2f(fmaf(s[nb][e], sl2, -msl[e >> 1]));
+      s[nb][e] = pv;
+      l[e >> 1] += pv;
+    }
+
+  // O += P V, P rounded to bf16 in registers as the A operand
+#pragma unroll
+  for (int kb = 0; kb < BN / 16; ++kb) {
+    if (RAGGED && kb * 16 >= keys_live) break;
+    uint32_t a[4];
+    a[0] = pack_bf16(s[2 * kb][0], s[2 * kb][1]);
+    a[1] = pack_bf16(s[2 * kb][2], s[2 * kb][3]);
+    a[2] = pack_bf16(s[2 * kb + 1][0], s[2 * kb + 1][1]);
+    a[3] = pack_bf16(s[2 * kb + 1][2], s[2 * kb + 1][3]);
+#pragma unroll
+    for (int nd = 0; nd < ND; nd += 2) {
+      uint32_t b[4];
+      load_b_kmajor(b, Vb, LD, nd * 8, kb * 16, lane);
+      mma_bf16(o[nd], a, b[0], b[1]);
+      mma_bf16(o[nd + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The bf16 route: see the note at the top. Where D <= 64 the registers
+// are capped at 128 a lane, so that four CTAs share an SM.
+template <int D>
+__global__ void __launch_bounds__(NT, D == 128 ? 1 : 4)
+    flash_fwd_tc_kernel(const Params p) {
+  constexpr int LD = D + 8;     // padded row stride (elements)
+  constexpr int ND = D / 8;     // 8-column blocks of O
+  extern __shared__ uint4 smem_u4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_u4);
+  bf16* Ks = Qs + BM * LD;          // two buffers
+  bf16* Vs = Ks + 2 * BN * LD;      // two buffers
+
+  // CTAs start in linear order; causal q tiles go last-first
+  const int per = gridDim.y * gridDim.z;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y *
+                                                             blockIdx.z);
+  int qt = lin / per;
+  if (p.causal) qt = gridDim.x - 1 - qt;
+  const int hh = (lin % per) % gridDim.y;
+  const int bb = (lin % per) / gridDim.y;
+  const int q0 = qt * BM;
+  const int kvh = hh / (p.h / p.kh);
+  const bf16* qg = static_cast<const bf16*>(p.q) + bb * p.q_sb +
+                   hh * p.q_sh + q0 * p.q_ss;
+  const bf16* kg = static_cast<const bf16*>(p.k) + bb * p.k_sb +
+                   kvh * p.k_sh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + bb * p.v_sb +
+                   kvh * p.v_sh;
+
+  // the key tiles this q tile can see: keys k <= q for causal, and
+  // q - k < window, with q in [q0, q0 + BM)
+  int k_lo = 0, k_hi = p.t;
+  if (p.causal) k_hi = min(k_hi, q0 + BM);
+  if (p.window > 0) k_lo = max(0, q0 - p.window + 1);
+  k_lo -= k_lo % BN;
+
+  load_tile_async<D, BM, NT>(Qs, qg, p.q_ss, min(BM, p.s - q0));
+  if (k_lo < k_hi) {
+    const int rows = min(BN, p.t - k_lo);
+    load_tile_async<D, BN, NT>(Ks, kg + k_lo * p.k_ss, p.k_ss, rows);
+    load_tile_async<D, BN, NT>(Vs, vg + k_lo * p.v_ss, p.v_ss, rows);
+  }
+  cp_async_commit();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int c = lane & 3;
+  const int row0 = warp * 16 + (lane >> 2);   // rows row0 and row0 + 8
+  const float sl2 = p.scale * LOG2E;          // scores to log2 units
+  const bool rows_live = q0 + warp * 16 < p.s;
+
+  float o[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};   // running max of the raw scores
+  float l[2] = {0.f, 0.f};           // this lane's part of the row sum
+
+  int buf = 0;
+  for (int kt = k_lo; kt < k_hi; kt += BN, buf ^= 1) {
+    if (kt + BN < k_hi) {   // the next tile into the other buffer
+      const int rows = min(BN, p.t - kt - BN);
+      load_tile_async<D, BN, NT>(Ks + (buf ^ 1) * BN * LD,
+                                 kg + (kt + BN) * p.k_ss, p.k_ss, rows);
+      load_tile_async<D, BN, NT>(Vs + (buf ^ 1) * BN * LD,
+                                 vg + (kt + BN) * p.v_ss, p.v_ss, rows);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();   // this tile (and Q) has landed
+    __syncthreads();
+    // a warp whose 16 rows all lie past S skips the tile (the ragged tail
+    // of S = 197); a tile past T takes the ragged step
+    if (rows_live) {
+      const bf16* Kb = Ks + buf * BN * LD;
+      const bf16* Vb = Vs + buf * BN * LD;
+      if (kt + BN <= p.t)
+        fwd_tile<D, false>(p, Qs, Kb, Vb, q0, kt, sl2, o, m, l);
+      else
+        fwd_tile<D, true>(p, Qs, Kb, Vb, q0, kt, sl2, o, m, l);
+    }
+    __syncthreads();   // every warp is done with this buffer
+  }
+  cp_async_wait<0>();
+  __syncthreads();     // Q has landed, also where no key tile ran
+
+  // O = acc / max(l, 1e-30) in bf16, staged in the warp's own Q rows (no
+  // other warp reads them) and written 16 bytes at a time; lse = m + log l
+  // in natural units, or LSE_BIG for a row that saw no live key
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  bf16* Ow = Qs + warp * 16 * LD;
+  const int g = lane >> 2;
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) {
+    *reinterpret_cast<uint32_t*>(Ow + g * LD + nd * 8 + 2 * c) =
+        pack_bf16(o[nd][0] * inv[0], o[nd][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(Ow + (g + 8) * LD + nd * 8 + 2 * c) =
+        pack_bf16(o[nd][2] * inv[1], o[nd][3] * inv[1]);
+  }
+  __syncwarp();
+  bf16* og = static_cast<bf16*>(p.o) + bb * p.o_sb + hh * p.o_sh;
+#pragma unroll
+  for (int i = lane; i < 16 * ND; i += 32) {
+    const int r = i / ND;
+    const int col = (i % ND) * 8;
+    const int qpos = q0 + warp * 16 + r;
+    if (qpos < p.s)
+      *reinterpret_cast<uint4*>(og + qpos * p.o_ss + col) =
+          *reinterpret_cast<const uint4*>(Ow + r * LD + col);
+  }
+  if (c == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = q0 + row0 + 8 * r;
+      if (qpos < p.s)
+        p.lse[(static_cast<long long>(bb) * p.h + hh) * p.s + qpos] =
+            m[r] > 0.5f * NEG_INF ? (m[r] * sl2 + log2f(l[r])) * LN2
+                                  : LSE_BIG;
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>();   // above 48 KB for D >= 64
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_kernel<float, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.s + BM - 1) / BM, p.h, p.b);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+  flash_fwd_kernel<float, D><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int d, const Params& p, cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
-    default: return cudaErrorInvalidValue;
+template <int D>
+cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
+  // Q, two K and two V buffers, bf16
+  constexpr int smem = (BM + 4 * BN) * (D + 8) *
+                       static_cast<int>(sizeof(bf16));
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.s + BM - 1) / BM, p.h, p.b);
+  flash_fwd_tc_kernel<D><<<grid, NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(int dtype, int d, const Params& p, cudaStream_t st) {
+  if (dtype == 0) {
+    switch (d) {
+      case 32: return launch_f32<32>(p, st);
+      case 64: return launch_f32<64>(p, st);
+      case 128: return launch_f32<128>(p, st);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  if (dtype == 1) {
+    switch (d) {
+      case 32: return launch_tc<32>(p, st);
+      case 64: return launch_tc<64>(p, st);
+      case 128: return launch_tc<128>(p, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -340,10 +533,8 @@ int repro_flash_fwd(int dtype, int d, const void* q, const void* k,
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.causal = causal; p.window = window; p.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(dispatch_d<float>(d, p, st));
-  if (dtype == 1) return static_cast<int>(dispatch_d<__nv_bfloat16>(d, p, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      dispatch(dtype, d, p, static_cast<cudaStream_t>(stream)));
 }
 
 const char* repro_cuda_error_string(int code) {

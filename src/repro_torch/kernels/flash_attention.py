@@ -20,6 +20,7 @@ contiguous buffer.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -27,6 +28,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_attention, ref_attention_bwd
 
 HEAD_DIMS = (32, 64, 128)
+KEY_TILE = 64               # keys per K3 CTA where no library is loaded
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_MAX = 65535           # grid.y (heads) and grid.z (batch)
 _ALIGN = 8                  # element strides: the kernel moves 8-element chunks
@@ -36,11 +38,15 @@ def _lib_bwd():
     lib = build.load("flash_bwd")
     if lib.repro_flash_bwd_dq.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        common = ([i32, i32] + [ptr] * 8 + [i32] * 5
+                  + [ctypes.POINTER(ctypes.c_longlong)]
+                  + [i32, i32, ctypes.c_float])
+        lib.repro_flash_bwd_dq.argtypes = common + [ptr]
+        lib.repro_flash_bwd_dkv.argtypes = common + [i32, ptr, ptr]
         for fn in (lib.repro_flash_bwd_dq, lib.repro_flash_bwd_dkv):
-            fn.argtypes = ([i32, i32] + [ptr] * 8 + [i32] * 5
-                           + [ctypes.POINTER(ctypes.c_longlong)]
-                           + [i32, i32, ctypes.c_float, ptr])
             fn.restype = i32
+        lib.repro_flash_key_tile.argtypes = []
+        lib.repro_flash_key_tile.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -214,10 +220,31 @@ def flash_attention_bwd_dq(q, k, v, out, lse, do, *, causal=True, window=0):
     return dq, delta
 
 
+class DkvSplit(NamedTuple):
+    gs: int                 # CTAs that share one GQA group's query heads
+    scratch_shape: tuple    # fp32 partials (gs, 2, B, KH, T, D); () if none
+
+
+def dkv_group_split(b, kh, t, d, group, n_sm, key_tile=KEY_TILE):
+    """How K3's bf16 kernel splits each GQA group of ``group`` query heads:
+    over ``gs`` CTAs, the smallest divisor of ``group`` that gives at least
+    two CTAs per SM (``n_sm`` SMs), or the whole group where none does; 1
+    where the unsplit grid of ceil(T/key_tile) x KH x B CTAs already does.
+    The wrapper passes the built kernel's own ``key_tile``. With ``gs`` > 1
+    each CTA writes fp32 partial dk, dv that a second launch sums in a
+    fixed order, into scratch of ``scratch_shape``."""
+    ctas = -(-t // key_tile) * kh * b
+    gs = next((g for g in range(1, group + 1)
+               if group % g == 0 and ctas * g >= 2 * n_sm), group)
+    return DkvSplit(gs, (gs, 2, b, kh, t, d) if gs > 1 else ())
+
+
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
                             window=0):
     """K3: (dk, dv), each in its primal's dtype and memory layout, summed
-    over the GQA group, from the fp32 ``lse`` and K2's ``delta``."""
+    over the GQA group, from the fp32 ``lse`` and K2's ``delta``. In bf16
+    the group may be split over CTAs (:func:`dkv_group_split`); the kernel's
+    two launches then count as one."""
     if q.device.type == "cpu":
         _, dk, dv, _ = ref_attention_bwd(q, k, v, None, lse, do,
                                          causal=causal, window=window,
@@ -229,11 +256,21 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
         raise ValueError("delta must be a contiguous float32 (B,H,S) "
                          "tensor on q's device")
     b, h, s, d = q.shape
+    kh, t = k.shape[1], k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    split, scratch = DkvSplit(1, ()), None
+    if q.dtype == torch.bfloat16:   # fp32 takes the CUDA-core kernel, unsplit
+        split = dkv_group_split(b, kh, t, d, h // kh, torch.cuda
+                                .get_device_properties(q.device)
+                                .multi_processor_count,
+                                _lib_bwd().repro_flash_key_tile())
+        if split.gs > 1:
+            scratch = torch.empty(split.scratch_shape, dtype=torch.float32,
+                                  device=q.device)
     _launch("repro_flash_bwd_dkv", "flash_bwd_dkv", (
         _DTYPE_CODE[q.dtype], d, q, k, v, do, lse, delta, dk, dv, b, h,
-        k.shape[1], s, k.shape[2], _strides(q, k, v, do, dk, dv),
-        int(bool(causal)), int(window), d ** -0.5))
+        kh, s, t, _strides(q, k, v, do, dk, dv),
+        int(bool(causal)), int(window), d ** -0.5, split.gs, scratch))
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 

@@ -17,6 +17,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import functools  # noqa: E402
+import re  # noqa: E402
+from pathlib import Path  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -243,3 +245,89 @@ def test_kernel_layout_copies_only_what_the_kernels_refuse(monkeypatch):
         assert fixed.is_contiguous() and torch.equal(fixed, odd)
         assert fixed.data_ptr() % 16 == 0
     assert fa.kernel_layout.copies == 4
+
+
+def test_build_cache_sees_the_shared_header(tmp_path, monkeypatch):
+    """The library's name digests every ``csrc/*.cuh`` beside the source,
+    so an edit to the shared flash header rebuilds K1-K3 (no ``nvcc``
+    needed to check)."""
+    from repro_torch.kernels import build
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    header = tmp_path / "common.cuh"
+    header.write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.lib_path("k")
+    assert build.lib_path("k") == first
+    header.write_text("// v2\n")
+    second = build.lib_path("k")
+    assert second != first and second.parent == first.parent
+    (tmp_path / "other.cuh").write_text("// new\n")
+    assert build.lib_path("k") not in (first, second)
+    assert {p.name for p in (tmp_path.glob("*.cuh"))} == {"common.cuh",
+                                                          "other.cuh"}
+
+
+# b, kh, t, d, group: the ViT-B/16 training and eval shapes (MHA), a
+# 1-head group, the decoder's attention (GQA 32:2), and a group of 6
+SPLIT_SHAPES = [(64, 12, 197, 64, 1), (128, 12, 197, 64, 1),
+                (4, 4, 130, 64, 1), (4, 2, 1024, 128, 16),
+                (1, 2, 300, 64, 6)]
+
+
+@pytest.mark.parametrize("b,kh,t,d,group", SPLIT_SHAPES)
+def test_dkv_group_split(b, kh, t, d, group):
+    n_sm = 132
+    split = fa.dkv_group_split(b, kh, t, d, group, n_sm)
+    ctas = -(-t // fa.KEY_TILE) * kh * b
+    assert group % split.gs == 0
+    if group == 1 or ctas >= 2 * n_sm:     # the ViT shapes: no split
+        assert split.gs == 1 and split.scratch_shape == ()
+    else:                                  # at least two CTAs per SM
+        assert ctas * split.gs >= 2 * n_sm or split.gs == group
+        assert split.scratch_shape == (split.gs, 2, b, kh, t, d)
+    if (b, kh, t, group) == (4, 2, 1024, 16):
+        # 512 CTAs; dk and dv partials of 4 x 2 x 4 x 1024 x 128 fp32 each
+        scratch = torch.empty(split.scratch_shape, dtype=torch.float32)
+        assert split.gs == 4 and ctas * split.gs == 512
+        assert scratch.nbytes == 2 * (4 * 2 * 4 * 1024 * 128 * 4)
+
+
+def test_key_tile_matches_the_kernel_header():
+    """Where no library is loaded, :func:`dkv_group_split` sizes K3's grid
+    with ``KEY_TILE``; it must be the header's BN, which the built kernel
+    reports through ``repro_flash_key_tile``."""
+    header = Path(fa.__file__).parent / "csrc" / "flash_common.cuh"
+    tiles = re.findall(r"constexpr int BN = (\d+);", header.read_text())
+    assert tiles == [str(fa.KEY_TILE)]
+    split = fa.dkv_group_split(4, 2, 1024, 128, 16, 132, key_tile=128)
+    assert split.gs == 8        # half the key tiles: twice the split
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_group_split_partials_sum_to_the_unsplit_gradients(causal):
+    """K3's split in plain form: each of ``gs`` CTAs sums dk, dv over its
+    slice of every group's query heads (heads kvh*g + j*g/gs ..), and the
+    second launch adds the fp32 partials in slice order j = 0, 1, ...;
+    that equals the unsplit fp32 dk, dv within 1e-6 of their largest
+    value (the sums regroup, so they differ by fp32 rounding: a few
+    e-6 where a sum of terms of order 10 nearly cancels), and ``jax.grad``
+    of the JAX package's ``ref_attention`` within the fp32 gate."""
+    b, h, kh, s, d, gs = 2, 16, 2, 70, 32, 4
+    g = h // kh
+    q, k, v, w = (torch.from_numpy(x) for x in _inputs(b, h, kh, s, d, 5))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    _, dk, dv, delta = ref_attention_bwd(q, k, v, out, lse, w, causal=causal)
+    sum_k, sum_v = torch.zeros_like(dk), torch.zeros_like(dv)
+    for j in range(gs):
+        heads = [kvh * g + j * (g // gs) + i for kvh in range(kh)
+                 for i in range(g // gs)]
+        _, pk, pv, _ = ref_attention_bwd(
+            q[:, heads], k, v, None, lse[:, heads], w[:, heads],
+            causal=causal, delta=delta[:, heads])
+        sum_k, sum_v = sum_k + pk, sum_v + pv
+    for got, want in ((sum_k, dk), (sum_v, dv)):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-6 * float(want.abs().max()))
+    want = _jax_grads(*(jnp.asarray(x.numpy()) for x in (q, k, v, w)),
+                      causal=causal, window=0)
+    _assert_close((sum_k, sum_v), want[1:], TOL["float32"])

@@ -1,8 +1,9 @@
 """Port parity for the RWKV6 slice (``rwkv6-7b``): the config, the param
 tree, the per-head group norm, token shift and data-dependent lerp, the
 time mix and channel mix, the model's logits, loss and gradients, a 3-step
-SGD trajectory, the gradients at an ill-conditioned batch and the training
-CLI.
+SGD trajectory, the gradients at an ill-conditioned batch, the bf16
+gradients of two AdamW steps on both sides (the model's conditioning near
+the group norm's eps) and the training CLI.
 
 The reference side is built from the JAX package's pure functions
 (``repro.models.rwkv6``, ``model.forward``, ``model.loss_fn`` with
@@ -43,6 +44,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import train as cli  # noqa: E402
 from repro_torch.models import norms, rwkv6, transformer  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.optim.optimizers import make_optimizer  # noqa: E402
 
 ARCH = "rwkv6-7b"
 LOGITS_TOL, LOSS_TOL, GRAD_TOL, TRAJ_TOL = 1e-4, 1e-5, 2e-4, 2e-4
@@ -417,3 +419,129 @@ def test_model_config_rejects_rwkv_without_its_family():
         ModelConfig(name="x", arch_type="dense", num_layers=1, d_model=64,
                     num_heads=2, num_kv_heads=2, d_ff=64, vocab_size=8,
                     block_kind="rwkv6", ssm=SSMConfig())
+
+
+def _position0_spies(records):
+    """Spies on both sides' group norm that record the smallest
+    position-0 input variance (over batch rows and heads) of each call."""
+    def ref_spy(x, *a):
+        var = jnp.var(x.astype(jnp.float32)[:, 0], axis=-1).min()
+        jax.debug.callback(lambda v: records.append(float(v)), var)
+        return ref_norms.groupnorm_heads(x, *a)
+
+    def port_spy(x, *a):
+        records.append(float(x.detach().float()[:, 0]
+                             .var(-1, unbiased=False).min()))
+        return norms.groupnorm_heads(x, *a)
+    return ref_spy, port_spy
+
+
+def _cosine(a, b):
+    a = np.concatenate([np.asarray(a[k], np.float64).ravel()
+                        for k in sorted(a)])
+    b = np.concatenate([np.asarray(b[k], np.float64).ravel()
+                        for k in sorted(b)])
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def test_bf16_gradient_blow_up_is_the_models_conditioning(smoke,
+                                                          monkeypatch):
+    """ROADMAP fault F1 (RWKV6 bf16 gradients after one or two AdamW
+    steps), settled. From the same transferred smoke params, the reference
+    (``loss_fn`` + ``jax.value_and_grad`` + AdamW ``update``, its chunked
+    WKV6: the Pallas calls raise here) and the port (the kernel-dispatch
+    and the naive path, each with its own AdamW) take two bf16 steps of
+    batch 4 x 48 at the CLI's lr 3e-4. At each of the three points, each
+    side records the smallest position-0 group-norm input variance and
+    the cosine of its bf16 gradient to its fp32 gradient.
+
+    The smoke width does reach the eps: at init the fp32 variance is
+    ~7e-7, under the model's 1e-5. There both sides give the same bf16
+    variance (~7.7e-5, mostly rounding) and the same blow-up (bf16 to
+    fp32 cosine ~0.64 on each side). At every point of the reference's
+    trajectory the port's fp32 gradient and variance equal the
+    reference's. After two steps, where every side's variance is over 100
+    times the eps, every bf16 gradient is back within cosine 0.99 of its
+    fp32 one. So the port does not depart from the reference: the blow-up
+    is the model's conditioning, which bf16 rounding then amplifies."""
+    _, params, tree = smoke
+    cfg = ref_configs.get_smoke_config(ARCH).replace(dtype="float32")
+    eps, lr, steps = cfg.norm_eps, 3e-4, 2
+    pipe = RefPipeline(kind="token", global_batch=4, vocab=VOCAB,
+                       seq_len=SEQ, epoch_size=4 * (steps + 1))
+    batches = [pipe.batch_at(0, i)["tokens"] for i in range(steps + 1)]
+    records = []
+    ref_spy, port_spy = _position0_spies(records)
+    monkeypatch.setattr(ref_rwkv6, "groupnorm_heads", ref_spy)
+    monkeypatch.setattr(rwkv6, "groupnorm_heads", port_spy)
+    ref_vg = {dt: jax.jit(jax.value_and_grad(
+        lambda p, b, dt=dt: ref_model.loss_fn(cfg.replace(dtype=dt), p, b),
+        has_aux=True)) for dt in ("bfloat16", "float32")}
+
+    def ref_point(p, tokens):
+        out = {}
+        for dt, vg in ref_vg.items():
+            records.clear()
+            _, g = vg(p, {"tokens": jnp.asarray(tokens)})
+            g = jax.block_until_ready(g)
+            out[dt] = (min(records), g)
+        return out
+
+    def port_point(p, tokens, use_kernels):
+        out = {}
+        for dt in ("bfloat16", "float32"):
+            leaves = {k: v.detach().clone().requires_grad_()
+                      for k, v in p.items()}
+            records.clear()
+            loss, _ = transformer.loss_fn(
+                _port_cfg(use_kernels).replace(dtype=dt), leaves,
+                {"tokens": torch.from_numpy(tokens)})
+            out[dt] = (min(records), dict(zip(
+                leaves, torch.autograd.grad(loss, list(leaves.values())))))
+        return out
+
+    def reading(point, flat):
+        var16, g16 = point["bfloat16"]
+        var32, g32 = point["float32"]
+        return var16, var32, _cosine(flat(g16), flat(g32))
+
+    ref_opt = ref_make_optimizer("adamw")
+    ref_state = ref_opt.init(params)
+    ref_flat = lambda g: jax.tree.map(np.asarray, _flat(g))  # noqa: E731
+    port_flat = lambda g: {k: v.numpy() for k, v in g.items()}  # noqa
+    port_opt = make_optimizer("adamw")
+    own = {}
+    for use_kernels in (True, False):
+        p = params_from_numpy(tree)
+        own[use_kernels] = [p, port_opt.init(p)]
+    readings = {"ref": [], True: [], False: []}
+    for i, tokens in enumerate(batches):
+        ref = ref_point(params, tokens)
+        readings["ref"].append(reading(ref, ref_flat))
+        at_ref = port_point(params_from_numpy(jax.tree.map(np.array,
+                                                           params)),
+                            tokens, True)
+        # the port at the reference's params: the same fp32 conditioning
+        # and the same fp32 gradient
+        np.testing.assert_allclose(at_ref["float32"][0], ref["float32"][0],
+                                   rtol=1e-2, err_msg=f"step {i}")
+        assert _cosine(port_flat(at_ref["float32"][1]),
+                       ref_flat(ref["float32"][1])) >= 0.9999
+        for use_kernels, (p, state) in own.items():
+            point = port_point(p, tokens, use_kernels)
+            readings[use_kernels].append(reading(point, port_flat))
+            if i < steps:
+                own[use_kernels][:2] = port_opt.update(
+                    point["bfloat16"][1], state, p, lr)[:2]
+        if i < steps:
+            params, ref_state, _ = ref_opt.update(ref["bfloat16"][1],
+                                                  ref_state, params, lr)
+    (r16, r32, r_cos) = readings["ref"][0]
+    for side in (True, False):
+        p16, p32, p_cos = readings[side][0]
+        # at init: the same variances and the same blow-up on both sides
+        np.testing.assert_allclose([p16, p32], [r16, r32], rtol=1e-2)
+        assert p32 < eps and abs(p_cos - r_cos) <= 0.01 and p_cos < 0.99
+    for side, rows in readings.items():
+        var16, var32, cos = rows[-1]
+        assert min(var16, var32) > 100 * eps and cos >= 0.99, (side, rows)
