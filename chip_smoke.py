@@ -19,9 +19,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    version and PyTorch's
    ``scaled_dot_product_attention`` (a yardstick the port never calls) at
    the ViT-B/16 shape, beside the card's bound for the same work.
-4. K2 and K3 against ``ref_attention_bwd`` at the same cases, with the
-   ViT-B/16 training micro-shape (B 64) in place of the eval shape and the
-   model's (B,S,H,D) layout there; ``torch.autograd.grad`` through
+4. K2 and K3 against ``ref_attention_bwd`` at the same cases (bf16 on
+   their tensor-core routes, fp32 on the CUDA cores), with the ViT-B/16
+   training micro-shape (B 64) in place of the eval shape and the model's
+   (B,S,H,D) layout there; ``torch.autograd.grad`` through
    ``flash_mha`` against the plain backward; then K1-K3, the plain forward
    and backward and SDPA's forward and backward (its forward+backward less
    its forward, the one yardstick K2 and K3 share) timed at the
@@ -34,9 +35,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    both timed at the decoder's shape beside the plain versions and
    ``F.rms_norm`` (a yardstick the port never calls).
 6. K1-K3 at the decoder's attention shape (B 4, H 32, KH 2, S = T = 1024,
-   D 128, causal) against their plain versions in bf16 and fp32, K3 run
-   twice for bitwise equal dk and dv, then timed as in phase 4 (SDPA with
-   ``enable_gqa``).
+   D 128, causal) against their plain versions in bf16 and fp32, K2 run
+   twice for bitwise equal dq and delta and K3 for bitwise equal dk and
+   dv, K2's grid printed from the built kernel's query tile, then timed as
+   in phase 4 (SDPA with ``enable_gqa``).
 6b. K6 (with and without states) and K7 against ``ref_wkv6_fwd``/
    ``ref_wkv6_bwd`` at the RWKV6 slice's shape (B 4, S 1024, H 64, P 64,
    chunk 32; bf16 r/k/v with fp32 wlog, and fp32), the smoke shape, the
@@ -45,7 +47,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    o also against the sequential ``ref_wkv6`` where S <= 128), K7 twice for
    bitwise equal gradients, ``torch.autograd.grad`` through ``ops.wkv6``
    (ragged, padded; and the slice's shape with no copy or pad); then both
-   timed at the slice's shape beside their plain versions and bounds.
+   timed at the slice's shape beside their plain versions and bounds,
+   with the bytes K7's two launches move as designed.
 7. the eval slice: ``repro_torch.launch.train --arch vit-b16 --steps 0
    --eval-every 1 --eval-batch 128`` on procedural CIFAR-10 (500 examples,
    4 batches, the last mask-padded) with the launch counters reset just
@@ -58,7 +61,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    240 each); every loss and grad-norm finite and ``step_ok`` 1; then the
    loss and all parameter gradients of one full-width microbatch through
    the kernel and the naive path (fp32 within 2e-4; bf16 cosine >= 0.99),
-   and warm training images/s of both paths.
+   and warm training images/s of both paths, every kernel-path run faster
+   than every naive-path run.
 9. the decoder training slice: ``--arch chatglm3-6b --layers 4 --seq 1024
    --batch 8 --accum 2 --steps 10`` in bf16 with the counters reset just
    before and read just after (K1-K3 10 x 2 x 4 = 80 each, K4 and K5
@@ -77,7 +81,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    RMSNorm, the chunked WKV6) on one microbatch of 4 x 1024 (bf16 cosine
    >= 0.99; fp32 within 2e-4 with the group norm's eps raised to 1e-3,
    and at the model's eps printed as a reading); warm training tokens/s of
-   both paths; then the run's first two steps replayed in process, and at
+   both paths, every kernel-path run faster than every naive-path run;
+   then the run's first two steps replayed in process, and at
    the params after each K6/K7 against their plain versions on the
    model's own WKV6 inputs and cotangent and fp32 kernel against naive
    gradients with the norm eps at 1e-3 (2e-4), with the bf16 and fp32
@@ -87,10 +92,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 each training slice, and at the end (after every timed phase) of one warm
 bf16 eval pass of the eval slice.
 The last lines are one JSON object for the kernels (K1-K3 with the
-decoder's numbers and the ViT's under ``vit``, K1 and K3 with the bf16
-time of their earlier CUDA-core design beside, K4/K5 with the RWKV6 run's
-launches and the decoder's beside them, K6/K7), the card's ``nvidia-smi``
-name and power limit, and the ``ok`` line.
+decoder's numbers and the ViT's under ``vit``, K4/K5 with the RWKV6 run's
+launches and the decoder's beside them, K6/K7; each redesigned kernel with
+its ``routes``), the card's
+``nvidia-smi`` name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
 
@@ -221,11 +226,22 @@ CASES = [
     ("D=128", (2, 32, 2, 197, 197, 128), "float32", True, 0, False),
     ("D=128", (2, 32, 2, 197, 197, 128), "bfloat16", True, 0, True),
 ]
-# K1 and K3 were redesigned for the tensor cores; their rows say so, and
-# PERF.md's kernel table keeps the earlier CUDA-core design's times
-REDESIGNED = ("flash_fwd", "flash_bwd_dkv")
-ROUTES = ("bf16: tensor cores (mma.sync m16n8k16, cp.async double "
-          "buffering); fp32: CUDA cores")
+# The redesigned kernels and the routes each takes; their rows say so, and
+# PERF.md's kernel table keeps the earlier design's times
+ROUTES = {
+    "flash_fwd": "bf16: tensor cores (mma.sync m16n8k16: S = Q K^T, O += "
+                 "P V; cp.async double buffering); fp32: CUDA cores",
+    "flash_bwd_dq": "bf16: tensor cores (mma.sync m16n8k16: S = Q K^T, dP = "
+                    "dO V^T, dq += dS K; cp.async double buffering); fp32: "
+                    "CUDA cores",
+    "flash_bwd_dkv": "bf16: tensor cores (mma.sync m16n8k16: S^T = K Q^T, "
+                     "dP^T = V dO^T, dV += P^T dO, dK += dS^T Q; cp.async "
+                     "double buffering; GQA group split); fp32: CUDA cores",
+    "wkv6_bwd": "fp32 CUDA cores in both dtypes, two launches: the reverse "
+                "scan of the state gradient over 16-row slices of it, then "
+                "one CTA per (b, h, chunk) with register-tiled products",
+}
+REDESIGNED = tuple(ROUTES)
 
 
 def fail(msg):
@@ -338,16 +354,19 @@ def phase_build():
         for line in log.splitlines():
             m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_tc)?_kernel|"
                           r"dkv_reduce_kernel|rmsnorm_(?:fwd|bwd)_kernel|"
-                          r"dscale_reduce_kernel|wkv6_(?:fwd|bwd)_kernel)"
-                          r"(?:I((?:f|13__nv_bfloat16)*)(?:Li(\d+)E)?)?",
-                          line)
+                          r"dscale_reduce_kernel|"
+                          r"wkv6_(?:fwd|bwd_scan|bwd_chunk)_kernel)"
+                          r"(?:I((?:f|13__nv_bfloat16|S\d*_)*)"
+                          r"((?:Li\d+E)*))?", line)
             if m and "Compiling entry" in line:
-                types = re.findall(r"f|13__nv_bfloat16", m.group(2) or "")
+                # a repeated type is mangled as a back-reference (S_, S0_)
+                types = re.findall(r"f|13__nv_bfloat16|S\d*_", m.group(2) or "")
                 args = ["fp32" if t == "f" else "bf16" for t in types]
                 if "_tc_" in m.group(1):    # the bf16 tensor-core route
                     args = ["bf16"]
-                args += [f"{'P' if 'wkv6' in m.group(1) else 'D'}="
-                         f"{m.group(3)}"] if m.group(3) else []
+                names = ("P", "cs") if "wkv6" in m.group(1) else ("D",)
+                args += [f"{n}={v}" for n, v in zip(
+                    names, re.findall(r"Li(\d+)E", m.group(3) or ""))]
                 kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
             elif "registers" in line or "spill" in line:
                 print(f"[build] {kernel}: {line.strip()}")
@@ -556,15 +575,19 @@ def model_layout_inputs(gen):
 
 def phase_lm_attention(card):
     """K1, K2 and K3 at the decoder's attention shape (causal, GQA 32:2,
-    head dim 128, S = T = 1024), where no earlier slice ran them: against
-    their plain versions in bf16 and fp32, K3 run twice for bitwise equal
-    dk and dv (its bf16 route splits each GQA group over 4 CTAs and sums
-    their partials in a fixed order), then timed."""
+    head dim 128, S = T = 1024): against their plain versions in bf16 and
+    fp32, K2 run twice for bitwise equal dq and delta, K3 run twice for
+    bitwise equal dk and dv (its bf16 route splits each GQA group over 4
+    CTAs and sums their partials in a fixed order), then timed."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import ref_attention, ref_attention_bwd
 
     inputs = model_layout_inputs(torch.Generator(device="cuda").manual_seed(3))
+    b, h, _, s, _, _ = LM_ATTN_SHAPE
+    tile = fa._lib_bwd().repro_flash_query_tile()
+    print(f"[lm-attn] K2 grid: ceil({s} / {tile}) q tiles x {h} heads x {b} "
+          f"= {-(-s // tile) * h * b} CTAs", flush=True)
     errs = {}
     for dname in ("bfloat16", "float32"):
         dtype, tol = getattr(torch, dname), TOL_OUT[dname]
@@ -572,9 +595,11 @@ def phase_lm_attention(card):
         kw = {"causal": True}
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, **kw)
+        dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, **kw)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
         dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
         torch.cuda.synchronize()
+        same_dq = torch.equal(dq, dq2) and torch.equal(delta, delta2)
         same = torch.equal(dk, dk2) and torch.equal(dv, dv2)
         ref_out, ref_lse = ref_attention(q, k, v, **kw)
         want = ref_attention_bwd(q, k, v, out, lse, do, **kw)
@@ -583,12 +608,12 @@ def phase_lm_attention(card):
                "dq": close(dq, want[0], tol), "dk": close(dk, want[1], tol),
                "dv": close(dv, want[2], tol),
                "delta": close(delta, want[3], TOL_DELTA)}
-        ok = all(r[1] for r in res.values()) and same
+        ok = all(r[1] for r in res.values()) and same and same_dq
         print(f"[lm-attn] {LM_ATTN_SHAPE} {dname} causal: " + " ".join(
             f"max|d{key}|={r[0]:.3e}" for key, r in res.items())
-            + f" (tol {tol}, rtol {tol}; lse and delta {TOL_LSE}); K3 run "
-            f"twice bitwise equal {same} {'ok' if ok else 'FAIL'}",
-            flush=True)
+            + f" (tol {tol}, rtol {tol}; lse and delta {TOL_LSE}); K2 run "
+            f"twice bitwise equal dq and delta {same_dq}; K3 run twice "
+            f"bitwise equal {same} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"K1-K3 disagree with their plain versions at the decoder "
                  f"shape in {dname}")
@@ -730,7 +755,11 @@ def wkv6_work(shape, el, w_el):
     K7 takes 8 cs P^2 + 4 P^2 for its four state products, 14 per pair and
     column (the decay 2, att 3, dr_att 3, dk_att 2 with dA·decay shared,
     dA 2, dv 2) and ~20 cs P elementwise. Returns {"fwd": with states,
-    "primal": without, "bwd"}."""
+    "primal": without, "bwd", "bwd_design": the bytes K7's two launches
+    move as designed, each reading dO once: the scan reads r, wlog, dO and
+    dS_end and writes every G_c (the size of the states) and ds0; the chunk
+    launch reads r, k, v, wlog, u, dO, the states and the G_c and writes
+    the gradients and the du partials}."""
     b, s, h, p, cs = shape
     n, pp, bh = b * s * h * p, b * h * p * p, b * h
     nc, pairs = s // cs, cs * (cs - 1) // 2
@@ -741,10 +770,14 @@ def wkv6_work(shape, el, w_el):
     bwd_ops = bh * nc * (8 * cs * p * p + 4 * p * p + 14 * pairs * p
                          + 20 * cs * p)
     primal = ins + 2 * pp * 4 + n * 4               # + s0, s_end, o
+    outs = 3 * n * el + n * w_el                    # dr/dk/dv, dwlog
+    scan = n * el + n * w_el + n * 4 + pp * 4 + states + pp * 4
+    chunks = ins + n * 4 + 2 * states + outs + bh * nc * p * 4
     return {"fwd": (primal + states, fwd_ops), "primal": (primal, fwd_ops),
-            # + states, dO, dS_end; dr/dk/dv, dwlog, ds0, du partials
-            "bwd": (ins + states + n * 4 + pp * 4 + 3 * n * el + n * w_el
-                    + pp * 4 + bh * p * 4, bwd_ops)}
+            # + states, dO, dS_end; dr/dk/dv, dwlog, ds0, du per (b, h)
+            "bwd": (ins + states + n * 4 + pp * 4 + outs + pp * 4
+                    + bh * p * 4, bwd_ops),
+            "bwd_design": (scan + chunks, bwd_ops)}
 
 
 def phase_wkv6(card):
@@ -892,6 +925,11 @@ def phase_wkv6(card):
               f"({how})", flush=True)
         rows[key] = {"ms": ms[key], "plain_ms": plain[key],
                      "bound_ms": bound_ms, "bound_by": bound_by}
+    design_ms, _, how = bound(card, *work["bwd_design"], rate="fp32")
+    print(f"[wkv6] K7's two launches as designed move "
+          f"{work['bwd_design'][0] / 1e6:.1f} MB, {design_ms:.4f} ms at the "
+          f"card's memory rate ({how}); the function's own bound is "
+          f"{rows['bwd']['bound_ms']:.4f} ms", flush=True)
     out = []
     for key, line in (("fwd", 57), ("bwd", 184)):
         out.append({"name": f"wkv6_{key}", "route": "cuda",
@@ -1203,6 +1241,7 @@ def phase_train(profile):
               f"{ips:.1f} images/s, {ms:.2f} ms per optimizer step (batch "
               f"128, accum 2; runs {[round(r[0], 1) for r in rs]} "
               f"images/s)", flush=True)
+    require_kernel_wins("vit-b16", rates)
     if profile:
         trainer, pipe = train_setup("bfloat16", True)
         profile_step("vit-b16 (bf16, batch 128, accum 2)", trainer, pipe,
@@ -1236,8 +1275,7 @@ def phase_lm_train(profile):
     attn, norms = 10 * 2 * LM_LAYERS, 10 * 2 * (2 * LM_LAYERS + 1)
     return decoder_train("chatglm3-6b", LM_LAYERS, LM_TRAIN_ARGS, {
         "flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
-        "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}, "lm", profile,
-        kernel_must_win=True)
+        "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}, "lm", profile)
 
 
 def phase_rwkv_train(profile):
@@ -1255,8 +1293,17 @@ def phase_rwkv_train(profile):
     return launches
 
 
-def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None,
-                  kernel_must_win=False):
+def require_kernel_wins(tag, rates):
+    """Fail unless every timed kernel-path run of ``rates`` ({"kernel":
+    [...], "naive": [...]}, each run (rate, ms)) was faster than every
+    naive-path run."""
+    if min(r[0] for r in rates["kernel"]) <= \
+            max(r[0] for r in rates["naive"]):
+        fail(f"{tag}: a timed kernel-path run was not faster than every "
+             f"naive-path run")
+
+
+def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None):
     """A decoder's training slice at full width cut to ``layers`` layers:
     ``argv`` (bf16, batch 8 x LM_SEQ, accum 2, 10 steps) through the CLI
     with the launch counters reset just before and read just after
@@ -1266,9 +1313,9 @@ def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None,
     microbatch of 4 x LM_SEQ (fp32 within 2e-4; with ``fp32_eps`` the fp32
     agreement at the model's own norm eps is printed ungated and the gate
     holds a copy of the config with ``norm_eps=fp32_eps``; bf16 cosine >=
-    0.99), and warm training tokens/s of both paths (with
-    ``kernel_must_win``, every kernel-path run faster than every naive-path
-    run, or the phase fails). The previous phase's
+    0.99), and warm training tokens/s of both paths (every kernel-path run
+    faster than every naive-path run, or the phase fails). The previous
+    phase's
     tensors are freed first, so two models never stand together. Returns
     (launches, the CLI's metrics rows)."""
     import gc
@@ -1337,10 +1384,7 @@ def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None,
               f"8 x {LM_SEQ}, accum 2; runs "
               f"{[round(r[0] * LM_SEQ, 1) for r in rs]} tokens/s)",
               flush=True)
-    if kernel_must_win and min(r[0] for r in rates["kernel"]) <= \
-            max(r[0] for r in rates["naive"]):
-        fail(f"{arch}: a timed kernel-path run was not faster than every "
-             f"naive-path run")
+    require_kernel_wins(arch, rates)
     if profile:
         trainer, pipe = lm_setup("bfloat16", True, **kw)
         profile_step(f"{arch} ({layers} layers, bf16, batch 8 x {LM_SEQ}, "
@@ -1504,7 +1548,7 @@ def main():
                if k not in ("name", "route", "source", "replaces")}
         vit["launches"] = vit_launches[row["name"]]
         if row["name"] in REDESIGNED:
-            row = dict(row, redesigned=True, routes=ROUTES)
+            row = dict(row, redesigned=True, routes=ROUTES[row["name"]])
         kernels.append(dict(row, **lm_attn[key],
                             launches=lm_launches[row["name"]], vit=vit))
     # K4/K5 run on both decoder paths: the row's launches are the RWKV6
@@ -1513,6 +1557,8 @@ def main():
         kernels.append(dict(row, launches=rwkv_launches[row["name"]],
                             chatglm3_launches=lm_launches[row["name"]]))
     for row in wkv_rows:
+        if row["name"] in REDESIGNED:
+            row = dict(row, redesigned=True, routes=ROUTES[row["name"]])
         kernels.append(dict(row, launches=rwkv_launches[row["name"]]))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,7 +6,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch headers, so
 flags, so an edit to any of them rebuilds). The build happens at first
 use, from the sources in the checkout only; a failed build raises with the
 compiler's output. ``nvcc``'s ``-Xptxas -v`` report (registers, shared
-memory, spills) is kept beside the library as ``.log``.
+memory, spills) is kept beside the library as ``.log``. Every function
+takes its sources from ``CSRC`` unless given another directory, such as a
+copy of ``csrc/`` with one part of a kernel taken out for a timing
+ablation.
 """
 from __future__ import annotations
 
@@ -36,23 +39,27 @@ def _nvcc() -> str:
     return path
 
 
-def lib_path(name: str) -> Path:
-    """The library for ``csrc/<name>.cu``, named by a digest of that source,
-    every ``csrc/*.cuh`` header (name and content) and the flags."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+def lib_path(name: str, csrc: Path | None = None) -> Path:
+    """The library for ``<csrc>/<name>.cu``, named by a digest of that
+    source, every ``*.cuh`` header beside it (name and content) and the
+    flags."""
+    csrc = csrc or CSRC
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=SOURCES) -> dict:
-    """Compile each named source that has no library yet, one ``nvcc``
-    per source, all started together. Returns {name: compiler log}."""
+def build(names=SOURCES, csrc: Path | None = None) -> dict:
+    """Compile each named source of ``csrc`` that has no library yet, one
+    ``nvcc`` per source, all started together. Returns {name: compiler
+    log}."""
+    csrc = csrc or CSRC
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in names:
-        so = lib_path(name)
+        so = lib_path(name, csrc)
         if so.exists():
             continue
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
@@ -60,7 +67,7 @@ def build(names=SOURCES) -> dict:
         with open(log, "w") as f:
             proc = subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                 str(CSRC / f"{name}.cu")],
+                 str(csrc / f"{name}.cu")],
                 stdout=f, stderr=subprocess.STDOUT)
         jobs[name] = (proc, tmp, so, log)
     logs, failed = {}, []
@@ -77,12 +84,13 @@ def build(names=SOURCES) -> dict:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it first if
-    needed; cached for the life of the process."""
-    if name not in _loaded:
-        so = lib_path(name)
+def load(name: str, csrc: Path | None = None) -> ctypes.CDLL:
+    """The loaded library for ``<csrc>/<name>.cu``, building it first if
+    needed; cached by directory and name for the life of the process."""
+    key = (csrc or CSRC, name)
+    if key not in _loaded:
+        so = lib_path(name, key[0])
         if not so.exists():
-            build([name])
-        _loaded[name] = ctypes.CDLL(str(so))
-    return _loaded[name]
+            build([name], key[0])
+        _loaded[key] = ctypes.CDLL(str(so))
+    return _loaded[key]

@@ -23,9 +23,10 @@
 // and dv, and reads lse and Delta: the same 117.4 MB; its four products are
 // 15.3 GFLOP, 15 us. Both are bound by bytes.
 //
-// At the ChatGLM3 shape (B=4, H=32, KH=2, S=T=1024, D=128, causal) K3's
-// four causal products are 68.8 GFLOP, 69.5 us, against 76.5 MB (22.8 us):
-// operations bound it there.
+// At the ChatGLM3 shape (B=4, H=32, KH=2, S=T=1024, D=128, causal) K2's
+// three causal products are 51.6 GFLOP (52 us) against 139.5 MB (42 us),
+// and K3's four 68.8 GFLOP (70 us) against 76.5 MB (23 us): operations
+// bound both there.
 //
 // What the designs do about it, common to both: each CTA reads its
 // resident tiles once (K2: q, dO, O; K3: k, v) and streams the other
@@ -35,30 +36,49 @@
 // heads and q tiles inside the CTA (the loop replaces the TPU kernel's
 // sequential `arbitrary` grid axis and its VMEM accumulators).
 //
-// K3 takes two routes, by dtype:
+// Each takes two routes, by dtype:
 //
-// bf16, flash_bwd_dkv_tc_kernel (the main path): the FlashAttention-2
-// dk/dv loop on the tensor cores. 4 warps of 16 keys each keep K and V in
-// shared memory and dK, dV as fp32 accumulators in registers; Q and dO
-// tiles (64 queries, 32 at D 128 for registers) stream through two
-// buffers with cp.async, with their lse and Delta rows. S^T = K Q^T,
-// dP^T = V dO^T, dV += P^T dO and dK += dS^T Q run on mma.sync m16n8k16
-// (bf16 in, fp32 accumulators), fed by ldmatrix; P^T and dS^T are rounded
-// to bf16 in registers to become A operands. Only tiles that hold a masked
-// pair pay for the mask. Under GQA one CTA per key tile would starve the
-// card (the decoder: 16 key tiles x 2 kv heads x 4 = 128 CTAs on 132 SMs,
-// each walking 16 heads), so the wrapper splits each group's heads over
-// `gs` CTAs (flash_attention.py:dkv_group_split; 4 there, 512 CTAs), each
-// writing fp32 partials that dkv_reduce_kernel then sums in a fixed order.
-// The low causal key tiles, which see the most q tiles, start first.
+// bf16, the main path: the FlashAttention-2 backward loops on the tensor
+// cores, mma.sync m16n8k16 (bf16 in, fp32 accumulators) fed by ldmatrix
+// from rows padded to D + 8 elements, tiles copied with cp.async (rows past
+// S or T zero-filled) through two buffers, the next in flight while the
+// current one is used. P and dS are rounded to bf16 in registers to become
+// A operands. Only tiles that hold a masked pair pay for the mask, and a
+// tile past T or S takes a separate templated step that skips the blocks
+// past the edge (a per-element skip in every tile cost K1 17%).
 //
-// fp32, and K2 in both dtypes: scalar FMAs on the fp32 CUDA cores (TF32
-// would miss the fp32 gate of 1e-4). 128 threads; thread t owns rows
-// 4*(t/8) .. +3 of the CTA's resident tile; for a 64x64 score tile it owns
-// columns (t%8) + 8j, and for a 64xD accumulator the float4 column groups
-// (t%8) + 8jj; row sums reduce with three xor shuffles. Tiles are staged in
-// shared memory as fp32, rows padded by 4 floats against bank conflicts.
-// K2 on the tensor cores is later work.
+//   flash_bwd_dq_tc_kernel (K2): one CTA of 4 warps per (64-row q tile,
+//   head, batch); each warp owns 16 query rows. Q and dO stay in shared
+//   memory (their A fragments are re-read with ldmatrix per key tile, which
+//   keeps the registers to S, dP and the dq accumulators); O borrows a key
+//   buffer before the loop, for Delta. 64-key K and V tiles stream; per
+//   tile S = Q K^T, dP = dO V^T and dq += dS K (K as the B operand through
+//   ldmatrix.trans) run on mma.sync, with each element's (row, key) for the
+//   mask taken from the C-fragment layout. Causal q tiles launch in
+//   reverse, so the tiles that see the most keys start first. dq (times
+//   scale) is staged through the warp's own Q rows and written once with
+//   16-byte stores; Delta once per row. The grid needs no split: 16 q tiles
+//   x 32 heads x 4 = 2,048 CTAs at the decoder's shape, 4 x 12 x 64 =
+//   3,072 at the ViT's.
+//
+//   flash_bwd_dkv_tc_kernel (K3): 4 warps of 16 keys each keep K and V in
+//   shared memory and dK, dV as fp32 accumulators in registers; Q and dO
+//   tiles (64 queries, 32 at D 128 for registers) stream with their lse and
+//   Delta rows. S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and dK += dS^T Q
+//   run on mma.sync. Under GQA one CTA per key tile would starve the card
+//   (the decoder: 16 key tiles x 2 kv heads x 4 = 128 CTAs on 132 SMs, each
+//   walking 16 heads), so the wrapper splits each group's heads over `gs`
+//   CTAs (flash_attention.py:dkv_group_split; 4 there, 512 CTAs), each
+//   writing fp32 partials that dkv_reduce_kernel then sums in a fixed
+//   order. The low causal key tiles, which see the most q tiles, start
+//   first.
+//
+// fp32: scalar FMAs on the fp32 CUDA cores (TF32 would miss the fp32 gate
+// of 1e-4). 128 threads; thread t owns rows 4*(t/8) .. +3 of the CTA's
+// resident tile; for a 64x64 score tile it owns columns (t%8) + 8j, and for
+// a 64xD accumulator the float4 column groups (t%8) + 8jj; row sums reduce
+// with three xor shuffles. Tiles are staged in shared memory as fp32, rows
+// padded by 4 floats against bank conflicts.
 //
 // Element strides are passed in, so dO, dq, dk and dv may be (B,S,H,D)
 // buffers seen as (B,H,S,D) views.
@@ -190,7 +210,7 @@ constexpr int dkv_smem_bytes() {  // K, V, Q, dO; P, dS; lse, Delta
          static_cast<int>(sizeof(float));
 }
 
-// K2: one CTA per (64-row q tile, head, batch).
+// K2 on the CUDA cores (fp32): one CTA per (64-row q tile, head, batch).
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
   constexpr int LD = D + 4;
@@ -382,6 +402,237 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
                        k0 * p.dk_ss, p.dk_ss, kv_rows, r0, cg, dk);
   store_rows<T, D>(static_cast<T*>(p.dv) + bb * p.dv_sb + kvh * p.dv_sh +
                        k0 * p.dv_ss, p.dv_ss, kv_rows, r0, cg, dv);
+}
+
+// One warp's step over one key tile of the bf16 K2 (at kt, K and V rows in
+// Kb, Vb): S = Q K^T and dP = dO V^T for its 16 rows against the tile's 64
+// keys, P = exp(S scale - lse), dS = P (dP - Delta), then dq += dS K. lse2
+// and dl hold lse * log2(e) and Delta of the lane's rows g and g + 8. With
+// RAGGED (the tile runs past T) key blocks past T skip their products;
+// their dS are masked to 0, so the result is the same.
+template <int D, bool RAGGED>
+__device__ __forceinline__ void dq_tile(const Params& p, const bf16* Qs,
+                                        const bf16* dOs, const bf16* Kb,
+                                        const bf16* Vb, int q0, int kt,
+                                        float sl2, const float (&lse2)[2],
+                                        const float (&dl)[2],
+                                        float (&dq)[D / 8][4]) {
+  constexpr int LD = D + 8;
+  constexpr int NB = BN / 8;
+  constexpr int ND = D / 8;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int c = lane & 3;
+  const int row0 = warp * 16 + (lane >> 2);   // rows row0 and row0 + 8
+  const int keys_live = p.t - kt;
+
+  float s[NB][4], dp[NB][4];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 16) {
+    uint32_t aq[4], ad[4];
+    load_a(aq, Qs, LD, warp * 16, kk, lane);
+    load_a(ad, dOs, LD, warp * 16, kk, lane);
+#pragma unroll
+    for (int nb = 0; nb < NB; nb += 2) {
+      if (RAGGED && nb * 8 >= keys_live) break;
+      uint32_t b[4];
+      load_b_nmajor(b, Kb, LD, nb * 8, kk, lane);
+      mma_bf16(s[nb], aq, b[0], b[1]);
+      mma_bf16(s[nb + 1], aq, b[2], b[3]);
+      load_b_nmajor(b, Vb, LD, nb * 8, kk, lane);
+      mma_bf16(dp[nb], ad, b[0], b[1]);
+      mma_bf16(dp[nb + 1], ad, b[2], b[3]);
+    }
+  }
+
+  // P (masked pairs exactly 0, only where the warp's rows and the tile
+  // hold one) and dS = P (dP - Delta), over dP's registers
+  const bool masked = tile_needs_mask(p, q0 + warp * 16, 16, kt, BN);
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float pv = exp2f(fmaf(s[nb][e], sl2, -lse2[e >> 1]));
+      if (masked && !live(p, q0 + row0 + (e >> 1) * 8,
+                          kt + nb * 8 + 2 * c + (e & 1)))
+        pv = 0.f;
+      dp[nb][e] = pv * (dp[nb][e] - dl[e >> 1]);
+    }
+
+  // dq += dS K, the keys as the depth: dS rounded to bf16 in registers as
+  // the A operand, K (stored key-major) as B through ldmatrix.trans
+#pragma unroll
+  for (int kb = 0; kb < BN / 16; ++kb) {
+    if (RAGGED && kb * 16 >= keys_live) break;
+    uint32_t a[4];
+    a[0] = pack_bf16(dp[2 * kb][0], dp[2 * kb][1]);
+    a[1] = pack_bf16(dp[2 * kb][2], dp[2 * kb][3]);
+    a[2] = pack_bf16(dp[2 * kb + 1][0], dp[2 * kb + 1][1]);
+    a[3] = pack_bf16(dp[2 * kb + 1][2], dp[2 * kb + 1][3]);
+#pragma unroll
+    for (int nd = 0; nd < ND; nd += 2) {
+      uint32_t b[4];
+      load_b_kmajor(b, Kb, LD, nd * 8, kb * 16, lane);
+      mma_bf16(dq[nd], a, b[0], b[1]);
+      mma_bf16(dq[nd + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// K2 on the tensor cores (bf16): see the note at the top. Where D <= 64 the
+// registers are capped at 168 a lane, so that three CTAs share an SM (at
+// D 128 shared memory allows two).
+static_assert(BM <= BN, "K2 stages BM rows of O in a key buffer of BN rows");
+template <int D>
+__global__ void __launch_bounds__(NT, D == 128 ? 2 : 3)
+    flash_bwd_dq_tc_kernel(const Params p) {
+  constexpr int LD = D + 8;
+  constexpr int ND = D / 8;     // 8-column blocks of dq
+  extern __shared__ uint4 smem_u4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_u4);
+  bf16* dOs = Qs + BM * LD;
+  bf16* Ks = dOs + BM * LD;          // two buffers; O borrows the second
+  bf16* Vs = Ks + 2 * BN * LD;       // two buffers
+
+  // CTAs start in linear order; causal q tiles go last-first
+  const int per = gridDim.y * gridDim.z;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y *
+                                                             blockIdx.z);
+  int qt = lin / per;
+  if (p.causal) qt = gridDim.x - 1 - qt;
+  const int hh = (lin % per) % gridDim.y;
+  const int bb = (lin % per) / gridDim.y;
+  const int q0 = qt * BM;
+  const int kvh = hh / (p.h / p.kh);
+  const int rows = min(BM, p.s - q0);
+  const bf16* kg = static_cast<const bf16*>(p.k) + bb * p.k_sb +
+                   kvh * p.k_sh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + bb * p.v_sb +
+                   kvh * p.v_sh;
+
+  // the key tiles this q tile can see (K1's loop bounds)
+  int k_lo = 0, k_hi = p.t;
+  if (p.causal) k_hi = min(k_hi, q0 + BM);
+  if (p.window > 0) k_lo = max(0, q0 - p.window + 1);
+  k_lo -= k_lo % BN;
+
+  // Q, dO and O first (O into the second K buffer), then the first K, V
+  // tile, each its own group
+  load_tile_async<D, BM, NT>(Qs, static_cast<const bf16*>(p.q) +
+                                     bb * p.q_sb + hh * p.q_sh +
+                                     q0 * p.q_ss, p.q_ss, rows);
+  load_tile_async<D, BM, NT>(dOs, static_cast<const bf16*>(p.d_o) +
+                                      bb * p.do_sb + hh * p.do_sh +
+                                      q0 * p.do_ss, p.do_ss, rows);
+  load_tile_async<D, BM, NT>(Ks + BN * LD, static_cast<const bf16*>(p.o) +
+                                               bb * p.o_sb + hh * p.o_sh +
+                                               q0 * p.o_ss, p.o_ss, rows);
+  cp_async_commit();
+  if (k_lo < k_hi) {
+    const int kv_rows = min(BN, p.t - k_lo);
+    load_tile_async<D, BN, NT>(Ks, kg + k_lo * p.k_ss, p.k_ss, kv_rows);
+    load_tile_async<D, BN, NT>(Vs, vg + k_lo * p.v_ss, p.v_ss, kv_rows);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();   // Q, dO and O have landed
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const long long row_base = (static_cast<long long>(bb) * p.h + hh) * p.s;
+
+  // Delta = rowsum(dO * O) in fp32 for the warp's 16 rows (the Pallas
+  // kernel's fused _init, flash_attention.py:409-418): lanes 2r and 2r + 1
+  // take the two halves of row r's 16-byte chunks; zero-filled rows past S
+  // give 0. Each lane then takes its rows g and g + 8 from lanes 2g, 2g + 16.
+  float part = 0.f;
+  {
+    const int r = warp * 16 + (lane >> 1);
+    const bf16* dor = dOs + r * LD;
+    const bf16* orow = Ks + BN * LD + r * LD;
+#pragma unroll
+    for (int col = (lane & 1) * 8; col < D; col += 16) {
+      float a[8], b[8];
+      load8(dor + col, a);
+      load8(orow + col, b);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) part = fmaf(a[i], b[i], part);
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if (!(lane & 1) && q0 + r < p.s) p.delta[row_base + q0 + r] = part;
+  }
+  const float dl[2] = {__shfl_sync(0xffffffffu, part, 2 * g),
+                       __shfl_sync(0xffffffffu, part, 2 * g + 16)};
+  float lse2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = q0 + warp * 16 + g + 8 * r;
+    lse2[r] = qpos < p.s ? p.lse[row_base + qpos] * LOG2E : 0.f;
+  }
+  __syncthreads();      // every warp is done with O before K takes its buffer
+
+  const float sl2 = p.scale * LOG2E;
+  const bool rows_live = q0 + warp * 16 < p.s;
+  float dq[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[nd][e] = 0.f;
+
+  int buf = 0;
+  for (int kt = k_lo; kt < k_hi; kt += BN, buf ^= 1) {
+    if (kt + BN < k_hi) {   // the next tile into the other buffer
+      const int kv_rows = min(BN, p.t - kt - BN);
+      load_tile_async<D, BN, NT>(Ks + (buf ^ 1) * BN * LD,
+                                 kg + (kt + BN) * p.k_ss, p.k_ss, kv_rows);
+      load_tile_async<D, BN, NT>(Vs + (buf ^ 1) * BN * LD,
+                                 vg + (kt + BN) * p.v_ss, p.v_ss, kv_rows);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();   // this tile has landed
+    __syncthreads();
+    // a warp whose 16 rows all lie past S skips the tile; a tile past T
+    // takes the ragged step
+    if (rows_live) {
+      const bf16* Kb = Ks + buf * BN * LD;
+      const bf16* Vb = Vs + buf * BN * LD;
+      if (kt + BN <= p.t)
+        dq_tile<D, false>(p, Qs, dOs, Kb, Vb, q0, kt, sl2, lse2, dl, dq);
+      else
+        dq_tile<D, true>(p, Qs, dOs, Kb, Vb, q0, kt, sl2, lse2, dl, dq);
+    }
+    __syncthreads();   // every warp is done with this buffer
+  }
+  cp_async_wait<0>();
+
+  // dq * scale in bf16, staged in the warp's own Q rows (no other warp
+  // reads them, and this warp's last reads of them are done) and written
+  // 16 bytes at a time
+  bf16* Qw = Qs + warp * 16 * LD;
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) {
+    *reinterpret_cast<uint32_t*>(Qw + g * LD + nd * 8 + 2 * c) =
+        pack_bf16(dq[nd][0] * p.scale, dq[nd][1] * p.scale);
+    *reinterpret_cast<uint32_t*>(Qw + (g + 8) * LD + nd * 8 + 2 * c) =
+        pack_bf16(dq[nd][2] * p.scale, dq[nd][3] * p.scale);
+  }
+  __syncwarp();
+  bf16* dqg = static_cast<bf16*>(p.dq) + bb * p.dq_sb + hh * p.dq_sh;
+#pragma unroll
+  for (int i = lane; i < 16 * ND; i += 32) {
+    const int r = i / ND;
+    const int col = (i % ND) * 8;
+    const int qpos = q0 + warp * 16 + r;
+    if (qpos < p.s)
+      *reinterpret_cast<uint4*>(dqg + qpos * p.dq_ss + col) =
+          *reinterpret_cast<const uint4*>(Qw + r * LD + col);
+  }
 }
 
 // The bf16 K3 route: query rows per streamed tile. At D 128 the dK and dV
@@ -683,15 +934,29 @@ __global__ void __launch_bounds__(256)
   store4(out + col, acc);
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
   constexpr int smem = dq_smem_bytes<D>();   // above 48 KB for D >= 64
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<float, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.s + BM - 1) / BM, p.h, p.b);
+  flash_bwd_dq_kernel<float, D><<<grid, NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_tc(const Params& p, cudaStream_t stream) {
+  // Q, dO, two K and two V buffers, bf16
+  constexpr int smem = (2 * BM + 4 * BN) * (D + 8) *
+                       static_cast<int>(sizeof(bf16));
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.s + BM - 1) / BM, p.h, p.b);
-  flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+  flash_bwd_dq_tc_kernel<D><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -728,14 +993,25 @@ cudaError_t launch_dkv_tc(const Params& p, int gs, float* part,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dq(int d, const Params& p, cudaStream_t st) {
-  switch (d) {
-    case 32: return launch_dq<T, 32>(p, st);
-    case 64: return launch_dq<T, 64>(p, st);
-    case 128: return launch_dq<T, 128>(p, st);
-    default: return cudaErrorInvalidValue;
+// K2 by dtype: fp32 on the CUDA cores, bf16 on the tensor cores
+cudaError_t dispatch_dq(int dtype, int d, const Params& p, cudaStream_t st) {
+  if (dtype == 0) {
+    switch (d) {
+      case 32: return launch_dq<32>(p, st);
+      case 64: return launch_dq<64>(p, st);
+      case 128: return launch_dq<128>(p, st);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  if (dtype == 1) {
+    switch (d) {
+      case 32: return launch_dq_tc<32>(p, st);
+      case 64: return launch_dq_tc<64>(p, st);
+      case 128: return launch_dq_tc<128>(p, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 // K3 by dtype: fp32 on the CUDA cores (no group split), bf16 on the
@@ -797,10 +1073,8 @@ int repro_flash_bwd_dq(int dtype, int d, const void* q, const void* k,
   p.o = o; p.dq = dq; p.delta = static_cast<float*>(delta);
   p.o_sb = strides[12]; p.o_sh = strides[13]; p.o_ss = strides[14];
   p.dq_sb = strides[15]; p.dq_sh = strides[16]; p.dq_ss = strides[17];
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(dispatch_dq<float>(d, p, st));
-  if (dtype == 1) return static_cast<int>(dispatch_dq<bf16>(d, p, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      dispatch_dq(dtype, d, p, static_cast<cudaStream_t>(stream)));
 }
 
 int repro_flash_bwd_dkv(int dtype, int d, const void* q, const void* k,
@@ -823,6 +1097,9 @@ int repro_flash_bwd_dkv(int dtype, int d, const void* q, const void* k,
 
 // Keys per K3 CTA (BN): the host sizes K3's group split from it.
 int repro_flash_key_tile() { return BN; }
+
+// Query rows per K2 CTA (BM): K2's grid is ceil(S / BM) x H x B.
+int repro_flash_query_tile() { return BM; }
 
 const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -11,8 +11,11 @@ from autograd through the forward. On a CUDA tensor each wrapper launches
 its hand-written kernel or raises; only tensors on the CPU take the plain
 versions, ``kernels/ref.py::ref_attention`` and ``ref_attention_bwd``.
 
-Each wrapper's ``.launches`` counts kernel launches (CPU calls do not
-count), so a run can show that its attention went through the kernels.
+Each kernel takes two routes by dtype: bf16 runs on the tensor cores
+(``mma.sync``), fp32 on the CUDA cores (the fp32 gate of 1e-4 rules out
+TF32). Each wrapper's ``.launches`` counts one per call that launched its
+kernel (CPU calls do not count), so a run can show that its attention went
+through the kernels.
 ``kernel_layout.copies`` counts the output gradients whose strides the
 backward kernels do not take and that were therefore copied to a
 contiguous buffer.
@@ -45,8 +48,9 @@ def _lib_bwd():
         lib.repro_flash_bwd_dkv.argtypes = common + [i32, ptr, ptr]
         for fn in (lib.repro_flash_bwd_dq, lib.repro_flash_bwd_dkv):
             fn.restype = i32
-        lib.repro_flash_key_tile.argtypes = []
-        lib.repro_flash_key_tile.restype = i32
+        for fn in (lib.repro_flash_key_tile, lib.repro_flash_query_tile):
+            fn.argtypes = []
+            fn.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -6,7 +6,9 @@ The port of ``repro/kernels/wkv6.py``: ``wkv6_fwd`` launches K6
 entering every chunk when ``with_states`` (the backward's residual) and
 ``None`` otherwise (the reference's primal-only variant, which writes no
 states); ``wkv6_bwd`` launches K7 (``_bwd_kernel``: dr, dk, dv, dwlog, du,
-ds0 by the reverse-chunk recurrence). :class:`WKV6` is the port of the
+ds0), two CUDA launches behind one call: the reverse scan of the state
+gradient into a scratch (:func:`bwd_scratch_shapes`), then every chunk's
+adjoints in parallel. :class:`WKV6` is the port of the
 reference's custom VJP (``_wkv_fwd``/``_wkv_bwd``): its forward is K6 with
 states and its backward is K7, so gradients never come from autograd
 through the forward; ``wkv6`` takes the primal-only K6 when no gradient is
@@ -15,9 +17,9 @@ On a CUDA tensor each wrapper launches its hand-written kernel or raises;
 only tensors on the CPU take the plain versions,
 ``kernels/ref.py::ref_wkv6_fwd`` and ``ref_wkv6_bwd``.
 
-Each wrapper's ``.launches`` counts kernel launches (CPU calls do not
-count). The kernels read r/k/v/wlog and dO through their (B,S,H,P)
-strides, with a unit stride on the last dim; ``kernel_layout.copies``
+Each wrapper's ``.launches`` counts one per call that launched its kernel
+(CPU calls do not count). The kernels read r/k/v/wlog and dO through their
+(B,S,H,P) strides, with a unit stride on the last dim; ``kernel_layout.copies``
 counts the inputs that had another layout and were therefore copied.
 ``pad_to_chunk.pads`` counts the calls of ``ops.wkv6`` whose sequence was
 padded to a chunk multiple.
@@ -35,7 +37,7 @@ HEAD_DIMS = (32, 64)
 CHUNKS = (16, 32)
 WKV_CHUNK_MAX = 32          # repro/kernels/vjp.py:41, the largest chunk
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BLOCKS_MAX = 2 ** 31 - 1   # grid.x = B * H
+_BLOCKS_MAX = 2 ** 31 - 1   # grid.x: B * H (K6), B * H * S / chunk (K7)
 
 
 def _lib():
@@ -46,7 +48,7 @@ def _lib():
         lib.repro_wkv6_fwd.argtypes = (
             [i32] * 3 + [ptr] * 9 + [i32] * 4 + [strides, ptr])
         lib.repro_wkv6_bwd.argtypes = (
-            [i32] * 3 + [ptr] * 14 + [i32] * 4 + [strides, ptr])
+            [i32] * 3 + [ptr] * 15 + [i32] * 4 + [strides, ptr])
         for fn in (lib.repro_wkv6_fwd, lib.repro_wkv6_bwd):
             fn.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
@@ -80,8 +82,8 @@ def check_inputs(r, k, v, wlog, u, s0, chunk):
     if s < chunk or s % chunk:
         raise ValueError(f"S={s} must be a positive multiple of the chunk "
                          f"{chunk} (ops.wkv6 pads)")
-    if b * h > _BLOCKS_MAX:
-        raise ValueError(f"B*H must be <= {_BLOCKS_MAX}")
+    if b * h * (s // chunk) > _BLOCKS_MAX:
+        raise ValueError(f"B*H*S/chunk must be <= {_BLOCKS_MAX}")
 
 
 def kernel_layout(x, dense=False):
@@ -169,12 +171,22 @@ def _fwd_kernel(r, k, v, wlog, u, s0, chunk, with_states):
     return o, s_end, states
 
 
+def bwd_scratch_shapes(b, s, h, p, chunk):
+    """K7's fp32 buffers beside its outputs: ``(G scratch (B,H,NC,P,P), du
+    partials (B,H,NC,P))``. The scan writes G_c = dLoss/dS_out of every
+    chunk c to the scratch, the size of K6's ``states``; each chunk's CTA
+    writes its du partial, which the wrapper sums over chunks, then over
+    B."""
+    nc = s // chunk
+    return (b, h, nc, p, p), (b, h, nc, p)
+
+
 def wkv6_bwd(r, k, v, wlog, u, states, do, ds_end, *, chunk):
     """K7: ``(dr, dk, dv, dwlog, du, ds0)`` from the forward's entering
     ``states`` and the fp32 cotangents ``do`` (B,S,H,P) and ``ds_end``
     (B,H,P,P): dr/dk/dv/dwlog in their primals' dtypes and layout (B,S,H,P),
-    du (H,P) fp32 (K7's (B,H,P) partials summed over B here, in a fixed
-    order) and ds0 (B,H,P,P) fp32."""
+    du (H,P) fp32 (K7's (B,H,NC,P) partials summed over chunks and then B
+    here, in a fixed order) and ds0 (B,H,P,P) fp32."""
     b, s, h, p = r.shape
     check_inputs(r, k, v, wlog, u, ds_end, chunk)
     if states.shape != (b, h, s // chunk, p, p) or do.shape != r.shape or \
@@ -193,7 +205,7 @@ def wkv6_bwd(r, k, v, wlog, u, states, do, ds_end, *, chunk):
 
 
 def _bwd_kernel(r, k, v, wlog, u, states, do, ds_end, chunk):
-    """Launch K7 on checked inputs; du summed over B here."""
+    """Launch K7 on checked inputs; du summed over chunks and B here."""
     b, s, h, p = r.shape
     r, k, v, wlog, do = (kernel_layout(x) for x in (r, k, v, wlog, do))
     u, states, ds_end = (kernel_layout(x, dense=True)
@@ -201,13 +213,15 @@ def _bwd_kernel(r, k, v, wlog, u, states, do, ds_end, chunk):
     dr, dk, dv = (torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
                   for x in (r, k, v))
     dw = torch.empty((b, s, h, p), dtype=wlog.dtype, device=r.device)
-    ds0 = torch.empty((b, h, p, p), dtype=torch.float32, device=r.device)
-    du = torch.empty((b, h, p), dtype=torch.float32, device=r.device)
+    f32 = {"dtype": torch.float32, "device": r.device}
+    ds0 = torch.empty((b, h, p, p), **f32)
+    g_shape, du_shape = bwd_scratch_shapes(b, s, h, p, chunk)
+    scratch, du = torch.empty(g_shape, **f32), torch.empty(du_shape, **f32)
     _launch("repro_wkv6_bwd", "wkv6_bwd", r.device, (
         _DTYPE_CODE[r.dtype], _DTYPE_CODE[wlog.dtype], p, r, k, v, wlog, u,
-        states, do, ds_end, dr, dk, dv, dw, ds0, du, b, s, h, chunk,
+        states, do, ds_end, dr, dk, dv, dw, ds0, du, scratch, b, s, h, chunk,
         _strides(r, k, v, wlog, do)))
-    return dr, dk, dv, dw, du.sum(0), ds0
+    return dr, dk, dv, dw, du.sum(2).sum(0), ds0
 
 
 wkv6_fwd.launches = 0

@@ -18,6 +18,7 @@ torch.set_num_threads(1)
 
 import functools  # noqa: E402
 import re  # noqa: E402
+import shutil  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 import jax  # noqa: E402
@@ -331,3 +332,75 @@ def test_group_split_partials_sum_to_the_unsplit_gradients(causal):
     want = _jax_grads(*(jnp.asarray(x.numpy()) for x in (q, k, v, w)),
                       causal=causal, window=0)
     _assert_close((sum_k, sum_v), want[1:], TOL["float32"])
+
+
+def test_build_takes_another_source_directory(tmp_path, monkeypatch):
+    """``lib_path(name, csrc)`` names the library of another source
+    directory as it would if that directory were ``CSRC``, and a copy with
+    one line changed gets a library of its own (no ``nvcc`` needed)."""
+    from repro_torch.kernels import build
+    real = build.lib_path("wkv6")
+    copy = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, copy)
+    assert build.lib_path("wkv6", copy) == real
+    (copy / "wkv6.cu").write_text((copy / "wkv6.cu").read_text() + "\n")
+    other = build.lib_path("wkv6", copy)
+    assert other != real and other.parent == real.parent
+    monkeypatch.setattr(build, "CSRC", copy)
+    assert build.lib_path("wkv6") == other
+
+
+def test_query_tile_matches_the_kernel_header():
+    """K2's grid is one CTA per BM query rows, head and batch; the built
+    library reports that tile through ``repro_flash_query_tile`` (which
+    ``chip_smoke.py`` reads for K2's grid), so the getter must return the
+    header's one BM."""
+    header = Path(fa.__file__).parent / "csrc" / "flash_common.cuh"
+    tiles = re.findall(r"constexpr int BM = (\d+);", header.read_text())
+    assert len(tiles) == 1 and int(tiles[0]) > 0
+    getter = re.search(r"int repro_flash_query_tile\(\) \{ return (\w+); \}",
+                       (header.parent / "flash_bwd.cu").read_text())
+    assert getter and getter.group(1) == "BM"
+
+
+def _k2_bf16_dq(q, k, v, out, lse, do, causal, window):
+    """dq as the bf16 K2 rounds it: S = Q Kᵀ and dP = dO Vᵀ in fp32 from
+    the bf16 operands, P = exp(S·scale − lse) (masked pairs 0), dS =
+    P (dP − Δ) rounded to bf16 as the A operand of dS·K, fp32 sums, times
+    scale, then dq in bf16."""
+    f32 = torch.float32
+    b, h, s, d = q.shape
+    g = h // k.shape[1]
+    kf, vf = (x.repeat_interleave(g, dim=1).to(f32) for x in (k, v))
+    qp = torch.arange(s)[:, None]
+    kp = torch.arange(k.shape[2])[None, :]
+    ok = torch.ones((s, k.shape[2]), dtype=torch.bool)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= qp - kp < window
+    delta = (do.to(f32) * out.to(f32)).sum(-1)
+    p = torch.where(ok, torch.exp(q.to(f32) @ kf.transpose(-1, -2)
+                                  * d ** -0.5 - lse[..., None]), 0.0)
+    ds = p * (do.to(f32) @ vf.transpose(-1, -2) - delta[..., None])
+    dq = (ds.to(torch.bfloat16).to(f32) @ kf) * d ** -0.5
+    return dq.to(torch.bfloat16), delta
+
+
+@pytest.mark.parametrize("b,h,kh,s,d,causal,window", CASES)
+def test_k2_bf16_rounding_of_ds_stays_inside_the_gate(b, h, kh, s, d,
+                                                      causal, window):
+    """The bf16 K2 rounds dS to bf16 before dq += dS K (the tensor cores
+    take bf16 operands): that dq stays within the bf16 gate (2e-2) of the
+    plain backward, which rounds only dq, and of ``jax.grad`` of the JAX
+    package's ``ref_attention``; Δ is the plain backward's."""
+    q, k, v, w = _inputs(b, h, kh, s, d, seed=6)
+    (dq, _, _, delta), (qt, kt, vt, out, lse, do) = _plain_bwd(
+        q, k, v, w, torch.bfloat16, causal, window)
+    got, got_delta = _k2_bf16_dq(qt, kt, vt, out, lse, do, causal, window)
+    assert got.dtype == torch.bfloat16 and got.shape == dq.shape
+    torch.testing.assert_close(got_delta, delta, rtol=1e-6, atol=1e-6)
+    _assert_close((got,), (dq.float().numpy(),), TOL["bfloat16"])
+    want = _jax_grads(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      jnp.asarray(w), causal=causal, window=window)
+    _assert_close((got,), want[:1], TOL["bfloat16"])

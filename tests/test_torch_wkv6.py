@@ -309,3 +309,171 @@ def test_matches_pallas_interpret(b, s, h, p, chunk):
     _close(s_end, want_se, TOL["float32"], "s_end")
     for n, g, w in zip(NAMES, got, want):
         _close(g, w, GRAD_TOL["float32"], n)
+
+
+def _k7_two_phase(r, k, v, wlog, u, states, do, ds_end, chunk,
+                  dtype=torch.float32):
+    """K7's split in plain PyTorch (fp32 as the kernel, or ``dtype``), as
+    ``csrc/wkv6.cu`` computes it:
+    (a) the reverse scan writes G_c = dLoss/dS_out of every chunk,
+    G_{NC-1} = dS_end and G_{c-1} = (r_c e^lprev_c)ᵀ dO_c + e^L_end,c G_c;
+    (b) every chunk's adjoints at once, vectorised over the chunk axis,
+    from its entering state S_c and G_c alone, with lprev_t = L_{t-1} and
+    du as (B,H,NC,P) partials summed over chunks, then B. Returns the six
+    gradients of ``ref_wkv6_bwd`` and the scratch G (B,H,NC,P,P)."""
+    f32 = dtype
+    b, s, h, p = r.shape
+    nc = s // chunk
+
+    def chunks(x):                       # (B,S,H,P) -> (B,H,NC,cs,P)
+        return x.to(f32).reshape(b, nc, chunk, h, p).permute(0, 3, 1, 2, 4)
+    rc, kc, vc, wc, dc = map(chunks, (r, k, v, wlog, do))
+    uf = u.to(f32)[None, :, None, None, :]
+    L = torch.cumsum(wc, 3)
+    lprev = torch.cat([torch.zeros_like(L[..., :1, :]), L[..., :-1, :]], 3)
+    lend = L[..., -1:, :]                                   # (B,H,NC,1,P)
+    rdec = rc * torch.exp(lprev)
+
+    # (a) the scan, the only serial part
+    g, gs = ds_end.to(f32), [None] * nc
+    for c in reversed(range(nc)):
+        gs[c] = g
+        g = rdec[:, :, c].transpose(-1, -2) @ dc[:, :, c] + \
+            torch.exp(lend[:, :, c]).transpose(-1, -2) * g
+    G, ds0, S = torch.stack(gs, 2), g, states.to(f32)
+
+    # (b) the chunks' adjoints, all at once
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool), -1)
+    pair = torch.where(tri[:, :, None], torch.exp(torch.clamp_max(
+        lprev[..., :, None, :] - L[..., None, :, :], 0.0)), 0.0)
+    att = (rc[..., :, None, :] * pair * kc[..., None, :, :]).sum(-1)
+    dA = torch.where(tri, dc @ vc.transpose(-1, -2), 0.0)
+    dr_att = (dA[..., None] * pair * kc[..., None, :, :]).sum(-2)
+    dk_att = (dA[..., None] * pair * rc[..., :, None, :]).sum(-3)
+    e_adv = torch.exp(lend - L)
+    kadv = kc * e_adv
+    drdec, dkadv = dc @ S.transpose(-1, -2), vc @ G.transpose(-1, -2)
+    diag = (rc * uf * kc).sum(-1, keepdim=True)
+    dov = (dc * vc).sum(-1, keepdim=True)
+    dv = att.transpose(-1, -2) @ dc + kadv @ G + diag * dc
+    dr = dr_att + drdec * torch.exp(lprev) + uf * kc * dov
+    dk = dk_att + dkadv * e_adv + uf * rc * dov
+    dlp = drdec * rdec + rc * dr_att
+    kk = dkadv * kadv
+    dl_end = kk.sum(3, keepdim=True) + torch.exp(lend) * \
+        (S * G).sum(-1)[..., None, :]
+    tot = dlp - kc * dk_att - kk
+    dw = tot.flip(3).cumsum(3).flip(3) + dl_end - dlp
+    du = (rc * kc * dov).sum(3).sum(2).sum(0)
+
+    def unchunk(x):
+        return x.permute(0, 2, 3, 1, 4).reshape(b, s, h, p)
+    return tuple(map(unchunk, (dr, dk, dv, dw))) + (du, ds0), G
+
+
+def _sequential_f64(r, k, v, wlog, u, s0, chunk):
+    """The sequential oracle's recurrence (``ref_wkv6``) in float64, and the
+    state entering each chunk."""
+    state, outs, states = s0, [], []
+    for t in range(r.shape[1]):
+        if t % chunk == 0:
+            states.append(state)
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], wlog[:, t]
+        outs.append(torch.einsum("bhp,bhpq->bhq", rt, state)
+                    + torch.einsum("bhp,hp,bhp,bhq->bhq", rt, u, kt, vt))
+        state = torch.exp(wt)[..., None] * state + \
+            torch.einsum("bhp,bhq->bhpq", kt, vt)
+    return torch.stack(outs, 1), state, torch.stack(states, 2)
+
+
+@pytest.mark.parametrize("b,s,h,p,chunk", WKV_CASES)
+def test_k7_two_phase_split_matches_reference(b, s, h, p, chunk):
+    """The algebra of K7's two launches, before the card (the ragged case
+    padded to a chunk multiple, as ``ops.wkv6`` pads it): in float64 the
+    scan's G_c and the chunk-parallel adjoints give autograd's gradients of
+    the sequential recurrence within 1e-9; in fp32 they give
+    ``ref_wkv6_bwd``'s within 1e-5 of each output's largest value (both
+    fp32 forms sit ~3e-5 elementwise from a float64 evaluation, so an
+    elementwise 1e-5 between them would measure rounding, not algebra),
+    and ``jax.vjp`` of the sequential oracle within 1e-4 on the unpadded
+    rows."""
+    args, cot = _inputs(b, s, h, p, seed=9)
+    targs = _torch(args, "float32")
+    do, ds_end = map(torch.from_numpy, cot)
+    pad = -s % chunk
+    r, k, v, w, dop = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+                       for x in targs[:4] + (do,))
+    u, s0 = targs[4:]
+    nc = (s + pad) // chunk
+
+    f64 = [x.double().requires_grad_() for x in (r, k, v, w, u, s0)]
+    o, s_end, states = _sequential_f64(*f64, chunk)
+    exact = torch.autograd.grad((o * dop.double()).sum()
+                                + (s_end * ds_end.double()).sum(), f64)
+    got, G = _k7_two_phase(*(x.detach() for x in f64[:5]), states.detach(),
+                           dop.double(), ds_end.double(), chunk,
+                           dtype=torch.float64)
+    assert torch.equal(G[:, :, nc - 1], ds_end.double())
+    for n, g, x in zip(NAMES, got, exact):
+        torch.testing.assert_close(g, x, rtol=1e-9, atol=1e-9, msg=n)
+
+    _, _, states = ref_wkv6_fwd(r, k, v, w, u, s0, chunk=chunk,
+                                with_states=True)
+    got, G = _k7_two_phase(r, k, v, w, u, states, dop, ds_end, chunk)
+    assert G.shape == wk.bwd_scratch_shapes(b, s + pad, h, p, chunk)[0]
+    want = ref_wkv6_bwd(r, k, v, w, u, states, dop, ds_end, chunk=chunk)
+    for n, g, x in zip(NAMES, got, want):
+        assert g.shape == x.shape and g.dtype == x.dtype, n
+        assert float((g - x).abs().max()) <= 1e-5 * float(x.abs().max()), n
+    _, jax_want = _jax_vjp(args, cot)
+    for n, g, x in zip(NAMES, got, jax_want):
+        _close(g[:, :s] if n in ("dr", "dk", "dv", "dwlog") else g, x, 1e-4,
+               n)
+
+
+def test_k7_scratch_shapes():
+    """K7's G scratch is the size of K6's states (134.2 MB at the RWKV6
+    slice's B 4, S 1024, H 64, P 64, chunk 32) and its du partials are one
+    (P,) row per (b, h, chunk)."""
+    g, du = wk.bwd_scratch_shapes(4, 1024, 64, 64, 32)
+    assert g == (4, 64, 32, 64, 64) and du == (4, 64, 32, 64)
+    assert torch.empty(g, dtype=torch.float32, device="meta").nbytes == \
+        134_217_728
+    assert wk.bwd_scratch_shapes(2, 64, 3, 32, 16) == ((2, 3, 4, 32, 32),
+                                                       (2, 3, 4, 32))
+    args, _ = _inputs(2, 64, 3, 32)
+    states = ref_wkv6_fwd(*_torch(args, "float32"), chunk=16,
+                          with_states=True)[2]
+    assert tuple(states.shape) == wk.bwd_scratch_shapes(2, 64, 3, 32, 16)[0]
+
+
+def test_k7_phase_tags_name_lines_of_the_kernel():
+    """``scripts/wkv6_bwd_phases.py`` takes K7's parts out by their
+    ``// phase: NAME`` tags in ``wkv6.cu``: every tag it names marks lines
+    there, a tagged loop header keeps its init and step with a ``false``
+    condition, a tagged launch is dropped, and no other line changes."""
+    import importlib.util
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "wkv6_bwd_phases", root / "scripts" / "wkv6_bwd_phases.py")
+    phases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(phases)
+    src = (Path(wk.__file__).parent / "csrc" / "wkv6.cu").read_text()
+    counts = {"scan-launch": (0, 1), "chunk-launch": (0, 1),
+              "pair-loops": (2, 0), "att-pass": (1, 0), "products": (3, 0)}
+    assert {t for tags in phases.VARIANTS.values() for t in tags} == \
+        set(counts)
+    for tag, (loops, launches) in counts.items():
+        got = phases.without(src, [tag]).split("\n")
+        changed = [(a, b) for a, b in zip(src.split("\n"), got) if a != b]
+        assert len(got) == len(src.split("\n"))
+        assert len(changed) == loops + launches, tag
+        for old, new in changed:
+            if old.lstrip().startswith("for ("):
+                init, _, step = old.split(";", 2)
+                assert new == f"{init}; false;{step}"
+            else:
+                assert "<<<" in old and new == ""
+    with pytest.raises(SystemExit):
+        phases.without(src, ["no-such-part"])
