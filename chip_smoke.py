@@ -33,7 +33,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    1e-4 / 6e-2, rinv within 1e-4 relative), K5 twice for a bitwise equal
    dscale; ``torch.autograd.grad`` through ``ops.fused_rmsnorm``; then
    both timed at the decoder's shape beside the plain versions and
-   ``F.rms_norm`` (a yardstick the port never calls).
+   ``F.rms_norm`` (a yardstick the port never calls); K5 is its row pass
+   (each row read once into registers, the next row's loads in flight)
+   and the fixed-order dscale reduction.
 6. K1-K3 at the decoder's attention shape (B 4, H 32, KH 2, S = T = 1024,
    D 128, causal) against their plain versions in bf16 and fp32, K2 run
    twice for bitwise equal dq and delta and K3 for bitwise equal dk and
@@ -48,7 +50,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    bitwise equal gradients, ``torch.autograd.grad`` through ``ops.wkv6``
    (ragged, padded; and the slice's shape with no copy or pad); then both
    timed at the slice's shape beside their plain versions and bounds,
-   with the bytes K7's two launches move as designed.
+   with the bytes each kernel's two launches (K6: the state scan, then
+   the chunks' outputs; K7: the state-gradient scan, then the chunks'
+   adjoints) move as designed.
 7. the eval slice: ``repro_torch.launch.train --arch vit-b16 --steps 0
    --eval-every 1 --eval-batch 128`` on procedural CIFAR-10 (500 examples,
    4 batches, the last mask-padded) with the launch counters reset just
@@ -237,6 +241,16 @@ ROUTES = {
     "flash_bwd_dkv": "bf16: tensor cores (mma.sync m16n8k16: S^T = K Q^T, "
                      "dP^T = V dO^T, dV += P^T dO, dK += dS^T Q; cp.async "
                      "double buffering; GQA group split); fp32: CUDA cores",
+    "rmsnorm_bwd": "fp32 CUDA cores in both dtypes: each row read once "
+                   "into registers (16-byte units, fixed columns a thread, "
+                   "scale and dscale partials in registers), the next "
+                   "row's loads in flight, one barrier a row, 16 rows a "
+                   "CTA at 4096 rows; then the fixed-order dscale "
+                   "reduction",
+    "wkv6_fwd": "fp32 CUDA cores in both dtypes, two launches: the state "
+                "scan over 32-row slices of S (next chunk prefetched), then "
+                "one CTA per (b, h, chunk) with register-tiled products and "
+                "16-byte staging loads",
     "wkv6_bwd": "fp32 CUDA cores in both dtypes, two launches: the reverse "
                 "scan of the state gradient over 16-row slices of it, then "
                 "one CTA per (b, h, chunk) with register-tiled products",
@@ -355,7 +369,7 @@ def phase_build():
             m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_tc)?_kernel|"
                           r"dkv_reduce_kernel|rmsnorm_(?:fwd|bwd)_kernel|"
                           r"dscale_reduce_kernel|"
-                          r"wkv6_(?:fwd|bwd_scan|bwd_chunk)_kernel)"
+                          r"wkv6_(?:fwd|bwd)_(?:scan|chunk)_kernel)"
                           r"(?:I((?:f|13__nv_bfloat16|S\d*_)*)"
                           r"((?:Li\d+E)*))?", line)
             if m and "Compiling entry" in line:
@@ -364,7 +378,8 @@ def phase_build():
                 args = ["fp32" if t == "f" else "bf16" for t in types]
                 if "_tc_" in m.group(1):    # the bf16 tensor-core route
                     args = ["bf16"]
-                names = ("P", "cs") if "wkv6" in m.group(1) else ("D",)
+                names = ("P", "cs") if "wkv6" in m.group(1) else \
+                    ("units",) if "rmsnorm_bwd" in m.group(1) else ("D",)
                 args += [f"{n}={v}" for n, v in zip(
                     names, re.findall(r"Li(\d+)E", m.group(3) or ""))]
                 kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
@@ -755,11 +770,15 @@ def wkv6_work(shape, el, w_el):
     K7 takes 8 cs P^2 + 4 P^2 for its four state products, 14 per pair and
     column (the decay 2, att 3, dr_att 3, dk_att 2 with dA·decay shared,
     dA 2, dv 2) and ~20 cs P elementwise. Returns {"fwd": with states,
-    "primal": without, "bwd", "bwd_design": the bytes K7's two launches
-    move as designed, each reading dO once: the scan reads r, wlog, dO and
-    dS_end and writes every G_c (the size of the states) and ds0; the chunk
-    launch reads r, k, v, wlog, u, dO, the states and the G_c and writes
-    the gradients and the du partials}."""
+    "primal": without, "bwd", "fwd_design": the bytes K6's two launches
+    move as designed, with or without states: the scan reads k, v, wlog and
+    s0 and writes every S_c (the states, or a scratch of their size) and
+    s_end; the chunk launch reads r, k, v, wlog, u and the S_c and writes
+    o; "bwd_design": the bytes K7's two launches move as designed, each
+    reading dO once: the scan reads r, wlog, dO and dS_end and writes every
+    G_c (the size of the states) and ds0; the chunk launch reads r, k, v,
+    wlog, u, dO, the states and the G_c and writes the gradients and the du
+    partials}."""
     b, s, h, p, cs = shape
     n, pp, bh = b * s * h * p, b * h * p * p, b * h
     nc, pairs = s // cs, cs * (cs - 1) // 2
@@ -771,9 +790,12 @@ def wkv6_work(shape, el, w_el):
                          + 20 * cs * p)
     primal = ins + 2 * pp * 4 + n * 4               # + s0, s_end, o
     outs = 3 * n * el + n * w_el                    # dr/dk/dv, dwlog
+    fwd_scan = 2 * n * el + n * w_el + pp * 4 + states + pp * 4
+    fwd_chunks = ins + states + n * 4
     scan = n * el + n * w_el + n * 4 + pp * 4 + states + pp * 4
     chunks = ins + n * 4 + 2 * states + outs + bh * nc * p * 4
     return {"fwd": (primal + states, fwd_ops), "primal": (primal, fwd_ops),
+            "fwd_design": (fwd_scan + fwd_chunks, fwd_ops),
             # + states, dO, dS_end; dr/dk/dv, dwlog, ds0, du per (b, h)
             "bwd": (ins + states + n * 4 + pp * 4 + outs + pp * 4
                     + bh * p * 4, bwd_ops),
@@ -925,11 +947,12 @@ def phase_wkv6(card):
               f"({how})", flush=True)
         rows[key] = {"ms": ms[key], "plain_ms": plain[key],
                      "bound_ms": bound_ms, "bound_by": bound_by}
-    design_ms, _, how = bound(card, *work["bwd_design"], rate="fp32")
-    print(f"[wkv6] K7's two launches as designed move "
-          f"{work['bwd_design'][0] / 1e6:.1f} MB, {design_ms:.4f} ms at the "
-          f"card's memory rate ({how}); the function's own bound is "
-          f"{rows['bwd']['bound_ms']:.4f} ms", flush=True)
+    for key, name in (("fwd", "K6"), ("bwd", "K7")):
+        design_ms, _, how = bound(card, *work[f"{key}_design"], rate="fp32")
+        print(f"[wkv6] {name}'s two launches as designed move "
+              f"{work[f'{key}_design'][0] / 1e6:.1f} MB, {design_ms:.4f} ms "
+              f"at the card's memory rate ({how}); the function's own bound "
+              f"is {rows[key]['bound_ms']:.4f} ms", flush=True)
     out = []
     for key, line in (("fwd", 57), ("bwd", 184)):
         out.append({"name": f"wkv6_{key}", "route": "cuda",
@@ -1551,15 +1574,15 @@ def main():
             row = dict(row, redesigned=True, routes=ROUTES[row["name"]])
         kernels.append(dict(row, **lm_attn[key],
                             launches=lm_launches[row["name"]], vit=vit))
-    # K4/K5 run on both decoder paths: the row's launches are the RWKV6
-    # run's (this slice's path), the ChatGLM3 run's beside them
-    for row in rms_rows:
-        kernels.append(dict(row, launches=rwkv_launches[row["name"]],
-                            chatglm3_launches=lm_launches[row["name"]]))
-    for row in wkv_rows:
+    # K4-K7's launches are the RWKV6 run's; K4/K5 run on both decoder
+    # paths, so their rows carry the ChatGLM3 run's beside them
+    for row in rms_rows + wkv_rows:
+        extra = {"launches": rwkv_launches[row["name"]]}
+        if row in rms_rows:
+            extra["chatglm3_launches"] = lm_launches[row["name"]]
         if row["name"] in REDESIGNED:
-            row = dict(row, redesigned=True, routes=ROUTES[row["name"]])
-        kernels.append(dict(row, launches=rwkv_launches[row["name"]]))
+            extra.update(redesigned=True, routes=ROUTES[row["name"]])
+        kernels.append(dict(row, **extra))
     print(json.dumps({"kernels": kernels}))
     print(card)
     import torch

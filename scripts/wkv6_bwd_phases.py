@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
-"""Where K7 (the WKV6 backward, ``csrc/wkv6.cu``) spends its time on the
-card: the whole backward beside variants of the source with one launch, or
-one phase of the chunk launch, taken out, timed in turns at the RWKV6
-slice's shape (B 4, S 1024, H 64, P 64, chunk 32; bf16 r/k/v, fp32 wlog).
+"""Where K6 and K7 (the WKV6 forward and backward, ``csrc/wkv6.cu``) spend
+their time on the card: each whole kernel beside variants of the source
+with one launch, or one phase of the chunk launch, taken out, timed in
+turns at the RWKV6 slice's shape (B 4, S 1024, H 64, P 64, chunk 32; bf16
+r/k/v, fp32 wlog); K6 with states, as the training path runs it.
 
-    python3 scripts/wkv6_bwd_phases.py
+    python3 scripts/wkv6_bwd_phases.py [k6|k7]
 
-Each variant is a copy of ``csrc/`` under the git-ignored ``build/`` with
-the parts of K7 that ``wkv6.cu`` tags ``// phase: NAME`` taken out: a tagged
-loop runs no times, a tagged launch is dropped. The variants are built
-with the same flags, one ``nvcc`` each, all started together, and the
-wrapper is pointed at each in turn through ``build.CSRC``, in the order
-A, B, ..., B, A. A variant computes wrong gradients: it is timed, never
-checked. A tag that names no line of the source stops the script. Needs
-one CUDA card and nvcc.
+(both kernels without an argument). Each variant is a copy of ``csrc/``
+under the git-ignored ``build/`` with the parts of K6 or K7 that
+``wkv6.cu`` tags ``// phase: NAME`` taken out: a tagged loop runs no times,
+a tagged launch is dropped. The variants are built with the same flags, one
+``nvcc`` each, all started together, and the wrapper is pointed at each in
+turn through ``build.CSRC``, in the order A, B, ..., B, A. A variant
+computes wrong outputs: it is timed, never checked. A tag that names no
+line of the source stops the script. Needs one CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ import chip_smoke as cs  # noqa: E402
 
 TAG = re.compile(r"^\s*// phase: ([\w-]+)\s*$")
 CHUNK = ["scan-launch"]             # every chunk-launch variant drops the scan
-VARIANTS = {
+VARIANTS = {                        # K7
     "whole backward": [],
     "scan launch only": ["chunk-launch"],
     "chunk launch only": CHUNK,
@@ -41,6 +42,16 @@ VARIANTS = {
         CHUNK + ["products"],
     "chunk launch, none of the three":
         CHUNK + ["pair-loops", "att-pass", "products"],
+}
+FWD_CHUNK = ["fwd-scan-launch"]
+FWD_VARIANTS = {                    # K6
+    "whole forward": [],
+    "scan launch only": ["fwd-chunk-launch"],
+    "chunk launch only": FWD_CHUNK,
+    "chunk launch, no att pass": FWD_CHUNK + ["fwd-att-pass"],
+    "chunk launch, no products ((r e^lprev) S_c, att v)":
+        FWD_CHUNK + ["fwd-products"],
+    "chunk launch, neither": FWD_CHUNK + ["fwd-att-pass", "fwd-products"],
 }
 
 
@@ -67,11 +78,11 @@ def without(source, tags):
     return "\n".join(lines)
 
 
-def variant_dir(csrc, name, tags):
+def variant_dir(csrc, tags):
     """A copy of ``csrc`` under ``build/`` without the ``tags`` parts of
-    ``wkv6.cu``."""
+    ``wkv6.cu``, named by the tags."""
     d = ROOT / "build" / "wkv6_phases" / "".join(
-        ch if ch.isalnum() else "_" for ch in name)
+        ch if ch.isalnum() else "_" for ch in " ".join(tags))
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(csrc, d)
     (d / "wkv6.cu").write_text(without((d / "wkv6.cu").read_text(), tags))
@@ -79,17 +90,21 @@ def variant_dir(csrc, name, tags):
 
 
 def main():
+    which = sys.argv[1:] or ["k6", "k7"]
     card = cs.phase_card().split(",")[0]
     import torch
     from repro_torch.kernels import build
     from repro_torch.kernels import wkv6 as wk
 
+    kernels = {"k6": ("K6", FWD_VARIANTS), "k7": ("K7", VARIANTS)}
     real = build.CSRC
-    dirs = {name: variant_dir(real, name, tags) if tags else real
-            for name, tags in VARIANTS.items()}
-    with ThreadPoolExecutor(len(dirs)) as pool:
+    dirs = {}
+    for key in which:
+        for name, tags in kernels[key][1].items():
+            dirs[key, name] = variant_dir(real, tags) if tags else real
+    with ThreadPoolExecutor(len(set(dirs.values()))) as pool:
         for got in [pool.submit(build.build, ["wkv6"], d)
-                    for d in dirs.values()]:
+                    for d in set(dirs.values())]:
             got.result()
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -102,24 +117,28 @@ def main():
     u, s0 = 0.3 * randn(h, p), 0.1 * randn(b, h, p, p)
     do, dse = randn(b, s, h, p), randn(b, h, p, p)
     _, _, st = wk.wkv6_fwd(r, k, v, w, u, s0, chunk=c, with_states=True)
+    calls = {"k6": lambda: wk.wkv6_fwd(r, k, v, w, u, s0, chunk=c,
+                                       with_states=True),
+             "k7": lambda: wk.wkv6_bwd(r, k, v, w, u, st, do, dse, chunk=c)}
 
-    times = {name: [] for name in dirs}
-    for name in list(dirs) + list(dirs)[::-1]:
-        build.CSRC = dirs[name]
-        times[name].append(cs.time_ms(lambda: wk.wkv6_bwd(
-            r, k, v, w, u, st, do, dse, chunk=c)))
-    build.CSRC = real
-    print(f"[k7 phases] {cs.WKV_SHAPE} bf16 r/k/v, fp32 wlog on {card} "
-          f"(median CUDA-event ms of each turn):", flush=True)
-    full = times["chunk launch only"]
-    for name, ts in times.items():
-        mean = sum(ts) / len(ts)
-        extra = ""
-        if name.startswith("chunk launch, "):
-            saved = sum(full) / len(full) - mean
-            extra = f" (the removed part: {saved:.4f} ms)"
-        print(f"[k7 phases] {name}: {[round(t, 4) for t in ts]} ms{extra}",
-              flush=True)
+    for key in which:
+        tag, variants = kernels[key]
+        times = {name: [] for name in variants}
+        for name in list(variants) + list(variants)[::-1]:
+            build.CSRC = dirs[key, name]
+            times[name].append(cs.time_ms(calls[key]))
+        build.CSRC = real
+        print(f"[{key} phases] {tag} at {cs.WKV_SHAPE} bf16 r/k/v, fp32 wlog "
+              f"on {card} (median CUDA-event ms of each turn):", flush=True)
+        full = times["chunk launch only"]
+        for name, ts in times.items():
+            mean = sum(ts) / len(ts)
+            extra = ""
+            if name.startswith("chunk launch, "):
+                saved = sum(full) / len(full) - mean
+                extra = f" (the removed part: {saved:.4f} ms)"
+            print(f"[{key} phases] {name}: {[round(t, 4) for t in ts]} ms"
+                  f"{extra}", flush=True)
 
 
 if __name__ == "__main__":

@@ -23,14 +23,24 @@
 // re-reads its vectors for the output (the row's 8 KB is still in L1).
 // K5: the TPU kernel sums dscale across a sequential grid in a VMEM scratch
 // accumulator; CTAs on a GPU run in no order, so each CTA takes a fixed
-// block of rows, keeps its own fp32 column partials of dy*x*rinv in shared
-// memory (each column owned by one thread), writes them to an fp32
+// block of rows, writes its fp32 column partials of dy*x*rinv to an fp32
 // (n_blocks, D) workspace, and a second small launch sums the workspace
 // over the blocks in a fixed order. There are no atomics: the sums are
 // taken in the same order on every run, so dscale repeats bit for bit. The
 // number of blocks depends only on the shape (the wrapper's choice), not on
 // the card. Rows past the end are never visited, as vjp.row_valid masks
 // them. Row strides are passed in; the last dimension is contiguous.
+// The row pass keeps the memory pipe busy: each thread owns fixed columns
+// of every row (16-byte units of 8 bf16 or 4 fp32), whose scale and dscale
+// partials stay in its registers for the whole CTA; it reads each row's x
+// and dy once, into registers, from which it computes both the row's dot
+// and dx; the next row's loads are issued before the current row is
+// reduced and written; and the row's reduction takes one barrier (the warp
+// sums alternate between two buffers). A CTA holds 512 threads at D 4096
+// in bf16 (63 registers), two to an SM, so 32 warps per SM keep loads in
+// flight; at the decoder's shape it takes 16 rows, and its 256 CTAs run in
+// one wave on 132 SMs (512 CTAs of 8 rows run in two waves with twice the
+// workspace, and are slower: scripts/rmsnorm_timing.py times both).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +64,22 @@ __device__ __forceinline__ void load_vec(const float* p, float (&x)[4]) {
 __device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
                                          float (&x)[8]) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h2[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+// K5's 16-byte units, held in registers, as fp32: 4 fp32 or 8 bf16 values.
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[4]) {
+  x[0] = __uint_as_float(u.x); x[1] = __uint_as_float(u.y);
+  x[2] = __uint_as_float(u.z); x[3] = __uint_as_float(u.w);
+}
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&x)[8]) {
   const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -114,6 +140,18 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
+// block_sum with one barrier, for a loop of sums: successive calls
+// alternate between two buffers red (a float per warp each), so that one
+// call's writes cannot race with the reads of the call before.
+__device__ __forceinline__ float block_sum_alternating(float v, float* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int i = 0; i < static_cast<int>(blockDim.x >> 5); ++i) t += red[i];
+  return t;
+}
+
 // K4: one CTA per row. vec: every row start and the scale are 16-byte
 // aligned, so the first (D / N) * N elements move as 16-byte vectors.
 template <typename T>
@@ -156,74 +194,125 @@ __global__ void __launch_bounds__(MAX_THREADS) rmsnorm_fwd_kernel(
     put(orow + c, (to_f32(xr[c]) * r) * scale[c]);
 }
 
-// K5, first launch: CTA b takes rows [b * rows_per_block, +rows_per_block)
-// and writes its dscale partial to ws[b, :]. Column partials live in
-// shared memory: element i of vector j at acc[i * nvec + j] (consecutive
-// threads, consecutive words), tail column c at acc[c].
+// K5's staging: unit j of a row is its columns [j N, j N + N), kept raw (16
+// bytes: 8 bf16 or 4 fp32) until used. It loads as one 16-byte vector when
+// vec and it lies inside the row, else by scalars, the columns past D as 0.
 template <typename T>
-__global__ void __launch_bounds__(MAX_THREADS) rmsnorm_bwd_kernel(
-    const T* __restrict__ x, const float* __restrict__ scale,
-    const float* __restrict__ rinv, const T* __restrict__ dy,
-    T* __restrict__ dx, float* __restrict__ ws, long long rows, int d,
-    long long x_rs, long long dy_rs, long long dx_rs, int rows_per_block,
-    int vec) {
+__device__ __forceinline__ uint4 load_unit(const T* row, int j, int d,
+                                           int vec) {
   constexpr int N = VecOf<T>::N;
-  extern __shared__ float acc[];
-  __shared__ float red[MAX_THREADS / 32];
-  const int nvec = vec ? d / N : 0;
-  const float dinv = 1.f / static_cast<float>(d);
-
-  for (int j = threadIdx.x; j < nvec; j += blockDim.x)
+  const int c0 = j * N;
+  if (vec && c0 + N <= d) return *reinterpret_cast<const uint4*>(row + c0);
+  uint4 u = make_uint4(0u, 0u, 0u, 0u);
+  T* e = reinterpret_cast<T*>(&u);
 #pragma unroll
-    for (int i = 0; i < N; ++i) acc[i * nvec + j] = 0.f;
-  for (int c = nvec * N + threadIdx.x; c < d; c += blockDim.x) acc[c] = 0.f;
+  for (int i = 0; i < N; ++i)
+    if (c0 + i < d) e[i] = row[c0 + i];
+  return u;
+}
 
+template <typename T, int N>
+__device__ __forceinline__ void store_unit(T* row, int j, int d, int vec,
+                                           const float (&x)[N]) {
+  const int c0 = j * N;
+  if (vec && c0 + N <= d) {
+    store_vec(row + c0, x);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (c0 + i < d) put(row + c0 + i, x[i]);
+}
+
+// K5, first launch: CTA b takes rows [b * rows_per_block, +rows_per_block)
+// and writes its dscale partial to ws[b, :]. Thread t owns the units t +
+// blockDim.x m (m < M) of every row: their scale and dscale partials stay
+// in its registers, each row's x and dy are read once into registers, and
+// the next row's loads are issued before the current row is reduced.
+template <typename T, int M>
+__global__ void __launch_bounds__(M == 8 ? 1024 : 512, M == 1 ? 2 : 1)
+    rmsnorm_bwd_kernel(const T* __restrict__ x,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ rinv,
+                       const T* __restrict__ dy, T* __restrict__ dx,
+                       float* __restrict__ ws, long long rows, int d,
+                       long long x_rs, long long dy_rs, long long dx_rs,
+                       int rows_per_block, int vec) {
+  constexpr int N = VecOf<T>::N;
+  __shared__ float red[2][32];
+  const float dinv = 1.f / static_cast<float>(d);
   const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
   const long long r1 = min(rows, r0 + rows_per_block);
-  for (long long row = r0; row < r1; ++row) {
-    const T* xr = x + row * x_rs;
-    const T* gr = dy + row * dy_rs;
-    T* dr = dx + row * dx_rs;
-    const float rv = rinv[row];
 
-    float dot = 0.f;
-    for (int j = threadIdx.x; j < nvec; j += blockDim.x) {
-      float xv[N], g[N], s[N];
-      load_vec(xr + j * N, xv);
-      load_vec(gr + j * N, g);
-      load_scale<N>(scale + j * N, s);
+  float s[M][N], acc[M][N];
 #pragma unroll
-      for (int i = 0; i < N; ++i) dot += (g[i] * s[i]) * xv[i];
+  for (int m = 0; m < M; ++m) {
+    const int c0 = (threadIdx.x + blockDim.x * m) * N;
+    if (vec && c0 + N <= d) {
+      load_scale<N>(scale + c0, s[m]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) s[m][i] = c0 + i < d ? scale[c0 + i] : 0.f;
     }
-    for (int c = nvec * N + threadIdx.x; c < d; c += blockDim.x)
-      dot += (to_f32(gr[c]) * scale[c]) * to_f32(xr[c]);
-    dot = block_sum(dot, red);
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[m][i] = 0.f;
+  }
+
+  // this row's x and dy (cx, cg) and the next row's, in flight (nx, ng)
+  uint4 cx[M], cg[M], nx[M], ng[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int j = threadIdx.x + blockDim.x * m;
+    cx[m] = load_unit(x + r0 * x_rs, j, d, vec);
+    cg[m] = load_unit(dy + r0 * dy_rs, j, d, vec);
+  }
+  float rv = rinv[r0], nrv = 0.f;
+  for (long long row = r0; row < r1; ++row) {
+    if (row + 1 < r1) {
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int j = threadIdx.x + blockDim.x * m;
+        nx[m] = load_unit(x + (row + 1) * x_rs, j, d, vec);
+        ng[m] = load_unit(dy + (row + 1) * dy_rs, j, d, vec);
+      }
+      nrv = rinv[row + 1];
+    }
+    float xv[M][N], g[M][N];
+    float dot = 0.f;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      unpack(cx[m], xv[m]);
+      unpack(cg[m], g[m]);
+#pragma unroll
+      for (int i = 0; i < N; ++i) dot += (g[m][i] * s[m][i]) * xv[m][i];
+    }
+    dot = block_sum_alternating(dot, red[(row - r0) & 1]);
 
     const float a = rv * rv * rv * dinv;
-    for (int j = threadIdx.x; j < nvec; j += blockDim.x) {
-      float xv[N], g[N], s[N], o[N];
-      load_vec(xr + j * N, xv);
-      load_vec(gr + j * N, g);
-      load_scale<N>(scale + j * N, s);
+    T* dr = dx + row * dx_rs;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      float o[N];
 #pragma unroll
       for (int i = 0; i < N; ++i) {
-        o[i] = rv * (g[i] * s[i]) - (a * xv[i]) * dot;
-        acc[i * nvec + j] += (g[i] * xv[i]) * rv;
+        o[i] = rv * (g[m][i] * s[m][i]) - (a * xv[m][i]) * dot;
+        acc[m][i] += (g[m][i] * xv[m][i]) * rv;
       }
-      store_vec(dr + j * N, o);
+      store_unit(dr, threadIdx.x + blockDim.x * m, d, vec, o);
+      cx[m] = nx[m];
+      cg[m] = ng[m];
     }
-    for (int c = nvec * N + threadIdx.x; c < d; c += blockDim.x) {
-      const float xv = to_f32(xr[c]), g = to_f32(gr[c]);
-      put(dr + c, rv * (g * scale[c]) - (a * xv) * dot);
-      acc[c] += (g * xv) * rv;
-    }
+    rv = nrv;
   }
 
   float* wr = ws + static_cast<long long>(blockIdx.x) * d;
-  for (int j = threadIdx.x; j < nvec; j += blockDim.x)
 #pragma unroll
-    for (int i = 0; i < N; ++i) wr[j * N + i] = acc[i * nvec + j];
-  for (int c = nvec * N + threadIdx.x; c < d; c += blockDim.x) wr[c] = acc[c];
+  for (int m = 0; m < M; ++m) {
+    const int c0 = (threadIdx.x + blockDim.x * m) * N;
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (c0 + i < d) wr[c0 + i] = acc[m][i];
+  }
 }
 
 // K5, second launch: dscale[c] = sum over b of ws[b, c], in a fixed order.
@@ -275,6 +364,20 @@ cudaError_t launch_fwd(const void* x, const float* scale, void* out,
   return cudaGetLastError();
 }
 
+template <typename T, int M>
+cudaError_t launch_bwd_rows(const void* x, const float* scale,
+                            const float* rinv, const void* dy, void* dx,
+                            float* ws, long long rows, int d, long long x_rs,
+                            long long dy_rs, long long dx_rs,
+                            int rows_per_block, int n_blocks, int nt, int vec,
+                            cudaStream_t stream) {
+  rmsnorm_bwd_kernel<T, M><<<n_blocks, nt, 0, stream>>>(
+      static_cast<const T*>(x), scale, rinv, static_cast<const T*>(dy),
+      static_cast<T*>(dx), ws, rows, d, x_rs, dy_rs, dx_rs, rows_per_block,
+      vec);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_bwd(const void* x, const float* scale, const float* rinv,
                        const void* dy, void* dx, float* ws, float* dscale,
@@ -285,16 +388,18 @@ cudaError_t launch_bwd(const void* x, const float* scale, const float* rinv,
   const int vec = aligned16(x) && aligned16(dy) && aligned16(dx) &&
                   aligned16(scale) && x_rs % N == 0 && dy_rs % N == 0 &&
                   dx_rs % N == 0;
-  const size_t smem = static_cast<size_t>(d) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      rmsnorm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  rmsnorm_bwd_kernel<T><<<n_blocks, threads_for(d, N), smem, stream>>>(
-      static_cast<const T*>(x), scale, rinv, static_cast<const T*>(dy),
-      static_cast<T*>(dx), ws, rows, d, x_rs, dy_rs, dx_rs, rows_per_block,
-      vec);
-  err = cudaGetLastError();
+  // units a thread: the fewest of 1, 2, 4, 8 that keep a CTA within 512
+  // threads (1024 at 8, which D <= 32768 always allows)
+  const int units = (d + N - 1) / N;
+  int m = 1;
+  while (m < 8 && (units + m - 1) / m > 512) m *= 2;
+  const int nt = ((units + m - 1) / m + 31) / 32 * 32;
+  auto rows_launch = m == 1 ? launch_bwd_rows<T, 1>
+                   : m == 2 ? launch_bwd_rows<T, 2>
+                   : m == 4 ? launch_bwd_rows<T, 4> : launch_bwd_rows<T, 8>;
+  cudaError_t err = rows_launch(x, scale, rinv, dy, dx, ws, rows, d, x_rs,
+                                dy_rs, dx_rs, rows_per_block, n_blocks, nt,
+                                vec, stream);
   if (err != cudaSuccess) return err;
   dscale_reduce_kernel<<<(d + RED_COLS - 1) / RED_COLS,
                          RED_COLS * RED_GROUPS, 0, stream>>>(ws, dscale,

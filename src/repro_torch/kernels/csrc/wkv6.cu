@@ -4,9 +4,9 @@
 // K6 replaces src/repro/kernels/wkv6.py:_fwd_kernel (launched by _forward,
 // with and without the states residual). For r/k/v (B,S,H,P) in bf16 or
 // fp32, log-decays wlog (B,S,H,P) in bf16 or fp32, the bonus u (H,P) and the
-// initial state s0 (B,H,P,P) in fp32, it walks the chunks of each (b, h) in
-// order and carries the fp32 (P,P) state S. Per chunk, with
-// L = cumsum(w) and lprev = L - w down the chunk's rows:
+// initial state s0 (B,H,P,P) in fp32, it carries the fp32 (P,P) state S
+// over the chunks of each (b, h). Per chunk, with L = cumsum(w) and
+// lprev = L - w down the chunk's rows:
 //   o = (r e^lprev) S + sum_{j<t} [sum_p r_tp e^(lprev_tp - L_jp) k_jp] v_j
 //       + (r.u.k) v,
 //   S <- e^L_end S + (k e^(L_end - L))^T v,
@@ -29,18 +29,35 @@
 // 0.19 ms: operations bound it. Its two launches below move about 984 MB
 // (the G_c scratch written and read, dO read twice), 0.29 ms.
 //
-// K6's design: one CTA of 256 threads per (b, h), which walks the chunks
-// in a loop (the TPU kernel's sequential grid axis) with the state in
-// shared memory; every input is read once and every output written once.
-// Per chunk the r/k/v/w tiles are staged as fp32 in shared memory. The
-// (cs, cs, P) pairwise-decay tensor of the TPU kernel (256 KB at cs 32,
-// P 64, more than a CTA's shared memory) is never built: exp(lprev_t -
-// L_j) is recomputed where it is used, over the live triangle j < t only,
-// where the exponent is <= 0 and nothing can overflow under any decay (the
-// min(., 0) guards the last rounding). The arithmetic is scalar fp32 on the
-// CUDA cores; the grid is only B * H CTAs (256, about two waves on 132 SMs)
-// and the chunk loop is serial, so it runs far above its bound: the chunk-
-// parallel design of K7 is its next step.
+// K6's design: only the state carry is serial across chunks, and row p of
+// S evolves alone, S[p,:] <- e^L_end,p S[p,:] + sum_j k_jp e^(L_end,p -
+// L_jp) v_j, so K6 is two launches behind one call:
+//   (a) wkv6_fwd_scan_kernel: the state scan, split over (32-row slice of
+//       S, b, h), 512 CTAs at the shape above, four to an SM, so its 32
+//       dependent steps run in one wave (16-row slices, as K7's scan, made
+//       1,024 CTAs in two waves, and the scan took 0.21 ms on an H100
+//       against 0.15: scripts/wkv6_bwd_phases.py times it); it writes
+//       every S_c, the state entering chunk c, and s_end;
+//   (b) wkv6_fwd_chunk_kernel: one CTA of 128 threads per (b, h, chunk),
+//       8,192 CTAs, for the chunk's o from its own rows and S_c alone.
+// The serial loop of the TPU kernel's grid thus runs in 512 short scans
+// instead of 256 CTAs that did all the work of every chunk in turn, and
+// both launches keep their loads in flight: the scan prefetches the next
+// chunk while it updates S, and a chunk CTA issues every load before the
+// first is used (16-byte runs where the strides allow). The (cs, cs, P)
+// pairwise-decay tensor of the TPU kernel (256 KB at cs 32, P 64) is never
+// built: exp(lprev_t - L_j) is recomputed where it is used, over the live
+// triangle j < t only, a lane a pair, where the exponent is <= 0 and
+// nothing can overflow under any decay (the min(., 0) guards the last
+// rounding); that pass issues one expf per pair and column and bounds the
+// chunk launch's arithmetic. The two launches move more than the function:
+// the scan reads k, v, wlog and s0 and writes the states and s_end (about
+// 277 MB at the shape above), the chunk launch reads r, k, v, wlog and the
+// states and writes o (about 369 MB): about 646 MB, 0.19 ms at 3.35 TB/s.
+// The primal-only call runs the same two launches with a scratch in place
+// of `states`, so it moves the same 646 MB where its function needs 243
+// MB: the scratch's round trip (268 MB) and the second reads of k, v and
+// wlog are the price of the split.
 //
 // K7's design: only the state gradient G = dLoss/dS_out is serial across
 // chunks; every other term of a chunk depends only on that chunk's inputs,
@@ -72,9 +89,6 @@
 
 namespace {
 
-constexpr int NT = 256;              // threads per CTA
-constexpr int NWARP = NT / 32;
-
 // Element strides (batch, sequence, head) of one (B,S,H,P) tensor.
 struct Strides {
   long long b, s, h;
@@ -89,9 +103,10 @@ struct FwdArgs {
   const float* s0;      // (B,H,P,P)
   float* o;             // (B,S,H,P) contiguous
   float* s_end;         // (B,H,P,P)
-  float* states;        // (B,H,NC,P,P) or null
+  float* states;        // (B,H,NC,P,P): the states, or a scratch
   int h, s, cs;
   Strides sr, sk, sv, sw;
+  int vec;              // r/k/v/wlog load as 16-byte runs (see vec_ok)
 };
 
 struct BwdArgs {
@@ -123,28 +138,9 @@ __device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // exp(lprev_t - L_j) for j < t: the exponent is <= 0 up to rounding.
 __device__ __forceinline__ float pair_decay(float lprev_t, float l_j) {
   return expf(fminf(lprev_t - l_j, 0.f));
-}
-
-// Stage rows [row0, row0 + cs) of head hh of batch bb as fp32 (cs, P).
-template <typename T, int P>
-__device__ __forceinline__ void load_tile(float* dst, const void* base,
-                                          const Strides& st, int bb, int hh,
-                                          long long row0, int cs) {
-  const T* src = static_cast<const T*>(base) + bb * st.b + row0 * st.s +
-                 hh * st.h;
-  for (int i = threadIdx.x; i < cs * P; i += NT) {
-    const int t = i / P, p = i % P;
-    dst[i] = to_f32(src[t * st.s + p]);
-  }
 }
 
 // The N = rows * P / NT values of rows [row0, ..) of head hh of batch bb
@@ -172,162 +168,424 @@ __device__ __forceinline__ void put_rows(float* dst, int ld,
   }
 }
 
-// A (P, P) fp32 matrix between global (dense rows) and shared memory (rows
-// padded to P + 1, so that threads indexed by the row hit distinct banks).
-template <int P>
-__device__ __forceinline__ void load_pp(float* dst, const float* src) {
-  for (int i = threadIdx.x; i < P * P; i += NT)
-    dst[(i / P) * (P + 1) + i % P] = src[i];
+// K6's staging: the N = rows * P / NT values of rows [row0, ..) of head hh
+// of batch bb that thread t stages, kept in T until put_tile stores them as
+// fp32 (row stride ld). They come in runs of V adjacent columns, run m of
+// the thread being run t + NT m of the tile in row order, each run one load
+// of V * sizeof(T) <= 16 bytes when vec, else V scalar loads.
+template <int Bytes> struct RawOf;
+template <> struct RawOf<16> { using type = uint4; };
+template <> struct RawOf<8> { using type = uint2; };
+template <typename T, int N>
+__host__ __device__ constexpr int run_len() {
+  return 16 / static_cast<int>(sizeof(T)) < N
+             ? 16 / static_cast<int>(sizeof(T)) : N;
 }
-template <int P>
-__device__ __forceinline__ void store_pp(float* dst, const float* src) {
-  for (int i = threadIdx.x; i < P * P; i += NT)
-    dst[i] = src[(i / P) * (P + 1) + i % P];
-}
-
-// L = cumsum(w) down each column (one thread per column), lprev = L - w
-// written over w, and l_end = L of the last row.
-template <int P>
-__device__ __forceinline__ void decays(float* lp, float* L, float* lend,
-                                       int cs) {
-  if (threadIdx.x < P) {
-    const int p = threadIdx.x;
-    float acc = 0.f;
-    for (int t = 0; t < cs; ++t) {
-      const float w = lp[t * P + p];
-      acc += w;
-      L[t * P + p] = acc;
-      lp[t * P + p] = acc - w;
-    }
-    lend[p] = acc;
-  }
-}
-
-// rdec = r e^lprev and kadv = k e^(L_end - L).
-template <int P>
-__device__ __forceinline__ void decayed(float* rd, float* ka, const float* r,
-                                        const float* k, const float* lp,
-                                        const float* L, const float* lend,
-                                        int cs) {
-  for (int i = threadIdx.x; i < cs * P; i += NT) {
-    rd[i] = r[i] * expf(lp[i]);
-    ka[i] = k[i] * expf(lend[i % P] - L[i]);
-  }
-}
-
-// att[t, j] = sum_p r_tp e^(lprev_tp - L_jp) k_jp on j < t, else 0; one
-// warp per (t, j), lanes over p.
-template <int P>
-__device__ __forceinline__ void pair_att(float* att, const float* r,
-                                         const float* k, const float* lp,
-                                         const float* L, int cs) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int pr = warp; pr < cs * cs; pr += NWARP) {
-    const int t = pr / cs, j = pr % cs;
-    float acc = 0.f;
-    if (j < t) {
+template <typename T, int P, int NT, int N>
+__device__ __forceinline__ void fetch_tile(T (&x)[N], const void* base,
+                                           const Strides& st, int bb, int hh,
+                                           long long row0, int vec) {
+  constexpr int V = run_len<T, N>();
+  using Raw = typename RawOf<V * sizeof(T)>::type;
+  const T* src = static_cast<const T*>(base) + bb * st.b + row0 * st.s +
+                 hh * st.h;
 #pragma unroll
-      for (int p = lane; p < P; p += 32)
-        acc += r[t * P + p] * pair_decay(lp[t * P + p], L[j * P + p]) *
-               k[j * P + p];
-      acc = warp_sum(acc);
-    }
-    if (lane == 0) att[pr] = acc;
-  }
-}
-
-// out[t] = sum_p a_tp b_tp c_p (c null: 1); one warp per row.
-template <int P>
-__device__ __forceinline__ void row_dots(float* out, const float* a,
-                                         const float* b, const float* c,
-                                         int cs) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int t = warp; t < cs; t += NWARP) {
-    float acc = 0.f;
+  for (int m = 0; m < N / V; ++m) {
+    const int i = (threadIdx.x + NT * m) * V;
+    const T* p = src + (i / P) * st.s + i % P;
+    if (vec) {
+      const Raw raw = *reinterpret_cast<const Raw*>(p);
+      const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-    for (int p = lane; p < P; p += 32)
-      acc += c ? a[t * P + p] * c[p] * b[t * P + p] : a[t * P + p] * b[t * P + p];
-    acc = warp_sum(acc);
-    if (lane == 0) out[t] = acc;
+      for (int j = 0; j < V; ++j) x[m * V + j] = e[j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) x[m * V + j] = p[j];
+    }
+  }
+}
+template <typename T, int P, int NT, int N>
+__device__ __forceinline__ void put_tile(float* dst, int ld,
+                                         const T (&x)[N]) {
+  constexpr int V = run_len<T, N>();
+#pragma unroll
+  for (int m = 0; m < N / V; ++m) {
+    const int i = (threadIdx.x + NT * m) * V;
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      dst[(i / P) * ld + i % P + j] = to_f32(x[m * V + j]);
   }
 }
 
-// K6: one CTA per (b, h), blockIdx.x = b * H + h.
-template <typename TI, typename TW, int P>
-__global__ void __launch_bounds__(NT) wkv6_fwd_kernel(FwdArgs a) {
-  extern __shared__ float smem[];
-  constexpr int LD = P + 1;
-  constexpr int G = NT / P;          // row groups: thread = (group, column)
-  const int cs = a.cs, tile = cs * P;
-  const int bh = blockIdx.x, bb = bh / a.h, hh = bh % a.h;
-  const int col = threadIdx.x % P, grp = threadIdx.x / P;
-  const int nc = a.s / cs;
-  float* sr = smem;
-  float* sk = sr + tile;
-  float* sv = sk + tile;
-  float* slp = sv + tile;            // w, then lprev
-  float* sL = slp + tile;
-  float* srd = sL + tile;            // r e^lprev
-  float* ska = srd + tile;           // k e^(L_end - L)
-  float* sS = ska + tile;            // (P, P + 1)
-  float* satt = sS + P * LD;         // (cs, cs)
-  float* sdiag = satt + cs * cs;     // (cs)
-  float* slend = sdiag + cs;         // (P)
-  float* su = slend + P;             // (P)
+// A line "// phase: NAME" marks the next code line, a loop header or a
+// launch, as a part of K6 or K7 that scripts/wkv6_bwd_phases.py takes out
+// (the loop runs no times, the launch is dropped) to time the kernel
+// without it.
 
-  for (int p = threadIdx.x; p < P; p += NT) su[p] = a.u[hh * P + p];
-  load_pp<P>(sS, a.s0 + static_cast<long long>(bh) * P * P);
-  __syncthreads();
+constexpr int SCAN_NT = 128;    // threads per scan CTA (K6, K7): 4 warps
+constexpr int SLICE = 16;       // rows of G per K7 scan CTA
+constexpr int FWD_SLICE = 32;   // rows of S per K6 scan CTA
+
+// Threads of a chunk CTA (K6, K7): each owns 4 rows (rg + RG i, RG = CS / 4
+// row groups) and 4 columns of every (CS, P) output, so that a warp's lanes
+// read consecutive columns and at most a few rows.
+template <int P, int CS>
+__host__ __device__ constexpr int chunk_threads() { return CS * P / 16; }
+
+// ---- K6, launch (a): the state scan ------------------------------------
+
+// S_c, the state entering chunk c, for every chunk, by the only serial part
+// of the forward: S_0 = s0, S_{c+1} = e^L_end,c S_c + kadv_c^T v_c with
+// kadv = k e^(L_end - L). Row p of S needs only column p of k and w, so
+// there is one CTA per (slice of SL = FWD_SLICE rows of S, b, h), the
+// slices of one (b, h) side by side (blockIdx.x = bh * P / SL + slice), so
+// they share the chunk's v in L2: 512 CTAs at the rwkv6-7b
+// shape, which fit the card at once (four to an SM), so the 32 dependent
+// steps run in one wave. The slice stays in registers: warp w owns rows p0
+// + RW w + i (i < RW = SL / 4), lane l the columns l + 32j. The loop is
+// bound by latency, so each step loads the next chunk's v, k and w into
+// registers while it works on its own, and its cumsum of w runs on every
+// thread: NSEG segments of CS / NSEG rows per column, their totals added
+// through shared memory. S_c goes to a.states before the chunk's update,
+// s_end after the last.
+template <typename TI, typename TW, int P, int CS>
+__global__ void __launch_bounds__(SCAN_NT) wkv6_fwd_scan_kernel(FwdArgs a) {
+  constexpr int SL = FWD_SLICE;
+  static_assert(P % SL == 0, "P must be a multiple of the scan's slice");
+  constexpr int RW = SL / 4;                 // rows of the slice a warp
+  constexpr int NQ = P / 32;
+  constexpr int NV = CS * P / SCAN_NT;       // v values a thread stages
+  constexpr int NKW = CS * SL / SCAN_NT;     // k (and w) values a thread
+  constexpr int NSEG = SCAN_NT / SL;         // cumsum segments a column
+  __shared__ __align__(16) float sv[CS * P];
+  __shared__ __align__(16) float ska[CS * SL];   // k e^(L_end - L)
+  __shared__ float stot[SCAN_NT];                // segment sums of w
+  const int nsl = P / SL;
+  const int slice = blockIdx.x % nsl, bh = blockIdx.x / nsl;
+  const int bb = bh / a.h, hh = bh % a.h;
+  const int p0 = slice * SL;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nc = a.s / CS;
+  const long long pp = static_cast<long long>(P) * P;
+  // the cumsum's share of this thread: column col of the slice, rows
+  // seg * NKW .. + NKW - 1
+  const int col = tid % SL, seg = tid / SL;
+
+  float s[RW][NQ];
+  const float* s0 = a.s0 + bh * pp;
+#pragma unroll
+  for (int i = 0; i < RW; ++i)
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+      s[i][j] = s0[(p0 + RW * warp + i) * P + lane + 32 * j];
+
+  // the chunk's v (16-byte runs where the strides allow) and the thread's
+  // cumsum rows of k and w
+  TI nv[NV];
+  float nk[NKW], nw[NKW];
+  auto fetch = [&](int c) {
+    const long long row0 = static_cast<long long>(c) * CS;
+    fetch_tile<TI, P, SCAN_NT>(nv, a.v, a.sv, bb, hh, row0, a.vec);
+    const TI* kg = static_cast<const TI*>(a.k) + bb * a.sk.b +
+                   (row0 + seg * NKW) * a.sk.s + hh * a.sk.h + p0 + col;
+    const TW* wg = static_cast<const TW*>(a.w) + bb * a.sw.b +
+                   (row0 + seg * NKW) * a.sw.s + hh * a.sw.h + p0 + col;
+#pragma unroll
+    for (int m = 0; m < NKW; ++m) {
+      nk[m] = to_f32(kg[m * a.sk.s]);
+      nw[m] = to_f32(wg[m * a.sw.s]);
+    }
+  };
+  fetch(0);
 
   for (int c = 0; c < nc; ++c) {
-    const long long row0 = static_cast<long long>(c) * cs;
-    if (a.states)
-      store_pp<P>(a.states + (static_cast<long long>(bh) * nc + c) * P * P,
-                  sS);
-    load_tile<TI, P>(sr, a.r, a.sr, bb, hh, row0, cs);
-    load_tile<TI, P>(sk, a.k, a.sk, bb, hh, row0, cs);
-    load_tile<TI, P>(sv, a.v, a.sv, bb, hh, row0, cs);
-    load_tile<TW, P>(slp, a.w, a.sw, bb, hh, row0, cs);
-    __syncthreads();
-    decays<P>(slp, sL, slend, cs);
-    __syncthreads();
-    decayed<P>(srd, ska, sr, sk, slp, sL, slend, cs);
-    pair_att<P>(satt, sr, sk, slp, sL, cs);
-    row_dots<P>(sdiag, sr, sk, su, cs);
-    __syncthreads();
-
-    // o[t, col]: the carried state, the strictly causal pairs, the bonus
-    float* orow = a.o + ((static_cast<long long>(bb) * a.s + row0) * a.h +
-                         hh) * P + col;
-    for (int t = grp; t < cs; t += G) {
-      float acc = 0.f;
-#pragma unroll 16
-      for (int p = 0; p < P; ++p) acc += srd[t * P + p] * sS[p * LD + col];
-      float pairs = 0.f;
-      for (int j = 0; j < t; ++j) pairs += satt[t * cs + j] * sv[j * P + col];
-      orow[static_cast<long long>(t) * a.h * P] =
-          acc + pairs + sdiag[t] * sv[t * P + col];
+    float* sc = a.states + (bh * nc + c) * pp;
+#pragma unroll
+    for (int i = 0; i < RW; ++i)
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+        sc[(p0 + RW * warp + i) * P + lane + 32 * j] = s[i][j];
+    // this chunk's registers: the w segment's inclusive sums kept, its
+    // total shared
+    float ck[NKW], cw[NKW];
+    float tot = 0.f;
+#pragma unroll
+    for (int m = 0; m < NKW; ++m) {
+      ck[m] = nk[m];
+      tot += nw[m];
+      cw[m] = tot;
     }
-    __syncthreads();                 // every read of the old S is done
-
-    for (int p = grp; p < P; p += G) {
-      float acc = 0.f;
-      for (int j = 0; j < cs; ++j) acc += ska[j * P + p] * sv[j * P + col];
-      sS[p * LD + col] = expf(slend[p]) * sS[p * LD + col] + acc;
-    }
+    __syncthreads();       // the previous chunk's reads are done
+    put_tile<TI, P, SCAN_NT>(sv, P, nv);
+    stot[tid] = tot;
+    if (c + 1 < nc) fetch(c + 1);   // in flight while this chunk is worked on
     __syncthreads();
+    // L of the segment's rows (the earlier segments' sums + the sum to the
+    // row) and L_end of the column (every segment's sum, in the same order)
+    float off = 0.f, lend = 0.f;
+#pragma unroll
+    for (int m = 0; m < NSEG; ++m) {
+      if (m == seg) off = lend;
+      lend += stot[m * SL + col];
+    }
+#pragma unroll
+    for (int m = 0; m < NKW; ++m)
+      ska[(seg * NKW + m) * SL + col] = ck[m] * expf(lend - (off + cw[m]));
+    __syncthreads();
+    float acc[RW][NQ];
+#pragma unroll
+    for (int i = 0; i < RW; ++i)
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+    for (int t = 0; t < CS; ++t) {
+      float d[NQ];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) d[j] = sv[t * P + lane + 32 * j];
+#pragma unroll
+      for (int i0 = 0; i0 < RW; i0 += 4) {
+        const float4 ka = *reinterpret_cast<const float4*>(
+            ska + t * SL + RW * warp + i0);
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          acc[i0][j] = fmaf(ka.x, d[j], acc[i0][j]);
+          acc[i0 + 1][j] = fmaf(ka.y, d[j], acc[i0 + 1][j]);
+          acc[i0 + 2][j] = fmaf(ka.z, d[j], acc[i0 + 2][j]);
+          acc[i0 + 3][j] = fmaf(ka.w, d[j], acc[i0 + 3][j]);
+        }
+      }
+    }
+    // e^L_end of the warp's rows: every segment's sum of that column
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      float l = 0.f;
+#pragma unroll
+      for (int m = 0; m < NSEG; ++m) l += stot[m * SL + RW * warp + i];
+      const float decay = expf(l);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) s[i][j] = fmaf(decay, s[i][j], acc[i][j]);
+    }
   }
-  store_pp<P>(a.s_end + static_cast<long long>(bh) * P * P, sS);
+  float* se = a.s_end + bh * pp;
+#pragma unroll
+  for (int i = 0; i < RW; ++i)
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+      se[(p0 + RW * warp + i) * P + lane + 32 * j] = s[i][j];
+}
+
+// ---- K6, launch (b): the chunks' outputs, in parallel --------------------
+
+// Shared memory of a K6 chunk CTA, in floats: r (then r e^lprev), v and S_c
+// with row stride P; w (then L) and k with stride P + 4, whose rows the att
+// pass reads across lanes as float4 (8 lanes of a quarter-warp on rows j ..
+// j + 7 hit 32 distinct banks); att (CS, CS + 4), read as float4 along j;
+// the cumsum's segment sums, diag and u.
+template <int P, int CS>
+__host__ __device__ constexpr int fwd_chunk_smem_floats() {
+  return 2 * CS * P + P * P + 2 * CS * (P + 4) + CS * (CS + 4) +
+         chunk_threads<P, CS>() + CS + P;
+}
+
+// One CTA per (b, h, chunk), blockIdx.x = bh * NC + c: o for the chunk's
+// rows from its r, k, v, w and its entering state S_c (launch (a)). Thread
+// (rg, cg) owns the rows rg + RG i and the 4 adjacent columns 4 cg .. 4 cg
+// + 3, so that its row of o is one float4 and a row of S_c or v one float4
+// read.
+template <typename TI, typename TW, int P, int CS>
+__global__ void __launch_bounds__(CS * P / 16, 4)
+    wkv6_fwd_chunk_kernel(FwdArgs a) {
+  constexpr int NT = chunk_threads<P, CS>();
+  constexpr int LJ = P + 4, LA = CS + 4;
+  constexpr int RG = CS / 4, CG = P / 4;
+  constexpr int NSEG = NT / P;             // cumsum segments a column
+  constexpr int SEG = CS / NSEG;           // rows a segment
+  extern __shared__ float4 smem_f4[];
+  float* sr = reinterpret_cast<float*>(smem_f4);   // r, then r e^lprev
+  float* sv = sr + CS * P;
+  float* sS = sv + CS * P;           // S_c (P, P)
+  float* sL = sS + P * P;            // w, then L (stride LJ)
+  float* sk = sL + CS * LJ;          // (stride LJ)
+  float* satt = sk + CS * LJ;        // (CS, LA): att[t][j] on j < t, else 0
+  float* stot = satt + CS * LA;      // (NT): segment sums of w
+  float* sdiag = stot + NT;          // (CS): sum_p r u k
+  float* su = sdiag + CS;            // (P)
+
+  const int nc = a.s / CS;
+  const int bh = blockIdx.x / nc, c = blockIdx.x % nc;
+  const int bb = bh / a.h, hh = bh % a.h;
+  const long long row0 = static_cast<long long>(c) * CS;
+  const int tid = threadIdx.x;
+  const int rg = tid / CG, cg = tid % CG;
+
+  // 1. stage the chunk's rows as fp32, S_c and u. The CTA is short-lived
+  // and few share an SM, so latency rules: every load is issued before the
+  // first store
+  constexpr int NR = CS * P / NT;          // 16 values a thread per tile
+  constexpr int NPP = P * P / 4 / NT;      // float4s a thread of S_c
+  TI xr[NR], xk[NR], xv[NR];
+  TW xw[NR];
+  fetch_tile<TI, P, NT>(xr, a.r, a.sr, bb, hh, row0, a.vec);
+  fetch_tile<TI, P, NT>(xk, a.k, a.sk, bb, hh, row0, a.vec);
+  fetch_tile<TI, P, NT>(xv, a.v, a.sv, bb, hh, row0, a.vec);
+  fetch_tile<TW, P, NT>(xw, a.w, a.sw, bb, hh, row0, a.vec);
+  const float4* sc = reinterpret_cast<const float4*>(
+      a.states + (static_cast<long long>(bh) * nc + c) * P * P);
+  float4 xs[NPP];
+#pragma unroll
+  for (int m = 0; m < NPP; ++m) xs[m] = sc[tid + NT * m];
+  put_tile<TI, P, NT>(sr, P, xr);
+  put_tile<TI, P, NT>(sk, LJ, xk);
+  put_tile<TI, P, NT>(sv, P, xv);
+  put_tile<TW, P, NT>(sL, LJ, xw);
+#pragma unroll
+  for (int m = 0; m < NPP; ++m)
+    reinterpret_cast<float4*>(sS)[tid + NT * m] = xs[m];
+  for (int p = tid; p < P; p += NT) su[p] = a.u[hh * P + p];
+  for (int i = tid; i < CS * LA; i += NT) satt[i] = 0.f;
+  __syncthreads();
+
+  // 2. diag[t] = sum_p r u k, NT / CS = P / 16 adjacent threads a row, 16
+  // columns each (from a column that differs between rows, so that the
+  // lanes spread over the banks), their sums combined by shuffles; then L =
+  // cumsum(w) down each column: thread (seg, col) sums its SEG rows in
+  // place, then adds the earlier segments' totals
+  {
+    constexpr int PARTS = NT / CS;
+    const int t = tid / PARTS, part = tid % PARTS;
+    float dg = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int p = part * 16 + (i + t) % 16;
+      dg += sr[t * P + p] * su[p] * sk[t * LJ + p];
+    }
+#pragma unroll
+    for (int o = 1; o < PARTS; o <<= 1)
+      dg += __shfl_xor_sync(0xffffffffu, dg, o);
+    if (part == 0) sdiag[t] = dg;
+  }
+  {
+    const int col = tid % P, seg = tid / P;
+    float* lc = sL + seg * SEG * LJ + col;
+    float acc = 0.f;
+#pragma unroll
+    for (int t = 0; t < SEG; ++t) {
+      acc += lc[t * LJ];
+      lc[t * LJ] = acc;
+    }
+    stot[tid] = acc;
+    __syncthreads();
+    float off = 0.f;
+    for (int m = 0; m < seg; ++m) off += stot[m * P + col];
+    if (seg)
+#pragma unroll
+      for (int t = 0; t < SEG; ++t) lc[t * LJ] += off;
+  }
+  __syncthreads();
+
+  // 3. att[t][j] on the live triangle j < t: a warp takes the rows ta =
+  // CS/2 + f and tb = CS/2 - 1 - f together (ta + tb = CS - 1 pairs), a
+  // lane a pair, the sum over p in the lane
+  {
+    const int lane = tid & 31, warp = tid >> 5;
+    // phase: fwd-att-pass
+    for (int f = warp; f < CS / 2; f += NT / 32) {
+      const int ta = CS / 2 + f, tb = CS / 2 - 1 - f;
+      const int t = lane < ta ? ta : tb;
+      const int j = lane < ta ? lane : lane - ta;
+      if (lane < ta + tb) {
+        // lprev_t = L_{t-1}
+        const float4* lt = reinterpret_cast<const float4*>(sL + (t - 1) * LJ);
+        const float4* lj = reinterpret_cast<const float4*>(sL + j * LJ);
+        const float4* rt = reinterpret_cast<const float4*>(sr + t * P);
+        const float4* kj = reinterpret_cast<const float4*>(sk + j * LJ);
+        float att = 0.f;
+#pragma unroll 4
+        for (int q = 0; q < P / 4; ++q) {
+          const float4 a = lt[q], b = lj[q], x = rt[q], y = kj[q];
+          att += x.x * pair_decay(a.x, b.x) * y.x;
+          att += x.y * pair_decay(a.y, b.y) * y.y;
+          att += x.z * pair_decay(a.z, b.z) * y.z;
+          att += x.w * pair_decay(a.w, b.w) * y.w;
+        }
+        satt[t * LA + j] = att;
+      }
+    }
+  }
+  __syncthreads();
+
+  // 4. r e^lprev in place
+  for (int i = tid; i < CS * P; i += NT)
+    if (i >= P) sr[i] *= expf(sL[(i / P - 1) * LJ + i % P]);
+  __syncthreads();
+
+  // 5. o = (r e^lprev) S_c + att v + diag v at the thread's rows and columns
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  // phase: fwd-products
+#pragma unroll 2
+  for (int k = 0; k < P; k += 4) {
+    float4 x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = *reinterpret_cast<const float4*>(sr + (rg + RG * i) * P + k);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 y =
+          *reinterpret_cast<const float4*>(sS + (k + u) * P + 4 * cg);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float xv = u == 0 ? x[i].x : u == 1 ? x[i].y
+                       : u == 2 ? x[i].z : x[i].w;
+        acc[i][0] = fmaf(xv, y.x, acc[i][0]);
+        acc[i][1] = fmaf(xv, y.y, acc[i][1]);
+        acc[i][2] = fmaf(xv, y.z, acc[i][2]);
+        acc[i][3] = fmaf(xv, y.w, acc[i][3]);
+      }
+    }
+  }
+  // att v over j below the thread's last row, rounded up to a multiple of
+  // 4 (att is 0 past each row's own), 4 j at a time
+  const int jend = (rg + RG * 3 + 3) & ~3;
+  // phase: fwd-products
+  for (int j = 0; j < jend; j += 4) {
+    float4 at[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      at[i] = *reinterpret_cast<const float4*>(satt + (rg + RG * i) * LA + j);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 y =
+          *reinterpret_cast<const float4*>(sv + (j + u) * P + 4 * cg);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float w = u == 0 ? at[i].x : u == 1 ? at[i].y
+                      : u == 2 ? at[i].z : at[i].w;
+        acc[i][0] = fmaf(w, y.x, acc[i][0]);
+        acc[i][1] = fmaf(w, y.y, acc[i][1]);
+        acc[i][2] = fmaf(w, y.z, acc[i][2]);
+        acc[i][3] = fmaf(w, y.w, acc[i][3]);
+      }
+    }
+  }
+  const long long orow = static_cast<long long>(a.h) * P;
+  float* ob = a.o + ((static_cast<long long>(bb) * a.s + row0) * a.h + hh) *
+                        P + 4 * cg;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = rg + RG * i;
+    const float4 y = *reinterpret_cast<const float4*>(sv + t * P + 4 * cg);
+    const float dg = sdiag[t];
+    *reinterpret_cast<float4*>(ob + t * orow) = make_float4(
+        fmaf(dg, y.x, acc[i][0]), fmaf(dg, y.y, acc[i][1]),
+        fmaf(dg, y.z, acc[i][2]), fmaf(dg, y.w, acc[i][3]));
+  }
 }
 
 // ---- K7, launch (a): the state-gradient scan -------------------------
-//
-// A line "// phase: NAME" marks the next code line, a loop header or a
-// launch, as a part of K7 that scripts/wkv6_bwd_phases.py takes out (the
-// loop runs no times, the launch is dropped) to time K7 without it.
-
-constexpr int SCAN_NT = 128;    // threads per scan CTA: 4 warps
-constexpr int SLICE = 16;       // rows of G per scan CTA
 
 // G_c = dLoss/dS_out of chunk c for every chunk, by the only serial part
 // of the backward: G_{NC-1} = dS_end, G_{c-1} = (r_c e^lprev_c)^T dO_c +
@@ -464,14 +722,7 @@ __global__ void __launch_bounds__(SCAN_NT) wkv6_bwd_scan_kernel(BwdArgs a) {
 
 // ---- K7, launch (b): the chunks' adjoints, in parallel -------------------
 
-// Threads of a chunk CTA: each owns a 4 x 4 block of every (CS, P) output,
-// rows rg + RG i and columns cg + CG j (CG = P / 4 column threads, RG =
-// CS / 4 row groups), so a warp's lanes read consecutive columns and at
-// most a few rows.
-template <int P, int CS>
-__host__ __device__ constexpr int chunk_threads() { return CS * P / 16; }
-
-// Shared memory of a chunk CTA, in floats. Row strides: P + 1 for L, k and
+// Shared memory of a K7 chunk CTA, in floats. Row strides: P + 1 for L, k and
 // v, whose rows the pair pass reads across lanes (scalar loads on distinct
 // banks); P for r, dO and kadv, read a row at a time as float4; P + 4 for
 // the (P, P) state and G, read as float4 down rows across lanes.
@@ -811,34 +1062,26 @@ __global__ void __launch_bounds__(CS * P / 16, 3)
   }
 }
 
-size_t fwd_smem(int p, int cs) {
-  return sizeof(float) *
-         (7 * cs * p + p * (p + 1) + cs * cs + cs + 2 * p);
-}
-
-template <typename Kernel, typename Args>
-cudaError_t launch(Kernel kernel, const Args& args, int blocks, size_t smem,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// K6's two launches for one shape: the scan (bh * P / FWD_SLICE CTAs), then
+// one CTA per (b, h, chunk).
+template <typename TI, typename TW, int P, int CS>
+cudaError_t launch_fwd(const FwdArgs& a, int bh, cudaStream_t stream) {
+  const int scan_ctas = bh * (P / FWD_SLICE);
+  // phase: fwd-scan-launch
+  wkv6_fwd_scan_kernel<TI, TW, P, CS><<<scan_ctas, SCAN_NT, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kernel<<<blocks, NT, smem, stream>>>(args);
+  constexpr int smem =
+      fwd_chunk_smem_floats<P, CS>() * static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(wkv6_fwd_chunk_kernel<TI, TW, P, CS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  constexpr int nt = chunk_threads<P, CS>();
+  const int chunk_ctas = bh * (a.s / CS);
+  // phase: fwd-chunk-launch
+  wkv6_fwd_chunk_kernel<TI, TW, P, CS><<<chunk_ctas, nt, smem, stream>>>(a);
   return cudaGetLastError();
-}
-
-template <int P, typename Args>
-cudaError_t dispatch_fwd(int in_dtype, int w_dtype, const Args& a,
-                         int blocks, cudaStream_t st) {
-  const size_t smem = fwd_smem(P, a.cs);
-  using bf = __nv_bfloat16;
-  if (in_dtype == 1 && w_dtype == 1)
-    return launch(wkv6_fwd_kernel<bf, bf, P>, a, blocks, smem, st);
-  if (in_dtype == 1)
-    return launch(wkv6_fwd_kernel<bf, float, P>, a, blocks, smem, st);
-  if (w_dtype == 1)
-    return launch(wkv6_fwd_kernel<float, bf, P>, a, blocks, smem, st);
-  return launch(wkv6_fwd_kernel<float, float, P>, a, blocks, smem, st);
 }
 
 // K7's two launches for one shape: the scan (bh * P / SLICE CTAs), then
@@ -863,28 +1106,56 @@ cudaError_t launch_bwd(const BwdArgs& a, int bh, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename TI, typename TW>
-cudaError_t dispatch_bwd_shape(int p, const BwdArgs& a, int bh,
-                               cudaStream_t st) {
+struct Fwd {
+  template <typename TI, typename TW, int P, int CS>
+  static cudaError_t run(const FwdArgs& a, int bh, cudaStream_t st) {
+    return launch_fwd<TI, TW, P, CS>(a, bh, st);
+  }
+};
+struct Bwd {
+  template <typename TI, typename TW, int P, int CS>
+  static cudaError_t run(const BwdArgs& a, int bh, cudaStream_t st) {
+    return launch_bwd<TI, TW, P, CS>(a, bh, st);
+  }
+};
+
+// The launches of L (Fwd or Bwd) for the call's dtypes, P and chunk.
+template <typename L, typename TI, typename TW, typename Args>
+cudaError_t dispatch_shape(int p, const Args& a, int bh, cudaStream_t st) {
   if (p == 32)
-    return a.cs == 16 ? launch_bwd<TI, TW, 32, 16>(a, bh, st)
-                      : launch_bwd<TI, TW, 32, 32>(a, bh, st);
-  return a.cs == 16 ? launch_bwd<TI, TW, 64, 16>(a, bh, st)
-                    : launch_bwd<TI, TW, 64, 32>(a, bh, st);
+    return a.cs == 16 ? L::template run<TI, TW, 32, 16>(a, bh, st)
+                      : L::template run<TI, TW, 32, 32>(a, bh, st);
+  return a.cs == 16 ? L::template run<TI, TW, 64, 16>(a, bh, st)
+                    : L::template run<TI, TW, 64, 32>(a, bh, st);
 }
 
-cudaError_t dispatch_bwd(int in_dtype, int w_dtype, int p, const BwdArgs& a,
-                         int bh, cudaStream_t st) {
+template <typename L, typename Args>
+cudaError_t dispatch(int in_dtype, int w_dtype, int p, const Args& a, int bh,
+                     cudaStream_t st) {
   using bf = __nv_bfloat16;
   if (in_dtype == 1 && w_dtype == 1)
-    return dispatch_bwd_shape<bf, bf>(p, a, bh, st);
-  if (in_dtype == 1) return dispatch_bwd_shape<bf, float>(p, a, bh, st);
-  if (w_dtype == 1) return dispatch_bwd_shape<float, bf>(p, a, bh, st);
-  return dispatch_bwd_shape<float, float>(p, a, bh, st);
+    return dispatch_shape<L, bf, bf>(p, a, bh, st);
+  if (in_dtype == 1) return dispatch_shape<L, bf, float>(p, a, bh, st);
+  if (w_dtype == 1) return dispatch_shape<L, float, bf>(p, a, bh, st);
+  return dispatch_shape<L, float, float>(p, a, bh, st);
 }
 
 Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
+}
+
+// 1 when each of r, k, v and wlog starts on 16 bytes and its (batch, seq,
+// head) strides are multiples of 16 bytes, so that K6's staging loads
+// 16-byte runs; else 0 (scalar loads).
+int vec_ok(int in_dtype, int w_dtype, const void* const* ptrs,
+           const long long* strides) {
+  for (int i = 0; i < 4; ++i) {
+    const long long el = (i < 3 ? in_dtype : w_dtype) == 1 ? 2 : 4;
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return 0;
+    for (int j = 0; j < 3; ++j)
+      if (strides[3 * i + j] * el % 16) return 0;
+  }
+  return 1;
 }
 
 }  // namespace
@@ -896,19 +1167,22 @@ extern "C" {
 // 32, s a multiple of cs (the wrapper checks). strides: (batch, seq, head)
 // element strides of r, k, v, wlog and (K7) dO; their last dimension is
 // contiguous, and every other tensor is dense. Each returns a cudaError_t.
+// states is float32 (B,H,NC,P,P), written with the state entering every
+// chunk: the backward's residual, or a scratch for a primal-only call.
 int repro_wkv6_fwd(int in_dtype, int w_dtype, int p, const void* r,
                    const void* k, const void* v, const void* w,
                    const void* u, const void* s0, void* o, void* s_end,
                    void* states, int b, int s, int h, int cs,
                    const long long* strides, void* stream) {
+  const void* const ptrs[4] = {r, k, v, w};
   FwdArgs a{r, k, v, w, static_cast<const float*>(u),
             static_cast<const float*>(s0), static_cast<float*>(o),
             static_cast<float*>(s_end), static_cast<float*>(states), h, s, cs,
             strides_at(strides, 0), strides_at(strides, 1),
-            strides_at(strides, 2), strides_at(strides, 3)};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p == 32) return dispatch_fwd<32>(in_dtype, w_dtype, a, b * h, st);
-  return dispatch_fwd<64>(in_dtype, w_dtype, a, b * h, st);
+            strides_at(strides, 2), strides_at(strides, 3),
+            vec_ok(in_dtype, w_dtype, ptrs, strides)};
+  return static_cast<int>(dispatch<Fwd>(in_dtype, w_dtype, p, a, b * h,
+                                        static_cast<cudaStream_t>(stream)));
 }
 
 // du is float32 (B,H,NC,P): one partial per (b, h, chunk), which the
@@ -928,8 +1202,8 @@ int repro_wkv6_bwd(int in_dtype, int w_dtype, int p, const void* r,
             strides_at(strides, 0), strides_at(strides, 1),
             strides_at(strides, 2), strides_at(strides, 3),
             strides_at(strides, 4)};
-  return static_cast<int>(dispatch_bwd(in_dtype, w_dtype, p, a, b * h,
-                                       static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(dispatch<Bwd>(in_dtype, w_dtype, p, a, b * h,
+                                        static_cast<cudaStream_t>(stream)));
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -29,10 +29,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_rmsnorm_bwd, ref_rmsnorm_fwd
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_D = 32768               # K5 keeps D fp32 partials in shared memory
+MAX_D = 32768               # K5: a row in 1024 threads x 8 units of 4 fp32
 _ROWS_MAX = 2 ** 31 - 1     # K4's grid.x
-# K5's CTA count for large inputs: fixed, so that how rows are blocked, and
-# so the order dscale is summed in, depends on the shape only
+# K5's CTA count for large inputs (16 rows each at the decoder's 4096 rows,
+# one wave of two 512-thread CTAs an SM on an H100): fixed, so that how rows
+# are blocked, and so the order dscale is summed in, depends on the shape
+# only
 BWD_BLOCKS = 256
 
 
@@ -132,7 +134,9 @@ def fused_rmsnorm_fwd(x, scale, eps=1e-6):
 
 
 def bwd_blocks(rows):
-    """K5's (rows per CTA, CTAs): at most ``BWD_BLOCKS`` CTAs."""
+    """K5's (rows per CTA, CTAs): the fewest rows per CTA that need at most
+    ``BWD_BLOCKS`` CTAs; each CTA's dscale partial is one row of the
+    (CTAs, D) fp32 workspace that the reduction launch sums in order."""
     per = -(-rows // BWD_BLOCKS)
     return per, -(-rows // per)
 

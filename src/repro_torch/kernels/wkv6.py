@@ -4,11 +4,14 @@ the autograd Function that joins them.
 The port of ``repro/kernels/wkv6.py``: ``wkv6_fwd`` launches K6
 (``_fwd_kernel``) and returns ``(o, s_end, states)``, with the fp32 state
 entering every chunk when ``with_states`` (the backward's residual) and
-``None`` otherwise (the reference's primal-only variant, which writes no
-states); ``wkv6_bwd`` launches K7 (``_bwd_kernel``: dr, dk, dv, dwlog, du,
-ds0), two CUDA launches behind one call: the reverse scan of the state
-gradient into a scratch (:func:`bwd_scratch_shapes`), then every chunk's
-adjoints in parallel. :class:`WKV6` is the port of the
+``None`` otherwise (the reference's primal-only variant); ``wkv6_bwd``
+launches K7 (``_bwd_kernel``: dr, dk, dv, dwlog, du, ds0). Each is two CUDA
+launches behind one call: a scan over the chunks carries the only serial
+quantity (K6: the state S, writing every S_c; K7: the state gradient,
+writing every G_c to a scratch, :func:`bwd_scratch_shapes`), then every
+chunk's outputs are computed in parallel. K6's primal-only call writes its
+S_c to a scratch of the states' shape (:func:`fwd_scratch_shapes`) and
+returns no states. :class:`WKV6` is the port of the
 reference's custom VJP (``_wkv_fwd``/``_wkv_bwd``): its forward is K6 with
 states and its backward is K7, so gradients never come from autograd
 through the forward; ``wkv6`` takes the primal-only K6 when no gradient is
@@ -37,7 +40,7 @@ HEAD_DIMS = (32, 64)
 CHUNKS = (16, 32)
 WKV_CHUNK_MAX = 32          # repro/kernels/vjp.py:41, the largest chunk
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BLOCKS_MAX = 2 ** 31 - 1   # grid.x: B * H (K6), B * H * S / chunk (K7)
+_BLOCKS_MAX = 2 ** 31 - 1   # grid.x: B * H * S / chunk (K6, K7)
 
 
 def _lib():
@@ -163,12 +166,20 @@ def _fwd_kernel(r, k, v, wlog, u, s0, chunk, with_states):
     f32 = {"dtype": torch.float32, "device": r.device}
     o = torch.empty((b, s, h, p), **f32)
     s_end = torch.empty((b, h, p, p), **f32)
-    states = torch.empty((b, h, s // chunk, p, p), **f32) \
-        if with_states else None
+    states = torch.empty(fwd_scratch_shapes(b, s, h, p, chunk), **f32)
     _launch("repro_wkv6_fwd", "wkv6_fwd", r.device, (
         _DTYPE_CODE[r.dtype], _DTYPE_CODE[wlog.dtype], p, r, k, v, wlog, u,
         s0, o, s_end, states, b, s, h, chunk, _strides(r, k, v, wlog)))
-    return o, s_end, states
+    return o, s_end, (states if with_states else None)
+
+
+def fwd_scratch_shapes(b, s, h, p, chunk):
+    """The fp32 buffer K6's scan writes the state entering every chunk to,
+    (B,H,NC,P,P), and its chunk launch reads: the ``states`` output with
+    states, else a scratch of the same shape (134.2 MB at B 4, S 1024, H 64,
+    P 64, chunk 32), so that both variants run the same launches and give
+    the same o and s_end."""
+    return (b, h, s // chunk, p, p)
 
 
 def bwd_scratch_shapes(b, s, h, p, chunk):

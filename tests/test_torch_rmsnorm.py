@@ -207,9 +207,52 @@ def test_row_layout_copies_only_what_the_kernels_refuse(monkeypatch):
 
 @pytest.mark.parametrize("rows", [1, 7, 255, 256, 257, 4096, 4097, 100000])
 def test_bwd_blocks_cover_every_row_once(rows):
+    """K5 takes the fewest rows per CTA that need at most BWD_BLOCKS (256)
+    CTAs: 16 rows a CTA, 256 CTAs, at the decoder's 4096 rows; every CTA
+    has at least one row."""
     per, n = rms.bwd_blocks(rows)
-    assert n <= rms.BWD_BLOCKS
+    assert n <= rms.BWD_BLOCKS == 256
+    assert per == -(-rows // rms.BWD_BLOCKS)
     assert (n - 1) * per < rows <= n * per
+    if rows == 4096:
+        assert (per, n) == (16, 256)
+
+
+def _k5_dscale(x, dy, rinv):
+    """dscale in K5's order, in fp32: each CTA of ``bwd_blocks(rows)`` sums
+    its rows' dy∘x∘rinv in row order into its partial (a workspace row);
+    the reduction launch's thread group g of RED_GROUPS = 8 sums the
+    partials g, g + 8, ... in turn, and the groups' sums are added in group
+    order."""
+    rows, d = x.shape
+    per, n = rms.bwd_blocks(rows)
+    prod = (dy * x) * rinv[:, None]
+    prod = torch.nn.functional.pad(prod, (0, 0, 0, n * per - rows))
+    ws = torch.zeros(n, d)
+    for i in range(per):                 # a zero padded row adds nothing
+        ws += prod[i::per][:n]
+    groups = torch.zeros(8, d)
+    for b in range(n):
+        groups[b % 8] += ws[b]
+    out = torch.zeros(d)
+    for g in range(8):
+        out += groups[g]
+    return out
+
+
+@pytest.mark.parametrize("rows,d", [(4096, 4096), (4097, 512), (300, 1001)])
+def test_k5_dscale_order_matches_reference(rows, d):
+    """K5's blocked, fixed-order dscale (``_k5_dscale``) equals
+    ``ref_rmsnorm_bwd``'s within 1e-6 of its largest value, at the
+    decoder's 4096 rows and at ragged row counts; the order depends on the
+    shape only, so it repeats bit for bit."""
+    x, sc, w = _inputs((rows, d), seed=6)
+    xt, dyt, st = map(torch.from_numpy, (x, w, sc))
+    _, rinv = ref_rmsnorm_fwd(xt, st, EPS)
+    got = _k5_dscale(xt, dyt, rinv)
+    _, want = ref_rmsnorm_bwd(xt, st, rinv, dyt)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    assert torch.equal(got, _k5_dscale(xt, dyt, rinv))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

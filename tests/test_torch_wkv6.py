@@ -477,3 +477,130 @@ def test_k7_phase_tags_name_lines_of_the_kernel():
                 assert "<<<" in old and new == ""
     with pytest.raises(SystemExit):
         phases.without(src, ["no-such-part"])
+
+
+def _k6_two_phase(r, k, v, wlog, u, s0, chunk, dtype=torch.float32,
+                  slice_rows=32):
+    """K6's split in plain PyTorch (fp32 as the kernel, or ``dtype``), as
+    ``csrc/wkv6.cu`` computes it:
+    (a) the state scan, a slice of ``slice_rows`` rows of S at a time, each
+    slice from its own columns of k and wlog and all of v: S_0 = s0 and
+    S_{c+1}[p] = e^L_end,p S_c[p] + sum_j k_jp e^(L_end,p - L_jp) v_j,
+    writing every S_c;
+    (b) every chunk's o at once, vectorised over the chunk axis, from its
+    rows and S_c alone: o = (r e^lprev) S_c + att v + (r·u·k) v with
+    lprev_t = L_{t-1} and att over the live triangle j < t.
+    Returns ``(o, s_end, states)`` as ``ref_wkv6_fwd`` with states."""
+    f32 = dtype
+    b, s, h, p = r.shape
+    nc = s // chunk
+
+    def chunks(x):                       # (B,S,H,P) -> (B,H,NC,cs,P)
+        return x.to(f32).reshape(b, nc, chunk, h, p).permute(0, 3, 1, 2, 4)
+    rc, kc, vc, wc = map(chunks, (r, k, v, wlog))
+    L = torch.cumsum(wc, 3)
+    lprev = torch.cat([torch.zeros_like(L[..., :1, :]), L[..., :-1, :]], 3)
+    lend = L[..., -1:, :]                                   # (B,H,NC,1,P)
+
+    # (a) the scan, the only serial part, row slice by row slice
+    states = torch.empty((b, h, nc, p, p), dtype=f32)
+    s_end = torch.empty((b, h, p, p), dtype=f32)
+    for p0 in range(0, p, slice_rows):
+        sl = slice(p0, p0 + slice_rows)
+        st = s0.to(f32)[:, :, sl]                           # (B,H,slice,P)
+        kadv = kc[..., sl] * torch.exp(lend[..., sl] - L[..., sl])
+        for c in range(nc):
+            states[:, :, c, sl] = st
+            st = torch.exp(lend[:, :, c, 0, sl])[..., None] * st + \
+                kadv[:, :, c].transpose(-1, -2) @ vc[:, :, c]
+        s_end[:, :, sl] = st
+
+    # (b) the chunks' outputs, all at once
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool), -1)
+    pair = torch.where(tri[:, :, None], torch.exp(torch.clamp_max(
+        lprev[..., :, None, :] - L[..., None, :, :], 0.0)), 0.0)
+    att = (rc[..., :, None, :] * pair * kc[..., None, :, :]).sum(-1)
+    diag = (rc * u.to(f32)[None, :, None, None, :] * kc).sum(-1,
+                                                              keepdim=True)
+    o = (rc * torch.exp(lprev)) @ states + att @ vc + diag * vc
+    return o.permute(0, 2, 3, 1, 4).reshape(b, s, h, p), s_end, states
+
+
+@pytest.mark.parametrize("b,s,h,p,chunk", WKV_CASES)
+def test_k6_two_phase_split_matches_reference(b, s, h, p, chunk):
+    """The algebra of K6's two launches, before the card (the ragged case
+    padded to a chunk multiple, as ``ops.wkv6`` pads it): in float64 the
+    row-slice scan's states and s_end and the chunk-parallel o equal the
+    sequential recurrence within 1e-9; in fp32 they equal ``ref_wkv6_fwd``
+    within 1e-5 of each output's largest value (both fp32 forms round in
+    their own order), and the JAX package's sequential oracle within 1e-4
+    on the unpadded rows."""
+    args, _ = _inputs(b, s, h, p, seed=10)
+    targs = _torch(args, "float32")
+    pad = -s % chunk
+    r, k, v, w = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+                  for x in targs[:4])
+    u, s0 = targs[4:]
+
+    f64 = [x.double() for x in (r, k, v, w, u, s0)]
+    want = _sequential_f64(*f64, chunk)
+    got = _k6_two_phase(*f64, chunk, dtype=torch.float64)
+    assert torch.equal(got[2][:, :, 0], s0.double())
+    for n, g, x in zip(("o", "s_end", "states"), got, want):
+        torch.testing.assert_close(g, x, rtol=1e-9, atol=1e-9, msg=n)
+
+    got = _k6_two_phase(r, k, v, w, u, s0, chunk)
+    want = ref_wkv6_fwd(r, k, v, w, u, s0, chunk=chunk, with_states=True)
+    assert got[2].shape == wk.fwd_scratch_shapes(b, s + pad, h, p, chunk)
+    for n, g, x in zip(("o", "s_end", "states"), got, want):
+        assert g.shape == x.shape and g.dtype == x.dtype, n
+        assert float((g - x).abs().max()) <= 1e-5 * float(x.abs().max()), n
+    jax_o, jax_se = jax_ref_wkv6(*map(jnp.asarray, args))
+    _close(got[0][:, :s], jax_o, 1e-4, "o")
+    _close(got[1], jax_se, 1e-4, "s_end")
+
+
+def test_k6_scratch_shapes():
+    """K6's scan writes every S_c to the states' shape, (B,H,NC,P,P) fp32:
+    the states output, or for the primal-only call a scratch of 134.2 MB
+    at the RWKV6 slice's B 4, S 1024, H 64, P 64, chunk 32 (the size of
+    K7's G scratch)."""
+    shape = wk.fwd_scratch_shapes(4, 1024, 64, 64, 32)
+    assert shape == (4, 64, 32, 64, 64)
+    assert torch.empty(shape, dtype=torch.float32, device="meta").nbytes == \
+        134_217_728
+    assert shape == wk.bwd_scratch_shapes(4, 1024, 64, 64, 32)[0]
+    args, _ = _inputs(2, 64, 3, 32)
+    states = ref_wkv6_fwd(*_torch(args, "float32"), chunk=16,
+                          with_states=True)[2]
+    assert tuple(states.shape) == wk.fwd_scratch_shapes(2, 64, 3, 32, 16)
+
+
+def test_k6_phase_tags_name_lines_of_the_kernel():
+    """K6's parts that ``scripts/wkv6_bwd_phases.py`` takes out are tagged
+    ``// phase: NAME`` in ``wkv6.cu``: the scan and chunk launches, the
+    chunk launch's att pass and its two products; every tag the script's
+    K6 variants name marks those lines, and no other line changes."""
+    import importlib.util
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "wkv6_bwd_phases", root / "scripts" / "wkv6_bwd_phases.py")
+    phases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(phases)
+    src = (Path(wk.__file__).parent / "csrc" / "wkv6.cu").read_text()
+    counts = {"fwd-scan-launch": (0, 1), "fwd-chunk-launch": (0, 1),
+              "fwd-att-pass": (1, 0), "fwd-products": (2, 0)}
+    assert {t for tags in phases.FWD_VARIANTS.values() for t in tags} == \
+        set(counts)
+    for tag, (loops, launches) in counts.items():
+        got = phases.without(src, [tag]).split("\n")
+        changed = [(a, b) for a, b in zip(src.split("\n"), got) if a != b]
+        assert len(got) == len(src.split("\n"))
+        assert len(changed) == loops + launches, tag
+        for old, new in changed:
+            if old.lstrip().startswith("for ("):
+                init, _, step = old.split(";", 2)
+                assert new == f"{init}; false;{step}"
+            else:
+                assert "wkv6_fwd_" in old and "<<<" in old and new == ""
