@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels
 from this checkout, holds each against its plain PyTorch version, drives
-the port's main paths (ViT-B/16 eval and training, ChatGLM3-6B and
-RWKV6-7B training) at full width through its CLI, and checks the results.
+the port's main paths (ViT-B/16 eval and training, one card and
+data-parallel under ZeRO 0-3 with augmentation, ChatGLM3-6B and RWKV6-7B
+training) at full width through its CLI, and checks the results.
 
     python3 chip_smoke.py [--profile]
 
@@ -67,6 +68,17 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    the kernel and the naive path (fp32 within 2e-4; bf16 cosine >= 0.99),
    and warm training images/s of both paths, every kernel-path run faster
    than every naive-path run.
+8b. the data-parallel slice, on NCCL at world size 1 (one card): the CLI
+   with ``--devices 1`` as rank 0 of a torchrun world in this process (so
+   its launch counters are read): fp32 ``--steps 3 --batch 16 --accum 2``
+   at ``--zero 0..3`` and once through its own spawned rank, losses and
+   grad norms within 2e-4 of the one-card CLI run; bf16 at the training
+   slice's size at every stage (K1-K3 288/240/240 launches, every loss and
+   grad-norm finite, ``step_ok`` 1, the largest loss difference from the
+   one-card run printed), and with ``--augment --zero 0``; one augmented
+   microbatch on the card against the CPU apply of the same draws (1e-6);
+   warm images/s of the one-card Trainer and each stage in turns (recorded,
+   not gated); ``--devices 2`` on one card raises its clear error.
 9. the decoder training slice: ``--arch chatglm3-6b --layers 4 --seq 1024
    --batch 8 --accum 2 --steps 10`` in bf16 with the counters reset just
    before and read just after (K1-K3 10 x 2 x 4 = 80 each, K4 and K5
@@ -93,18 +105,23 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    gradients' norms and cosines printed as readings.
 
 ``--profile`` adds a ``torch.profiler`` table of one warm training step of
-each training slice, and at the end (after every timed phase) of one warm
+each training slice (and of the ZeRO-3 step at world 1), and at the end (after every timed phase) of one warm
 bf16 eval pass of the eval slice.
 The last lines are one JSON object for the kernels (K1-K3 with the
-decoder's numbers and the ViT's under ``vit``, K4/K5 with the RWKV6 run's
+decoder's numbers and the ViT's under ``vit``, the data-parallel runs'
+launches there under ``dp_launches``, K4/K5 with the RWKV6 run's
 launches and the decoder's beside them, K6/K7; each redesigned kernel with
 its ``routes``), the card's
 ``nvidia-smi`` name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -1269,7 +1286,221 @@ def phase_train(profile):
         trainer, pipe = train_setup("bfloat16", True)
         profile_step("vit-b16 (bf16, batch 128, accum 2)", trainer, pipe,
                      new_vit(trainer).params())
-    return launches
+    return launches, hist
+
+
+DP_STAGES = (0, 1, 2, 3)
+# the fp32 check of the data-parallel path: 3 full-width steps at a batch
+# the fp32 CUDA-core attention route runs in seconds
+DP_F32_ARGS = ["--arch", "vit-b16", "--dtype", "float32", "--steps", "3",
+               "--batch", "16", "--accum", "2", "--log-every", "1"]
+DP_TOL = 2e-4                       # tests/test_engine_distributed.py:43
+AUG_TOL = 1e-6
+
+
+@contextlib.contextmanager
+def torchrun_env():
+    """This process as rank 0 of a torchrun world of one: the variables
+    ``torchrun`` sets, with a free port on the loopback for the store, so
+    the CLI's data-parallel path runs here (NCCL) and its launch counters
+    can be read."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def train_rows(hist, label, steps):
+    """The train rows of a CLI run; fails unless there is one per step,
+    each with a finite loss and grad-norm and ``step_ok`` 1."""
+    import math
+    rows = [r for r in hist if "loss" in r]
+    if [r["step"] for r in rows] != list(range(steps)):
+        fail(f"{label}: unexpected rows {hist}")
+    for r in rows:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                and r["step_ok"] == 1):
+            fail(f"{label}: bad step row {r}")
+    return rows
+
+
+def max_diff(rows, ref, key):
+    return max(abs(a[key] - b[key]) for a, b in zip(rows, ref))
+
+
+def phase_dp(vit_hist, profile):
+    """The data-parallel path on one card, over NCCL at world size 1
+    (NCCL refuses two ranks on one device; the multi-rank semantics are
+    held on gloo worlds in the CPU tests): the CLI with ``--devices 1`` as
+    rank 0 of a torchrun world in this process, so its launch counters are
+    read, and once through its own spawned rank. Returns ({stage: K1-K3
+    launches of the bf16 run}, the augmented run's launches)."""
+    import gc
+    import torch
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+    free()
+    t0 = time.time()
+    # 1. fp32, 3 steps: every stage within DP_TOL of the one-card run
+    f32 = {"flash_fwd": 3 * 2 * 12, "flash_bwd_dq": 3 * 2 * 12,
+           "flash_bwd_dkv": 3 * 2 * 12}
+    _, hist = run_cli(DP_F32_ARGS, f32, "vit-b16 fp32 one card")
+    ref = train_rows(hist, "vit-b16 fp32 one card", 3)
+    for zero in DP_STAGES:
+        label = f"vit-b16 fp32 --devices 1 --zero {zero}"
+        with torchrun_env():
+            _, hist = run_cli(DP_F32_ARGS + ["--devices", "1", "--zero",
+                                             str(zero)], f32, label)
+        rows = train_rows(hist, label, 3)
+        d_loss, d_norm = max_diff(rows, ref, "loss"), \
+            max_diff(rows, ref, "grad_norm")
+        print(f"[dp] {label}: max |dloss| {d_loss:.3e}, max |dgnorm| "
+              f"{d_norm:.3e} against the one-card run (tol {DP_TOL})",
+              flush=True)
+        if not (d_loss <= DP_TOL and d_norm <= DP_TOL):
+            fail(f"{label} disagrees with the one-card run")
+    # ... and once through the CLI's own spawned rank (launches not
+    # readable from here: the rank is another process)
+    from repro_torch.launch.train import main as cli
+    rows = train_rows(cli(DP_F32_ARGS + ["--devices", "1", "--zero", "3"]),
+                      "spawned rank", 3)
+    d_loss = max_diff(rows, ref, "loss")
+    print(f"[dp] vit-b16 fp32 --devices 1 --zero 3, spawned rank: max "
+          f"|dloss| {d_loss:.3e} (tol {DP_TOL})", flush=True)
+    if not d_loss <= DP_TOL:
+        fail("the spawned rank disagrees with the one-card run")
+    # 2. bf16 at the training slice's size, every stage
+    expect = {"flash_fwd": 10 * 2 * 12 + 12 * 4, "flash_bwd_dq": 240,
+              "flash_bwd_dkv": 240}
+    ref = train_rows(vit_hist, "vit-b16 train", 10)
+    launches = {}
+    for zero in DP_STAGES:
+        label = f"vit-b16 bf16 --devices 1 --zero {zero}"
+        with torchrun_env():
+            launches[zero], hist = run_cli(
+                TRAIN_ARGS + ["--devices", "1", "--zero", str(zero)],
+                expect, label)
+        rows = train_rows(hist, label, 10)
+        evals = [r for r in hist if "eval_count" in r]
+        if len(evals) != 1 or evals[0]["eval_count"] != 500:
+            fail(f"{label}: unexpected eval rows {evals}")
+        print(f"[dp] {label}: losses {[round(r['loss'], 4) for r in rows]}; "
+              f"step_ok all 1; eval top1={evals[0]['eval_top1_count']}/500; "
+              f"largest |dloss| from the one-card run "
+              f"{max_diff(rows, ref, 'loss'):.3e}, |dgnorm| "
+              f"{max_diff(rows, ref, 'grad_norm'):.3e}", flush=True)
+        free()
+    # 3. augmented, ZeRO-0
+    label = "vit-b16 bf16 --devices 1 --zero 0 --augment"
+    with torchrun_env():
+        aug_launches, hist = run_cli(
+            TRAIN_ARGS + ["--devices", "1", "--zero", "0", "--augment"],
+            expect, label)
+    rows = train_rows(hist, label, 10)
+    print(f"[dp] {label}: losses {[round(r['loss'], 4) for r in rows]}; "
+          f"step_ok all 1", flush=True)
+    augment_on_card()
+    free()
+    # 4. warm images/s by stage beside the one-card Trainer, in turns
+    dp_rates(profile)
+    # 5. two ranks on one card: a clear error before any process starts
+    if torch.cuda.device_count() < 2:
+        try:
+            cli(TRAIN_ARGS + ["--devices", "2"])
+        except RuntimeError as e:
+            print(f"[dp] --devices 2 on {torch.cuda.device_count()} card: "
+                  f"{e}", flush=True)
+        else:
+            fail("--devices 2 on one card did not raise")
+    print(f"[dp] phase done in {time.time() - t0:.1f}s", flush=True)
+    return launches, aug_launches
+
+
+def augment_on_card():
+    """One augmented global microbatch of the training slice (64 images of
+    step 0, microbatch 0, every recipe step drawn, mixing forced on) on
+    the card against the CPU apply of the same draws."""
+    import torch
+    from repro_torch.data.augment import AugmentConfig, augment_batch, \
+        draw_augment, step_seed
+    from repro_torch.data.datasets import CIFARSource
+    from repro_torch.data.pipeline import DataPipeline
+
+    source = CIFARSource("cifar10", resolution=224)
+    host = DataPipeline(global_batch=64, source=source).batch_at(0, 0)
+    worst = 0.0
+    for mixup, cutmix in ((0.2, 0.0), (0.0, 1.0)):
+        acfg = AugmentConfig(num_classes=10, mixup_alpha=mixup,
+                             cutmix_alpha=cutmix, mix_prob=1.0)
+        draws = draw_augment(torch.Generator().manual_seed(
+            step_seed(0, 0, 0)), 64, 224, acfg)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+            out[dev] = augment_batch(draws, batch, acfg,
+                                     preproc=source.preproc, resolution=224)
+        for k in ("images", "labels"):
+            err, ok = close(out["cuda"][k].cpu(), out["cpu"][k], 0.0)
+            worst = max(worst, err)
+    print(f"[dp] one augmented microbatch (64 x 224 px, Mixup and CutMix) "
+          f"on the card against the CPU apply of the same draws: max "
+          f"|diff| {worst:.3e} (tol {AUG_TOL})", flush=True)
+    if not worst <= AUG_TOL:
+        fail("the augmentation apply on the card disagrees with the CPU's")
+
+
+def dp_rates(profile):
+    """Warm training images/s of the one-card Trainer and of the
+    data-parallel Trainer at world 1 by ZeRO stage, bf16, batch 128, accum
+    2, timed in turns (one card, stages 0-3, 3-0, one card); with
+    ``profile``, one warm ZeRO-3 step under torch.profiler."""
+    import torch
+    from repro_torch.core import distributed
+    from repro_torch.core.engine import Trainer
+
+    order = [None] + list(DP_STAGES) + list(reversed(DP_STAGES)) + [None]
+    rates = {}
+    trainer, pipe = train_setup("bfloat16", True)
+    params = new_vit(trainer).params()
+
+    def stage(zero):
+        return trainer if zero is None else Trainer(
+            trainer.cfg, dataclasses.replace(trainer.ecfg, zero_stage=zero),
+            preproc=trainer.preproc, world=world)
+    with torchrun_env():
+        world = distributed.init_world("cuda")
+        try:
+            for zero in order:
+                rates.setdefault(zero, []).append(
+                    train_rate(stage(zero), pipe, params))
+                torch.cuda.empty_cache()
+            if profile:
+                profile_step("vit-b16 --devices 1 --zero 3 (bf16, batch "
+                             "128, accum 2)", stage(3), pipe, params)
+        finally:
+            distributed.close_world()
+    for zero, rs in rates.items():
+        label = "one card, no process group" if zero is None else \
+            f"--devices 1 --zero {zero}"
+        ips = sum(r[0] for r in rs) / len(rs)
+        ms = sum(r[1] for r in rs) / len(rs)
+        print(f"[dp] vit-b16 bf16 warm training, {label}: {ips:.1f} "
+              f"images/s, {ms:.2f} ms per optimizer step (batch 128, accum "
+              f"2; runs {[round(r[0], 1) for r in rs]} images/s; "
+              f"{smi_line()})", flush=True)
 
 
 def lm_setup(dtype, use_kernels, *, arch, layers, batch=8, accum=2,
@@ -1558,7 +1789,8 @@ def main():
     wkv_rows = phase_wkv6(card.split(",")[0])
     profile = "--profile" in sys.argv[1:]
     phase_slice()
-    vit_launches = phase_train(profile)
+    vit_launches, vit_hist = phase_train(profile)
+    dp_launches, aug_launches = phase_dp(vit_hist, profile)
     lm_launches, _ = phase_lm_train(profile)
     rwkv_launches = phase_rwkv_train(profile)
     if profile:
@@ -1570,6 +1802,11 @@ def main():
         vit = {k: v for k, v in row.items()
                if k not in ("name", "route", "source", "replaces")}
         vit["launches"] = vit_launches[row["name"]]
+        # the same training slice data-parallel (one rank, NCCL) by ZeRO
+        # stage, and augmented at stage 0
+        vit["dp_launches"] = {f"zero{z}": n[row["name"]]
+                              for z, n in dp_launches.items()}
+        vit["dp_launches"]["zero0_augment"] = aug_launches[row["name"]]
         if row["name"] in REDESIGNED:
             row = dict(row, redesigned=True, routes=ROUTES[row["name"]])
         kernels.append(dict(row, **lm_attn[key],

@@ -3,8 +3,9 @@ of ``repro.configs.base``).
 
 Field names and defaults follow the JAX package, so a config can be
 compared field by field with its reference. Fields the ported paths do
-not read (MoE, MLA, softcap, M-RoPE, serving knobs; ZeRO, pipeline and
-checkpoint settings) are left out until a slice needs them; ``use_kernels``
+not read (MoE, MLA, softcap, M-RoPE, serving knobs; tensor, sequence and
+pipeline parallelism, checkpoint settings) are left out until a slice
+needs them; ``use_kernels``
 stands in for the reference's ``use_pallas``. A config that asks for a
 branch no slice has ported (tied embeddings, the embedding scale, M-RoPE,
 the mamba2, hybrid or MLA blocks, another family or activation) raises
@@ -121,15 +122,17 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class EngineConfig:
-    """The single-card engine knobs (``repro/configs/base.py:167-229``,
-    same names and defaults). Invariant, as DeepSpeed's:
+    """The engine knobs (``repro/configs/base.py:167-229``, same names and
+    defaults). Invariant, as DeepSpeed's:
     ``train_batch_size == micro_batch_per_gpu * gradient_accumulation_steps
-    * dp_world``. ``cast_params_bf16`` casts the fp32 matrices (ndim >= 2)
+    * dp_world``. ``zero_stage`` 0-3 picks what the data-parallel engine
+    shards (``core/sharding.py``). ``cast_params_bf16`` casts the fp32 matrices (ndim >= 2)
     to bf16 before compute, as the reference's ZeRO-3 gather optimisation
     does; the master params and the optimizer stay fp32."""
     train_batch_size: int = 32
     micro_batch_per_gpu: int = 0        # 0 -> derived
     gradient_accumulation_steps: int = 1
+    zero_stage: int = 0                 # 0=DDP (paper), 1, 2, 3(FSDP)
     optimizer: str = "adamw"            # adamw | sgd | lamb
     lr: float = 3e-4
     weight_decay: float = 0.01
@@ -144,6 +147,11 @@ class EngineConfig:
     # loop retries the same batch and aborts after guard_max_skips
     guard_anomalies: bool = True
     guard_max_skips: int = 3
+
+    def __post_init__(self):
+        if self.zero_stage not in (0, 1, 2, 3):
+            raise ValueError(f"zero_stage must be 0, 1, 2 or 3: "
+                             f"{self.zero_stage}")
 
     def derived_micro_batch(self, dp_world: int) -> int:
         if self.micro_batch_per_gpu:

@@ -17,31 +17,47 @@ def split_microbatches(batch: dict, accum: int) -> list:
     return [{k: v[i] for k, v in parts.items()} for i in range(accum)]
 
 
-def accumulate_gradients(loss_fn, params: dict, batch: dict, accum: int):
+def accumulate_gradients(loss_fn, params: dict, batch: dict, accum: int,
+                         rngs=None, reduce=None):
     """``loss_fn(params, microbatch) -> (loss, metrics)``; ``params`` are
     leaves that require grad.
 
     Returns (mean grads in fp32, mean metrics): one forward and backward
     per microbatch, and ``acc += g.float() / accum`` in that order, as the
-    reference's scan body does."""
+    reference's scan body does.
+
+    ``rngs``: one entry of randomness per microbatch (``accum`` of them);
+    when given, ``loss_fn`` is called as ``loss_fn(params, mb, rng)`` with
+    its microbatch's entry (the reference's ``rngs`` argument).
+    ``reduce``: ``{key: grad} -> {key: grad}``, applied to each
+    microbatch's grads before they are accumulated (ZeRO-2's reduce-scatter
+    into the shard, ``engine.py:308-310``); the accumulator takes the
+    shapes it returns."""
     keys = list(params)
     leaves = [params[k] for k in keys]
+    if rngs is not None and len(rngs) != accum:
+        raise ValueError(f"{len(rngs)} rngs for {accum} microbatches")
 
-    def grads_of(mb):
-        loss, metrics = loss_fn(params, mb)
-        grads = torch.autograd.grad(loss, leaves)
+    def grads_of(mb, i):
+        loss, metrics = loss_fn(params, mb) if rngs is None else \
+            loss_fn(params, mb, rngs[i])
+        grads = dict(zip(keys, torch.autograd.grad(loss, leaves)))
+        if reduce is not None:
+            grads = reduce(grads)
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     if accum == 1:
-        grads, metrics = grads_of(batch)
-        return {k: g.to(torch.float32) for k, g in zip(keys, grads)}, metrics
+        grads, metrics = grads_of(batch, 0)
+        return {k: g.to(torch.float32) for k, g in grads.items()}, metrics
 
-    acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for k, p in params.items()}
+    acc = None
     history = []
-    for mb in split_microbatches(batch, accum):
-        grads, metrics = grads_of(mb)
-        for k, g in zip(keys, grads):
+    for i, mb in enumerate(split_microbatches(batch, accum)):
+        grads, metrics = grads_of(mb, i)
+        if acc is None:
+            acc = {k: torch.zeros(g.shape, dtype=torch.float32,
+                                  device=g.device) for k, g in grads.items()}
+        for k, g in grads.items():
             acc[k] += g.to(torch.float32) / accum
         history.append(metrics)
     return acc, {k: torch.stack([m[k] for m in history]).mean(0)

@@ -8,6 +8,14 @@ Batches stay numpy on the host; the engine moves them to the device. The
 two-stage ``Prefetcher`` and the fault-injection sites are not ported yet.
 ``kind="token"`` is the LM stream (``make_token_batch``) behind the same
 cursor contract.
+
+Data parallelism: every rank builds the same global batch from the cursor,
+splits it into the reference's global microbatches
+(``split_microbatches``) and takes its contiguous rows of each
+(:func:`rank_rows`). ``local_shard`` followed by
+a split would average to the same gradient, but put other rows in each
+microbatch, and so give augmentation (Mixup/CutMix pair rows within a
+global microbatch) another stream.
 """
 from __future__ import annotations
 
@@ -109,3 +117,17 @@ class DataPipeline:
             per = x.shape[0] // world
             return x[rank * per:(rank + 1) * per]
         return {k: slc(v) for k, v in batch.items()}
+
+
+def rank_rows(n: int, rank: int, world: int) -> slice:
+    """Rank ``rank``'s contiguous rows of a global microbatch of ``n``
+    rows: ``[rank * n / world, (rank + 1) * n / world)``. A microbatch the
+    world does not divide raises."""
+    if n % world:
+        raise ValueError(
+            f"global microbatch of {n} rows not divisible by world size "
+            f"{world}: DeepSpeed's train_batch_size = micro_batch_per_gpu * "
+            f"gradient_accumulation_steps * dp_world is violated")
+    per = n // world
+    return slice(rank * per, (rank + 1) * per)
+

@@ -160,15 +160,26 @@ def _head(cfg, params, h):
     return h @ params["head.w"].to(h.dtype)
 
 
-def forward(cfg, params, batch):
+def forward(cfg, params, batch, gather=None):
     """Logits in the compute dtype: (B, num_classes) for a preprocessed
     float ``batch["images"]`` (B, H, W, 3), (B, S, vocab) for
     ``batch["tokens"]`` (B, S). Pre-norm blocks: ``h += attn(norm1 h)``,
     then ``h += mlp(norm2 h)``; for RWKV6 ``h += time_mix(norm1 h)``, then
-    ``h += channel_mix(norm2 h)`` (``_run_rwkv_stack``)."""
+    ``h += channel_mix(norm2 h)`` (``_run_rwkv_stack``).
+
+    ``gather``, when given, maps ``{key: param}`` to the tensors the model
+    computes with where they are used: the non-stacked params once before
+    the embed, the stacked ones a layer's slices at a time in the layer
+    loop (ZeRO-3 gathers its shards there)."""
+    if gather is not None:
+        stacked = {k: v for k, v in params.items() if k.startswith("stack.")}
+        params = gather({k: v for k, v in params.items()
+                         if k not in stacked})
     h, positions = _embed(cfg, params, batch)
     for i, window in enumerate(cfg.layer_windows()):
-        layer = _layer(params, "stack.", i)
+        layer = _layer(params, "stack.", i) if gather is None else \
+            _layer(gather({k: v[i] for k, v in stacked.items()}), "stack.",
+                   None)
         a_in = _apply_norm(cfg, layer, "ln1.", h)
         if _is_rwkv(cfg):
             h = h + rwkv6_time_mix(_layer(layer, "time_mix.", None), a_in,
@@ -239,9 +250,9 @@ def loss_from_logits(cfg, logits, batch):
     return loss, {"acc": acc, "moe_aux": moe_aux, "loss": loss}
 
 
-def loss_fn(cfg, params, batch):
+def loss_fn(cfg, params, batch, gather=None):
     """Scalar training loss and its metrics for a preprocessed batch."""
-    return loss_from_logits(cfg, forward(cfg, params, batch), batch)
+    return loss_from_logits(cfg, forward(cfg, params, batch, gather), batch)
 
 
 def classification_counts(logits, labels, mask=None, *, topk=5):

@@ -393,7 +393,8 @@ def test_training_cli_synthetic_stream():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--augment"], ["--zero", "2"], ["--devices", "2"], ["--pp", "2"],
+    ["--ckpt-every", "1"], ["--resume-step", "1"], ["--max-restarts", "1"],
+    ["--pp", "2"],
     ["--shard-dir", "x"], ["--ckpt-dir", "x"], ["--resume"],
     ["--stop-after", "1"], ["--keep-last", "2"], ["--supervise"],
     ["--inject-faults", "seeded"]])
