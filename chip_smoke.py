@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels
 from this checkout, holds each against its plain PyTorch version, drives
 the port's main paths (ViT-B/16 eval and training, one card and
-data-parallel under ZeRO 0-3 with augmentation, ChatGLM3-6B and RWKV6-7B
+data-parallel under ZeRO 0-3 with augmentation, preempted and resumed from
+checkpoints and supervised under injected faults, ChatGLM3-6B and RWKV6-7B
 training) at full width through its CLI, and checks the results.
 
     python3 chip_smoke.py [--profile]
@@ -79,6 +80,24 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    microbatch on the card against the CPU apply of the same draws (1e-6);
    warm images/s of the one-card Trainer and each stage in turns (recorded,
    not gated); ``--devices 2`` on one card raises its clear error.
+8c. checkpoints, resume and faults, in a directory under ``build/`` that is
+   removed afterwards: phase 8's command with ``--stop-after 5 --ckpt-dir
+   D --ckpt-every 5``, then again with ``--resume`` (counters read around
+   each: K1 5 x 2 x 12 + 48 = 168, K2 and K3 120), losses and grad norms of
+   every step within 1e-5 of phase 8's run and the step-10 eval counts
+   equal to its; an fp32 ``--devices 1 --zero 3 --steps 3 --stop-after 2``
+   run in the torchrun world of one resumed by the one-card CLI, its
+   step-2 loss within 1e-5 of phase 8b's one-card fp32 run; phase 8's
+   command under ``--supervise --max-restarts 2 --ckpt-every 2 --ckpt-sync
+   --keep-last 3 --inject-faults nan_grad@1,preempt@7,ckpt_corrupt@8`` in
+   its own processes (exit 0, a second attempt, the guard's skip, step 8
+   failing verification and the resume from step 6, the last attempt's
+   losses within 1e-5 and every printed loss at its 4 decimals, the eval
+   counts, each fault once in ``faults.jsonl``; its log in
+   ``chiprun_out/chaos.log``); then the checkpoint's logical and saved
+   bytes and the host time of an async save's snapshot, its background
+   write, a sync save and a restore of the bf16 training state, recorded
+   beside the card's name and power limit, not gated.
 9. the decoder training slice: ``--arch chatglm3-6b --layers 4 --seq 1024
    --batch 8 --accum 2 --steps 10`` in bf16 with the counters reset just
    before and read just after (K1-K3 10 x 2 x 4 = 80 each, K4 and K5
@@ -109,7 +128,8 @@ each training slice (and of the ZeRO-3 step at world 1), and at the end (after e
 bf16 eval pass of the eval slice.
 The last lines are one JSON object for the kernels (K1-K3 with the
 decoder's numbers and the ViT's under ``vit``, the data-parallel runs'
-launches there under ``dp_launches``, K4/K5 with the RWKV6 run's
+launches there under ``dp_launches`` and the preempted and resumed runs'
+under ``resume_launches``, K4/K5 with the RWKV6 run's
 launches and the decoder's beside them, K6/K7; each redesigned kernel with
 its ``routes``), the card's
 ``nvidia-smi`` name and power limit, and the ``ok`` line.
@@ -1345,7 +1365,8 @@ def phase_dp(vit_hist, profile):
     held on gloo worlds in the CPU tests): the CLI with ``--devices 1`` as
     rank 0 of a torchrun world in this process, so its launch counters are
     read, and once through its own spawned rank. Returns ({stage: K1-K3
-    launches of the bf16 run}, the augmented run's launches)."""
+    launches of the bf16 run}, the augmented run's launches, the one-card
+    fp32 run's train rows)."""
     import gc
     import torch
 
@@ -1358,7 +1379,7 @@ def phase_dp(vit_hist, profile):
     f32 = {"flash_fwd": 3 * 2 * 12, "flash_bwd_dq": 3 * 2 * 12,
            "flash_bwd_dkv": 3 * 2 * 12}
     _, hist = run_cli(DP_F32_ARGS, f32, "vit-b16 fp32 one card")
-    ref = train_rows(hist, "vit-b16 fp32 one card", 3)
+    ref = f32_ref = train_rows(hist, "vit-b16 fp32 one card", 3)
     for zero in DP_STAGES:
         label = f"vit-b16 fp32 --devices 1 --zero {zero}"
         with torchrun_env():
@@ -1426,7 +1447,195 @@ def phase_dp(vit_hist, profile):
         else:
             fail("--devices 2 on one card did not raise")
     print(f"[dp] phase done in {time.time() - t0:.1f}s", flush=True)
-    return launches, aug_launches
+    return launches, aug_launches, f32_ref
+
+
+RESUME_TOL = 1e-5                   # tests/test_resilience.py's resume parity
+CHAOS_FAULTS = "nan_grad@1,preempt@7,ckpt_corrupt@8"
+
+
+def resumed_rows(hist, label, steps, ref):
+    """The train rows of ``steps`` in a resumed or chaos run, each within
+    RESUME_TOL of the uninterrupted run's loss and grad-norm (``ref``, rows
+    by step); returns the largest differences."""
+    rows = [r for r in hist if "loss" in r]
+    if [r["step"] for r in rows] != list(steps):
+        fail(f"{label}: rows for steps {[r['step'] for r in rows]}, "
+             f"expected {list(steps)}")
+    d_loss = max_diff(rows, [ref[r["step"]] for r in rows], "loss")
+    d_norm = max_diff(rows, [ref[r["step"]] for r in rows], "grad_norm")
+    print(f"[ckpt] {label}: steps {list(steps)}, max |dloss| {d_loss:.3e}, "
+          f"max |dgnorm| {d_norm:.3e} against the uninterrupted run (tol "
+          f"{RESUME_TOL})", flush=True)
+    if not (d_loss <= RESUME_TOL and d_norm <= RESUME_TOL):
+        fail(f"{label} does not reproduce the uninterrupted run")
+    return d_loss, d_norm
+
+
+def eval_counts(hist, label, want):
+    """Fails unless the run's eval at step 10 has ``want``'s counts."""
+    keys = ("eval_top1_count", "eval_top5_count", "eval_count")
+    got = [r for r in hist if "eval_count" in r and r["step"] == 10]
+    if len(got) != 1 or [got[0][k] for k in keys] != [want[k] for k in keys]:
+        fail(f"{label}: eval at step 10 {got}, expected the counts of "
+             f"{want}")
+
+
+def phase_ckpt(vit_hist, f32_ref):
+    """Checkpoints, resume and faults at full width (phase 8c), in a
+    directory under the git-ignored ``build/`` that is removed afterwards:
+    the training slice preempted after 5 steps and resumed, against phase
+    8's run; an fp32 ZeRO-3 world of one resumed by the one-card CLI,
+    against phase 8b's; phase 8's command supervised under injected
+    faults; then the save and restore readings. Returns the K1-K3
+    launches of the preempted and the resumed run."""
+    import shutil
+    import tempfile
+    t0 = time.time()
+    ref = {r["step"]: r for r in train_rows(vit_hist, "vit-b16 train", 10)}
+    evals = [r for r in vit_hist if "eval_count" in r]
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="ckpt-", dir=ROOT / "build"))
+    try:
+        # 1. preempt after 5 steps, then resume (K1 5 x 2 x 12 + the eval)
+        d = root / "resume"
+        expect = {"flash_fwd": 5 * 2 * 12 + 12 * 4, "flash_bwd_dq": 120,
+                  "flash_bwd_dkv": 120}
+        launches = {}
+        launches["preempted"], hist = run_cli(
+            TRAIN_ARGS + ["--stop-after", "5", "--ckpt-dir", str(d),
+                          "--ckpt-every", "5"], expect, "vit-b16 --stop-after 5")
+        resumed_rows(hist, "vit-b16 preempted at 5", range(5), ref)
+        sizes = checkpoint_sizes(d, 5)
+        launches["resumed"], hist = run_cli(
+            TRAIN_ARGS + ["--resume", "--ckpt-dir", str(d), "--ckpt-every",
+                          "5"], expect, "vit-b16 --resume")
+        resumed_rows(hist, "vit-b16 resumed at 5", range(5, 10), ref)
+        eval_counts(hist, "vit-b16 resumed", evals[0])
+        shutil.rmtree(d)
+        # 2. elastic: fp32 ZeRO-3 at world 1 for 2 steps, resumed on one card
+        d = root / "elastic"
+        per_step = {k: 2 * 12 for k in ("flash_fwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv")}
+        with torchrun_env():
+            run_cli(DP_F32_ARGS + ["--devices", "1", "--zero", "3",
+                                   "--stop-after", "2", "--ckpt-dir", str(d)],
+                    {k: 2 * n for k, n in per_step.items()},
+                    "vit-b16 fp32 --devices 1 --zero 3 --stop-after 2")
+        _, hist = run_cli(DP_F32_ARGS + ["--resume", "--ckpt-dir", str(d)],
+                          per_step, "vit-b16 fp32 one card --resume")
+        resumed_rows(hist, "fp32 ZeRO-3 world 1 resumed on one card",
+                     range(2, 3), {r["step"]: r for r in f32_ref})
+        shutil.rmtree(d)
+        # 3. the chaos run under the supervisor, in its own processes
+        chaos_run(root / "chaos", ref, evals[0])
+        # 4. the readings: blocked time of an async save, its write, a sync
+        # save and a restore
+        save_readings(root / "timing", sizes)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[ckpt] phase done in {time.time() - t0:.1f}s", flush=True)
+    return launches
+
+
+def checkpoint_sizes(d, step):
+    from repro_torch.checkpoint import checkpoint_size_report
+    rep = checkpoint_size_report(str(d), step)
+    files = sum(rep["file_bytes"].values())
+    print(f"[ckpt] vit-b16 AdamW state at step {step}: logical "
+          f"{rep['logical_bytes']} bytes, saved {rep['saved_bytes']} bytes, "
+          f"files {files} bytes", flush=True)
+    if rep["saved_bytes"] != rep["logical_bytes"]:
+        fail(f"checkpoint saved {rep['saved_bytes']} bytes of a "
+             f"{rep['logical_bytes']}-byte state")
+    return rep
+
+
+def chaos_run(d, ref, want_eval):
+    """Phase 8's command under the supervisor with NaN gradients at step 1,
+    a preemption after step 7 and step 8's checkpoint corrupted: attempt 1
+    saves steps 2, 4, 6 and 8 (corrupted) and exits 75 at step 8; attempt
+    2 falls back to step 6 and replays steps 6 and 7."""
+    metrics = d / "metrics.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train"] + TRAIN_ARGS + [
+        "--ckpt-dir", str(d), "--ckpt-every", "2", "--ckpt-sync",
+        "--keep-last", "3", "--supervise", "--max-restarts", "2",
+        "--inject-faults", CHAOS_FAULTS, "--metrics-out", str(metrics)]
+    t0 = time.time()
+    r = subprocess.run(cmd, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                       capture_output=True, text=True, timeout=600)
+    out = r.stdout
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "chaos.log").write_text(out + r.stderr)
+    print(f"[ckpt] chaos run: exit {r.returncode} in {time.time() - t0:.1f} "
+          f"s (log in chiprun_out/chaos.log)", flush=True)
+    for line in out.splitlines():
+        if line.startswith(("[supervisor]", "[guard]", "[ckpt]",
+                            "[faults]")) or "preempted" in line:
+            print(f"[ckpt]   {line}", flush=True)
+    needed = ["launch attempt 2/3", "update skipped",
+              "[ckpt] step 8 failed verification", "resumed step=6"]
+    if r.returncode != 0 or any(n not in out for n in needed):
+        print(r.stderr[-4000:], file=sys.stderr)
+        fail(f"chaos run: exit {r.returncode}, missing "
+             f"{[n for n in needed if n not in out]}")
+    hist = json.loads(metrics.read_text())
+    resumed_rows(hist, "chaos run, last attempt", range(6, 10), ref)
+    eval_counts(hist, "chaos run", want_eval)
+    # every attempt's printed loss (4 decimals) against the reference run
+    printed = re.findall(r"\[train\] step +(\d+) loss=(\S+)", out)
+    worst = max(abs(float(v) - ref[int(s)]["loss"]) for s, v in printed)
+    if sorted({int(s) for s, _ in printed}) != list(range(10)) or \
+            worst > 5e-5 + RESUME_TOL:
+        fail(f"chaos run printed {printed}")
+    kinds = sorted(json.loads(line)["kind"]
+                   for line in (d / "faults.jsonl").read_text().splitlines())
+    if kinds != ["ckpt_corrupt", "nan_grad", "preempt"]:
+        fail(f"chaos run fault log holds {kinds}")
+    print(f"[ckpt] chaos run: {len(printed)} printed step losses within "
+          f"{worst:.1e} of the uninterrupted run's 4-decimal values; "
+          f"faults.jsonl {kinds}", flush=True)
+
+
+def save_readings(d, sizes):
+    """Host time the training loop is blocked by one async save (the
+    device-to-host snapshot), the background write behind it, one sync
+    save and one restore of the full-width bf16 training state; recorded,
+    not gated."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.core.engine import to_device
+
+    trainer, pipe = train_setup("bfloat16", True)
+    state = trainer.init_state(new_vit(trainer).params())
+    state, _ = trainer.train_step(state, to_device(pipe.batch_at(0, 0),
+                                                   "cuda"))
+    saver = trainer.make_checkpointer()
+    readings = {}
+    for rep in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saver.save(str(d), 10 + rep, trainer.checkpoint_tree(state))
+        t1 = time.perf_counter()
+        saver.wait()
+        t2 = time.perf_counter()
+        save_checkpoint(str(d), 20 + rep, trainer.checkpoint_tree(state))
+        t3 = time.perf_counter()
+        trainer.restore_state(str(d), step=20 + rep, state=state)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        readings[rep] = (t1 - t0, t2 - t1, t3 - t2, t4 - t3)
+        for step in (10 + rep, 20 + rep):
+            shutil.rmtree(d / f"step_{step:08d}")
+    gib = sizes["logical_bytes"] / 2 ** 30
+    for rep, (blocked, write, sync, restore) in readings.items():
+        print(f"[ckpt] {'cold' if rep == 0 else 'warm'} save and restore of "
+              f"the {gib:.3f} GiB state: async save blocks the loop "
+              f"{blocked * 1e3:.1f} ms (device-to-host snapshot), its "
+              f"background write {write * 1e3:.1f} ms, a sync save "
+              f"{sync * 1e3:.1f} ms, a restore {restore * 1e3:.1f} ms; "
+              f"{smi_line()}", flush=True)
 
 
 def augment_on_card():
@@ -1790,7 +1999,8 @@ def main():
     profile = "--profile" in sys.argv[1:]
     phase_slice()
     vit_launches, vit_hist = phase_train(profile)
-    dp_launches, aug_launches = phase_dp(vit_hist, profile)
+    dp_launches, aug_launches, f32_ref = phase_dp(vit_hist, profile)
+    resume_launches = phase_ckpt(vit_hist, f32_ref)
     lm_launches, _ = phase_lm_train(profile)
     rwkv_launches = phase_rwkv_train(profile)
     if profile:
@@ -1807,6 +2017,9 @@ def main():
         vit["dp_launches"] = {f"zero{z}": n[row["name"]]
                               for z, n in dp_launches.items()}
         vit["dp_launches"]["zero0_augment"] = aug_launches[row["name"]]
+        # the training slice preempted after 5 steps and resumed (phase 8c)
+        vit["resume_launches"] = {run: n[row["name"]]
+                                  for run, n in resume_launches.items()}
         if row["name"] in REDESIGNED:
             row = dict(row, redesigned=True, routes=ROUTES[row["name"]])
         kernels.append(dict(row, **lm_attn[key],

@@ -4,8 +4,7 @@ of ``repro.configs.base``).
 Field names and defaults follow the JAX package, so a config can be
 compared field by field with its reference. Fields the ported paths do
 not read (MoE, MLA, softcap, M-RoPE, serving knobs; tensor, sequence and
-pipeline parallelism, checkpoint settings) are left out until a slice
-needs them; ``use_kernels``
+pipeline parallelism) are left out until a slice needs them; ``use_kernels``
 stands in for the reference's ``use_pallas``. A config that asks for a
 branch no slice has ported (tied embeddings, the embedding scale, M-RoPE,
 the mamba2, hybrid or MLA blocks, another family or activation) raises
@@ -142,6 +141,14 @@ class EngineConfig:
     total_steps: int = 1000
     seed: int = 0
     cast_params_bf16: bool = False
+    # elastic checkpointing (repro_torch.checkpoint): cadence in optimizer
+    # steps (0 = end-of-run only), async saves and their bounded in-flight
+    # count, and retention (keep the newest K, 0 = all; the GC never
+    # deletes the newest step that passes verification)
+    ckpt_every: int = 0
+    ckpt_async: bool = True
+    ckpt_max_in_flight: int = 2
+    ckpt_keep_last: int = 0
     # anomaly guard: a non-finite loss or global grad-norm skips the update
     # (params, optimizer state and step unchanged, step_ok 0); the host
     # loop retries the same batch and aborts after guard_max_skips
@@ -172,3 +179,18 @@ class EngineConfig:
                 "DeepSpeed batch invariant violated: "
                 f"{mb} * {self.gradient_accumulation_steps} * {dp_world} "
                 f"= {got} != train_batch_size={self.train_batch_size}")
+        if self.ckpt_every < 0:
+            raise ValueError(
+                f"ckpt_every must be >= 0 (0 = end-of-run only): "
+                f"{self.ckpt_every}")
+        if self.ckpt_max_in_flight < 1:
+            raise ValueError(
+                f"ckpt_max_in_flight must be >= 1: "
+                f"{self.ckpt_max_in_flight}")
+        if self.ckpt_keep_last < 0:
+            raise ValueError(
+                f"ckpt_keep_last must be >= 0 (0 = keep all): "
+                f"{self.ckpt_keep_last}")
+        if self.guard_max_skips < 1:
+            raise ValueError(
+                f"guard_max_skips must be >= 1: {self.guard_max_skips}")

@@ -20,11 +20,14 @@ rank r's part of the wire is its chunk of each leaf in turn.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import queue as queue_mod
 import shutil
+import signal
 import tempfile
+import threading
 import time
 import traceback
 from dataclasses import dataclass
@@ -54,6 +57,13 @@ class World:
         if op == "mean":
             t.div_(self.size)
         return t
+
+    def any(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on any rank (a MAX all-reduce): every rank
+        gets the same answer, so all take the same branch."""
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
 
     def all_reduce_many(self, ts: list, op: str = "mean") -> list:
         """``all_reduce`` of every tensor of ``ts`` in place, one collective
@@ -198,7 +208,9 @@ def close_world() -> None:
 
 def _child(rank, size, device, init_method, timeout_s, fn, args, results):
     """A spawned rank: join the group, run ``fn(world, *args)``, send
-    ``(rank, True, result)`` or ``(rank, False, traceback)``."""
+    ``(rank, "ok", result)``, ``(rank, "error", traceback)``, or ``(rank,
+    "exit", code)`` for a ``SystemExit`` with a nonzero int code (e.g. the
+    preemption exit, 75), which then is the rank's exit code too."""
     try:
         if device == "cpu":
             torch.set_num_threads(1)
@@ -206,10 +218,40 @@ def _child(rank, size, device, init_method, timeout_s, fn, args, results):
                            init_method=init_method, timeout_s=timeout_s)
         out = fn(world, *args)
         close_world()
-    except BaseException:
-        results.put((rank, False, traceback.format_exc()))
+    except SystemExit as e:
+        if isinstance(e.code, int) and e.code:
+            results.put((rank, "exit", e.code))
+            raise
+        results.put((rank, "error", traceback.format_exc()))
         raise SystemExit(1)
-    results.put((rank, True, out))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+        raise SystemExit(1)
+    results.put((rank, "ok", out))
+
+
+@contextlib.contextmanager
+def _forward_signals(procs):
+    """While the ranks run, pass SIGTERM and SIGINT on to every live one
+    (a supervisor signals only the launcher); a no-op off the main
+    thread, where handlers cannot be set."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+
+    def forward(signum, frame):
+        del frame
+        for p in procs:
+            if p.pid is not None and p.exitcode is None:
+                os.kill(p.pid, signum)
+
+    prev = {s: signal.signal(s, forward)
+            for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        yield
+    finally:
+        for s, h in prev.items():
+            signal.signal(s, h)
 
 
 def spawn(fn, nprocs: int, *args, device="cuda", deadline_s=None,
@@ -219,8 +261,12 @@ def spawn(fn, nprocs: int, *args, device="cuda", deadline_s=None,
     in an importable module) and return their results by rank.
 
     A rank that raises, or dies, ends the world: the others are killed and
-    its traceback is raised here. ``deadline_s`` bounds the whole run; at
-    it every rank is killed and ``TimeoutError`` raised. ``timeout_s`` is
+    its traceback is raised here. A rank that exits with a nonzero int code
+    (``SystemExit``, e.g. the preemption exit) makes this raise
+    ``SystemExit`` with that code once every rank has finished. SIGTERM
+    and SIGINT sent to this process are passed on to the ranks.
+    ``deadline_s`` bounds the whole run; at it every rank is killed and
+    ``TimeoutError`` raised. ``timeout_s`` is
     each collective's limit. On ``cuda`` a world larger than the card count
     raises before any process starts."""
     device = torch.device(device)
@@ -232,40 +278,50 @@ def spawn(fn, nprocs: int, *args, device="cuda", deadline_s=None,
     procs = [ctx.Process(target=_child, args=(
         rank, nprocs, device.type, f"file://{store}/store", timeout_s, fn,
         args, results)) for rank in range(nprocs)]
-    out, end = {}, None if deadline_s is None else \
+    out, exits, end = {}, {}, None if deadline_s is None else \
         time.monotonic() + deadline_s
     try:
         for p in procs:
             p.start()
-        while len(out) < nprocs:
-            if end is not None and time.monotonic() > end:
-                raise TimeoutError(
-                    f"data-parallel world of {nprocs} did not finish in "
-                    f"{deadline_s} s; ranks {sorted(set(range(nprocs)) - set(out))} "
-                    f"still running")
-            try:
-                rank, ok, payload = results.get(timeout=0.5)
-            except queue_mod.Empty:
-                dead = [r for r, p in enumerate(procs)
-                        if p.exitcode is not None and r not in out]
-                if dead:
-                    # a message may still be in flight from a rank that
-                    # has just exited: look once more before giving up
-                    try:
-                        rank, ok, payload = results.get(timeout=2.0)
-                    except queue_mod.Empty:
-                        raise RuntimeError(
-                            f"rank(s) {dead} exited with codes "
-                            f"{[procs[r].exitcode for r in dead]} and sent "
-                            f"no result") from None
+        with _forward_signals(procs):
+            while len(out) + len(exits) < nprocs:
+                if end is not None and time.monotonic() > end:
+                    raise TimeoutError(
+                        f"data-parallel world of {nprocs} did not finish in "
+                        f"{deadline_s} s; ranks "
+                        f"{sorted(set(range(nprocs)) - set(out) - set(exits))}"
+                        f" still running")
+                try:
+                    rank, status, payload = results.get(timeout=0.5)
+                except queue_mod.Empty:
+                    dead = [r for r, p in enumerate(procs)
+                            if p.exitcode is not None and r not in out
+                            and r not in exits]
+                    if dead:
+                        # a message may still be in flight from a rank that
+                        # has just exited: look once more before giving up
+                        try:
+                            rank, status, payload = results.get(timeout=2.0)
+                        except queue_mod.Empty:
+                            raise RuntimeError(
+                                f"rank(s) {dead} exited with codes "
+                                f"{[procs[r].exitcode for r in dead]} and "
+                                f"sent no result") from None
+                    else:
+                        continue
+                if status == "error":
+                    raise RuntimeError(f"rank {rank} of {nprocs} failed:\n"
+                                       f"{payload}")
+                if status == "exit":
+                    exits[rank] = payload
                 else:
-                    continue
-            if not ok:
-                raise RuntimeError(f"rank {rank} of {nprocs} failed:\n"
-                                   f"{payload}")
-            out[rank] = payload
+                    out[rank] = payload
         for p in procs:
             p.join(timeout=60)
+        if exits:
+            # every rank takes the same exit (e.g. the agreed preemption
+            # step), so the lowest rank's code is the world's
+            raise SystemExit(exits[min(exits)])
         return [out[r] for r in range(nprocs)]
     finally:
         for p in procs:

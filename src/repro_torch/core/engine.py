@@ -38,6 +38,15 @@ stays replicated: its gradient is all-reduced, every rank applies the same
 whole update, and the norms count it once. The anomaly guard decides from
 the all-reduced loss and the global grad norm, so every rank takes the same
 branch; metrics are averaged over the ranks.
+
+Checkpoints (``repro_torch.checkpoint``, the reference's
+``repro-elastic-ckpt/v2``): ``checkpoint_tree`` names the state's leaves as
+the reference's ``TrainState`` pytree does (``params/embed/cls``,
+``opt_state/step``, ``opt_state/mu/...``, ``opt_state/nu/...``, ``step``,
+``epoch``, ``batch_index``, ``rng``), each rank writing its chunks of the
+leaves its ZeRO stage shards; ``restore_state`` reads back this rank's part
+under its own layout, whatever layout wrote the step, and copies it into
+the live tensors.
 """
 from __future__ import annotations
 
@@ -47,6 +56,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import AsyncCheckpointer, Sharded, \
+    last_restore_stats, restore_checkpoint, restore_latest_valid, \
+    save_checkpoint
 from repro_torch.configs.base import EngineConfig
 from repro_torch.core.grad_accum import accumulate_gradients
 from repro_torch.core.sharding import shard_dims
@@ -82,6 +94,31 @@ def to_device(batch: dict, device) -> dict:
                 device, non_blocking=True)
             if isinstance(v, np.ndarray) else v.to(device)
             for k, v in batch.items()}
+
+
+def rng_to_key(seed: int) -> np.ndarray:
+    """The checkpoint's ``rng`` leaf of the port's int64 seed: uint32
+    ``[high word, low word]`` of its 64 bits (two's complement), the layout
+    of the reference's ``PRNGKey`` (which reads a seed in [0, 2**32) as
+    ``PRNGKey(seed)``)."""
+    if not -2 ** 63 <= seed < 2 ** 63:
+        raise ValueError(f"rng seed {seed} does not fit 64 signed bits")
+    u = seed % 2 ** 64
+    return np.array([u >> 32, u & 0xFFFFFFFF], np.uint32)
+
+
+def key_to_rng(key) -> int:
+    """The seed of a checkpoint's ``rng`` leaf: its two uint32 words as
+    one 64-bit value taken as signed, so any reference key maps into the
+    range ``step_seed`` packs."""
+    hi, lo = (int(w) for w in np.asarray(key, np.uint32))
+    u = hi << 32 | lo
+    return u - 2 ** 64 if u >= 2 ** 63 else u
+
+
+def _ckpt_key(key: str) -> str:
+    """The reference's leaf path of a flat param key."""
+    return key.replace(".", "/")
 
 
 @dataclass
@@ -240,6 +277,102 @@ class Trainer:
         return OptState(st.step, self._whole(st.mu, self.opt_dims),
                         self._whole(st.nu, self.opt_dims)
                         if st.nu != () else ())
+
+    # --- checkpoints -------------------------------------------------------
+
+    def _ckpt_leaves(self, params: dict, opt_state: OptState, dims: bool):
+        """``(checkpoint key, tensor, sharded dim)`` of every param and
+        moment (the dims this rank's layout splits, or all None)."""
+        out = [(f"params/{_ckpt_key(k)}", p,
+                self.param_dims[k] if dims else None)
+               for k, p in params.items()]
+        moments = [("mu", opt_state.mu)] + \
+            ([("nu", opt_state.nu)] if opt_state.nu != () else [])
+        for name, tree in moments:
+            out += [(f"opt_state/{name}/{_ckpt_key(k)}", m,
+                     self.opt_dims[k] if dims else None)
+                    for k, m in tree.items()]
+        return out
+
+    def abstract_state(self) -> dict:
+        """The restore template: every leaf of the checkpoint tree at its
+        logical shape and dtype (tensors on the ``meta`` device, numpy for
+        the host leaves), as ``repro/core/engine.py::abstract_state``."""
+        params = model.init_params(self.cfg, device="meta")
+        opt = self.optimizer.init(params)
+        tree = {k: t for k, t, _ in self._ckpt_leaves(params, opt, False)}
+        scalar = np.zeros((), np.int32)
+        return dict(tree, **{"opt_state/step": scalar, "step": scalar,
+                             "epoch": scalar, "batch_index": scalar,
+                             "rng": np.zeros(2, np.uint32)})
+
+    def checkpoint_tree(self, state: TrainState) -> dict:
+        """The state as a checkpoint tree: each sharded leaf as this
+        rank's chunk (``Sharded``), replicated tensors and host leaves whole
+        (written by rank 0)."""
+        tree = {k: Sharded(t, d) if d is not None else t for k, t, d in
+                self._ckpt_leaves(state.params, state.opt_state, True)}
+        return dict(tree, **{
+            "opt_state/step": np.int32(state.opt_state.step),
+            "step": np.int32(state.step), "epoch": np.int32(state.epoch),
+            "batch_index": np.int32(state.batch_index),
+            "rng": rng_to_key(state.rng)})
+
+    def save_state(self, ckpt_dir: str, state: TrainState) -> str:
+        """Synchronous save of the whole state (this rank's part), named
+        by ``state.step``."""
+        return save_checkpoint(ckpt_dir, state.step,
+                               self.checkpoint_tree(state))
+
+    def make_checkpointer(self) -> AsyncCheckpointer:
+        """The async saver with the engine's in-flight bound and
+        retention; the cadence is the caller's ``ckpt_every``."""
+        return AsyncCheckpointer(max_in_flight=self.ecfg.ckpt_max_in_flight,
+                                 keep_last_k=self.ecfg.ckpt_keep_last)
+
+    def restore_state(self, ckpt_dir: str, step=None, state=None
+                      ) -> TrainState:
+        """Restore a saved state into THIS trainer's layout, whatever
+        world and ZeRO stage wrote it: this rank reads only the shards that
+        intersect its chunks, and the byte accounting is printed.
+
+        ``step=None`` restores the newest VALID step (a torn or corrupt one
+        falls back to the previous); an explicit ``step`` restores exactly
+        that one. The values are copied into ``state``'s tensors (so a
+        model built on ``state.params`` sees them), or into a fresh state
+        on the trainer's device when ``state`` is None. A template mismatch
+        raises ``KeyError``/``ValueError``."""
+        if state is None:
+            params = {k: torch.empty(p.shape, device=self.device)
+                      for k, p in model.init_params(
+                          self.cfg, device="meta").items()}
+            state = self.init_state(params)
+        dims = {k: d for k, _, d in self._ckpt_leaves(
+            state.params, state.opt_state, True)}
+        like = self.abstract_state()
+        if step is None:
+            tree, step = restore_latest_valid(ckpt_dir, like, dims)
+        else:
+            tree = restore_checkpoint(ckpt_dir, step, like, dims)
+        stats = last_restore_stats()
+        mib = 1024 * 1024
+        print(f"[ckpt] lazy restore: read {stats.read_bytes / mib:.1f} MiB "
+              f"({stats.entries_read}/{stats.entries_total} shards) for a "
+              f"{stats.partition_bytes / mib:.1f} MiB local partition of a "
+              f"{stats.logical_bytes / mib:.1f} MiB logical state",
+              flush=True)
+        with torch.no_grad():
+            for key, t, _ in self._ckpt_leaves(state.params,
+                                               state.opt_state, True):
+                if t.shape != tree[key].shape:
+                    raise ValueError(f"{key}: restored {tuple(tree[key].shape)}"
+                                     f" for a {tuple(t.shape)} tensor")
+                t.copy_(tree[key])
+        opt = state.opt_state._replace(step=int(tree["opt_state/step"]))
+        return state.replace(opt_state=opt, step=int(tree["step"]),
+                             epoch=int(tree["epoch"]),
+                             batch_index=int(tree["batch_index"]),
+                             rng=key_to_rng(tree["rng"]))
 
     # --- the step ------------------------------------------------------------
 

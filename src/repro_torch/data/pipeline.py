@@ -5,7 +5,9 @@ function of ``(seed, epoch, index)``, so the TrainState data cursor
 ``(epoch, batch_index)`` names an exact batch. Weak scaling (the paper's
 §IV-A protocol) shrinks the epoch and restricts the sampled index pool.
 Batches stay numpy on the host; the engine moves them to the device. The
-two-stage ``Prefetcher`` and the fault-injection sites are not ported yet.
+two-stage ``Prefetcher`` is not ported yet, so a ``data`` fault raised at
+``batch_at``'s fault site ends the attempt, as on the reference's
+``--no-prefetch`` path.
 ``kind="token"`` is the LM stream (``make_token_batch``) behind the same
 cursor contract.
 
@@ -26,6 +28,7 @@ from typing import Iterator, Optional, Tuple
 
 from repro_torch.data.synthetic import DatasetSpec, make_image_batch, \
     make_token_batch
+from repro_torch.resilience import faults as _faults
 
 
 def batch_seed(seed: int, epoch: int, i: int) -> int:
@@ -83,6 +86,7 @@ class DataPipeline:
             raise IndexError(
                 f"batch_index {index} out of range for epoch of "
                 f"{self.steps_per_epoch} steps")
+        _faults.check("data", index)    # chaos harness (no-op in prod)
         seed = batch_seed(self.seed, epoch, index)
         if self.kind == "token":
             return make_token_batch(self.vocab, self.global_batch,

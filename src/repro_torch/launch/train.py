@@ -35,17 +35,39 @@ the on-device crop, flip and Mixup/CutMix (ViT only):
     PYTHONPATH=src python -m repro_torch.launch.train --arch vit-b16 \\
         --devices 8 --zero 3 --batch 64 --accum 2 --augment
 
-Options of the reference that are not ported yet (pipelines, checkpoints,
-resilience) are refused, never ignored.
+Checkpoints and resume (``repro_torch.checkpoint``, the reference's
+``repro-elastic-ckpt/v2``): ``--ckpt-dir D --ckpt-every N`` saves the whole
+state every N steps (async unless ``--ckpt-sync``) and once more at the
+end; each rank writes its chunks. ``--resume`` restores the newest valid
+step of ``D`` (``--resume-step`` a given one) into THIS run's world and ZeRO
+stage, whatever wrote it, and continues the trajectory; ``--stop-after K``
+ends the loop at step K while the LR schedule keeps ``--steps``:
+
+    train --steps 6 --stop-after 3 --ckpt-dir D          # preempted
+    train --steps 6 --resume --ckpt-dir D                # same trajectory
+
+Fault tolerance (``repro_torch.resilience``): ``--supervise`` runs the
+command as a child process, relaunched with ``--resume`` after a failure up
+to ``--max-restarts`` times; SIGTERM/SIGINT make the ranks agree on a step,
+save it (unless the cadence just did) and exit 75; ``--keep-last K`` keeps
+the newest K steps (never the newest valid one);
+``--inject-faults "nan_grad@3,preempt@5"`` (or ``seeded``) installs a
+deterministic chaos schedule whose firings land once in
+``<ckpt-dir>/faults.jsonl``.
+
+Options of the reference that are not ported yet (pipelines, streaming
+shards) are refused, never ignored.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import signal
 import sys
 import time
 
+from repro_torch.checkpoint import latest_step, save_checkpoint
 from repro_torch.configs import EngineConfig, get_config, get_smoke_config
 from repro_torch.core import distributed
 from repro_torch.core.engine import Evaluator, Trainer, resolve_device, \
@@ -55,22 +77,15 @@ from repro_torch.data.datasets import make_source
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.data.synthetic import DATASETS
 from repro_torch.models.transformer import Transformer, init_params
+from repro_torch.resilience import RESTARTABLE_EXIT, FaultPlan, child_argv, \
+    install_preemption_handler, supervise
+from repro_torch.resilience import faults as _faults
 
 # the reference's options that wait for a later slice: flag -> (argparse
 # kwargs, what it needs)
 NOT_YET_PORTED = {
     "--pp": ({"type": int}, "pipeline parallelism (item 16)"),
     "--shard-dir": ({}, "streaming shards (item 11)"),
-    "--ckpt-dir": ({}, "checkpointing (item 10)"),
-    "--ckpt-every": ({"type": int}, "checkpointing (item 10)"),
-    "--ckpt-sync": ({"action": "store_true"}, "checkpointing (item 10)"),
-    "--resume": ({"action": "store_true"}, "checkpointing (item 10)"),
-    "--resume-step": ({"type": int}, "checkpointing (item 10)"),
-    "--stop-after": ({"type": int}, "checkpointing (item 10)"),
-    "--keep-last": ({"type": int}, "checkpointing (item 10)"),
-    "--supervise": ({"action": "store_true"}, "resilience (item 12)"),
-    "--max-restarts": ({"type": int}, "resilience (item 12)"),
-    "--inject-faults": ({}, "resilience (item 12)"),
 }
 
 
@@ -130,6 +145,32 @@ def parse_args(argv=None):
                     help="ZeRO stage of the data-parallel run")
     ap.add_argument("--augment", action="store_true",
                     help="random crop, flip and Mixup/CutMix (vit archs)")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="save the whole state every N steps (0 = at the "
+                         "end only); async unless --ckpt-sync")
+    ap.add_argument("--ckpt-sync", action="store_true",
+                    help="blocking saves")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest valid step of --ckpt-dir into "
+                         "this run's layout and continue the trajectory")
+    ap.add_argument("--resume-step", type=int, default=-1,
+                    help="restore this step instead of the newest valid")
+    ap.add_argument("--stop-after", type=int, default=0,
+                    help="stop at this absolute step while the LR schedule "
+                         "keeps --steps as its horizon")
+    ap.add_argument("--keep-last", type=int, default=0,
+                    help="keep the newest K checkpoints (0 = all); never "
+                         "deletes the newest one that passes verification")
+    ap.add_argument("--supervise", action="store_true",
+                    help="run as a child process, relaunched with --resume "
+                         "after a failure")
+    ap.add_argument("--max-restarts", type=int, default=3,
+                    help="the supervisor's restart budget")
+    ap.add_argument("--inject-faults", default="",
+                    help="chaos schedule 'kind@step[:mode[:count]],...' "
+                         "(kinds: nan_grad ckpt_write ckpt_corrupt data "
+                         "preempt; '@rand' draws a seeded step) or 'seeded'")
     for flag, (kw, _) in NOT_YET_PORTED.items():
         ap.add_argument(flag, default=None, help="not yet ported", **kw)
     args = ap.parse_args(argv)
@@ -148,6 +189,11 @@ def main(argv=None):
     """Run the CLI; returns the metrics rows it wrote (rank 0's)."""
     argv = sys.argv[1:] if argv is None else argv
     args = parse_args(argv)
+    if args.supervise:
+        # the supervisor only starts children; it never touches the card
+        raise SystemExit(supervise(child_argv(argv),
+                                   max_restarts=args.max_restarts,
+                                   seed=args.seed))
     if args.devices < 0:
         raise SystemExit(f"[train] --devices must be >= 0: {args.devices}")
     if _torchrun():
@@ -175,6 +221,15 @@ def _rank_main(world, argv):
 
 def run(args, world):
     """Train (and evaluate) on one device, or as one rank of ``world``."""
+    try:
+        return _run(args, world)
+    finally:
+        plan = _faults.active()
+        if plan is not None:
+            plan.uninstall()
+
+
+def _run(args, world):
     device = resolve_device(args.device) if world is None else world.device
     dp = world.size if world is not None else 1
     lead = world is None or world.rank == 0
@@ -213,7 +268,9 @@ def run(args, world):
         train_batch_size=args.batch, gradient_accumulation_steps=args.accum,
         zero_stage=args.zero, optimizer=args.optimizer, lr=args.lr,
         total_steps=args.steps, warmup_steps=max(1, args.steps // 10),
-        seed=args.seed, guard_anomalies=not args.no_guard,
+        seed=args.seed, ckpt_every=args.ckpt_every,
+        ckpt_async=not args.ckpt_sync, ckpt_keep_last=args.keep_last,
+        guard_anomalies=not args.no_guard,
         guard_max_skips=args.guard_max_skips)
     preproc = source.preproc if source is not None else None
     aug = AugmentConfig(num_classes=cfg.num_classes) if args.augment \
@@ -247,10 +304,44 @@ def run(args, world):
         pipe = DataPipeline(global_batch=args.batch, dataset=spec,
                             resolution=cfg.image_size, seed=args.seed)
 
+    if args.inject_faults:
+        # every rank installs the same plan and reads the log; rank 0
+        # alone appends to it
+        kw = {"log_path": os.path.join(args.ckpt_dir, "faults.jsonl")
+              if args.ckpt_dir else None, "writer": lead}
+        plan = FaultPlan.seeded(args.seed, max_step=args.steps, **kw) \
+            if args.inject_faults == "seeded" else FaultPlan.parse(
+                args.inject_faults, seed=args.seed, max_step=args.steps, **kw)
+        plan.install()
+        if world is not None:
+            world.any(False)    # no rank fires before every rank has read
+        say(f"[faults] installed {plan!r}"
+            + (f" log={kw['log_path']}" if kw["log_path"] else ""))
+
+    saved_step = -1     # the newest step this run wrote or restored
+    if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) >= 0:
+        try:
+            state = trainer.restore_state(
+                args.ckpt_dir, state=state,
+                step=args.resume_step if args.resume_step >= 0 else None)
+            saved_step = state.step
+            say(f"[train] resumed step={state.step} cursor=(epoch "
+                f"{state.epoch}, batch {state.batch_index}) from "
+                f"{args.ckpt_dir}")
+        except FileNotFoundError as e:
+            say(f"[train] --resume: no checkpoint survives verification "
+                f"({e}); starting fresh")
+    elif args.resume:
+        say(f"[train] --resume: no checkpoint in "
+            f"{args.ckpt_dir or '<unset>'}; starting fresh")
+    start_step = state.step
+    end_step = min(args.steps, args.stop_after) if args.stop_after \
+        else args.steps
+
     hist = []
     t0 = time.time()
-    ev = Evaluator(cfg, model, ecfg=ecfg, preproc=preproc, device=device,
-                   world=world, gather=trainer.forward_gather) \
+    ev = Evaluator(cfg, model, ecfg=ecfg, preproc=trainer.preproc,
+                   device=device, world=world, gather=trainer.forward_gather) \
         if args.eval_every else None
     last_eval_step = -1
 
@@ -266,40 +357,91 @@ def run(args, world):
             f"loss={em['eval_loss']:.4f} "
             f"({em['eval_top1_count']}/{em['eval_count']})")
 
-    for step in range(state.step, args.steps):
-        batch = to_device(pipe.batch_at(state.epoch, state.batch_index),
-                          device)
-        nxt = pipe.next_cursor(state.epoch, state.batch_index)
-        # a guard-skipped step leaves the state as it was: retry the SAME
-        # cursor batch, and escalate after guard_max_skips skips in a row
-        skips = 0
-        while True:
-            state, metrics = trainer.train_step(state, batch)
-            if not ecfg.guard_anomalies or metrics["step_ok"]:
-                break
-            skips += 1
-            say(f"[guard] step {step}: non-finite loss/grad-norm — "
-                f"update skipped ({skips}/{ecfg.guard_max_skips})",
-                flush=True)
-            if skips >= ecfg.guard_max_skips:
-                raise RuntimeError(
-                    f"anomaly guard: {skips} consecutive skipped updates "
-                    f"at step {step}; aborting (persistent data/numerics "
-                    f"problem)")
-        state = state.replace(epoch=nxt[0], batch_index=nxt[1])
-        if step % args.log_every == 0 or step == args.steps - 1:
-            m = {k: float(v) for k, v in metrics.items()}
-            m["step"] = step
-            m["wall_s"] = round(time.time() - t0, 2)
-            hist.append(m)
-            say(f"[train] step {step:5d} loss={m['loss']:.4f} "
-                f"gnorm={m['grad_norm']:.3f} lr={m['lr']:.2e} "
-                f"({m['wall_s']:.1f}s)")
-        if args.eval_every and (step + 1) % args.eval_every == 0:
-            run_eval(step + 1)
+    def save(step):
+        tree = trainer.checkpoint_tree(state)
+        if saver is not None:
+            return saver.save(args.ckpt_dir, step, tree)
+        return save_checkpoint(args.ckpt_dir, step, tree,
+                               keep_last_k=ecfg.ckpt_keep_last)
 
-    if args.eval_every and state.step != last_eval_step:
-        run_eval(state.step)            # final-state eval
+    saver = trainer.make_checkpointer() \
+        if args.ckpt_dir and ecfg.ckpt_async else None
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM,
+                                                 signal.SIGINT)}
+    preempted = install_preemption_handler()
+    try:
+        for step in range(start_step, end_step):
+            host = pipe.batch_at(state.epoch, state.batch_index)
+            nxt = pipe.next_cursor(state.epoch, state.batch_index)
+            # a guard-skipped step leaves the state as it was: retry the
+            # SAME cursor batch (a planned NaN poisons it once), and
+            # escalate after guard_max_skips skips in a row
+            skips = 0
+            while True:
+                batch = to_device(_faults.poison_batch(
+                    host, step, resolution=cfg.image_size), device)
+                state, metrics = trainer.train_step(state, batch)
+                if not ecfg.guard_anomalies or metrics["step_ok"]:
+                    break
+                skips += 1
+                say(f"[guard] step {step}: non-finite loss/grad-norm — "
+                    f"update skipped ({skips}/{ecfg.guard_max_skips})",
+                    flush=True)
+                if skips >= ecfg.guard_max_skips:
+                    raise RuntimeError(
+                        f"anomaly guard: {skips} consecutive skipped "
+                        f"updates at step {step}; aborting (persistent "
+                        f"data/numerics problem)")
+            state = state.replace(epoch=nxt[0], batch_index=nxt[1])
+            if step % args.log_every == 0 or step == end_step - 1:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["step"] = step
+                m["wall_s"] = round(time.time() - t0, 2)
+                hist.append(m)
+                say(f"[train] step {step:5d} loss={m['loss']:.4f} "
+                    f"gnorm={m['grad_norm']:.3f} lr={m['lr']:.2e} "
+                    f"({m['wall_s']:.1f}s)")
+            if args.ckpt_dir and ecfg.ckpt_every and \
+                    (step + 1) % ecfg.ckpt_every == 0:
+                save(step + 1)
+                saved_step = step + 1
+            if args.eval_every and (step + 1) % args.eval_every == 0:
+                run_eval(step + 1)
+            # a planned preemption signals this process here; a real
+            # SIGTERM/SIGINT lands in the same flag. The ranks agree on the
+            # step (any rank's flag stops all), so every rank takes part in
+            # the emergency save
+            _faults.preempt_due(step)
+            stop = preempted.triggered
+            if world is not None:
+                stop = world.any(stop)
+            if stop:
+                if saver is not None:
+                    saver.wait()        # drain before the emergency save
+                if args.ckpt_dir and saved_step != state.step:
+                    path = trainer.save_state(args.ckpt_dir, state)
+                    say(f"[train] preempted (signal {preempted.signum}) — "
+                        f"emergency checkpoint -> {path}", flush=True)
+                elif args.ckpt_dir:
+                    say(f"[train] preempted (signal {preempted.signum}) — "
+                        f"step {state.step} is saved already", flush=True)
+                # EX_TEMPFAIL: the supervisor relaunches with --resume
+                raise SystemExit(RESTARTABLE_EXIT)
+
+        if args.eval_every and state.step != last_eval_step:
+            run_eval(state.step)            # final-state eval
+        if saver is not None:
+            saver.wait()                    # drain in-flight async saves
+        if args.ckpt_dir and saved_step != state.step:
+            path = save_checkpoint(args.ckpt_dir, state.step,
+                                   trainer.checkpoint_tree(state),
+                                   keep_last_k=ecfg.ckpt_keep_last)
+            say(f"[train] checkpoint -> {path}")
+    finally:
+        if saver is not None:
+            saver.close()
+        for s, h in handlers.items():
+            signal.signal(s, h)
     if args.metrics_out and lead:
         with open(args.metrics_out, "w") as f:
             json.dump(hist, f, indent=1)
@@ -307,7 +449,7 @@ def run(args, world):
     if len(tr) >= 2 and not (tr[-1]["loss"] < tr[0]["loss"]):
         say("[train] WARNING: loss did not decrease")
     final = f"final loss {tr[-1]['loss']:.4f}" if tr \
-        else f"no steps run (start=0, end={args.steps})"
+        else f"no steps run (start={start_step}, end={end_step})"
     say(f"[train] done in {time.time() - t0:.1f}s; {final}")
     return hist
 

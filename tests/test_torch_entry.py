@@ -48,8 +48,7 @@ def test_training_steps_are_refused():
     reference the port does not have yet are refused, never run without
     it."""
     with pytest.raises(SystemExit, match="not yet ported"):
-        main(ARGS[:1] + ["--steps", "1", "--ckpt-dir", "x", "--device",
-                         "cpu"])
+        main(ARGS[:1] + ["--steps", "1", "--pp", "2", "--device", "cpu"])
 
 
 def test_cuda_is_the_default_and_never_falls_back():

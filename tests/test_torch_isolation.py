@@ -58,3 +58,38 @@ def test_no_jax_or_repro_import_statements():
                     if _forbidden(n)]
     assert len(files) > 20
     assert bad == []
+
+
+_IMPORT_CKPT = """
+import sys
+for name in ("jax", "jaxlib", "repro", "ml_dtypes"):
+    sys.modules[name] = None      # importing any of them now raises
+import repro_torch.checkpoint, repro_torch.resilience
+import repro_torch.checkpoint.checkpoint, repro_torch.resilience.faults
+import repro_torch.resilience.supervisor, repro_torch.resilience.backoff
+leaked = [n for n, m in sys.modules.items() if m is not None and (
+    n.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))]
+print(leaked)
+"""
+
+
+def test_checkpoint_and_resilience_need_no_jax_or_ml_dtypes():
+    """The checkpoint format keeps its own dtype table (bfloat16 included)
+    and the resilience layer its own copies, so neither imports ``jax``,
+    ``ml_dtypes`` or anything of ``repro``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", _IMPORT_CKPT], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+    files = sorted((ROOT / "src" / "repro_torch" / "checkpoint").glob(
+        "*.py")) + sorted((ROOT / "src" / "repro_torch" / "resilience"
+                           ).glob("*.py"))
+    assert len(files) == 6
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = [a.name for a in node.names] \
+                    if isinstance(node, ast.Import) else [node.module or ""]
+                assert not any(n.split(".")[0] == "ml_dtypes" or _forbidden(n)
+                               for n in names), (path.name, node.lineno)
