@@ -98,6 +98,26 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    bytes and the host time of an async save's snapshot, its background
    write, a sync save and a restore of the bf16 training state, recorded
    beside the card's name and power limit, not gated.
+8d. the host data layer, in a directory under ``build/`` that is removed
+   afterwards (every CLI run before it already takes its batches from the
+   two-stage prefetcher at depth 2, pinned copies on a side stream):
+   phase 8's command with ``--no-prefetch``, and with ``--inject-faults
+   data@3`` under the default prefetch (the retry printed, the plan
+   uninstalled after), each run's losses and grad norms bitwise equal to
+   phase 8's and its eval counts equal, 288/240/240 launches; procedural
+   CIFAR-10 written by ``python -m repro_torch.data.streaming`` at the
+   published split sizes (50,000 train in 49 shards of 1,024, 10,000 eval;
+   the write timed) and phase 8's command with ``--shard-dir`` on it and a
+   500-example eval (288/240/240 launches, finite losses, ``step_ok`` 1);
+   the prefetcher's pinned copies above zero in the last two runs; then,
+   recorded, not gated: host ms of one batch at batch 128 from procedural
+   CIFAR-10, the shards and the fp32 synthetic stream at 224 px, the
+   shards each batch loads, the host-to-device copy of the 77 MB fp32
+   batch from pageable and pinned memory, and warm training images/s fed
+   by ``pipe.prefetch`` (every tensor on the card) and by ``batch_at`` +
+   ``to_device`` in turns. Then the port's quickstart
+   (``python -m repro_torch.examples.quickstart``, smoke size) exits 0
+   with its eval line.
 9. the decoder training slice: ``--arch chatglm3-6b --layers 4 --seq 1024
    --batch 8 --accum 2 --steps 10`` in bf16 with the counters reset just
    before and read just after (K1-K3 10 x 2 x 4 = 80 each, K4 and K5
@@ -128,10 +148,10 @@ each training slice (and of the ZeRO-3 step at world 1), and at the end (after e
 bf16 eval pass of the eval slice.
 The last lines are one JSON object for the kernels (K1-K3 with the
 decoder's numbers and the ViT's under ``vit``, the data-parallel runs'
-launches there under ``dp_launches`` and the preempted and resumed runs'
-under ``resume_launches``, K4/K5 with the RWKV6 run's
-launches and the decoder's beside them, K6/K7; each redesigned kernel with
-its ``routes``), the card's
+launches there under ``dp_launches``, the preempted and resumed runs'
+under ``resume_launches`` and phase 8d's under ``data_launches``, K4/K5
+with the RWKV6 run's launches and the decoder's beside them, K6/K7; each
+redesigned kernel with its ``routes``), the card's
 ``nvidia-smi`` name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
@@ -1018,6 +1038,7 @@ def run_cli(argv, expect, label):
     just after; fails unless the counts are ``expect`` (counters it does not
     name must read 0) and nothing was copied or padded. Returns (launches,
     metrics rows)."""
+    from repro_torch.data.pipeline import pinned_copy
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.kernels import wkv6 as wk
@@ -1027,13 +1048,15 @@ def run_cli(argv, expect, label):
         fn.launches = 0
     fa.kernel_layout.copies = rms.row_layout.copies = 0
     wk.kernel_layout.copies = wk.pad_to_chunk.pads = 0
+    pinned_copy.copies = 0
     hist = cli(argv)
     launches = {name: fn.launches for name, fn in counters().items()}
     copies = {"dO": fa.kernel_layout.copies, "rows": rms.row_layout.copies,
               "wkv6": wk.kernel_layout.copies,
               "wkv6 pads": wk.pad_to_chunk.pads}
     print(f"[slice] {label}: launches {launches} (expected {expect}); "
-          f"layout copies and pads {copies}", flush=True)
+          f"layout copies and pads {copies}; the prefetcher's pinned "
+          f"copies {pinned_copy.copies}", flush=True)
     if launches != expect or any(copies.values()):
         fail(f"{label}: launches {launches}, layout copies and pads "
              f"{copies}; expected {expect} and no copy or pad")
@@ -1638,6 +1661,285 @@ def save_readings(d, sizes):
               f"{smi_line()}", flush=True)
 
 
+# phase 8d: CIFAR-10's published split sizes for the shard cell
+SHARD_TRAIN, SHARD_EVAL = 50_000, 10_000
+
+
+class _Tee:
+    """Copies what is written to it to ``stream`` and keeps it."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def bitwise_rows(hist, label, ref, want_eval):
+    """Fails unless every step's loss and grad norm equal ``ref``'s (phase
+    8's rows by step) bit for bit, and the step-10 eval counts
+    ``want_eval``'s."""
+    rows = train_rows(hist, label, 10)
+    diff = [r["step"] for r in rows
+            if (r["loss"], r["grad_norm"]) != (ref[r["step"]]["loss"],
+                                              ref[r["step"]]["grad_norm"])]
+    print(f"[data] {label}: losses and grad norms of steps 0-9 "
+          f"{'bitwise equal to' if not diff else 'DIFFER from'} phase 8's"
+          + (f" at steps {diff}" if diff else ""), flush=True)
+    if diff:
+        fail(f"{label}: the stream differs from phase 8's at steps {diff}")
+    eval_counts(hist, label, want_eval)
+
+
+def need_pinned(label):
+    from repro_torch.data.pipeline import pinned_copy
+    if pinned_copy.copies <= 0:
+        fail(f"{label}: the prefetcher made no pinned copy")
+    return pinned_copy.copies
+
+
+def phase_data(vit_hist):
+    """The host data layer (phase 8d), in a directory under the
+    git-ignored ``build/`` that is removed afterwards: phase 8's command
+    with ``--no-prefetch`` and with a transient data fault under the
+    default prefetch, both bitwise equal to phase 8's run; procedural
+    CIFAR-10 written as shards at the published split sizes and trained
+    from with ``--shard-dir``; then the readings. Returns the K1-K3
+    launches of the three runs."""
+    import shutil
+    import tempfile
+    from repro_torch.resilience import faults
+    t0 = time.time()
+    ref = {r["step"]: r for r in train_rows(vit_hist, "vit-b16 train", 10)}
+    want_eval = [r for r in vit_hist if "eval_count" in r][0]
+    expect = {"flash_fwd": 10 * 2 * 12 + 12 * 4, "flash_bwd_dq": 240,
+              "flash_bwd_dkv": 240}
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="data-", dir=ROOT / "build"))
+    launches = {}
+    try:
+        # (a) the synchronous path: the same stream
+        launches["no_prefetch"], hist = run_cli(
+            TRAIN_ARGS + ["--no-prefetch"], expect, "vit-b16 --no-prefetch")
+        bitwise_rows(hist, "vit-b16 --no-prefetch", ref, want_eval)
+        # (b) a transient data fault at batch 3, retried by the prefetcher
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            launches["data_fault"], hist = run_cli(
+                TRAIN_ARGS + ["--inject-faults", "data@3"], expect,
+                "vit-b16 --inject-faults data@3")
+        copies = need_pinned("vit-b16 --inject-faults data@3")
+        retries = [line for line in "".join(tee.parts).splitlines()
+                   if line.startswith("[data] transient source error")]
+        if not retries or faults.active() is not None:
+            fail(f"data@3: retries {retries}, plan still installed: "
+                 f"{faults.active()!r}")
+        bitwise_rows(hist, "vit-b16 data@3 (retried)", ref, want_eval)
+        print(f"[data] data@3: {len(retries)} retries printed, "
+              f"{copies} pinned copies", flush=True)
+        # (c) procedural CIFAR-10 as shards at the published split sizes
+        d = root / "shards"
+        w0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.data.streaming", "--out",
+             str(d), "--train-size", str(SHARD_TRAIN), "--eval-size",
+             str(SHARD_EVAL)], env=dict(os.environ,
+                                        PYTHONPATH=str(ROOT / "src")),
+            capture_output=True, text=True, timeout=300)
+        write_s = time.perf_counter() - w0
+        if r.returncode:
+            print(r.stderr[-4000:], file=sys.stderr)
+            fail(f"shard write exit {r.returncode}")
+        n_bytes = sum(f.stat().st_size for f in d.iterdir())
+        print(f"[data] {r.stdout.strip()}; {n_bytes} bytes on disk; "
+              f"{write_s:.2f} s with the process start", flush=True)
+        launches["shards"], hist = run_cli(
+            TRAIN_ARGS + ["--shard-dir", str(d), "--eval-size", "500"],
+            expect, "vit-b16 --shard-dir")
+        copies = need_pinned("vit-b16 --shard-dir")
+        train_rows(hist, "vit-b16 --shard-dir", 10)
+        evals = [r for r in hist if "eval_count" in r]
+        print(f"[data] --shard-dir: losses "
+              f"{[round(r['loss'], 4) for r in hist if 'loss' in r]}; "
+              f"step_ok all 1; eval after 10 steps top1="
+              f"{evals[0]['eval_top1_count']}/{evals[0]['eval_count']}; "
+              f"{copies} pinned copies", flush=True)
+        data_readings(d)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[data] phase done in {time.time() - t0:.1f}s", flush=True)
+    return launches
+
+
+def host_ms(fn, reps=5):
+    """Median host ms of ``fn()`` after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def data_readings(shard_dir):
+    """Host ms of one batch at batch 128 from each source, the shard
+    source's loads per batch, the host-to-device copy of the fp32 batch
+    from pageable and pinned memory, and warm training images/s fed
+    through the prefetcher and through ``batch_at`` + ``to_device`` in
+    turns; recorded, not gated. Fails if a prefetched tensor is not on
+    the card."""
+    import numpy as np
+    import torch
+    from repro_torch.data.datasets import CIFARSource
+    from repro_torch.data.pipeline import DataPipeline, batch_seed
+    from repro_torch.data.streaming import DEFAULT_SHARD_SIZE, ShardedSource
+    from repro_torch.data.synthetic import DATASETS
+
+    card = smi_line()
+    shards = ShardedSource(str(shard_dir))
+    pipes = {
+        "procedural CIFAR-10": DataPipeline(
+            global_batch=128, source=CIFARSource("cifar10", resolution=224)),
+        f"shards ({shards.train_size} examples)": DataPipeline(
+            global_batch=128, source=shards),
+        "fp32 synthetic at 224 px": DataPipeline(
+            global_batch=128, dataset=DATASETS["cifar10"], resolution=224),
+    }
+    for label, pipe in pipes.items():
+        step = iter(range(10 ** 6))
+        ms = host_ms(lambda: pipe.batch_at(0, next(step) % 8))
+        batch = pipe.batch_at(0, 0)
+        n = sum(v.nbytes for v in batch.values())
+        print(f"[data] one batch_at at batch 128, {label}: {ms:.2f} host ms "
+              f"for {n} bytes; {card}", flush=True)
+    # the shard source's read amplification: loads per with-replacement
+    # batch through its LRU of 4 shards
+    pipe = pipes[f"shards ({shards.train_size} examples)"]
+    shard_bytes = (shard_dir / "train-00000.npz").stat().st_size
+    loads, touched = [], []
+    for i in range(8):
+        before = shards.shard_loads
+        batch = pipe.batch_at(1, i)
+        loads.append(shards.shard_loads - before)
+        idx = np.random.default_rng(batch_seed(pipe.seed, 1, i)).integers(
+            0, shards.train_size, (128,))
+        touched.append(len(np.unique(idx // DEFAULT_SHARD_SIZE)))
+    print(f"[data] shard source: shards loaded per batch of 128 {loads} "
+          f"(distinct shards touched {touched}; 49 shards of 1024, LRU 4), "
+          f"about {statistics.mean(loads) * shard_bytes / 1e6:.1f} MB read "
+          f"for a {batch['images'].nbytes + batch['labels'].nbytes}-byte "
+          f"batch", flush=True)
+    # the host-to-device copy of the fp32 batch
+    x = pipes["fp32 synthetic at 224 px"].batch_at(0, 0)["images"]
+    pageable = torch.from_numpy(x)
+    pinned = pageable.pin_memory()
+
+    def copy(src, **kw):
+        y = src.to("cuda", **kw)
+        torch.cuda.synchronize()
+        return y
+
+    t_page = host_ms(lambda: copy(pageable))
+    t_pin = host_ms(lambda: copy(pinned, non_blocking=True))
+    t_pin_copy = host_ms(lambda: copy(pageable.pin_memory(),
+                                      non_blocking=True))
+    print(f"[data] host-to-device copy of the {x.nbytes}-byte fp32 batch: "
+          f"pageable {t_page:.2f} ms ({x.nbytes / t_page / 1e6:.2f} GB/s), "
+          f"pinned {t_pin:.2f} ms ({x.nbytes / t_pin / 1e6:.2f} GB/s), "
+          f"pin then copy {t_pin_copy:.2f} ms; {card}", flush=True)
+    # warm training images/s by how the loop is fed, in turns: procedural
+    # CIFAR-10 through pipe.prefetch, through batch_at + to_device, and
+    # from batches built and copied before the timed steps (phase 8's
+    # train_rate, the ceiling); the shards through pipe.prefetch
+    feeds = {"prefetch": "pipe.prefetch", "sync": "batch_at + to_device",
+             "prebuilt": "batches built before the timed steps",
+             "shards": "pipe.prefetch from the shards"}
+    rates = {}
+    for label in ("prefetch", "sync", "prebuilt", "shards", "shards",
+                  "prebuilt", "sync", "prefetch"):
+        trainer, pipe = train_setup("bfloat16", True)
+        if label == "shards":
+            pipe = DataPipeline(global_batch=128, source=shards)
+        rates.setdefault(label, []).append(fed_train_rate(
+            trainer, pipe, new_vit(trainer).params(), label))
+    for label, rs in rates.items():
+        print(f"[data] vit-b16 bf16 warm training fed by {feeds[label]}: "
+              f"{statistics.mean(r[0] for r in rs):.1f} images/s, "
+              f"{statistics.mean(r[1] for r in rs):.2f} ms per optimizer "
+              f"step (runs {[round(r[0], 1) for r in rs]} images/s); "
+              f"{card}", flush=True)
+
+
+def fed_train_rate(trainer, pipe, params, feed, steps=4, warmup=2):
+    """``train_rate`` with the batches fetched inside the timed loop:
+    ``feed`` "prefetch" or "shards" takes them from ``pipe.prefetch``
+    (every tensor checked to be on the card), "sync" builds each by
+    ``batch_at`` and copies it by ``to_device``, "prebuilt" builds and
+    copies them all before the first step, as ``train_rate`` does."""
+    import torch
+    from repro_torch.core.engine import to_device
+
+    state = trainer.init_state({k: v.clone() for k, v in params.items()})
+    cursor = [0, 0]
+    prefetcher = pipe.prefetch(0, 0, device="cuda") \
+        if feed in ("prefetch", "shards") else None
+    built = iter([to_device(pipe.batch_at(0, i), "cuda")
+                  for i in range(warmup + steps)]) \
+        if feed == "prebuilt" else None
+
+    def fetch():
+        if prefetcher is not None:
+            _, batch, _ = next(prefetcher)
+            if not all(t.is_cuda for t in batch.values()):
+                fail("the prefetcher yielded a tensor off the card")
+            return batch
+        if built is not None:
+            return next(built)
+        batch = to_device(pipe.batch_at(*cursor), "cuda")
+        cursor[:] = pipe.next_cursor(*cursor)
+        return batch
+
+    try:
+        for _ in range(warmup):
+            state, _ = trainer.train_step(state, fetch())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = trainer.train_step(state, fetch())
+            if not m["step_ok"]:
+                fail("a timed training step was skipped by the guard")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        if prefetcher is not None:
+            prefetcher.close()
+    return steps * pipe.global_batch / dt, dt / steps * 1e3
+
+
+def phase_quickstart():
+    """The port's quickstart on the card at its smoke size, in its own
+    process: it must exit 0 and print its eval line."""
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m",
+                        "repro_torch.examples.quickstart"],
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                       capture_output=True, text=True, timeout=600)
+    lines = r.stdout.strip().splitlines()
+    for line in lines:
+        if line.startswith(("model=", "eval:")):
+            print(f"[quickstart] {line}", flush=True)
+    if r.returncode or not any(line.startswith("eval: top1")
+                               for line in lines):
+        print(r.stdout[-2000:] + r.stderr[-4000:], file=sys.stderr)
+        fail(f"quickstart exit {r.returncode}")
+    print(f"[quickstart] exit 0 in {time.time() - t0:.1f}s", flush=True)
+
+
 def augment_on_card():
     """One augmented global microbatch of the training slice (64 images of
     step 0, microbatch 0, every recipe step drawn, mixing forced on) on
@@ -2001,6 +2303,8 @@ def main():
     vit_launches, vit_hist = phase_train(profile)
     dp_launches, aug_launches, f32_ref = phase_dp(vit_hist, profile)
     resume_launches = phase_ckpt(vit_hist, f32_ref)
+    data_launches = phase_data(vit_hist)
+    phase_quickstart()
     lm_launches, _ = phase_lm_train(profile)
     rwkv_launches = phase_rwkv_train(profile)
     if profile:
@@ -2020,6 +2324,10 @@ def main():
         # the training slice preempted after 5 steps and resumed (phase 8c)
         vit["resume_launches"] = {run: n[row["name"]]
                                   for run, n in resume_launches.items()}
+        # the training slice without the prefetcher, with a retried data
+        # fault, and from shards (phase 8d)
+        vit["data_launches"] = {run: n[row["name"]]
+                                for run, n in data_launches.items()}
         if row["name"] in REDESIGNED:
             row = dict(row, redesigned=True, routes=ROUTES[row["name"]])
         kernels.append(dict(row, **lm_attn[key],

@@ -233,9 +233,17 @@ class CIFARSource:
 def make_source(dataset: str, *, data_dir: Optional[str] = None,
                 seed: int = 0, resolution: Optional[int] = None,
                 train_size: Optional[int] = None,
-                eval_size: Optional[int] = None):
+                eval_size: Optional[int] = None,
+                shard_dir: Optional[str] = None):
     """``None`` for the synthetic fp32 stream, a :class:`CIFARSource`
-    otherwise (the switch ``launch/train.py`` flips on ``--dataset``)."""
+    otherwise (the switch ``launch/train.py`` flips on ``--dataset``).
+    ``shard_dir`` takes precedence: it names a shard directory
+    (``data/streaming.py``) and returns a ``ShardedSource``, which streams
+    shards instead of holding a split in RAM."""
+    if shard_dir:
+        from repro_torch.data.streaming import ShardedSource
+        return ShardedSource(shard_dir, seed=seed, resolution=resolution,
+                             train_size=train_size, eval_size=eval_size)
     if dataset == "synthetic":
         return None
     return CIFARSource(dataset, data_dir=data_dir, seed=seed,

@@ -2,8 +2,9 @@
 
 Trains a freshly initialised ViT with gradient accumulation, the
 hand-written AdamW/SGD/LAMB and the warmup-cosine schedule, on CIFAR (the
-real pickle batches under ``--data-dir``, else the procedural stream) or the
-legacy fp32 synthetic stream, and evaluates on the held-out split:
+real pickle batches under ``--data-dir``, a ``repro-shards/v1`` directory
+under ``--shard-dir``, else the procedural stream) or the legacy fp32
+synthetic stream, and evaluates on the held-out split:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch vit-b16 \\
         --steps 10 --batch 128 --accum 2 --eval-every 10 --eval-batch 128
@@ -25,6 +26,14 @@ JAX on the card, so the params are initialised here from ``--seed``. The
 anomaly guard retries a batch whose loss or grad-norm is non-finite and
 aborts after ``--guard-max-skips`` skips in a row. Runs on ``cuda`` unless
 ``--device cpu`` is given.
+
+Host data (``data/pipeline.py``): the batches come from a two-stage
+prefetcher (``--prefetch-depth`` batches in flight at each stage; on
+``cuda`` pinned copies on a side stream) started at the restored cursor,
+which retries a transient data-source error (a planned ``data@k`` fault
+included); ``--no-prefetch`` builds each batch in the step loop and copies
+it from pageable memory, and a data fault then ends the attempt. A shard
+directory is written by ``python -m repro_torch.data.streaming --out D``.
 
 Data parallelism: ``--devices N`` starts N ranks (one per card over NCCL
 on ``cuda``; gloo processes on ``--device cpu``) that train the same global
@@ -55,8 +64,8 @@ the newest K steps (never the newest valid one);
 deterministic chaos schedule whose firings land once in
 ``<ckpt-dir>/faults.jsonl``.
 
-Options of the reference that are not ported yet (pipelines, streaming
-shards) are refused, never ignored.
+Options of the reference that are not ported yet (pipeline parallelism)
+are refused, never ignored.
 """
 from __future__ import annotations
 
@@ -85,7 +94,6 @@ from repro_torch.resilience import faults as _faults
 # kwargs, what it needs)
 NOT_YET_PORTED = {
     "--pp": ({"type": int}, "pipeline parallelism (item 16)"),
-    "--shard-dir": ({}, "streaming shards (item 11)"),
 }
 
 
@@ -108,9 +116,21 @@ def parse_args(argv=None):
     ap.add_argument("--data-dir", default="",
                     help="directory holding the CIFAR pickle batches; unset "
                          "-> the deterministic procedural split")
+    ap.add_argument("--shard-dir", default="",
+                    help="stream from a repro-shards/v1 shard directory "
+                         "(data/streaming.py; write one with `python -m "
+                         "repro_torch.data.streaming --out DIR`) instead of "
+                         "an in-RAM split; overrides --dataset/--data-dir")
     ap.add_argument("--train-size", type=int, default=0,
                     help="truncate the train split to N examples (0 = all; "
-                         "sizes the procedural stream's epoch)")
+                         "bounds disk and shard splits and sizes the "
+                         "procedural stream's epoch)")
+    ap.add_argument("--prefetch-depth", type=int, default=2,
+                    help="batches in flight at EACH prefetch stage "
+                         "(synthesis and host->device transfer run in "
+                         "separate threads)")
+    ap.add_argument("--no-prefetch", action="store_true",
+                    help="synchronous host data path (bench baseline)")
     ap.add_argument("--eval-every", type=int, default=0,
                     help="evaluate every N steps and at the end (0 = never; "
                          "needs --dataset cifar10|cifar100)")
@@ -174,6 +194,9 @@ def parse_args(argv=None):
     for flag, (kw, _) in NOT_YET_PORTED.items():
         ap.add_argument(flag, default=None, help="not yet ported", **kw)
     args = ap.parse_args(argv)
+    if args.prefetch_depth < 1:
+        raise SystemExit(f"[train] --prefetch-depth must be >= 1: "
+                         f"{args.prefetch_depth}")
     for flag, (_, needs) in NOT_YET_PORTED.items():
         if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
             raise SystemExit(f"[train] {flag} is not yet ported to "
@@ -253,7 +276,8 @@ def _run(args, world):
         source = make_source(args.dataset, data_dir=args.data_dir or None,
                              seed=args.seed, resolution=cfg.image_size,
                              train_size=args.train_size or None,
-                             eval_size=args.eval_size or None)
+                             eval_size=args.eval_size or None,
+                             shard_dir=args.shard_dir or None)
         spec = source.spec if source is not None else DATASETS["cifar10"]
         cfg = cfg.replace(num_classes=spec.num_classes,
                           label_smoothing=args.label_smoothing)
@@ -295,8 +319,9 @@ def _run(args, world):
                             epoch_size=args.batch * args.steps,
                             seed=args.seed)
     elif source is not None:
-        say(f"[train] dataset={source.name} "
-            f"{'procedural' if source.procedural else 'disk'} "
+        backing = "shards" if args.shard_dir else \
+            "procedural" if source.procedural else "disk"
+        say(f"[train] dataset={source.name} {backing} "
             f"train={source.train_size} eval={source.eval_size}")
         pipe = DataPipeline(global_batch=args.batch, source=source,
                             seed=args.seed)
@@ -369,18 +394,32 @@ def _run(args, world):
     handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM,
                                                  signal.SIGINT)}
     preempted = install_preemption_handler()
+    prefetcher = None
+
+    def fetch():
+        """-> (device batch, the cursor after it): from the prefetcher, or
+        under --no-prefetch built at the state's cursor and copied here."""
+        if prefetcher is not None:
+            _, batch, nxt = next(prefetcher)
+            return batch, nxt
+        e, i = state.epoch, state.batch_index
+        return to_device(pipe.batch_at(e, i), device), pipe.next_cursor(e, i)
+
     try:
+        if not args.no_prefetch and start_step < end_step:
+            prefetcher = pipe.prefetch(state.epoch, state.batch_index,
+                                       device=device,
+                                       depth=args.prefetch_depth)
         for step in range(start_step, end_step):
-            host = pipe.batch_at(state.epoch, state.batch_index)
-            nxt = pipe.next_cursor(state.epoch, state.batch_index)
+            batch, nxt = fetch()
             # a guard-skipped step leaves the state as it was: retry the
             # SAME cursor batch (a planned NaN poisons it once), and
             # escalate after guard_max_skips skips in a row
             skips = 0
             while True:
-                batch = to_device(_faults.poison_batch(
-                    host, step, resolution=cfg.image_size), device)
-                state, metrics = trainer.train_step(state, batch)
+                fed = _faults.poison_batch(batch, step,
+                                           resolution=cfg.image_size)
+                state, metrics = trainer.train_step(state, fed)
                 if not ecfg.guard_anomalies or metrics["step_ok"]:
                     break
                 skips += 1
@@ -438,6 +477,8 @@ def _run(args, world):
                                    keep_last_k=ecfg.ckpt_keep_last)
             say(f"[train] checkpoint -> {path}")
     finally:
+        if prefetcher is not None:
+            prefetcher.close()
         if saver is not None:
             saver.close()
         for s, h in handlers.items():

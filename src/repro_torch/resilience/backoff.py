@@ -1,9 +1,8 @@
 """Jittered-exponential backoff — the ONE retry policy shared by
-checkpoint IO (`repro_torch.checkpoint`) and the auto-resume supervisor
-(`repro_torch.resilience.supervisor`); a copy of
-``repro/resilience/backoff.py``, kept here so the port needs nothing of
-the JAX package (the data ``Prefetcher``, its third user there, is not
-ported yet).
+checkpoint IO (`repro_torch.checkpoint`), the auto-resume supervisor
+(`repro_torch.resilience.supervisor`) and the data ``Prefetcher``
+(`repro_torch.data.pipeline`); a copy of ``repro/resilience/backoff.py``,
+kept here so the port needs nothing of the JAX package.
 
 The policy is a frozen value object so call sites can log it, tests can
 enumerate its delay schedule without sleeping, and property tests can

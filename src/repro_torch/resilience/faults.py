@@ -1,6 +1,6 @@
 """Deterministic fault injection for chaos-testing the training stack (a
-copy of ``repro/resilience/faults.py``; its batches are the host numpy
-dicts of ``DataPipeline.batch_at``).
+copy of ``repro/resilience/faults.py``; ``poison_batch`` takes the train
+loop's device tensors or a host numpy batch).
 
 A :class:`FaultPlan` is a seed-driven, explicitly-enumerable list of
 faults — each one names a *kind*, the step it fires at, and (for IO
@@ -61,6 +61,7 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.resilience.backoff import TransientError
 
@@ -227,11 +228,12 @@ class FaultPlan:
 
     def poison_batch(self, batch: dict, step: int, *, resolution: int = 0
                      ) -> dict:
-        """``nan_grad`` site: return the host batch with every float leaf
-        poisoned to NaN (once per planned step — the retry after the
-        guard skips the update sees the clean batch again). A uint8 image
-        batch carries no float leaf to poison, so its images become a
-        float32 NaN batch at ``resolution`` (the model input size) —
+        """``nan_grad`` site: return the batch (numpy arrays on the host,
+        or torch tensors on their device) with every float leaf poisoned
+        to NaN, once per planned step: the retry after the guard skips the
+        update sees the clean batch again. A uint8 image batch carries no
+        float leaf to poison, so its images become a float32 NaN batch at
+        ``resolution`` (the model input size) on the images' device;
         ``device_preprocess`` passes float batches through untouched, so
         the NaN still reaches the loss and trips the guard."""
         with self._lock:
@@ -240,17 +242,18 @@ class FaultPlan:
                 return batch
             flt.remaining = 0
             self._log(flt, "batch poisoned to NaN")
-        floats = [k for k, v in batch.items()
-                  if np.issubdtype(np.asarray(v).dtype, np.floating)]
-        out = {k: v * np.float32("nan") if k in floats else v
+        floats = [k for k, v in batch.items() if _is_float(v)]
+        out = {k: v * float("nan") if k in floats else v
                for k, v in batch.items()}
         img = batch.get("images")
-        if not floats and img is not None and \
-                np.asarray(img).dtype == np.uint8:
-            shape = np.asarray(img).shape
+        if not floats and img is not None and _is_uint8(img):
+            shape = tuple(img.shape)
             if resolution:
                 shape = shape[:1] + (resolution, resolution) + shape[3:]
-            out["images"] = np.full(shape, np.nan, np.float32)
+            out["images"] = torch.full(
+                shape, float("nan"), dtype=torch.float32,
+                device=img.device) if isinstance(img, torch.Tensor) \
+                else np.full(shape, np.nan, np.float32)
         return out
 
     def corrupt_committed(self, ckpt_path: str, step: int):
@@ -320,6 +323,18 @@ class FaultPlan:
 
 
 _ACTIVE: Optional[FaultPlan] = None
+
+
+def _is_float(v) -> bool:
+    if isinstance(v, torch.Tensor):
+        return v.is_floating_point()
+    return np.issubdtype(np.asarray(v).dtype, np.floating)
+
+
+def _is_uint8(v) -> bool:
+    if isinstance(v, torch.Tensor):
+        return v.dtype == torch.uint8
+    return np.asarray(v).dtype == np.uint8
 
 
 def active() -> Optional[FaultPlan]:

@@ -392,7 +392,7 @@ def test_training_cli_synthetic_stream():
                   "--eval-every", "1", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("extra", [["--pp", "2"], ["--shard-dir", "x"]])
+@pytest.mark.parametrize("extra", [["--pp", "2"]])
 def test_unported_options_are_refused(extra):
     with pytest.raises(SystemExit, match="not yet ported"):
         cli.main(["--smoke", "--steps", "1", "--device", "cpu"] + extra)
@@ -425,6 +425,14 @@ LIFTED = {
     "inject-faults": (["--inject-faults", "nan_grad@1"],
                       lambda d, rows, out: "update skipped (1/3)" in out
                       and len(rows) == 4),
+    # lifted by the host data slice
+    "shard-dir": (["--shard-dir", "{d}"],
+                  lambda d, rows, out: "dataset=cifar10 shards train=64"
+                  in out and len(rows) == 4),
+    "prefetch-depth": (["--prefetch-depth", "1"],
+                       lambda d, rows, out: len(rows) == 4),
+    # the run raises: checked in the test below
+    "no-prefetch": (["--no-prefetch", "--inject-faults", "data@1"], None),
 }
 
 
@@ -458,6 +466,18 @@ def test_lifted_options_parse_and_run(flag, tmp_path, capsys):
     if flag == "resume-step":
         cli.main(base + ["--ckpt-dir", str(d), "--ckpt-every", "2",
                          "--stop-after", "3"])
+    if flag == "shard-dir":
+        from repro_torch.data.datasets import CIFARSource
+        from repro_torch.data.streaming import write_shards
+        write_shards(str(d), CIFARSource(train_size=64, eval_size=16),
+                     shard_size=32)
+    if flag == "no-prefetch":
+        # the batch is built in the step loop: a transient data fault
+        # reaches the loop instead of the prefetcher's retry
+        from repro_torch.resilience import TransientError
+        with pytest.raises(TransientError):
+            cli.main(base + extra)
+        return
     capsys.readouterr()
     rows = cli.main(base + extra)
     assert check(d, rows, capsys.readouterr().out), rows
