@@ -3,8 +3,9 @@
 from this checkout, holds each against its plain PyTorch version, drives
 the port's main paths (ViT-B/16 eval and training, one card and
 data-parallel under ZeRO 0-3 with augmentation, preempted and resumed from
-checkpoints and supervised under injected faults, ChatGLM3-6B and RWKV6-7B
-training) at full width through its CLI, and checks the results.
+checkpoints and supervised under injected faults, ChatGLM3-6B, RWKV6-7B,
+Gemma3-12B, Qwen2.5-14B and GLM-4-9B training) at full width through its
+CLI, and checks the results.
 
     python3 chip_smoke.py [--profile]
 
@@ -14,8 +15,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 2. build: compiles every kernel (``kernels/build.py``), timed, and prints
    each kernel's ``-Xptxas -v`` registers and spills.
 3. K1 against ``ref_attention`` on the card, at the ViT-B/16 eval shape,
-   the smoke shape, ragged S (1, 63, 130, 197), causal, GQA, windowed
-   (also with S > T, rows with no live key) and D 32 and 128 cases, each
+   the smoke shape, ragged S (1, 63, 130, 197), causal, GQA (groups of 4
+   and of 5, the odd one also at D 256), windowed (also with S > T, rows
+   with no live key) and D 32, 128 and 256 cases (D 256 ragged, causal
+   with a window of 100 and with S > T), each
    in bf16 (the tensor-core route) and fp32 (the CUDA-core route), some in
    the model's strided (B,S,H,D) layout; then times the kernel, the plain
    version and PyTorch's
@@ -30,7 +33,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    its forward, the one yardstick K2 and K3 share) timed at the
    micro-shape.
 5. K4 and K5 against ``ref_rmsnorm_fwd``/``ref_rmsnorm_bwd`` at the
-   decoder's shape (4096 x 4096), the smoke shape, the reference's
+   decoder's shape (4096 x 4096), Gemma3's (4096 x 3840) and Qwen2.5's
+   (4096 x 5120) rows, the smoke shape, the reference's
    RMS_CASES, one row and odd D, in bf16 and fp32 (out, dx, dscale within
    1e-4 / 6e-2, rinv within 1e-4 relative), K5 twice for a bitwise equal
    dscale; ``torch.autograd.grad`` through ``ops.fused_rmsnorm``; then
@@ -43,6 +47,12 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    twice for bitwise equal dq and delta and K3 for bitwise equal dk and
    dv, K2's grid printed from the built kernel's query tile, then timed as
    in phase 4 (SDPA with ``enable_gqa``).
+6a. K1-K3 at Gemma3-12B's attention shape (B 1, H 16, KH 8, S = T = 4096,
+   D 256, causal) with a local layer's window of 1024 and with the global
+   layer's none, against their plain versions in bf16 and fp32, K2 and K3
+   each run twice for bitwise equal results, then timed at the window as in
+   phase 4 (SDPA with ``enable_gqa`` and the window's boolean mask; the
+   bounds count the live pairs under the window).
 6b. K6 (with and without states) and K7 against ``ref_wkv6_fwd``/
    ``ref_wkv6_bwd`` at the RWKV6 slice's shape (B 4, S 1024, H 64, P 64,
    chunk 32; bf16 r/k/v with fp32 wlog, and fp32), the smoke shape, the
@@ -142,15 +152,41 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    model's own WKV6 inputs and cotangent and fp32 kernel against naive
    gradients with the norm eps at 1e-3 (2e-4), with the bf16 and fp32
    gradients' norms and cosines printed as readings.
+11. the dense-decoder family's slice: ``--arch gemma3-12b --layers 6 --seq
+   4096 --batch 2 --accum 2 --steps 10`` in bf16 (five local layers with a
+   window of 1024 and one global, head dim 256, the tied 262,144-token
+   embedding) with the counters reset just before and read just after
+   (K1-K3 10 x 2 x 6 = 120 each, K4 and K5 10 x 2 x 13 = 260 each); every
+   loss and grad-norm finite and ``step_ok`` 1; the peak of allocated
+   device memory; kernel against naive path on one microbatch of 1 x 2048
+   (past the window; fp32 within 2e-4, bf16 cosine >= 0.99); warm
+   training tokens/s of both paths in turns in micro-batches of 1 x 2048
+   (the naive path does not fit at 4096 beside the AdamW state), every
+   kernel-path run faster, and of the kernel path at 4096; then three
+   steps with ``remat="block"`` and
+   with ``"dots"`` against ``"none"`` from the same params and batches
+   (losses within 1e-5, peak memory of each, K1 72 and K4 150 launches
+   with the recompute against 36 and 78 without).
+12. Qwen2.5-14B and GLM-4-9B at full width, two layers each: ``--layers 2
+   --seq 1024 --batch 8 --accum 2 --steps 3`` (K1-K3 12 launches each,
+   K4/K5 30), finite losses, ``step_ok`` 1, peak memory; K1-K3 at
+   Qwen2.5's attention shape (B 4, H 40, KH 8, S = T = 1024, D 128,
+   causal: a GQA group of 5, K3's unsplit grid) against their plain
+   versions in bf16 and fp32, K2 and K3 run twice for bitwise equality
+   (GLM-4's shape is phase 6's); kernel against naive path of each model
+   on one microbatch of 4 x 1024 (fp32 within 2e-4, bf16 cosine >= 0.99).
 
 ``--profile`` adds a ``torch.profiler`` table of one warm training step of
 each training slice (and of the ZeRO-3 step at world 1), and at the end (after every timed phase) of one warm
 bf16 eval pass of the eval slice.
 The last lines are one JSON object for the kernels (K1-K3 with the
-decoder's numbers and the ViT's under ``vit``, the data-parallel runs'
+decoder's numbers and the ViT's under ``vit``, Gemma3's attention times and
+its training run's launches under ``gemma3`` and ``gemma3_launches``, the
+Qwen2.5 and GLM-4 runs' under ``dense_launches``, the data-parallel runs'
 launches there under ``dp_launches``, the preempted and resumed runs'
 under ``resume_launches`` and phase 8d's under ``data_launches``, K4/K5
-with the RWKV6 run's launches and the decoder's beside them, K6/K7; each
+with the RWKV6 run's launches and the decoder's, Gemma3's, Qwen2.5's and
+GLM-4's beside them, K6/K7; each
 redesigned kernel with its ``routes``), the card's
 ``nvidia-smi`` name and power limit, and the ``ok`` line.
 """
@@ -201,11 +237,15 @@ RMS_TOL = {"float32": 1e-4, "bfloat16": 6e-2}  # tests/test_kernel_grads.py
 TOL_RINV = 1e-4                                # relative
 # label, shape, row width (None: contiguous rows); the first is the
 # decoder's (micro-batch 4 x seq 1024, d 4096), then the smoke config's
-# (4 x 64, d 256), the reference's RMS_CASES, one row, an odd D (rows not
+# (4 x 64, d 256), Gemma3-12B's (micro-batch 1 x 4096, d 3840) and
+# Qwen2.5-14B's (4 x 1024, d 5120), the reference's RMS_CASES, one row, an
+# odd D (rows not
 # 16-byte aligned: scalar loads) and an odd D in wider rows (16-byte
 # vectors and a scalar tail)
 RMS_CASES = [
     ("decoder", (4096, 4096), None),
+    ("gemma3", (4096, 3840), None),
+    ("qwen2.5", (4096, 5120), None),
     ("smoke", (4, 64, 256), None),
     ("ref", (64, 256), None),
     ("ragged", (3, 37, 128), None),
@@ -277,6 +317,10 @@ CASES = [
     ("gqa", (4, 8, 2, 197, 197, 64), "float32", False, 0, False),
     ("gqa", (4, 8, 2, 197, 197, 64), "bfloat16", False, 0, False),
     ("gqa", (4, 8, 2, 197, 197, 64), "bfloat16", False, 0, True),
+    ("gqa 5", (2, 10, 2, 130, 130, 128), "float32", True, 0, False),
+    ("gqa 5", (2, 10, 2, 130, 130, 128), "bfloat16", True, 0, True),
+    ("D256 gqa5", (1, 10, 2, 197, 197, 256), "float32", True, 0, True),
+    ("D256 gqa5", (1, 10, 2, 197, 197, 256), "bfloat16", True, 0, True),
     ("window", (4, 4, 4, 130, 130, 64), "float32", True, 40, False),
     ("window", (4, 4, 4, 130, 130, 64), "bfloat16", True, 40, False),
     ("S>T win", (2, 4, 2, 200, 70, 64), "float32", False, 30, False),
@@ -286,7 +330,35 @@ CASES = [
     ("D=128", (4, 4, 4, 130, 130, 128), "bfloat16", False, 0, False),
     ("D=128", (2, 32, 2, 197, 197, 128), "float32", True, 0, False),
     ("D=128", (2, 32, 2, 197, 197, 128), "bfloat16", True, 0, True),
+    ("D=256", (2, 4, 2, 197, 197, 256), "float32", False, 0, False),
+    ("D=256", (2, 4, 2, 197, 197, 256), "bfloat16", False, 0, False),
+    ("D=256", (2, 4, 2, 197, 197, 256), "bfloat16", True, 0, True),
+    ("D256 win", (1, 4, 2, 300, 300, 256), "float32", True, 100, True),
+    ("D256 win", (1, 4, 2, 300, 300, 256), "bfloat16", True, 100, True),
+    ("D256 S>T", (2, 4, 2, 200, 70, 256), "float32", False, 30, False),
+    ("D256 S>T", (2, 4, 2, 200, 70, 256), "bfloat16", False, 30, True),
 ]
+# the dense-decoder family's slice: gemma3-12b at full width, cut to six
+# layers (five local with a window of 1024, one global), sequences of 4096
+# tokens in micro-batches of 1; its attention is B 1, H 16, KH 8, D 256
+GEMMA_LAYERS, GEMMA_SEQ, GEMMA_WINDOW = 6, 4096, 1024
+GEMMA_ATTN_SHAPE = (1, 16, 8, GEMMA_SEQ, GEMMA_SEQ, 256)
+GEMMA_TRAIN_ARGS = ["--arch", "gemma3-12b", "--layers", str(GEMMA_LAYERS),
+                    "--seq", str(GEMMA_SEQ), "--batch", "2", "--accum", "2",
+                    "--steps", "10", "--log-every", "1"]
+# the fp32 kernel-vs-naive gradients at a sequence that still exceeds the
+# window, so the local layers' masks bite
+GEMMA_AGREE_SEQ = 2048
+REMAT_TOL = 1e-5
+# qwen2.5-14b and glm4-9b at full width (vocabularies 152,064 and 151,552;
+# GLM's norm eps 1.5625e-7), two layers each
+DENSE_LAYERS = 2
+# Qwen2.5-14B's attention on one microbatch (4 x 1024): a GQA group of 5,
+# where K3 takes its unsplit grid (512 CTAs)
+QWEN_ATTN_SHAPE = (4, 40, 8, LM_SEQ, LM_SEQ, 128)
+DENSE_ARGS = ["--layers", str(DENSE_LAYERS), "--seq", str(LM_SEQ),
+              "--batch", "8", "--accum", "2", "--steps", "3",
+              "--log-every", "1"]
 # The redesigned kernels and the routes each takes; their rows say so, and
 # PERF.md's kernel table keeps the earlier design's times
 ROUTES = {
@@ -350,12 +422,24 @@ def bound(card, n_bytes, flops, rate="bf16"):
     return max(t_bytes, t_ops), bound_by, how
 
 
-def attn_work(shape, el, causal):
+def live_pairs(s, t, causal, window):
+    """The (query, key) pairs that the causal mask and the window leave
+    live: keys k < T with k <= q (causal) and q - k < window (window > 0)."""
+    n = 0
+    for q in range(s):
+        hi = min(t, q + 1) if causal else t
+        lo = max(0, q - window + 1) if window > 0 else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def attn_work(shape, el, causal, window=0):
     """Bytes each attention kernel must move and the FLOPs of its products
     at ``shape`` (B, H, KH, S, T, D) with ``el``-byte elements, counting
-    the live (query, key) pairs only (the causal triangle with S == T)."""
+    the live (query, key) pairs only (``live_pairs``: the causal triangle,
+    cut by the window)."""
     b, h, kh, s, t, d = shape
-    pairs = b * h * (s * (s + 1) // 2 if causal else s * t)
+    pairs = b * h * live_pairs(s, t, causal, window)
     q, kv, rows = b * h * s * d * el, b * kh * t * d * el, b * h * s * 4
     return {    # K1: q, k, v, o, lse; K2: + dO, dq, delta; K3: dk, dv
         "fwd": (2 * q + 2 * kv + rows, 4 * pairs * d),
@@ -570,18 +654,21 @@ def phase_k23(card):
     return rows
 
 
-def attention_times(card, shape, causal, inputs, tag):
+def attention_times(card, shape, causal, inputs, tag, window=0):
     """K1, K2 and K3 at ``shape`` in bf16 in the model layout (``inputs``
     gives q, k, v, dO), beside the plain forward and backward, SDPA's
     forward and backward (its forward+backward less its forward, the one
-    yardstick K2 and K3 share) and each kernel's bound. Returns {"fwd",
-    "dq", "dkv": {ms, plain_ms, bound_ms, bound_by, library_ms}}."""
+    yardstick K2 and K3 share; with ``enable_gqa`` under GQA and, with a
+    ``window``, an explicit boolean mask of the live pairs) and each
+    kernel's bound. Returns {"fwd", "dq", "dkv": {ms, plain_ms, bound_ms,
+    bound_by, library_ms}}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.ref import ref_attention, ref_attention_bwd
+    from repro_torch.kernels.ref import _live_mask, ref_attention, \
+        ref_attention_bwd
 
-    kw = {"causal": causal}
+    kw = {"causal": causal, "window": window}
     q, k, v, do = inputs(*shape, torch.bfloat16, model_layout=True)
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
     _, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, **kw)
@@ -598,6 +685,9 @@ def attention_times(card, shape, causal, inputs, tag):
     qc, kc, vc, doc = (x.contiguous().detach().requires_grad_()
                        for x in (q, k, v, do))
     sdpa_kw = {"is_causal": causal}
+    if window:
+        sdpa_kw = {"attn_mask": _live_mask(shape[3], shape[4], causal=causal,
+                                           window=window, device="cuda")}
     if shape[1] != shape[2]:
         sdpa_kw["enable_gqa"] = True
 
@@ -610,12 +700,13 @@ def attention_times(card, shape, causal, inputs, tag):
     library = {"fwd": sdpa_fwd}
     library["dq"] = library["dkv"] = \
         time_ms(sdpa_fwd_bwd, calls=10) - sdpa_fwd
-    work = attn_work(shape, q.element_size(), causal)
+    work = attn_work(shape, q.element_size(), causal, window)
     rows = {}
     for key, name in (("fwd", "K1 flash_fwd"), ("dq", "K2 flash_bwd_dq"),
                       ("dkv", "K3 flash_bwd_dkv")):
         bound_ms, bound_by, how = bound(card, *work[key])
-        print(f"[{tag}] {name} timing at {shape} bf16 causal={causal} on "
+        print(f"[{tag}] {name} timing at {shape} bf16 causal={causal} "
+              f"window={window} on "
               f"{card}: kernel {ms[key]:.4f} ms, plain "
               f"{'forward' if key == 'fwd' else 'backward (dq, dk, dv and delta together)'} "
               f"{plain[key]:.4f} ms, SDPA "
@@ -653,48 +744,84 @@ def phase_lm_attention(card):
     CTAs and sums their partials in a fixed order), then timed."""
     import torch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.ref import ref_attention, ref_attention_bwd
 
     inputs = model_layout_inputs(torch.Generator(device="cuda").manual_seed(3))
     b, h, _, s, _, _ = LM_ATTN_SHAPE
     tile = fa._lib_bwd().repro_flash_query_tile()
     print(f"[lm-attn] K2 grid: ceil({s} / {tile}) q tiles x {h} heads x {b} "
           f"= {-(-s // tile) * h * b} CTAs", flush=True)
-    errs = {}
-    for dname in ("bfloat16", "float32"):
-        dtype, tol = getattr(torch, dname), TOL_OUT[dname]
-        q, k, v, do = inputs(*LM_ATTN_SHAPE, dtype, model_layout=True)
-        kw = {"causal": True}
-        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
-        dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, **kw)
-        dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, **kw)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-        torch.cuda.synchronize()
-        same_dq = torch.equal(dq, dq2) and torch.equal(delta, delta2)
-        same = torch.equal(dk, dk2) and torch.equal(dv, dv2)
-        ref_out, ref_lse = ref_attention(q, k, v, **kw)
-        want = ref_attention_bwd(q, k, v, out, lse, do, **kw)
-        res = {"out": close(out, ref_out, tol),
-               "lse": close(lse, ref_lse, TOL_LSE),
-               "dq": close(dq, want[0], tol), "dk": close(dk, want[1], tol),
-               "dv": close(dv, want[2], tol),
-               "delta": close(delta, want[3], TOL_DELTA)}
-        ok = all(r[1] for r in res.values()) and same and same_dq
-        print(f"[lm-attn] {LM_ATTN_SHAPE} {dname} causal: " + " ".join(
-            f"max|d{key}|={r[0]:.3e}" for key, r in res.items())
-            + f" (tol {tol}, rtol {tol}; lse and delta {TOL_LSE}); K2 run "
-            f"twice bitwise equal dq and delta {same_dq}; K3 run twice "
-            f"bitwise equal {same} {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            fail(f"K1-K3 disagree with their plain versions at the decoder "
-                 f"shape in {dname}")
-        if dtype == torch.bfloat16:
-            errs = {"fwd": res["out"][0],
-                    "dq": max(res["dq"][0], res["delta"][0]),
-                    "dkv": max(res["dk"][0], res["dv"][0])}
+    errs = check_attention("lm-attn", "the decoder", LM_ATTN_SHAPE, inputs)
     t = attention_times(card, LM_ATTN_SHAPE, True, inputs, "lm-attn")
     return {key: dict(t[key], max_abs_err=errs[key]) for key in t}
+
+
+def phase_gemma_attention(card):
+    """K1, K2 and K3 at Gemma3-12B's attention shape (causal, GQA 16:8,
+    head dim 256, S = T = 4096), with the local layers' window of 1024 and
+    the global layer's none: against their plain versions in bf16 and fp32,
+    K2 and K3 run twice for bitwise equal dq, delta, dk and dv, then timed
+    at the local layers' window (SDPA with ``enable_gqa`` and the window's
+    boolean mask)."""
+    import torch
+
+    inputs = model_layout_inputs(torch.Generator(device="cuda").manual_seed(5))
+    errs = check_attention("gemma-attn", "Gemma3's", GEMMA_ATTN_SHAPE, inputs,
+                           windows=(GEMMA_WINDOW, 0))
+    t = attention_times(card, GEMMA_ATTN_SHAPE, True, inputs, "gemma-attn",
+                        window=GEMMA_WINDOW)
+    return {key: dict(t[key], max_abs_err=errs[key]) for key in t}
+
+
+def check_attention(tag, what, shape, inputs, windows=(0,)):
+    """K1-K3 at ``shape`` (causal, with each window of ``windows``) against
+    their plain versions in bf16 and fp32, K2 and K3 each run twice for
+    bitwise equal outputs; fails on any disagreement. Returns the bf16
+    errors at the first window: {"fwd", "dq", "dkv": max |error|}."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import ref_attention, ref_attention_bwd
+
+    errs = {}
+    for window in windows:
+        for dname in ("bfloat16", "float32"):
+            dtype, tol = getattr(torch, dname), TOL_OUT[dname]
+            q, k, v, do = inputs(*shape, dtype, model_layout=True)
+            kw = {"causal": True, "window": window}
+            out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, **kw)
+            dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, out, lse, do,
+                                                    **kw)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+            dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                  **kw)
+            torch.cuda.synchronize()
+            same_dq = torch.equal(dq, dq2) and torch.equal(delta, delta2)
+            same = torch.equal(dk, dk2) and torch.equal(dv, dv2)
+            ref_out, ref_lse = ref_attention(q, k, v, **kw)
+            want = ref_attention_bwd(q, k, v, out, lse, do, **kw)
+            res = {"out": close(out, ref_out, tol),
+                   "lse": close(lse, ref_lse, TOL_LSE),
+                   "dq": close(dq, want[0], tol),
+                   "dk": close(dk, want[1], tol),
+                   "dv": close(dv, want[2], tol),
+                   "delta": close(delta, want[3], TOL_DELTA)}
+            del ref_out, ref_lse, want
+            ok = all(r[1] for r in res.values()) and same and same_dq
+            print(f"[{tag}] {shape} {dname} causal window={window}: "
+                  + " ".join(f"max|d{key}|={r[0]:.3e}"
+                             for key, r in res.items())
+                  + f" (tol {tol}, rtol {tol}; lse and delta {TOL_LSE}); K2 "
+                  f"run twice bitwise equal dq and delta {same_dq}; K3 run "
+                  f"twice bitwise equal {same} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                fail(f"K1-K3 disagree with their plain versions at {what} "
+                     f"shape in {dname} (window {window})")
+            if dtype == torch.bfloat16 and window == windows[0]:
+                errs = {"fwd": res["out"][0],
+                        "dq": max(res["dq"][0], res["delta"][0]),
+                        "dkv": max(res["dk"][0], res["dv"][0])}
+    return errs
 
 
 def phase_rms(card):
@@ -1251,7 +1378,8 @@ def train_rate(trainer, pipe, params, steps=4, warmup=2):
     import torch
     from repro_torch.core.engine import to_device
 
-    state = trainer.init_state({k: v.clone() for k, v in params.items()})
+    state = trainer.init_state({k: v.to("cuda", copy=True)
+                                for k, v in params.items()})
     batches = [to_device(pipe.batch_at(0, i), "cuda")
                for i in range(warmup + steps)]
     for batch in batches[:warmup]:
@@ -1274,7 +1402,8 @@ def profile_step(label, trainer, pipe, params):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.engine import to_device
 
-    state = trainer.init_state({k: v.clone() for k, v in params.items()})
+    state = trainer.init_state({k: v.to("cuda", copy=True)
+                                for k, v in params.items()})
     batches = [to_device(pipe.batch_at(0, i), "cuda") for i in range(3)]
     for batch in batches[:2]:
         state, _ = trainer.train_step(state, batch)
@@ -2015,10 +2144,11 @@ def dp_rates(profile):
 
 
 def lm_setup(dtype, use_kernels, *, arch, layers, batch=8, accum=2,
-             **cfg_kw):
+             seq=LM_SEQ, **cfg_kw):
     """A full-width ``arch`` decoder trainer cut to ``layers`` layers (and
     any other config field in ``cfg_kw`` replaced) with the CLI's engine
-    settings for 10 steps, and its token pipeline."""
+    settings for 10 steps, and its token pipeline of ``seq`` tokens a
+    sequence."""
     from repro_torch.configs import EngineConfig, get_config
     from repro_torch.core.engine import Trainer
     from repro_torch.data.pipeline import DataPipeline
@@ -2030,17 +2160,18 @@ def lm_setup(dtype, use_kernels, *, arch, layers, batch=8, accum=2,
                         warmup_steps=1)
     return Trainer(cfg, ecfg), DataPipeline(
         kind="token", global_batch=batch, vocab=cfg.vocab_size,
-        seq_len=LM_SEQ, epoch_size=batch * 10)
+        seq_len=seq, epoch_size=batch * 10)
 
 
 def phase_lm_train(profile):
     """The decoder slice: ``--arch chatglm3-6b --layers 4 --seq 1024
     --batch 8 --accum 2 --steps 10`` (per step and microbatch: K1-K3 once a
-    layer, K4/K5 twice a layer and once for the final norm)."""
+    layer, K4/K5 twice a layer and once for the final norm). Returns the
+    CLI run's launches."""
     attn, norms = 10 * 2 * LM_LAYERS, 10 * 2 * (2 * LM_LAYERS + 1)
     return decoder_train("chatglm3-6b", LM_LAYERS, LM_TRAIN_ARGS, {
         "flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
-        "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}, "lm", profile)
+        "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}, "lm", profile)[0]
 
 
 def phase_rwkv_train(profile):
@@ -2050,12 +2181,172 @@ def phase_rwkv_train(profile):
     with the fp32 gradient gate taken at the group norm's eps raised to
     RWKV_GATE_EPS; then ``rwkv_after_steps``."""
     wkv, norms = 10 * 2 * RWKV_LAYERS, 10 * 2 * (2 * RWKV_LAYERS + 1)
-    launches, hist = decoder_train(
+    launches, hist, _ = decoder_train(
         "rwkv6-7b", RWKV_LAYERS, RWKV_TRAIN_ARGS, {
             "wkv6_fwd": wkv, "wkv6_bwd": wkv, "rmsnorm_fwd": norms,
             "rmsnorm_bwd": norms}, "rwkv", profile, fp32_eps=RWKV_GATE_EPS)
     rwkv_after_steps(hist)
     return launches
+
+
+def phase_gemma_train(profile):
+    """The dense-decoder family's slice: ``--arch gemma3-12b --layers 6
+    --seq 4096 --batch 2 --accum 2 --steps 10`` (per step and microbatch:
+    K1-K3 once a layer at head dim 256, five layers with the window of
+    1024 and one without; K4/K5 twice a layer and once for the final norm),
+    kernel against naive gradients on one microbatch of 1 x
+    GEMMA_AGREE_SEQ (past the window), warm tokens/s of both paths in
+    micro-batches of 1 x GEMMA_AGREE_SEQ in turns (at 4096 tokens the naive
+    path's fp32 scores, ~1.7 GB a layer, do not fit beside the AdamW state
+    on 80 GB) and of the kernel path at 4096; then ``phase_remat`` from the
+    same params. Returns the CLI run's launches."""
+    from repro_torch.configs import get_config
+
+    t0 = time.time()
+    attn = 10 * 2 * GEMMA_LAYERS
+    norms = 10 * 2 * (2 * GEMMA_LAYERS + 1)
+    cfg = get_config("gemma3-12b").replace(num_layers=GEMMA_LAYERS)
+    print(f"[gemma3] layer windows {cfg.layer_windows()}; head dim "
+          f"{cfg.head_dim}; vocabulary {cfg.vocab_size} (tied, embedding "
+          f"scale {cfg.embed_scale}); act {cfg.act}", flush=True)
+    launches, _, params = decoder_train(
+        "gemma3-12b", GEMMA_LAYERS, GEMMA_TRAIN_ARGS, {
+            "flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
+            "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}, "gemma3", profile,
+        seq=GEMMA_SEQ, batch=2, accum=2, agree=(1, GEMMA_AGREE_SEQ),
+        rate_seq=GEMMA_AGREE_SEQ)
+    phase_remat(params)
+    print(f"[gemma3] phase done in {time.time() - t0:.1f}s", flush=True)
+    return launches
+
+
+def phase_remat(params):
+    """Activation checkpointing at the gemma3 slice's shape, in process:
+    three bf16 optimizer steps (batch 2 x GEMMA_SEQ, accum 2) with
+    ``remat="block"`` and with ``"dots"`` against ``"none"``, from the same
+    params and batches; losses within REMAT_TOL of the "none" run's (and
+    whether bitwise equal), each run's peak of allocated device memory and
+    ms per step of its last two steps (a reading), and exact launch
+    counts: each layer's recompute runs K1 and both of its
+    K4s once more, K2, K3 and K5 as often as without."""
+    import gc
+    import torch
+    from repro_torch.core.engine import to_device
+
+    steps, mb, L = 3, 2, GEMMA_LAYERS
+    kw = {"arch": "gemma3-12b", "layers": L, "batch": 2, "accum": 2,
+          "seq": GEMMA_SEQ}
+    runs = {}
+    for remat in ("none", "block", "dots"):
+        again = remat != "none"
+        expect = dict({name: 0 for name in counters()},
+                      flash_fwd=steps * mb * L * (2 if again else 1),
+                      flash_bwd_dq=steps * mb * L,
+                      flash_bwd_dkv=steps * mb * L,
+                      rmsnorm_fwd=steps * mb * ((4 if again else 2) * L + 1),
+                      rmsnorm_bwd=steps * mb * (2 * L + 1))
+        trainer, pipe = lm_setup("bfloat16", True, remat=remat, **kw)
+        state = trainer.init_state({k: v.to("cuda", copy=True)
+                                    for k, v in params.items()})
+        batches = [to_device(pipe.batch_at(0, i), "cuda")
+                   for i in range(steps)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters().values():
+            fn.launches = 0
+        losses, t0 = [], 0.0
+        for i, batch in enumerate(batches):
+            if i == 1:          # the first step is a warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, m = trainer.train_step(state, batch)
+            if not m["step_ok"]:
+                fail(f"remat={remat}: a step was skipped by the guard")
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / (steps - 1) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        launches = {name: fn.launches for name, fn in counters().items()}
+        runs[remat] = losses
+        d = max(abs(a - b) for a, b in zip(losses, runs["none"]))
+        ok = launches == expect and d <= REMAT_TOL
+        print(f"[remat] gemma3-12b ({L} layers, batch 2 x {GEMMA_SEQ}, accum "
+              f"2, bf16) remat={remat}: losses {losses}; max |dloss| against "
+              f"remat=none {d:.3e} (tol {REMAT_TOL}), bitwise equal "
+              f"{losses == runs['none']}; torch.cuda.max_memory_allocated "
+              f"{peak / 1e9:.2f} GB; {step_ms:.2f} ms per step (steps 2-3, "
+              f"a reading); launches {launches} (expected {expect}) "
+              f"{'ok' if ok else 'FAIL'}; {smi_line()}", flush=True)
+        if not ok:
+            fail(f"remat={remat}: losses or launches disagree")
+        del state, trainer, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_dense():
+    """Qwen2.5-14B and GLM-4-9B at full width, two layers each, through the
+    CLI (``--layers 2 --seq 1024 --batch 8 --accum 2 --steps 3``, bf16):
+    exact launch counts (K1-K3 once a layer and microbatch, K4/K5 twice a
+    layer and once for the final norm), every loss and grad-norm finite,
+    ``step_ok`` 1, the peak of allocated device memory; K1-K3 at
+    Qwen2.5's attention shape (a GQA group of 5) against their plain
+    versions (``check_attention``; GLM-4's shape is ``LM_ATTN_SHAPE``,
+    checked in phase 6); each model's kernel against naive gradients on
+    one microbatch of 4 x LM_SEQ (``kernel_naive_agreement``). Returns
+    {arch: launches}."""
+    import gc
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    t0 = time.time()
+    steps = 3
+    attn = steps * 2 * DENSE_LAYERS
+    norms = steps * 2 * (2 * DENSE_LAYERS + 1)
+    out = {}
+    for arch in ("qwen2.5-14b", "glm4-9b"):
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launches, hist = run_cli(["--arch", arch] + DENSE_ARGS, {
+            "flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
+            "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}, f"{arch} train")
+        peak = torch.cuda.max_memory_allocated()
+        if [r["step"] for r in hist] != list(range(steps)) or not all(
+                math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                and r["step_ok"] == 1 for r in hist):
+            fail(f"{arch} train: bad rows {hist}")
+        print(f"[dense] {arch} ({DENSE_LAYERS} layers, full width: d "
+              f"{cfg.d_model}, {cfg.num_heads}:{cfg.num_kv_heads} heads of "
+              f"{cfg.head_dim}, vocabulary {cfg.vocab_size}, norm eps "
+              f"{cfg.norm_eps:g}) losses {[round(r['loss'], 4) for r in hist]}"
+              f"; grad norms {[round(r['grad_norm'], 3) for r in hist]}; "
+              f"step_ok all 1; wall {hist[-1]['wall_s']} s (cold); "
+              f"torch.cuda.max_memory_allocated {peak / 1e9:.2f} GB; "
+              f"{smi_line()}", flush=True)
+        out[arch] = launches
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch == "qwen2.5-14b":
+            b, h, kh, _, t, d = QWEN_ATTN_SHAPE
+            lib = fa._lib_bwd()
+            split = fa.dkv_group_split(
+                b, kh, t, d, h // kh, torch.cuda.get_device_properties(0)
+                .multi_processor_count, lib.repro_flash_key_tile(),
+                col_tiles=lib.repro_flash_dkv_col_tiles(d))
+            print(f"[qwen-attn] K3 bf16 grid: group {h // kh} split over "
+                  f"{split.gs} CTA(s)", flush=True)
+            inputs = model_layout_inputs(
+                torch.Generator(device="cuda").manual_seed(6))
+            check_attention("qwen-attn", "Qwen2.5's", QWEN_ATTN_SHAPE,
+                            inputs)
+        kernel_naive_agreement(arch, DENSE_LAYERS, (4, LM_SEQ))
+    print(f"[dense] phase done in {time.time() - t0:.1f}s", flush=True)
+    return out
 
 
 def require_kernel_wins(tag, rates):
@@ -2068,26 +2359,24 @@ def require_kernel_wins(tag, rates):
              f"naive-path run")
 
 
-def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None):
+def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None,
+                  *, seq=LM_SEQ, batch=8, accum=2, agree=(4, LM_SEQ),
+                  rate_seq=None):
     """A decoder's training slice at full width cut to ``layers`` layers:
-    ``argv`` (bf16, batch 8 x LM_SEQ, accum 2, 10 steps) through the CLI
-    with the launch counters reset just before and read just after
+    ``argv`` (bf16, ``batch`` x ``seq``, ``accum``, 10 steps) through the
+    CLI with the launch counters reset just before and read just after
     (``expect``), every loss and grad-norm finite and ``step_ok`` 1, the
-    peak of allocated device memory; then kernel against naive path (plain
-    RMSNorm and the naive attention or the chunked WKV6) on one
-    microbatch of 4 x LM_SEQ (fp32 within 2e-4; with ``fp32_eps`` the fp32
-    agreement at the model's own norm eps is printed ungated and the gate
-    holds a copy of the config with ``norm_eps=fp32_eps``; bf16 cosine >=
-    0.99), and warm training tokens/s of both paths (every kernel-path run
-    faster than every naive-path run, or the phase fails). The previous
-    phase's
-    tensors are freed first, so two models never stand together. Returns
-    (launches, the CLI's metrics rows)."""
+    peak of allocated device memory; then ``kernel_naive_agreement`` on
+    one microbatch of ``agree`` (rows, tokens), and warm training
+    tokens/s of both paths in turns (every kernel-path run faster than
+    every naive-path run, or the phase fails; at ``rate_seq`` tokens a
+    sequence when given, and then the kernel path's at ``seq`` as well),
+    all from params of seed 0. The previous phase's tensors are freed
+    first, so two models never stand together. Returns (launches, the
+    CLI's metrics rows, the params on the host)."""
     import gc
     import math
     import torch
-    from repro_torch.core.engine import to_device
-    from repro_torch.models.transformer import init_params
 
     def free():
         gc.collect()
@@ -2111,14 +2400,64 @@ def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None):
     free()
 
     kw = {"arch": arch, "layers": layers}
+    # the timed runs copy their params to the card from the host, so the
+    # card holds one model's state at a time
+    params = kernel_naive_agreement(arch, layers, agree, fp32_eps)
+    rates = {}
+    rate_seq = rate_seq or seq
+    shape = {"batch": batch, "accum": accum, "seq": rate_seq}
+    for label in ("kernel", "naive", "naive", "kernel"):
+        trainer, pipe = lm_setup("bfloat16", label == "kernel", **shape,
+                                 **kw)
+        rates.setdefault(label, []).append(train_rate(trainer, pipe, params))
+        free()
+    if rate_seq != seq:
+        trainer, pipe = lm_setup("bfloat16", True, batch=batch, accum=accum,
+                                 seq=seq, **kw)
+        rates[f"kernel path at {seq} tokens"] = [
+            train_rate(trainer, pipe, params)]
+        free()
+    for label, rs in rates.items():
+        n = seq if label.startswith("kernel path") else rate_seq
+        tps = sum(r[0] for r in rs) / len(rs) * n
+        ms = sum(r[1] for r in rs) / len(rs)
+        what = label if label.startswith("kernel path") else f"{label} path"
+        print(f"[{tag}] {arch} bf16 warm training, {what}: "
+              f"{tps:.1f} tokens/s, {ms:.2f} ms per optimizer step (batch "
+              f"{batch} x {n}, accum {accum}; runs "
+              f"{[round(r[0] * n, 1) for r in rs]} tokens/s; "
+              f"{smi_line()})", flush=True)
+    require_kernel_wins(arch, rates)
+    if profile:
+        trainer, pipe = lm_setup("bfloat16", True, **shape, **kw)
+        profile_step(f"{arch} ({layers} layers, bf16, batch {batch} x {seq}, "
+                     f"accum {accum})", trainer, pipe, params)
+    return launches, hist, params
+
+
+def kernel_naive_agreement(arch, layers, agree, fp32_eps=None):
+    """Kernel against naive path (plain RMSNorm and the naive attention
+    or the chunked WKV6) of ``arch`` at full width cut to ``layers``
+    layers, from params of seed 0, on one microbatch of ``agree`` (rows,
+    tokens): fp32 max |dgrad| within 2e-4 (with ``fp32_eps`` the fp32
+    agreement at the model's own norm eps is printed ungated and the gate
+    holds a copy of the config with ``norm_eps=fp32_eps``), bf16 cosine >=
+    0.99. Returns the params, on the host."""
+    import gc
+    import torch
+    from repro_torch.core.engine import to_device
+    from repro_torch.models.transformer import init_params
+
+    kw = {"arch": arch, "layers": layers}
     trainer, pipe = lm_setup("bfloat16", True, **kw)
     params = init_params(trainer.cfg, seed=0, device="cuda")
+    one = {"batch": agree[0], "accum": 1, "seq": agree[1]}
     for dtype in ("float32", "bfloat16"):
-        trainer_k, pipe = lm_setup(dtype, True, batch=4, accum=1, **kw)
-        trainer_n, _ = lm_setup(dtype, False, batch=4, accum=1, **kw)
-        batch = to_device(pipe.batch_at(0, 0), "cuda")
-        result = grad_agreement(trainer_k, trainer_n, params, batch, dtype)
-        label = f"{arch}, one microbatch of 4 x {LM_SEQ},"
+        trainer_k, pipe = lm_setup(dtype, True, **one, **kw)
+        trainer_n, _ = lm_setup(dtype, False, **one, **kw)
+        micro = to_device(pipe.batch_at(0, 0), "cuda")
+        result = grad_agreement(trainer_k, trainer_n, params, micro, dtype)
+        label = f"{arch}, one microbatch of {agree[0]} x {agree[1]},"
         if fp32_eps is not None and dtype == "float32":
             d_loss, d_grad, cos = result
             print(f"[train] {label} float32 kernel vs naive at the model's "
@@ -2127,34 +2466,21 @@ def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None):
                   f"head-rows whose variance is near eps): |dloss|="
                   f"{d_loss:.3e}, max|dgrad|={d_grad:.3e}, gradient cosine "
                   f"{cos:.6f}", flush=True)
-            trainer_k, _ = lm_setup(dtype, True, batch=4, accum=1,
-                                    norm_eps=fp32_eps, **kw)
-            trainer_n, _ = lm_setup(dtype, False, batch=4, accum=1,
-                                    norm_eps=fp32_eps, **kw)
-            result = grad_agreement(trainer_k, trainer_n, params, batch,
+            trainer_k, _ = lm_setup(dtype, True, norm_eps=fp32_eps, **one,
+                                    **kw)
+            trainer_n, _ = lm_setup(dtype, False, norm_eps=fp32_eps, **one,
+                                    **kw)
+            result = grad_agreement(trainer_k, trainer_n, params, micro,
                                     dtype)
             label += f" norm eps {fp32_eps:g},"
         report_agreement(label, dtype, result)
-        free()
-    rates = {}
-    for label in ("kernel", "naive", "naive", "kernel"):
-        trainer, pipe = lm_setup("bfloat16", label == "kernel", **kw)
-        rates.setdefault(label, []).append(train_rate(trainer, pipe, params))
-        free()
-    for label, rs in rates.items():
-        tps = sum(r[0] for r in rs) / len(rs) * LM_SEQ
-        ms = sum(r[1] for r in rs) / len(rs)
-        print(f"[{tag}] {arch} bf16 warm training, {label} path: "
-              f"{tps:.1f} tokens/s, {ms:.2f} ms per optimizer step (batch "
-              f"8 x {LM_SEQ}, accum 2; runs "
-              f"{[round(r[0] * LM_SEQ, 1) for r in rs]} tokens/s)",
-              flush=True)
-    require_kernel_wins(arch, rates)
-    if profile:
-        trainer, pipe = lm_setup("bfloat16", True, **kw)
-        profile_step(f"{arch} ({layers} layers, bf16, batch 8 x {LM_SEQ}, "
-                     f"accum 2)", trainer, pipe, params)
-    return launches, hist
+        del trainer_k, trainer_n, micro
+        gc.collect()
+        torch.cuda.empty_cache()
+    params = {k: v.cpu() for k, v in params.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return params
 
 
 def rwkv_after_steps(hist, steps=(1, 2)):
@@ -2297,6 +2623,7 @@ def main():
     vit_rows = [k1] + phase_k23(card.split(",")[0])
     rms_rows = phase_rms(card.split(",")[0])
     lm_attn = phase_lm_attention(card.split(",")[0])
+    gemma_attn = phase_gemma_attention(card.split(",")[0])
     wkv_rows = phase_wkv6(card.split(",")[0])
     profile = "--profile" in sys.argv[1:]
     phase_slice()
@@ -2305,8 +2632,10 @@ def main():
     resume_launches = phase_ckpt(vit_hist, f32_ref)
     data_launches = phase_data(vit_hist)
     phase_quickstart()
-    lm_launches, _ = phase_lm_train(profile)
+    lm_launches = phase_lm_train(profile)
     rwkv_launches = phase_rwkv_train(profile)
+    gemma_launches = phase_gemma_train(profile)
+    dense_launches = phase_dense()
     if profile:
         profile_eval()
     # K1-K3 run on both training paths: the row's numbers are the
@@ -2330,14 +2659,25 @@ def main():
                                 for run, n in data_launches.items()}
         if row["name"] in REDESIGNED:
             row = dict(row, redesigned=True, routes=ROUTES[row["name"]])
+        # the dense-decoder family: Gemma3's attention (head dim 256) timed
+        # at a local layer's window, its training run's launches, and the
+        # Qwen2.5 and GLM-4 runs'
+        gemma = dict(gemma_attn[key], launches=gemma_launches[row["name"]])
         kernels.append(dict(row, **lm_attn[key],
-                            launches=lm_launches[row["name"]], vit=vit))
+                            launches=lm_launches[row["name"]], vit=vit,
+                            gemma3_launches=gemma_launches[row["name"]],
+                            gemma3=gemma, dense_launches={
+                                arch: n[row["name"]]
+                                for arch, n in dense_launches.items()}))
     # K4-K7's launches are the RWKV6 run's; K4/K5 run on both decoder
     # paths, so their rows carry the ChatGLM3 run's beside them
     for row in rms_rows + wkv_rows:
         extra = {"launches": rwkv_launches[row["name"]]}
         if row in rms_rows:
             extra["chatglm3_launches"] = lm_launches[row["name"]]
+            extra["gemma3_launches"] = gemma_launches[row["name"]]
+            extra["dense_launches"] = {arch: n[row["name"]] for arch, n
+                                       in dense_launches.items()}
         if row["name"] in REDESIGNED:
             extra.update(redesigned=True, routes=ROUTES[row["name"]])
         kernels.append(dict(row, **extra))

@@ -1,20 +1,23 @@
 """Architecture registry for the port: ``--arch <id>`` resolution.
 
-The paper's ViT-B/16, the dense decoder ChatGLM3-6B and the recurrent
-RWKV6-7B are ported; the other architectures of ``repro.configs`` raise a clear error until their
-slice lands.
+The paper's ViT-B/16, the dense decoders ChatGLM3-6B, Qwen2.5-14B,
+GLM-4-9B and Gemma3-12B and the recurrent RWKV6-7B are ported; the other
+architectures of ``repro.configs`` raise a clear error until their slice
+lands.
 """
 from __future__ import annotations
 
-from repro_torch.configs import chatglm3_6b, rwkv6_7b, vit_b16
+from repro_torch.configs import chatglm3_6b, gemma3_12b, glm4_9b, \
+    qwen2_5_14b, rwkv6_7b, vit_b16
 from repro_torch.configs.base import EngineConfig, ModelConfig, SSMConfig
 
-REGISTRY = {m.ARCH_ID: m for m in (vit_b16, chatglm3_6b, rwkv6_7b)}
+REGISTRY = {m.ARCH_ID: m for m in (vit_b16, chatglm3_6b, rwkv6_7b,
+                                   qwen2_5_14b, glm4_9b, gemma3_12b)}
 
 # the reference registry's other archs (repro/configs/__init__.py)
 NOT_YET_PORTED = (
-    "deepseek-v3-671b", "qwen2.5-14b", "qwen2-vl-72b", "hubert-xlarge",
-    "glm4-9b", "zamba2-2.7b", "gemma3-12b", "granite-moe-3b-a800m",
+    "deepseek-v3-671b", "qwen2-vl-72b", "hubert-xlarge", "zamba2-2.7b",
+    "granite-moe-3b-a800m",
 )
 
 

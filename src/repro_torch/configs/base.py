@@ -3,12 +3,11 @@ of ``repro.configs.base``).
 
 Field names and defaults follow the JAX package, so a config can be
 compared field by field with its reference. Fields the ported paths do
-not read (MoE, MLA, softcap, M-RoPE, serving knobs; tensor, sequence and
-pipeline parallelism) are left out until a slice needs them; ``use_kernels``
-stands in for the reference's ``use_pallas``. A config that asks for a
-branch no slice has ported (tied embeddings, the embedding scale, M-RoPE,
-the mamba2, hybrid or MLA blocks, another family or activation) raises
-``NotImplementedError``.
+not read (MoE, MLA, M-RoPE, serving knobs; tensor, sequence and pipeline
+parallelism) are left out until a slice needs them; ``use_kernels`` stands
+in for the reference's ``use_pallas``. A config that asks for a branch no
+slice has ported (M-RoPE, the mamba2, hybrid or MLA blocks, the MoE,
+audio or vlm families, another activation) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,7 +19,9 @@ from typing import Optional
 _ARCH_TYPES = ("vit", "dense", "ssm")
 _BLOCK_KINDS = ("attn", "rwkv6")
 _ROPE_STYLES = ("full", "half", "none")
-_ACTS = ("swiglu", "gelu", "sqrelu")
+_ACTS = ("swiglu", "geglu", "gelu", "sqrelu")
+_ATTN_IMPLS = ("naive", "blockwise")
+_REMATS = ("none", "block", "dots")
 
 
 @dataclass(frozen=True)
@@ -58,15 +59,16 @@ class ModelConfig:
     rope_theta: float = 10000.0
     sliding_window: int = 0         # 0 = full attention
     global_every: int = 0           # every Nth layer full, the rest local
+    attn_logit_softcap: float = 0.0  # > 0: softcap * tanh(scores / softcap)
 
     # --- sub-configs -------------------------------------------------------
     ssm: Optional[SSMConfig] = None
 
     # --- embeddings / head --------------------------------------------
-    tie_embeddings: bool = False    # not ported
+    tie_embeddings: bool = False    # the LM head is embed.tok^T
     norm_eps: float = 1e-5
-    act: str = "swiglu"             # swiglu | gelu | sqrelu
-    embed_scale: bool = False       # not ported
+    act: str = "swiglu"             # swiglu | geglu | gelu | sqrelu
+    embed_scale: bool = False       # gemma-style sqrt(d) embedding scale
 
     # --- ViT ------------------------------------------------------------
     image_size: int = 0
@@ -77,6 +79,11 @@ class ModelConfig:
     # --- numerics -------------------------------------------------------
     dtype: str = "bfloat16"         # compute dtype; params stay fp32
     use_kernels: bool = True        # hand-written CUDA kernels on the card
+    attn_impl: str = "naive"        # naive | blockwise (flash in PyTorch)
+    attn_block_k: int = 512
+    attn_block_q: int = 512
+    remat: str = "none"             # none | block | dots (activation
+    #                                 checkpointing of each layer)
 
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads > 0:
@@ -93,8 +100,6 @@ class ModelConfig:
             ((self.arch_type == "ssm") != (self.block_kind == "rwkv6"),
              f"arch_type {self.arch_type!r} with block_kind "
              f"{self.block_kind!r}"),
-            (self.tie_embeddings, "tied embeddings"),
-            (self.embed_scale, "the embedding scale"),
             (self.rope_style not in _ROPE_STYLES,
              f"rope_style {self.rope_style!r}"),
             (self.act not in _ACTS, f"act {self.act!r}"),
@@ -103,6 +108,12 @@ class ModelConfig:
             if needed:
                 raise NotImplementedError(
                     f"{self.name}: {what} is not yet ported to repro_torch")
+        if self.attn_impl not in _ATTN_IMPLS:
+            raise ValueError(f"{self.name}: attn_impl {self.attn_impl!r} "
+                             f"not in {_ATTN_IMPLS}")
+        if self.remat not in _REMATS:
+            raise ValueError(f"{self.name}: remat {self.remat!r} not in "
+                             f"{_REMATS}")
         if self.block_kind == "rwkv6" and self.ssm is None:
             raise ValueError(f"{self.name}: an rwkv6 block needs ssm")
 

@@ -67,6 +67,7 @@ from repro_torch.data.augment import augment_batch, device_preprocess, \
 from repro_torch.data.pipeline import rank_rows
 from repro_torch.models import transformer as model
 from repro_torch.optim import OptState, make_optimizer, make_schedule
+from repro_torch.optim.optimizers import global_norm
 
 
 def resolve_device(device) -> torch.device:
@@ -485,10 +486,8 @@ class Trainer:
         dp = self.world is not None
         if dp and self.ecfg.zero_stage == 1:
             grads = self._opt_view(grads)
-        new_params, new_opt, gnorm = self.optimizer.update(
-            grads, state.opt_state,
-            self._opt_view(state.params) if dp else state.params, lr,
-            reduce=self._reduce_sq if dp else None)
+        reduce = self._reduce_sq if dp else None
+        gnorm = global_norm(grads, reduce)
         metrics = dict(metrics, grad_norm=gnorm, lr=lr)
         ok = True
         if self.ecfg.guard_anomalies:
@@ -496,12 +495,19 @@ class Trainer:
             metrics["step_ok"] = int(ok)
         if not ok:
             return state, metrics
-        if dp and self.ecfg.zero_stage in (1, 2):
-            new_params = self._whole(new_params, self.opt_dims)
+        # the update goes in place, a leaf at a time: no second copy of the
+        # params or the moments (a ZeRO 1-2 rank writes its chunk of each
+        # sharded leaf, then gathers the leaf whole)
+        params = self._opt_view(state.params) if dp else state.params
         with torch.no_grad():
-            for k, p in state.params.items():
-                p.copy_(new_params[k])
-        return state.replace(opt_state=new_opt, step=state.step + 1), metrics
+            opt_state = self.optimizer.apply(grads, state.opt_state, params,
+                                             lr, gnorm, reduce=reduce)
+            if dp and self.ecfg.zero_stage in (1, 2):
+                whole = self._whole(params, self.opt_dims)
+                for k, p in state.params.items():
+                    p.copy_(whole[k])
+        return state.replace(opt_state=opt_state, step=state.step + 1), \
+            metrics
 
 
 class Evaluator:

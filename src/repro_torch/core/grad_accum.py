@@ -59,6 +59,7 @@ def accumulate_gradients(loss_fn, params: dict, batch: dict, accum: int,
                                   device=g.device) for k, g in grads.items()}
         for k, g in grads.items():
             acc[k] += g.to(torch.float32) / accum
+        del grads       # before the next microbatch's backward
         history.append(metrics)
     return acc, {k: torch.stack([m[k] for m in history]).mean(0)
                  for k in history[0]}

@@ -80,6 +80,19 @@
 // with three xor shuffles. Tiles are staged in shared memory as fp32, rows
 // padded by 4 floats against bank conflicts.
 //
+// Head dim 256 (Gemma3's) takes the same loops with three changes. bf16
+// K2 runs each 64-key tile in two passes of 32 keys (dq_keys), so S and dP
+// (32 registers a lane) sit beside dq's 128; its Q, dO and two K and V
+// buffers take 198 KB, one CTA an SM. K3, in both routes, splits dK and dV
+// over two CTAs of 128 columns each (dkv_cols): both recompute S^T and
+// dP^T over the whole D, for 1.5 times the products, so that each keeps
+// 128 accumulator registers a lane instead of 256. The fp32 routes stream
+// tiles of 32 rows (f32_tile; K2's keys, K3's queries) to fit shared
+// memory. At Gemma3-12B's attention (B=1, H=16, KH=8, S=T=4096, D=256,
+// causal) a local layer's window of 1024 leaves 58.7 M live pairs: K2's
+// products are 90.2 GFLOP (91 us) against 168 MB (50 us), K3's 120.3
+// GFLOP (122 us) against 135 MB (40 us); operations bound both.
+//
 // Element strides are passed in, so dO, dq, dk and dv may be (B,S,H,D)
 // buffers seen as (B,H,S,D) views.
 
@@ -88,7 +101,13 @@
 namespace {
 
 constexpr int NT = 128;   // threads per CTA
-constexpr int LDP = BN + 4;   // padded row stride of a 64x64 P/dS tile
+
+// Columns of dK and dV one K3 CTA owns: all D, or half of D at 256, where
+// both fp32 accumulators of a whole row would take 256 registers a lane;
+// the grid then holds D / dkv_cols<D>() CTAs per key tile, each
+// recomputing S^T and dP^T over the whole D.
+template <int D>
+__host__ __device__ constexpr int dkv_cols() { return D == 256 ? 128 : D; }
 
 struct Params {
   const void* q;
@@ -115,28 +134,30 @@ struct Params {
 };
 
 // acc[i][j] = sum_d A[r0+i][d] * B[cg+8j][d]: rows of the resident tile A
-// against rows of the streamed tile B, both staged with stride D + 4.
-template <int D>
+// against NJ x 8 rows of the streamed tile B, both staged with stride
+// D + 4.
+template <int D, int NJ>
 __device__ __forceinline__ void tile_dot(const float* A, const float* B,
-                                         int r0, int cg, float (&acc)[4][8]) {
+                                         int r0, int cg,
+                                         float (&acc)[4][NJ]) {
   constexpr int LD = D + 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 #pragma unroll 4
   for (int kk = 0; kk < D; kk += 4) {
-    float4 a[4], bb[8];
+    float4 a[4], bb[NJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       a[i] = *reinterpret_cast<const float4*>(A + (r0 + i) * LD + kk);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
       bb[j] = *reinterpret_cast<const float4*>(B + (cg + 8 * j) * LD + kk);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         acc[i][j] = fmaf(a[i].x, bb[j].x, acc[i][j]);
         acc[i][j] = fmaf(a[i].y, bb[j].y, acc[i][j]);
         acc[i][j] = fmaf(a[i].z, bb[j].z, acc[i][j]);
@@ -145,21 +166,23 @@ __device__ __forceinline__ void tile_dot(const float* A, const float* B,
   }
 }
 
-// acc[i][c] += sum_n W[r0+i][n] * X[n][col c]: a 64x64 weight tile W
-// (stride LDP) times a 64xD tile X (stride D + 4), for the thread's rows
-// r0+i and float4 column groups cg + 8jj.
-template <int D>
+// acc[i][c] += sum_n W[r0+i][n] * X[n][col c]: a 64 x NK weight tile W
+// (stride NK + 4) times NK rows of a tile X (stride D + 4) from its column
+// X on, for the thread's rows r0+i and its float4 column groups cg + 8jj
+// of the first DC columns.
+template <int D, int NK, int DC>
 __device__ __forceinline__ void tile_matmul(const float* W, const float* X,
                                             int r0, int cg,
-                                            float (&acc)[4][D / 8]) {
+                                            float (&acc)[4][DC / 8]) {
   constexpr int LD = D + 4;
-  constexpr int DV = D / 32;
+  constexpr int LDW = NK + 4;
+  constexpr int DV = DC / 32;
 #pragma unroll 2
-  for (int n = 0; n < BN; n += 4) {
+  for (int n = 0; n < NK; n += 4) {
     float4 w[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      w[i] = *reinterpret_cast<const float4*>(W + (r0 + i) * LDP + n);
+      w[i] = *reinterpret_cast<const float4*>(W + (r0 + i) * LDW + n);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const float* xrow = X + (n + u) * LD;
@@ -180,12 +203,12 @@ __device__ __forceinline__ void tile_matmul(const float* W, const float* X,
   }
 }
 
-// Write the thread's rows r0+i < rows of a 64xD accumulator, in T.
-template <typename T, int D>
+// Write the thread's rows r0+i < rows of a 64 x DC accumulator, in T.
+template <typename T, int DC>
 __device__ __forceinline__ void store_rows(T* base, long long ld, int rows,
                                            int r0, int cg,
-                                           const float (&acc)[4][D / 8]) {
-  constexpr int DV = D / 32;
+                                           const float (&acc)[4][DC / 8]) {
+  constexpr int DV = DC / 32;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     if (r0 + i < rows) {
@@ -200,27 +223,35 @@ __device__ __forceinline__ void store_rows(T* base, long long ld, int rows,
 }
 
 template <int D>
-constexpr int dq_smem_bytes() {   // Q, dO, K (O before the loop), V; dS
-  return (4 * BM * (D + 4) + BM * LDP) * static_cast<int>(sizeof(float));
-}
-
-template <int D>
-constexpr int dkv_smem_bytes() {  // K, V, Q, dO; P, dS; lse, Delta
-  return (4 * BM * (D + 4) + 2 * BN * LDP + 2 * BM) *
+constexpr int dq_smem_bytes() {   // Q, dO; K, V (O before the loop); dS
+  constexpr int KB = f32_tile<D>();
+  return (2 * BM * (D + 4) + 2 * KB * (D + 4) + BM * (KB + 4)) *
          static_cast<int>(sizeof(float));
 }
 
-// K2 on the CUDA cores (fp32): one CTA per (64-row q tile, head, batch).
+template <int D>
+constexpr int dkv_smem_bytes() {  // K, V; Q, dO; P, dS; lse, Delta
+  constexpr int QB = f32_tile<D>();
+  return (2 * BN * (D + 4) + 2 * QB * (D + 4) + 2 * BN * (QB + 4) + 2 * QB) *
+         static_cast<int>(sizeof(float));
+}
+
+// K2 on the CUDA cores (fp32): one CTA per (64-row q tile, head, batch);
+// key tiles of KB = f32_tile<D>() rows (32 at D 256).
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
+  constexpr int KB = f32_tile<D>();
+  constexpr int NJ = KB / 8;      // keys per thread in a score tile
   constexpr int LD = D + 4;
+  constexpr int LDS = KB + 4;     // padded dS row stride
   constexpr int DV = D / 32;
+  static_assert(BM <= 2 * KB, "K2 stages O's rows in the K and V buffers");
   extern __shared__ float4 smem_f4[];
   float* Qs = reinterpret_cast<float*>(smem_f4);
   float* dOs = Qs + BM * LD;
   float* Ks = dOs + BM * LD;
-  float* Vs = Ks + BN * LD;
-  float* dSs = Vs + BN * LD;
+  float* Vs = Ks + KB * LD;
+  float* dSs = Vs + KB * LD;
 
   const int q0 = blockIdx.x * BM;
   const int hh = blockIdx.y;
@@ -234,7 +265,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
                           hh * p.q_sh + q0 * p.q_ss, p.q_ss, rows);
   load_tile<T, D, NT>(dOs, D + 4, static_cast<const T*>(p.d_o) + bb * p.do_sb +
                            hh * p.do_sh + q0 * p.do_ss, p.do_ss, rows);
-  // O only feeds Delta, so it borrows K's buffer before the loop
+  // O only feeds Delta, so it borrows the K and V buffers before the loop
   load_tile<T, D, NT>(Ks, D + 4, static_cast<const T*>(p.o) + bb * p.o_sb +
                           hh * p.o_sh + q0 * p.o_ss, p.o_ss, rows);
   __syncthreads();
@@ -276,57 +307,64 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
   int k_lo = 0, k_hi = p.t;
   if (p.causal) k_hi = min(k_hi, q0 + BM);
   if (p.window > 0) k_lo = max(0, q0 - p.window + 1);
-  k_lo -= k_lo % BN;
+  k_lo -= k_lo % KB;
 
-  for (int kt = k_lo; kt < k_hi; kt += BN) {
+  for (int kt = k_lo; kt < k_hi; kt += KB) {
     __syncthreads();   // every thread is done with the previous K, V, dS
-    const int kv_rows = min(BN, p.t - kt);
-    load_tile<T, D, NT>(Ks, D + 4, kg + kt * p.k_ss, p.k_ss, kv_rows);
-    load_tile<T, D, NT>(Vs, D + 4, vg + kt * p.v_ss, p.v_ss, kv_rows);
+    const int kv_rows = min(KB, p.t - kt);
+    load_tile<T, D, NT, KB>(Ks, D + 4, kg + kt * p.k_ss, p.k_ss, kv_rows);
+    load_tile<T, D, NT, KB>(Vs, D + 4, vg + kt * p.v_ss, p.v_ss, kv_rows);
     __syncthreads();
 
-    float pr[4][8], dp[4][8];
-    tile_dot<D>(Qs, Ks, r0, cg, pr);
+    float pr[4][NJ], dp[4][NJ];
+    tile_dot<D, NJ>(Qs, Ks, r0, cg, pr);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NJ; ++j)
         pr[i][j] = live(p, q0 + r0 + i, kt + cg + 8 * j)
                        ? expf(pr[i][j] * p.scale - lse[i]) : 0.f;
-    tile_dot<D>(dOs, Vs, r0, cg, dp);
+    tile_dot<D, NJ>(dOs, Vs, r0, cg, dp);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        dSs[(r0 + i) * LDP + cg + 8 * j] =
+      for (int j = 0; j < NJ; ++j)
+        dSs[(r0 + i) * LDS + cg + 8 * j] =
             live(p, q0 + r0 + i, kt + cg + 8 * j)
                 ? pr[i][j] * (dp[i][j] - delta[i]) * p.scale : 0.f;
     __syncthreads();
 
-    tile_matmul<D>(dSs, Ks, r0, cg, acc);   // dq += dS K
+    tile_matmul<D, KB, D>(dSs, Ks, r0, cg, acc);   // dq += dS K
   }
 
   store_rows<T, D>(static_cast<T*>(p.dq) + bb * p.dq_sb + hh * p.dq_sh +
                        q0 * p.dq_ss, p.dq_ss, rows, r0, cg, acc);
 }
 
-// K3: one CTA per (64-key tile, kv head, batch); loops over the group's
-// query heads and the live q tiles, and flushes dk and dv once.
+// K3: one CTA per (64-key tile, kv head and column block, batch); loops
+// over the group's query heads and the live q tiles (QB = f32_tile<D>()
+// rows each, 32 at D 256), and flushes its DC = dkv_cols<D>() columns of
+// dk and dv once.
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
+  constexpr int QB = f32_tile<D>();
+  constexpr int NJ = QB / 8;      // queries per thread in a score tile
+  constexpr int DC = dkv_cols<D>();
   constexpr int LD = D + 4;
+  constexpr int LDS = QB + 4;     // padded P/dS row stride
   extern __shared__ float4 smem_f4[];
   float* Ks = reinterpret_cast<float*>(smem_f4);
   float* Vs = Ks + BN * LD;
   float* Qs = Vs + BN * LD;
-  float* dOs = Qs + BM * LD;
-  float* Ps = dOs + BM * LD;
-  float* dSs = Ps + BN * LDP;
-  float* lse_s = dSs + BN * LDP;
-  float* delta_s = lse_s + BM;
+  float* dOs = Qs + QB * LD;
+  float* Ps = dOs + QB * LD;
+  float* dSs = Ps + BN * LDS;
+  float* lse_s = dSs + BN * LDS;
+  float* delta_s = lse_s + QB;
 
   const int k0 = blockIdx.x * BN;
-  const int kvh = blockIdx.y;
+  const int kvh = blockIdx.y / (D / DC);
+  const int col0 = blockIdx.y % (D / DC) * DC;
   const int bb = blockIdx.z;
   const int g = p.h / p.kh;
   const int kv_rows = min(BN, p.t - k0);
@@ -340,29 +378,30 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
   const int r0 = (tid >> 3) * 4;
   const int cg = tid & 7;
 
-  float dk[4][D / 8], dv[4][D / 8];
+  float dk[4][DC / 8], dv[4][DC / 8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) dk[i][c] = dv[i][c] = 0.f;
+    for (int c = 0; c < DC / 8; ++c) dk[i][c] = dv[i][c] = 0.f;
 
   // the q tiles that can see this key tile: q >= k for causal, and
   // q - k < window, with k in [k0, k0 + BN)
   int q_lo = p.causal ? k0 : 0, q_hi = p.s;
   if (p.window > 0) q_hi = min(q_hi, k0 + BN - 1 + p.window);
-  q_lo -= q_lo % BM;
+  q_lo -= q_lo % QB;
 
   for (int gi = 0; gi < g; ++gi) {
     const int hh = kvh * g + gi;
     const long long row_base = (static_cast<long long>(bb) * p.h + hh) * p.s;
     const T* qg = static_cast<const T*>(p.q) + bb * p.q_sb + hh * p.q_sh;
     const T* dog = static_cast<const T*>(p.d_o) + bb * p.do_sb + hh * p.do_sh;
-    for (int qt = q_lo; qt < q_hi; qt += BM) {
+    for (int qt = q_lo; qt < q_hi; qt += QB) {
       __syncthreads();   // every thread is done with the previous tiles
-      const int q_rows = min(BM, p.s - qt);
-      load_tile<T, D, NT>(Qs, D + 4, qg + qt * p.q_ss, p.q_ss, q_rows);
-      load_tile<T, D, NT>(dOs, D + 4, dog + qt * p.do_ss, p.do_ss, q_rows);
-      for (int r = tid; r < BM; r += NT) {
+      const int q_rows = min(QB, p.s - qt);
+      load_tile<T, D, NT, QB>(Qs, D + 4, qg + qt * p.q_ss, p.q_ss, q_rows);
+      load_tile<T, D, NT, QB>(dOs, D + 4, dog + qt * p.do_ss, p.do_ss,
+                              q_rows);
+      for (int r = tid; r < QB; r += NT) {
         lse_s[r] = r < q_rows ? p.lse[row_base + qt + r] : 0.f;
         delta_s[r] = r < q_rows ? p.delta[row_base + qt + r] : 0.f;
       }
@@ -370,46 +409,54 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
 
       // transposed tiles: rows are the CTA's keys r0+i, columns the
       // queries cg+8j
-      float pr[4][8], dp[4][8];
-      tile_dot<D>(Ks, Qs, r0, cg, pr);
+      float pr[4][NJ], dp[4][NJ];
+      tile_dot<D, NJ>(Ks, Qs, r0, cg, pr);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < NJ; ++j) {
           const int qj = cg + 8 * j;
           pr[i][j] = live(p, qt + qj, k0 + r0 + i)
                          ? expf(pr[i][j] * p.scale - lse_s[qj]) : 0.f;
-          Ps[(r0 + i) * LDP + qj] = pr[i][j];
+          Ps[(r0 + i) * LDS + qj] = pr[i][j];
         }
-      tile_dot<D>(Vs, dOs, r0, cg, dp);
+      tile_dot<D, NJ>(Vs, dOs, r0, cg, dp);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < NJ; ++j) {
           const int qj = cg + 8 * j;
-          dSs[(r0 + i) * LDP + qj] =
+          dSs[(r0 + i) * LDS + qj] =
               live(p, qt + qj, k0 + r0 + i)
                   ? pr[i][j] * (dp[i][j] - delta_s[qj]) * p.scale : 0.f;
         }
       __syncthreads();
 
-      tile_matmul<D>(Ps, dOs, r0, cg, dv);    // dv += P^T dO
-      tile_matmul<D>(dSs, Qs, r0, cg, dk);    // dk += dS^T Q
+      // dv += P^T dO and dk += dS^T Q over this CTA's columns
+      tile_matmul<D, QB, DC>(Ps, dOs + col0, r0, cg, dv);
+      tile_matmul<D, QB, DC>(dSs, Qs + col0, r0, cg, dk);
     }
   }
 
-  store_rows<T, D>(static_cast<T*>(p.dk) + bb * p.dk_sb + kvh * p.dk_sh +
-                       k0 * p.dk_ss, p.dk_ss, kv_rows, r0, cg, dk);
-  store_rows<T, D>(static_cast<T*>(p.dv) + bb * p.dv_sb + kvh * p.dv_sh +
-                       k0 * p.dv_ss, p.dv_ss, kv_rows, r0, cg, dv);
+  store_rows<T, DC>(static_cast<T*>(p.dk) + bb * p.dk_sb + kvh * p.dk_sh +
+                        k0 * p.dk_ss + col0, p.dk_ss, kv_rows, r0, cg, dk);
+  store_rows<T, DC>(static_cast<T*>(p.dv) + bb * p.dv_sb + kvh * p.dv_sh +
+                        k0 * p.dv_ss + col0, p.dv_ss, kv_rows, r0, cg, dv);
 }
 
+// Keys of a bf16 K2 tile that one pass of dq_tile takes: the whole tile,
+// or half of it at D 256, where the S and dP fragments of 64 keys beside
+// the 128 registers of dq's accumulator would crowd the 255 a lane has.
+template <int D>
+__host__ __device__ constexpr int dq_keys() { return D == 256 ? 32 : BN; }
+
 // One warp's step over one key tile of the bf16 K2 (at kt, K and V rows in
-// Kb, Vb): S = Q K^T and dP = dO V^T for its 16 rows against the tile's 64
-// keys, P = exp(S scale - lse), dS = P (dP - Delta), then dq += dS K. lse2
-// and dl hold lse * log2(e) and Delta of the lane's rows g and g + 8. With
-// RAGGED (the tile runs past T) key blocks past T skip their products;
-// their dS are masked to 0, so the result is the same.
+// Kb, Vb), in passes of KS = dq_keys<D>() keys: S = Q K^T and dP = dO V^T
+// for its 16 rows against the pass's keys, P = exp(S scale - lse),
+// dS = P (dP - Delta), then dq += dS K. lse2 and dl hold lse * log2(e) and
+// Delta of the lane's rows g and g + 8. With RAGGED (the tile runs past T)
+// key blocks past T skip their products; their dS are masked to 0, so the
+// result is the same.
 template <int D, bool RAGGED>
 __device__ __forceinline__ void dq_tile(const Params& p, const bf16* Qs,
                                         const bf16* dOs, const bf16* Kb,
@@ -418,77 +465,82 @@ __device__ __forceinline__ void dq_tile(const Params& p, const bf16* Qs,
                                         const float (&dl)[2],
                                         float (&dq)[D / 8][4]) {
   constexpr int LD = D + 8;
-  constexpr int NB = BN / 8;
+  constexpr int KS = dq_keys<D>();
+  constexpr int NB = KS / 8;
   constexpr int ND = D / 8;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int c = lane & 3;
   const int row0 = warp * 16 + (lane >> 2);   // rows row0 and row0 + 8
-  const int keys_live = p.t - kt;
 
-  float s[NB][4], dp[NB][4];
+#pragma unroll 1
+  for (int j0 = 0; j0 < BN; j0 += KS) {
+    const int keys_live = p.t - kt - j0;
+    if (RAGGED && keys_live <= 0) break;
+    float s[NB][4], dp[NB][4];
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
+    for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    uint32_t aq[4], ad[4];
-    load_a(aq, Qs, LD, warp * 16, kk, lane);
-    load_a(ad, dOs, LD, warp * 16, kk, lane);
+    for (int kk = 0; kk < D; kk += 16) {
+      uint32_t aq[4], ad[4];
+      load_a(aq, Qs, LD, warp * 16, kk, lane);
+      load_a(ad, dOs, LD, warp * 16, kk, lane);
 #pragma unroll
-    for (int nb = 0; nb < NB; nb += 2) {
-      if (RAGGED && nb * 8 >= keys_live) break;
-      uint32_t b[4];
-      load_b_nmajor(b, Kb, LD, nb * 8, kk, lane);
-      mma_bf16(s[nb], aq, b[0], b[1]);
-      mma_bf16(s[nb + 1], aq, b[2], b[3]);
-      load_b_nmajor(b, Vb, LD, nb * 8, kk, lane);
-      mma_bf16(dp[nb], ad, b[0], b[1]);
-      mma_bf16(dp[nb + 1], ad, b[2], b[3]);
-    }
-  }
-
-  // P (masked pairs exactly 0, only where the warp's rows and the tile
-  // hold one) and dS = P (dP - Delta), over dP's registers
-  const bool masked = tile_needs_mask(p, q0 + warp * 16, 16, kt, BN);
-#pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float pv = exp2f(fmaf(s[nb][e], sl2, -lse2[e >> 1]));
-      if (masked && !live(p, q0 + row0 + (e >> 1) * 8,
-                          kt + nb * 8 + 2 * c + (e & 1)))
-        pv = 0.f;
-      dp[nb][e] = pv * (dp[nb][e] - dl[e >> 1]);
+      for (int nb = 0; nb < NB; nb += 2) {
+        if (RAGGED && nb * 8 >= keys_live) break;
+        uint32_t b[4];
+        load_b_nmajor(b, Kb, LD, j0 + nb * 8, kk, lane);
+        mma_bf16(s[nb], aq, b[0], b[1]);
+        mma_bf16(s[nb + 1], aq, b[2], b[3]);
+        load_b_nmajor(b, Vb, LD, j0 + nb * 8, kk, lane);
+        mma_bf16(dp[nb], ad, b[0], b[1]);
+        mma_bf16(dp[nb + 1], ad, b[2], b[3]);
+      }
     }
 
-  // dq += dS K, the keys as the depth: dS rounded to bf16 in registers as
-  // the A operand, K (stored key-major) as B through ldmatrix.trans
+    // P (masked pairs exactly 0, only where the warp's rows and the keys
+    // hold one) and dS = P (dP - Delta), over dP's registers
+    const bool masked = tile_needs_mask(p, q0 + warp * 16, 16, kt + j0, KS);
 #pragma unroll
-  for (int kb = 0; kb < BN / 16; ++kb) {
-    if (RAGGED && kb * 16 >= keys_live) break;
-    uint32_t a[4];
-    a[0] = pack_bf16(dp[2 * kb][0], dp[2 * kb][1]);
-    a[1] = pack_bf16(dp[2 * kb][2], dp[2 * kb][3]);
-    a[2] = pack_bf16(dp[2 * kb + 1][0], dp[2 * kb + 1][1]);
-    a[3] = pack_bf16(dp[2 * kb + 1][2], dp[2 * kb + 1][3]);
+    for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-    for (int nd = 0; nd < ND; nd += 2) {
-      uint32_t b[4];
-      load_b_kmajor(b, Kb, LD, nd * 8, kb * 16, lane);
-      mma_bf16(dq[nd], a, b[0], b[1]);
-      mma_bf16(dq[nd + 1], a, b[2], b[3]);
+      for (int e = 0; e < 4; ++e) {
+        float pv = exp2f(fmaf(s[nb][e], sl2, -lse2[e >> 1]));
+        if (masked && !live(p, q0 + row0 + (e >> 1) * 8,
+                            kt + j0 + nb * 8 + 2 * c + (e & 1)))
+          pv = 0.f;
+        dp[nb][e] = pv * (dp[nb][e] - dl[e >> 1]);
+      }
+
+    // dq += dS K, the keys as the depth: dS rounded to bf16 in registers
+    // as the A operand, K (stored key-major) as B through ldmatrix.trans
+#pragma unroll
+    for (int kb = 0; kb < KS / 16; ++kb) {
+      if (RAGGED && kb * 16 >= keys_live) break;
+      uint32_t a[4];
+      a[0] = pack_bf16(dp[2 * kb][0], dp[2 * kb][1]);
+      a[1] = pack_bf16(dp[2 * kb][2], dp[2 * kb][3]);
+      a[2] = pack_bf16(dp[2 * kb + 1][0], dp[2 * kb + 1][1]);
+      a[3] = pack_bf16(dp[2 * kb + 1][2], dp[2 * kb + 1][3]);
+#pragma unroll
+      for (int nd = 0; nd < ND; nd += 2) {
+        uint32_t b[4];
+        load_b_kmajor(b, Kb, LD, nd * 8, j0 + kb * 16, lane);
+        mma_bf16(dq[nd], a, b[0], b[1]);
+        mma_bf16(dq[nd + 1], a, b[2], b[3]);
+      }
     }
   }
 }
 
 // K2 on the tensor cores (bf16): see the note at the top. Where D <= 64 the
 // registers are capped at 168 a lane, so that three CTAs share an SM (at
-// D 128 shared memory allows two).
+// D 128 shared memory allows two, at D 256 one, whose lanes may take 255).
 static_assert(BM <= BN, "K2 stages BM rows of O in a key buffer of BN rows");
 template <int D>
-__global__ void __launch_bounds__(NT, D == 128 ? 2 : 3)
+__global__ void __launch_bounds__(NT, D == 256 ? 1 : D == 128 ? 2 : 3)
     flash_bwd_dq_tc_kernel(const Params p) {
   constexpr int LD = D + 8;
   constexpr int ND = D / 8;     // 8-column blocks of dq
@@ -637,9 +689,10 @@ __global__ void __launch_bounds__(NT, D == 128 ? 2 : 3)
 
 // The bf16 K3 route: query rows per streamed tile. At D 128 the dK and dV
 // accumulators take 128 registers a lane, so the S^T and dP^T tiles are
-// kept to 32 queries there.
+// kept to 32 queries there; at D 256 too, where a CTA owns 128 columns of
+// each (dkv_cols).
 template <int D>
-__host__ __device__ constexpr int dkv_bq() { return D == 128 ? 32 : 64; }
+__host__ __device__ constexpr int dkv_bq() { return D >= 128 ? 32 : 64; }
 
 template <int D>
 constexpr int dkv_tc_smem_bytes() {  // K, V; two Q, two dO; two lse, Delta
@@ -650,20 +703,20 @@ constexpr int dkv_tc_smem_bytes() {  // K, V; two Q, two dO; two lse, Delta
 
 // One warp's step over one streamed q tile of the bf16 K3 (at qt, rows of
 // Q, dO and their lse and Delta in Qb, dOb, lb, db): S^T, P^T, dP^T, dS^T
-// for its 16 keys, then dV += P^T dO and dK += dS^T Q. With RAGGED (the
-// tile runs past S) query blocks past S skip their products; their
+// for its 16 keys over the whole D, then dV += P^T dO and dK += dS^T Q for
+// the CTA's columns col0 .. col0 + dkv_cols<D>(). With RAGGED (the tile
+// runs past S) query blocks past S skip their products; their
 // probabilities are masked to 0, so the result is the same.
 template <int D, bool RAGGED>
-__device__ __forceinline__ void dkv_tile(const Params& p, const bf16* Ks,
-                                         const bf16* Vs, const bf16* Qb,
-                                         const bf16* dOb, const float* lb,
-                                         const float* db, int k0, int qt,
-                                         float sl2, float (&dk)[D / 8][4],
-                                         float (&dv)[D / 8][4]) {
+__device__ __forceinline__ void dkv_tile(
+    const Params& p, const bf16* Ks, const bf16* Vs, const bf16* Qb,
+    const bf16* dOb, const float* lb, const float* db, int k0, int qt,
+    int col0, float sl2, float (&dk)[dkv_cols<D>() / 8][4],
+    float (&dv)[dkv_cols<D>() / 8][4]) {
   constexpr int LD = D + 8;
   constexpr int BQ = dkv_bq<D>();
   constexpr int NQ = BQ / 8;
-  constexpr int ND = D / 8;
+  constexpr int ND = dkv_cols<D>() / 8;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int c = lane & 3;
@@ -725,19 +778,21 @@ __device__ __forceinline__ void dkv_tile(const Params& p, const bf16* Ks,
 #pragma unroll
     for (int nd = 0; nd < ND; nd += 2) {
       uint32_t b[4];
-      load_b_kmajor(b, dOb, LD, nd * 8, kb * 16, lane);
+      load_b_kmajor(b, dOb, LD, col0 + nd * 8, kb * 16, lane);
       mma_bf16(dv[nd], ap, b[0], b[1]);
       mma_bf16(dv[nd + 1], ap, b[2], b[3]);
-      load_b_kmajor(b, Qb, LD, nd * 8, kb * 16, lane);
+      load_b_kmajor(b, Qb, LD, col0 + nd * 8, kb * 16, lane);
       mma_bf16(dk[nd], as, b[0], b[1]);
       mma_bf16(dk[nd + 1], as, b[2], b[3]);
     }
   }
 }
 
-// K3 on the tensor cores (bf16): one CTA per (64-key tile, kv head and
-// group slice, batch); slice `slice` of `gs` takes query heads
-// kvh*g + slice*g/gs .. + g/gs - 1 of the group. Each warp owns 16 keys.
+// K3 on the tensor cores (bf16): one CTA per (64-key tile, kv head, group
+// slice and column block, batch); slice `slice` of `gs` takes query heads
+// kvh*g + slice*g/gs .. + g/gs - 1 of the group, and column block `cb` the
+// columns cb*DC .. + DC - 1 of dK and dV (DC = dkv_cols<D>(): all of D, or
+// half at D 256). Each warp owns 16 keys.
 // K and V stay in shared memory; (q tile, head) steps stream Q, dO, lse
 // and Delta through two buffers with cp.async. Per step, on mma.sync:
 //   S^T = K Q^T, P^T = exp(S^T scale - lse), dP^T = V dO^T,
@@ -753,7 +808,8 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
     flash_bwd_dkv_tc_kernel(const Params p, int gs, float* part) {
   constexpr int LD = D + 8;
   constexpr int BQ = dkv_bq<D>();
-  constexpr int ND = D / 8;     // 8-column blocks of dK, dV
+  constexpr int DC = dkv_cols<D>();
+  constexpr int ND = DC / 8;    // 8-column blocks of dK, dV in the CTA
   extern __shared__ uint4 smem_u4[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_u4);
   bf16* Vs = Ks + BN * LD;
@@ -769,8 +825,10 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
   const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y *
                                                              blockIdx.z);
   const int k0 = (lin / per) * BN;
-  const int kvh = (lin % per) % gridDim.y / gs;
-  const int slice = (lin % per) % gridDim.y % gs;
+  const int yy = (lin % per) % gridDim.y / (D / DC);
+  const int col0 = (lin % per) % gridDim.y % (D / DC) * DC;
+  const int kvh = yy / gs;
+  const int slice = yy % gs;
   const int bb = (lin % per) / gridDim.y;
   const int gper = p.h / p.kh / gs;
   const int h0 = kvh * (p.h / p.kh) + slice * gper;
@@ -842,9 +900,11 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
       const float* lb = lse_s + buf * BQ;
       const float* db = dl_s + buf * BQ;
       if (qt + BQ <= p.s)
-        dkv_tile<D, false>(p, Ks, Vs, Qb, dOb, lb, db, k0, qt, sl2, dk, dv);
+        dkv_tile<D, false>(p, Ks, Vs, Qb, dOb, lb, db, k0, qt, col0, sl2,
+                           dk, dv);
       else
-        dkv_tile<D, true>(p, Ks, Vs, Qb, dOb, lb, db, k0, qt, sl2, dk, dv);
+        dkv_tile<D, true>(p, Ks, Vs, Qb, dOb, lb, db, k0, qt, col0, sl2,
+                          dk, dv);
     }
     __syncthreads();   // every warp is done with this buffer
   }
@@ -852,8 +912,9 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
   __syncthreads();     // K and V have landed, also where no step ran
 
   if (part == nullptr) {
-    // dK, dV in bf16, staged in the warp's own K and V rows (no other
-    // warp reads them) and written 16 bytes at a time
+    // dK, dV in bf16, staged in the first DC columns of the warp's own K
+    // and V rows (no other warp reads them) and written 16 bytes at a time
+    // to columns col0..
     bf16* Kw = Ks + warp * 16 * LD;
     bf16* Vw = Vs + warp * 16 * LD;
 #pragma unroll
@@ -875,9 +936,9 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
       const int col = (i % ND) * 8;
       const int key = k0 + warp * 16 + r;
       if (key < p.t) {
-        *reinterpret_cast<uint4*>(dkg + key * p.dk_ss + col) =
+        *reinterpret_cast<uint4*>(dkg + key * p.dk_ss + col0 + col) =
             *reinterpret_cast<const uint4*>(Kw + r * LD + col);
-        *reinterpret_cast<uint4*>(dvg + key * p.dv_ss + col) =
+        *reinterpret_cast<uint4*>(dvg + key * p.dv_ss + col0 + col) =
             *reinterpret_cast<const uint4*>(Vw + r * LD + col);
       }
     }
@@ -893,7 +954,7 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
         const int key = key0 + 8 * r;
         if (key < p.t) {
           const long long at = base + static_cast<long long>(key) * D +
-                               nd * 8 + 2 * c;
+                               col0 + nd * 8 + 2 * c;
           *reinterpret_cast<float2*>(part + at) = make_float2(
               dk[nd][2 * r] * p.scale, dk[nd][2 * r + 1] * p.scale);
           *reinterpret_cast<float2*>(part + n + at) =
@@ -937,6 +998,7 @@ __global__ void __launch_bounds__(256)
 template <int D>
 cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
   constexpr int smem = dq_smem_bytes<D>();   // above 48 KB for D >= 64
+  static_assert(smem <= 232448, "K2 fp32: tiles over a CTA's 227 KB");
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<float, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -951,6 +1013,7 @@ cudaError_t launch_dq_tc(const Params& p, cudaStream_t stream) {
   // Q, dO, two K and two V buffers, bf16
   constexpr int smem = (2 * BM + 4 * BN) * (D + 8) *
                        static_cast<int>(sizeof(bf16));
+  static_assert(smem <= 232448, "K2 bf16: tiles over a CTA's 227 KB");
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -963,11 +1026,12 @@ cudaError_t launch_dq_tc(const Params& p, cudaStream_t stream) {
 template <typename T, int D>
 cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
   constexpr int smem = dkv_smem_bytes<D>();
+  static_assert(smem <= 232448, "K3 fp32: tiles over a CTA's 227 KB");
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.t + BN - 1) / BN, p.kh, p.b);
+  const dim3 grid((p.t + BN - 1) / BN, p.kh * (D / dkv_cols<D>()), p.b);
   flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -978,11 +1042,13 @@ cudaError_t launch_dkv_tc(const Params& p, int gs, float* part,
   if (gs < 1 || (p.h / p.kh) % gs || (gs > 1 && part == nullptr))
     return cudaErrorInvalidValue;
   constexpr int smem = dkv_tc_smem_bytes<D>();
+  static_assert(smem <= 232448, "K3 bf16: tiles over a CTA's 227 KB");
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_tc_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.t + BN - 1) / BN, p.kh * gs, p.b);
+  const dim3 grid((p.t + BN - 1) / BN, p.kh * gs * (D / dkv_cols<D>()),
+                  p.b);
   float* partials = gs > 1 ? part : nullptr;
   flash_bwd_dkv_tc_kernel<D><<<grid, NT, smem, stream>>>(p, gs, partials);
   err = cudaGetLastError();
@@ -1000,6 +1066,7 @@ cudaError_t dispatch_dq(int dtype, int d, const Params& p, cudaStream_t st) {
       case 32: return launch_dq<32>(p, st);
       case 64: return launch_dq<64>(p, st);
       case 128: return launch_dq<128>(p, st);
+      case 256: return launch_dq<256>(p, st);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -1008,6 +1075,7 @@ cudaError_t dispatch_dq(int dtype, int d, const Params& p, cudaStream_t st) {
       case 32: return launch_dq_tc<32>(p, st);
       case 64: return launch_dq_tc<64>(p, st);
       case 128: return launch_dq_tc<128>(p, st);
+      case 256: return launch_dq_tc<256>(p, st);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -1023,6 +1091,7 @@ cudaError_t dispatch_dkv(int dtype, int d, const Params& p, int gs,
       case 32: return launch_dkv<float, 32>(p, st);
       case 64: return launch_dkv<float, 64>(p, st);
       case 128: return launch_dkv<float, 128>(p, st);
+      case 256: return launch_dkv<float, 256>(p, st);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -1031,6 +1100,7 @@ cudaError_t dispatch_dkv(int dtype, int d, const Params& p, int gs,
       case 32: return launch_dkv_tc<32>(p, gs, part, st);
       case 64: return launch_dkv_tc<64>(p, gs, part, st);
       case 128: return launch_dkv_tc<128>(p, gs, part, st);
+      case 256: return launch_dkv_tc<256>(p, gs, part, st);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -1097,6 +1167,18 @@ int repro_flash_bwd_dkv(int dtype, int d, const void* q, const void* k,
 
 // Keys per K3 CTA (BN): the host sizes K3's group split from it.
 int repro_flash_key_tile() { return BN; }
+
+// K3's CTAs per (key tile, kv head, group slice) at head dim d: each owns
+// d / this many columns of dK and dV (0 for a d no kernel takes).
+int repro_flash_dkv_col_tiles(int d) {
+  switch (d) {
+    case 32: return 32 / dkv_cols<32>();
+    case 64: return 64 / dkv_cols<64>();
+    case 128: return 128 / dkv_cols<128>();
+    case 256: return 256 / dkv_cols<256>();
+    default: return 0;
+  }
+}
 
 // Query rows per K2 CTA (BM): K2's grid is ceil(S / BM) x H x B.
 int repro_flash_query_tile() { return BM; }

@@ -23,7 +23,7 @@
 // Tiles of bf16 rows live in shared memory with a row stride of D + 8
 // elements: each row starts 16 bytes later in the bank pattern than the
 // one before, so the eight 16-byte rows that one ldmatrix phase reads hit
-// eight different bank groups (no conflicts), for D = 32, 64 and 128.
+// eight different bank groups (no conflicts), for D = 32, 64, 128 and 256.
 
 #pragma once
 
@@ -41,6 +41,12 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 typedef __nv_bfloat16 bf16;
+
+// Rows of the streamed tile of the fp32 CUDA-core kernels (K1's and K2's
+// key tiles, K3's query tiles): 64, and 32 at D 256, where 64-row fp32
+// tiles of every operand would not fit the 227 KB a CTA may hold.
+template <int D>
+__host__ __device__ constexpr int f32_tile() { return D == 256 ? 32 : 64; }
 
 // ---- masks -------------------------------------------------------------
 
@@ -112,17 +118,17 @@ __device__ __forceinline__ float row_sum8(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 4);
 }
 
-// Stage a 64-row tile of width D as fp32 in shared memory (row stride
+// Stage a ROWS-row tile of width D as fp32 in shared memory (row stride
 // ld_s), from global rows ld_g elements apart, with NT threads. Rows at
 // `rows` and beyond are zero: a masked probability is exactly 0, and
 // 0 * NaN from stale memory would poison the sums (the guard at
 // flash_attention.py:262-263).
-template <typename T, int D, int NT>
+template <typename T, int D, int NT, int ROWS = BM>
 __device__ __forceinline__ void load_tile(float* dst, int ld_s, const T* src,
                                           long long ld_g, int rows) {
   constexpr int CPR = D / 8;   // 8-element chunks per row
 #pragma unroll 4
-  for (int c = threadIdx.x; c < BM * CPR; c += NT) {
+  for (int c = threadIdx.x; c < ROWS * CPR; c += NT) {
     const int r = c / CPR;
     const int col = (c % CPR) * 8;
     float x[8];

@@ -13,7 +13,11 @@
 // products are 4*B*H*S*T*D = 15.3 GFLOP, 15.4 us at the 989 TFLOP/s bf16
 // tensor-core peak: bytes bound it, by a factor of three. At the ChatGLM3
 // shape (B=4, H=32, KH=2, S=T=1024, D=128, causal) the causal products are
-// 34.4 GFLOP, 34.8 us, against 71.8 MB (21.4 us): operations bound it.
+// 34.4 GFLOP, 34.8 us, against 71.8 MB (21.4 us): operations bound it. At
+// Gemma3-12B's (B=1, H=16, KH=8, S=T=4096, D=256, causal) a local layer's
+// window of 1024 leaves 58.7 M live pairs, 60.1 GFLOP (60.8 us) against
+// 100.9 MB (30.1 us); the global layer's triangle is 137.5 GFLOP (139 us):
+// operations bound both.
 //
 // Two routes, by dtype (the `dtype` code of repro_flash_fwd):
 //
@@ -34,18 +38,21 @@
 // reverse, so the tiles that see the most keys start first. O is staged
 // through the warp's own Q rows and written with 16-byte stores. Where
 // D <= 64 the registers are capped so that four CTAs share an SM, at the
-// cost of a few spilled bytes. With 64 x 64 tiles and one 16-row block per
-// warp, the ldmatrix traffic and the latency of short loops (4 key tiles
-// at S = 197) hold it well above its bound; wgmma, TMA, larger tiles and
-// warp specialisation are later work.
+// cost of a few spilled bytes. D 256 runs the same loop: its Q tile and
+// two K and V buffers take 169 KB, one CTA an SM, and its O accumulator
+// 128 fp32 registers a lane of the 255 it may use. With 64 x 64 tiles and
+// one 16-row block per warp, the ldmatrix traffic and the latency of short
+// loops (4 key tiles at S = 197) hold it well above its bound; wgmma, TMA,
+// larger tiles and warp specialisation are later work.
 //
 // fp32, flash_fwd_kernel: scalar fp32 FMAs on the CUDA cores, as the TPU
 // kernel's fp32 upcast does; the tensor cores' TF32 would round the inputs
 // to 10 mantissa bits and miss the 1e-4 gate. Thread t owns query rows
 // 4*(t/8) .. +3 of the tile; for the scores it owns keys (t%8) + 8j of
-// each 64-key tile, and for O the float4 column groups (t%8) + 8jj; row
-// max and sum reduce with three xor shuffles. Tiles are staged as fp32,
-// Q and K rows padded by 4 floats against bank conflicts.
+// each key tile (64 keys; 32 at D 256, where the fp32 tiles would not fit
+// otherwise: 139 KB then), and for O the float4 column groups
+// (t%8) + 8jj; row max and sum reduce with three xor shuffles. Tiles are
+// staged as fp32, Q and K rows padded by 4 floats against bank conflicts.
 //
 // Element strides are passed in, so the caller can hand in the model's
 // (B,S,H,D) layout as a (B,H,S,D) view without a transposing copy.
@@ -72,23 +79,27 @@ struct Params {
 };
 
 template <int D>
-constexpr int smem_bytes() {
-  return (BM * (D + 4) + BN * (D + 4) + BN * D + BM * (BN + 4)) *
+constexpr int smem_bytes() {   // Q, K, V, P; K and V f32_tile<D>() rows
+  constexpr int KB = f32_tile<D>();
+  return (BM * (D + 4) + KB * (D + 4) + KB * D + BM * (KB + 4)) *
          static_cast<int>(sizeof(float));
 }
 
 
-// The fp32 route: scalar FMAs on the CUDA cores, tiles staged as fp32.
+// The fp32 route: scalar FMAs on the CUDA cores, tiles staged as fp32;
+// key tiles of KB = f32_tile<D>() rows (32 at D 256).
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
+  constexpr int KB = f32_tile<D>();
+  constexpr int NJ = KB / 8;   // keys per thread in a score tile
   constexpr int LDQ = D + 4;   // padded Q/K row stride (floats)
-  constexpr int LDP = BN + 4;  // padded P row stride
+  constexpr int LDP = KB + 4;  // padded P row stride
   constexpr int DV = D / 32;   // float4 column groups of O per thread
   extern __shared__ float4 smem_f4[];
   float* Qs = reinterpret_cast<float*>(smem_f4);
   float* Ks = Qs + BM * LDQ;
-  float* Vs = Ks + BN * LDQ;
-  float* Ps = Vs + BN * D;
+  float* Vs = Ks + KB * LDQ;
+  float* Ps = Vs + KB * D;
 
   const int q0 = blockIdx.x * BM;
   const int hh = blockIdx.y;
@@ -119,34 +130,34 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   int k_lo = 0, k_hi = p.t;
   if (p.causal) k_hi = min(k_hi, q0 + BM);
   if (p.window > 0) k_lo = max(0, q0 - p.window + 1);
-  k_lo -= k_lo % BN;
+  k_lo -= k_lo % KB;
 
-  for (int kt = k_lo; kt < k_hi; kt += BN) {
+  for (int kt = k_lo; kt < k_hi; kt += KB) {
     __syncthreads();   // every thread is done with the previous tile
-    const int kv_rows = min(BN, p.t - kt);
-    load_tile<T, D, NT>(Ks, LDQ, kg + kt * p.k_ss, p.k_ss, kv_rows);
-    load_tile<T, D, NT>(Vs, D, vg + kt * p.v_ss, p.v_ss, kv_rows);
+    const int kv_rows = min(KB, p.t - kt);
+    load_tile<T, D, NT, KB>(Ks, LDQ, kg + kt * p.k_ss, p.k_ss, kv_rows);
+    load_tile<T, D, NT, KB>(Vs, D, vg + kt * p.v_ss, p.v_ss, kv_rows);
     __syncthreads();
 
     // scores of rows r0+i against keys kt + cg + 8j
-    float sc[4][8];
+    float sc[4][NJ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
+      for (int j = 0; j < NJ; ++j) sc[i][j] = 0.f;
 #pragma unroll 4
     for (int kk = 0; kk < D; kk += 4) {
-      float4 qa[4], kb[8];
+      float4 qa[4], kb[NJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         qa[i] = *reinterpret_cast<const float4*>(Qs + (r0 + i) * LDQ + kk);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < NJ; ++j)
         kb[j] = *reinterpret_cast<const float4*>(Ks + (cg + 8 * j) * LDQ + kk);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < NJ; ++j) {
           sc[i][j] = fmaf(qa[i].x, kb[j].x, sc[i][j]);
           sc[i][j] = fmaf(qa[i].y, kb[j].y, sc[i][j]);
           sc[i][j] = fmaf(qa[i].z, kb[j].z, sc[i][j]);
@@ -161,7 +172,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
       unsigned live = 0u;
       float mt = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const int kpos = kt + cg + 8 * j;
         const bool ok = qpos < p.s && kpos < p.t &&
                         (!p.causal || kpos <= qpos) &&
@@ -175,7 +186,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
       const float alpha = expf(m[i] - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const float pij = ((live >> j) & 1u) ? expf(sc[i][j] - m_new) : 0.f;
         Ps[(r0 + i) * LDP + cg + 8 * j] = pij;
         rs += pij;
@@ -190,7 +201,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
 
     // O += P V: rows r0+i, float4 column groups cg + 8jj
 #pragma unroll 2
-    for (int n = 0; n < BN; n += 4) {
+    for (int n = 0; n < KB; n += 4) {
       float4 pa[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -337,9 +348,11 @@ __device__ __forceinline__ void fwd_tile(const Params& p, const bf16* Qs,
 }
 
 // The bf16 route: see the note at the top. Where D <= 64 the registers
-// are capped at 128 a lane, so that four CTAs share an SM.
+// are capped at 128 a lane, so that four CTAs share an SM; at D 128 and
+// 256 a lane may take 255 (the O accumulator alone is 128 fp32 registers
+// a lane at D 256, where shared memory holds one CTA an SM anyway).
 template <int D>
-__global__ void __launch_bounds__(NT, D == 128 ? 1 : 4)
+__global__ void __launch_bounds__(NT, D >= 128 ? 1 : 4)
     flash_fwd_tc_kernel(const Params p) {
   constexpr int LD = D + 8;     // padded row stride (elements)
   constexpr int ND = D / 8;     // 8-column blocks of O
@@ -467,6 +480,7 @@ __global__ void __launch_bounds__(NT, D == 128 ? 1 : 4)
 template <int D>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>();   // above 48 KB for D >= 64
+  static_assert(smem <= 232448, "K1 fp32: tiles over a CTA's 227 KB");
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<float, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -481,6 +495,7 @@ cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
   // Q, two K and two V buffers, bf16
   constexpr int smem = (BM + 4 * BN) * (D + 8) *
                        static_cast<int>(sizeof(bf16));
+  static_assert(smem <= 232448, "K1 bf16: tiles over a CTA's 227 KB");
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -496,6 +511,7 @@ cudaError_t dispatch(int dtype, int d, const Params& p, cudaStream_t st) {
       case 32: return launch_f32<32>(p, st);
       case 64: return launch_f32<64>(p, st);
       case 128: return launch_f32<128>(p, st);
+      case 256: return launch_f32<256>(p, st);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -504,6 +520,7 @@ cudaError_t dispatch(int dtype, int d, const Params& p, cudaStream_t st) {
       case 32: return launch_tc<32>(p, st);
       case 64: return launch_tc<64>(p, st);
       case 128: return launch_tc<128>(p, st);
+      case 256: return launch_tc<256>(p, st);
       default: return cudaErrorInvalidValue;
     }
   }

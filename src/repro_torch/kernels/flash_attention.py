@@ -13,7 +13,8 @@ versions, ``kernels/ref.py::ref_attention`` and ``ref_attention_bwd``.
 
 Each kernel takes two routes by dtype: bf16 runs on the tensor cores
 (``mma.sync``), fp32 on the CUDA cores (the fp32 gate of 1e-4 rules out
-TF32). Each wrapper's ``.launches`` counts one per call that launched its
+TF32), at head dims D = Dv in ``HEAD_DIMS`` (256 is Gemma3's; K3 then
+gives each key tile's dk and dv columns to two CTAs). Each wrapper's ``.launches`` counts one per call that launched its
 kernel (CPU calls do not count), so a run can show that its attention went
 through the kernels.
 ``kernel_layout.copies`` counts the output gradients whose strides the
@@ -30,7 +31,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_attention, ref_attention_bwd
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 KEY_TILE = 64               # keys per K3 CTA where no library is loaded
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_MAX = 65535           # grid.y (heads) and grid.z (batch)
@@ -51,6 +52,8 @@ def _lib_bwd():
         for fn in (lib.repro_flash_key_tile, lib.repro_flash_query_tile):
             fn.argtypes = []
             fn.restype = i32
+        lib.repro_flash_dkv_col_tiles.argtypes = [i32]
+        lib.repro_flash_dkv_col_tiles.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -229,15 +232,19 @@ class DkvSplit(NamedTuple):
     scratch_shape: tuple    # fp32 partials (gs, 2, B, KH, T, D); () if none
 
 
-def dkv_group_split(b, kh, t, d, group, n_sm, key_tile=KEY_TILE):
+def dkv_group_split(b, kh, t, d, group, n_sm, key_tile=KEY_TILE, *,
+                    col_tiles):
     """How K3's bf16 kernel splits each GQA group of ``group`` query heads:
     over ``gs`` CTAs, the smallest divisor of ``group`` that gives at least
     two CTAs per SM (``n_sm`` SMs), or the whole group where none does; 1
-    where the unsplit grid of ceil(T/key_tile) x KH x B CTAs already does.
-    The wrapper passes the built kernel's own ``key_tile``. With ``gs`` > 1
-    each CTA writes fp32 partial dk, dv that a second launch sums in a
-    fixed order, into scratch of ``scratch_shape``."""
-    ctas = -(-t // key_tile) * kh * b
+    where the unsplit grid of ceil(T/key_tile) x KH x col_tiles x B CTAs
+    already does. ``col_tiles`` is the CTAs that share one key tile's dk
+    and dv columns, which only the built kernel knows
+    (``repro_flash_dkv_col_tiles``). The wrapper passes the kernel's own
+    ``key_tile`` and ``col_tiles``. With ``gs`` > 1 each CTA writes fp32
+    partial dk, dv that a second launch sums in a fixed order, into
+    scratch of ``scratch_shape``."""
+    ctas = -(-t // key_tile) * kh * col_tiles * b
     gs = next((g for g in range(1, group + 1)
                if group % g == 0 and ctas * g >= 2 * n_sm), group)
     return DkvSplit(gs, (gs, 2, b, kh, t, d) if gs > 1 else ())
@@ -264,10 +271,12 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     split, scratch = DkvSplit(1, ()), None
     if q.dtype == torch.bfloat16:   # fp32 takes the CUDA-core kernel, unsplit
+        lib = _lib_bwd()
         split = dkv_group_split(b, kh, t, d, h // kh, torch.cuda
                                 .get_device_properties(q.device)
                                 .multi_processor_count,
-                                _lib_bwd().repro_flash_key_tile())
+                                lib.repro_flash_key_tile(),
+                                col_tiles=lib.repro_flash_dkv_col_tiles(d))
         if split.gs > 1:
             scratch = torch.empty(split.scratch_shape, dtype=torch.float32,
                                   device=q.device)

@@ -1,9 +1,9 @@
 """Feed-forward blocks (``repro.models.mlp``): the gated SwiGLU
-``silu(x@w_gate)·(x@w_up)@w_out`` of the decoders, and the ViT's
-``gelu(x@w_up+b_up)@w_out+b_out``.
+``silu(x@w_gate)·(x@w_up)@w_out`` and GeGLU ``gelu(x@w_gate)·(x@w_up)@w_out``
+of the decoders, and the ViT's ``gelu(x@w_up+b_up)@w_out+b_out``.
 
 ``jax.nn.gelu`` defaults to the tanh approximation, so the port uses
-``approximate="tanh"`` (``repro/models/mlp.py:31``).
+``approximate="tanh"`` in both GELU forms (``repro/models/mlp.py:31``).
 """
 from __future__ import annotations
 
@@ -16,9 +16,11 @@ def is_gated(act: str) -> bool:
 
 def mlp(p, x, act):
     dt = x.dtype
-    if act == "swiglu":
-        h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
-        return h @ p["w_out"].to(dt)
+    if is_gated(act):
+        gate = x @ p["w_gate"].to(dt)
+        gate = F.silu(gate) if act == "swiglu" else \
+            F.gelu(gate, approximate="tanh")
+        return (gate * (x @ p["w_up"].to(dt))) @ p["w_out"].to(dt)
     if act != "gelu":
         raise NotImplementedError(f"act {act!r} is not yet ported")
     h = F.gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt), approximate="tanh")

@@ -7,19 +7,27 @@ transposes: dense weights are (in, out) and applied as ``x @ w``, the
 per-layer params are stacked on a leading L axis under ``stack``, and the
 flat keys are the reference pytree's dotted paths (``embed.patch_w``,
 ``embed.tok``, ``stack.attn.wq``, ``stack.mlp.w_gate``, ``head.w``, ...).
+A decoder with ``tie_embeddings`` has no ``head.w``: its head is
+``embed.tok`` transposed, so the embedding's gradient sums both uses.
 Params are fp32; each is cast to ``cfg.dtype`` where it is used. The
 reference scans over layers; here a Python loop runs them, with each
-layer's window a Python int. The ViT normalises with LayerNorm, the
-decoders with RMSNorm (through K4/K5 when ``cfg.use_kernels``). The RWKV6
-branch (``block_kind == "rwkv6"``) replaces attention and MLP by the time
-mix and the channel mix (``models/rwkv6.py``; WKV6 through K6/K7 when
-``cfg.use_kernels``), under ``stack.time_mix.*`` and
-``stack.channel_mix.*``, and takes no positions.
+layer's window a Python int, and ``cfg.remat`` checkpoints each layer's
+body as the reference's ``_remat`` does. The ViT normalises with
+LayerNorm, the decoders with RMSNorm (through K4/K5 when
+``cfg.use_kernels``). The RWKV6 branch (``block_kind == "rwkv6"``)
+replaces attention and MLP by the time mix and the channel mix
+(``models/rwkv6.py``; WKV6 through K6/K7 when ``cfg.use_kernels``), under
+``stack.time_mix.*`` and ``stack.channel_mix.*``, and takes no positions.
 """
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
+    create_selective_checkpoint_contexts
 
 from repro_torch.models.attention import attention_block
 from repro_torch.models.mlp import is_gated, mlp
@@ -100,7 +108,7 @@ def init_params(cfg, *, seed=0, device="cuda"):
         p["final_norm.bias"] = zeros((d,), device=device)
         p["head.w"] = dense_init((d, cfg.num_classes), **kw)
         p["head.b"] = zeros((cfg.num_classes,), device=device)
-    else:
+    elif not cfg.tie_embeddings:
         p["head.w"] = dense_init((d, cfg.vocab_size), **kw)
     return p
 
@@ -127,11 +135,17 @@ def _embed(cfg, params, batch):
     """``(h (B,S,D) in the compute dtype, rope positions (B,S) or None)``.
     ViT: NHWC patchify (reshape + transpose, then a matmul — not a conv),
     a zero CLS token in front, and learned positions. Decoder: the token
-    embedding, positions 0..S-1 (None for RWKV6, which has none)."""
+    embedding (times sqrt(d_model) rounded to the compute dtype first, with
+    ``embed_scale``, as the reference's ``jnp.asarray(math.sqrt(d), dtype)``:
+    62.0 in bf16 at d 3840), positions 0..S-1 (None for RWKV6, which has
+    none)."""
     dt = compute_dtype(cfg)
     if not _is_vit(cfg):
         tokens = batch["tokens"].long()
         h = params["embed.tok"][tokens].to(dt)
+        if cfg.embed_scale:
+            h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=dt,
+                                 device=h.device)
         if _is_rwkv(cfg):
             return h, None
         b, s = tokens.shape
@@ -150,14 +164,55 @@ def _embed(cfg, params, batch):
 
 
 def _head(cfg, params, h):
-    """The final norm, then the CLS row's classifier (ViT) or the untied
-    LM head over every position."""
+    """The final norm, then the CLS row's classifier (ViT) or the LM head
+    over every position (the embedding transposed when tied)."""
     h = _apply_norm(cfg, params, "final_norm.", h)
     if _is_vit(cfg):
         cls = h[:, 0]
         return cls @ params["head.w"].to(h.dtype) + \
             params["head.b"].to(h.dtype)
+    if cfg.tie_embeddings:
+        return h @ params["embed.tok"].T.to(h.dtype)
     return h @ params["head.w"].to(h.dtype)
+
+
+def _block(cfg, layer, h, window, positions):
+    """One pre-norm layer on ``layer``'s params (its ``stack.`` slice with
+    the prefix dropped): ``h += attn(norm1 h)``, then ``h += mlp(norm2 h)``;
+    for RWKV6 the time mix and the channel mix."""
+    a_in = _apply_norm(cfg, layer, "ln1.", h)
+    if _is_rwkv(cfg):
+        h = h + rwkv6_time_mix(_layer(layer, "time_mix.", None), a_in, cfg)
+        return h + rwkv6_channel_mix(_layer(layer, "channel_mix.", None),
+                                     _apply_norm(cfg, layer, "ln2.", h), cfg)
+    h = h + attention_block(_layer(layer, "attn.", None), a_in, cfg,
+                            window=window, positions=positions)
+    m_in = _apply_norm(cfg, layer, "ln2.", h)
+    return h + mlp(_layer(layer, "mlp.", None), m_in, cfg.act)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: save the outputs of ``x @ w`` (activations, folded
+    to 2-D, against a weight: ``aten.mm``) and recompute the rest, batched
+    products (``bmm``, the naive attention's einsums) included, as
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` does."""
+    return CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg, fn):
+    """``fn`` as the reference's ``_remat`` wraps a layer (``transformer.py:
+    242-248``): "block" saves only its inputs and recomputes the body in
+    the backward (as far as the backward needs), "dots" also saves the
+    outputs of its projection products (torch's selective checkpoint),
+    "none" saves everything."""
+    if cfg.remat == "none":
+        return fn
+    kw = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *args: checkpoint(fn, *args, **kw)
 
 
 def forward(cfg, params, batch, gather=None):
@@ -170,27 +225,23 @@ def forward(cfg, params, batch, gather=None):
     ``gather``, when given, maps ``{key: param}`` to the tensors the model
     computes with where they are used: the non-stacked params once before
     the embed, the stacked ones a layer's slices at a time in the layer
-    loop (ZeRO-3 gathers its shards there)."""
+    loop (ZeRO-3 gathers its shards there). The gather of a layer runs
+    inside its checkpointed body under ``cfg.remat``, so the backward's
+    recompute gathers the layer again rather than keeping it whole."""
+    stacked = {k: v for k, v in params.items() if k.startswith("stack.")}
     if gather is not None:
-        stacked = {k: v for k, v in params.items() if k.startswith("stack.")}
         params = gather({k: v for k, v in params.items()
                          if k not in stacked})
     h, positions = _embed(cfg, params, batch)
+
+    def step(h, shards, window):
+        layer = shards if gather is None else gather(shards)
+        return _block(cfg, _layer(layer, "stack.", None), h, window,
+                      positions)
+
+    step = _remat(cfg, step)
     for i, window in enumerate(cfg.layer_windows()):
-        layer = _layer(params, "stack.", i) if gather is None else \
-            _layer(gather({k: v[i] for k, v in stacked.items()}), "stack.",
-                   None)
-        a_in = _apply_norm(cfg, layer, "ln1.", h)
-        if _is_rwkv(cfg):
-            h = h + rwkv6_time_mix(_layer(layer, "time_mix.", None), a_in,
-                                   cfg)
-            h = h + rwkv6_channel_mix(_layer(layer, "channel_mix.", None),
-                                      _apply_norm(cfg, layer, "ln2.", h), cfg)
-            continue
-        h = h + attention_block(_layer(layer, "attn.", None), a_in, cfg,
-                                window=window, positions=positions)
-        m_in = _apply_norm(cfg, layer, "ln2.", h)
-        h = h + mlp(_layer(layer, "mlp.", None), m_in, cfg.act)
+        h = step(h, {k: v[i] for k, v in stacked.items()}, window)
     return _head(cfg, params, h)
 
 

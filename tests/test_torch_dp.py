@@ -45,8 +45,10 @@ STEPS, BATCH, ACCUM = 3, 8, 2
 WORLDS = (1, 2, 4)
 DEADLINE_S = 240
 
-# name -> (arch, zero stage, optimizer, augment, data); "synthetic" is the
-# fp32 stream, "cifar" procedural uint8 CIFAR-10, "tokens" the LM stream
+# name -> (arch, zero stage, optimizer, augment, data[, remat]); "synthetic"
+# is the fp32 stream, "cifar" procedural uint8 CIFAR-10, "tokens" the LM
+# stream; remat checkpoints each layer (so ZeRO-3 gathers it again in the
+# backward's recompute)
 TRAIN_JOBS = {
     "vit-z0": ("vit-b16", 0, "adamw", False, "cifar"),
     "vit-z1": ("vit-b16", 1, "adamw", False, "cifar"),
@@ -57,6 +59,9 @@ TRAIN_JOBS = {
     "vit-z3-aug": ("vit-b16", 3, "adamw", True, "cifar"),
     "chatglm3-z3": ("chatglm3-6b", 3, "adamw", False, "tokens"),
     "rwkv6-z3": ("rwkv6-7b", 3, "adamw", False, "tokens"),
+    "gemma3-z3": ("gemma3-12b", 3, "adamw", False, "tokens"),
+    "gemma3-z3-block": ("gemma3-12b", 3, "adamw", False, "tokens", "block"),
+    "gemma3-z3-dots": ("gemma3-12b", 3, "adamw", False, "tokens", "dots"),
 }
 GUARD_STAGES = (1, 3)
 EVAL_SIZE, EVAL_BATCH = 50, 8       # the last batch has 2 real rows
@@ -74,8 +79,8 @@ def _cfg(arch):
 def _setup(job, world, init=None):
     """(trainer, pipeline, fresh params) of a ``TRAIN_JOBS`` entry, on a
     world or (None) on one device."""
-    arch, zero, opt, augment, data = job
-    cfg = _cfg(arch)
+    arch, zero, opt, augment, data, *remat = job
+    cfg = _cfg(arch).replace(remat=remat[0] if remat else "none")
     ecfg = EngineConfig(train_batch_size=BATCH,
                         gradient_accumulation_steps=ACCUM,
                         zero_stage=zero if world is not None else 0,
@@ -414,9 +419,13 @@ def test_vit_dp_matches_single_device(_worlds, single, world, job):
 
 
 @pytest.mark.parametrize("world", [2, 4])
-@pytest.mark.parametrize("job", ["chatglm3-z3", "rwkv6-z3"])
+@pytest.mark.parametrize("job", ["chatglm3-z3", "rwkv6-z3", "gemma3-z3",
+                                 "gemma3-z3-block", "gemma3-z3-dots"])
 def test_decoders_at_zero3_match_single_device(_worlds, single, world, job):
-    want = single[job]
+    """A decoder's ZeRO-3 run against the single-device one; with remat
+    against the single device's run without it (the layer's gather runs
+    again in the recompute)."""
+    want = single[job.replace("-block", "").replace("-dots", "")]
     got = _worlds[world][0][job]
     np.testing.assert_allclose(got["losses"], want["losses"], atol=TOL)
     np.testing.assert_allclose(got["gnorms"], want["gnorms"], atol=TOL)

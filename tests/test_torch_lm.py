@@ -103,8 +103,8 @@ def test_config_fields_match_reference(factory):
 
 
 @pytest.mark.parametrize("change", [
-    {"tie_embeddings": True}, {"embed_scale": True},
-    {"rope_style": "mrope"}, {"arch_type": "moe"}, {"act": "geglu"}])
+    {"block_kind": "mla"}, {"arch_type": "audio"},
+    {"rope_style": "mrope"}, {"arch_type": "moe"}, {"arch_type": "vlm"}])
 def test_unported_branches_raise(change):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         configs.get_config(ARCH).replace(**change)

@@ -44,6 +44,7 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.optim import OptState, make_optimizer, \
     make_schedule  # noqa: E402
+from repro_torch.optim import optimizers  # noqa: E402
 
 LOSS_TOL, GRAD_TOL, OPT_TOL, TRAJ_TOL = 1e-5, 2e-4, 1e-6, 2e-4
 
@@ -172,6 +173,83 @@ def test_one_optimizer_update_matches_reference(name, grad_clip):
             np.testing.assert_allclose(got_s.nu[k].numpy(),
                                        np.asarray(want_s.nu[k]),
                                        rtol=OPT_TOL, atol=OPT_TOL)
+
+
+@pytest.mark.parametrize("name", ["adamw", "sgd", "lamb"])
+@pytest.mark.parametrize("grad_clip", [1.0, 0.0])
+@pytest.mark.parametrize("grad_dtype", ["float32", "bfloat16"])
+def _out_of_place_update(name, grad_clip, grads, state, params, lr):
+    """The optimizers' arithmetic written out of place, a new tensor for
+    every result (the reference's expressions and operand order, in
+    torch): (new params, new state, the pre-clip global grad norm)."""
+    f32, wd, b1, b2, eps = torch.float32, 0.01, 0.9, 0.95, 1e-8
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(f32)))
+                           for g in grads.values()))
+    if grad_clip > 0:
+        scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
+        grads = {k: g * scale for k, g in grads.items()}
+    step = state.step + 1
+    if name == "sgd":
+        mu = {k: 0.9 * state.mu[k] + g.to(f32) for k, g in grads.items()}
+        new_p = {k: (p.to(f32) - lr * (mu[k] + wd * p.to(f32))).to(p.dtype)
+                 for k, p in params.items()}
+        return new_p, OptState(step, mu, ()), gnorm
+    mu = {k: b1 * state.mu[k] + (1 - b1) * g.to(f32)
+          for k, g in grads.items()}
+    nu = {k: b2 * state.nu[k] + (1 - b2) * torch.square(g.to(f32))
+          for k, g in grads.items()}
+    stepf = torch.tensor(float(step), dtype=f32)
+    bc1 = float(1 - torch.tensor(b1, dtype=f32) ** stepf)
+    bc2 = float(1 - torch.tensor(b2, dtype=f32) ** stepf)
+    new_p = {}
+    for k, p in params.items():
+        u = mu[k] / bc1 / (torch.sqrt(nu[k] / bc2) + eps) + wd * p.to(f32)
+        if name == "lamb":
+            pn = torch.sqrt(torch.sum(torch.square(p.to(f32))))
+            un = torch.sqrt(torch.sum(torch.square(u)))
+            u = torch.where((pn > 0) & (un > 0), pn / un, 1.0) * u
+        new_p[k] = (p.to(f32) - lr * u).to(p.dtype)
+    return new_p, OptState(step, mu, nu), gnorm
+
+
+@pytest.mark.parametrize("name", ["adamw", "sgd", "lamb"])
+@pytest.mark.parametrize("grad_clip", [1.0, 0.0])
+@pytest.mark.parametrize("grad_dtype", ["float32", "bfloat16"])
+def test_in_place_apply_equals_update(name, grad_clip, grad_dtype):
+    """The engine's in-place ``apply`` (params and moments updated where
+    they lie, the grads clipped in place, the pre-clip norm given) and the
+    functional ``update`` both give the out-of-place arithmetic's params
+    and moments bit for bit over three steps, and ``update`` leaves its
+    inputs untouched."""
+    params, grads, mu, nu = _opt_inputs(seed=1)
+    t = lambda d: {k: torch.from_numpy(v.copy())  # noqa: E731
+                   for k, v in d.items()}
+    g = {k: v.to(getattr(torch, grad_dtype)) for k, v in t(grads).items()}
+    opt = make_optimizer(name, grad_clip=grad_clip)
+    state = lambda: OptState(  # noqa: E731
+        3, t(mu), () if name == "sgd" else t(nu))
+    want, fun, live = (t(params), state()), (t(params), state()), \
+        (t(params), state())
+    for _ in range(3):
+        *want, want_norm = _out_of_place_update(name, grad_clip, g, want[1],
+                                                want[0], 3e-3)
+        kept = {k: v.clone() for k, v in fun[0].items()}
+        new_p, new_s, norm = opt.update(g, fun[1], fun[0], 3e-3)
+        assert all(torch.equal(fun[0][k], kept[k]) for k in kept)
+        fun = (new_p, new_s)
+        state_live = opt.apply({k: v.clone() for k, v in g.items()},
+                               live[1], live[0], 3e-3,
+                               optimizers.global_norm(g))
+        live = (live[0], state_live)
+        assert torch.equal(norm, want_norm)
+        assert torch.equal(optimizers.global_norm(g), want_norm)
+    assert live[1].step == fun[1].step == want[1].step == 6
+    for k in params:
+        for got in (live, fun):
+            assert torch.equal(got[0][k], want[0][k])
+            assert torch.equal(got[1].mu[k], want[1].mu[k])
+            if name != "sgd":
+                assert torch.equal(got[1].nu[k], want[1].nu[k])
 
 
 def test_optimizer_init_is_fp32_zeros():
