@@ -4,8 +4,8 @@ from this checkout, holds each against its plain PyTorch version, drives
 the port's main paths (ViT-B/16 eval and training, one card and
 data-parallel under ZeRO 0-3 with augmentation, preempted and resumed from
 checkpoints and supervised under injected faults, ChatGLM3-6B, RWKV6-7B,
-Gemma3-12B, Qwen2.5-14B and GLM-4-9B training) at full width through its
-CLI, and checks the results.
+Gemma3-12B, Qwen2.5-14B, GLM-4-9B and Granite-MoE 3B-A800M training) at
+full width through its CLI, and checks the results.
 
     python3 chip_smoke.py [--profile]
 
@@ -33,8 +33,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    its forward, the one yardstick K2 and K3 share) timed at the
    micro-shape.
 5. K4 and K5 against ``ref_rmsnorm_fwd``/``ref_rmsnorm_bwd`` at the
-   decoder's shape (4096 x 4096), Gemma3's (4096 x 3840) and Qwen2.5's
-   (4096 x 5120) rows, the smoke shape, the reference's
+   decoder's shape (4096 x 4096), Gemma3's (4096 x 3840), Qwen2.5's
+   (4096 x 5120) and Granite-MoE's (4096 x 1536) rows, the smoke shape, the reference's
    RMS_CASES, one row and odd D, in bf16 and fp32 (out, dx, dscale within
    1e-4 / 6e-2, rinv within 1e-4 relative), K5 twice for a bitwise equal
    dscale; ``torch.autograd.grad`` through ``ops.fused_rmsnorm``; then
@@ -175,6 +175,27 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    versions in bf16 and fp32, K2 and K3 run twice for bitwise equality
    (GLM-4's shape is phase 6's); kernel against naive path of each model
    on one microbatch of 4 x 1024 (fp32 within 2e-4, bf16 cosine >= 0.99).
+13. Granite-MoE 3B-A800M, the MoE decoder, at full width: K1-K3 at its
+   attention shape (B 4, H 24, KH 8, S = T = 1024, D 64, causal: a GQA
+   group of 3) against their plain versions in bf16 and fp32, K2 and K3
+   run twice for bitwise equality, timed beside SDPA (``enable_gqa``) and
+   the bounds; ``--arch granite-moe-3b-a800m --layers 8 --seq 1024 --batch
+   8 --accum 2 --steps 10`` in bf16 with the GShard dispatch (K1-K3 10 x 2
+   x 8 = 160 each, K4/K5 10 x 2 x 17 = 340 each), every loss, grad norm
+   and ``moe_aux`` finite, ``moe_aux`` > 0, ``step_ok`` 1, the peak of
+   allocated device memory; kernel against naive path on one microbatch
+   of 4 x 1024, each path routing on its own first, the (token, choice)
+   routings and kept slots that differ printed by layer (a flip is a
+   discontinuity, not a fault); fp32: where any differ, the naive path
+   again with the kernel path's expert indices forced, its kept slots
+   then equal in every layer, and max |dgrad| within 2e-4; bf16: cosine
+   >= 0.99 on the paths' own routings; warm tokens/s
+   of both paths in turns, every kernel-path run faster; gather against
+   GShard dispatch on one fp32 microbatch at capacity factor 8 on two
+   layers (logits within 2e-5, grads 5e-5); warm tokens/s of the GShard
+   and gather dispatch in turns (recorded, not gated); one MoE layer's
+   routing, dispatch, expert products and combine timed alone (a
+   reading).
 
 ``--profile`` adds a ``torch.profiler`` table of one warm training step of
 each training slice (and of the ZeRO-3 step at world 1), and at the end (after every timed phase) of one warm
@@ -182,11 +203,13 @@ bf16 eval pass of the eval slice.
 The last lines are one JSON object for the kernels (K1-K3 with the
 decoder's numbers and the ViT's under ``vit``, Gemma3's attention times and
 its training run's launches under ``gemma3`` and ``gemma3_launches``, the
-Qwen2.5 and GLM-4 runs' under ``dense_launches``, the data-parallel runs'
+Qwen2.5 and GLM-4 runs' under ``dense_launches``, Granite-MoE's attention times and
+its training run's launches under ``granite`` and ``granite_launches``, the
+data-parallel runs'
 launches there under ``dp_launches``, the preempted and resumed runs'
 under ``resume_launches`` and phase 8d's under ``data_launches``, K4/K5
-with the RWKV6 run's launches and the decoder's, Gemma3's, Qwen2.5's and
-GLM-4's beside them, K6/K7; each
+with the RWKV6 run's launches and the decoder's, Gemma3's, Qwen2.5's,
+GLM-4's and Granite-MoE's beside them, K6/K7; each
 redesigned kernel with its ``routes``), the card's
 ``nvidia-smi`` name and power limit, and the ``ok`` line.
 """
@@ -237,8 +260,9 @@ RMS_TOL = {"float32": 1e-4, "bfloat16": 6e-2}  # tests/test_kernel_grads.py
 TOL_RINV = 1e-4                                # relative
 # label, shape, row width (None: contiguous rows); the first is the
 # decoder's (micro-batch 4 x seq 1024, d 4096), then the smoke config's
-# (4 x 64, d 256), Gemma3-12B's (micro-batch 1 x 4096, d 3840) and
-# Qwen2.5-14B's (4 x 1024, d 5120), the reference's RMS_CASES, one row, an
+# (4 x 64, d 256), Gemma3-12B's (micro-batch 1 x 4096, d 3840),
+# Qwen2.5-14B's (4 x 1024, d 5120) and Granite-MoE's (4 x 1024, d 1536),
+# the reference's RMS_CASES, one row, an
 # odd D (rows not
 # 16-byte aligned: scalar loads) and an odd D in wider rows (16-byte
 # vectors and a scalar tail)
@@ -246,6 +270,7 @@ RMS_CASES = [
     ("decoder", (4096, 4096), None),
     ("gemma3", (4096, 3840), None),
     ("qwen2.5", (4096, 5120), None),
+    ("granite", (4096, 1536), None),
     ("smoke", (4, 64, 256), None),
     ("ref", (64, 256), None),
     ("ragged", (3, 37, 128), None),
@@ -359,6 +384,22 @@ QWEN_ATTN_SHAPE = (4, 40, 8, LM_SEQ, LM_SEQ, 128)
 DENSE_ARGS = ["--layers", str(DENSE_LAYERS), "--seq", str(LM_SEQ),
               "--batch", "8", "--accum", "2", "--steps", "3",
               "--log-every", "1"]
+# the MoE decoder's slice: granite-moe-3b-a800m at full width (d 1536, 40
+# experts of 512, top-8, vocabulary 49,155 tied), cut to eight layers,
+# sequences of 1024 tokens in micro-batches of 4; its attention is B 4,
+# H 24, KH 8 (a GQA group of 3), D 64
+GRANITE = "granite-moe-3b-a800m"
+GRANITE_LAYERS = 8
+GRANITE_ATTN_SHAPE = (4, 24, 8, LM_SEQ, LM_SEQ, 64)
+GRANITE_ARGS = ["--arch", GRANITE, "--layers", str(GRANITE_LAYERS), "--seq",
+                str(LM_SEQ), "--batch", "8", "--accum", "2", "--steps", "10",
+                "--log-every", "1"]
+# gather against GShard: tests/test_perf_options.py:29-47's gates, at a
+# capacity factor of 8 (nothing dropped, so both compute one function), on
+# two layers: GShard's fp32 (B,S,E,C) dispatch and combine and (E,B,C,D)
+# expert tensors at that capacity hold ~7 GB a layer
+IMPL_CF, IMPL_LAYERS = 8.0, 2
+IMPL_LOGITS_TOL, IMPL_GRAD_TOL = 2e-5, 5e-5
 # The redesigned kernels and the routes each takes; their rows say so, and
 # PERF.md's kernel table keeps the earlier design's times
 ROUTES = {
@@ -2349,6 +2390,338 @@ def phase_dense():
     return out
 
 
+def phase_granite_attention(card):
+    """K1, K2 and K3 at Granite-MoE's attention shape (causal, GQA 24:8, a
+    group of 3, head dim 64, S = T = 1024): against their plain versions
+    in bf16 and fp32, K2 and K3 each run twice for bitwise equal results,
+    K3's bf16 grid printed, then timed beside SDPA (``enable_gqa``) and the
+    bounds."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, kh, _, t, d = GRANITE_ATTN_SHAPE
+    lib = fa._lib_bwd()
+    split = fa.dkv_group_split(
+        b, kh, t, d, h // kh, torch.cuda.get_device_properties(0)
+        .multi_processor_count, lib.repro_flash_key_tile(),
+        col_tiles=lib.repro_flash_dkv_col_tiles(d))
+    print(f"[granite-attn] K3 bf16 grid: group {h // kh} split over "
+          f"{split.gs} CTA(s)", flush=True)
+    inputs = model_layout_inputs(torch.Generator(device="cuda").manual_seed(7))
+    errs = check_attention("granite-attn", "Granite-MoE's", GRANITE_ATTN_SHAPE,
+                           inputs)
+    t = attention_times(card, GRANITE_ATTN_SHAPE, True, inputs,
+                        "granite-attn")
+    return {key: dict(t[key], max_abs_err=errs[key]) for key in t}
+
+
+@contextlib.contextmanager
+def routing_spy(forced=None):
+    """Records, for every GShard routing call (one a MoE layer), the
+    expert indices (B,S,k) in choice order and the kept slots (the
+    dispatch tensor's nonzeros, (B,S,E,C) bool). With ``forced`` (another
+    run's records) the i-th call takes the i-th record's expert indices in
+    place of its own top-k, and its gates are its own probabilities at
+    those experts."""
+    import torch
+    from repro_torch.models import moe
+
+    calls, real, real_top_k = [], moe.top_k_routing, moe.top_k
+
+    def spy(logits, k, capacity, reduce=None):
+        if forced is not None:
+            idx = forced[len(calls)][0]
+            moe.top_k = lambda probs, k: (probs.gather(-1, idx), idx)
+        try:
+            out = real(logits, k, capacity, reduce)
+        finally:
+            moe.top_k = real_top_k
+        with torch.no_grad():
+            idx = moe.top_k(torch.softmax(logits.detach(), dim=-1), k)[1] \
+                if forced is None else forced[len(calls)][0]
+            calls.append((idx, out[0].detach() > 0))
+        return out
+    moe.top_k_routing = spy
+    try:
+        yield calls
+    finally:
+        moe.top_k_routing, moe.top_k = real, real_top_k
+
+
+def routing_diff(a, b):
+    """Per layer, the (token, choice) routings and the kept slots that
+    differ between two ``routing_spy`` records."""
+    return ([int((x[0] != y[0]).sum()) for x, y in zip(a, b)],
+            [int((x[1] != y[1]).sum()) for x, y in zip(a, b)])
+
+
+def granite_agreement(arch, layers, agree, fp32_eps=None):
+    """Kernel against naive path (plain RMSNorm, naive attention) of the
+    MoE decoder on one microbatch of ``agree`` (rows, tokens), from params
+    of seed 0, GShard dispatch. Each path routes on its own first, and the
+    (token, choice) routings and kept slots that differ are printed by
+    layer: a routing flip (two router probabilities closer than the paths'
+    rounding) is a discontinuity of the function, not an error of either
+    path. fp32: the naive path is then run again with every layer's expert
+    indices forced to the kernel path's (its gates its own probabilities
+    at those experts); its kept slots must then equal the kernel path's in
+    every layer, and max |dgrad| be within 2e-4 (where nothing flipped, the
+    first naive run is that comparison). bf16: cosine >= 0.99 on the paths'
+    own routings. Returns the params, on the host."""
+    import gc
+    import torch
+    from repro_torch.core.engine import to_device
+    from repro_torch.models.transformer import init_params
+
+    kw = {"arch": arch, "layers": layers}
+    trainer, _ = lm_setup("bfloat16", True, **kw)
+    params = init_params(trainer.cfg, seed=0, device="cuda")
+    one = {"batch": agree[0], "accum": 1, "seq": agree[1]}
+    label = f"{arch}, one microbatch of {agree[0]} x {agree[1]},"
+    for dtype in ("float32", "bfloat16"):
+        trainer_k, pipe = lm_setup(dtype, True, **one, **kw)
+        trainer_n, _ = lm_setup(dtype, False, **one, **kw)
+        micro = to_device(pipe.batch_at(0, 0), "cuda")
+        with routing_spy() as rk:
+            gk, mk = trainer_k.grads(params, micro)
+        with routing_spy() as rn:
+            gn, mn = trainer_n.grads(params, micro)
+        if len(rk) != layers or len(rn) != layers:
+            fail(f"{label} {dtype}: {len(rk)} and {len(rn)} routing calls "
+                 f"for {layers} MoE layers")
+        flips, slots = routing_diff(rk, rn)
+        n = rk[0][0].numel()
+        print(f"[granite] {label} {dtype} routing, kernel vs naive path, "
+              f"each on its own: (token, choice) routings that differ by "
+              f"layer {flips} of {n} each (share "
+              f"{sum(flips) / (n * layers):.3e}); kept-slot differences by "
+              f"layer {slots}", flush=True)
+        how = "each on its own routing"
+        if dtype == "float32" and (any(flips) or any(slots)):
+            del gn, rn
+            with routing_spy(forced=rk) as rn:
+                gn, mn = trainer_n.grads(params, micro)
+            flips, slots = routing_diff(rk, rn)
+            print(f"[granite] {label} float32 naive path with the kernel "
+                  f"path's expert indices forced: kept-slot differences by "
+                  f"layer {slots} {'ok' if not any(slots) else 'FAIL'}",
+                  flush=True)
+            if any(slots) or len(rn) != layers:
+                fail(f"{label} float32: forced routing left {sum(slots)} "
+                     f"kept slots different")
+            how = "both on the kernel path's routing"
+        d_max, cos, _, _ = compare_grads(gk, gn, f"{dtype} kernel path")
+        report_agreement(f"{label} {how},", dtype,
+                         (abs(float(mk["loss"]) - float(mn["loss"])), d_max,
+                          cos))
+        print(f"[granite] {label} {dtype} moe_aux kernel path "
+              f"{float(mk['moe_aux']):.6e}, naive path "
+              f"{float(mn['moe_aux']):.6e}", flush=True)
+        del trainer_k, trainer_n, micro, gk, gn, rk, rn
+        gc.collect()
+        torch.cuda.empty_cache()
+    params = {k: v.cpu() for k, v in params.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return params
+
+
+def impl_agreement(params):
+    """Gather against GShard dispatch on the card: one fp32 microbatch of 4
+    x LM_SEQ through the kernel path at capacity factor IMPL_CF, on the
+    first IMPL_LAYERS layers of ``params``: logits within 2e-5, grads
+    within 5e-5, ``moe_aux`` rtol 1e-5."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.core.engine import to_device
+    from repro_torch.models import transformer
+
+    params = {k: (v[:IMPL_LAYERS] if k.startswith("moe_stack.") else v)
+              .to("cuda") for k, v in params.items()}
+    out = {}
+    from repro_torch.configs import get_config
+
+    ample = dataclasses.replace(get_config(GRANITE).moe,
+                                capacity_factor=IMPL_CF)
+    for impl in ("gshard", "gather"):
+        trainer, pipe = lm_setup("float32", True, arch=GRANITE,
+                                 layers=IMPL_LAYERS, batch=4, accum=1,
+                                 moe_impl=impl, moe=ample)
+        cfg = trainer.cfg
+        micro = to_device(pipe.batch_at(0, 0), "cuda")
+        with torch.no_grad():
+            logits, aux = transformer.forward(cfg, params, micro)
+        grads, _ = trainer.grads(params, micro)
+        out[impl] = (logits, float(aux["moe_aux"]), grads)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    (la, aa, ga), (lb, ab, gb) = out["gshard"], out["gather"]
+    d_logits = (la - lb).abs().max().item()
+    d_grad, cos, _, _ = compare_grads(gb, ga, "gather path")
+    rel_aux = abs(ab - aa) / aa
+    ok = d_logits <= IMPL_LOGITS_TOL and d_grad <= IMPL_GRAD_TOL and \
+        rel_aux <= 1e-5 and bool(torch.isfinite(lb).all())
+    print(f"[granite] gather vs GShard dispatch ({IMPL_LAYERS} layers, fp32, "
+          f"one microbatch of 4 x {LM_SEQ}, capacity factor {IMPL_CF}): "
+          f"max|dlogits|={d_logits:.3e} (tol {IMPL_LOGITS_TOL}), "
+          f"max|dgrad|={d_grad:.3e} (tol {IMPL_GRAD_TOL}), gradient cosine "
+          f"{cos:.6f}, moe_aux {aa:.6e} / {ab:.6e} (rel {rel_aux:.2e}, tol "
+          f"1e-5) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the gather and GShard dispatch disagree on the card")
+    del out, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_split(card):
+    """One MoE layer at the slice's microbatch (4 x LM_SEQ, bf16, d 1536,
+    40 experts of 512, top-8; GShard capacity 256 a row, the gather
+    table's 1024 slots over 4096 tokens), each part's forward and backward
+    timed alone with CUDA events: the routing (fp32 router product,
+    softmax, top-k, positions, the dispatch and combine tensors, aux), the
+    GShard dispatch einsum, the experts' batched products, the combine
+    einsum, the gather path's slot table (forward only), dispatch and
+    combine, and the whole layer through ``moe_ffn`` and through
+    ``moe_ffn_gather``; the FLOPs of their products beside them. A reading
+    of where an MoE layer's time goes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config(GRANITE)
+    m, d = cfg.moe, cfg.d_model
+    b, s, e, k, f = 4, LM_SEQ, m.num_experts, m.top_k, m.d_ff_expert
+    c, cg = moe.capacity(s, cfg), moe.capacity(b * s, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def rnd(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, device="cuda", generator=gen) * scale).to(
+            dtype).requires_grad_()
+    x = rnd(b, s, d)
+    p = {"router": rnd(d, e, dtype=torch.float32, scale=0.02),
+         "experts.w_gate": rnd(e, d, f, scale=d ** -0.5),
+         "experts.w_up": rnd(e, d, f, scale=d ** -0.5),
+         "experts.w_out": rnd(e, f, d, scale=f ** -0.5)}
+    weights = tuple(p.values())
+    with torch.no_grad():
+        disp, comb, _ = moe.top_k_routing(x.float() @ p["router"], k, c)
+    disp = disp.to(torch.bfloat16)
+    comb = comb.to(torch.bfloat16).requires_grad_()
+    ein, eout = rnd(e, b, c, d), rnd(e, b, c, d)
+    flat = x.detach().reshape(b * s, d).requires_grad_()
+    with torch.no_grad():
+        gates, idx = moe.top_k(torch.softmax(flat.float() @ p["router"], -1),
+                               k)
+        slot, valid, pos, keep = moe.gather_slots(idx, e, cg)
+    ek = idx.reshape(-1)
+    gates = gates.reshape(-1).to(torch.bfloat16) * keep.to(torch.bfloat16)
+    eout_g = rnd(e, cg, d)
+    router_flops = 6 * b * s * d * e
+    expert_flops = 18 * e * d * f
+    parts = {
+        "routing": (lambda: moe.top_k_routing(x.float() @ p["router"], k,
+                                              c)[1], (x, p["router"]),
+                    router_flops),
+        "GShard dispatch einsum": (lambda: torch.einsum(
+            "bsec,bsd->ebcd", disp, x), (x,), 4 * b * s * e * c * d),
+        "expert products": (lambda: moe.expert_ffn(p, ein),
+                            (ein,) + weights[1:], expert_flops * b * c),
+        "GShard combine einsum": (lambda: torch.einsum(
+            "bsec,ebcd->bsd", comb, eout), (comb, eout),
+            6 * b * s * e * c * d),
+        "gather slot table (gather_slots, forward only)": (
+            lambda: moe.gather_slots(idx, e, cg), None, 0),
+        "gather dispatch (x[slot] * valid)": (
+            lambda: flat[slot] * valid[..., None].to(flat.dtype), (flat,), 0),
+        "gather combine (gathered slots times gates, summed over k)": (
+            lambda: (eout_g[ek, pos] * gates[:, None]).reshape(
+                b * s, k, d).sum(1), (eout_g,), 0),
+        "whole layer, GShard (moe_ffn)": (
+            lambda: moe.moe_ffn(p, x, cfg)[0], (x,) + weights,
+            router_flops + expert_flops * b * c + 10 * b * s * e * c * d),
+        "whole layer, gather (moe_ffn_gather)": (
+            lambda: moe.moe_ffn_gather(p, x, cfg.replace(
+                moe_impl="gather"))[0], (x,) + weights,
+            router_flops + expert_flops * cg),
+    }
+    rows = {}
+    for name, (fn, leaves, flops) in parts.items():
+        if leaves is None:
+            run = fn
+        else:
+            grad_out = torch.ones_like(fn())
+
+            def run():
+                torch.autograd.grad(fn(), leaves, grad_outputs=grad_out)
+        ms = time_ms(run, warmup=3, reps=10)
+        rows[name] = ms
+        print(f"[granite-split] one MoE layer, {name}"
+              f"{'' if leaves is None else ', forward and backward'} "
+              f"(4 x {LM_SEQ} tokens, bf16; GShard capacity {c} a row, "
+              f"gather {cg}): {ms:.4f} ms, "
+              + (f"{flops / 1e9:.1f} GFLOP of products "
+                 f"({flops / ms / 1e9:.1f} TFLOP/s)" if flops
+                 else "no products") + f"; {card}", flush=True)
+    return rows
+
+
+def phase_granite(profile, card):
+    """The MoE decoder's slice: ``--arch granite-moe-3b-a800m --layers 8
+    --seq 1024 --batch 8 --accum 2 --steps 10`` in bf16 with the default
+    GShard dispatch (per step and microbatch: K1-K3 once a layer at D 64
+    and a GQA group of 3, K4/K5 twice a layer and once for the final norm),
+    every loss, grad norm and ``moe_aux`` finite, ``moe_aux`` > 0 and
+    ``step_ok`` 1, the peak of allocated device memory; kernel against
+    naive path on one microbatch of 4 x LM_SEQ (``granite_agreement``);
+    warm tokens/s of both paths in turns, every kernel-path run faster;
+    then gather against GShard (``impl_agreement``), warm tokens/s of the
+    GShard and gather paths in turns (recorded, not gated) and one MoE
+    layer's parts timed (``moe_split``). Returns the CLI run's launches."""
+    import gc
+    import math
+    import torch
+
+    t0 = time.time()
+    attn = 10 * 2 * GRANITE_LAYERS
+    norms = 10 * 2 * (2 * GRANITE_LAYERS + 1)
+    launches, hist, params = decoder_train(
+        GRANITE, GRANITE_LAYERS, GRANITE_ARGS, {
+            "flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
+            "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}, "granite", profile,
+        agreement=granite_agreement)
+    aux = [r["moe_aux"] for r in hist]
+    if not all(math.isfinite(a) and a > 0 for a in aux):
+        fail(f"{GRANITE} train: moe_aux {aux}")
+    print(f"[granite] the CLI run's moe_aux by step {aux} (finite, > 0)",
+          flush=True)
+    impl_agreement(params)
+    rates = {}
+    for impl in ("gshard", "gather", "gather", "gshard"):
+        trainer, pipe = lm_setup("bfloat16", True, arch=GRANITE,
+                                 layers=GRANITE_LAYERS, moe_impl=impl)
+        rates.setdefault(impl, []).append(train_rate(trainer, pipe, params))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    for impl, rs in rates.items():
+        tps = sum(r[0] for r in rs) / len(rs) * LM_SEQ
+        ms = sum(r[1] for r in rs) / len(rs)
+        print(f"[granite] {GRANITE} bf16 warm training, kernel path, {impl} "
+              f"dispatch (a reading, not gated): {tps:.1f} tokens/s, "
+              f"{ms:.2f} ms per optimizer step (batch 8 x {LM_SEQ}, accum 2; "
+              f"runs {[round(r[0] * LM_SEQ, 1) for r in rs]} tokens/s; "
+              f"{smi_line()})", flush=True)
+    moe_split(card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[granite] phase done in {time.time() - t0:.1f}s", flush=True)
+    return launches
+
+
 def require_kernel_wins(tag, rates):
     """Fail unless every timed kernel-path run of ``rates`` ({"kernel":
     [...], "naive": [...]}, each run (rate, ms)) was faster than every
@@ -2361,13 +2734,14 @@ def require_kernel_wins(tag, rates):
 
 def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None,
                   *, seq=LM_SEQ, batch=8, accum=2, agree=(4, LM_SEQ),
-                  rate_seq=None):
+                  rate_seq=None, agreement=None):
     """A decoder's training slice at full width cut to ``layers`` layers:
     ``argv`` (bf16, ``batch`` x ``seq``, ``accum``, 10 steps) through the
     CLI with the launch counters reset just before and read just after
     (``expect``), every loss and grad-norm finite and ``step_ok`` 1, the
     peak of allocated device memory; then ``kernel_naive_agreement`` on
-    one microbatch of ``agree`` (rows, tokens), and warm training
+    one microbatch of ``agree`` (rows, tokens) (or ``agreement``, a
+    function with its signature and result), and warm training
     tokens/s of both paths in turns (every kernel-path run faster than
     every naive-path run, or the phase fails; at ``rate_seq`` tokens a
     sequence when given, and then the kernel path's at ``seq`` as well),
@@ -2402,7 +2776,8 @@ def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None,
     kw = {"arch": arch, "layers": layers}
     # the timed runs copy their params to the card from the host, so the
     # card holds one model's state at a time
-    params = kernel_naive_agreement(arch, layers, agree, fp32_eps)
+    params = (agreement or kernel_naive_agreement)(arch, layers, agree,
+                                                   fp32_eps)
     rates = {}
     rate_seq = rate_seq or seq
     shape = {"batch": batch, "accum": accum, "seq": rate_seq}
@@ -2636,6 +3011,8 @@ def main():
     rwkv_launches = phase_rwkv_train(profile)
     gemma_launches = phase_gemma_train(profile)
     dense_launches = phase_dense()
+    granite_attn = phase_granite_attention(card.split(",")[0])
+    granite_launches = phase_granite(profile, card)
     if profile:
         profile_eval()
     # K1-K3 run on both training paths: the row's numbers are the
@@ -2663,12 +3040,18 @@ def main():
         # at a local layer's window, its training run's launches, and the
         # Qwen2.5 and GLM-4 runs'
         gemma = dict(gemma_attn[key], launches=gemma_launches[row["name"]])
+        # the MoE decoder: Granite-MoE's attention (D 64, a group of 3) and
+        # its training run's launches
+        granite = dict(granite_attn[key],
+                       launches=granite_launches[row["name"]])
         kernels.append(dict(row, **lm_attn[key],
                             launches=lm_launches[row["name"]], vit=vit,
                             gemma3_launches=gemma_launches[row["name"]],
                             gemma3=gemma, dense_launches={
                                 arch: n[row["name"]]
-                                for arch, n in dense_launches.items()}))
+                                for arch, n in dense_launches.items()},
+                            granite_launches=granite_launches[row["name"]],
+                            granite=granite))
     # K4-K7's launches are the RWKV6 run's; K4/K5 run on both decoder
     # paths, so their rows carry the ChatGLM3 run's beside them
     for row in rms_rows + wkv_rows:
@@ -2678,6 +3061,7 @@ def main():
             extra["gemma3_launches"] = gemma_launches[row["name"]]
             extra["dense_launches"] = {arch: n[row["name"]] for arch, n
                                        in dense_launches.items()}
+            extra["granite_launches"] = granite_launches[row["name"]]
         if row["name"] in REDESIGNED:
             extra.update(redesigned=True, routes=ROUTES[row["name"]])
         kernels.append(dict(row, **extra))

@@ -1,13 +1,16 @@
-"""Model and engine configuration (the ViT, dense-decoder and RWKV6 subset
-of ``repro.configs.base``).
+"""Model and engine configuration (the ViT, dense-decoder, MoE-decoder and
+RWKV6 subset of ``repro.configs.base``).
 
 Field names and defaults follow the JAX package, so a config can be
 compared field by field with its reference. Fields the ported paths do
-not read (MoE, MLA, M-RoPE, serving knobs; tensor, sequence and pipeline
+not read (MLA, M-RoPE, serving knobs; tensor, sequence and pipeline
 parallelism) are left out until a slice needs them; ``use_kernels`` stands
 in for the reference's ``use_pallas``. A config that asks for a branch no
-slice has ported (M-RoPE, the mamba2, hybrid or MLA blocks, the MoE,
-audio or vlm families, another activation) raises ``NotImplementedError``.
+slice has ported (M-RoPE, the mamba2, hybrid or MLA blocks, multi-token
+prediction heads, the audio or vlm families, another activation) raises
+``NotImplementedError``. The MoE family (``arch_type="moe"`` with a
+``MoEConfig``) is ported: GShard or gather dispatch (``moe_impl``), shared
+experts and leading dense layers.
 """
 from __future__ import annotations
 
@@ -16,12 +19,13 @@ from dataclasses import dataclass
 from typing import Optional
 
 
-_ARCH_TYPES = ("vit", "dense", "ssm")
+_ARCH_TYPES = ("vit", "dense", "moe", "ssm")
 _BLOCK_KINDS = ("attn", "rwkv6")
 _ROPE_STYLES = ("full", "half", "none")
 _ACTS = ("swiglu", "geglu", "gelu", "sqrelu")
 _ATTN_IMPLS = ("naive", "blockwise")
 _REMATS = ("none", "block", "dots")
+_MOE_IMPLS = ("gshard", "gather")
 
 
 @dataclass(frozen=True)
@@ -38,9 +42,22 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Routed and shared experts (``repro/configs/base.py:30-38``, same
+    fields and defaults)."""
+    num_experts: int = 0            # routed experts
+    num_shared_experts: int = 0     # always-on shared experts
+    top_k: int = 0
+    d_ff_expert: int = 0            # per-expert FFN width
+    first_dense_layers: int = 0     # leading dense layers (DeepSeek-V3: 3)
+    router_aux_coef: float = 0.001  # load-balance loss coefficient
+    capacity_factor: float = 1.25   # dropless in math; capacity for dispatch
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                  # vit | dense | ssm are ported
+    arch_type: str                  # vit | dense | moe | ssm are ported
     num_layers: int
     d_model: int
     num_heads: int
@@ -62,12 +79,14 @@ class ModelConfig:
     attn_logit_softcap: float = 0.0  # > 0: softcap * tanh(scores / softcap)
 
     # --- sub-configs -------------------------------------------------------
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
 
     # --- embeddings / head --------------------------------------------
     tie_embeddings: bool = False    # the LM head is embed.tok^T
     norm_eps: float = 1e-5
     act: str = "swiglu"             # swiglu | geglu | gelu | sqrelu
+    mtp_depth: int = 0              # multi-token prediction (not ported)
     embed_scale: bool = False       # gemma-style sqrt(d) embedding scale
 
     # --- ViT ------------------------------------------------------------
@@ -80,6 +99,7 @@ class ModelConfig:
     dtype: str = "bfloat16"         # compute dtype; params stay fp32
     use_kernels: bool = True        # hand-written CUDA kernels on the card
     attn_impl: str = "naive"        # naive | blockwise (flash in PyTorch)
+    moe_impl: str = "gshard"        # gshard (einsum) | gather (slot table)
     attn_block_k: int = 512
     attn_block_q: int = 512
     remat: str = "none"             # none | block | dots (activation
@@ -103,6 +123,7 @@ class ModelConfig:
             (self.rope_style not in _ROPE_STYLES,
              f"rope_style {self.rope_style!r}"),
             (self.act not in _ACTS, f"act {self.act!r}"),
+            (self.mtp_depth > 0, f"mtp_depth {self.mtp_depth}"),
         ]
         for needed, what in unported:
             if needed:
@@ -111,11 +132,20 @@ class ModelConfig:
         if self.attn_impl not in _ATTN_IMPLS:
             raise ValueError(f"{self.name}: attn_impl {self.attn_impl!r} "
                              f"not in {_ATTN_IMPLS}")
+        if self.moe_impl not in _MOE_IMPLS:
+            raise ValueError(f"{self.name}: moe_impl {self.moe_impl!r} not "
+                             f"in {_MOE_IMPLS}")
         if self.remat not in _REMATS:
             raise ValueError(f"{self.name}: remat {self.remat!r} not in "
                              f"{_REMATS}")
         if self.block_kind == "rwkv6" and self.ssm is None:
             raise ValueError(f"{self.name}: an rwkv6 block needs ssm")
+
+    @property
+    def has_moe(self) -> bool:
+        """Routed experts in the layers after ``moe.first_dense_layers``
+        (the reference's ``cfg.moe and cfg.moe.num_experts > 0``)."""
+        return self.moe is not None and self.moe.num_experts > 0
 
     def layer_windows(self):
         """Per-layer sliding window (0 = full), gemma3-style local:global."""

@@ -33,6 +33,13 @@ dimension of each leaf is sharded):
      backward reduce-scatters. The gathered slices stay alive until the
      backward has used them.
 
+An MoE decoder's load-balance loss is the global microbatch's, as GSPMD
+makes the reference's: the forward's ``reduce`` hook (``forward_reduce``)
+averages each MoE layer's routed fractions over the ranks, and each rank
+weights them with its own mean router probabilities, so the mean of the
+ranks' losses and gradients is the reference's. The gather dispatch
+counts its capacity over this rank's tokens (ROADMAP deviation D4).
+
 A leaf that the world does not divide (``embed.cls``, ``stack.mlp.b_up``)
 stays replicated: its gradient is all-reduced, every rank applies the same
 whole update, and the norms count it once. The anomaly guard decides from
@@ -61,7 +68,7 @@ from repro_torch.checkpoint import AsyncCheckpointer, Sharded, \
     save_checkpoint
 from repro_torch.configs.base import EngineConfig
 from repro_torch.core.grad_accum import accumulate_gradients
-from repro_torch.core.sharding import shard_dims
+from repro_torch.core.sharding import is_stacked, shard_dims
 from repro_torch.data.augment import augment_batch, device_preprocess, \
     draw_augment, step_seed
 from repro_torch.data.pipeline import rank_rows
@@ -246,7 +253,8 @@ class Trainer:
         keys = [k for k in group if self.param_dims[k] is not None]
         if not keys:
             return group
-        dims = [self.param_dims[k] - k.startswith("stack.") for k in keys]
+        # a stacked leaf comes as one layer's slice: its L axis is gone
+        dims = [self.param_dims[k] - is_stacked(k) for k in keys]
         full = GatherShards.apply(self.world, dims,
                                   *[group[k] for k in keys])
         return dict(group, **dict(zip(keys, full)))
@@ -255,6 +263,23 @@ class Trainer:
     def forward_gather(self):
         """``gather`` where the params are sharded (ZeRO-3), else None."""
         return self.gather if self.ecfg.zero_stage == 3 else None
+
+    def mean_over_ranks(self, t: torch.Tensor) -> torch.Tensor:
+        """The model's ``reduce`` hook on a world: a copy of ``t`` averaged
+        over the ranks, outside autograd. The MoE layers pass it their
+        routed fractions, so the load-balance loss is the global batch's
+        (``models/moe.py``); a checkpointed layer's recompute calls it
+        again, on every rank alike."""
+        with torch.no_grad():
+            return self.world.all_reduce(t.detach().clone(), "mean")
+
+    @property
+    def forward_reduce(self):
+        """``mean_over_ranks`` on a world of more than one rank, else
+        None."""
+        w = self.world
+        return self.mean_over_ranks if w is not None and w.size > 1 \
+            else None
 
     def _whole(self, tree: dict, dims: dict) -> dict:
         """``tree`` with each leaf that ``dims`` shards gathered whole."""
@@ -395,7 +420,8 @@ class Trainer:
             if rows is not None:
                 mb = {k: v[rows] for k, v in mb.items()}
             mb = device_preprocess(mb, self.preproc, self.cfg.image_size)
-        return model.loss_fn(self.cfg, params, mb, self.forward_gather)
+        return model.loss_fn(self.cfg, params, mb, self.forward_gather,
+                             self.forward_reduce)
 
     def _reduce_microbatch(self, grads: dict) -> dict:
         """ZeRO-2: each microbatch's mean gradient reduce-scattered into
@@ -549,7 +575,7 @@ class Evaluator:
         with torch.inference_mode():
             batch = self._preprocess_batch(batch)
             return model.forward(self.cfg, self._compute_params(), batch,
-                                 self.gather)
+                                 self.gather)[0]
 
     def eval_step(self, batch):
         """No-grad ``batch -> {top1, top5, count, loss_sum}`` tensors."""

@@ -68,6 +68,12 @@ def _rules(fsdp):
 _STACKED = re.compile(r"(^|/)(stack|dense_stack|moe_stack)(/|$)")
 
 
+def is_stacked(key: str) -> bool:
+    """Whether ``key`` (dotted or slash-joined) is a per-layer leaf with a
+    leading L axis: under ``stack``, ``dense_stack`` or ``moe_stack``."""
+    return bool(_STACKED.search(key.replace(".", "/")))
+
+
 def _sanitize(spec, shape, world):
     """Replicate any dimension the world does not divide (the reference
     prefers that predictable layout to GSPMD's padding)."""
@@ -78,7 +84,7 @@ def _sanitize(spec, shape, world):
 def _spec(key, shape, fsdp, world):
     """``param_specs``' ``spec_one`` for one leaf of ``shape``."""
     ks = key.replace(".", "/")
-    stacked = bool(_STACKED.search(ks))
+    stacked = is_stacked(ks)
     base = next((spec for pat, spec in _rules(fsdp) if re.search(pat, ks)),
                 None)
     if base is None:

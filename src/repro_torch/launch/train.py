@@ -9,10 +9,12 @@ synthetic stream, and evaluates on the held-out split:
     PYTHONPATH=src python -m repro_torch.launch.train --arch vit-b16 \\
         --steps 10 --batch 128 --accum 2 --eval-every 10 --eval-batch 128
 
-A decoder (``--arch chatglm3-6b``, or the recurrent ``--arch rwkv6-7b``)
-trains on the synthetic token stream of ``--seq`` tokens per sequence (an
-epoch of ``--batch`` x ``--steps`` sequences, as the reference sizes it);
-``--layers`` cuts the depth:
+A decoder (the dense ``--arch chatglm3-6b``, ``qwen2.5-14b``, ``glm4-9b``
+or ``gemma3-12b``, the MoE ``--arch granite-moe-3b-a800m``, whose rows
+carry its load-balance loss as ``moe_aux``, or the recurrent ``--arch
+rwkv6-7b``) trains on the synthetic token stream of ``--seq`` tokens per
+sequence (an epoch of ``--batch`` x ``--steps`` sequences, as the
+reference sizes it); ``--layers`` cuts the depth:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
         --layers 4 --seq 1024 --batch 8 --accum 2 --steps 10

@@ -1,16 +1,19 @@
-"""The ViT, dense-decoder and RWKV6 branches of
+"""The ViT, dense-decoder, MoE-decoder and RWKV6 branches of
 ``repro.models.transformer``: init, forward, the training loss and the
 eval counts.
 
 Parameters keep the reference's layout so weights cross without
 transposes: dense weights are (in, out) and applied as ``x @ w``, the
-per-layer params are stacked on a leading L axis under ``stack``, and the
-flat keys are the reference pytree's dotted paths (``embed.patch_w``,
-``embed.tok``, ``stack.attn.wq``, ``stack.mlp.w_gate``, ``head.w``, ...).
-A decoder with ``tie_embeddings`` has no ``head.w``: its head is
-``embed.tok`` transposed, so the embedding's gradient sums both uses.
-Params are fp32; each is cast to ``cfg.dtype`` where it is used. The
-reference scans over layers; here a Python loop runs them, with each
+per-layer params are stacked on a leading L axis under ``stack`` (an MoE
+decoder: ``dense_stack`` for its ``moe.first_dense_layers`` leading dense
+layers and ``moe_stack`` for the rest, whose layers hold ``moe.*`` where a
+dense layer holds ``mlp.*``), and the flat keys are the reference
+pytree's dotted paths (``embed.patch_w``, ``embed.tok``,
+``stack.attn.wq``, ``stack.mlp.w_gate``, ``moe_stack.moe.experts.w_up``,
+``head.w``, ...). A decoder with ``tie_embeddings`` has no ``head.w``: its
+head is ``embed.tok`` transposed, so the embedding's gradient sums both
+uses. Params are fp32; each is cast to ``cfg.dtype`` where it is used.
+The reference scans over layers; here a Python loop runs them, with each
 layer's window a Python int, and ``cfg.remat`` checkpoints each layer's
 body as the reference's ``_remat`` does. The ViT normalises with
 LayerNorm, the decoders with RMSNorm (through K4/K5 when
@@ -18,6 +21,9 @@ LayerNorm, the decoders with RMSNorm (through K4/K5 when
 replaces attention and MLP by the time mix and the channel mix
 (``models/rwkv6.py``; WKV6 through K6/K7 when ``cfg.use_kernels``), under
 ``stack.time_mix.*`` and ``stack.channel_mix.*``, and takes no positions.
+An MoE layer's feed-forward is ``models/moe.py`` (``cfg.moe_impl``: GShard
+einsums or the gather slot table); its load-balance aux, summed over the
+layers, is added to the loss and reported as ``moe_aux``.
 """
 from __future__ import annotations
 
@@ -29,8 +35,10 @@ import torch.nn as nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
     create_selective_checkpoint_contexts
 
+from repro_torch.core.sharding import is_stacked
 from repro_torch.models.attention import attention_block
 from repro_torch.models.mlp import is_gated, mlp
+from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_gather
 from repro_torch.models.norms import layernorm, rmsnorm
 from repro_torch.models.params import dense_init, embed_init, ones, zeros
 from repro_torch.models.rwkv6 import init_rwkv6, init_rwkv6_channel_mix, \
@@ -55,6 +63,17 @@ def _is_rwkv(cfg) -> bool:
     return cfg.block_kind == "rwkv6"
 
 
+def _stacks(cfg):
+    """``[(prefix, layers, use_moe)]`` in the order the layers run: one
+    ``stack.`` group, or an MoE decoder's ``dense_stack.`` (when it has
+    leading dense layers) and ``moe_stack.``."""
+    if not cfg.has_moe:
+        return [("stack.", cfg.num_layers, False)]
+    nd = cfg.moe.first_dense_layers
+    return ([("dense_stack.", nd, False)] if nd > 0 else []) + \
+        [("moe_stack.", cfg.num_layers - nd, True)]
+
+
 def init_params(cfg, *, seed=0, device="cuda"):
     """Flat {dotted key: fp32 tensor} params, drawn from a CPU generator
     seeded with ``seed`` in a fixed order, then moved to ``device``."""
@@ -74,12 +93,9 @@ def init_params(cfg, *, seed=0, device="cuda"):
         }
     else:
         p = {"embed.tok": embed_init((cfg.vocab_size, d), **kw)}
-    # LayerNorm has a bias, RMSNorm only a scale (_init_norm)
-    for ln in ("ln1", "ln2"):
-        p[f"stack.{ln}.scale"] = ones((L, d), device=device)
-        if vit:
-            p[f"stack.{ln}.bias"] = zeros((L, d), device=device)
     if _is_rwkv(cfg):
+        for ln in ("ln1", "ln2"):
+            p[f"stack.{ln}.scale"] = ones((L, d), device=device)
         for name, group in (("time_mix", init_rwkv6(cfg, L, **kw)),
                             ("channel_mix", init_rwkv6_channel_mix(cfg, L,
                                                                    **kw))):
@@ -87,22 +103,32 @@ def init_params(cfg, *, seed=0, device="cuda"):
         p["final_norm.scale"] = ones((d,), device=device)
         p["head.w"] = dense_init((d, cfg.vocab_size), **kw)
         return p
-    p["stack.attn.wq"] = dense_init((L, d, h * hd), **kw)
-    p["stack.attn.wk"] = dense_init((L, d, kh * hd), **kw)
-    p["stack.attn.wv"] = dense_init((L, d, kh * hd), **kw)
-    p["stack.attn.wo"] = dense_init((L, h * hd, d), **kw)
-    if cfg.qkv_bias:
-        p["stack.attn.bq"] = zeros((L, h * hd), device=device)
-        p["stack.attn.bk"] = zeros((L, kh * hd), device=device)
-        p["stack.attn.bv"] = zeros((L, kh * hd), device=device)
-    gated = is_gated(cfg.act)
-    if gated:
-        p["stack.mlp.w_gate"] = dense_init((L, d, ff), **kw)
-    p["stack.mlp.w_up"] = dense_init((L, d, ff), **kw)
-    p["stack.mlp.w_out"] = dense_init((L, ff, d), **kw)
-    if not gated:
-        p["stack.mlp.b_up"] = zeros((L, ff), device=device)
-        p["stack.mlp.b_out"] = zeros((L, d), device=device)
+    for prefix, n, use_moe in _stacks(cfg):
+        # LayerNorm has a bias, RMSNorm only a scale (_init_norm)
+        for ln in ("ln1", "ln2"):
+            p[f"{prefix}{ln}.scale"] = ones((n, d), device=device)
+            if vit:
+                p[f"{prefix}{ln}.bias"] = zeros((n, d), device=device)
+        p[f"{prefix}attn.wq"] = dense_init((n, d, h * hd), **kw)
+        p[f"{prefix}attn.wk"] = dense_init((n, d, kh * hd), **kw)
+        p[f"{prefix}attn.wv"] = dense_init((n, d, kh * hd), **kw)
+        p[f"{prefix}attn.wo"] = dense_init((n, h * hd, d), **kw)
+        if cfg.qkv_bias:
+            p[f"{prefix}attn.bq"] = zeros((n, h * hd), device=device)
+            p[f"{prefix}attn.bk"] = zeros((n, kh * hd), device=device)
+            p[f"{prefix}attn.bv"] = zeros((n, kh * hd), device=device)
+        if use_moe:
+            p.update({f"{prefix}moe.{k}": v
+                      for k, v in init_moe(cfg, n, **kw).items()})
+            continue
+        gated = is_gated(cfg.act)
+        if gated:
+            p[f"{prefix}mlp.w_gate"] = dense_init((n, d, ff), **kw)
+        p[f"{prefix}mlp.w_up"] = dense_init((n, d, ff), **kw)
+        p[f"{prefix}mlp.w_out"] = dense_init((n, ff, d), **kw)
+        if not gated:
+            p[f"{prefix}mlp.b_up"] = zeros((n, ff), device=device)
+            p[f"{prefix}mlp.b_out"] = zeros((n, d), device=device)
     p["final_norm.scale"] = ones((d,), device=device)
     if vit:
         p["final_norm.bias"] = zeros((d,), device=device)
@@ -176,19 +202,25 @@ def _head(cfg, params, h):
     return h @ params["head.w"].to(h.dtype)
 
 
-def _block(cfg, layer, h, window, positions):
-    """One pre-norm layer on ``layer``'s params (its ``stack.`` slice with
-    the prefix dropped): ``h += attn(norm1 h)``, then ``h += mlp(norm2 h)``;
-    for RWKV6 the time mix and the channel mix."""
+def _block(cfg, layer, h, window, positions, use_moe=False, reduce=None):
+    """One pre-norm layer on ``layer``'s params (its stack's slice with the
+    prefix dropped): ``h += attn(norm1 h)``, then ``h += mlp(norm2 h)`` (or
+    the MoE's output with ``use_moe``); for RWKV6 the time mix and the
+    channel mix. Returns ``(h, the layer's MoE aux or None)``."""
     a_in = _apply_norm(cfg, layer, "ln1.", h)
     if _is_rwkv(cfg):
         h = h + rwkv6_time_mix(_layer(layer, "time_mix.", None), a_in, cfg)
         return h + rwkv6_channel_mix(_layer(layer, "channel_mix.", None),
-                                     _apply_norm(cfg, layer, "ln2.", h), cfg)
+                                     _apply_norm(cfg, layer, "ln2.", h),
+                                     cfg), None
     h = h + attention_block(_layer(layer, "attn.", None), a_in, cfg,
                             window=window, positions=positions)
     m_in = _apply_norm(cfg, layer, "ln2.", h)
-    return h + mlp(_layer(layer, "mlp.", None), m_in, cfg.act)
+    if not use_moe:
+        return h + mlp(_layer(layer, "mlp.", None), m_in, cfg.act), None
+    moe = moe_ffn_gather if cfg.moe_impl == "gather" else moe_ffn
+    ff, aux = moe(_layer(layer, "moe.", None), m_in, cfg, reduce)
+    return h + ff, aux
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -204,8 +236,10 @@ def _remat(cfg, fn):
     """``fn`` as the reference's ``_remat`` wraps a layer (``transformer.py:
     242-248``): "block" saves only its inputs and recomputes the body in
     the backward (as far as the backward needs), "dots" also saves the
-    outputs of its projection products (torch's selective checkpoint),
-    "none" saves everything."""
+    outputs of its projection products (torch's selective checkpoint; the
+    experts' batched products are recomputed), "none" saves everything.
+    Every output of ``fn`` (a layer's ``(h, aux)``) comes out of the
+    checkpointed body."""
     if cfg.remat == "none":
         return fn
     kw = {"use_reentrant": False}
@@ -215,34 +249,46 @@ def _remat(cfg, fn):
     return lambda *args: checkpoint(fn, *args, **kw)
 
 
-def forward(cfg, params, batch, gather=None):
-    """Logits in the compute dtype: (B, num_classes) for a preprocessed
-    float ``batch["images"]`` (B, H, W, 3), (B, S, vocab) for
-    ``batch["tokens"]`` (B, S). Pre-norm blocks: ``h += attn(norm1 h)``,
-    then ``h += mlp(norm2 h)``; for RWKV6 ``h += time_mix(norm1 h)``, then
-    ``h += channel_mix(norm2 h)`` (``_run_rwkv_stack``).
+def forward(cfg, params, batch, gather=None, reduce=None):
+    """``(logits, aux)``: logits in the compute dtype, (B, num_classes) for
+    a preprocessed float ``batch["images"]`` (B, H, W, 3), (B, S, vocab)
+    for ``batch["tokens"]`` (B, S); ``aux`` ``{"moe_aux": fp32 scalar}``,
+    the MoE layers' load-balance losses summed (0 without experts).
+    Pre-norm blocks: ``h += attn(norm1 h)``, then ``h += mlp(norm2 h)`` or
+    the MoE; for RWKV6 ``h += time_mix(norm1 h)``, then ``h +=
+    channel_mix(norm2 h)`` (``_run_rwkv_stack``). The layers run stack by
+    stack (``_stacks``), each with its window of ``cfg.layer_windows()``.
 
     ``gather``, when given, maps ``{key: param}`` to the tensors the model
     computes with where they are used: the non-stacked params once before
     the embed, the stacked ones a layer's slices at a time in the layer
     loop (ZeRO-3 gathers its shards there). The gather of a layer runs
     inside its checkpointed body under ``cfg.remat``, so the backward's
-    recompute gathers the layer again rather than keeping it whole."""
-    stacked = {k: v for k, v in params.items() if k.startswith("stack.")}
+    recompute gathers the layer again rather than keeping it whole.
+    ``reduce`` is the MoE's hook for its routed fractions (``models/
+    moe.py``): their mean over the data-parallel ranks."""
+    stacked = {k: v for k, v in params.items() if is_stacked(k)}
     if gather is not None:
         params = gather({k: v for k, v in params.items()
                          if k not in stacked})
     h, positions = _embed(cfg, params, batch)
 
-    def step(h, shards, window):
+    def step(h, shards, prefix, window, use_moe):
         layer = shards if gather is None else gather(shards)
-        return _block(cfg, _layer(layer, "stack.", None), h, window,
-                      positions)
+        return _block(cfg, _layer(layer, prefix, None), h, window,
+                      positions, use_moe, reduce)
 
     step = _remat(cfg, step)
-    for i, window in enumerate(cfg.layer_windows()):
-        h = step(h, {k: v[i] for k, v in stacked.items()}, window)
-    return _head(cfg, params, h)
+    windows = iter(cfg.layer_windows())
+    moe_aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for prefix, n, use_moe in _stacks(cfg):
+        group = {k: v for k, v in stacked.items() if k.startswith(prefix)}
+        for i in range(n):
+            h, aux = step(h, {k: v[i] for k, v in group.items()}, prefix,
+                          next(windows), use_moe)
+            if aux is not None:
+                moe_aux = moe_aux + aux
+    return _head(cfg, params, h), {"moe_aux": moe_aux}
 
 
 def _xent(logits, labels, mask=None):
@@ -274,14 +320,15 @@ def _soft_xent(logits, labels, *, smoothing=0.0):
     return (-(y * logp).sum(dim=-1)).mean()
 
 
-def loss_from_logits(cfg, logits, batch):
+def loss_from_logits(cfg, logits, batch, aux=None):
     """``(loss, metrics)`` of the reference's ``loss_from_logits``
-    (``transformer.py:600-640``). ViT: ``_soft_xent`` for soft labels or
+    (``transformer.py:592-627``). ViT: ``_soft_xent`` for soft labels or
     label smoothing, else ``_xent``; metrics ``acc``, ``moe_aux`` and
     ``loss``. Decoder: next-token ``_xent`` with the labels shifted by one
-    and the last position masked; metrics ``moe_aux`` and ``loss``.
-    ``moe_aux`` is 0: no ported model has an MoE."""
-    moe_aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    and the last position masked; metrics ``moe_aux`` and ``loss``. The
+    loss adds ``aux["moe_aux"]`` (``forward``'s; 0 when ``aux`` is None)."""
+    moe_aux = aux["moe_aux"] if aux is not None else torch.zeros(
+        (), dtype=torch.float32, device=logits.device)
     if not _is_vit(cfg):
         tok = batch["tokens"]
         mask = torch.ones(tok.shape, dtype=torch.bool, device=tok.device)
@@ -301,9 +348,10 @@ def loss_from_logits(cfg, logits, batch):
     return loss, {"acc": acc, "moe_aux": moe_aux, "loss": loss}
 
 
-def loss_fn(cfg, params, batch, gather=None):
+def loss_fn(cfg, params, batch, gather=None, reduce=None):
     """Scalar training loss and its metrics for a preprocessed batch."""
-    return loss_from_logits(cfg, forward(cfg, params, batch, gather), batch)
+    logits, aux = forward(cfg, params, batch, gather, reduce)
+    return loss_from_logits(cfg, logits, batch, aux)
 
 
 def classification_counts(logits, labels, mask=None, *, topk=5):
@@ -334,10 +382,11 @@ def classification_counts(logits, labels, mask=None, *, topk=5):
 
 
 class Transformer(nn.Module):
-    """Holds the params of either family as nested submodules, so
+    """Holds the params of any family as nested submodules, so
     ``state_dict()`` keys are the reference's dotted paths. The params are
     trainable fp32 leaves; eval runs under ``torch.inference_mode()`` and
-    records no graph."""
+    records no graph. Calling it gives the logits alone; training reads
+    the MoE aux through ``loss_fn``."""
 
     def __init__(self, cfg, params):
         super().__init__()
@@ -355,7 +404,7 @@ class Transformer(nn.Module):
         return dict(self.named_parameters())
 
     def forward(self, batch):
-        return forward(self.cfg, self.params(), batch)
+        return forward(self.cfg, self.params(), batch)[0]
 
 
 ViT = Transformer       # the name the eval and training callers use

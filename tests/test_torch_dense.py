@@ -107,8 +107,8 @@ def _port_loss_and_grads(cfg, tree, tokens):
     leaves = {k: v.requires_grad_() for k, v in
               params_from_numpy(tree).items()}
     tb = {"tokens": torch.from_numpy(tokens)}
-    logits = transformer.forward(cfg, leaves, tb)
-    loss, metrics = transformer.loss_from_logits(cfg, logits, tb)
+    logits, aux = transformer.forward(cfg, leaves, tb)
+    loss, metrics = transformer.loss_from_logits(cfg, logits, tb, aux)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return logits, loss, metrics, dict(zip(leaves, grads))
 
@@ -202,9 +202,9 @@ def test_gemma3_window_bites_at_the_test_length():
     cfg, _, tree = _smoke("gemma3-12b")
     tokens = {"tokens": torch.from_numpy(_tokens(1, SEQ["gemma3-12b"], 2))}
     params = params_from_numpy(tree)
-    narrow = transformer.forward(_port_cfg("gemma3-12b"), params, tokens)
-    wide = transformer.forward(_port_cfg("gemma3-12b", sliding_window=1024),
-                               params, tokens)
+    narrow, _ = transformer.forward(_port_cfg("gemma3-12b"), params, tokens)
+    wide, _ = transformer.forward(
+        _port_cfg("gemma3-12b", sliding_window=1024), params, tokens)
     assert cfg.sliding_window < SEQ["gemma3-12b"]
     assert torch.equal(narrow[:, :cfg.sliding_window],
                        wide[:, :cfg.sliding_window])
@@ -234,7 +234,8 @@ def test_embed_scale_is_rounded_to_the_compute_dtype(d_model):
     assert torch.equal(unrounded, got_h) == (d_model == 256)
     want = jax.jit(lambda p, b: ref_model.forward(ref_cfg, p, b)[0])(
         params, {"tokens": jnp.asarray(tokens)})
-    got = transformer.forward(cfg, port, {"tokens": torch.from_numpy(tokens)})
+    got, _ = transformer.forward(cfg, port,
+                                 {"tokens": torch.from_numpy(tokens)})
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), atol=0.1)
 
@@ -304,8 +305,8 @@ def test_softcap_never_reaches_the_flash_path(monkeypatch):
     for impl in ("naive", "blockwise"):
         pcfg = _port_cfg("gemma3-12b", attn_logit_softcap=5.0,
                          use_kernels=True, attn_impl=impl)
-        got = transformer.forward(pcfg, params_from_numpy(tree),
-                                  {"tokens": torch.from_numpy(tokens)})
+        got, _ = transformer.forward(pcfg, params_from_numpy(tree),
+                                     {"tokens": torch.from_numpy(tokens)})
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    atol=LOGITS_TOL)
 

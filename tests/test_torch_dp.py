@@ -2,7 +2,8 @@
 reference's ``param_specs``, microbatch membership, and training,
 evaluation, the anomaly guard and the batch invariant on gloo worlds of
 1, 2 and 4 CPU processes, against the single-device ``Trainer`` and the
-reference's pure functions.
+reference's pure functions; the MoE decoder's global load-balance loss
+and its ZeRO-3 checkpoint, saved at world 2 and restored on one device.
 
 One world per size is spawned for the whole module (``_worlds``); its ranks
 run every job of ``JOBS`` in order and send back numpy results. The ranks
@@ -11,7 +12,8 @@ reference), so it imports no JAX at module level: the two tests that hold
 the port against the reference import it themselves. Every world has a
 hard deadline and is killed at it. Tolerances: 2e-4 for losses, grad
 norms, params and moments, as ``tests/test_engine_distributed.py:43``;
-eval counts bitwise.
+3e-4 between ZeRO stages, as its ``:59-60``; the MoE aux rtol 1e-5, as
+``tests/test_perf_options.py``'s; eval counts and checkpoints bitwise.
 """
 import pytest
 
@@ -19,6 +21,9 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import concurrent.futures  # noqa: E402
+import dataclasses  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
 import re  # noqa: E402
 import time  # noqa: E402
 import types  # noqa: E402
@@ -41,6 +46,9 @@ from repro_torch.models.transformer import Transformer, \
     init_params  # noqa: E402
 
 TOL = 2e-4
+STAGE_TOL = 3e-4
+AUX_RTOL = 1e-5
+GRANITE = "granite-moe-3b-a800m"
 STEPS, BATCH, ACCUM = 3, 8, 2
 WORLDS = (1, 2, 4)
 DEADLINE_S = 240
@@ -48,7 +56,8 @@ DEADLINE_S = 240
 # name -> (arch, zero stage, optimizer, augment, data[, remat]); "synthetic"
 # is the fp32 stream, "cifar" procedural uint8 CIFAR-10, "tokens" the LM
 # stream; remat checkpoints each layer (so ZeRO-3 gathers it again in the
-# backward's recompute)
+# backward's recompute); "<arch>:gather" takes the MoE's gather dispatch
+# at a capacity factor of 8, where no rank drops a token (deviation D4)
 TRAIN_JOBS = {
     "vit-z0": ("vit-b16", 0, "adamw", False, "cifar"),
     "vit-z1": ("vit-b16", 1, "adamw", False, "cifar"),
@@ -62,13 +71,23 @@ TRAIN_JOBS = {
     "gemma3-z3": ("gemma3-12b", 3, "adamw", False, "tokens"),
     "gemma3-z3-block": ("gemma3-12b", 3, "adamw", False, "tokens", "block"),
     "gemma3-z3-dots": ("gemma3-12b", 3, "adamw", False, "tokens", "dots"),
+    "granite-z0": (GRANITE, 0, "adamw", False, "tokens"),
+    "granite-z1": (GRANITE, 1, "adamw", False, "tokens"),
+    "granite-z2": (GRANITE, 2, "adamw", False, "tokens"),
+    "granite-z3": (GRANITE, 3, "adamw", False, "tokens"),
+    "granite-gather-z3": (GRANITE + ":gather", 3, "adamw", False, "tokens"),
 }
+GRANITE_JOBS = [j for j in TRAIN_JOBS if j.startswith("granite")]
 GUARD_STAGES = (1, 3)
 EVAL_SIZE, EVAL_BATCH = 50, 8       # the last batch has 2 real rows
 
 
 def _cfg(arch):
+    arch, _, impl = arch.partition(":")
     cfg = configs.get_smoke_config(arch).replace(dtype="float32")
+    if impl == "gather":
+        cfg = cfg.replace(moe_impl="gather", moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
     if arch == "rwkv6-7b":
         # fp32 RWKV6 gradients are ill-conditioned at the model's eps (the
         # repo's convention: tests/test_torch_rwkv6.py)
@@ -115,15 +134,16 @@ def _train(trainer, pipe, params):
     shapes = {"params": {k: tuple(p.shape) for k, p in state.params.items()},
               "mu": {k: tuple(p.shape) for k, p in
                      state.opt_state.mu.items()}}
-    losses, gnorms = [], []
+    losses, gnorms, auxes = [], [], []
     for i in range(STEPS):
         state, m = trainer.train_step(state, to_device(pipe.batch_at(0, i),
                                                        "cpu"))
         assert m["step_ok"] == 1
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
+        auxes.append(float(m["moe_aux"]))
     opt = trainer.full_opt_state(state)
-    return {"losses": losses, "gnorms": gnorms,
+    return {"losses": losses, "gnorms": gnorms, "auxes": auxes,
             "params": _np(trainer.full_params(state)), "mu": _np(opt.mu),
             "nu": _np(opt.nu), "shapes": shapes}
 
@@ -209,7 +229,35 @@ def _collectives(world):
     return out
 
 
-def _run_jobs(world, jobs, init):
+def _moe_gather(world):
+    """ZeRO-3's gather of layer 0's slices of every ``moe_stack`` leaf (this
+    rank's chunks) against the whole leaves' layer 0: True where equal."""
+    trainer, _, params = _setup(TRAIN_JOBS["granite-z3"], world)
+    whole = {k: v.clone() for k, v in params.items()}
+    state = trainer.init_state(params)
+    keys = [k for k in state.params if k.startswith("moe_stack.")]
+    got = trainer.gather({k: state.params[k][0] for k in keys})
+    sharded = [k for k in keys if trainer.param_dims[k] is not None]
+    return {"sharded": sharded,
+            "equal": {k: bool(torch.equal(got[k], whole[k][0]))
+                      for k in keys}}
+
+
+def _moe_ckpt(world, root):
+    """Two granite-smoke steps at ZeRO-3, saved under ``root``; returns the
+    whole state."""
+    trainer, pipe, params = _setup(TRAIN_JOBS["granite-z3"], world)
+    state = trainer.init_state(params)
+    for i in range(2):
+        state, _ = trainer.train_step(state, to_device(pipe.batch_at(0, i),
+                                                       "cpu"))
+    trainer.save_state(os.path.join(root, "granite-z3"), state)
+    opt = trainer.full_opt_state(state)
+    return {"params": _np(trainer.full_params(state)), "mu": _np(opt.mu),
+            "nu": _np(opt.nu), "step": state.step}
+
+
+def _run_jobs(world, jobs, init, root):
     """Every rank's body: run ``jobs`` in order, send back rank 0's
     results (and every rank's, where they must agree across ranks)."""
     out = {}
@@ -227,6 +275,10 @@ def _run_jobs(world, jobs, init):
             out[name] = _invariant(world)
         elif name == "collectives":
             out[name] = _collectives(world)
+        elif name == "moe-gather":
+            out[name] = _moe_gather(world)
+        elif name == "moe-ckpt":
+            out[name] = _moe_ckpt(world, root)
     return out
 
 
@@ -234,9 +286,9 @@ def _jobs(size):
     jobs = list(TRAIN_JOBS) + ["eval", "collectives"] + \
         [f"guard{z}" for z in GUARD_STAGES]
     if size > 1:
-        jobs.append("invariant")
+        jobs += ["invariant", "moe-gather"]
     if size == 2:
-        jobs.append("reference")
+        jobs += ["reference", "moe-ckpt"]
     return jobs
 
 
@@ -253,13 +305,19 @@ def ref_init():
 
 
 @pytest.fixture(scope="module")
-def _worlds(ref_init):
+def ckpt_root(tmp_path_factory):
+    return tmp_path_factory.mktemp("dp-ckpt")
+
+
+@pytest.fixture(scope="module")
+def _worlds(ref_init, ckpt_root):
     """{world size: [each rank's results]}, one spawned world per size,
     the worlds side by side."""
     with concurrent.futures.ThreadPoolExecutor(len(WORLDS)) as pool:
         runs = {size: pool.submit(
             distributed.spawn, _run_jobs, size, _jobs(size), ref_init[2],
-            device="cpu", deadline_s=DEADLINE_S, timeout_s=60)
+            str(ckpt_root), device="cpu", deadline_s=DEADLINE_S,
+            timeout_s=60)
             for size in WORLDS}
         return {size: run.result() for size, run in runs.items()}
 
@@ -449,6 +507,87 @@ def test_zero3_state_holds_a_chunk_of_each_sharded_leaf(_worlds, world):
                     if dims[k] is not None:
                         want[dims[k]] //= world
                     assert list(shape) == want, (job, part, k)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("job", GRANITE_JOBS)
+def test_moe_dp_matches_one_process(_worlds, single, world, job):
+    """Granite smoke, fp32, 3 steps of global batch 8 x 32 (accum 2): every
+    rank's losses, grad norms, gathered params and moments within 2e-4 of
+    the one-process run, and the load-balance loss (``moe_aux``) within
+    rtol 1e-5. Each rank holds 1 or 2 rows of a microbatch: its own routed
+    fractions would give another aux, so this holds only with the global
+    fractions (``Trainer.forward_reduce``). The gather dispatch runs at a
+    capacity factor of 8, where a rank's local capacity drops nothing."""
+    want = single[job]
+    for rank, res in enumerate(_worlds[world]):
+        got = res[job]
+        np.testing.assert_allclose(got["losses"], want["losses"], atol=TOL)
+        np.testing.assert_allclose(got["gnorms"], want["gnorms"], atol=TOL)
+        np.testing.assert_allclose(got["auxes"], want["auxes"],
+                                   rtol=AUX_RTOL)
+        assert all(a > 0 for a in got["auxes"])
+        for part in ("params", "mu", "nu"):
+            _close(got[part], want[part], f"{job} world {world} rank "
+                   f"{rank} {part}")
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_moe_zero_stages_agree(_worlds, world):
+    """ZeRO 1, 2 and 3 against ZeRO 0 on the same world (granite smoke):
+    losses, grad norms and params within 3e-4."""
+    want = _worlds[world][0]["granite-z0"]
+    for stage in (1, 2, 3):
+        got = _worlds[world][0][f"granite-z{stage}"]
+        for key in ("losses", "gnorms"):
+            np.testing.assert_allclose(got[key], want[key], atol=STAGE_TOL)
+        for k in want["params"]:
+            np.testing.assert_allclose(got["params"][k], want["params"][k],
+                                       atol=STAGE_TOL, rtol=0,
+                                       err_msg=f"zero{stage} {k}")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_zero3_gathers_a_moe_stack_leaf_whole(_worlds, world):
+    """A ``moe_stack`` leaf's layer slice is gathered along its own sharded
+    dimension (one less than the stacked leaf's): the whole slice."""
+    for res in _worlds[world]:
+        g = res["moe-gather"]
+        assert "moe_stack.moe.experts.w_gate" in g["sharded"]
+        assert "moe_stack.moe.experts.w_out" in g["sharded"]
+        assert all(g["equal"].values()), g["equal"]
+
+
+def test_moe_zero3_checkpoint_restores_on_one_device(_worlds, ckpt_root):
+    """Granite smoke saved at world 2 under ZeRO-3 (``(L, E, d, f)``
+    expert leaves in chunks) restores on one device bitwise; the saved
+    keys are the reference pytree's paths (``params/moe_stack/moe/experts
+    /w_gate``, ...)."""
+    from repro import configs as ref_configs
+    from repro.models import transformer as ref_model
+    import jax
+    saved = _worlds[2][0]["moe-ckpt"]
+    root = ckpt_root / "granite-z3"
+    trainer, _, _ = _setup(TRAIN_JOBS["granite-z3"], None)
+    state = trainer.restore_state(str(root))
+    assert state.step == saved["step"] == 2
+    opt = trainer.full_opt_state(state)
+    for part, tree in (("params", state.params), ("mu", opt.mu),
+                       ("nu", opt.nu)):
+        for k, v in tree.items():
+            assert np.array_equal(v.numpy(), saved[part][k]), (part, k)
+    manifest = json.loads((root / "step_00000002" / "manifest.json")
+                          .read_text())
+    cfg = ref_configs.get_smoke_config(GRANITE)
+    shapes = jax.eval_shape(lambda: ref_model.init_params(
+        cfg, jax.random.PRNGKey(0)))
+    paths = {"params/" + k.replace(".", "/")
+             for k in _flat_tree(shapes)}
+    assert {k for k in manifest["leaves"] if k.startswith("params/")} == \
+        paths
+    assert "params/moe_stack/moe/experts/w_gate" in paths
+    leaf = manifest["leaves"]["params/moe_stack/moe/experts/w_gate"]
+    assert leaf["shape"] == [2, 4, 128, 64] and len(leaf["shards"]) == 2
 
 
 def test_world2_zero3_matches_reference(_worlds, ref_init):

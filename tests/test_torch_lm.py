@@ -104,7 +104,7 @@ def test_config_fields_match_reference(factory):
 
 @pytest.mark.parametrize("change", [
     {"block_kind": "mla"}, {"arch_type": "audio"},
-    {"rope_style": "mrope"}, {"arch_type": "moe"}, {"arch_type": "vlm"}])
+    {"rope_style": "mrope"}, {"arch_type": "hybrid"}, {"arch_type": "vlm"}])
 def test_unported_branches_raise(change):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         configs.get_config(ARCH).replace(**change)
@@ -196,11 +196,11 @@ def test_logits_loss_and_grads_match_jax(smoke, use_kernels):
     leaves = {k: v.requires_grad_() for k, v in
               params_from_numpy(tree).items()}
     tb = {"tokens": torch.from_numpy(batch["tokens"])}
-    logits = transformer.forward(pcfg, leaves, tb)
+    logits, aux = transformer.forward(pcfg, leaves, tb)
     assert logits.shape == (2, SEQ, VOCAB) and logits.dtype == torch.float32
     np.testing.assert_allclose(logits.detach().numpy(),
                                np.asarray(want_logits), atol=LOGITS_TOL)
-    got_loss, got_m = transformer.loss_from_logits(pcfg, logits, tb)
+    got_loss, got_m = transformer.loss_from_logits(pcfg, logits, tb, aux)
     assert set(got_m) == set(metrics) == {"loss", "moe_aux"}
     np.testing.assert_allclose(float(got_loss.detach()), float(loss),
                                rtol=LOSS_TOL, atol=LOSS_TOL)

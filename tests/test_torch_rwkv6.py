@@ -276,10 +276,10 @@ def test_logits_loss_and_grads_match_jax(smoke, use_kernels):
     leaves = {k: v.requires_grad_() for k, v in
               params_from_numpy(tree).items()}
     tb = {"tokens": torch.from_numpy(tokens)}
-    logits = transformer.forward(pcfg, leaves, tb)
+    logits, aux = transformer.forward(pcfg, leaves, tb)
     assert logits.shape == (2, SEQ, VOCAB) and logits.dtype == torch.float32
     _close(logits, want_logits, LOGITS_TOL, "logits")
-    got_loss, got_m = transformer.loss_from_logits(pcfg, logits, tb)
+    got_loss, got_m = transformer.loss_from_logits(pcfg, logits, tb, aux)
     assert set(got_m) == set(metrics) == {"loss", "moe_aux"}
     np.testing.assert_allclose(float(got_loss.detach()), float(loss),
                                rtol=LOSS_TOL, atol=LOSS_TOL)
