@@ -5,7 +5,9 @@ the port's main paths (ViT-B/16 eval and training, one card and
 data-parallel under ZeRO 0-3 with augmentation, preempted and resumed from
 checkpoints and supervised under injected faults, ChatGLM3-6B, RWKV6-7B,
 Gemma3-12B, Qwen2.5-14B, GLM-4-9B and Granite-MoE 3B-A800M training) at
-full width through its CLI, and checks the results.
+full width through its CLI, and DeepSeek-V3 (MLA and the multi-token
+prediction head) at full width through its ``Trainer``, and checks the
+results.
 
     python3 chip_smoke.py [--profile]
 
@@ -34,7 +36,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    micro-shape.
 5. K4 and K5 against ``ref_rmsnorm_fwd``/``ref_rmsnorm_bwd`` at the
    decoder's shape (4096 x 4096), Gemma3's (4096 x 3840), Qwen2.5's
-   (4096 x 5120) and Granite-MoE's (4096 x 1536) rows, the smoke shape, the reference's
+   (4096 x 5120), Granite-MoE's (4096 x 1536) and DeepSeek-V3's (2048 x
+   7168, 2048 x 1536, and 2048 x 512 in rows 576 apart: kv_norm's slice
+   of the w_dkv output) rows, the smoke shape, the reference's
    RMS_CASES, one row and odd D, in bf16 and fp32 (out, dx, dscale within
    1e-4 / 6e-2, rinv within 1e-4 relative), K5 twice for a bitwise equal
    dscale; ``torch.autograd.grad`` through ``ops.fused_rmsnorm``; then
@@ -196,22 +200,49 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    and gather dispatch in turns (recorded, not gated); one MoE layer's
    routing, dispatch, expert products and combine timed alone (a
    reading).
+14. DeepSeek-V3's multi-head latent attention and MTP head: K1-K3 at its
+   attention shape (B 2, H = KH = 128, S = T = 1024, q/k head dim 192,
+   v head dim 128, causal; V not padded) against their plain versions in
+   bf16 and fp32 in the model's layout, K2 and K3 run twice for bitwise
+   equality, then ragged (S = T = 197, 1000), non-causal (contiguous
+   tensors), windowed and GQA (K3's group split) cases at (192, 128),
+   ``torch.autograd.grad`` through ``flash_mha`` at the MLA shape, and
+   the three timed beside SDPA (its backends that take Dv != D named) and
+   the bounds; then ``deepseek-v3-671b`` at full width cut to one MoE
+   layer of 16 routed experts (3.476 B params; the CLI has no flag for the
+   expert count, so the port's ``Trainer`` runs in process): 10 steps in
+   bf16 at batch 2 x 1024, accum 1, GShard, with the counters reset just
+   before and read just after (K1-K3 10 x 2 = 20 each: the layer and the
+   MTP block; K4/K5 10 x 12 = 120 each: ln1, q_norm, kv_norm, ln2, the
+   final norm and the MTP head's seven), no layout copy (the kv_norm rows
+   are read at their 576-element stride), every loss, grad norm and
+   ``moe_aux`` finite, ``moe_aux`` > 0, ``step_ok`` 1, the MTP term
+   printed (the first batch's next-token and MTP cross-entropies against
+   step 0's loss less ``moe_aux``), the peak of allocated device memory
+   beside the prediction; kernel against naive path on one microbatch of
+   1 x 1024 from the initial params, routing differences printed (fp32
+   within 2e-4 on the kernel path's forced routing, every ``mtp.*`` leaf
+   included; bf16 cosine >= 0.99); warm tokens/s of both paths in turns
+   (a reading, not gated).
 
 ``--profile`` adds a ``torch.profiler`` table of one warm training step of
-each training slice (and of the ZeRO-3 step at world 1), and at the end (after every timed phase) of one warm
-bf16 eval pass of the eval slice.
+each training slice (DeepSeek-V3's included, and the ZeRO-3 step at world
+1), and at the end (after every timed phase) of one warm bf16 eval pass of
+the eval slice.
 The last lines are one JSON object for the kernels (K1-K3 with the
 decoder's numbers and the ViT's under ``vit``, Gemma3's attention times and
 its training run's launches under ``gemma3`` and ``gemma3_launches``, the
 Qwen2.5 and GLM-4 runs' under ``dense_launches``, Granite-MoE's attention times and
-its training run's launches under ``granite`` and ``granite_launches``, the
+its training run's launches under ``granite`` and ``granite_launches``,
+DeepSeek-V3's MLA attention times and its training run's launches under
+``deepseek`` and ``deepseek_launches``, the
 data-parallel runs'
 launches there under ``dp_launches``, the preempted and resumed runs'
 under ``resume_launches`` and phase 8d's under ``data_launches``, K4/K5
 with the RWKV6 run's launches and the decoder's, Gemma3's, Qwen2.5's,
-GLM-4's and Granite-MoE's beside them, K6/K7; each
-redesigned kernel with its ``routes``), the card's
-``nvidia-smi`` name and power limit, and the ``ok`` line.
+GLM-4's, Granite-MoE's and DeepSeek-V3's beside them, K6/K7; each
+redesigned kernel with its ``routes``), the whole script's time, the
+card's ``nvidia-smi`` name and power limit, and the ``ok`` line.
 """
 from __future__ import annotations
 
@@ -259,18 +290,22 @@ LM_TRAIN_ARGS = ["--arch", "chatglm3-6b", "--layers", str(LM_LAYERS),
 RMS_TOL = {"float32": 1e-4, "bfloat16": 6e-2}  # tests/test_kernel_grads.py
 TOL_RINV = 1e-4                                # relative
 # label, shape, row width (None: contiguous rows); the first is the
-# decoder's (micro-batch 4 x seq 1024, d 4096), then the smoke config's
-# (4 x 64, d 256), Gemma3-12B's (micro-batch 1 x 4096, d 3840),
-# Qwen2.5-14B's (4 x 1024, d 5120) and Granite-MoE's (4 x 1024, d 1536),
-# the reference's RMS_CASES, one row, an
-# odd D (rows not
-# 16-byte aligned: scalar loads) and an odd D in wider rows (16-byte
-# vectors and a scalar tail)
+# decoder's (micro-batch 4 x seq 1024, d 4096), then Gemma3-12B's
+# (micro-batch 1 x 4096, d 3840), Qwen2.5-14B's (4 x 1024, d 5120),
+# Granite-MoE's (4 x 1024, d 1536), DeepSeek-V3's (2 x 1024: d 7168 for
+# ln1, ln2, the final and the MTP norms, q_norm's 1536, and kv_norm's 512
+# in rows of w_dkv's 576 columns), the smoke config's (4 x 64, d 256), the
+# reference's RMS_CASES, one row, an odd D (rows not 16-byte aligned:
+# scalar loads) and an odd D in wider rows (16-byte vectors and a scalar
+# tail)
 RMS_CASES = [
     ("decoder", (4096, 4096), None),
     ("gemma3", (4096, 3840), None),
     ("qwen2.5", (4096, 5120), None),
     ("granite", (4096, 1536), None),
+    ("deepseek", (2048, 7168), None),
+    ("ds q_norm", (2048, 1536), None),
+    ("ds kv_norm", (2048, 512), 576),
     ("smoke", (4, 64, 256), None),
     ("ref", (64, 256), None),
     ("ragged", (3, 37, 128), None),
@@ -400,6 +435,27 @@ GRANITE_ARGS = ["--arch", GRANITE, "--layers", str(GRANITE_LAYERS), "--seq",
 # expert tensors at that capacity hold ~7 GB a layer
 IMPL_CF, IMPL_LAYERS = 8.0, 2
 IMPL_LOGITS_TOL, IMPL_GRAD_TOL = 2e-5, 5e-5
+# the MLA slice: deepseek-v3-671b at full width (d 7168, 128 heads, q and
+# k heads of 128 + 64, v heads of 128, latents of 1536 and 512, vocabulary
+# 129,280 untied, experts of 2048 with top-8 and a shared one, the MTP
+# head with its dense block of 18,432), cut to one MoE layer (of 61, three
+# of them dense) and 16 routed experts (of 256): 3.476 B params, whose
+# fp32 params, grads and AdamW moments take 55.6 GB of the card's 80
+DEEPSEEK = "deepseek-v3-671b"
+DS_LAYERS, DS_EXPERTS, DS_BATCH, DS_STEPS = 1, 16, 2, 10
+DS_PEAK_GB = (66.0, 74.0)       # the predicted peak (PERF.md, §6)
+# its attention on one batch of 2 x 1024: B, H, KH, S, T, D, Dv
+MLA_ATTN_SHAPE = (2, 128, 128, LM_SEQ, LM_SEQ, 192, 128)
+# label, shape, causal, window, model layout: ragged S = T, non-causal in
+# contiguous (B,H,S,D) tensors, a window, and a GQA group of 4 (K3's bf16
+# group split and its fp32 partials with rows of D holding Dv)
+MLA_CASES = [
+    ("ragged 197", (2, 8, 8, 197, 197, 192, 128), True, 0, True),
+    ("ragged 1000", (1, 8, 8, 1000, 1000, 192, 128), True, 0, True),
+    ("non-causal", (2, 8, 8, 197, 197, 192, 128), False, 0, False),
+    ("window 256", (1, 8, 8, 1000, 1000, 192, 128), True, 256, True),
+    ("gqa 4", (2, 8, 2, 300, 300, 192, 128), True, 0, True),
+]
 # The redesigned kernels and the routes each takes; their rows say so, and
 # PERF.md's kernel table keeps the earlier design's times
 ROUTES = {
@@ -474,18 +530,27 @@ def live_pairs(s, t, causal, window):
     return n
 
 
+def head_dims(shape):
+    """(D, Dv) of an attention shape (B, H, KH, S, T, D[, Dv])."""
+    return shape[5], shape[6] if len(shape) > 6 else shape[5]
+
+
 def attn_work(shape, el, causal, window=0):
     """Bytes each attention kernel must move and the FLOPs of its products
-    at ``shape`` (B, H, KH, S, T, D) with ``el``-byte elements, counting
-    the live (query, key) pairs only (``live_pairs``: the causal triangle,
-    cut by the window)."""
-    b, h, kh, s, t, d = shape
+    at ``shape`` (B, H, KH, S, T, D[, Dv]) with ``el``-byte elements,
+    counting the live (query, key) pairs only (``live_pairs``: the causal
+    triangle, cut by the window). Q K^T and dq = dS K run over D, P V and
+    dO V^T over Dv."""
+    b, h, kh, s, t = shape[:5]
+    d, dv = head_dims(shape)
     pairs = b * h * live_pairs(s, t, causal, window)
-    q, kv, rows = b * h * s * d * el, b * kh * t * d * el, b * h * s * 4
+    q, o = b * h * s * d * el, b * h * s * dv * el
+    k, v, rows = b * kh * t * d * el, b * kh * t * dv * el, b * h * s * 4
     return {    # K1: q, k, v, o, lse; K2: + dO, dq, delta; K3: dk, dv
-        "fwd": (2 * q + 2 * kv + rows, 4 * pairs * d),
-        "dq": (4 * q + 2 * kv + 2 * rows, 6 * pairs * d),
-        "dkv": (2 * q + 4 * kv + 2 * rows, 8 * pairs * d),
+        "fwd": (q + k + v + o + rows, 2 * pairs * (d + dv)),
+        "dq": (2 * q + k + v + 2 * o + 2 * rows, 2 * pairs * (2 * d + dv)),
+        "dkv": (q + o + 2 * k + 2 * v + 2 * rows,
+                2 * pairs * (2 * d + 2 * dv)),
     }
 
 
@@ -561,7 +626,8 @@ def phase_build():
                 if "_tc_" in m.group(1):    # the bf16 tensor-core route
                     args = ["bf16"]
                 names = ("P", "cs") if "wkv6" in m.group(1) else \
-                    ("units",) if "rmsnorm_bwd" in m.group(1) else ("D",)
+                    ("units",) if "rmsnorm_bwd" in m.group(1) else \
+                    ("D", "Dv")
                 args += [f"{n}={v}" for n, v in zip(
                     names, re.findall(r"Li(\d+)E", m.group(3) or ""))]
                 kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
@@ -624,7 +690,6 @@ def phase_k23(card):
     end, and their timing at the training micro-shape."""
     import torch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.ops import flash_mha
     from repro_torch.kernels.ref import ref_attention_bwd
 
     inputs = model_layout_inputs(torch.Generator(device="cuda").manual_seed(1))
@@ -656,32 +721,7 @@ def phase_k23(card):
             errs = {"dq": max(res[0][0], res[3][0]),
                     "dkv": max(res[1][0], res[2][0])}
 
-    # the autograd Function end to end, in the model layout at the
-    # micro-shape: torch.autograd.grad through flash_mha against the plain
-    # backward; the gradients keep the primals' layout, with no dO copy
-    for dname in ("bfloat16", "float32"):
-        dtype, tol = getattr(torch, dname), TOL_OUT[dname]
-        q, k, v, w = (x.transpose(1, 2) for x in inputs(
-            *TRAIN_SHAPE, dtype, model_layout=True))
-        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        fa.kernel_layout.copies = 0
-        got = torch.autograd.grad(flash_mha(*leaves, causal=False), leaves,
-                                  grad_outputs=w)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        out, lse = fa.flash_attention_fwd(qt, kt, vt, causal=False)
-        want = ref_attention_bwd(qt, kt, vt, out, lse, w.transpose(1, 2),
-                                 causal=False)
-        res = [close(g.transpose(1, 2), r, tol)
-               for g, r in zip(got, want[:3])]
-        layout = [g.stride() == x.stride() for g, x in zip(got, leaves)]
-        ok = all(r[1] for r in res) and all(layout) and fa.kernel_layout.copies == 0
-        print(f"[k23] autograd.grad(flash_mha) {dname}: max|dgrad|="
-              f"{max(r[0] for r in res):.3e} (tol {tol}); grads in the "
-              f"primals' layout {layout}; dO copies {fa.kernel_layout.copies} "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            fail(f"the autograd Function disagrees in {dname}")
-
+    check_autograd("k23", TRAIN_SHAPE, inputs, causal=False)
     t = attention_times(card, TRAIN_SHAPE, False, inputs, "k23")
     rows = []
     for key, name, line in (("dq", "flash_bwd_dq", 399),
@@ -693,6 +733,61 @@ def phase_k23(card):
                      "launches": None, "max_abs_err": errs[key],
                      **t[key]})
     return rows
+
+
+def check_autograd(tag, shape, inputs, causal):
+    """The autograd Function end to end, in the model layout at ``shape``:
+    torch.autograd.grad through ``flash_mha`` against the plain backward
+    in bf16 and fp32; the gradients keep the primals' layout, with no dO
+    copy."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ops import flash_mha
+    from repro_torch.kernels.ref import ref_attention_bwd
+
+    for dname in ("bfloat16", "float32"):
+        dtype, tol = getattr(torch, dname), TOL_OUT[dname]
+        q, k, v, w = (x.transpose(1, 2) for x in shape_inputs(
+            inputs, shape, dtype, True))
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        fa.kernel_layout.copies = 0
+        got = torch.autograd.grad(flash_mha(*leaves, causal=causal), leaves,
+                                  grad_outputs=w)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        out, lse = fa.flash_attention_fwd(qt, kt, vt, causal=causal)
+        want = ref_attention_bwd(qt, kt, vt, out, lse, w.transpose(1, 2),
+                                 causal=causal)
+        res = [close(g.transpose(1, 2), r, tol)
+               for g, r in zip(got, want[:3])]
+        layout = [g.stride() == x.stride() for g, x in zip(got, leaves)]
+        ok = all(r[1] for r in res) and all(layout) and \
+            fa.kernel_layout.copies == 0
+        print(f"[{tag}] autograd.grad(flash_mha) at {shape} {dname} causal="
+              f"{causal}: max|dgrad|={max(r[0] for r in res):.3e} (tol "
+              f"{tol}); grads in the primals' layout {layout}; dO copies "
+              f"{fa.kernel_layout.copies} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail(f"the autograd Function disagrees at {shape} in {dname}")
+
+
+def sdpa_backends(q, k, v, **kw):
+    """The names of the SDPA backends that take these inputs (each forced
+    alone in turn): the one that serves Dv != D is named so."""
+    import warnings
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    names = []
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel([be]):
+                warnings.simplefilter("ignore")
+                F.scaled_dot_product_attention(q, k, v, **kw)
+            names.append(be.name)
+        except RuntimeError:
+            pass
+    return names
 
 
 def attention_times(card, shape, causal, inputs, tag, window=0):
@@ -710,7 +805,7 @@ def attention_times(card, shape, causal, inputs, tag, window=0):
         ref_attention_bwd
 
     kw = {"causal": causal, "window": window}
-    q, k, v, do = inputs(*shape, torch.bfloat16, model_layout=True)
+    q, k, v, do = shape_inputs(inputs, shape, torch.bfloat16, True)
     out, lse = fa.flash_attention_fwd(q, k, v, **kw)
     _, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, **kw)
     ms = {
@@ -731,6 +826,13 @@ def attention_times(card, shape, causal, inputs, tag, window=0):
                                            window=window, device="cuda")}
     if shape[1] != shape[2]:
         sdpa_kw["enable_gqa"] = True
+    if len(set(head_dims(shape))) > 1:
+        with torch.no_grad():
+            names = sdpa_backends(qc, kc, vc, **sdpa_kw)
+        print(f"[{tag}] SDPA backends that take D {head_dims(shape)[0]}, Dv "
+              f"{head_dims(shape)[1]}: {names} (the default dispatch, timed "
+              f"below, takes the first of them in its own order)",
+              flush=True)
 
     def sdpa_fwd_bwd():
         o = F.scaled_dot_product_attention(qc, kc, vc, **sdpa_kw)
@@ -761,20 +863,28 @@ def attention_times(card, shape, causal, inputs, tag, window=0):
 
 
 def model_layout_inputs(gen):
-    """``inputs(b, h, kh, s, t, d, dtype, model_layout)`` -> q, k, v, dO;
-    in the model's (B,S,H,D) buffers seen as (B,H,S,D) when
-    ``model_layout``, as the training path hands them over."""
+    """``inputs(b, h, kh, s, t, d, dtype, model_layout, dv=None)`` -> q, k,
+    v, dO (v and dO Dv = ``dv`` wide, D by default); in the model's
+    (B,S,H,D) buffers seen as (B,H,S,D) when ``model_layout``, as the
+    training path hands them over."""
     import torch
 
-    def inputs(b, h, kh, s, t, d, dtype, model_layout):
-        def mk(bb, hh, n):
+    def inputs(b, h, kh, s, t, d, dtype, model_layout, dv=None):
+        def mk(bb, hh, n, w):
             if model_layout:
-                return torch.randn((bb, n, hh, d), device="cuda",
+                return torch.randn((bb, n, hh, w), device="cuda",
                                    generator=gen).to(dtype).transpose(1, 2)
-            return torch.randn((bb, hh, n, d), device="cuda",
+            return torch.randn((bb, hh, n, w), device="cuda",
                                generator=gen).to(dtype)
-        return mk(b, h, s), mk(b, kh, t), mk(b, kh, t), mk(b, h, s)
+        dv = dv or d
+        return mk(b, h, s, d), mk(b, kh, t, d), mk(b, kh, t, dv), \
+            mk(b, h, s, dv)
     return inputs
+
+
+def shape_inputs(inputs, shape, dtype, model_layout):
+    """``inputs`` at an attention shape (B, H, KH, S, T, D[, Dv])."""
+    return inputs(*shape[:6], dtype, model_layout, dv=head_dims(shape)[1])
 
 
 def phase_lm_attention(card):
@@ -813,11 +923,14 @@ def phase_gemma_attention(card):
     return {key: dict(t[key], max_abs_err=errs[key]) for key in t}
 
 
-def check_attention(tag, what, shape, inputs, windows=(0,)):
-    """K1-K3 at ``shape`` (causal, with each window of ``windows``) against
-    their plain versions in bf16 and fp32, K2 and K3 each run twice for
-    bitwise equal outputs; fails on any disagreement. Returns the bf16
-    errors at the first window: {"fwd", "dq", "dkv": max |error|}."""
+def check_attention(tag, what, shape, inputs, windows=(0,), causal=True,
+                    layout=True):
+    """K1-K3 at ``shape`` (B, H, KH, S, T, D[, Dv]) (causal or not, with
+    each window of ``windows``; in the model's layout or contiguous (B,H,S,D)
+    tensors) against their plain versions in bf16 and fp32, K2 and K3 each
+    run twice for bitwise equal outputs; fails on any disagreement. Returns
+    the bf16 errors at the first window: {"fwd", "dq", "dkv": max
+    |error|}."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import ref_attention, ref_attention_bwd
@@ -826,8 +939,8 @@ def check_attention(tag, what, shape, inputs, windows=(0,)):
     for window in windows:
         for dname in ("bfloat16", "float32"):
             dtype, tol = getattr(torch, dname), TOL_OUT[dname]
-            q, k, v, do = inputs(*shape, dtype, model_layout=True)
-            kw = {"causal": True, "window": window}
+            q, k, v, do = shape_inputs(inputs, shape, dtype, layout)
+            kw = {"causal": causal, "window": window}
             out, lse = fa.flash_attention_fwd(q, k, v, **kw)
             dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, **kw)
             dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, out, lse, do,
@@ -848,7 +961,8 @@ def check_attention(tag, what, shape, inputs, windows=(0,)):
                    "delta": close(delta, want[3], TOL_DELTA)}
             del ref_out, ref_lse, want
             ok = all(r[1] for r in res.values()) and same and same_dq
-            print(f"[{tag}] {shape} {dname} causal window={window}: "
+            print(f"[{tag}] {shape} {dname} causal={causal} window={window} "
+                  f"model layout={layout}: "
                   + " ".join(f"max|d{key}|={r[0]:.3e}"
                              for key, r in res.items())
                   + f" (tol {tol}, rtol {tol}; lse and delta {TOL_LSE}); K2 "
@@ -2378,7 +2492,7 @@ def phase_dense():
             split = fa.dkv_group_split(
                 b, kh, t, d, h // kh, torch.cuda.get_device_properties(0)
                 .multi_processor_count, lib.repro_flash_key_tile(),
-                col_tiles=lib.repro_flash_dkv_col_tiles(d))
+                col_tiles=lib.repro_flash_dkv_col_tiles(d, d), dv=d)
             print(f"[qwen-attn] K3 bf16 grid: group {h // kh} split over "
                   f"{split.gs} CTA(s)", flush=True)
             inputs = model_layout_inputs(
@@ -2404,7 +2518,7 @@ def phase_granite_attention(card):
     split = fa.dkv_group_split(
         b, kh, t, d, h // kh, torch.cuda.get_device_properties(0)
         .multi_processor_count, lib.repro_flash_key_tile(),
-        col_tiles=lib.repro_flash_dkv_col_tiles(d))
+        col_tiles=lib.repro_flash_dkv_col_tiles(d, d), dv=d)
     print(f"[granite-attn] K3 bf16 grid: group {h // kh} split over "
           f"{split.gs} CTA(s)", flush=True)
     inputs = model_layout_inputs(torch.Generator(device="cuda").manual_seed(7))
@@ -2455,10 +2569,12 @@ def routing_diff(a, b):
             [int((x[1] != y[1]).sum()) for x, y in zip(a, b)])
 
 
-def granite_agreement(arch, layers, agree, fp32_eps=None):
+def moe_agreement(arch, layers, agree, fp32_eps=None, *, params=None,
+                      tag="granite", **cfg_kw):
     """Kernel against naive path (plain RMSNorm, naive attention) of the
     MoE decoder on one microbatch of ``agree`` (rows, tokens), from params
-    of seed 0, GShard dispatch. Each path routes on its own first, and the
+    of seed 0 (or ``params``, on the host; any other config field in
+    ``cfg_kw``), GShard dispatch. Each path routes on its own first, and the
     (token, choice) routings and kept slots that differ are printed by
     layer: a routing flip (two router probabilities closer than the paths'
     rounding) is a discontinuity of the function, not an error of either
@@ -2473,9 +2589,14 @@ def granite_agreement(arch, layers, agree, fp32_eps=None):
     from repro_torch.core.engine import to_device
     from repro_torch.models.transformer import init_params
 
-    kw = {"arch": arch, "layers": layers}
-    trainer, _ = lm_setup("bfloat16", True, **kw)
-    params = init_params(trainer.cfg, seed=0, device="cuda")
+    kw = {"arch": arch, "layers": layers, **cfg_kw}
+    host = params
+    if host is None:
+        trainer, _ = lm_setup("bfloat16", True, **kw)
+        params = init_params(trainer.cfg, seed=0, device="cuda")
+        del trainer
+    else:
+        params = {k: v.to("cuda") for k, v in host.items()}
     one = {"batch": agree[0], "accum": 1, "seq": agree[1]}
     label = f"{arch}, one microbatch of {agree[0]} x {agree[1]},"
     for dtype in ("float32", "bfloat16"):
@@ -2491,7 +2612,7 @@ def granite_agreement(arch, layers, agree, fp32_eps=None):
                  f"for {layers} MoE layers")
         flips, slots = routing_diff(rk, rn)
         n = rk[0][0].numel()
-        print(f"[granite] {label} {dtype} routing, kernel vs naive path, "
+        print(f"[{tag}] {label} {dtype} routing, kernel vs naive path, "
               f"each on its own: (token, choice) routings that differ by "
               f"layer {flips} of {n} each (share "
               f"{sum(flips) / (n * layers):.3e}); kept-slot differences by "
@@ -2502,7 +2623,7 @@ def granite_agreement(arch, layers, agree, fp32_eps=None):
             with routing_spy(forced=rk) as rn:
                 gn, mn = trainer_n.grads(params, micro)
             flips, slots = routing_diff(rk, rn)
-            print(f"[granite] {label} float32 naive path with the kernel "
+            print(f"[{tag}] {label} float32 naive path with the kernel "
                   f"path's expert indices forced: kept-slot differences by "
                   f"layer {slots} {'ok' if not any(slots) else 'FAIL'}",
                   flush=True)
@@ -2514,13 +2635,14 @@ def granite_agreement(arch, layers, agree, fp32_eps=None):
         report_agreement(f"{label} {how},", dtype,
                          (abs(float(mk["loss"]) - float(mn["loss"])), d_max,
                           cos))
-        print(f"[granite] {label} {dtype} moe_aux kernel path "
+        print(f"[{tag}] {label} {dtype} moe_aux kernel path "
               f"{float(mk['moe_aux']):.6e}, naive path "
               f"{float(mn['moe_aux']):.6e}", flush=True)
         del trainer_k, trainer_n, micro, gk, gn, rk, rn
         gc.collect()
         torch.cuda.empty_cache()
-    params = {k: v.cpu() for k, v in params.items()}
+    params = host if host is not None else \
+        {k: v.cpu() for k, v in params.items()}
     gc.collect()
     torch.cuda.empty_cache()
     return params
@@ -2675,7 +2797,7 @@ def phase_granite(profile, card):
     and a GQA group of 3, K4/K5 twice a layer and once for the final norm),
     every loss, grad norm and ``moe_aux`` finite, ``moe_aux`` > 0 and
     ``step_ok`` 1, the peak of allocated device memory; kernel against
-    naive path on one microbatch of 4 x LM_SEQ (``granite_agreement``);
+    naive path on one microbatch of 4 x LM_SEQ (``moe_agreement``);
     warm tokens/s of both paths in turns, every kernel-path run faster;
     then gather against GShard (``impl_agreement``), warm tokens/s of the
     GShard and gather paths in turns (recorded, not gated) and one MoE
@@ -2691,7 +2813,7 @@ def phase_granite(profile, card):
         GRANITE, GRANITE_LAYERS, GRANITE_ARGS, {
             "flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
             "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}, "granite", profile,
-        agreement=granite_agreement)
+        agreement=moe_agreement)
     aux = [r["moe_aux"] for r in hist]
     if not all(math.isfinite(a) and a > 0 for a in aux):
         fail(f"{GRANITE} train: moe_aux {aux}")
@@ -2719,6 +2841,175 @@ def phase_granite(profile, card):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[granite] phase done in {time.time() - t0:.1f}s", flush=True)
+    return launches
+
+
+def phase_mla_attention(card):
+    """K1, K2 and K3 at DeepSeek-V3's MLA shape (B 2, H = KH = 128, S = T =
+    1024, D 192, Dv 128, causal) against their plain versions in bf16 and
+    fp32 in the model's layout, K2 and K3 each run twice for bitwise equal
+    results; then MLA_CASES (ragged, non-causal, windowed, GQA); then
+    torch.autograd.grad through ``flash_mha`` at the MLA shape against the
+    plain backward; then timed beside SDPA (its backends that take Dv != D
+    named) and the bounds."""
+    import torch
+
+    inputs = model_layout_inputs(torch.Generator(device="cuda").manual_seed(9))
+    errs = check_attention("mla-attn", "DeepSeek-V3's MLA", MLA_ATTN_SHAPE,
+                           inputs)
+    for label, shape, causal, window, layout in MLA_CASES:
+        check_attention("mla-attn", f"the MLA {label}", shape, inputs,
+                        windows=(window,), causal=causal, layout=layout)
+    check_autograd("mla-attn", MLA_ATTN_SHAPE, inputs, causal=True)
+    t = attention_times(card, MLA_ATTN_SHAPE, True, inputs, "mla-attn")
+    return {key: dict(t[key], max_abs_err=errs[key]) for key in t}
+
+
+def deepseek_kw():
+    """lm_setup's arguments for the cut DeepSeek-V3: one layer, which is
+    MoE (no leading dense layer), and DS_EXPERTS routed experts."""
+    from repro_torch.configs import get_config
+    moe = dataclasses.replace(get_config(DEEPSEEK).moe, first_dense_layers=0,
+                              num_experts=DS_EXPERTS)
+    return {"arch": DEEPSEEK, "layers": DS_LAYERS, "moe": moe}
+
+
+def mtp_reading(trainer, params, batch):
+    """The first batch's next-token and MTP cross-entropies at the initial
+    params (no grad): the loss without and with the MTP logits, ``moe_aux``
+    left out, the second less the first over 0.3."""
+    import torch
+    from repro_torch.models import transformer
+
+    cfg = trainer.cfg
+    with torch.no_grad():
+        logits, aux = transformer.forward(cfg, params, batch)
+        main = float(transformer.loss_from_logits(cfg, logits, batch)[0])
+        both = float(transformer.loss_from_logits(
+            cfg, logits, batch, {"moe_aux": torch.zeros_like(aux["moe_aux"]),
+                                 "mtp_logits": aux["mtp_logits"]})[0])
+    return main, (both - main) / 0.3
+
+
+def phase_deepseek(profile, card):
+    """DeepSeek-V3 at full width, cut to one MoE layer of DS_EXPERTS routed
+    experts (``deepseek_kw``), through the port's ``Trainer`` in process (the
+    CLI has no expert-count flag, as the reference has none): DS_STEPS steps
+    in bf16 at batch DS_BATCH x LM_SEQ, accum 1, GShard dispatch, with the
+    launch counters reset just before and read just after (per step: K1-K3
+    twice, in the MoE layer and the MTP block; K4/K5 12 times: ln1,
+    q_norm, kv_norm and ln2 of the layer, the final norm, and the MTP
+    head's norm_h, norm_e, its block's four and its final norm), no layout
+    copy, every loss, grad norm and ``moe_aux`` finite, ``moe_aux`` > 0,
+    ``step_ok`` 1, the MTP term printed, the peak of allocated device
+    memory beside the prediction; then kernel against naive path on one
+    microbatch of 1 x LM_SEQ from the initial params (``moe_agreement``:
+    fp32 within 2e-4 on the kernel path's routing, bf16 cosine >= 0.99);
+    then warm tokens/s of both paths in turns (a reading, not gated: at
+    this shape attention is a small part of the step). Returns the run's
+    launches."""
+    import gc
+    import math
+    import torch
+    from repro_torch.core.engine import to_device
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.models.transformer import init_params
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    kw = deepseek_kw()
+    shape = {"batch": DS_BATCH, "accum": 1, "seq": LM_SEQ}
+    trainer, pipe = lm_setup("bfloat16", True, **shape, **kw)
+    t_init = time.time()
+    params = init_params(trainer.cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in params.values())
+    host = {k: v.cpu() for k, v in params.items()}
+    print(f"[deepseek] {DEEPSEEK} cut to {DS_LAYERS} MoE layer of "
+          f"{DS_EXPERTS} routed experts at full width: {n_params:,} params "
+          f"({n_params / 1e9:.3f} B), drawn and copied in "
+          f"{time.time() - t_init:.1f}s", flush=True)
+    batches = [to_device(pipe.batch_at(0, i), "cuda")
+               for i in range(DS_STEPS)]
+    main, mtp = mtp_reading(trainer, params, batches[0])
+    state = trainer.init_state(params)
+    del params
+    expect = dict({name: 0 for name in counters()}, flash_fwd=2 * DS_STEPS,
+                  flash_bwd_dq=2 * DS_STEPS, flash_bwd_dkv=2 * DS_STEPS,
+                  rmsnorm_fwd=12 * DS_STEPS, rmsnorm_bwd=12 * DS_STEPS)
+    for fn in counters().values():
+        fn.launches = 0
+    fa.kernel_layout.copies = rms.row_layout.copies = 0
+    t_train = time.time()
+    rows = []
+    for batch in batches:
+        state, m = trainer.train_step(state, batch)
+        rows.append({"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "moe_aux": float(m["moe_aux"]),
+                     "step_ok": m["step_ok"]})
+    torch.cuda.synchronize()
+    t_train = time.time() - t_train
+    launches = {name: fn.launches for name, fn in counters().items()}
+    copies = {"dO": fa.kernel_layout.copies, "rows": rms.row_layout.copies}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[deepseek] train: launches {launches} (expected {expect}); "
+          f"layout copies {copies}", flush=True)
+    if launches != expect or any(copies.values()):
+        fail(f"{DEEPSEEK} train: launches {launches}, layout copies "
+             f"{copies}; expected {expect} and no copy")
+    for r in rows:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                and math.isfinite(r["moe_aux"]) and r["moe_aux"] > 0
+                and r["step_ok"] == 1):
+            fail(f"{DEEPSEEK} train: bad step row {r}")
+    print(f"[deepseek] {DEEPSEEK} ({DS_LAYERS} layer, {DS_EXPERTS} experts, "
+          f"full width) bf16, batch {DS_BATCH} x {LM_SEQ}, accum 1, GShard: "
+          f"losses {[round(r['loss'], 4) for r in rows]}; grad norms "
+          f"{[round(r['grad_norm'], 3) for r in rows]}; moe_aux "
+          f"{[round(r['moe_aux'], 6) for r in rows]}; step_ok all 1; "
+          f"{DS_STEPS} steps in {t_train:.1f}s (cold: the first steps "
+          f"included)", flush=True)
+    print(f"[deepseek] the MTP term, first batch at the initial params: "
+          f"next-token xent {main:.6f}, MTP xent {mtp:.6f}; main + 0.3 MTP "
+          f"= {main + 0.3 * mtp:.6f} against step 0's loss - moe_aux "
+          f"{rows[0]['loss'] - rows[0]['moe_aux']:.6f}", flush=True)
+    print(f"[deepseek] torch.cuda.max_memory_allocated {peak:.2f} GB "
+          f"(predicted {DS_PEAK_GB[0]:g}-{DS_PEAK_GB[1]:g} GB; {card})",
+          flush=True)
+    del state, batches
+    free()
+
+    moe_agreement(DEEPSEEK, DS_LAYERS, (1, LM_SEQ), params=host,
+                      tag="deepseek", moe=kw["moe"])
+    rates = {}
+    for label in ("kernel", "naive", "naive", "kernel"):
+        trainer, pipe = lm_setup("bfloat16", label == "kernel", **shape,
+                                 **kw)
+        rates.setdefault(label, []).append(train_rate(trainer, pipe, host))
+        del trainer
+        free()
+    for label, rs in rates.items():
+        tps = sum(r[0] for r in rs) / len(rs) * LM_SEQ
+        ms = sum(r[1] for r in rs) / len(rs)
+        print(f"[deepseek] {DEEPSEEK} bf16 warm training, {label} path (a "
+              f"reading, not gated): {tps:.1f} tokens/s, {ms:.2f} ms per "
+              f"optimizer step (batch {DS_BATCH} x {LM_SEQ}, accum 1; runs "
+              f"{[round(r[0] * LM_SEQ, 1) for r in rs]} tokens/s; "
+              f"{smi_line()})", flush=True)
+    if profile:
+        trainer, pipe = lm_setup("bfloat16", True, **shape, **kw)
+        profile_step(f"{DEEPSEEK} ({DS_LAYERS} layer, {DS_EXPERTS} experts, "
+                     f"bf16, batch {DS_BATCH} x {LM_SEQ})", trainer, pipe,
+                     host)
+        del trainer
+    del host
+    free()
+    print(f"[deepseek] phase done in {time.time() - t0:.1f}s", flush=True)
     return launches
 
 
@@ -2991,6 +3282,7 @@ def rwkv_after_steps(hist, steps=(1, 2)):
 
 
 def main():
+    t_script = time.time()
     card = phase_card()
     sys.path.insert(0, str(ROOT / "src"))
     phase_build()
@@ -3013,6 +3305,11 @@ def main():
     dense_launches = phase_dense()
     granite_attn = phase_granite_attention(card.split(",")[0])
     granite_launches = phase_granite(profile, card)
+    t14 = time.time()
+    mla_attn = phase_mla_attention(card.split(",")[0])
+    deepseek_launches = phase_deepseek(profile, card)
+    print(f"[deepseek] phase 14 (MLA attention and DeepSeek-V3 training) "
+          f"in {time.time() - t14:.1f}s", flush=True)
     if profile:
         profile_eval()
     # K1-K3 run on both training paths: the row's numbers are the
@@ -3044,6 +3341,10 @@ def main():
         # its training run's launches
         granite = dict(granite_attn[key],
                        launches=granite_launches[row["name"]])
+        # DeepSeek-V3's MLA: the attention at (D 192, Dv 128) and its
+        # training run's launches
+        deepseek = dict(mla_attn[key],
+                        launches=deepseek_launches[row["name"]])
         kernels.append(dict(row, **lm_attn[key],
                             launches=lm_launches[row["name"]], vit=vit,
                             gemma3_launches=gemma_launches[row["name"]],
@@ -3051,7 +3352,9 @@ def main():
                                 arch: n[row["name"]]
                                 for arch, n in dense_launches.items()},
                             granite_launches=granite_launches[row["name"]],
-                            granite=granite))
+                            granite=granite,
+                            deepseek_launches=deepseek_launches[row["name"]],
+                            deepseek=deepseek))
     # K4-K7's launches are the RWKV6 run's; K4/K5 run on both decoder
     # paths, so their rows carry the ChatGLM3 run's beside them
     for row in rms_rows + wkv_rows:
@@ -3062,10 +3365,13 @@ def main():
             extra["dense_launches"] = {arch: n[row["name"]] for arch, n
                                        in dense_launches.items()}
             extra["granite_launches"] = granite_launches[row["name"]]
+            extra["deepseek_launches"] = deepseek_launches[row["name"]]
         if row["name"] in REDESIGNED:
             extra.update(redesigned=True, routes=ROUTES[row["name"]])
         kernels.append(dict(row, **extra))
     print(json.dumps({"kernels": kernels}))
+    print(f"[chip_smoke] whole script {time.time() - t_script:.1f}s",
+          flush=True)
     print(card)
     import torch
     print(json.dumps({"ok": True, "device": {

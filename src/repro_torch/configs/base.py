@@ -1,16 +1,20 @@
-"""Model and engine configuration (the ViT, dense-decoder, MoE-decoder and
-RWKV6 subset of ``repro.configs.base``).
+"""Model and engine configuration (the ViT, dense-decoder, MoE-decoder,
+MLA and RWKV6 subset of ``repro.configs.base``).
 
 Field names and defaults follow the JAX package, so a config can be
 compared field by field with its reference. Fields the ported paths do
-not read (MLA, M-RoPE, serving knobs; tensor, sequence and pipeline
+not read (M-RoPE, serving knobs; tensor, sequence and pipeline
 parallelism) are left out until a slice needs them; ``use_kernels`` stands
 in for the reference's ``use_pallas``. A config that asks for a branch no
-slice has ported (M-RoPE, the mamba2, hybrid or MLA blocks, multi-token
-prediction heads, the audio or vlm families, another activation) raises
-``NotImplementedError``. The MoE family (``arch_type="moe"`` with a
+slice has ported (M-RoPE, the mamba2 or hybrid blocks, the audio or vlm
+families, another activation, a multi-token prediction head on RWKV6)
+raises ``NotImplementedError``. The MoE family (``arch_type="moe"`` with a
 ``MoEConfig``) is ported: GShard or gather dispatch (``moe_impl``), shared
-experts and leading dense layers.
+experts and leading dense layers. So are DeepSeek's multi-head latent
+attention (``block_kind="mla"`` with an ``MLAConfig``) and its
+multi-token prediction head: as in the reference
+(``repro/models/transformer.py:161,511``), any ``mtp_depth > 0`` builds
+one MTP module, which predicts the token two ahead.
 """
 from __future__ import annotations
 
@@ -20,12 +24,23 @@ from typing import Optional
 
 
 _ARCH_TYPES = ("vit", "dense", "moe", "ssm")
-_BLOCK_KINDS = ("attn", "rwkv6")
+_BLOCK_KINDS = ("attn", "mla", "rwkv6")
 _ROPE_STYLES = ("full", "half", "none")
 _ACTS = ("swiglu", "geglu", "gelu", "sqrelu")
 _ATTN_IMPLS = ("naive", "blockwise")
 _REMATS = ("none", "block", "dots")
 _MOE_IMPLS = ("gshard", "gather")
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-style multi-head latent attention dimensions
+    (``repro/configs/base.py:20-27``, same fields and defaults)."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -67,7 +82,7 @@ class ModelConfig:
     head_dim: int = 0               # 0 -> d_model // num_heads
 
     # --- block structure -------------------------------------------------
-    block_kind: str = "attn"        # attn | rwkv6 (mla, mamba2 not ported)
+    block_kind: str = "attn"        # attn | mla | rwkv6 (mamba2 not ported)
     causal: bool = True
 
     # --- attention flavour ------------------------------------------------
@@ -79,6 +94,7 @@ class ModelConfig:
     attn_logit_softcap: float = 0.0  # > 0: softcap * tanh(scores / softcap)
 
     # --- sub-configs -------------------------------------------------------
+    mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
 
@@ -86,7 +102,7 @@ class ModelConfig:
     tie_embeddings: bool = False    # the LM head is embed.tok^T
     norm_eps: float = 1e-5
     act: str = "swiglu"             # swiglu | geglu | gelu | sqrelu
-    mtp_depth: int = 0              # multi-token prediction (not ported)
+    mtp_depth: int = 0              # > 0: one multi-token prediction head
     embed_scale: bool = False       # gemma-style sqrt(d) embedding scale
 
     # --- ViT ------------------------------------------------------------
@@ -123,7 +139,12 @@ class ModelConfig:
             (self.rope_style not in _ROPE_STYLES,
              f"rope_style {self.rope_style!r}"),
             (self.act not in _ACTS, f"act {self.act!r}"),
-            (self.mtp_depth > 0, f"mtp_depth {self.mtp_depth}"),
+            (self.arch_type == "vit" and self.block_kind == "mla",
+             "an mla block in a ViT"),
+            (self.mtp_depth > 0 and (self.block_kind == "rwkv6"
+                                     or self.arch_type == "vit"),
+             f"mtp_depth {self.mtp_depth} on a {self.block_kind} "
+             f"{self.arch_type} model"),
         ]
         for needed, what in unported:
             if needed:
@@ -140,6 +161,14 @@ class ModelConfig:
                              f"{_REMATS}")
         if self.block_kind == "rwkv6" and self.ssm is None:
             raise ValueError(f"{self.name}: an rwkv6 block needs ssm")
+        if self.block_kind == "mla" and self.mla is None:
+            raise ValueError(f"{self.name}: an mla block needs mla")
+        if self.moe is not None and \
+                self.num_layers < self.moe.first_dense_layers:
+            # the reference fails inside jax.random.split on this input
+            raise ValueError(
+                f"{self.name}: num_layers {self.num_layers} < "
+                f"moe.first_dense_layers {self.moe.first_dense_layers}")
 
     @property
     def has_moe(self) -> bool:

@@ -575,7 +575,7 @@ class Evaluator:
         with torch.inference_mode():
             batch = self._preprocess_batch(batch)
             return model.forward(self.cfg, self._compute_params(), batch,
-                                 self.gather)[0]
+                                 self.gather, train=False)[0]
 
     def eval_step(self, batch):
         """No-grad ``batch -> {top1, top5, count, loss_sum}`` tensors."""

@@ -3,8 +3,9 @@
 //
 // Replaces src/repro/kernels/flash_attention.py:_dq_kernel (K2, launched by
 // _backward_dq) and :_dkv_kernel (K3, launched by _backward_dkv). For q
-// (B,H,S,D), k/v (B,KH,T,D), the forward's output O and fp32 lse (B,H,S),
-// and the output gradient dO, with GQA (kv_head = h / (H/KH)):
+// (B,H,S,D), k (B,KH,T,D), v (B,KH,T,Dv), the forward's output O
+// (B,H,S,Dv) and fp32 lse (B,H,S), and the output gradient dO (B,H,S,Dv),
+// with GQA (kv_head = h / (H/KH)):
 //   K2: Delta = rowsum(dO * O) (fp32, (B,H,S)), and per live key
 //       P = exp(S*scale - lse), dS = P * (dO V^T - Delta) * scale,
 //       dq = dS K in q's dtype;
@@ -93,6 +94,21 @@
 // products are 90.2 GFLOP (91 us) against 168 MB (50 us), K3's 120.3
 // GFLOP (122 us) against 135 MB (40 us); operations bound both.
 //
+// The value head dim is a second template parameter, DV: the (D, Dv) pairs
+// of FLASH_HEAD_DIM_PAIRS (flash_common.cuh), D = Dv or DeepSeek-V3's MLA
+// (192, 128). S and dq = dS K run over D, dP = dO V^T and Delta over Dv;
+// V and dO tiles are Dv wide (nothing padded). K3 keeps dK (D columns) and
+// dV (Dv) of a key tile in one CTA at (192, 128): 96 + 64 fp32 accumulator
+// registers a lane on the tensor cores; ptxas gives that kernel 255
+// registers and spills 44 bytes (136 bytes of reloads; the fp32 route 288
+// and 192). A split over two CTAs (48 + 32 accumulators, as D 256 does)
+// would not spill, but both CTAs recompute S^T and dP^T, 1.5 times the
+// products, so one CTA a key tile stays. At the MLA shape (B=2,
+// H=KH=128, S=T=1024, causal) K2's products are 2 x 134.3 M
+// live pairs x (2 x 192 + 128) = 137.6 GFLOP (139 us) against 505.4 MB
+// (151 us): bytes bound it; K3's 2 x 134.3 M x (2 x 192 + 2 x 128) =
+// 172.0 GFLOP (174 us) against the same 505.4 MB: operations bound it.
+//
 // Element strides are passed in, so dO, dq, dk and dv may be (B,S,H,D)
 // buffers seen as (B,H,S,D) views.
 
@@ -102,12 +118,16 @@ namespace {
 
 constexpr int NT = 128;   // threads per CTA
 
-// Columns of dK and dV one K3 CTA owns: all D, or half of D at 256, where
-// both fp32 accumulators of a whole row would take 256 registers a lane;
-// the grid then holds D / dkv_cols<D>() CTAs per key tile, each
-// recomputing S^T and dP^T over the whole D.
+// Columns of dK one K3 CTA owns: all D, or half of D at 256, where both
+// fp32 accumulators of a whole row would take 256 registers a lane; the
+// grid then holds D / dkv_cols<D>() CTAs per key tile (dkv_col_tiles),
+// each recomputing S^T and dP^T over the whole D and owning the same
+// share of dV's Dv columns.
 template <int D>
 __host__ __device__ constexpr int dkv_cols() { return D == 256 ? 128 : D; }
+
+template <int D>
+__host__ __device__ constexpr int dkv_col_tiles() { return D / dkv_cols<D>(); }
 
 struct Params {
   const void* q;
@@ -222,36 +242,39 @@ __device__ __forceinline__ void store_rows(T* base, long long ld, int rows,
   }
 }
 
-template <int D>
+template <int D, int DV>
 constexpr int dq_smem_bytes() {   // Q, dO; K, V (O before the loop); dS
   constexpr int KB = f32_tile<D>();
-  return (2 * BM * (D + 4) + 2 * KB * (D + 4) + BM * (KB + 4)) *
+  return ((BM + KB) * (D + 4) + (BM + KB) * (DV + 4) + BM * (KB + 4)) *
          static_cast<int>(sizeof(float));
 }
 
-template <int D>
+template <int D, int DV>
 constexpr int dkv_smem_bytes() {  // K, V; Q, dO; P, dS; lse, Delta
   constexpr int QB = f32_tile<D>();
-  return (2 * BN * (D + 4) + 2 * QB * (D + 4) + 2 * BN * (QB + 4) + 2 * QB) *
+  return ((BN + QB) * (D + 4) + (BN + QB) * (DV + 4) + 2 * BN * (QB + 4) +
+          2 * QB) *
          static_cast<int>(sizeof(float));
 }
 
 // K2 on the CUDA cores (fp32): one CTA per (64-row q tile, head, batch);
 // key tiles of KB = f32_tile<D>() rows (32 at D 256).
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
   constexpr int KB = f32_tile<D>();
   constexpr int NJ = KB / 8;      // keys per thread in a score tile
   constexpr int LD = D + 4;
+  constexpr int LDV = DV + 4;     // dO, V and O rows
   constexpr int LDS = KB + 4;     // padded dS row stride
-  constexpr int DV = D / 32;
-  static_assert(BM <= 2 * KB, "K2 stages O's rows in the K and V buffers");
+  constexpr int NG = DV / 32;     // float4 column groups of a Dv row
+  static_assert(BM * LDV <= KB * (LD + LDV),
+                "K2 stages O's rows in the K and V buffers");
   extern __shared__ float4 smem_f4[];
   float* Qs = reinterpret_cast<float*>(smem_f4);
   float* dOs = Qs + BM * LD;
-  float* Ks = dOs + BM * LD;
+  float* Ks = dOs + BM * LDV;
   float* Vs = Ks + KB * LD;
-  float* dSs = Vs + KB * LD;
+  float* dSs = Vs + KB * LDV;
 
   const int q0 = blockIdx.x * BM;
   const int hh = blockIdx.y;
@@ -263,11 +286,12 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
 
   load_tile<T, D, NT>(Qs, D + 4, static_cast<const T*>(p.q) + bb * p.q_sb +
                           hh * p.q_sh + q0 * p.q_ss, p.q_ss, rows);
-  load_tile<T, D, NT>(dOs, D + 4, static_cast<const T*>(p.d_o) + bb * p.do_sb +
-                           hh * p.do_sh + q0 * p.do_ss, p.do_ss, rows);
+  load_tile<T, DV, NT>(dOs, LDV, static_cast<const T*>(p.d_o) +
+                                    bb * p.do_sb + hh * p.do_sh +
+                                    q0 * p.do_ss, p.do_ss, rows);
   // O only feeds Delta, so it borrows the K and V buffers before the loop
-  load_tile<T, D, NT>(Ks, D + 4, static_cast<const T*>(p.o) + bb * p.o_sb +
-                          hh * p.o_sh + q0 * p.o_ss, p.o_ss, rows);
+  load_tile<T, DV, NT>(Ks, LDV, static_cast<const T*>(p.o) + bb * p.o_sb +
+                                    hh * p.o_sh + q0 * p.o_ss, p.o_ss, rows);
   __syncthreads();
 
   const int tid = threadIdx.x;
@@ -283,12 +307,12 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
   for (int i = 0; i < 4; ++i) {
     float part = 0.f;
 #pragma unroll
-    for (int jj = 0; jj < DV; ++jj) {
+    for (int jj = 0; jj < NG; ++jj) {
       const int col = 4 * (cg + 8 * jj);
       const float4 a =
-          *reinterpret_cast<const float4*>(dOs + (r0 + i) * LD + col);
+          *reinterpret_cast<const float4*>(dOs + (r0 + i) * LDV + col);
       const float4 c =
-          *reinterpret_cast<const float4*>(Ks + (r0 + i) * LD + col);
+          *reinterpret_cast<const float4*>(Ks + (r0 + i) * LDV + col);
       part += a.x * c.x + a.y * c.y + a.z * c.z + a.w * c.w;
     }
     delta[i] = row_sum8(part);
@@ -312,8 +336,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
   for (int kt = k_lo; kt < k_hi; kt += KB) {
     __syncthreads();   // every thread is done with the previous K, V, dS
     const int kv_rows = min(KB, p.t - kt);
-    load_tile<T, D, NT, KB>(Ks, D + 4, kg + kt * p.k_ss, p.k_ss, kv_rows);
-    load_tile<T, D, NT, KB>(Vs, D + 4, vg + kt * p.v_ss, p.v_ss, kv_rows);
+    load_tile<T, D, NT, KB>(Ks, LD, kg + kt * p.k_ss, p.k_ss, kv_rows);
+    load_tile<T, DV, NT, KB>(Vs, LDV, vg + kt * p.v_ss, p.v_ss, kv_rows);
     __syncthreads();
 
     float pr[4][NJ], dp[4][NJ];
@@ -324,7 +348,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
       for (int j = 0; j < NJ; ++j)
         pr[i][j] = live(p, q0 + r0 + i, kt + cg + 8 * j)
                        ? expf(pr[i][j] * p.scale - lse[i]) : 0.f;
-    tile_dot<D, NJ>(dOs, Vs, r0, cg, dp);
+    tile_dot<DV, NJ>(dOs, Vs, r0, cg, dp);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -344,45 +368,54 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
 // K3: one CTA per (64-key tile, kv head and column block, batch); loops
 // over the group's query heads and the live q tiles (QB = f32_tile<D>()
 // rows each, 32 at D 256), and flushes its DC = dkv_cols<D>() columns of
-// dk and dv once.
-template <typename T, int D>
+// dk and its DCV = Dv / dkv_col_tiles<D>() columns of dv once.
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
   constexpr int QB = f32_tile<D>();
   constexpr int NJ = QB / 8;      // queries per thread in a score tile
+  constexpr int CT = dkv_col_tiles<D>();
   constexpr int DC = dkv_cols<D>();
+  constexpr int DCV = DV / CT;
   constexpr int LD = D + 4;
+  constexpr int LDV = DV + 4;     // V and dO rows
   constexpr int LDS = QB + 4;     // padded P/dS row stride
+  static_assert(DCV % 32 == 0, "K3 fp32: dv's columns in float4 groups");
   extern __shared__ float4 smem_f4[];
   float* Ks = reinterpret_cast<float*>(smem_f4);
   float* Vs = Ks + BN * LD;
-  float* Qs = Vs + BN * LD;
+  float* Qs = Vs + BN * LDV;
   float* dOs = Qs + QB * LD;
-  float* Ps = dOs + QB * LD;
+  float* Ps = dOs + QB * LDV;
   float* dSs = Ps + BN * LDS;
   float* lse_s = dSs + BN * LDS;
   float* delta_s = lse_s + QB;
 
   const int k0 = blockIdx.x * BN;
-  const int kvh = blockIdx.y / (D / DC);
-  const int col0 = blockIdx.y % (D / DC) * DC;
+  const int kvh = blockIdx.y / CT;
+  const int col0 = blockIdx.y % CT * DC;
+  const int colv0 = blockIdx.y % CT * DCV;
   const int bb = blockIdx.z;
   const int g = p.h / p.kh;
   const int kv_rows = min(BN, p.t - k0);
 
   load_tile<T, D, NT>(Ks, D + 4, static_cast<const T*>(p.k) + bb * p.k_sb +
                           kvh * p.k_sh + k0 * p.k_ss, p.k_ss, kv_rows);
-  load_tile<T, D, NT>(Vs, D + 4, static_cast<const T*>(p.v) + bb * p.v_sb +
-                          kvh * p.v_sh + k0 * p.v_ss, p.v_ss, kv_rows);
+  load_tile<T, DV, NT>(Vs, LDV, static_cast<const T*>(p.v) + bb * p.v_sb +
+                                   kvh * p.v_sh + k0 * p.v_ss, p.v_ss,
+                       kv_rows);
 
   const int tid = threadIdx.x;
   const int r0 = (tid >> 3) * 4;
   const int cg = tid & 7;
 
-  float dk[4][DC / 8], dv[4][DC / 8];
+  float dk[4][DC / 8], dv[4][DCV / 8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int c = 0; c < DC / 8; ++c) dk[i][c] = dv[i][c] = 0.f;
+    for (int c = 0; c < DC / 8; ++c) dk[i][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DCV / 8; ++c) dv[i][c] = 0.f;
+  }
 
   // the q tiles that can see this key tile: q >= k for causal, and
   // q - k < window, with k in [k0, k0 + BN)
@@ -399,8 +432,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
       __syncthreads();   // every thread is done with the previous tiles
       const int q_rows = min(QB, p.s - qt);
       load_tile<T, D, NT, QB>(Qs, D + 4, qg + qt * p.q_ss, p.q_ss, q_rows);
-      load_tile<T, D, NT, QB>(dOs, D + 4, dog + qt * p.do_ss, p.do_ss,
-                              q_rows);
+      load_tile<T, DV, NT, QB>(dOs, LDV, dog + qt * p.do_ss, p.do_ss,
+                               q_rows);
       for (int r = tid; r < QB; r += NT) {
         lse_s[r] = r < q_rows ? p.lse[row_base + qt + r] : 0.f;
         delta_s[r] = r < q_rows ? p.delta[row_base + qt + r] : 0.f;
@@ -420,7 +453,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
                          ? expf(pr[i][j] * p.scale - lse_s[qj]) : 0.f;
           Ps[(r0 + i) * LDS + qj] = pr[i][j];
         }
-      tile_dot<D, NJ>(Vs, dOs, r0, cg, dp);
+      tile_dot<DV, NJ>(Vs, dOs, r0, cg, dp);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -433,15 +466,15 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
       __syncthreads();
 
       // dv += P^T dO and dk += dS^T Q over this CTA's columns
-      tile_matmul<D, QB, DC>(Ps, dOs + col0, r0, cg, dv);
+      tile_matmul<DV, QB, DCV>(Ps, dOs + colv0, r0, cg, dv);
       tile_matmul<D, QB, DC>(dSs, Qs + col0, r0, cg, dk);
     }
   }
 
   store_rows<T, DC>(static_cast<T*>(p.dk) + bb * p.dk_sb + kvh * p.dk_sh +
                         k0 * p.dk_ss + col0, p.dk_ss, kv_rows, r0, cg, dk);
-  store_rows<T, DC>(static_cast<T*>(p.dv) + bb * p.dv_sb + kvh * p.dv_sh +
-                        k0 * p.dv_ss + col0, p.dv_ss, kv_rows, r0, cg, dv);
+  store_rows<T, DCV>(static_cast<T*>(p.dv) + bb * p.dv_sb + kvh * p.dv_sh +
+                         k0 * p.dv_ss + colv0, p.dv_ss, kv_rows, r0, cg, dv);
 }
 
 // Keys of a bf16 K2 tile that one pass of dq_tile takes: the whole tile,
@@ -451,13 +484,13 @@ template <int D>
 __host__ __device__ constexpr int dq_keys() { return D == 256 ? 32 : BN; }
 
 // One warp's step over one key tile of the bf16 K2 (at kt, K and V rows in
-// Kb, Vb), in passes of KS = dq_keys<D>() keys: S = Q K^T and dP = dO V^T
-// for its 16 rows against the pass's keys, P = exp(S scale - lse),
-// dS = P (dP - Delta), then dq += dS K. lse2 and dl hold lse * log2(e) and
-// Delta of the lane's rows g and g + 8. With RAGGED (the tile runs past T)
-// key blocks past T skip their products; their dS are masked to 0, so the
-// result is the same.
-template <int D, bool RAGGED>
+// Kb, Vb), in passes of KS = dq_keys<D>() keys: S = Q K^T (over D) and
+// dP = dO V^T (over Dv; dO and V rows of DV + 8) for its 16 rows against
+// the pass's keys, P = exp(S scale - lse), dS = P (dP - Delta), then
+// dq += dS K. lse2 and dl hold lse * log2(e) and Delta of the lane's rows
+// g and g + 8. With RAGGED (the tile runs past T) key blocks past T skip
+// their products; their dS are masked to 0, so the result is the same.
+template <int D, int DV, bool RAGGED>
 __device__ __forceinline__ void dq_tile(const Params& p, const bf16* Qs,
                                         const bf16* dOs, const bf16* Kb,
                                         const bf16* Vb, int q0, int kt,
@@ -465,6 +498,7 @@ __device__ __forceinline__ void dq_tile(const Params& p, const bf16* Qs,
                                         const float (&dl)[2],
                                         float (&dq)[D / 8][4]) {
   constexpr int LD = D + 8;
+  constexpr int LDV = DV + 8;
   constexpr int KS = dq_keys<D>();
   constexpr int NB = KS / 8;
   constexpr int ND = D / 8;
@@ -484,9 +518,10 @@ __device__ __forceinline__ void dq_tile(const Params& p, const bf16* Qs,
       for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D; kk += 16) {
+      // the depth runs over D for S and over the first Dv for dP
       uint32_t aq[4], ad[4];
       load_a(aq, Qs, LD, warp * 16, kk, lane);
-      load_a(ad, dOs, LD, warp * 16, kk, lane);
+      if (kk < DV) load_a(ad, dOs, LDV, warp * 16, kk, lane);
 #pragma unroll
       for (int nb = 0; nb < NB; nb += 2) {
         if (RAGGED && nb * 8 >= keys_live) break;
@@ -494,9 +529,11 @@ __device__ __forceinline__ void dq_tile(const Params& p, const bf16* Qs,
         load_b_nmajor(b, Kb, LD, j0 + nb * 8, kk, lane);
         mma_bf16(s[nb], aq, b[0], b[1]);
         mma_bf16(s[nb + 1], aq, b[2], b[3]);
-        load_b_nmajor(b, Vb, LD, j0 + nb * 8, kk, lane);
-        mma_bf16(dp[nb], ad, b[0], b[1]);
-        mma_bf16(dp[nb + 1], ad, b[2], b[3]);
+        if (kk < DV) {
+          load_b_nmajor(b, Vb, LDV, j0 + nb * 8, kk, lane);
+          mma_bf16(dp[nb], ad, b[0], b[1]);
+          mma_bf16(dp[nb + 1], ad, b[2], b[3]);
+        }
       }
     }
 
@@ -537,18 +574,21 @@ __device__ __forceinline__ void dq_tile(const Params& p, const bf16* Qs,
 
 // K2 on the tensor cores (bf16): see the note at the top. Where D <= 64 the
 // registers are capped at 168 a lane, so that three CTAs share an SM (at
-// D 128 shared memory allows two, at D 256 one, whose lanes may take 255).
+// D 128 shared memory allows two, at D 192 and 256 one, whose lanes may
+// take 255).
 static_assert(BM <= BN, "K2 stages BM rows of O in a key buffer of BN rows");
-template <int D>
-__global__ void __launch_bounds__(NT, D == 256 ? 1 : D == 128 ? 2 : 3)
+template <int D, int DV>
+__global__ void __launch_bounds__(NT, D >= 192 ? 1 : D == 128 ? 2 : 3)
     flash_bwd_dq_tc_kernel(const Params p) {
   constexpr int LD = D + 8;
+  constexpr int LDV = DV + 8;   // dO, V and O rows
   constexpr int ND = D / 8;     // 8-column blocks of dq
+  static_assert(DV <= D, "K2 stages O's Dv-wide rows in a key buffer");
   extern __shared__ uint4 smem_u4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_u4);
   bf16* dOs = Qs + BM * LD;
-  bf16* Ks = dOs + BM * LD;          // two buffers; O borrows the second
-  bf16* Vs = Ks + 2 * BN * LD;       // two buffers
+  bf16* Ks = dOs + BM * LDV;         // two buffers; O borrows the second
+  bf16* Vs = Ks + 2 * BN * LD;       // two buffers of BN x LDV
 
   // CTAs start in linear order; causal q tiles go last-first
   const int per = gridDim.y * gridDim.z;
@@ -577,17 +617,17 @@ __global__ void __launch_bounds__(NT, D == 256 ? 1 : D == 128 ? 2 : 3)
   load_tile_async<D, BM, NT>(Qs, static_cast<const bf16*>(p.q) +
                                      bb * p.q_sb + hh * p.q_sh +
                                      q0 * p.q_ss, p.q_ss, rows);
-  load_tile_async<D, BM, NT>(dOs, static_cast<const bf16*>(p.d_o) +
-                                      bb * p.do_sb + hh * p.do_sh +
-                                      q0 * p.do_ss, p.do_ss, rows);
-  load_tile_async<D, BM, NT>(Ks + BN * LD, static_cast<const bf16*>(p.o) +
-                                               bb * p.o_sb + hh * p.o_sh +
-                                               q0 * p.o_ss, p.o_ss, rows);
+  load_tile_async<DV, BM, NT>(dOs, static_cast<const bf16*>(p.d_o) +
+                                       bb * p.do_sb + hh * p.do_sh +
+                                       q0 * p.do_ss, p.do_ss, rows);
+  load_tile_async<DV, BM, NT>(Ks + BN * LD, static_cast<const bf16*>(p.o) +
+                                                bb * p.o_sb + hh * p.o_sh +
+                                                q0 * p.o_ss, p.o_ss, rows);
   cp_async_commit();
   if (k_lo < k_hi) {
     const int kv_rows = min(BN, p.t - k_lo);
     load_tile_async<D, BN, NT>(Ks, kg + k_lo * p.k_ss, p.k_ss, kv_rows);
-    load_tile_async<D, BN, NT>(Vs, vg + k_lo * p.v_ss, p.v_ss, kv_rows);
+    load_tile_async<DV, BN, NT>(Vs, vg + k_lo * p.v_ss, p.v_ss, kv_rows);
   }
   cp_async_commit();
   cp_async_wait<1>();   // Q, dO and O have landed
@@ -606,10 +646,10 @@ __global__ void __launch_bounds__(NT, D == 256 ? 1 : D == 128 ? 2 : 3)
   float part = 0.f;
   {
     const int r = warp * 16 + (lane >> 1);
-    const bf16* dor = dOs + r * LD;
-    const bf16* orow = Ks + BN * LD + r * LD;
+    const bf16* dor = dOs + r * LDV;
+    const bf16* orow = Ks + BN * LD + r * LDV;
 #pragma unroll
-    for (int col = (lane & 1) * 8; col < D; col += 16) {
+    for (int col = (lane & 1) * 8; col < DV; col += 16) {
       float a[8], b[8];
       load8(dor + col, a);
       load8(orow + col, b);
@@ -643,8 +683,8 @@ __global__ void __launch_bounds__(NT, D == 256 ? 1 : D == 128 ? 2 : 3)
       const int kv_rows = min(BN, p.t - kt - BN);
       load_tile_async<D, BN, NT>(Ks + (buf ^ 1) * BN * LD,
                                  kg + (kt + BN) * p.k_ss, p.k_ss, kv_rows);
-      load_tile_async<D, BN, NT>(Vs + (buf ^ 1) * BN * LD,
-                                 vg + (kt + BN) * p.v_ss, p.v_ss, kv_rows);
+      load_tile_async<DV, BN, NT>(Vs + (buf ^ 1) * BN * LDV,
+                                  vg + (kt + BN) * p.v_ss, p.v_ss, kv_rows);
     }
     cp_async_commit();
     cp_async_wait<1>();   // this tile has landed
@@ -653,11 +693,12 @@ __global__ void __launch_bounds__(NT, D == 256 ? 1 : D == 128 ? 2 : 3)
     // takes the ragged step
     if (rows_live) {
       const bf16* Kb = Ks + buf * BN * LD;
-      const bf16* Vb = Vs + buf * BN * LD;
+      const bf16* Vb = Vs + buf * BN * LDV;
       if (kt + BN <= p.t)
-        dq_tile<D, false>(p, Qs, dOs, Kb, Vb, q0, kt, sl2, lse2, dl, dq);
+        dq_tile<D, DV, false>(p, Qs, dOs, Kb, Vb, q0, kt, sl2, lse2, dl,
+                              dq);
       else
-        dq_tile<D, true>(p, Qs, dOs, Kb, Vb, q0, kt, sl2, lse2, dl, dq);
+        dq_tile<D, DV, true>(p, Qs, dOs, Kb, Vb, q0, kt, sl2, lse2, dl, dq);
     }
     __syncthreads();   // every warp is done with this buffer
   }
@@ -694,29 +735,34 @@ __global__ void __launch_bounds__(NT, D == 256 ? 1 : D == 128 ? 2 : 3)
 template <int D>
 __host__ __device__ constexpr int dkv_bq() { return D >= 128 ? 32 : 64; }
 
-template <int D>
+template <int D, int DV>
 constexpr int dkv_tc_smem_bytes() {  // K, V; two Q, two dO; two lse, Delta
-  return (2 * BN + 4 * dkv_bq<D>()) * (D + 8) *
+  return (BN + 2 * dkv_bq<D>()) * (D + DV + 16) *
              static_cast<int>(sizeof(bf16)) +
          4 * dkv_bq<D>() * static_cast<int>(sizeof(float));
 }
 
 // One warp's step over one streamed q tile of the bf16 K3 (at qt, rows of
-// Q, dO and their lse and Delta in Qb, dOb, lb, db): S^T, P^T, dP^T, dS^T
-// for its 16 keys over the whole D, then dV += P^T dO and dK += dS^T Q for
-// the CTA's columns col0 .. col0 + dkv_cols<D>(). With RAGGED (the tile
-// runs past S) query blocks past S skip their products; their
-// probabilities are masked to 0, so the result is the same.
-template <int D, bool RAGGED>
+// Q, dO and their lse and Delta in Qb, dOb, lb, db): S^T over the whole D
+// and dP^T over the whole Dv (V and dO rows of DV + 8), P^T, dS^T for its
+// 16 keys, then dV += P^T dO for the CTA's dV columns colv0 .. +
+// Dv / dkv_col_tiles<D>() and dK += dS^T Q for its dK columns col0 .. +
+// dkv_cols<D>(). With RAGGED (the tile runs past S) query blocks past S
+// skip their products; their probabilities are masked to 0, so the result
+// is the same.
+template <int D, int DV, bool RAGGED>
 __device__ __forceinline__ void dkv_tile(
     const Params& p, const bf16* Ks, const bf16* Vs, const bf16* Qb,
     const bf16* dOb, const float* lb, const float* db, int k0, int qt,
-    int col0, float sl2, float (&dk)[dkv_cols<D>() / 8][4],
-    float (&dv)[dkv_cols<D>() / 8][4]) {
+    int col0, int colv0, float sl2, float (&dk)[dkv_cols<D>() / 8][4],
+    float (&dv)[DV / dkv_col_tiles<D>() / 8][4]) {
   constexpr int LD = D + 8;
+  constexpr int LDV = DV + 8;
   constexpr int BQ = dkv_bq<D>();
   constexpr int NQ = BQ / 8;
-  constexpr int ND = dkv_cols<D>() / 8;
+  constexpr int NDK = dkv_cols<D>() / 8;
+  constexpr int NDV = DV / dkv_col_tiles<D>() / 8;
+  constexpr int NDM = NDK > NDV ? NDK : NDV;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int c = lane & 3;
@@ -732,9 +778,10 @@ __device__ __forceinline__ void dkv_tile(
     for (int e = 0; e < 4; ++e) st[nq][e] = dp[nq][e] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < D; kk += 16) {
+    // the depth runs over D for S^T and over the first Dv for dP^T
     uint32_t ak[4], av[4];
     load_a(ak, Ks, LD, warp * 16, kk, lane);
-    load_a(av, Vs, LD, warp * 16, kk, lane);
+    if (kk < DV) load_a(av, Vs, LDV, warp * 16, kk, lane);
 #pragma unroll
     for (int nq = 0; nq < NQ; nq += 2) {
       if (RAGGED && nq * 8 >= q_live) break;
@@ -742,9 +789,11 @@ __device__ __forceinline__ void dkv_tile(
       load_b_nmajor(b, Qb, LD, nq * 8, kk, lane);
       mma_bf16(st[nq], ak, b[0], b[1]);
       mma_bf16(st[nq + 1], ak, b[2], b[3]);
-      load_b_nmajor(b, dOb, LD, nq * 8, kk, lane);
-      mma_bf16(dp[nq], av, b[0], b[1]);
-      mma_bf16(dp[nq + 1], av, b[2], b[3]);
+      if (kk < DV) {
+        load_b_nmajor(b, dOb, LDV, nq * 8, kk, lane);
+        mma_bf16(dp[nq], av, b[0], b[1]);
+        mma_bf16(dp[nq + 1], av, b[2], b[3]);
+      }
     }
   }
 
@@ -776,14 +825,18 @@ __device__ __forceinline__ void dkv_tile(
     as[2] = pack_bf16(dp[2 * kb + 1][0], dp[2 * kb + 1][1]);
     as[3] = pack_bf16(dp[2 * kb + 1][2], dp[2 * kb + 1][3]);
 #pragma unroll
-    for (int nd = 0; nd < ND; nd += 2) {
+    for (int nd = 0; nd < NDM; nd += 2) {
       uint32_t b[4];
-      load_b_kmajor(b, dOb, LD, col0 + nd * 8, kb * 16, lane);
-      mma_bf16(dv[nd], ap, b[0], b[1]);
-      mma_bf16(dv[nd + 1], ap, b[2], b[3]);
-      load_b_kmajor(b, Qb, LD, col0 + nd * 8, kb * 16, lane);
-      mma_bf16(dk[nd], as, b[0], b[1]);
-      mma_bf16(dk[nd + 1], as, b[2], b[3]);
+      if (nd < NDV) {
+        load_b_kmajor(b, dOb, LDV, colv0 + nd * 8, kb * 16, lane);
+        mma_bf16(dv[nd], ap, b[0], b[1]);
+        mma_bf16(dv[nd + 1], ap, b[2], b[3]);
+      }
+      if (nd < NDK) {
+        load_b_kmajor(b, Qb, LD, col0 + nd * 8, kb * 16, lane);
+        mma_bf16(dk[nd], as, b[0], b[1]);
+        mma_bf16(dk[nd + 1], as, b[2], b[3]);
+      }
     }
   }
 }
@@ -791,8 +844,9 @@ __device__ __forceinline__ void dkv_tile(
 // K3 on the tensor cores (bf16): one CTA per (64-key tile, kv head, group
 // slice and column block, batch); slice `slice` of `gs` takes query heads
 // kvh*g + slice*g/gs .. + g/gs - 1 of the group, and column block `cb` the
-// columns cb*DC .. + DC - 1 of dK and dV (DC = dkv_cols<D>(): all of D, or
-// half at D 256). Each warp owns 16 keys.
+// columns cb*DC .. + DC - 1 of dK (DC = dkv_cols<D>(): all of D, or half at
+// D 256) and the same share of dV's (DCV = Dv / dkv_col_tiles<D>()). Each
+// warp owns 16 keys.
 // K and V stay in shared memory; (q tile, head) steps stream Q, dO, lse
 // and Delta through two buffers with cp.async. Per step, on mma.sync:
 //   S^T = K Q^T, P^T = exp(S^T scale - lse), dP^T = V dO^T,
@@ -801,21 +855,28 @@ __device__ __forceinline__ void dkv_tile(
 // FlashAttention-2 backward), the accumulators in fp32 registers. With
 // gs == 1 (part == nullptr) dK (times scale) and dV are written in k's
 // and v's dtype; otherwise as fp32 partials to part (gs, 2, B, KH, T, D),
-// which dkv_reduce_kernel sums. At D 64 the registers are capped at 168 a
-// lane, so that three CTAs share an SM (D 32 fits three uncapped).
-template <int D>
+// dV's in the first Dv columns of its rows, which dkv_reduce_kernel sums.
+// At D 64 the registers are capped at 168 a lane, so that three CTAs share
+// an SM (D 32 fits three uncapped).
+template <int D, int DV>
 __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
     flash_bwd_dkv_tc_kernel(const Params p, int gs, float* part) {
   constexpr int LD = D + 8;
+  constexpr int LDV = DV + 8;   // V and dO rows
   constexpr int BQ = dkv_bq<D>();
+  constexpr int CT = dkv_col_tiles<D>();
   constexpr int DC = dkv_cols<D>();
-  constexpr int ND = DC / 8;    // 8-column blocks of dK, dV in the CTA
+  constexpr int DCV = DV / CT;
+  constexpr int NDK = DC / 8;   // 8-column blocks of dK in the CTA
+  constexpr int NDV = DCV / 8;  // and of dV
+  constexpr int NDM = NDK > NDV ? NDK : NDV;
+  static_assert(DV <= D, "K3's partials hold dV in rows of D");
   extern __shared__ uint4 smem_u4[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_u4);
   bf16* Vs = Ks + BN * LD;
-  bf16* Qs = Vs + BN * LD;           // two buffers
-  bf16* dOs = Qs + 2 * BQ * LD;      // two buffers
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LD);   // two
+  bf16* Qs = Vs + BN * LDV;          // two buffers
+  bf16* dOs = Qs + 2 * BQ * LD;      // two buffers of BQ x LDV
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * LDV);  // two
   float* dl_s = lse_s + 2 * BQ;                                 // two
 
   // CTAs start in linear order: key tiles in order of k0 across every
@@ -825,8 +886,9 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
   const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y *
                                                              blockIdx.z);
   const int k0 = (lin / per) * BN;
-  const int yy = (lin % per) % gridDim.y / (D / DC);
-  const int col0 = (lin % per) % gridDim.y % (D / DC) * DC;
+  const int yy = (lin % per) % gridDim.y / CT;
+  const int col0 = (lin % per) % gridDim.y % CT * DC;
+  const int colv0 = (lin % per) % gridDim.y % CT * DCV;
   const int kvh = yy / gs;
   const int slice = yy % gs;
   const int bb = (lin % per) / gridDim.y;
@@ -851,9 +913,9 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
     const int rows = min(BQ, p.s - qt);
     load_tile_async<D, BQ, NT>(Qs + buf * BQ * LD,
                                qb + hh * p.q_sh + qt * p.q_ss, p.q_ss, rows);
-    load_tile_async<D, BQ, NT>(dOs + buf * BQ * LD,
-                               dob + hh * p.do_sh + qt * p.do_ss, p.do_ss,
-                               rows);
+    load_tile_async<DV, BQ, NT>(dOs + buf * BQ * LDV,
+                                dob + hh * p.do_sh + qt * p.do_ss, p.do_ss,
+                                rows);
     const long long row = (static_cast<long long>(bb) * p.h + hh) * p.s + qt;
     for (int r = threadIdx.x; r < BQ; r += NT) {
       const bool in = r < rows;
@@ -865,9 +927,9 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
   load_tile_async<D, BN, NT>(Ks, static_cast<const bf16*>(p.k) +
                                      bb * p.k_sb + kvh * p.k_sh +
                                      k0 * p.k_ss, p.k_ss, kv_rows);
-  load_tile_async<D, BN, NT>(Vs, static_cast<const bf16*>(p.v) +
-                                     bb * p.v_sb + kvh * p.v_sh +
-                                     k0 * p.v_ss, p.v_ss, kv_rows);
+  load_tile_async<DV, BN, NT>(Vs, static_cast<const bf16*>(p.v) +
+                                      bb * p.v_sb + kvh * p.v_sh +
+                                      k0 * p.v_ss, p.v_ss, kv_rows);
   if (n_it > 0) load_step(0, 0);
   cp_async_commit();
 
@@ -879,11 +941,14 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
   const bool keys_live = k0 + warp * 16 < p.t;
   const float sl2 = p.scale * LOG2E;
 
-  float dk[ND][4], dv[ND][4];
+  float dk[NDK][4], dv[NDV][4];
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
+  for (int nd = 0; nd < NDM; ++nd)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[nd][e] = dv[nd][e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      if (nd < NDK) dk[nd][e] = 0.f;
+      if (nd < NDV) dv[nd][e] = 0.f;
+    }
 
   for (int it = 0; it < n_it; ++it) {
     const int buf = it & 1;
@@ -896,15 +961,15 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
     if (keys_live) {
       const int qt = q_lo + (it % n_q) * BQ;
       const bf16* Qb = Qs + buf * BQ * LD;
-      const bf16* dOb = dOs + buf * BQ * LD;
+      const bf16* dOb = dOs + buf * BQ * LDV;
       const float* lb = lse_s + buf * BQ;
       const float* db = dl_s + buf * BQ;
       if (qt + BQ <= p.s)
-        dkv_tile<D, false>(p, Ks, Vs, Qb, dOb, lb, db, k0, qt, col0, sl2,
-                           dk, dv);
+        dkv_tile<D, DV, false>(p, Ks, Vs, Qb, dOb, lb, db, k0, qt, col0,
+                               colv0, sl2, dk, dv);
       else
-        dkv_tile<D, true>(p, Ks, Vs, Qb, dOb, lb, db, k0, qt, col0, sl2,
-                          dk, dv);
+        dkv_tile<D, DV, true>(p, Ks, Vs, Qb, dOb, lb, db, k0, qt, col0,
+                              colv0, sl2, dk, dv);
     }
     __syncthreads();   // every warp is done with this buffer
   }
@@ -912,53 +977,62 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
   __syncthreads();     // K and V have landed, also where no step ran
 
   if (part == nullptr) {
-    // dK, dV in bf16, staged in the first DC columns of the warp's own K
-    // and V rows (no other warp reads them) and written 16 bytes at a time
-    // to columns col0..
+    // dK, dV in bf16, staged in the first DC (DCV) columns of the warp's
+    // own K (V) rows (no other warp reads them) and written 16 bytes at a
+    // time to columns col0.. (colv0..)
     bf16* Kw = Ks + warp * 16 * LD;
-    bf16* Vw = Vs + warp * 16 * LD;
+    bf16* Vw = Vs + warp * 16 * LDV;
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
+    for (int nd = 0; nd < NDM; ++nd)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int off = (g + 8 * r) * LD + nd * 8 + 2 * c;
-        *reinterpret_cast<uint32_t*>(Kw + off) =
-            pack_bf16(dk[nd][2 * r] * p.scale, dk[nd][2 * r + 1] * p.scale);
-        *reinterpret_cast<uint32_t*>(Vw + off) =
-            pack_bf16(dv[nd][2 * r], dv[nd][2 * r + 1]);
+        if (nd < NDK)
+          *reinterpret_cast<uint32_t*>(Kw + (g + 8 * r) * LD + nd * 8 +
+                                       2 * c) =
+              pack_bf16(dk[nd][2 * r] * p.scale,
+                        dk[nd][2 * r + 1] * p.scale);
+        if (nd < NDV)
+          *reinterpret_cast<uint32_t*>(Vw + (g + 8 * r) * LDV + nd * 8 +
+                                       2 * c) =
+              pack_bf16(dv[nd][2 * r], dv[nd][2 * r + 1]);
       }
     __syncwarp();
     bf16* dkg = static_cast<bf16*>(p.dk) + bb * p.dk_sb + kvh * p.dk_sh;
     bf16* dvg = static_cast<bf16*>(p.dv) + bb * p.dv_sb + kvh * p.dv_sh;
 #pragma unroll
-    for (int i = lane; i < 16 * ND; i += 32) {
-      const int r = i / ND;
-      const int col = (i % ND) * 8;
+    for (int i = lane; i < 16 * NDM; i += 32) {
+      const int r = i / NDM;
+      const int col = (i % NDM) * 8;
       const int key = k0 + warp * 16 + r;
       if (key < p.t) {
-        *reinterpret_cast<uint4*>(dkg + key * p.dk_ss + col0 + col) =
-            *reinterpret_cast<const uint4*>(Kw + r * LD + col);
-        *reinterpret_cast<uint4*>(dvg + key * p.dv_ss + col0 + col) =
-            *reinterpret_cast<const uint4*>(Vw + r * LD + col);
+        if (col < DC)
+          *reinterpret_cast<uint4*>(dkg + key * p.dk_ss + col0 + col) =
+              *reinterpret_cast<const uint4*>(Kw + r * LD + col);
+        if (col < DCV)
+          *reinterpret_cast<uint4*>(dvg + key * p.dv_ss + colv0 + col) =
+              *reinterpret_cast<const uint4*>(Vw + r * LDV + col);
       }
     }
   } else {
-    // fp32 partials of this slice: part[slice][0 = dK, 1 = dV][b][kvh]
+    // fp32 partials of this slice: part[slice][0 = dK, 1 = dV][b][kvh],
+    // rows of D (dV's in their first Dv columns)
     const long long n = static_cast<long long>(p.b) * p.kh * p.t * D;
     const long long base =
         2 * slice * n + ((static_cast<long long>(bb) * p.kh + kvh) * p.t) * D;
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
+    for (int nd = 0; nd < NDM; ++nd)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int key = key0 + 8 * r;
         if (key < p.t) {
           const long long at = base + static_cast<long long>(key) * D +
-                               col0 + nd * 8 + 2 * c;
-          *reinterpret_cast<float2*>(part + at) = make_float2(
-              dk[nd][2 * r] * p.scale, dk[nd][2 * r + 1] * p.scale);
-          *reinterpret_cast<float2*>(part + n + at) =
-              make_float2(dv[nd][2 * r], dv[nd][2 * r + 1]);
+                               nd * 8 + 2 * c;
+          if (nd < NDK)
+            *reinterpret_cast<float2*>(part + at + col0) = make_float2(
+                dk[nd][2 * r] * p.scale, dk[nd][2 * r + 1] * p.scale);
+          if (nd < NDV)
+            *reinterpret_cast<float2*>(part + n + at + colv0) =
+                make_float2(dv[nd][2 * r], dv[nd][2 * r + 1]);
         }
       }
   }
@@ -967,15 +1041,18 @@ __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
 // The second launch of K3 where gs > 1: dK and dV as the sums of the gs
 // slices' fp32 partials, slice 0 first (a fixed order, so the result is
 // the same from run to run), cast to k's and v's dtype and layout. One
-// thread per 4 elements of the (2, B, KH, T, D) pair.
+// thread per 4 elements of the (2, B, KH, T, D) pair; dV's rows hold Dv
+// columns (dv, a multiple of 4), and the rest of each is skipped.
 __global__ void __launch_bounds__(256)
-    dkv_reduce_kernel(const Params p, int gs, int d, const float* part) {
+    dkv_reduce_kernel(const Params p, int gs, int d, int dv,
+                      const float* part) {
   const long long n = static_cast<long long>(p.b) * p.kh * p.t * d;
   const long long e =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
   if (e >= 2 * n) return;
   const int which = e >= n;          // 0 = dK, 1 = dV
   const long long i = e - which * n;
+  if (which && i % d >= dv) return;
   float4 acc = *reinterpret_cast<const float4*>(part + e);
   for (int sl = 1; sl < gs; ++sl) {
     const float4 x =
@@ -995,115 +1072,95 @@ __global__ void __launch_bounds__(256)
   store4(out + col, acc);
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
-  constexpr int smem = dq_smem_bytes<D>();   // above 48 KB for D >= 64
+  constexpr int smem = dq_smem_bytes<D, DV>();   // above 48 KB for D >= 64
   static_assert(smem <= 232448, "K2 fp32: tiles over a CTA's 227 KB");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<float, D>,
+      flash_bwd_dq_kernel<float, D, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.s + BM - 1) / BM, p.h, p.b);
-  flash_bwd_dq_kernel<float, D><<<grid, NT, smem, stream>>>(p);
+  flash_bwd_dq_kernel<float, D, DV><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_dq_tc(const Params& p, cudaStream_t stream) {
   // Q, dO, two K and two V buffers, bf16
-  constexpr int smem = (2 * BM + 4 * BN) * (D + 8) *
+  constexpr int smem = ((BM + 2 * BN) * (D + 8) + (BM + 2 * BN) * (DV + 8)) *
                        static_cast<int>(sizeof(bf16));
   static_assert(smem <= 232448, "K2 bf16: tiles over a CTA's 227 KB");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.s + BM - 1) / BM, p.h, p.b);
-  flash_bwd_dq_tc_kernel<D><<<grid, NT, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
-  constexpr int smem = dkv_smem_bytes<D>();
-  static_assert(smem <= 232448, "K3 fp32: tiles over a CTA's 227 KB");
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>,
+      flash_bwd_dq_tc_kernel<D, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.t + BN - 1) / BN, p.kh * (D / dkv_cols<D>()), p.b);
-  flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(p);
+  const dim3 grid((p.s + BM - 1) / BM, p.h, p.b);
+  flash_bwd_dq_tc_kernel<D, DV><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
+cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
+  constexpr int smem = dkv_smem_bytes<D, DV>();
+  static_assert(smem <= 232448, "K3 fp32: tiles over a CTA's 227 KB");
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<float, D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.t + BN - 1) / BN, p.kh * dkv_col_tiles<D>(), p.b);
+  flash_bwd_dkv_kernel<float, D, DV><<<grid, NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D, int DV>
 cudaError_t launch_dkv_tc(const Params& p, int gs, float* part,
                           cudaStream_t stream) {
   if (gs < 1 || (p.h / p.kh) % gs || (gs > 1 && part == nullptr))
     return cudaErrorInvalidValue;
-  constexpr int smem = dkv_tc_smem_bytes<D>();
+  constexpr int smem = dkv_tc_smem_bytes<D, DV>();
   static_assert(smem <= 232448, "K3 bf16: tiles over a CTA's 227 KB");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_tc_kernel<D>,
+      flash_bwd_dkv_tc_kernel<D, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.t + BN - 1) / BN, p.kh * gs * (D / dkv_cols<D>()),
-                  p.b);
+  const dim3 grid((p.t + BN - 1) / BN, p.kh * gs * dkv_col_tiles<D>(), p.b);
   float* partials = gs > 1 ? part : nullptr;
-  flash_bwd_dkv_tc_kernel<D><<<grid, NT, smem, stream>>>(p, gs, partials);
+  flash_bwd_dkv_tc_kernel<D, DV><<<grid, NT, smem, stream>>>(p, gs,
+                                                             partials);
   err = cudaGetLastError();
   if (err != cudaSuccess || gs == 1) return err;
   const long long quads = static_cast<long long>(p.b) * p.kh * p.t * D / 2;
   const unsigned blocks = static_cast<unsigned>((quads + 255) / 256);
-  dkv_reduce_kernel<<<blocks, 256, 0, stream>>>(p, gs, D, part);
+  dkv_reduce_kernel<<<blocks, 256, 0, stream>>>(p, gs, D, DV, part);
   return cudaGetLastError();
 }
 
-// K2 by dtype: fp32 on the CUDA cores, bf16 on the tensor cores
-cudaError_t dispatch_dq(int dtype, int d, const Params& p, cudaStream_t st) {
-  if (dtype == 0) {
-    switch (d) {
-      case 32: return launch_dq<32>(p, st);
-      case 64: return launch_dq<64>(p, st);
-      case 128: return launch_dq<128>(p, st);
-      case 256: return launch_dq<256>(p, st);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  if (dtype == 1) {
-    switch (d) {
-      case 32: return launch_dq_tc<32>(p, st);
-      case 64: return launch_dq_tc<64>(p, st);
-      case 128: return launch_dq_tc<128>(p, st);
-      case 256: return launch_dq_tc<256>(p, st);
-      default: return cudaErrorInvalidValue;
-    }
-  }
+// K2 by dtype (0: fp32 on the CUDA cores, 1: bf16 on the tensor cores)
+// and (d, dv) pair; any other is refused
+cudaError_t dispatch_dq(int dtype, int d, int dv, const Params& p,
+                        cudaStream_t st) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+#define K2_CASE(D_, DV_)                                             \
+  if (d == D_ && dv == DV_)                                          \
+    return dtype == 0 ? launch_dq<D_, DV_>(p, st)                    \
+                      : launch_dq_tc<D_, DV_>(p, st);
+  FLASH_HEAD_DIM_PAIRS(K2_CASE)
+#undef K2_CASE
   return cudaErrorInvalidValue;
 }
 
-// K3 by dtype: fp32 on the CUDA cores (no group split), bf16 on the
+// K3 likewise: fp32 on the CUDA cores (no group split), bf16 on the
 // tensor cores
-cudaError_t dispatch_dkv(int dtype, int d, const Params& p, int gs,
+cudaError_t dispatch_dkv(int dtype, int d, int dv, const Params& p, int gs,
                          float* part, cudaStream_t st) {
-  if (dtype == 0 && gs == 1) {
-    switch (d) {
-      case 32: return launch_dkv<float, 32>(p, st);
-      case 64: return launch_dkv<float, 64>(p, st);
-      case 128: return launch_dkv<float, 128>(p, st);
-      case 256: return launch_dkv<float, 256>(p, st);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  if (dtype == 1) {
-    switch (d) {
-      case 32: return launch_dkv_tc<32>(p, gs, part, st);
-      case 64: return launch_dkv_tc<64>(p, gs, part, st);
-      case 128: return launch_dkv_tc<128>(p, gs, part, st);
-      case 256: return launch_dkv_tc<256>(p, gs, part, st);
-      default: return cudaErrorInvalidValue;
-    }
-  }
+  if (!(dtype == 0 && gs == 1) && dtype != 1) return cudaErrorInvalidValue;
+#define K3_CASE(D_, DV_)                                             \
+  if (d == D_ && dv == DV_)                                          \
+    return dtype == 0 ? launch_dkv<D_, DV_>(p, st)                   \
+                      : launch_dkv_tc<D_, DV_>(p, gs, part, st);
+  FLASH_HEAD_DIM_PAIRS(K3_CASE)
+#undef K3_CASE
   return cudaErrorInvalidValue;
 }
 
@@ -1125,18 +1182,20 @@ void set_common(Params& p, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. `strides` holds the (batch, head, row)
-// element strides of q, k, v, dO and then the outputs (K2: o, dq; K3: dk,
-// dv), 18 values; the last dimension of every tensor is contiguous. lse and
-// delta are contiguous fp32 (B,H,S). K3 splits each GQA group over `gs`
-// CTAs (a divisor of H/KH; 1 for float32); with gs > 1, `scratch` holds
-// 2 * gs * B * KH * T * D fp32 partials. Each returns a cudaError_t
-// (0 = ok).
-int repro_flash_bwd_dq(int dtype, int d, const void* q, const void* k,
-                       const void* v, const void* o, const void* d_o,
-                       const void* lse, void* dq, void* delta, int b, int h,
-                       int kh, int s, int t, const long long* strides,
-                       int causal, int window, float scale, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16; d and dv the head dims of q/k and of
+// v (a pair of FLASH_HEAD_DIM_PAIRS). `strides` holds the (batch, head,
+// row) element strides of q, k, v, dO and then the outputs (K2: o, dq;
+// K3: dk, dv), 18 values; the last dimension of every tensor is
+// contiguous. lse and delta are contiguous fp32 (B,H,S). K3 splits each
+// GQA group over `gs` CTAs (a divisor of H/KH; 1 for float32); with
+// gs > 1, `scratch` holds 2 * gs * B * KH * T * d fp32 partials. Each
+// returns a cudaError_t (0 = ok).
+int repro_flash_bwd_dq(int dtype, int d, int dv, const void* q,
+                       const void* k, const void* v, const void* o,
+                       const void* d_o, const void* lse, void* dq,
+                       void* delta, int b, int h, int kh, int s, int t,
+                       const long long* strides, int causal, int window,
+                       float scale, void* stream) {
   Params p = {};
   set_common(p, q, k, v, d_o, lse, b, h, kh, s, t, strides, causal, window,
              scale);
@@ -1144,23 +1203,23 @@ int repro_flash_bwd_dq(int dtype, int d, const void* q, const void* k,
   p.o_sb = strides[12]; p.o_sh = strides[13]; p.o_ss = strides[14];
   p.dq_sb = strides[15]; p.dq_sh = strides[16]; p.dq_ss = strides[17];
   return static_cast<int>(
-      dispatch_dq(dtype, d, p, static_cast<cudaStream_t>(stream)));
+      dispatch_dq(dtype, d, dv, p, static_cast<cudaStream_t>(stream)));
 }
 
-int repro_flash_bwd_dkv(int dtype, int d, const void* q, const void* k,
-                        const void* v, const void* d_o, const void* lse,
-                        const void* delta, void* dk, void* dv, int b, int h,
-                        int kh, int s, int t, const long long* strides,
-                        int causal, int window, float scale, int gs,
-                        void* scratch, void* stream) {
+int repro_flash_bwd_dkv(int dtype, int d, int dv, const void* q,
+                        const void* k, const void* v, const void* d_o,
+                        const void* lse, const void* delta, void* grad_k,
+                        void* grad_v, int b, int h, int kh, int s, int t,
+                        const long long* strides, int causal, int window,
+                        float scale, int gs, void* scratch, void* stream) {
   Params p = {};
   set_common(p, q, k, v, d_o, lse, b, h, kh, s, t, strides, causal, window,
              scale);
   p.delta = const_cast<float*>(static_cast<const float*>(delta));
-  p.dk = dk; p.dv = dv;
+  p.dk = grad_k; p.dv = grad_v;
   p.dk_sb = strides[12]; p.dk_sh = strides[13]; p.dk_ss = strides[14];
   p.dv_sb = strides[15]; p.dv_sh = strides[16]; p.dv_ss = strides[17];
-  return static_cast<int>(dispatch_dkv(dtype, d, p, gs,
+  return static_cast<int>(dispatch_dkv(dtype, d, dv, p, gs,
                                        static_cast<float*>(scratch),
                                        static_cast<cudaStream_t>(stream)));
 }
@@ -1168,16 +1227,15 @@ int repro_flash_bwd_dkv(int dtype, int d, const void* q, const void* k,
 // Keys per K3 CTA (BN): the host sizes K3's group split from it.
 int repro_flash_key_tile() { return BN; }
 
-// K3's CTAs per (key tile, kv head, group slice) at head dim d: each owns
-// d / this many columns of dK and dV (0 for a d no kernel takes).
-int repro_flash_dkv_col_tiles(int d) {
-  switch (d) {
-    case 32: return 32 / dkv_cols<32>();
-    case 64: return 64 / dkv_cols<64>();
-    case 128: return 128 / dkv_cols<128>();
-    case 256: return 256 / dkv_cols<256>();
-    default: return 0;
-  }
+// K3's CTAs per (key tile, kv head, group slice) at head dims (d, dv):
+// each owns d / this many columns of dK and dv / this many of dV (0 for a
+// pair no kernel takes).
+int repro_flash_dkv_col_tiles(int d, int dv) {
+#define COL_TILES_CASE(D_, DV_) \
+  if (d == D_ && dv == DV_) return dkv_col_tiles<D_>();
+  FLASH_HEAD_DIM_PAIRS(COL_TILES_CASE)
+#undef COL_TILES_CASE
+  return 0;
 }
 
 // Query rows per K2 CTA (BM): K2's grid is ceil(S / BM) x H x B.

@@ -21,15 +21,24 @@
 // product feed the next product from registers.
 //
 // Tiles of bf16 rows live in shared memory with a row stride of D + 8
-// elements: each row starts 16 bytes later in the bank pattern than the
-// one before, so the eight 16-byte rows that one ldmatrix phase reads hit
-// eight different bank groups (no conflicts), for D = 32, 64, 128 and 256.
+// elements (V and dO tiles: Dv + 8): each row starts 16 bytes later in the
+// bank pattern than the one before, so the eight 16-byte rows that one
+// ldmatrix phase reads hit eight different bank groups (no conflicts), for
+// every width here (32, 64, 128, 192 and 256: (w + 8) / 8 is odd).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// The (D, Dv) pairs the kernels are built for: q and k rows of D, v rows
+// (and O, dO, dv) of Dv. D = Dv for the MHA/GQA models; (192, 128) is
+// DeepSeek-V3's MLA (nope 128 + rope 64 for q and k, 128 for v), whose V
+// is not padded to D. Every dispatch keys on this table, and
+// kernels/flash_attention.py's HEAD_DIM_PAIRS lists the same pairs.
+#define FLASH_HEAD_DIM_PAIRS(X) \
+  X(32, 32) X(64, 64) X(128, 128) X(256, 256) X(192, 128)
 
 namespace {
 

@@ -1,9 +1,10 @@
 // K1: flash-attention forward for Hopper (sm_90a), plain C interface.
 //
 // Replaces src/repro/kernels/flash_attention.py:_fwd_kernel, the Pallas TPU
-// kernel that _forward launches. For q (B,H,S,D) and k/v (B,KH,T,D), with
-// GQA (kv_head = h / (H/KH)), it computes O = softmax(mask(Q K^T D^-0.5)) V
-// in q's dtype and the fp32 row logsumexp lse (B,H,S), under the causal
+// kernel that _forward launches. For q (B,H,S,D), k (B,KH,T,D) and v
+// (B,KH,T,Dv), with GQA (kv_head = h / (H/KH)), it computes
+// O = softmax(mask(Q K^T D^-0.5)) V (B,H,S,Dv) in q's dtype and the fp32
+// row logsumexp lse (B,H,S), under the causal
 // mask, a static sliding window and the ragged edges of S and T. A row with
 // no live key gets O = 0 and lse = 2**30, so a backward's exp(s - lse) is 0.
 //
@@ -17,7 +18,15 @@
 // Gemma3-12B's (B=1, H=16, KH=8, S=T=4096, D=256, causal) a local layer's
 // window of 1024 leaves 58.7 M live pairs, 60.1 GFLOP (60.8 us) against
 // 100.9 MB (30.1 us); the global layer's triangle is 137.5 GFLOP (139 us):
-// operations bound both.
+// operations bound both. At DeepSeek-V3's MLA (B=2, H=KH=128, S=T=1024,
+// D=192, Dv=128, causal) the products are 2 x 134.3 M live pairs x
+// (192 + 128) = 86.0 GFLOP (86.9 us) against 336.6 MB (100.5 us): bytes
+// bound it, narrowly.
+//
+// The value head dim is a second template parameter, DV: the (D, Dv) pairs
+// of FLASH_HEAD_DIM_PAIRS (flash_common.cuh), D = Dv or (192, 128). S = Q
+// K^T runs over D, O += P V over Dv; V's tiles are Dv wide, so nothing is
+// padded.
 //
 // Two routes, by dtype (the `dtype` code of repro_flash_fwd):
 //
@@ -78,28 +87,29 @@ struct Params {
   float scale;
 };
 
-template <int D>
+template <int D, int DV>
 constexpr int smem_bytes() {   // Q, K, V, P; K and V f32_tile<D>() rows
   constexpr int KB = f32_tile<D>();
-  return (BM * (D + 4) + KB * (D + 4) + KB * D + BM * (KB + 4)) *
+  return (BM * (D + 4) + KB * (D + 4) + KB * DV + BM * (KB + 4)) *
          static_cast<int>(sizeof(float));
 }
 
 
 // The fp32 route: scalar FMAs on the CUDA cores, tiles staged as fp32;
 // key tiles of KB = f32_tile<D>() rows (32 at D 256).
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   constexpr int KB = f32_tile<D>();
   constexpr int NJ = KB / 8;   // keys per thread in a score tile
   constexpr int LDQ = D + 4;   // padded Q/K row stride (floats)
   constexpr int LDP = KB + 4;  // padded P row stride
-  constexpr int DV = D / 32;   // float4 column groups of O per thread
+  constexpr int NG = DV / 32;  // float4 column groups of O per thread
+  static_assert(DV % 32 == 0, "K1 fp32: O's columns in float4 groups of 8");
   extern __shared__ float4 smem_f4[];
   float* Qs = reinterpret_cast<float*>(smem_f4);
   float* Ks = Qs + BM * LDQ;
   float* Vs = Ks + KB * LDQ;
-  float* Ps = Vs + KB * D;
+  float* Ps = Vs + KB * DV;
 
   const int q0 = blockIdx.x * BM;
   const int hh = blockIdx.y;
@@ -116,13 +126,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   const int r0 = (tid >> 3) * 4;
   const int cg = tid & 7;
 
-  float m[4], l[4], acc[4][4 * DV];
+  float m[4], l[4], acc[4][4 * NG];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4 * DV; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 4 * NG; ++c) acc[i][c] = 0.f;
   }
 
   // the key tiles this q tile can see: keys k <= q for causal, and
@@ -136,7 +146,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
     __syncthreads();   // every thread is done with the previous tile
     const int kv_rows = min(KB, p.t - kt);
     load_tile<T, D, NT, KB>(Ks, LDQ, kg + kt * p.k_ss, p.k_ss, kv_rows);
-    load_tile<T, D, NT, KB>(Vs, D, vg + kt * p.v_ss, p.v_ss, kv_rows);
+    load_tile<T, DV, NT, KB>(Vs, DV, vg + kt * p.v_ss, p.v_ss, kv_rows);
     __syncthreads();
 
     // scores of rows r0+i against keys kt + cg + 8j
@@ -195,7 +205,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
       l[i] = l[i] * alpha + rs;
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < 4 * DV; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < 4 * NG; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();
 
@@ -208,9 +218,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
         pa[i] = *reinterpret_cast<const float4*>(Ps + (r0 + i) * LDP + n);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float* vrow = Vs + (n + u) * D;
+        const float* vrow = Vs + (n + u) * DV;
 #pragma unroll
-        for (int jj = 0; jj < DV; ++jj) {
+        for (int jj = 0; jj < NG; ++jj) {
           const float4 vb =
               *reinterpret_cast<const float4*>(vrow + 4 * (cg + 8 * jj));
 #pragma unroll
@@ -236,7 +246,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
       T* orow = static_cast<T*>(p.o) + bb * p.o_sb + hh * p.o_sh +
                 qpos * p.o_ss;
 #pragma unroll
-      for (int jj = 0; jj < DV; ++jj)
+      for (int jj = 0; jj < NG; ++jj)
         store4(orow + 4 * (cg + 8 * jj),
                make_float4(acc[i][4 * jj + 0] / lsafe,
                            acc[i][4 * jj + 1] / lsafe,
@@ -250,18 +260,20 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
 }
 
 // One warp's step over one key tile of the bf16 forward: S = Q K^T for
-// its 16 rows, the online softmax, O += P V. With RAGGED (the tile runs
-// past T) key blocks past T skip their products; their probabilities are
-// masked to 0, so the result is the same.
-template <int D, bool RAGGED>
+// its 16 rows (over D), the online softmax, O += P V (over Dv; V rows of
+// DV + 8 elements in Vb). With RAGGED (the tile runs past T) key blocks
+// past T skip their products; their probabilities are masked to 0, so the
+// result is the same.
+template <int D, int DV, bool RAGGED>
 __device__ __forceinline__ void fwd_tile(const Params& p, const bf16* Qs,
                                          const bf16* Kb, const bf16* Vb,
                                          int q0, int kt, float sl2,
-                                         float (&o)[D / 8][4], float (&m)[2],
+                                         float (&o)[DV / 8][4], float (&m)[2],
                                          float (&l)[2]) {
   constexpr int LD = D + 8;
+  constexpr int LDV = DV + 8;
   constexpr int NB = BN / 8;
-  constexpr int ND = D / 8;
+  constexpr int ND = DV / 8;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int c = lane & 3;
@@ -340,7 +352,7 @@ __device__ __forceinline__ void fwd_tile(const Params& p, const bf16* Qs,
 #pragma unroll
     for (int nd = 0; nd < ND; nd += 2) {
       uint32_t b[4];
-      load_b_kmajor(b, Vb, LD, nd * 8, kb * 16, lane);
+      load_b_kmajor(b, Vb, LDV, nd * 8, kb * 16, lane);
       mma_bf16(o[nd], a, b[0], b[1]);
       mma_bf16(o[nd + 1], a, b[2], b[3]);
     }
@@ -348,18 +360,21 @@ __device__ __forceinline__ void fwd_tile(const Params& p, const bf16* Qs,
 }
 
 // The bf16 route: see the note at the top. Where D <= 64 the registers
-// are capped at 128 a lane, so that four CTAs share an SM; at D 128 and
-// 256 a lane may take 255 (the O accumulator alone is 128 fp32 registers
-// a lane at D 256, where shared memory holds one CTA an SM anyway).
-template <int D>
+// are capped at 128 a lane, so that four CTAs share an SM; at D 128, 192
+// and 256 a lane may take 255 (the O accumulator alone is 128 fp32
+// registers a lane at D 256, where shared memory holds one CTA an SM
+// anyway; 64 at (192, 128)).
+template <int D, int DV>
 __global__ void __launch_bounds__(NT, D >= 128 ? 1 : 4)
     flash_fwd_tc_kernel(const Params p) {
-  constexpr int LD = D + 8;     // padded row stride (elements)
-  constexpr int ND = D / 8;     // 8-column blocks of O
+  constexpr int LD = D + 8;     // padded Q and K row stride (elements)
+  constexpr int LDV = DV + 8;   // padded V row stride
+  constexpr int ND = DV / 8;    // 8-column blocks of O
+  static_assert(DV <= D, "K1 bf16 stages O in the warp's Q rows");
   extern __shared__ uint4 smem_u4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_u4);
   bf16* Ks = Qs + BM * LD;          // two buffers
-  bf16* Vs = Ks + 2 * BN * LD;      // two buffers
+  bf16* Vs = Ks + 2 * BN * LD;      // two buffers of BN x LDV
 
   // CTAs start in linear order; causal q tiles go last-first
   const int per = gridDim.y * gridDim.z;
@@ -389,7 +404,7 @@ __global__ void __launch_bounds__(NT, D >= 128 ? 1 : 4)
   if (k_lo < k_hi) {
     const int rows = min(BN, p.t - k_lo);
     load_tile_async<D, BN, NT>(Ks, kg + k_lo * p.k_ss, p.k_ss, rows);
-    load_tile_async<D, BN, NT>(Vs, vg + k_lo * p.v_ss, p.v_ss, rows);
+    load_tile_async<DV, BN, NT>(Vs, vg + k_lo * p.v_ss, p.v_ss, rows);
   }
   cp_async_commit();
 
@@ -414,8 +429,8 @@ __global__ void __launch_bounds__(NT, D >= 128 ? 1 : 4)
       const int rows = min(BN, p.t - kt - BN);
       load_tile_async<D, BN, NT>(Ks + (buf ^ 1) * BN * LD,
                                  kg + (kt + BN) * p.k_ss, p.k_ss, rows);
-      load_tile_async<D, BN, NT>(Vs + (buf ^ 1) * BN * LD,
-                                 vg + (kt + BN) * p.v_ss, p.v_ss, rows);
+      load_tile_async<DV, BN, NT>(Vs + (buf ^ 1) * BN * LDV,
+                                  vg + (kt + BN) * p.v_ss, p.v_ss, rows);
     }
     cp_async_commit();
     cp_async_wait<1>();   // this tile (and Q) has landed
@@ -424,11 +439,11 @@ __global__ void __launch_bounds__(NT, D >= 128 ? 1 : 4)
     // of S = 197); a tile past T takes the ragged step
     if (rows_live) {
       const bf16* Kb = Ks + buf * BN * LD;
-      const bf16* Vb = Vs + buf * BN * LD;
+      const bf16* Vb = Vs + buf * BN * LDV;
       if (kt + BN <= p.t)
-        fwd_tile<D, false>(p, Qs, Kb, Vb, q0, kt, sl2, o, m, l);
+        fwd_tile<D, DV, false>(p, Qs, Kb, Vb, q0, kt, sl2, o, m, l);
       else
-        fwd_tile<D, true>(p, Qs, Kb, Vb, q0, kt, sl2, o, m, l);
+        fwd_tile<D, DV, true>(p, Qs, Kb, Vb, q0, kt, sl2, o, m, l);
     }
     __syncthreads();   // every warp is done with this buffer
   }
@@ -477,53 +492,44 @@ __global__ void __launch_bounds__(NT, D >= 128 ? 1 : 4)
   }
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D>();   // above 48 KB for D >= 64
+  constexpr int smem = smem_bytes<D, DV>();   // above 48 KB for D >= 64
   static_assert(smem <= 232448, "K1 fp32: tiles over a CTA's 227 KB");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<float, D>,
+      flash_fwd_kernel<float, D, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.s + BM - 1) / BM, p.h, p.b);
-  flash_fwd_kernel<float, D><<<grid, NT, smem, stream>>>(p);
+  flash_fwd_kernel<float, D, DV><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
   // Q, two K and two V buffers, bf16
-  constexpr int smem = (BM + 4 * BN) * (D + 8) *
+  constexpr int smem = ((BM + 2 * BN) * (D + 8) + 2 * BN * (DV + 8)) *
                        static_cast<int>(sizeof(bf16));
   static_assert(smem <= 232448, "K1 bf16: tiles over a CTA's 227 KB");
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_tc_kernel<D, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.s + BM - 1) / BM, p.h, p.b);
-  flash_fwd_tc_kernel<D><<<grid, NT, smem, stream>>>(p);
+  flash_fwd_tc_kernel<D, DV><<<grid, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(int dtype, int d, const Params& p, cudaStream_t st) {
-  if (dtype == 0) {
-    switch (d) {
-      case 32: return launch_f32<32>(p, st);
-      case 64: return launch_f32<64>(p, st);
-      case 128: return launch_f32<128>(p, st);
-      case 256: return launch_f32<256>(p, st);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  if (dtype == 1) {
-    switch (d) {
-      case 32: return launch_tc<32>(p, st);
-      case 64: return launch_tc<64>(p, st);
-      case 128: return launch_tc<128>(p, st);
-      case 256: return launch_tc<256>(p, st);
-      default: return cudaErrorInvalidValue;
-    }
-  }
+// By dtype (0: fp32 on the CUDA cores, 1: bf16 on the tensor cores) and
+// (d, dv) pair; any other is refused
+cudaError_t dispatch(int dtype, int d, int dv, const Params& p,
+                     cudaStream_t st) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+#define K1_CASE(D_, DV_)                                          \
+  if (d == D_ && dv == DV_)                                       \
+    return dtype == 0 ? launch_f32<D_, DV_>(p, st) : launch_tc<D_, DV_>(p, st);
+  FLASH_HEAD_DIM_PAIRS(K1_CASE)
+#undef K1_CASE
   return cudaErrorInvalidValue;
 }
 
@@ -531,9 +537,10 @@ cudaError_t dispatch(int dtype, int d, const Params& p, cudaStream_t st) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last
+// dtype: 0 = float32, 1 = bfloat16; d and dv the head dims of q/k and of
+// v (a pair of FLASH_HEAD_DIM_PAIRS). Strides are in elements; the last
 // dimension of every tensor is contiguous. Returns a cudaError_t (0 = ok).
-int repro_flash_fwd(int dtype, int d, const void* q, const void* k,
+int repro_flash_fwd(int dtype, int d, int dv, const void* q, const void* k,
                     const void* v, void* o, void* lse, int b, int h, int kh,
                     int s, int t, long long q_sb, long long q_sh,
                     long long q_ss, long long k_sb, long long k_sh,
@@ -551,7 +558,7 @@ int repro_flash_fwd(int dtype, int d, const void* q, const void* k,
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.causal = causal; p.window = window; p.scale = scale;
   return static_cast<int>(
-      dispatch(dtype, d, p, static_cast<cudaStream_t>(stream)));
+      dispatch(dtype, d, dv, p, static_cast<cudaStream_t>(stream)));
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -13,9 +13,14 @@ versions, ``kernels/ref.py::ref_attention`` and ``ref_attention_bwd``.
 
 Each kernel takes two routes by dtype: bf16 runs on the tensor cores
 (``mma.sync``), fp32 on the CUDA cores (the fp32 gate of 1e-4 rules out
-TF32), at head dims D = Dv in ``HEAD_DIMS`` (256 is Gemma3's; K3 then
-gives each key tile's dk and dv columns to two CTAs). Each wrapper's ``.launches`` counts one per call that launched its
-kernel (CPU calls do not count), so a run can show that its attention went
+TF32), at the (q/k head dim D, v head dim Dv) pairs of
+``HEAD_DIM_PAIRS``: D = Dv in ``HEAD_DIMS`` (256 is Gemma3's; K3 then
+gives each key tile's dk and dv columns to two CTAs) and DeepSeek's MLA
+pair (192, 128), whose V is not padded: K1's output, dO and dv are Dv
+wide, the products over V run over Dv. The CUDA sources' dispatch keys on
+the same table (``FLASH_HEAD_DIM_PAIRS`` in ``csrc/flash_common.cuh``).
+Each wrapper's ``.launches`` counts one per call that launched its kernel
+(CPU calls do not count), so a run can show that its attention went
 through the kernels.
 ``kernel_layout.copies`` counts the output gradients whose strides the
 backward kernels do not take and that were therefore copied to a
@@ -32,6 +37,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_attention, ref_attention_bwd
 
 HEAD_DIMS = (32, 64, 128, 256)
+# (D, Dv) the kernels are built for: D = Dv, and DeepSeek's MLA pair
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 KEY_TILE = 64               # keys per K3 CTA where no library is loaded
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_MAX = 65535           # grid.y (heads) and grid.z (batch)
@@ -42,7 +49,7 @@ def _lib_bwd():
     lib = build.load("flash_bwd")
     if lib.repro_flash_bwd_dq.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        common = ([i32, i32] + [ptr] * 8 + [i32] * 5
+        common = ([i32, i32, i32] + [ptr] * 8 + [i32] * 5
                   + [ctypes.POINTER(ctypes.c_longlong)]
                   + [i32, i32, ctypes.c_float])
         lib.repro_flash_bwd_dq.argtypes = common + [ptr]
@@ -52,7 +59,7 @@ def _lib_bwd():
         for fn in (lib.repro_flash_key_tile, lib.repro_flash_query_tile):
             fn.argtypes = []
             fn.restype = i32
-        lib.repro_flash_dkv_col_tiles.argtypes = [i32]
+        lib.repro_flash_dkv_col_tiles.argtypes = [i32, i32]
         lib.repro_flash_dkv_col_tiles.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -64,7 +71,7 @@ def _lib():
     if lib.repro_flash_fwd.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.repro_flash_fwd.argtypes = (
-            [i32, i32] + [ptr] * 5 + [i32] * 5 + [i64] * 12
+            [i32, i32, i32] + [ptr] * 5 + [i32] * 5 + [i64] * 12
             + [i32, i32, ctypes.c_float, ptr])
         lib.repro_flash_fwd.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
@@ -75,7 +82,8 @@ def _lib():
 def check_shapes(q, k, v):
     """Shape rules shared by the kernel and its plain version."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
-        raise ValueError("flash attention wants q (B,H,S,D), k/v (B,KH,T,D)")
+        raise ValueError("flash attention wants q (B,H,S,D), k (B,KH,T,D), "
+                         "v (B,KH,T,Dv)")
     b, h, _, d = q.shape
     if k.shape[0] != b or v.shape[0] != b or k.shape[1] != v.shape[1] \
             or k.shape[2] != v.shape[2] or k.shape[3] != d:
@@ -101,9 +109,9 @@ def check_kernel_inputs(q, k, v):
         raise ValueError(f"kernel dtypes are float32 or bfloat16, all equal;"
                          f" got {q.dtype}, {k.dtype}, {v.dtype}")
     d, dv = q.shape[-1], v.shape[-1]
-    if d not in HEAD_DIMS or dv != d:
-        raise ValueError(f"kernel head dims are D = Dv in {HEAD_DIMS}; got "
-                         f"D={d}, Dv={dv}")
+    if (d, dv) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"kernel head dims (D, Dv) are {HEAD_DIM_PAIRS}; "
+                         f"got D={d}, Dv={dv}")
     if q.shape[0] > _GRID_MAX or q.shape[1] > _GRID_MAX:
         raise ValueError(f"batch and heads must be <= {_GRID_MAX}")
     if min(q.shape[2], k.shape[2]) < 1:
@@ -119,10 +127,23 @@ def _check_device(*xs):
                          f"(plain); got {[str(x.device) for x in xs]}")
 
 
+def empty_in_layout(x, last):
+    """An empty tensor of ``x``'s shape with the last dim ``last``, its
+    leading dims in ``x``'s stride order: a (B,S,H,D) buffer seen as
+    (B,H,S,D) gives a (B,S,H,last) buffer seen the same way."""
+    if last == x.shape[-1]:
+        return torch.empty_like(x)
+    order = sorted(range(x.ndim - 1), key=lambda i: -x.stride(i))
+    buf = torch.empty([x.shape[i] for i in order] + [last], dtype=x.dtype,
+                      device=x.device)
+    return buf.permute(*[order.index(i) for i in range(x.ndim - 1)],
+                       x.ndim - 1)
+
+
 def flash_attention_fwd(q, k, v, *, causal=True, window=0):
-    """q (B,H,S,D), k/v (B,KH,T,D) -> (out (B,H,S,D) in q's dtype, lse
-    (B,H,S) fp32). ``out`` keeps q's memory layout, so a (B,S,H,D) view in
-    gives a (B,S,H,D) buffer out."""
+    """q (B,H,S,D), k (B,KH,T,D), v (B,KH,T,Dv) -> (out (B,H,S,Dv) in q's
+    dtype, lse (B,H,S) fp32). ``out`` keeps q's memory layout, so a
+    (B,S,H,D) view in gives a (B,S,H,Dv) buffer out."""
     check_shapes(q, k, v)
     if q.device.type == "cpu":
         out, lse = ref_attention(q, k, v, causal=causal, window=window)
@@ -130,14 +151,14 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0):
     _check_device(q, k, v)
     check_kernel_inputs(q, k, v)
     b, h, s, d = q.shape
-    kh, t = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    kh, t, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = empty_in_layout(q, dv)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.repro_flash_fwd(
-            _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(),
+            _DTYPE_CODE[q.dtype], d, dv, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, kh, s, t,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], int(bool(causal)), int(window), d ** -0.5,
@@ -157,8 +178,8 @@ def _bwd_inputs(q, k, v, lse, do):
     check_shapes(q, k, v)
     _check_device(q, k, v, lse, do)
     check_kernel_inputs(q, k, v)
-    if do.shape != q.shape or lse.shape != q.shape[:3]:
-        raise ValueError(f"dO must be {tuple(q.shape)} and lse "
+    if do.shape != _out_shape(q, v) or lse.shape != q.shape[:3]:
+        raise ValueError(f"dO must be {_out_shape(q, v)} and lse "
                          f"{tuple(q.shape[:3])}; got {tuple(do.shape)}, "
                          f"{tuple(lse.shape)}")
     if do.dtype != q.dtype or lse.dtype != torch.float32 or \
@@ -166,6 +187,11 @@ def _bwd_inputs(q, k, v, lse, do):
         raise ValueError(f"dO in q's dtype {q.dtype}, lse contiguous "
                          f"float32; got {do.dtype}, {lse.dtype}")
     return kernel_layout(do)
+
+
+def _out_shape(q, v):
+    """(B,H,S,Dv): the shape of the output and of dO."""
+    return tuple(q.shape[:3]) + (v.shape[3],)
 
 
 def kernel_layout(do):
@@ -187,9 +213,10 @@ kernel_layout.copies = 0
 
 def _launch(fn, name, args):
     """Call ``fn`` of the K2/K3 library on the current stream of the
-    tensors' card (``args[2]`` is q); tensors pass as their pointers."""
+    tensors' card (``args[3]``, after the dtype code and the two head dims,
+    is q); tensors pass as their pointers."""
     lib = _lib_bwd()
-    with torch.cuda.device(args[2].device):
+    with torch.cuda.device(args[3].device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, fn)(*[a.data_ptr() if isinstance(a, torch.Tensor)
                                  else a for a in args], stream)
@@ -205,22 +232,24 @@ def _strides(*xs):
 
 def flash_attention_bwd_dq(q, k, v, out, lse, do, *, causal=True, window=0):
     """K2: (dq (B,H,S,D) in q's dtype and memory layout, Δ = rowsum(dO∘O)
-    (B,H,S) fp32) from the forward's ``out`` and fp32 ``lse``."""
+    (B,H,S) fp32, over Dv) from the forward's ``out`` (B,H,S,Dv) and fp32
+    ``lse``."""
     if q.device.type == "cpu":
         dq, _, _, delta = ref_attention_bwd(q, k, v, out, lse, do,
                                             causal=causal, window=window)
         return dq, delta
     do = _bwd_inputs(q, k, v, lse, do)
     _check_device(q, out)
-    if out.shape != q.shape or out.dtype != q.dtype:
-        raise ValueError(f"out must be {tuple(q.shape)} {q.dtype}; got "
+    if out.shape != _out_shape(q, v) or out.dtype != q.dtype:
+        raise ValueError(f"out must be {_out_shape(q, v)} {q.dtype}; got "
                          f"{tuple(out.shape)} {out.dtype}")
     _check_strides("out", out)
     b, h, s, d = q.shape
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     _launch("repro_flash_bwd_dq", "flash_bwd_dq", (
-        _DTYPE_CODE[q.dtype], d, q, k, v, out, do, lse, dq, delta, b, h,
+        _DTYPE_CODE[q.dtype], d, v.shape[3], q, k, v, out, do, lse, dq,
+        delta, b, h,
         k.shape[1], s, k.shape[2], _strides(q, k, v, do, out, dq),
         int(bool(causal)), int(window), d ** -0.5))
     flash_attention_bwd_dq.launches += 1
@@ -229,11 +258,12 @@ def flash_attention_bwd_dq(q, k, v, out, lse, do, *, causal=True, window=0):
 
 class DkvSplit(NamedTuple):
     gs: int                 # CTAs that share one GQA group's query heads
-    scratch_shape: tuple    # fp32 partials (gs, 2, B, KH, T, D); () if none
+    # fp32 partials (gs, 2, B, KH, T, max(D, Dv)); () if none
+    scratch_shape: tuple
 
 
 def dkv_group_split(b, kh, t, d, group, n_sm, key_tile=KEY_TILE, *,
-                    col_tiles):
+                    col_tiles, dv):
     """How K3's bf16 kernel splits each GQA group of ``group`` query heads:
     over ``gs`` CTAs, the smallest divisor of ``group`` that gives at least
     two CTAs per SM (``n_sm`` SMs), or the whole group where none does; 1
@@ -243,11 +273,13 @@ def dkv_group_split(b, kh, t, d, group, n_sm, key_tile=KEY_TILE, *,
     (``repro_flash_dkv_col_tiles``). The wrapper passes the kernel's own
     ``key_tile`` and ``col_tiles``. With ``gs`` > 1 each CTA writes fp32
     partial dk, dv that a second launch sums in a fixed order, into
-    scratch of ``scratch_shape``."""
+    scratch of ``scratch_shape``: rows of max(D, Dv) (``d``, ``dv``), dk's
+    D and dv's Dv columns at the start of theirs."""
     ctas = -(-t // key_tile) * kh * col_tiles * b
     gs = next((g for g in range(1, group + 1)
                if group % g == 0 and ctas * g >= 2 * n_sm), group)
-    return DkvSplit(gs, (gs, 2, b, kh, t, d) if gs > 1 else ())
+    width = max(d, dv)
+    return DkvSplit(gs, (gs, 2, b, kh, t, width) if gs > 1 else ())
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
@@ -267,21 +299,20 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
         raise ValueError("delta must be a contiguous float32 (B,H,S) "
                          "tensor on q's device")
     b, h, s, d = q.shape
-    kh, t = k.shape[1], k.shape[2]
+    kh, t, d_v = k.shape[1], k.shape[2], v.shape[3]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     split, scratch = DkvSplit(1, ()), None
     if q.dtype == torch.bfloat16:   # fp32 takes the CUDA-core kernel, unsplit
         lib = _lib_bwd()
-        split = dkv_group_split(b, kh, t, d, h // kh, torch.cuda
-                                .get_device_properties(q.device)
-                                .multi_processor_count,
-                                lib.repro_flash_key_tile(),
-                                col_tiles=lib.repro_flash_dkv_col_tiles(d))
+        split = dkv_group_split(
+            b, kh, t, d, h // kh, torch.cuda.get_device_properties(
+                q.device).multi_processor_count, lib.repro_flash_key_tile(),
+            col_tiles=lib.repro_flash_dkv_col_tiles(d, d_v), dv=d_v)
         if split.gs > 1:
             scratch = torch.empty(split.scratch_shape, dtype=torch.float32,
                                   device=q.device)
     _launch("repro_flash_bwd_dkv", "flash_bwd_dkv", (
-        _DTYPE_CODE[q.dtype], d, q, k, v, do, lse, delta, dk, dv, b, h,
+        _DTYPE_CODE[q.dtype], d, d_v, q, k, v, do, lse, delta, dk, dv, b, h,
         kh, s, t, _strides(q, k, v, do, dk, dv),
         int(bool(causal)), int(window), d ** -0.5, split.gs, scratch))
     flash_attention_bwd_dkv.launches += 1
@@ -315,6 +346,6 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):
-    """q (B,H,S,D), k/v (B,KH,T,D) -> (B,H,S,D) in q's dtype,
-    differentiable through :class:`FlashAttention`."""
+    """q (B,H,S,D), k (B,KH,T,D), v (B,KH,T,Dv) -> (B,H,S,Dv) in q's
+    dtype, differentiable through :class:`FlashAttention`."""
     return FlashAttention.apply(q, k, v, causal, window)

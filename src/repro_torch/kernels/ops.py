@@ -8,11 +8,12 @@ from repro_torch.kernels.wkv6 import wkv6 as _wkv6
 
 
 def flash_mha(q, k, v, *, causal=True, window=0):
-    """q (B,S,H,D), k/v (B,T,KH,D) in the model layout -> (B,S,H,D).
+    """q (B,S,H,D), k (B,T,KH,D), v (B,T,KH,Dv) in the model layout ->
+    (B,S,H,Dv) (Dv = D but for MLA's (192, 128)).
 
     The (B,H,S,D) views handed to the kernels are transposes without a
     copy; K1 reads them through their strides and writes its output in q's
-    layout, so the result is a contiguous (B,S,H,D) buffer on the card.
+    layout, so the result is a contiguous (B,S,H,Dv) buffer on the card.
     Differentiable through ``FlashAttention``: K2 and K3 read dO through
     its strides too and write dq, dk, dv in the primals' layouts, so the
     transposes cost no copy on the way back either."""

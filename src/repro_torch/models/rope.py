@@ -1,6 +1,6 @@
 """Rotary position embeddings, the ``full`` and ``half`` (GLM 2d) styles of
-``repro.models.rope``. M-RoPE and the single-stream ``apply_rope_1d`` wait
-for the models that use them (Qwen2-VL, DeepSeek's MLA)."""
+``repro.models.rope`` and its single-stream ``apply_rope_1d`` (the shared
+rope key of DeepSeek's MLA). M-RoPE waits for Qwen2-VL."""
 from __future__ import annotations
 
 import torch
@@ -40,3 +40,11 @@ def apply_rope(q, k, positions, *, style, theta):
         return torch.cat([_rotate(head, cos, sin), tail], dim=-1)
 
     return _apply(q).to(q.dtype), _apply(k).to(k.dtype)
+
+
+def apply_rope_1d(x, positions, *, theta):
+    """RoPE for a single (B,S,1,rd) stream (MLA's shared rope key): the
+    whole width rotated in fp32 and cast back to x's dtype
+    (``repro/models/rope.py:65-68``)."""
+    ang = _rope_angles(positions, x.shape[-1], theta)[:, :, None]
+    return _rotate(x, torch.cos(ang), torch.sin(ang)).to(x.dtype)

@@ -1,6 +1,6 @@
-"""The ViT, dense-decoder, MoE-decoder and RWKV6 branches of
-``repro.models.transformer``: init, forward, the training loss and the
-eval counts.
+"""The ViT, dense-decoder, MoE-decoder (with DeepSeek's MLA and MTP head)
+and RWKV6 branches of ``repro.models.transformer``: init, forward, the
+training loss and the eval counts.
 
 Parameters keep the reference's layout so weights cross without
 transposes: dense weights are (in, out) and applied as ``x @ w``, the
@@ -23,7 +23,12 @@ replaces attention and MLP by the time mix and the channel mix
 ``stack.time_mix.*`` and ``stack.channel_mix.*``, and takes no positions.
 An MoE layer's feed-forward is ``models/moe.py`` (``cfg.moe_impl``: GShard
 einsums or the gather slot table); its load-balance aux, summed over the
-layers, is added to the loss and reported as ``moe_aux``.
+layers, is added to the loss and reported as ``moe_aux``. With
+``block_kind="mla"`` each layer's attention is ``mla_block`` (its params
+the reference's ``init_mla`` keys under ``attn.``); with ``mtp_depth > 0``
+one multi-token prediction module (``mtp.proj``, the unstacked dense layer
+``mtp.block.*`` and the norms ``mtp.norm_h``, ``mtp.norm_e``,
+``mtp.final_norm``) predicts the token two ahead in training.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
     create_selective_checkpoint_contexts
 
 from repro_torch.core.sharding import is_stacked
-from repro_torch.models.attention import attention_block
+from repro_torch.models.attention import attention_block, mla_block
 from repro_torch.models.mlp import is_gated, mlp
 from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_gather
 from repro_torch.models.norms import layernorm, rmsnorm
@@ -81,7 +86,6 @@ def init_params(cfg, *, seed=0, device="cuda"):
         torch.Generator().manual_seed(seed)
     kw = {"generator": gen, "device": device}
     d, L = cfg.d_model, cfg.num_layers
-    h, kh, hd, ff = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
     vit = _is_vit(cfg)
     if vit:
         n_patch = (cfg.image_size // cfg.patch_size) ** 2
@@ -104,31 +108,7 @@ def init_params(cfg, *, seed=0, device="cuda"):
         p["head.w"] = dense_init((d, cfg.vocab_size), **kw)
         return p
     for prefix, n, use_moe in _stacks(cfg):
-        # LayerNorm has a bias, RMSNorm only a scale (_init_norm)
-        for ln in ("ln1", "ln2"):
-            p[f"{prefix}{ln}.scale"] = ones((n, d), device=device)
-            if vit:
-                p[f"{prefix}{ln}.bias"] = zeros((n, d), device=device)
-        p[f"{prefix}attn.wq"] = dense_init((n, d, h * hd), **kw)
-        p[f"{prefix}attn.wk"] = dense_init((n, d, kh * hd), **kw)
-        p[f"{prefix}attn.wv"] = dense_init((n, d, kh * hd), **kw)
-        p[f"{prefix}attn.wo"] = dense_init((n, h * hd, d), **kw)
-        if cfg.qkv_bias:
-            p[f"{prefix}attn.bq"] = zeros((n, h * hd), device=device)
-            p[f"{prefix}attn.bk"] = zeros((n, kh * hd), device=device)
-            p[f"{prefix}attn.bv"] = zeros((n, kh * hd), device=device)
-        if use_moe:
-            p.update({f"{prefix}moe.{k}": v
-                      for k, v in init_moe(cfg, n, **kw).items()})
-            continue
-        gated = is_gated(cfg.act)
-        if gated:
-            p[f"{prefix}mlp.w_gate"] = dense_init((n, d, ff), **kw)
-        p[f"{prefix}mlp.w_up"] = dense_init((n, d, ff), **kw)
-        p[f"{prefix}mlp.w_out"] = dense_init((n, ff, d), **kw)
-        if not gated:
-            p[f"{prefix}mlp.b_up"] = zeros((n, ff), device=device)
-            p[f"{prefix}mlp.b_out"] = zeros((n, d), device=device)
+        p.update(_init_layer(cfg, prefix, (n,), use_moe, kw))
     p["final_norm.scale"] = ones((d,), device=device)
     if vit:
         p["final_norm.bias"] = zeros((d,), device=device)
@@ -136,6 +116,72 @@ def init_params(cfg, *, seed=0, device="cuda"):
         p["head.b"] = zeros((cfg.num_classes,), device=device)
     elif not cfg.tie_embeddings:
         p["head.w"] = dense_init((d, cfg.vocab_size), **kw)
+    if cfg.mtp_depth > 0:
+        # one MTP module for any depth, as the reference builds
+        # (transformer.py:161-167): its block is a dense layer, unstacked
+        p["mtp.proj"] = dense_init((2 * d, d), **kw)
+        p.update(_init_layer(cfg, "mtp.block.", (), False, kw))
+        for norm in ("norm_h", "norm_e", "final_norm"):
+            p[f"mtp.{norm}.scale"] = ones((d,), device=device)
+    return p
+
+
+def _init_layer(cfg, prefix, lead, use_moe, kw):
+    """One attention (or MLA) layer's params under ``prefix``, each with
+    the leading dims ``lead``: ``(n,)`` for a stack of n layers, ``()``
+    for the MTP head's one block. The ViT's LayerNorm has a bias, RMSNorm
+    only a scale (the reference's ``_init_norm``); an MLA layer's
+    ``attn.*`` are the reference's ``init_mla`` keys, its two latent norms
+    ones."""
+    device = kw["device"]
+    d, h, kh, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.head_dim, cfg.d_ff)
+    p = {}
+    for ln in ("ln1", "ln2"):
+        p[f"{prefix}{ln}.scale"] = ones(lead + (d,), device=device)
+        if _is_vit(cfg):
+            p[f"{prefix}{ln}.bias"] = zeros(lead + (d,), device=device)
+    if cfg.block_kind == "mla":
+        m = cfg.mla
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        p.update({
+            f"{prefix}attn.w_dq": dense_init(lead + (d, m.q_lora_rank), **kw),
+            f"{prefix}attn.q_norm": ones(lead + (m.q_lora_rank,),
+                                         device=device),
+            f"{prefix}attn.w_uq": dense_init(lead + (m.q_lora_rank, h * qk),
+                                             **kw),
+            f"{prefix}attn.w_dkv": dense_init(
+                lead + (d, m.kv_lora_rank + m.qk_rope_head_dim), **kw),
+            f"{prefix}attn.kv_norm": ones(lead + (m.kv_lora_rank,),
+                                          device=device),
+            f"{prefix}attn.w_uk": dense_init(
+                lead + (m.kv_lora_rank, h * m.qk_nope_head_dim), **kw),
+            f"{prefix}attn.w_uv": dense_init(
+                lead + (m.kv_lora_rank, h * m.v_head_dim), **kw),
+            f"{prefix}attn.wo": dense_init(lead + (h * m.v_head_dim, d),
+                                           **kw),
+        })
+    else:
+        p[f"{prefix}attn.wq"] = dense_init(lead + (d, h * hd), **kw)
+        p[f"{prefix}attn.wk"] = dense_init(lead + (d, kh * hd), **kw)
+        p[f"{prefix}attn.wv"] = dense_init(lead + (d, kh * hd), **kw)
+        p[f"{prefix}attn.wo"] = dense_init(lead + (h * hd, d), **kw)
+        if cfg.qkv_bias:
+            p[f"{prefix}attn.bq"] = zeros(lead + (h * hd,), device=device)
+            p[f"{prefix}attn.bk"] = zeros(lead + (kh * hd,), device=device)
+            p[f"{prefix}attn.bv"] = zeros(lead + (kh * hd,), device=device)
+    if use_moe:
+        p.update({f"{prefix}moe.{k}": v
+                  for k, v in init_moe(cfg, lead[0], **kw).items()})
+        return p
+    gated = is_gated(cfg.act)
+    if gated:
+        p[f"{prefix}mlp.w_gate"] = dense_init(lead + (d, ff), **kw)
+    p[f"{prefix}mlp.w_up"] = dense_init(lead + (d, ff), **kw)
+    p[f"{prefix}mlp.w_out"] = dense_init(lead + (ff, d), **kw)
+    if not gated:
+        p[f"{prefix}mlp.b_up"] = zeros(lead + (ff,), device=device)
+        p[f"{prefix}mlp.b_out"] = zeros(lead + (d,), device=device)
     return p
 
 
@@ -213,8 +259,12 @@ def _block(cfg, layer, h, window, positions, use_moe=False, reduce=None):
         return h + rwkv6_channel_mix(_layer(layer, "channel_mix.", None),
                                      _apply_norm(cfg, layer, "ln2.", h),
                                      cfg), None
-    h = h + attention_block(_layer(layer, "attn.", None), a_in, cfg,
-                            window=window, positions=positions)
+    if cfg.block_kind == "mla":
+        h = h + mla_block(_layer(layer, "attn.", None), a_in, cfg,
+                          positions=positions)
+    else:
+        h = h + attention_block(_layer(layer, "attn.", None), a_in, cfg,
+                                window=window, positions=positions)
     m_in = _apply_norm(cfg, layer, "ln2.", h)
     if not use_moe:
         return h + mlp(_layer(layer, "mlp.", None), m_in, cfg.act), None
@@ -249,24 +299,28 @@ def _remat(cfg, fn):
     return lambda *args: checkpoint(fn, *args, **kw)
 
 
-def forward(cfg, params, batch, gather=None, reduce=None):
+def forward(cfg, params, batch, gather=None, reduce=None, *, train=True):
     """``(logits, aux)``: logits in the compute dtype, (B, num_classes) for
     a preprocessed float ``batch["images"]`` (B, H, W, 3), (B, S, vocab)
     for ``batch["tokens"]`` (B, S); ``aux`` ``{"moe_aux": fp32 scalar}``,
-    the MoE layers' load-balance losses summed (0 without experts).
-    Pre-norm blocks: ``h += attn(norm1 h)``, then ``h += mlp(norm2 h)`` or
-    the MoE; for RWKV6 ``h += time_mix(norm1 h)``, then ``h +=
-    channel_mix(norm2 h)`` (``_run_rwkv_stack``). The layers run stack by
-    stack (``_stacks``), each with its window of ``cfg.layer_windows()``.
+    the MoE layers' load-balance losses summed (0 without experts), and
+    with ``cfg.mtp_depth > 0`` and ``train`` (the reference's ``mode ==
+    "train"``) ``"mtp_logits"`` (B, S, vocab) of the MTP head
+    (:func:`_mtp_logits`). Pre-norm blocks: ``h += attn(norm1 h)``
+    (MLA with ``block_kind="mla"``), then ``h += mlp(norm2 h)`` or the
+    MoE; for RWKV6 ``h += time_mix(norm1 h)``, then ``h +=
+    channel_mix(norm2 h)``. The layers run stack by stack (``_stacks``),
+    each with its window of ``cfg.layer_windows()``.
 
     ``gather``, when given, maps ``{key: param}`` to the tensors the model
-    computes with where they are used: the non-stacked params once before
-    the embed, the stacked ones a layer's slices at a time in the layer
-    loop (ZeRO-3 gathers its shards there). The gather of a layer runs
-    inside its checkpointed body under ``cfg.remat``, so the backward's
-    recompute gathers the layer again rather than keeping it whole.
-    ``reduce`` is the MoE's hook for its routed fractions (``models/
-    moe.py``): their mean over the data-parallel ranks."""
+    computes with where they are used: the non-stacked params (``mtp.*``
+    among them) once before the embed, the stacked ones a layer's slices
+    at a time in the layer loop (ZeRO-3 gathers its shards there). The
+    gather of a layer runs inside its checkpointed body under
+    ``cfg.remat``, so the backward's recompute gathers the layer again
+    rather than keeping it whole. ``reduce`` is the MoE's hook for its
+    routed fractions (``models/moe.py``): their mean over the
+    data-parallel ranks."""
     stacked = {k: v for k, v in params.items() if is_stacked(k)}
     if gather is not None:
         params = gather({k: v for k, v in params.items()
@@ -288,7 +342,33 @@ def forward(cfg, params, batch, gather=None, reduce=None):
                           next(windows), use_moe)
             if aux is not None:
                 moe_aux = moe_aux + aux
-    return _head(cfg, params, h), {"moe_aux": moe_aux}
+    aux = {"moe_aux": moe_aux}
+    if cfg.mtp_depth > 0 and train:
+        aux["mtp_logits"] = _mtp_logits(cfg, params, batch, h, positions)
+    return _head(cfg, params, h), aux
+
+
+def _mtp_logits(cfg, params, batch, h, positions):
+    """The multi-token prediction head (reference ``transformer.py:
+    511-526``): the next tokens ``concat(tok[:, 1:], tok[:, -1:])``
+    embedded (no embedding scale), ``concat(norm_h(h), norm_e(e_next)) @
+    mtp.proj`` on the last layer's output ``h`` (before the final norm),
+    one dense block (window 0, never checkpointed, as in the reference),
+    ``mtp.final_norm`` and the LM head (the embedding transposed when
+    tied). Its logits feed the loss's 0.3-weighted term for the token two
+    ahead (:func:`loss_from_logits`)."""
+    tok = batch["tokens"].long()
+    nxt = torch.cat([tok[:, 1:], tok[:, -1:]], dim=1)
+    e_next = params["embed.tok"][nxt].to(h.dtype)
+    mh = torch.cat([_apply_norm(cfg, params, "mtp.norm_h.", h),
+                    _apply_norm(cfg, params, "mtp.norm_e.", e_next)],
+                   dim=-1) @ params["mtp.proj"].to(h.dtype)
+    mh, _ = _block(cfg, _layer(params, "mtp.block.", None), mh, 0,
+                   positions)
+    mh = _apply_norm(cfg, params, "mtp.final_norm.", mh)
+    if cfg.tie_embeddings:
+        return mh @ params["embed.tok"].T.to(h.dtype)
+    return mh @ params["head.w"].to(h.dtype)
 
 
 def _xent(logits, labels, mask=None):
@@ -325,8 +405,11 @@ def loss_from_logits(cfg, logits, batch, aux=None):
     (``transformer.py:592-627``). ViT: ``_soft_xent`` for soft labels or
     label smoothing, else ``_xent``; metrics ``acc``, ``moe_aux`` and
     ``loss``. Decoder: next-token ``_xent`` with the labels shifted by one
-    and the last position masked; metrics ``moe_aux`` and ``loss``. The
-    loss adds ``aux["moe_aux"]`` (``forward``'s; 0 when ``aux`` is None)."""
+    and the last position masked; with ``aux["mtp_logits"]`` (the MTP
+    head) plus 0.3 times its ``_xent`` against the labels shifted by two,
+    the last two positions masked (reference ``transformer.py:622-625``);
+    metrics ``moe_aux`` and ``loss``. The loss adds ``aux["moe_aux"]``
+    (``forward``'s; 0 when ``aux`` is None)."""
     moe_aux = aux["moe_aux"] if aux is not None else torch.zeros(
         (), dtype=torch.float32, device=logits.device)
     if not _is_vit(cfg):
@@ -334,7 +417,13 @@ def loss_from_logits(cfg, logits, batch, aux=None):
         mask = torch.ones(tok.shape, dtype=torch.bool, device=tok.device)
         mask[:, -1] = False
         labels = torch.cat([tok[:, 1:], tok[:, -1:]], dim=1)
-        loss = _xent(logits, labels, mask) + moe_aux
+        loss = _xent(logits, labels, mask)
+        if aux is not None and "mtp_logits" in aux:
+            l2 = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
+            m2 = mask.clone()
+            m2[:, -2:] = False
+            loss = loss + 0.3 * _xent(aux["mtp_logits"], l2, m2)
+        loss = loss + moe_aux
         return loss, {"moe_aux": moe_aux, "loss": loss}
     labels = batch["labels"]
     soft = labels.ndim == 2             # Mixup/CutMix soft-label batches
@@ -404,7 +493,7 @@ class Transformer(nn.Module):
         return dict(self.named_parameters())
 
     def forward(self, batch):
-        return forward(self.cfg, self.params(), batch)[0]
+        return forward(self.cfg, self.params(), batch, train=False)[0]
 
 
 ViT = Transformer       # the name the eval and training callers use

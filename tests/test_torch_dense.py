@@ -577,14 +577,15 @@ def test_dkv_group_split_counts_the_column_halves(b, kh, t, group, n_sm,
     cols = re.search(r"constexpr int dkv_cols\(\) \{ return D == 256 \? "
                      r"(\d+) : D; \}", src)
     assert cols and 256 // int(cols.group(1)) == 2
-    split = fa.dkv_group_split(b, kh, t, 256, group, n_sm, col_tiles=2)
+    split = fa.dkv_group_split(b, kh, t, 256, group, n_sm, col_tiles=2,
+                                dv=256)
     ctas = -(-t // fa.KEY_TILE) * kh * 2 * b
     assert split.gs == want_gs
     assert ctas * split.gs >= 2 * n_sm or split.gs == group
     assert split.scratch_shape == ((split.gs, 2, b, kh, t, 256)
                                    if split.gs > 1 else ())
-    assert fa.dkv_group_split(b, kh, t, 256, group, n_sm, col_tiles=1) \
-        .gs >= split.gs
+    assert fa.dkv_group_split(b, kh, t, 256, group, n_sm, col_tiles=1,
+                              dv=256).gs >= split.gs
 
 
 # --- the CLI ----------------------------------------------------------------

@@ -76,8 +76,13 @@ TRAIN_JOBS = {
     "granite-z2": (GRANITE, 2, "adamw", False, "tokens"),
     "granite-z3": (GRANITE, 3, "adamw", False, "tokens"),
     "granite-gather-z3": (GRANITE + ":gather", 3, "adamw", False, "tokens"),
+    "deepseek-z3": ("deepseek-v3-671b", 3, "adamw", False, "tokens"),
 }
 GRANITE_JOBS = [j for j in TRAIN_JOBS if j.startswith("granite")]
+# the MoE decoders: Granite's jobs, and DeepSeek's smoke config at ZeRO-3
+# (MLA, the MTP head, a shared expert and a leading dense layer, with every
+# non-stacked mtp.* leaf gathered before the embed)
+MOE_JOBS = GRANITE_JOBS + ["deepseek-z3"]
 GUARD_STAGES = (1, 3)
 EVAL_SIZE, EVAL_BATCH = 50, 8       # the last batch has 2 real rows
 
@@ -349,7 +354,8 @@ def _flat_specs(tree, prefix=""):
 
 
 @pytest.mark.parametrize("world", [2, 4, 8])
-@pytest.mark.parametrize("arch", ["vit-b16", "chatglm3-6b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["vit-b16", "chatglm3-6b", "rwkv6-7b",
+                                  "deepseek-v3-671b"])
 def test_shard_dims_match_reference(arch, world):
     """At full size, for params at ZeRO-3 and the optimizer state at
     stages 1-3, the port's sharded dimension of every key is where the
@@ -495,7 +501,7 @@ def test_decoders_at_zero3_match_single_device(_worlds, single, world, job):
 def test_zero3_state_holds_a_chunk_of_each_sharded_leaf(_worlds, world):
     """Each rank's persistent params and moments hold 1/world of every
     sharded leaf (its own chunk), and replicated leaves whole."""
-    for job in ("vit-z3", "chatglm3-z3", "rwkv6-z3"):
+    for job in ("vit-z3", "chatglm3-z3", "rwkv6-z3", "deepseek-z3"):
         full = {k: v.shape for k, v in _worlds[world][0][job]["params"]
                 .items()}
         dims = shard_dims(full, zero_stage=3, world=world)
@@ -510,12 +516,12 @@ def test_zero3_state_holds_a_chunk_of_each_sharded_leaf(_worlds, world):
 
 
 @pytest.mark.parametrize("world", [2, 4])
-@pytest.mark.parametrize("job", GRANITE_JOBS)
+@pytest.mark.parametrize("job", MOE_JOBS)
 def test_moe_dp_matches_one_process(_worlds, single, world, job):
-    """Granite smoke, fp32, 3 steps of global batch 8 x 32 (accum 2): every
-    rank's losses, grad norms, gathered params and moments within 2e-4 of
-    the one-process run, and the load-balance loss (``moe_aux``) within
-    rtol 1e-5. Each rank holds 1 or 2 rows of a microbatch: its own routed
+    """Granite smoke (and DeepSeek smoke at ZeRO-3), fp32, 3 steps of
+    global batch 8 x 32 (accum 2): every rank's losses, grad norms,
+    gathered params and moments within 2e-4 of the one-process run, and
+    the load-balance loss (``moe_aux``) within rtol 1e-5. Each rank holds 1 or 2 rows of a microbatch: its own routed
     fractions would give another aux, so this holds only with the global
     fractions (``Trainer.forward_reduce``). The gather dispatch runs at a
     capacity factor of 8, where a rank's local capacity drops nothing."""

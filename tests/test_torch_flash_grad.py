@@ -278,7 +278,7 @@ SPLIT_SHAPES = [(64, 12, 197, 64, 1), (128, 12, 197, 64, 1),
 @pytest.mark.parametrize("b,kh,t,d,group", SPLIT_SHAPES)
 def test_dkv_group_split(b, kh, t, d, group):
     n_sm = 132
-    split = fa.dkv_group_split(b, kh, t, d, group, n_sm, col_tiles=1)
+    split = fa.dkv_group_split(b, kh, t, d, group, n_sm, col_tiles=1, dv=d)
     ctas = -(-t // fa.KEY_TILE) * kh * b
     assert group % split.gs == 0
     if group == 1 or ctas >= 2 * n_sm:     # the ViT shapes: no split
@@ -301,7 +301,7 @@ def test_key_tile_matches_the_kernel_header():
     tiles = re.findall(r"constexpr int BN = (\d+);", header.read_text())
     assert tiles == [str(fa.KEY_TILE)]
     split = fa.dkv_group_split(4, 2, 1024, 128, 16, 132, key_tile=128,
-                               col_tiles=1)
+                               col_tiles=1, dv=128)
     assert split.gs == 8        # half the key tiles: twice the split
 
 

@@ -106,7 +106,12 @@ def test_config_fields_match_reference(factory):
     {"block_kind": "mla"}, {"arch_type": "audio"},
     {"rope_style": "mrope"}, {"arch_type": "hybrid"}, {"arch_type": "vlm"}])
 def test_unported_branches_raise(change):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """The unported branches raise; an mla block is ported, and without
+    its MLAConfig it raises the config's ValueError."""
+    error, match = (ValueError, "an mla block needs mla") \
+        if change == {"block_kind": "mla"} \
+        else (NotImplementedError, "not yet ported")
+    with pytest.raises(error, match=match):
         configs.get_config(ARCH).replace(**change)
 
 

@@ -155,11 +155,13 @@ def test_full_width_param_shapes_match_reference(variant):
 
 
 def test_unported_and_unknown_options_raise():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        configs.get_config("deepseek-v3-671b")
-    with pytest.raises(NotImplementedError, match="mtp_depth"):
-        configs.get_config(ARCH).replace(mtp_depth=1)
-    with pytest.raises(NotImplementedError, match="block_kind"):
+    """DeepSeek-V3 loads now (``tests/test_torch_mla.py`` holds it), an
+    ``mtp_depth`` of 1 builds one MTP head, an mla block without its
+    MLAConfig and an unknown dispatch raise."""
+    assert configs.get_config("deepseek-v3-671b").block_kind == "mla"
+    with_mtp = configs.get_config(ARCH).replace(mtp_depth=1, num_layers=2)
+    assert "mtp.proj" in transformer.init_params(with_mtp, device="meta")
+    with pytest.raises(ValueError, match="an mla block needs mla"):
         configs.get_config(ARCH).replace(block_kind="mla")
     with pytest.raises(ValueError, match="moe_impl"):
         configs.get_config(ARCH).replace(moe_impl="sparse")
