@@ -4,9 +4,10 @@ from this checkout, holds each against its plain PyTorch version, drives
 the port's main paths (ViT-B/16 eval and training, one card and
 data-parallel under ZeRO 0-3 with augmentation, preempted and resumed from
 checkpoints and supervised under injected faults, ChatGLM3-6B, RWKV6-7B,
-Gemma3-12B, Qwen2.5-14B, GLM-4-9B and Granite-MoE 3B-A800M training) at
-full width through its CLI, and DeepSeek-V3 (MLA and the multi-token
-prediction head) at full width through its ``Trainer``, and checks the
+Gemma3-12B, Qwen2.5-14B, GLM-4-9B and Granite-MoE 3B-A800M training, and
+serving Qwen2.5-14B) at full width through its CLI, and DeepSeek-V3 (MLA
+and the multi-token prediction head) and Qwen2-VL-72B training and five
+models' prefill and decode at full width in process, and checks the
 results.
 
     python3 chip_smoke.py [--profile]
@@ -225,6 +226,42 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    included; bf16 cosine >= 0.99); warm tokens/s of both paths in turns
    (a reading, not gated).
 
+15. serving and Qwen2-VL: K1 at the prefill shapes, where the prompt's S
+   queries attend over a cache of T > S rows whose tail is zeros (causal,
+   upper-left aligned: Qwen2.5's serve run, B 4, H 40, KH 8, S 512, T 576,
+   D 128; Gemma3's local layers past the window, B 1, H 16, KH 8, S 1100,
+   T 1104, D 256, window 1024; MLA's, B 2, H = KH = 128, S 1024, T 1032,
+   D 192, Dv 128) against ``ref_attention`` in bf16 and fp32 (phase 3's
+   gates), K4 at a decode step's rows (4 x 5120, 1 x 8192, 2 x 7168)
+   against ``ref_rmsnorm_fwd``, and K1 timed at Qwen2.5's prefill beside
+   SDPA and the bound over the live pairs; then ``python -m
+   repro_torch.launch.serve --arch qwen2.5-14b --layers 4 --batch 4
+   --prompt-len 512 --gen 64`` (fp32) in process with the counters reset
+   just before and read just after (K1 4: the prefill's layers, the
+   decode steps take the naive sdpa; K4 (2 x 4 + 1) x 64 = 576; nothing
+   else), its two ``[serve]`` lines; then, at full width,
+   Qwen2-VL-72B (one layer, batch 2, a prompt of 1024 with
+   512 image embeddings and a (t, h, w) grid), DeepSeek-V3 as phase 14
+   cuts it (no MTP head, capacity factor 8: the absorbed decode),
+   Gemma3-12B (six layers, a prompt of 1100 past the window), Granite-MoE
+   (two layers, capacity factor 8) and RWKV6-7B (two layers; its fp32
+   gate at norm eps 1e-3, its fp32 reading at the model's eps printed,
+   ungated): train-mode logits of the whole sequence against the
+   prefill's and four decode steps' (fp32 max |d| within 5e-4, bf16
+   cosine >= 0.99;
+   the prefill through K1 once a layer, K6 for RWKV6 from the cache's
+   state, the decode steps through neither); then Qwen2-VL-72B training
+   at full width cut to one layer (3.369 B params) through the ``Trainer``:
+   3 bf16 steps at batch 2 x 1024 with 512 image embeddings (K1-K3 3
+   launches each, K4/K5 9 each), losses finite, ``step_ok`` 1, the peak
+   beside its prediction, warm tokens/s, and kernel against naive
+   gradients on the first batch (fp32 within 2e-4, bf16 cosine >= 0.99);
+   then readings, not gated: warm prefill ms and decode tokens/s of
+   Qwen2.5-14B at four layers in process (bf16 at batch 4 and 32, fp32 at
+   4), one decode step's device time (CUDA events), host time and busy
+   share of the decode loop in each dtype, and one bf16 step under
+   ``torch.profiler``.
+
 ``--profile`` adds a ``torch.profiler`` table of one warm training step of
 each training slice (DeepSeek-V3's included, and the ZeRO-3 step at world
 1), and at the end (after every timed phase) of one warm bf16 eval pass of
@@ -235,12 +272,15 @@ its training run's launches under ``gemma3`` and ``gemma3_launches``, the
 Qwen2.5 and GLM-4 runs' under ``dense_launches``, Granite-MoE's attention times and
 its training run's launches under ``granite`` and ``granite_launches``,
 DeepSeek-V3's MLA attention times and its training run's launches under
-``deepseek`` and ``deepseek_launches``, the
+``deepseek`` and ``deepseek_launches``, K1's time at the serve run's
+prefill and that run's launches under ``serve`` and ``serve_launches``,
+Qwen2-VL training's under ``qwen2vl_launches``, the
 data-parallel runs'
 launches there under ``dp_launches``, the preempted and resumed runs'
 under ``resume_launches`` and phase 8d's under ``data_launches``, K4/K5
 with the RWKV6 run's launches and the decoder's, Gemma3's, Qwen2.5's,
-GLM-4's, Granite-MoE's and DeepSeek-V3's beside them, K6/K7; each
+GLM-4's, Granite-MoE's, DeepSeek-V3's, the serve run's and Qwen2-VL's
+beside them, K6/K7; each
 redesigned kernel with its ``routes``), the whole script's time, the
 card's ``nvidia-smi`` name and power limit, and the ``ok`` line.
 """
@@ -456,6 +496,54 @@ MLA_CASES = [
     ("window 256", (1, 8, 8, 1000, 1000, 192, 128), True, 256, True),
     ("gqa 4", (2, 8, 2, 300, 300, 192, 128), True, 0, True),
 ]
+# phase 15, serving and Qwen2-VL. The serve CLI's run: qwen2.5-14b at full
+# width cut to four layers, fp32, a batch of 4 prompts of 512 tokens and
+# 64 generated (one prefill and 63 decode steps)
+QWEN = "qwen2.5-14b"
+SERVE_LAYERS, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4, 512, 64
+SERVE_ARGS = ["--arch", QWEN, "--layers", str(SERVE_LAYERS), "--batch",
+              str(SERVE_BATCH), "--prompt-len", str(SERVE_PROMPT), "--gen",
+              str(SERVE_GEN)]
+# K1 where prefill attends over the whole cache (T = prompt + generated
+# rows, causal, S < T): label, shape (B, H, KH, S, T, D[, Dv]), window.
+# Qwen2.5's serve run, Gemma3's local layers with a prompt past the
+# window, DeepSeek-V3's MLA
+PREFILL_CASES = [
+    ("qwen2.5", (SERVE_BATCH, 40, 8, SERVE_PROMPT,
+                 SERVE_PROMPT + SERVE_GEN, 128), 0),
+    ("gemma3 local", (1, 16, 8, 1100, 1104, 256), GEMMA_WINDOW),
+    ("mla", (2, 128, 128, LM_SEQ, LM_SEQ + 8, 192, 128), 0),
+]
+# K4 at a decode step's rows (B x d_model): Qwen2.5's serve run, Qwen2-VL,
+# DeepSeek-V3
+DECODE_ROWS = [("qwen2.5", (SERVE_BATCH, 5120)), ("qwen2-vl", (1, 8192)),
+               ("deepseek", (2, 7168))]
+DECODE_TOL = 5e-4                   # tests/test_arch_smoke.py:80-85
+DECODE_STEPS = 4
+# decode against training at full width: tag, arch, layers, batch, prompt
+# tokens, cache rows, config fields replaced, the norm eps of the fp32 gate
+# (None: the model's). MoE configs at capacity factor 8 (prefill counts
+# capacity over the prompt, training over the whole sequence). RWKV6's
+# fp32 gate runs with the group norm's eps at 1e-3 (phase 10's); its fp32
+# reading at the model's eps is printed beside it, ungated, and its bf16
+# gate runs at the model's eps
+VL = "qwen2-vl-72b"
+VL_IMAGE = 512
+DECODE_MODELS = [
+    ("qwen2-vl", VL, 1, 2, LM_SEQ, LM_SEQ + DECODE_STEPS, {}, None),
+    ("deepseek", DEEPSEEK, 1, 2, LM_SEQ, LM_SEQ + 8, {"mtp_depth": 0},
+     None),
+    ("gemma3", "gemma3-12b", GEMMA_LAYERS, 1, 1100, 1100 + DECODE_STEPS, {},
+     None),
+    ("granite", GRANITE, 2, 2, 512, 512 + DECODE_STEPS, {}, None),
+    ("rwkv6", "rwkv6-7b", 2, 2, 512, 512 + DECODE_STEPS, {}, RWKV_GATE_EPS),
+]
+# Qwen2-VL-72B training at full width cut to one layer (3.37 B params),
+# batch 2 x 1024 with 512 image embeddings, accum 1, three steps
+VL_LAYERS, VL_BATCH, VL_STEPS = 1, 2, 3
+VL_PEAK_GB = (58.0, 64.0)       # the predicted peak (PERF.md, §6)
+SERVE_RATE_BATCHES = (SERVE_BATCH, 32)
+
 # The redesigned kernels and the routes each takes; their rows say so, and
 # PERF.md's kernel table keeps the earlier design's times
 ROUTES = {
@@ -530,6 +618,20 @@ def live_pairs(s, t, causal, window):
     return n
 
 
+def live_keys(s, t, causal, window):
+    """The keys that some live (query, key) pair of ``live_pairs`` reads:
+    a kernel that skips dead tiles never needs the others (under the
+    top-left causal mask, keys S..T-1 of an S < T call)."""
+    n = end = 0
+    for q in range(s):      # each query's range [lo, hi) moves right
+        hi = min(t, q + 1) if causal else t
+        lo = max(0, q - window + 1) if window > 0 else 0
+        lo = max(lo, end)
+        if hi > lo:
+            n, end = n + hi - lo, hi
+    return n
+
+
 def head_dims(shape):
     """(D, Dv) of an attention shape (B, H, KH, S, T, D[, Dv])."""
     return shape[5], shape[6] if len(shape) > 6 else shape[5]
@@ -539,17 +641,21 @@ def attn_work(shape, el, causal, window=0):
     """Bytes each attention kernel must move and the FLOPs of its products
     at ``shape`` (B, H, KH, S, T, D[, Dv]) with ``el``-byte elements,
     counting the live (query, key) pairs only (``live_pairs``: the causal
-    triangle, cut by the window). Q K^T and dq = dS K run over D, P V and
-    dO V^T over Dv."""
+    triangle, cut by the window) and the K and V rows they read
+    (``live_keys``); dK and dV are written at all T rows. Q K^T and dq = dS
+    K run over D, P V and dO V^T over Dv."""
     b, h, kh, s, t = shape[:5]
     d, dv = head_dims(shape)
     pairs = b * h * live_pairs(s, t, causal, window)
     q, o = b * h * s * d * el, b * h * s * dv * el
-    k, v, rows = b * kh * t * d * el, b * kh * t * dv * el, b * h * s * 4
+    keys = live_keys(s, t, causal, window)
+    k, v, rows = b * kh * keys * d * el, b * kh * keys * dv * el, \
+        b * h * s * 4
+    dk, dv_ = b * kh * t * d * el, b * kh * t * dv * el
     return {    # K1: q, k, v, o, lse; K2: + dO, dq, delta; K3: dk, dv
         "fwd": (q + k + v + o + rows, 2 * pairs * (d + dv)),
         "dq": (2 * q + k + v + 2 * o + 2 * rows, 2 * pairs * (2 * d + dv)),
-        "dkv": (q + o + 2 * k + 2 * v + 2 * rows,
+        "dkv": (q + o + k + v + dk + dv_ + 2 * rows,
                 2 * pairs * (2 * d + 2 * dv)),
     }
 
@@ -1315,6 +1421,18 @@ def counters():
             "wkv6_fwd": wk.wkv6_fwd, "wkv6_bwd": wk.wkv6_bwd}
 
 
+def reset_counters():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    for fn in counters().values():
+        fn.launches = 0
+    fa.kernel_layout.copies = rms.row_layout.copies = 0
+
+
+def read_counters():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
 def run_cli(argv, expect, label):
     """Drive the CLI with every launch counter reset just before and read
     just after; fails unless the counts are ``expect`` (counters it does not
@@ -1326,13 +1444,11 @@ def run_cli(argv, expect, label):
     from repro_torch.kernels import wkv6 as wk
     from repro_torch.launch.train import main as cli
     expect = dict({name: 0 for name in counters()}, **expect)
-    for fn in counters().values():
-        fn.launches = 0
-    fa.kernel_layout.copies = rms.row_layout.copies = 0
+    reset_counters()
     wk.kernel_layout.copies = wk.pad_to_chunk.pads = 0
     pinned_copy.copies = 0
     hist = cli(argv)
-    launches = {name: fn.launches for name, fn in counters().items()}
+    launches = read_counters()
     copies = {"dO": fa.kernel_layout.copies, "rows": rms.row_layout.copies,
               "wkv6": wk.kernel_layout.copies,
               "wkv6 pads": wk.pad_to_chunk.pads}
@@ -2334,14 +2450,15 @@ def phase_rwkv_train(profile):
     --accum 2 --steps 10`` (per step and microbatch: K6 and K7 once a
     layer, K4/K5 twice a layer and once for the final norm, no attention),
     with the fp32 gradient gate taken at the group norm's eps raised to
-    RWKV_GATE_EPS; then ``rwkv_after_steps``."""
+    RWKV_GATE_EPS; then ``rwkv_after_steps``. Returns (the CLI run's
+    launches, the params of seed 0 as phase 15 decodes them)."""
     wkv, norms = 10 * 2 * RWKV_LAYERS, 10 * 2 * (2 * RWKV_LAYERS + 1)
-    launches, hist, _ = decoder_train(
+    launches, hist, params = decoder_train(
         "rwkv6-7b", RWKV_LAYERS, RWKV_TRAIN_ARGS, {
             "wkv6_fwd": wkv, "wkv6_bwd": wkv, "rmsnorm_fwd": norms,
             "rmsnorm_bwd": norms}, "rwkv", profile, fp32_eps=RWKV_GATE_EPS)
     rwkv_after_steps(hist)
-    return launches
+    return launches, decode_params("rwkv6", params)
 
 
 def phase_gemma_train(profile):
@@ -2354,7 +2471,8 @@ def phase_gemma_train(profile):
     micro-batches of 1 x GEMMA_AGREE_SEQ in turns (at 4096 tokens the naive
     path's fp32 scores, ~1.7 GB a layer, do not fit beside the AdamW state
     on 80 GB) and of the kernel path at 4096; then ``phase_remat`` from the
-    same params. Returns the CLI run's launches."""
+    same params. Returns (the CLI run's launches, the params of seed 0 as
+    phase 15 decodes them)."""
     from repro_torch.configs import get_config
 
     t0 = time.time()
@@ -2372,7 +2490,7 @@ def phase_gemma_train(profile):
         rate_seq=GEMMA_AGREE_SEQ)
     phase_remat(params)
     print(f"[gemma3] phase done in {time.time() - t0:.1f}s", flush=True)
-    return launches
+    return launches, decode_params("gemma3", params)
 
 
 def phase_remat(params):
@@ -2408,8 +2526,7 @@ def phase_remat(params):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        for fn in counters().values():
-            fn.launches = 0
+        reset_counters()
         losses, t0 = [], 0.0
         for i, batch in enumerate(batches):
             if i == 1:          # the first step is a warm-up
@@ -2422,7 +2539,7 @@ def phase_remat(params):
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) / (steps - 1) * 1e3
         peak = torch.cuda.max_memory_allocated()
-        launches = {name: fn.launches for name, fn in counters().items()}
+        launches = read_counters()
         runs[remat] = losses
         d = max(abs(a - b) for a, b in zip(losses, runs["none"]))
         ok = launches == expect and d <= REMAT_TOL
@@ -2801,7 +2918,8 @@ def phase_granite(profile, card):
     warm tokens/s of both paths in turns, every kernel-path run faster;
     then gather against GShard (``impl_agreement``), warm tokens/s of the
     GShard and gather paths in turns (recorded, not gated) and one MoE
-    layer's parts timed (``moe_split``). Returns the CLI run's launches."""
+    layer's parts timed (``moe_split``). Returns (the CLI run's launches,
+    the params of seed 0 as phase 15 decodes them)."""
     import gc
     import math
     import torch
@@ -2837,11 +2955,12 @@ def phase_granite(profile, card):
               f"runs {[round(r[0] * LM_SEQ, 1) for r in rs]} tokens/s; "
               f"{smi_line()})", flush=True)
     moe_split(card)
+    held = decode_params("granite", params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[granite] phase done in {time.time() - t0:.1f}s", flush=True)
-    return launches
+    return launches, held
 
 
 def phase_mla_attention(card):
@@ -2906,8 +3025,8 @@ def phase_deepseek(profile, card):
     microbatch of 1 x LM_SEQ from the initial params (``moe_agreement``:
     fp32 within 2e-4 on the kernel path's routing, bf16 cosine >= 0.99);
     then warm tokens/s of both paths in turns (a reading, not gated: at
-    this shape attention is a small part of the step). Returns the run's
-    launches."""
+    this shape attention is a small part of the step). Returns (the run's
+    launches, the initial params as phase 15 decodes them)."""
     import gc
     import math
     import torch
@@ -2941,9 +3060,7 @@ def phase_deepseek(profile, card):
     expect = dict({name: 0 for name in counters()}, flash_fwd=2 * DS_STEPS,
                   flash_bwd_dq=2 * DS_STEPS, flash_bwd_dkv=2 * DS_STEPS,
                   rmsnorm_fwd=12 * DS_STEPS, rmsnorm_bwd=12 * DS_STEPS)
-    for fn in counters().values():
-        fn.launches = 0
-    fa.kernel_layout.copies = rms.row_layout.copies = 0
+    reset_counters()
     t_train = time.time()
     rows = []
     for batch in batches:
@@ -2954,7 +3071,7 @@ def phase_deepseek(profile, card):
                      "step_ok": m["step_ok"]})
     torch.cuda.synchronize()
     t_train = time.time() - t_train
-    launches = {name: fn.launches for name, fn in counters().items()}
+    launches = read_counters()
     copies = {"dO": fa.kernel_layout.copies, "rows": rms.row_layout.copies}
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"[deepseek] train: launches {launches} (expected {expect}); "
@@ -3007,10 +3124,11 @@ def phase_deepseek(profile, card):
                      f"bf16, batch {DS_BATCH} x {LM_SEQ})", trainer, pipe,
                      host)
         del trainer
+    held = decode_params("deepseek", host)
     del host
     free()
     print(f"[deepseek] phase done in {time.time() - t0:.1f}s", flush=True)
-    return launches
+    return launches, held
 
 
 def require_kernel_wins(tag, rates):
@@ -3281,6 +3399,507 @@ def rwkv_after_steps(hist, steps=(1, 2)):
     torch.cuda.empty_cache()
 
 
+def phase_prefill_kernels(card):
+    """K1 at the prefill shapes (PREFILL_CASES: causal, S < T, the keys
+    past the prompt zeros as in a fresh cache) against ``ref_attention``
+    in bf16 and fp32 (phase 3's gates), K4 at a decode step's rows
+    (DECODE_ROWS) against ``ref_rmsnorm_fwd``, then K1 timed at the first
+    shape beside its plain version, SDPA (upper-left causal, as K1) and
+    the bound over the live pairs. Returns the timing row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels.ref import ref_attention, ref_rmsnorm_fwd
+
+    inputs = model_layout_inputs(
+        torch.Generator(device="cuda").manual_seed(11))
+    errs = {}
+    for label, shape, window in PREFILL_CASES:
+        s = shape[3]
+        for dname in ("bfloat16", "float32"):
+            dtype, tol = getattr(torch, dname), TOL_OUT[dname]
+            q, k, v, _ = shape_inputs(inputs, shape, dtype, True)
+            k[:, :, s:] = 0         # a cache's unwritten rows
+            v[:, :, s:] = 0
+            out, lse = fa.flash_attention_fwd(q, k, v, causal=True,
+                                              window=window)
+            torch.cuda.synchronize()
+            want, want_lse = ref_attention(q, k, v, causal=True,
+                                           window=window)
+            res = {"out": close(out, want, tol),
+                   "lse": close(lse, want_lse, TOL_LSE)}
+            ok = all(r[1] for r in res.values())
+            print(f"[prefill] K1 {label} {shape} {dname} causal window="
+                  f"{window}: " + " ".join(f"max|d{key}|={r[0]:.3e}"
+                                           for key, r in res.items())
+                  + f" (tol {tol}, rtol {tol}; lse {TOL_LSE}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"K1 disagrees with its plain version at the {label} "
+                     f"prefill shape in {dname}")
+            errs.setdefault(label, res["out"][0])
+            del q, k, v, out, lse, want, want_lse
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for label, shape in DECODE_ROWS:
+        for dname in ("bfloat16", "float32"):
+            dtype, tol = getattr(torch, dname), RMS_TOL[dname]
+            x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+            scale = torch.randn(shape[-1], device="cuda", generator=gen)
+            out, rinv = rms.fused_rmsnorm_fwd(x, scale, LM_EPS)
+            torch.cuda.synchronize()
+            want, want_rinv = ref_rmsnorm_fwd(x, scale, LM_EPS)
+            err, ok = close(out, want, tol)
+            d_rinv = ((rinv - want_rinv).abs() / want_rinv).max().item()
+            ok = ok and d_rinv <= TOL_RINV and out.dtype == dtype
+            print(f"[prefill] K4 at a decode step's rows, {label} {shape} "
+                  f"{dname}: max|dout|={err:.3e} (tol {tol}, rtol {tol}) "
+                  f"rel|drinv|={d_rinv:.3e} (tol {TOL_RINV}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"K4 disagrees with its plain version at {label}'s "
+                     f"decode rows in {dname}")
+
+    label, shape, _ = PREFILL_CASES[0]
+    q, k, v, _ = shape_inputs(inputs, shape, torch.bfloat16, True)
+    k[:, :, shape[3]:] = 0
+    v[:, :, shape[3]:] = 0
+    ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+    plain = time_ms(lambda: ref_attention(q, k, v, causal=True), reps=10)
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    kw = {"is_causal": True, "enable_gqa": True}
+    with torch.no_grad():
+        library = time_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, **kw), calls=10)
+        d_sdpa = (F.scaled_dot_product_attention(qc, kc, vc, **kw).float()
+                  - fa.flash_attention_fwd(q, k, v)[0].float()).abs().max()
+    bound_ms, bound_by, how = bound(card, *attn_work(shape, 2, True)["fwd"])
+    print(f"[prefill] K1 flash_fwd timing at {label}'s prefill {shape} bf16 "
+          f"causal (S < T) on {card}: kernel {ms:.4f} ms, plain {plain:.4f} "
+          f"ms, SDPA forward (yardstick; max |SDPA - K1| "
+          f"{d_sdpa.item():.3e}) {library:.4f} ms; bound {bound_ms:.4f} ms "
+          f"by {bound_by} over {live_pairs(shape[3], shape[4], True, 0):,} "
+          f"live pairs and {live_keys(shape[3], shape[4], True, 0)} of "
+          f"{shape[4]} keys a head ({how})", flush=True)
+    return {"shape": list(shape), "ms": ms, "plain_ms": plain,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library, "max_abs_err": errs[label]}
+
+
+def phase_serve_cli():
+    """``python -m repro_torch.launch.serve`` with SERVE_ARGS (fp32, as the
+    reference's serve) in this process, the counters reset just before and
+    read just after: K1 once a layer in the prefill (the decode steps take
+    the naive sdpa), K4 twice a layer and once for the final norm in the
+    prefill and in each of the 63 decode steps, no other kernel and no
+    layout copy; its two ``[serve]`` lines. Returns (launches, its
+    result)."""
+    import gc
+    import io
+    import torch
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.launch import serve
+
+    norms = (2 * SERVE_LAYERS + 1) * SERVE_GEN
+    expect = dict({name: 0 for name in counters()}, flash_fwd=SERVE_LAYERS,
+                  rmsnorm_fwd=norms)
+    reset_counters()
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        res = serve.main(SERVE_ARGS)
+    wall = time.time() - t0
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    launches = read_counters()
+    lines = [ln for ln in text.splitlines() if ln.startswith("[serve]")]
+    print(f"[serve] the CLI ({' '.join(SERVE_ARGS)}): launches {launches} "
+          f"(expected {expect}); row layout copies {rms.row_layout.copies}; "
+          f"{wall:.1f}s with the draw of the params", flush=True)
+    if launches != expect or rms.row_layout.copies or len(lines) != 2 or \
+            res["tokens"].shape != (SERVE_BATCH, SERVE_GEN):
+        fail(f"the serve CLI: launches {launches} (expected {expect}), "
+             f"{len(lines)} [serve] lines, tokens "
+             f"{res['tokens'].shape}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def decode_batch(cfg, tag, batch, n, seed):
+    """Tokens (batch, n) and, for the vlm, VL_IMAGE image embeddings and a
+    (t, h, w) grid: the image a 16 x 32 patch grid at t 0 (its sections
+    differ), then text at its index in every section, as decode rotates."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, n),
+                                  dtype=np.int32)}
+    if tag == "qwen2-vl":
+        i = np.arange(VL_IMAGE)
+        pos = np.stack([np.zeros_like(i), i // 32, i % 32], -1)
+        text = np.arange(VL_IMAGE, n)
+        pos = np.concatenate([pos, np.repeat(text[:, None], 3, -1)], 0)
+        out["positions"] = np.broadcast_to(pos[None], (batch, n, 3))
+        out["image_embeds"] = rng.standard_normal(
+            (batch, VL_IMAGE, cfg.d_model), dtype=np.float32)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to("cuda")
+            for k, v in out.items()}
+
+
+def cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float((a * b).sum() / (a.norm() * b.norm()))
+
+
+def decode_cfg(arch, layers, kw):
+    """The config a DECODE_MODELS entry decodes: ``arch`` at full width
+    cut to ``layers`` layers, with ``kw``'s fields; an MoE at capacity
+    factor 8 (DeepSeek-V3 with phase 14's experts)."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if cfg.moe is not None:
+        kw = dict(kw, moe=dc.replace(
+            deepseek_kw()["moe"] if arch == DEEPSEEK else cfg.moe,
+            capacity_factor=8.0))
+    return cfg.replace(num_layers=layers, **kw)
+
+
+def decode_params(tag, params):
+    """``params`` (seed 0, on the host, from a training phase) as the
+    DECODE_MODELS entry ``tag`` decodes them: only the keys its config has
+    (no ``mtp.*`` for DeepSeek-V3), each stacked leaf cut to its first
+    layers and copied, so the rest can be freed."""
+    from repro_torch.core.sharding import is_stacked
+    from repro_torch.models.transformer import init_params
+
+    _, arch, layers, *_, kw, _ = next(m for m in DECODE_MODELS
+                                      if m[0] == tag)
+    keys = init_params(decode_cfg(arch, layers, kw), device="meta")
+    return {k: v[:layers].clone() if is_stacked(k) and len(v) > layers
+            else v for k, v in params.items() if k in keys}
+
+
+def phase_decode_vs_train(held):
+    """Each of DECODE_MODELS at full width, from its params in ``held``
+    (seed 0, on the host; popped as used): train-mode logits of the whole sequence, then prefill of the prompt
+    into a cache of the compute dtype and DECODE_STEPS decode steps; the
+    prefill's and every step's logits against the train-mode ones: fp32
+    max |d| within DECODE_TOL, bf16 cosine >= MIN_COSINE_BF16. The prefill
+    launches K1 once a layer (K6 for RWKV6, from the cache's state) and
+    the decode steps no attention or WKV kernel. A model with a gate eps
+    takes its fp32 gate at that norm eps, and its fp32 reading at its own
+    eps is printed, its launches and finiteness checked but not its
+    tolerance."""
+    import gc
+    import torch
+    from repro_torch.models import transformer as tr
+
+    for tag, arch, layers, batch, s, max_len, kw, gate_eps in \
+            DECODE_MODELS:
+        t0 = time.time()
+        cfg = decode_cfg(arch, layers, kw)
+        want = {k: tuple(v.shape) for k, v in
+                tr.init_params(cfg, device="meta").items()}
+        host = held.pop(tag)
+        if {k: tuple(v.shape) for k, v in host.items()} != want:
+            fail(f"{arch}: the held params do not fit the decode config")
+        params = {k: v.to("cuda") for k, v in host.items()}
+        del host
+        n_params = sum(p.numel() for p in params.values())
+        full = decode_batch(cfg, tag, batch, s + DECODE_STEPS, seed=1)
+        prompt = {k: v[:, :s] if k != "image_embeds" else v
+                  for k, v in full.items()}
+        kernel = "wkv6_fwd" if arch == "rwkv6-7b" else "flash_fwd"
+        readings = []
+        # (dtype, norm eps (None: the model's), gated)
+        runs = [("float32", None, gate_eps is None)] + \
+            ([("float32", gate_eps, True)] if gate_eps else []) + \
+            [("bfloat16", None, True)]
+        for dname, eps, gated in runs:
+            c = cfg.replace(dtype=dname, **({"norm_eps": eps} if eps else {}))
+            with torch.inference_mode():
+                want, _ = tr.forward(c, params, full, mode="eval")
+                cache = tr.init_cache(c, batch, max_len,
+                                      dtype=getattr(torch, dname),
+                                      device="cuda")
+                reset_counters()
+                got, cache, _ = tr.forward(c, params, prompt, mode="prefill",
+                                           cache=cache)
+                prefill_launches = read_counters()[kernel]
+                pairs = [(got, want[:, :s])]
+                for i in range(DECODE_STEPS):
+                    step, cache, _ = tr.forward(
+                        c, params, {"token": full["tokens"][:, s + i:s + i
+                                                            + 1],
+                                    "index": s + i}, mode="decode",
+                        cache=cache)
+                    pairs.append((step[:, 0], want[:, s + i]))
+                torch.cuda.synchronize()
+                decode_launches = read_counters()[kernel] - prefill_launches
+            diffs = [(a.float() - b.float()).abs().max().item()
+                     for a, b in pairs]
+            coss = [cosine(a, b) for a, b in pairs]
+            finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs)
+            ok = finite and prefill_launches == layers and \
+                decode_launches == 0 and (
+                    not gated or (max(diffs) <= DECODE_TOL
+                                  if dname == "float32"
+                                  else min(coss) >= MIN_COSINE_BF16))
+            readings.append(
+                f"{dname} at norm eps {c.norm_eps:g}"
+                f"{'' if gated else ' (a reading, not gated)'}: "
+                f"prefill max|d| {diffs[0]:.3e}, decode steps "
+                f"max|d| {[float(f'{d:.3e}') for d in diffs[1:]]}, cosines "
+                f"{[round(x, 6) for x in coss]} ({kernel} launches: prefill "
+                f"{prefill_launches}, decode {decode_launches}) "
+                f"{'ok' if ok else 'FAIL'}")
+            del want, cache, got, pairs
+            if not ok:
+                print(f"[decode] {tag}: {readings[-1]}", flush=True)
+                fail(f"{arch} decode disagrees with its train-mode logits "
+                     f"in {dname} at norm eps {c.norm_eps:g}")
+        print(f"[decode] {arch} at full width, {layers} layer(s), "
+              f"{n_params / 1e9:.3f} B params, batch {batch}, prompt {s}, "
+              f"cache {max_len} rows, {DECODE_STEPS} decode steps (fp32 "
+              f"gate max|d| <= {DECODE_TOL:g}, bf16 cosine >= "
+              f"{MIN_COSINE_BF16}): " + "; ".join(readings)
+              + f" ({time.time() - t0:.1f}s)", flush=True)
+        del params, full, prompt
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_vl_train(card, host):
+    """Qwen2-VL-72B at full width cut to VL_LAYERS layer from ``host``'s
+    params (seed 0, on the host), through the port's ``Trainer`` in
+    process: VL_STEPS bf16 steps at batch VL_BATCH x
+    LM_SEQ with min(vision_tokens, LM_SEQ // 2) = 512 image embeddings
+    (the CLI's vlm feed, ``launch/specs.py::concrete_batch``, seeded by the
+    step), accum 1, the counters reset just before and read just after
+    (K1-K3 once a step, K4/K5 three times: ln1, ln2, the final norm), every
+    loss and grad norm finite, ``step_ok`` 1, the peak of allocated device
+    memory beside the prediction, the warm steps' tokens/s; then kernel
+    against naive path on the first batch from the same params (fp32 max
+    |dgrad| within 2e-4, bf16 cosine >= 0.99). Returns the run's
+    launches."""
+    import gc
+    import math
+    import torch
+    from repro_torch.core.engine import to_device
+    from repro_torch.launch.specs import concrete_batch
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    kw = {"arch": VL, "layers": VL_LAYERS, "batch": VL_BATCH, "accum": 1,
+          "seq": LM_SEQ}
+    trainer, _ = lm_setup("bfloat16", True, **kw)
+    cfg = trainer.cfg
+    batches = [to_device(concrete_batch(cfg, VL_BATCH, LM_SEQ, seed=i),
+                         "cuda") for i in range(VL_STEPS)]
+    n_img = batches[0]["image_embeds"].shape[1]
+    params = {k: v.to("cuda") for k, v in host.items()}
+    n_params = sum(p.numel() for p in params.values())
+    state = trainer.init_state(params)
+    del params
+    expect = dict({name: 0 for name in counters()},
+                  flash_fwd=VL_STEPS * VL_LAYERS,
+                  flash_bwd_dq=VL_STEPS * VL_LAYERS,
+                  flash_bwd_dkv=VL_STEPS * VL_LAYERS,
+                  rmsnorm_fwd=VL_STEPS * (2 * VL_LAYERS + 1),
+                  rmsnorm_bwd=VL_STEPS * (2 * VL_LAYERS + 1))
+    reset_counters()
+    rows, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        rows.append({"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "step_ok": m["step_ok"]})
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[vl] train: launches {launches} (expected {expect})", flush=True)
+    if launches != expect:
+        fail(f"{VL} train: launches {launches}; expected {expect}")
+    for r in rows:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                and r["step_ok"] == 1):
+            fail(f"{VL} train: bad step row {r}")
+    warm = statistics.median(times[1:])
+    print(f"[vl] {VL} ({VL_LAYERS} layer, full width: d {cfg.d_model}, "
+          f"{cfg.num_heads}:{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+          f"M-RoPE {cfg.mrope_sections}; {n_params / 1e9:.3f} B params) bf16, "
+          f"batch {VL_BATCH} x {LM_SEQ} with {n_img} image embeddings, "
+          f"accum 1: losses {[round(r['loss'], 4) for r in rows]}; grad "
+          f"norms {[round(r['grad_norm'], 3) for r in rows]}; step_ok all "
+          f"1; step times {[round(t * 1e3, 1) for t in times]} ms (the "
+          f"first cold), warm {VL_BATCH * LM_SEQ / warm:.1f} tokens/s; "
+          f"torch.cuda.max_memory_allocated {peak:.2f} GB (predicted "
+          f"{VL_PEAK_GB[0]:g}-{VL_PEAK_GB[1]:g} GB); {smi_line()}",
+          flush=True)
+    del state
+    free()
+    params = {k: v.to("cuda") for k, v in host.items()}
+    for dtype in ("float32", "bfloat16"):
+        trainer_k, _ = lm_setup(dtype, True, **kw)
+        trainer_n, _ = lm_setup(dtype, False, **kw)
+        report_agreement(f"{VL}, one microbatch of {VL_BATCH} x {LM_SEQ} "
+                         f"with {n_img} image embeddings,", dtype,
+                         grad_agreement(trainer_k, trainer_n, params,
+                                        batches[0], dtype))
+        del trainer_k, trainer_n
+        free()
+    del params, batches
+    free()
+    return launches
+
+
+def serve_rates(card):
+    """Readings, not gated, of Qwen2.5-14B at SERVE_LAYERS layers in
+    process (prompt SERVE_PROMPT, SERVE_GEN generated, a cache of the
+    compute dtype): warm prefill ms and decode tokens/s in bf16 at each
+    batch of SERVE_RATE_BATCHES and in fp32 at SERVE_BATCH; then one
+    decode step at SERVE_BATCH in each dtype split into its device time
+    (CUDA events, the host ahead of the card), its host time (issuing the
+    step while the card is busy) and the decode loop's time a step, the
+    busy share being device over loop time; then one bf16 step under
+    ``torch.profiler`` (after the rates: a profiler session slows the host
+    work timed after it): the device spans' union against the step's wall
+    time, and its table."""
+    import gc
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import Server, greedy
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config(QWEN).replace(num_layers=SERVE_LAYERS)
+    params = init_params(cfg, seed=0, device="cuda")
+    servers = {d: Server(cfg.replace(dtype=d), params)
+               for d in ("bfloat16", "float32")}
+    rows = [("bfloat16", b) for b in SERVE_RATE_BATCHES] + \
+        [("float32", SERVE_BATCH)]
+    loop_ms, caches = {}, {}
+    for dname, batch in rows:
+        server = servers[dname]
+        prompt = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (batch, SERVE_PROMPT), dtype=np.int32)
+        for _ in range(2):          # the first run warms up
+            cache = server.init_cache(batch, SERVE_PROMPT + SERVE_GEN)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, cache = server.prefill({"tokens": prompt}, cache)
+            tok = greedy(last)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for i in range(SERVE_GEN - 1):
+                tok, cache = server.decode_step(cache, tok, SERVE_PROMPT + i)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        loop_ms[dname, batch] = (t2 - t1) / (SERVE_GEN - 1) * 1e3
+        if batch == SERVE_BATCH:
+            caches[dname] = (cache, tok)
+        print(f"[serve] {QWEN} ({SERVE_LAYERS} layers, full width) {dname} "
+              f"in process, batch {batch}: prefill ({SERVE_PROMPT} tokens) "
+              f"{(t1 - t0) * 1e3:.1f} ms, decode "
+              f"{batch * (SERVE_GEN - 1) / (t2 - t1):.1f} tokens/s "
+              f"({loop_ms[dname, batch]:.3f} ms a step over "
+              f"{SERVE_GEN - 1} steps; warm; a reading, not gated; {card})",
+              flush=True)
+        del cache
+    steps = {}
+    for dname, (cache, tok) in caches.items():
+        def step(server=servers[dname], cache=cache, tok=tok):
+            return server.decode_step(cache, tok, SERVE_PROMPT)[0]
+        device = time_ms(step, warmup=2, reps=10)
+        hosts = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SPIN_CYCLES)
+            t0 = time.perf_counter()
+            step()
+            hosts.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        host = statistics.median(hosts)
+        loop = loop_ms[dname, SERVE_BATCH]
+        steps[dname] = step
+        print(f"[serve] one {dname} decode step of {QWEN} ({SERVE_LAYERS} "
+              f"layers, batch {SERVE_BATCH}, {SERVE_PROMPT + SERVE_GEN}-row "
+              f"cache; readings, not gated): device {device:.3f} ms (CUDA "
+              f"events, host ahead), host {host:.3f} ms (issuing it, median "
+              f"of 10), decode loop {loop:.3f} ms a step: busy "
+              f"{device / loop:.1%}; {card}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps["bfloat16"]()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:              # the union of the device spans
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    print(f"[serve] one bf16 decode step under torch.profiler: "
+          + (f"{len(spans)} device spans, device time {busy / 1e3:.3f} ms of "
+             f"a {wall:.3f} ms step (busy {busy / 1e3 / wall:.1%} under the "
+             f"profiler)" if spans else "device time not measured")
+          + f"; {card}", flush=True)
+    table = prof.key_averages().table(sort_by="self_device_time_total",
+                                      row_limit=15)
+    print(f"[profile] one bf16 decode step:\n{table}", flush=True)
+    del servers, params, caches, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serving(card, held):
+    """Phase 15: serving and Qwen2-VL (15a-15e), from the params ``held``
+    by the training phases ({DECODE_MODELS tag: params on the host}) and
+    Qwen2-VL's, drawn here once. Returns (K1's prefill timing row, the
+    serve CLI's launches, Qwen2-VL training's launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    t0 = time.time()
+    prefill = phase_prefill_kernels(card.split(",")[0])
+    serve_launches, res = phase_serve_cli()
+    print(f"[serve] {QWEN} ({SERVE_LAYERS} layers) fp32 through the CLI, "
+          f"batch {SERVE_BATCH}: prefill ({SERVE_PROMPT} tokens) "
+          f"{res['prefill_ms']:.1f} ms, decode {res['tok_s']:.1f} tokens/s "
+          f"({SERVE_GEN - 1} steps in {res['decode_ms']:.1f} ms; cold: the "
+          f"first calls included; a reading, not gated; {card})", flush=True)
+    t_draw = time.time()
+    vl_host = init_params(get_config(VL).replace(num_layers=VL_LAYERS),
+                          seed=0, device="cpu")
+    print(f"[serve] {VL} ({VL_LAYERS} layer) params drawn on the host in "
+          f"{time.time() - t_draw:.1f}s", flush=True)
+    phase_decode_vs_train(dict(held, **{"qwen2-vl": vl_host}))
+    held.clear()
+    vl_launches = phase_vl_train(card, vl_host)
+    del vl_host
+    serve_rates(card)
+    print(f"[serve] phase 15 (serving and Qwen2-VL) in "
+          f"{time.time() - t0:.1f}s", flush=True)
+    return prefill, serve_launches, vl_launches
+
+
 def main():
     t_script = time.time()
     card = phase_card()
@@ -3300,16 +3919,19 @@ def main():
     data_launches = phase_data(vit_hist)
     phase_quickstart()
     lm_launches = phase_lm_train(profile)
-    rwkv_launches = phase_rwkv_train(profile)
-    gemma_launches = phase_gemma_train(profile)
+    # each training phase hands phase 15 its params of seed 0, on the host
+    held = {}
+    rwkv_launches, held["rwkv6"] = phase_rwkv_train(profile)
+    gemma_launches, held["gemma3"] = phase_gemma_train(profile)
     dense_launches = phase_dense()
     granite_attn = phase_granite_attention(card.split(",")[0])
-    granite_launches = phase_granite(profile, card)
+    granite_launches, held["granite"] = phase_granite(profile, card)
     t14 = time.time()
     mla_attn = phase_mla_attention(card.split(",")[0])
-    deepseek_launches = phase_deepseek(profile, card)
+    deepseek_launches, held["deepseek"] = phase_deepseek(profile, card)
     print(f"[deepseek] phase 14 (MLA attention and DeepSeek-V3 training) "
           f"in {time.time() - t14:.1f}s", flush=True)
+    prefill, serve_launches, vl_launches = phase_serving(card, held)
     if profile:
         profile_eval()
     # K1-K3 run on both training paths: the row's numbers are the
@@ -3345,7 +3967,14 @@ def main():
         # training run's launches
         deepseek = dict(mla_attn[key],
                         launches=deepseek_launches[row["name"]])
-        kernels.append(dict(row, **lm_attn[key],
+        # serving: K1 at the serve run's prefill shape and its launches;
+        # Qwen2-VL training's launches
+        serve = {"serve_launches": serve_launches[row["name"]],
+                 "qwen2vl_launches": vl_launches[row["name"]]}
+        if key == "fwd":
+            serve["serve"] = dict(prefill,
+                                  launches=serve_launches[row["name"]])
+        kernels.append(dict(row, **lm_attn[key], **serve,
                             launches=lm_launches[row["name"]], vit=vit,
                             gemma3_launches=gemma_launches[row["name"]],
                             gemma3=gemma, dense_launches={
@@ -3358,7 +3987,9 @@ def main():
     # K4-K7's launches are the RWKV6 run's; K4/K5 run on both decoder
     # paths, so their rows carry the ChatGLM3 run's beside them
     for row in rms_rows + wkv_rows:
-        extra = {"launches": rwkv_launches[row["name"]]}
+        extra = {"launches": rwkv_launches[row["name"]],
+                 "serve_launches": serve_launches[row["name"]],
+                 "qwen2vl_launches": vl_launches[row["name"]]}
         if row in rms_rows:
             extra["chatglm3_launches"] = lm_launches[row["name"]]
             extra["gemma3_launches"] = gemma_launches[row["name"]]

@@ -1,14 +1,18 @@
 """Model and engine configuration (the ViT, dense-decoder, MoE-decoder,
-MLA and RWKV6 subset of ``repro.configs.base``).
+vision-language, MLA and RWKV6 subset of ``repro.configs.base``).
 
 Field names and defaults follow the JAX package, so a config can be
 compared field by field with its reference. Fields the ported paths do
-not read (M-RoPE, serving knobs; tensor, sequence and pipeline
-parallelism) are left out until a slice needs them; ``use_kernels`` stands
-in for the reference's ``use_pallas``. A config that asks for a branch no
-slice has ported (M-RoPE, the mamba2 or hybrid blocks, the audio or vlm
-families, another activation, a multi-token prediction head on RWKV6)
-raises ``NotImplementedError``. The MoE family (``arch_type="moe"`` with a
+not read (the audio frontend; tensor, sequence and pipeline parallelism)
+are left out until a slice needs them; ``use_kernels`` stands in for the
+reference's ``use_pallas``. A config that asks for a branch no slice has
+ported (the mamba2 or hybrid blocks, the audio family, another
+activation, a multi-token prediction head on RWKV6) raises
+``NotImplementedError``. The vision-language family (``arch_type="vlm"``:
+Qwen2-VL's decoder with M-RoPE, ``rope_style="mrope"`` split by
+``mrope_sections``, fed ``vision_tokens`` precomputed image embeddings)
+is ported, and so is serving: ``supports_decode`` says which configs have
+a decode step. The MoE family (``arch_type="moe"`` with a
 ``MoEConfig``) is ported: GShard or gather dispatch (``moe_impl``), shared
 experts and leading dense layers. So are DeepSeek's multi-head latent
 attention (``block_kind="mla"`` with an ``MLAConfig``) and its
@@ -20,12 +24,12 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
-_ARCH_TYPES = ("vit", "dense", "moe", "ssm")
+_ARCH_TYPES = ("vit", "dense", "moe", "ssm", "vlm")
 _BLOCK_KINDS = ("attn", "mla", "rwkv6")
-_ROPE_STYLES = ("full", "half", "none")
+_ROPE_STYLES = ("full", "half", "mrope", "none")
 _ACTS = ("swiglu", "geglu", "gelu", "sqrelu")
 _ATTN_IMPLS = ("naive", "blockwise")
 _REMATS = ("none", "block", "dots")
@@ -72,7 +76,7 @@ class MoEConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                  # vit | dense | moe | ssm are ported
+    arch_type: str                  # vit | dense | moe | ssm | vlm ported
     num_layers: int
     d_model: int
     num_heads: int
@@ -87,7 +91,7 @@ class ModelConfig:
 
     # --- attention flavour ------------------------------------------------
     qkv_bias: bool = False
-    rope_style: str = "full"        # full | half | none (mrope not ported)
+    rope_style: str = "full"        # full | half | mrope | none
     rope_theta: float = 10000.0
     sliding_window: int = 0         # 0 = full attention
     global_every: int = 0           # every Nth layer full, the rest local
@@ -104,6 +108,11 @@ class ModelConfig:
     act: str = "swiglu"             # swiglu | geglu | gelu | sqrelu
     mtp_depth: int = 0              # > 0: one multi-token prediction head
     embed_scale: bool = False       # gemma-style sqrt(d) embedding scale
+
+    # --- vlm: the vision tower is stubbed; a batch brings (B, n_img,
+    # d_model) patch embeddings and a (B, S, 3) M-RoPE position grid --------
+    vision_tokens: int = 0          # image tokens per sample
+    mrope_sections: Tuple[int, int, int] = (0, 0, 0)   # t/h/w rope pairs
 
     # --- ViT ------------------------------------------------------------
     image_size: int = 0
@@ -159,6 +168,12 @@ class ModelConfig:
         if self.remat not in _REMATS:
             raise ValueError(f"{self.name}: remat {self.remat!r} not in "
                              f"{_REMATS}")
+        if self.rope_style == "mrope" and \
+                sum(self.mrope_sections) != self.head_dim // 2:
+            raise ValueError(
+                f"{self.name}: mrope_sections {self.mrope_sections} must "
+                f"split the {self.head_dim // 2} rope pairs of head_dim "
+                f"{self.head_dim}")
         if self.block_kind == "rwkv6" and self.ssm is None:
             raise ValueError(f"{self.name}: an rwkv6 block needs ssm")
         if self.block_kind == "mla" and self.mla is None:
@@ -169,6 +184,25 @@ class ModelConfig:
             raise ValueError(
                 f"{self.name}: num_layers {self.num_layers} < "
                 f"moe.first_dense_layers {self.moe.first_dense_layers}")
+
+    @property
+    def is_encoder_only(self) -> bool:
+        return not self.causal
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.block_kind in ("mamba2", "rwkv6")
+
+    def supports_long_decode(self) -> bool:
+        """True if the decode state is sub-linear in the context (a
+        recurrent block) or the attention is windowed (bounded local KV).
+        The reference's dry-run reads it to choose a config's long-context
+        shapes (``repro/configs/shapes.py:35``); the port's dry-run is
+        ROADMAP item 17."""
+        return self.is_attention_free or self.sliding_window > 0
+
+    def supports_decode(self) -> bool:
+        return not self.is_encoder_only and self.arch_type != "vit"
 
     @property
     def has_moe(self) -> bool:

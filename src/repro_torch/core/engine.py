@@ -46,6 +46,12 @@ whole update, and the norms count it once. The anomaly guard decides from
 the all-reduced loss and the global grad norm, so every rank takes the same
 branch; metrics are averaged over the ranks.
 
+``Server`` serves on one device (the reference's ``_prefill`` and
+``_decode_step``, ``engine.py:517-528``): ``prefill`` runs a prompt batch
+into a cache and returns the last position's logits; ``decode_step`` runs
+one token a sequence at a given index and returns the greedy next token
+(int32). Both run under ``torch.inference_mode()`` on whole params.
+
 Checkpoints (``repro_torch.checkpoint``, the reference's
 ``repro-elastic-ckpt/v2``): ``checkpoint_tree`` names the state's leaves as
 the reference's ``TrainState`` pytree does (``params/embed/cls``,
@@ -575,7 +581,7 @@ class Evaluator:
         with torch.inference_mode():
             batch = self._preprocess_batch(batch)
             return model.forward(self.cfg, self._compute_params(), batch,
-                                 self.gather, train=False)[0]
+                                 self.gather, mode="eval")[0]
 
     def eval_step(self, batch):
         """No-grad ``batch -> {top1, top5, count, loss_sum}`` tensors."""
@@ -618,3 +624,48 @@ class Evaluator:
             "eval_acc": top1 / n, "eval_top5_acc": top5 / n,
             "eval_loss": loss_sum / n,
         }
+
+
+def greedy(logits) -> torch.Tensor:
+    """The greedy next token (B, 1) int32 of logits (B, S, vocab): the
+    argmax at the last position, ties to the lower id as ``jnp.argmax``."""
+    return logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+
+
+class Server:
+    """Prefill and greedy decode of a decoder on one device, on whole
+    params (fp32 masters, cast to ``cfg.dtype`` where used). Serving
+    across ranks or the model axis is not ported."""
+
+    def __init__(self, cfg, params: dict, *, device="cuda"):
+        if not cfg.supports_decode():
+            raise ValueError(f"{cfg.name} has no decode step")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = {k: v.to(self.device) for k, v in params.items()}
+
+    def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:
+        """A zero cache in ``dtype`` (the compute dtype by default)."""
+        return model.init_cache(
+            self.cfg, batch, max_len, device=self.device,
+            dtype=dtype or model.compute_dtype(self.cfg))
+
+    def prefill(self, batch: dict, cache: dict):
+        """``batch["tokens"]`` (B, S) (and a vlm's ``image_embeds``,
+        ``positions``) into ``cache`` at rows 0..S-1 -> (logits of the last
+        position (B, 1, vocab), the cache)."""
+        with torch.inference_mode():
+            logits, cache, _ = model.forward(
+                self.cfg, self.params, to_device(batch, self.device),
+                mode="prefill", cache=cache)
+            return logits[:, -1:], cache
+
+    def decode_step(self, cache: dict, token, index: int):
+        """One token a sequence, ``token`` (B, 1), at position ``index``
+        -> (the greedy next token (B, 1) int32, the cache)."""
+        with torch.inference_mode():
+            logits, cache, _ = model.forward(
+                self.cfg, self.params,
+                {"token": token.to(self.device), "index": int(index)},
+                mode="decode", cache=cache)
+            return greedy(logits), cache

@@ -14,7 +14,10 @@ or ``gemma3-12b``, the MoE ``--arch granite-moe-3b-a800m``, whose rows
 carry its load-balance loss as ``moe_aux``, or the recurrent ``--arch
 rwkv6-7b``) trains on the synthetic token stream of ``--seq`` tokens per
 sequence (an epoch of ``--batch`` x ``--steps`` sequences, as the
-reference sizes it); ``--layers`` cuts the depth:
+reference sizes it); the vision-language ``--arch qwen2-vl-72b`` on
+batches drawn for each step by ``launch/specs.py::concrete_batch``
+(tokens and ``min(vision_tokens, seq // 2)`` image embeddings, no data
+cursor); ``--layers`` cuts the depth:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
         --layers 4 --seq 1024 --batch 8 --accum 2 --steps 10
@@ -87,6 +90,7 @@ from repro_torch.data.augment import AugmentConfig
 from repro_torch.data.datasets import make_source
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.data.synthetic import DATASETS
+from repro_torch.launch.specs import concrete_batch
 from repro_torch.models.transformer import Transformer, init_params
 from repro_torch.resilience import RESTARTABLE_EXIT, FaultPlan, child_argv, \
     install_preemption_handler, supervise
@@ -314,7 +318,15 @@ def _run(args, world):
         f"micro_batch={ecfg.derived_micro_batch(dp)} accum={args.accum} "
         f"zero={args.zero} opt={args.optimizer} "
         f"aug={'on' if aug else 'off'}")
-    if not vit:
+    # a vlm's batches are addressed by the step, with no cursor (one
+    # endless epoch), as the reference's spec-derived feed
+    # (train.py:375-392); the rest ride the data pipeline's cursor
+    by_step = cfg.arch_type == "vlm"
+    if by_step:
+        say(f"[train] vlm: seq={args.seq} vocab={cfg.vocab_size} image "
+            f"tokens={min(cfg.vision_tokens, args.seq // 2)}")
+        pipe = None
+    elif not vit:
         say(f"[train] tokens: seq={args.seq} vocab={cfg.vocab_size}")
         pipe = DataPipeline(kind="token", global_batch=args.batch,
                             vocab=max(cfg.vocab_size, 2), seq_len=args.seq,
@@ -400,7 +412,11 @@ def _run(args, world):
 
     def fetch():
         """-> (device batch, the cursor after it): from the prefetcher, or
-        under --no-prefetch built at the state's cursor and copied here."""
+        under --no-prefetch built at the state's cursor and copied here; a
+        vlm's drawn for the state's step."""
+        if by_step:
+            batch = concrete_batch(cfg, args.batch, args.seq, seed=state.step)
+            return to_device(batch, device), (0, state.step + 1)
         if prefetcher is not None:
             _, batch, nxt = next(prefetcher)
             return batch, nxt
@@ -408,7 +424,7 @@ def _run(args, world):
         return to_device(pipe.batch_at(e, i), device), pipe.next_cursor(e, i)
 
     try:
-        if not args.no_prefetch and start_step < end_step:
+        if not (args.no_prefetch or by_step) and start_step < end_step:
             prefetcher = pipe.prefetch(state.epoch, state.batch_index,
                                        device=device,
                                        depth=args.prefetch_depth)

@@ -8,10 +8,22 @@ GQA) when ``cfg.use_kernels`` is set, to the blockwise flash in PyTorch
 (``models/blockwise.py``) when ``cfg.attn_impl`` is "blockwise", else to
 the naive :func:`sdpa`; a logit softcap takes the naive path whatever the
 other settings, so the kernels never see one. ``mla_block`` is DeepSeek's
-multi-head latent attention, its train/prefill branch: queries and keys of
-``qk_nope_head_dim + qk_rope_head_dim`` (192 in DeepSeek-V3), values of
-``v_head_dim`` (128), routed the same way. Decode caches (MLA's latent
-cache and its absorbed decode among them) are not ported.
+multi-head latent attention: queries and keys of ``qk_nope_head_dim +
+qk_rope_head_dim`` (192 in DeepSeek-V3), values of ``v_head_dim`` (128),
+routed the same way.
+
+Serving (``repro/models/attention.py:98-256``): given this layer's cache,
+prefill (S > 1) writes the block at row 0 and attends over the whole cache
+(T = its Smax rows, the unwritten tail hidden by the causal mask) on the
+routes above; decode (S == 1) writes one row at ``cache_index`` and runs
+the naive :func:`sdpa` over the keys at or before it (within the window),
+whatever ``use_kernels`` says, as the reference does. A GQA layer caches
+its rotated K and V; MLA caches the normalised latent ``c_kv`` and the
+rotated shared rope key, and decodes absorbed: the query goes into the
+latent space through ``w_uk`` and the context out through ``w_uv``, so no
+per-head K or V is formed. The cache is written in place. Its dtype must be
+the compute dtype: another one raises (K1 takes no mixed dtypes, and a cast
+would hide the mismatch).
 """
 from __future__ import annotations
 
@@ -37,6 +49,16 @@ def _mask(s, t, *, causal, window, device):
     return ok
 
 
+def _decode_mask(t, index, window, device):
+    """(T,) bool: the cached keys a query at ``index`` sees, those at or
+    before it and, with a window, fewer than ``window`` behind it."""
+    kp = torch.arange(t, device=device)
+    ok = kp <= index
+    if window > 0:
+        ok &= (index - kp) < window
+    return ok
+
+
 def sdpa(q, k, v, mask, *, softcap=0.0):
     """q (B,S,H,hd), k/v (B,T,KH,hd), mask broadcastable to (B,KH,G,S,T).
 
@@ -58,10 +80,42 @@ def sdpa(q, k, v, mask, *, softcap=0.0):
     return out.reshape(b, s, h, v.shape[-1])
 
 
-def attention_block(p, x, cfg, *, window, positions=None):
+def write_cache(cache, key, x, at):
+    """Write ``x`` (B, S, ...) into ``cache[key]`` (B, Smax, ...) at rows
+    ``at``..``at + S`` in place and return the whole cache tensor. Raises
+    when the cache's dtype is not ``x``'s (the compute dtype)."""
+    c = cache[key]
+    if c.dtype != x.dtype:
+        raise ValueError(f"cache {key!r} is {c.dtype}, the compute dtype "
+                         f"{x.dtype}: make the cache in the compute dtype")
+    if at + x.shape[1] > c.shape[1]:
+        raise ValueError(f"cache {key!r} holds {c.shape[1]} rows; writing "
+                         f"{x.shape[1]} at row {at} overflows it")
+    c[:, at:at + x.shape[1]] = x
+    return c
+
+
+def _attend(q, k, v, cfg, window, causal, softcap=0.0):
+    """The training/prefill routes: the kernels, the blockwise flash, or
+    the naive :func:`sdpa` (the only route that takes a softcap)."""
+    if cfg.use_kernels and softcap == 0.0:
+        return flash_mha(q, k, v, causal=causal, window=window)
+    if cfg.attn_impl == "blockwise" and softcap == 0.0:
+        return blockwise_attention_qchunked(
+            q, k, v, window, causal=causal, block_k=cfg.attn_block_k,
+            block_q=cfg.attn_block_q)
+    mask = _mask(q.shape[1], k.shape[1], causal=causal, window=window,
+                 device=q.device)
+    return sdpa(q, k, v, mask, softcap=softcap)
+
+
+def attention_block(p, x, cfg, *, window, positions=None, cache=None,
+                    cache_index=0):
     """p: this layer's {wq, wk, wv, wo} (and {bq, bk, bv} with
-    ``cfg.qkv_bias``); x (B,S,D) in the compute dtype; positions (B,S) for
-    the rope (unused when ``cfg.rope_style`` is "none")."""
+    ``cfg.qkv_bias``); x (B,S,D) in the compute dtype; positions (B,S), or
+    (B,S,3) for M-RoPE, for the rope (unused when ``cfg.rope_style`` is
+    "none"). ``cache``: this layer's {"k", "v"} (B, Smax, KH, hd), written
+    in place (prefill at row 0, decode at ``cache_index``)."""
     b, s, _ = x.shape
     h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -74,41 +128,42 @@ def attention_block(p, x, cfg, *, window, positions=None):
     v = v.reshape(b, s, kh, hd)
     if cfg.rope_style != "none":
         q, k = apply_rope(q, k, positions, style=cfg.rope_style,
-                          theta=cfg.rope_theta)
+                          theta=cfg.rope_theta, sections=cfg.mrope_sections)
     softcap = cfg.attn_logit_softcap
-    if cfg.use_kernels and softcap == 0.0:
-        out = flash_mha(q, k, v, causal=cfg.causal, window=window)
-    elif cfg.attn_impl == "blockwise" and softcap == 0.0:
-        out = blockwise_attention_qchunked(
-            q, k, v, window, causal=cfg.causal, block_k=cfg.attn_block_k,
-            block_q=cfg.attn_block_q)
-    else:
-        mask = _mask(s, s, causal=cfg.causal, window=window, device=x.device)
+    if cache is None:
+        out = _attend(q, k, v, cfg, window, cfg.causal, softcap)
+    elif s == 1:
+        k = write_cache(cache, "k", k, cache_index)
+        v = write_cache(cache, "v", v, cache_index)
+        mask = _decode_mask(k.shape[1], cache_index, window, x.device)
         out = sdpa(q, k, v, mask, softcap=softcap)
+    else:
+        k = write_cache(cache, "k", k, 0)
+        v = write_cache(cache, "v", v, 0)
+        out = _attend(q, k, v, cfg, window, cfg.causal, softcap)
     return out.reshape(b, s, h * hd) @ p["wo"].to(dt)
 
 
-def mla_block(p, x, cfg, *, positions, cache=None):
-    """DeepSeek's multi-head latent attention, the train/prefill branch of
-    the reference's ``mla_block`` (``attention.py:181-256``). p: this
-    layer's {w_dq, q_norm, w_uq, w_dkv, kv_norm, w_uk, w_uv, wo}; x (B,S,D)
-    in the compute dtype; positions (B,S).
+def mla_block(p, x, cfg, *, positions, cache=None, cache_index=0):
+    """DeepSeek's multi-head latent attention (the reference's
+    ``mla_block``, ``attention.py:181-256``). p: this layer's {w_dq,
+    q_norm, w_uq, w_dkv, kv_norm, w_uk, w_uv, wo}; x (B,S,D) in the compute
+    dtype; positions (B,S). ``cache``: this layer's {"c_kv" (B, Smax,
+    kv_lora_rank), "k_rope" (B, Smax, qk_rope_head_dim)}, written in place.
 
     The query goes down to ``q_lora_rank``, through RMSNorm (``q_norm``)
     and up to H heads of nope + rope; ``w_dkv`` gives the key-value latent
     (its first ``kv_lora_rank`` columns, through ``kv_norm``: rows read at
     the projection's row stride) and one shared rope key (its last
     ``qk_rope_head_dim``), which ``apply_rope_1d`` rotates and every head
-    shares; the latent goes up to the heads' nope keys and values. Both
-    norms take K4/K5 with ``cfg.use_kernels``. Attention is causal with no
-    window, scaled by q's width ** -0.5 on every route: the kernels at
+    shares. Training and prefill take the latent (prefill: the whole
+    cached latent) up to the heads' nope keys and values and attend
+    causally with no window, scaled by q's width ** -0.5, on the kernels at
     (D, Dv) = (nope + rope, v), the blockwise flash, or the naive
-    :func:`sdpa`. The latent cache and the absorbed decode are not ported:
-    a ``cache`` raises."""
-    if cache is not None:
-        raise NotImplementedError(
-            "MLA's latent cache and absorbed decode are not yet ported to "
-            "repro_torch")
+    :func:`sdpa`. Decode is absorbed: scores ``(q_nope w_uk) c_kvᵀ +
+    q_rope k_ropeᵀ`` in fp32 over the cached rows at or before
+    ``cache_index``, the context in latent space, then ``w_uv``. Both
+    norms take K4/K5 with ``cfg.use_kernels``."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.num_heads
@@ -124,17 +179,32 @@ def mla_block(p, x, cfg, *, positions, cache=None):
     q_rope = apply_rope_1d(q[..., nope:], positions, theta=cfg.rope_theta)
     k_rope = apply_rope_1d(dkv[..., m.kv_lora_rank:][:, :, None], positions,
                            theta=cfg.rope_theta)
-    k_nope = (c_kv @ p["w_uk"].to(dt)).reshape(b, s, h, nope)
-    v = (c_kv @ p["w_uv"].to(dt)).reshape(b, s, h, vd)
-    k = torch.cat([k_nope, k_rope.expand(b, s, h, rope_d)], dim=-1)
-    q = torch.cat([q[..., :nope], q_rope], dim=-1)
-    if cfg.use_kernels:
-        out = flash_mha(q, k, v, causal=True, window=0)
-    elif cfg.attn_impl == "blockwise":
-        out = blockwise_attention_qchunked(
-            q, k, v, 0, causal=True, block_k=cfg.attn_block_k,
-            block_q=cfg.attn_block_q)
+    q_nope = q[..., :nope]
+    if cache is not None:
+        at = cache_index if s == 1 else 0
+        c_kv = write_cache(cache, "c_kv", c_kv, at)
+        k_rope = write_cache(cache, "k_rope", k_rope[:, :, 0], at)[:, :,
+                                                                  None]
+    t = c_kv.shape[1]
+    if cache is not None and s == 1:
+        f32 = torch.float32
+        w_uk = p["w_uk"].to(dt).reshape(m.kv_lora_rank, h, nope)
+        q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)
+        scores = (torch.einsum("bshr,btr->bhst", q_lat.to(f32),
+                               c_kv.to(f32))
+                  + torch.einsum("bshd,btd->bhst", q_rope.to(f32),
+                                 k_rope[:, :, 0].to(f32))) \
+            * (nope + rope_d) ** -0.5
+        scores = torch.where(_decode_mask(t, cache_index, 0, x.device),
+                             scores, NEG_INF)
+        w = torch.softmax(scores, dim=-1).to(dt)
+        ctx = torch.einsum("bhst,btr->bshr", w, c_kv)
+        w_uv = p["w_uv"].to(dt).reshape(m.kv_lora_rank, h, vd)
+        out = torch.einsum("bshr,rhd->bshd", ctx, w_uv)
     else:
-        out = sdpa(q, k, v, _mask(s, s, causal=True, window=0,
-                                  device=x.device))
+        k_nope = (c_kv @ p["w_uk"].to(dt)).reshape(b, t, h, nope)
+        v = (c_kv @ p["w_uv"].to(dt)).reshape(b, t, h, vd)
+        k = torch.cat([k_nope, k_rope.expand(b, t, h, rope_d)], dim=-1)
+        out = _attend(torch.cat([q_nope, q_rope], dim=-1), k, v, cfg, 0,
+                      True)
     return out.reshape(b, s, h * vd) @ p["wo"].to(dt)

@@ -9,8 +9,15 @@ with the per-channel decay w_t = exp(wlog_t), wlog_t = -exp(wraw_t) < 0.
 With ``cfg.use_kernels`` the recurrence runs through ``ops.wkv6`` (K6
 forward, K7 backward); otherwise through ``wkv6_chunked``, the reference's
 chunked form in plain PyTorch, each chunk's body checkpointed as the
-reference's ``jax.checkpoint(body)``. Only the training branch is ported:
-a decode cache raises.
+reference's ``jax.checkpoint(body)``.
+
+Serving (``rwkv6.py:153-231``): with a cache, the token shift reads the
+cached last row (``shift``) and WKV6 starts from the cached state
+(``wkv``): prefill runs the recurrence above from it (K6 under
+``torch.inference_mode``, no states written), decode (S == 1 with a cache)
+the one-step recurrence in fp32. Each mix then writes its last input row,
+and the time mix its end state, into the cache in place, cast to the
+cache's dtype as the reference casts them (``init_cache`` makes it).
 
 Casts follow the reference: the projections run in the compute dtype, the
 decay LoRA in fp32, ``bonus_u`` enters WKV6 in fp32, and o leaves it in
@@ -130,15 +137,20 @@ def wkv6_chunked(r, k, v, wlog, u, chunk, s0):
     return torch.cat(outs, dim=1)[:, :s], state
 
 
+def _last(x, cache):
+    """The row in front of the token shift: the cached one, else zeros."""
+    if cache is None:
+        return x.new_zeros((x.shape[0], x.shape[2]))
+    return cache["shift"].to(x.dtype)
+
+
 def rwkv6_time_mix(p, x, cfg, *, cache=None):
-    """x (B,S,D) -> (B,S,D), the training branch of the reference's
-    ``rwkv6_time_mix`` (``rwkv6.py:151-212``)."""
-    if cache is not None:
-        raise NotImplementedError("the RWKV6 decode cache is not yet "
-                                  "ported to repro_torch")
+    """x (B,S,D) -> (B,S,D), the reference's ``rwkv6_time_mix``
+    (``rwkv6.py:151-212``). ``cache``: this layer's {"shift" (B,D), "wkv"
+    (B,H,P,P)}, read, then written in place."""
     b, s, d = x.shape
     h, pd, dt = cfg.num_heads, cfg.head_dim, x.dtype
-    xx = _token_shift(x, x.new_zeros((b, d)))
+    xx = _token_shift(x, _last(x, cache))
     xr, xk, xv, xw, xg = _ddlerp(p, x, xx).unbind(2)
     r = (xr @ p["w_r"].to(dt)).reshape(b, s, h, pd)
     k = (xk @ p["w_k"].to(dt)).reshape(b, s, h, pd)
@@ -148,28 +160,55 @@ def rwkv6_time_mix(p, x, cfg, *, cache=None):
     wraw = p["decay_base"].to(f) + torch.tanh(
         xw.to(f) @ p["decay_w1"].to(f)) @ p["decay_w2"].to(f)
     wlog = -torch.exp(wraw).reshape(b, s, h, pd)            # log decay < 0
-    s0 = torch.zeros((b, h, pd, pd), dtype=f, device=x.device)
+    s0 = torch.zeros((b, h, pd, pd), dtype=f, device=x.device) \
+        if cache is None else cache["wkv"].to(f)
     u = p["bonus_u"].to(f)
-    if cfg.use_kernels:
-        o, _ = wkv6(r, k, v, wlog, u, s0, chunk=cfg.ssm.chunk_size)
+    if cache is not None and s == 1:
+        o, s_end = wkv6_step(r[:, 0], k[:, 0], v[:, 0], wlog[:, 0], u, s0)
+        o = o[:, None]
+    elif cfg.use_kernels:
+        o, s_end = wkv6(r, k, v, wlog, u, s0, chunk=cfg.ssm.chunk_size)
     else:
-        o, _ = wkv6_chunked(r, k, v, wlog, u, min(cfg.ssm.chunk_size, s),
-                            s0)
+        o, s_end = wkv6_chunked(r, k, v, wlog, u,
+                                min(cfg.ssm.chunk_size, s), s0)
+    if cache is not None:
+        cache["shift"].copy_(x[:, -1])
+        cache["wkv"].copy_(s_end)
     o = groupnorm_heads(o.to(dt), p["ln_scale"], p["ln_bias"], cfg.norm_eps)
     o = o.reshape(b, s, h * pd) * F.silu(g)
     return o @ p["w_o"].to(dt)
 
 
+def wkv6_step(r, k, v, wlog, u, s0):
+    """One step of the recurrence in fp32 (``rwkv6.py:177-187``): r/k/v/
+    wlog (B,H,P), u (H,P), s0 (B,H,P,P) -> (o (B,H,P), s_end)."""
+    f = torch.float32
+    r, k, v = r.to(f), k.to(f), v.to(f)
+    o = torch.einsum("bhp,bhpq->bhq", r, s0) + \
+        torch.einsum("bhp,hp,bhp->bh", r, u, k)[..., None] * v
+    s_end = torch.exp(wlog)[..., None] * s0 + k[..., None] * v[..., None, :]
+    return o, s_end
+
+
 def rwkv6_channel_mix(p, x, cfg, *, cache=None):
     """x (B,S,D) -> (B,S,D): ``sigmoid(xr@w_r) * (relu(xk@w_k)² @ w_v)``
-    on token-shifted mixes (``rwkv6.py:215-231``)."""
-    if cache is not None:
-        raise NotImplementedError("the RWKV6 decode cache is not yet "
-                                  "ported to repro_torch")
-    b, s, d = x.shape
+    on token-shifted mixes (``rwkv6.py:215-231``). ``cache``: this layer's
+    {"shift" (B,D)}, read, then written in place."""
     dt = x.dtype
-    delta = _token_shift(x, x.new_zeros((b, d))) - x
+    delta = _token_shift(x, _last(x, cache)) - x
+    if cache is not None:
+        cache["shift"].copy_(x[:, -1])
     xk = x + delta * p["mu_k"].to(dt)
     xr = x + delta * p["mu_r"].to(dt)
     hidden = torch.square(F.relu(xk @ p["w_k"].to(dt)))
     return torch.sigmoid(xr @ p["w_r"].to(dt)) * (hidden @ p["w_v"].to(dt))
+
+
+def init_rwkv6_cache(cfg, batch, *, dtype, device):
+    """One layer's zero cache (``rwkv6.py:228-234``): the two token-shift
+    rows (B,D) and the WKV state (B,H,P,P)."""
+    h, pd, d = cfg.num_heads, cfg.head_dim, cfg.d_model
+    kw = {"dtype": dtype, "device": device}
+    return {"att_shift": torch.zeros((batch, d), **kw),
+            "ffn_shift": torch.zeros((batch, d), **kw),
+            "wkv": torch.zeros((batch, h, pd, pd), **kw)}

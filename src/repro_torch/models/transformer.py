@@ -28,7 +28,19 @@ layers, is added to the loss and reported as ``moe_aux``. With
 the reference's ``init_mla`` keys under ``attn.``); with ``mtp_depth > 0``
 one multi-token prediction module (``mtp.proj``, the unstacked dense layer
 ``mtp.block.*`` and the norms ``mtp.norm_h``, ``mtp.norm_e``,
-``mtp.final_norm``) predicts the token two ahead in training.
+``mtp.final_norm``) predicts the token two ahead in training. A
+vision-language decoder (``arch_type="vlm"``, Qwen2-VL) is the dense one
+with M-RoPE: a batch's ``image_embeds`` (B, n_img, D) replace the first
+n_img token embeddings, its ``positions`` (B, S, 3) give the rope grid (by
+default every section takes 0..S-1), and the loss skips the image
+positions.
+
+Serving: ``init_cache`` makes the reference's cache tree (``{"layers":
+...}``, or an MoE decoder's ``{"dense": ..., "moe": ...}``; per layer a
+GQA layer's ``k``/``v`` (L, B, Smax, KH, hd), MLA's ``c_kv``/``k_rope``, or
+RWKV6's ``att_shift``/``ffn_shift``/``wkv``), and ``forward(...,
+mode="prefill"|"decode", cache=...)`` threads it layer by layer, each layer
+writing its slice in place.
 """
 from __future__ import annotations
 
@@ -46,8 +58,8 @@ from repro_torch.models.mlp import is_gated, mlp
 from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_gather
 from repro_torch.models.norms import layernorm, rmsnorm
 from repro_torch.models.params import dense_init, embed_init, ones, zeros
-from repro_torch.models.rwkv6 import init_rwkv6, init_rwkv6_channel_mix, \
-    rwkv6_channel_mix, rwkv6_time_mix
+from repro_torch.models.rwkv6 import init_rwkv6, init_rwkv6_cache, \
+    init_rwkv6_channel_mix, rwkv6_channel_mix, rwkv6_time_mix
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -77,6 +89,41 @@ def _stacks(cfg):
     nd = cfg.moe.first_dense_layers
     return ([("dense_stack.", nd, False)] if nd > 0 else []) + \
         [("moe_stack.", cfg.num_layers - nd, True)]
+
+
+# each stack's group in the cache tree (the reference's init_cache)
+_CACHE_GROUP = {"stack.": "layers", "dense_stack.": "dense",
+                "moe_stack.": "moe"}
+
+
+def _attn_layer_cache(cfg, batch, max_len, kw):
+    """One attention layer's zero cache (``transformer.py:174-183``):
+    MLA's latent and shared rope key, else the rotated K and V."""
+    if cfg.block_kind == "mla":
+        m = cfg.mla
+        return {"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), **kw),
+                "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                                      **kw)}
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+
+
+def init_cache(cfg, batch, max_len, *, dtype=torch.bfloat16, device="cuda"):
+    """The zero serving cache of ``batch`` sequences of up to ``max_len``
+    tokens in ``dtype`` on ``device`` (``transformer.py:186-217``): every
+    leaf of one layer's cache stacked on a leading L axis, under
+    ``"layers"`` (``"dense"`` and ``"moe"`` for an MoE decoder, ``"dense"``
+    only with leading dense layers). An attention cache's dtype must be
+    the compute dtype (``attention.write_cache`` raises otherwise); RWKV6's
+    is cast to and from as the reference does."""
+    if not cfg.supports_decode():
+        raise ValueError(f"{cfg.name} has no decode step")
+    meta = {"dtype": dtype, "device": "meta"}       # one layer's shapes
+    layer = init_rwkv6_cache(cfg, batch, **meta) if _is_rwkv(cfg) else \
+        _attn_layer_cache(cfg, batch, max_len, meta)
+    return {_CACHE_GROUP[prefix]: {
+        k: torch.zeros((n,) + tuple(v.shape), dtype=dtype, device=device)
+        for k, v in layer.items()} for prefix, n, _ in _stacks(cfg)}
 
 
 def init_params(cfg, *, seed=0, device="cuda"):
@@ -203,25 +250,45 @@ def _layer(params, prefix, i):
             if k.startswith(prefix)}
 
 
-def _embed(cfg, params, batch):
-    """``(h (B,S,D) in the compute dtype, rope positions (B,S) or None)``.
-    ViT: NHWC patchify (reshape + transpose, then a matmul — not a conv),
-    a zero CLS token in front, and learned positions. Decoder: the token
-    embedding (times sqrt(d_model) rounded to the compute dtype first, with
-    ``embed_scale``, as the reference's ``jnp.asarray(math.sqrt(d), dtype)``:
-    62.0 in bf16 at d 3840), positions 0..S-1 (None for RWKV6, which has
-    none)."""
+def _embed(cfg, params, batch, mode="train"):
+    """``(h (B,S,D) in the compute dtype, rope positions or None)``
+    (``transformer.py:362-430``). ViT: NHWC patchify (reshape + transpose,
+    then a matmul — not a conv), a zero CLS token in front, and learned
+    positions. Decoder: the embedding of ``batch["tokens"]`` (B,S), or in
+    decode of ``batch["token"]`` (B,1) (times sqrt(d_model) rounded to the
+    compute dtype first, with ``embed_scale``, as the reference's
+    ``jnp.asarray(math.sqrt(d), dtype)``: 62.0 in bf16 at d 3840). A vlm
+    batch's ``image_embeds`` (B, n_img, D) replace the first n_img rows
+    (not in decode). Positions (None for RWKV6, which has none): in
+    decode ``batch["index"]`` (an int) for every row; else 0..S-1, as
+    (B,S), or for M-RoPE ``batch["positions"]`` (B,S,3) when given, else
+    0..S-1 in each of the three sections."""
     dt = compute_dtype(cfg)
     if not _is_vit(cfg):
-        tokens = batch["tokens"].long()
+        decode = mode == "decode"
+        tokens = (batch["token"] if decode else batch["tokens"]).long()
         h = params["embed.tok"][tokens].to(dt)
         if cfg.embed_scale:
             h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=dt,
                                  device=h.device)
+        if cfg.arch_type == "vlm" and not decode and "image_embeds" in batch:
+            img = batch["image_embeds"]
+            h = torch.cat([img.to(dt), h[:, img.shape[1]:]], dim=1)
         if _is_rwkv(cfg):
             return h, None
         b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        mrope = cfg.rope_style == "mrope"
+        if decode:
+            positions = torch.full((b, 1, 3) if mrope else (b, 1),
+                                   int(batch["index"]), dtype=torch.int64,
+                                   device=tokens.device)
+        elif mrope and batch.get("positions") is not None:
+            positions = batch["positions"].long()
+        else:
+            positions = torch.arange(s, device=tokens.device)[None].expand(
+                b, s)
+            if mrope:
+                positions = positions[..., None].expand(b, s, 3)
         return h, positions
     images = batch["images"]
     b = images.shape[0]
@@ -248,23 +315,32 @@ def _head(cfg, params, h):
     return h @ params["head.w"].to(h.dtype)
 
 
-def _block(cfg, layer, h, window, positions, use_moe=False, reduce=None):
+def _block(cfg, layer, h, window, positions, use_moe=False, reduce=None,
+           cache=None, cache_index=0):
     """One pre-norm layer on ``layer``'s params (its stack's slice with the
     prefix dropped): ``h += attn(norm1 h)``, then ``h += mlp(norm2 h)`` (or
     the MoE's output with ``use_moe``); for RWKV6 the time mix and the
-    channel mix. Returns ``(h, the layer's MoE aux or None)``."""
+    channel mix. ``cache``: this layer's slice of the serving cache,
+    written in place. Returns ``(h, the layer's MoE aux or None)``."""
     a_in = _apply_norm(cfg, layer, "ln1.", h)
     if _is_rwkv(cfg):
-        h = h + rwkv6_time_mix(_layer(layer, "time_mix.", None), a_in, cfg)
+        tc = cc = None
+        if cache is not None:
+            tc = {"shift": cache["att_shift"], "wkv": cache["wkv"]}
+            cc = {"shift": cache["ffn_shift"]}
+        h = h + rwkv6_time_mix(_layer(layer, "time_mix.", None), a_in, cfg,
+                               cache=tc)
         return h + rwkv6_channel_mix(_layer(layer, "channel_mix.", None),
                                      _apply_norm(cfg, layer, "ln2.", h),
-                                     cfg), None
+                                     cfg, cache=cc), None
     if cfg.block_kind == "mla":
         h = h + mla_block(_layer(layer, "attn.", None), a_in, cfg,
-                          positions=positions)
+                          positions=positions, cache=cache,
+                          cache_index=cache_index)
     else:
         h = h + attention_block(_layer(layer, "attn.", None), a_in, cfg,
-                                window=window, positions=positions)
+                                window=window, positions=positions,
+                                cache=cache, cache_index=cache_index)
     m_in = _apply_norm(cfg, layer, "ln2.", h)
     if not use_moe:
         return h + mlp(_layer(layer, "mlp.", None), m_in, cfg.act), None
@@ -299,18 +375,30 @@ def _remat(cfg, fn):
     return lambda *args: checkpoint(fn, *args, **kw)
 
 
-def forward(cfg, params, batch, gather=None, reduce=None, *, train=True):
-    """``(logits, aux)``: logits in the compute dtype, (B, num_classes) for
-    a preprocessed float ``batch["images"]`` (B, H, W, 3), (B, S, vocab)
-    for ``batch["tokens"]`` (B, S); ``aux`` ``{"moe_aux": fp32 scalar}``,
-    the MoE layers' load-balance losses summed (0 without experts), and
-    with ``cfg.mtp_depth > 0`` and ``train`` (the reference's ``mode ==
-    "train"``) ``"mtp_logits"`` (B, S, vocab) of the MTP head
-    (:func:`_mtp_logits`). Pre-norm blocks: ``h += attn(norm1 h)``
-    (MLA with ``block_kind="mla"``), then ``h += mlp(norm2 h)`` or the
-    MoE; for RWKV6 ``h += time_mix(norm1 h)``, then ``h +=
-    channel_mix(norm2 h)``. The layers run stack by stack (``_stacks``),
-    each with its window of ``cfg.layer_windows()``.
+def forward(cfg, params, batch, gather=None, reduce=None, *, mode="train",
+            cache=None):
+    """``(logits, aux)`` in ``mode`` "train" and "eval", and ``(logits,
+    cache, aux)`` in "prefill" and "decode" (the reference's ``forward``
+    returns the three in every mode; the training and eval callers keep
+    the two). "eval" is "train" without the MTP head. Logits in the compute dtype, (B, num_classes) for a
+    preprocessed float ``batch["images"]`` (B, H, W, 3), (B, S, vocab) for
+    ``batch["tokens"]`` (B, S) (with ``image_embeds`` and ``positions`` for
+    a vlm); ``aux`` ``{"moe_aux": fp32 scalar}``, the MoE layers'
+    load-balance losses summed (0 without experts), and with
+    ``cfg.mtp_depth > 0`` in mode "train" ``"mtp_logits"``
+    (B, S, vocab) of the MTP head (:func:`_mtp_logits`). Pre-norm blocks:
+    ``h += attn(norm1 h)`` (MLA with ``block_kind="mla"``), then ``h +=
+    mlp(norm2 h)`` or the MoE; for RWKV6 ``h += time_mix(norm1 h)``, then
+    ``h += channel_mix(norm2 h)``. The layers run stack by stack
+    (``_stacks``), each with its window of ``cfg.layer_windows()``.
+
+    Serving (``transformer.py:452-528``): "prefill" runs the prompt
+    ``batch["tokens"]`` (B, S) and writes it into ``cache`` (from
+    :func:`init_cache`) at rows 0..S-1; "decode" runs ``batch["token"]``
+    (B, 1) at position ``batch["index"]`` (an int) and writes that row.
+    Each layer writes its slice of the cache in place, and the same cache
+    comes back. Serving runs on whole params: no ``gather``, no remat, no
+    MTP head.
 
     ``gather``, when given, maps ``{key: param}`` to the tensors the model
     computes with where they are used: the non-stacked params (``mtp.*``
@@ -321,31 +409,46 @@ def forward(cfg, params, batch, gather=None, reduce=None, *, train=True):
     rather than keeping it whole. ``reduce`` is the MoE's hook for its
     routed fractions (``models/moe.py``): their mean over the
     data-parallel ranks."""
+    if mode not in ("train", "eval", "prefill", "decode"):
+        raise ValueError(
+            f"mode {mode!r} not in (train, eval, prefill, decode)")
+    serving = mode in ("prefill", "decode")
+    if serving and (cache is None or gather is not None):
+        raise ValueError(f"mode {mode!r} needs a cache and whole params "
+                         f"(no gather)")
+    if not serving and cache is not None:
+        raise ValueError("a cache is for the prefill and decode modes")
     stacked = {k: v for k, v in params.items() if is_stacked(k)}
     if gather is not None:
         params = gather({k: v for k, v in params.items()
                          if k not in stacked})
-    h, positions = _embed(cfg, params, batch)
+    h, positions = _embed(cfg, params, batch, mode)
+    index = int(batch["index"]) if mode == "decode" else 0
 
-    def step(h, shards, prefix, window, use_moe):
+    def step(h, shards, prefix, window, use_moe, layer_cache=None):
         layer = shards if gather is None else gather(shards)
         return _block(cfg, _layer(layer, prefix, None), h, window,
-                      positions, use_moe, reduce)
+                      positions, use_moe, reduce, layer_cache, index)
 
-    step = _remat(cfg, step)
+    if not serving:
+        step = _remat(cfg, step)
     windows = iter(cfg.layer_windows())
     moe_aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for prefix, n, use_moe in _stacks(cfg):
         group = {k: v for k, v in stacked.items() if k.startswith(prefix)}
+        caches = cache[_CACHE_GROUP[prefix]] if serving else None
         for i in range(n):
+            layer_cache = {k: v[i] for k, v in caches.items()} \
+                if serving else None
             h, aux = step(h, {k: v[i] for k, v in group.items()}, prefix,
-                          next(windows), use_moe)
+                          next(windows), use_moe, layer_cache)
             if aux is not None:
                 moe_aux = moe_aux + aux
     aux = {"moe_aux": moe_aux}
-    if cfg.mtp_depth > 0 and train:
+    if cfg.mtp_depth > 0 and mode == "train":
         aux["mtp_logits"] = _mtp_logits(cfg, params, batch, h, positions)
-    return _head(cfg, params, h), aux
+    logits = _head(cfg, params, h)
+    return (logits, cache, aux) if serving else (logits, aux)
 
 
 def _mtp_logits(cfg, params, batch, h, positions):
@@ -405,7 +508,8 @@ def loss_from_logits(cfg, logits, batch, aux=None):
     (``transformer.py:592-627``). ViT: ``_soft_xent`` for soft labels or
     label smoothing, else ``_xent``; metrics ``acc``, ``moe_aux`` and
     ``loss``. Decoder: next-token ``_xent`` with the labels shifted by one
-    and the last position masked; with ``aux["mtp_logits"]`` (the MTP
+    and the last position masked (a vlm's image positions too,
+    ``transformer.py:617-619``); with ``aux["mtp_logits"]`` (the MTP
     head) plus 0.3 times its ``_xent`` against the labels shifted by two,
     the last two positions masked (reference ``transformer.py:622-625``);
     metrics ``moe_aux`` and ``loss``. The loss adds ``aux["moe_aux"]``
@@ -416,6 +520,8 @@ def loss_from_logits(cfg, logits, batch, aux=None):
         tok = batch["tokens"]
         mask = torch.ones(tok.shape, dtype=torch.bool, device=tok.device)
         mask[:, -1] = False
+        if cfg.arch_type == "vlm" and "image_embeds" in batch:
+            mask[:, :batch["image_embeds"].shape[1]] = False
         labels = torch.cat([tok[:, 1:], tok[:, -1:]], dim=1)
         loss = _xent(logits, labels, mask)
         if aux is not None and "mtp_logits" in aux:
@@ -493,7 +599,7 @@ class Transformer(nn.Module):
         return dict(self.named_parameters())
 
     def forward(self, batch):
-        return forward(self.cfg, self.params(), batch, train=False)[0]
+        return forward(self.cfg, self.params(), batch, mode="eval")[0]
 
 
 ViT = Transformer       # the name the eval and training callers use

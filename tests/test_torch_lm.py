@@ -104,12 +104,16 @@ def test_config_fields_match_reference(factory):
 
 @pytest.mark.parametrize("change", [
     {"block_kind": "mla"}, {"arch_type": "audio"},
-    {"rope_style": "mrope"}, {"arch_type": "hybrid"}, {"arch_type": "vlm"}])
+    {"rope_style": "mrope"}, {"arch_type": "hybrid"},
+    {"block_kind": "mamba2"}])
 def test_unported_branches_raise(change):
-    """The unported branches raise; an mla block is ported, and without
-    its MLAConfig it raises the config's ValueError."""
+    """The unported branches raise; an mla block and M-RoPE are ported,
+    and without their MLAConfig or rope sections they raise the config's
+    ValueError."""
     error, match = (ValueError, "an mla block needs mla") \
         if change == {"block_kind": "mla"} \
+        else (ValueError, "mrope_sections") \
+        if change == {"rope_style": "mrope"} \
         else (NotImplementedError, "not yet ported")
     with pytest.raises(error, match=match):
         configs.get_config(ARCH).replace(**change)

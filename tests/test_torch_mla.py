@@ -255,12 +255,31 @@ def test_mla_block_matches_reference(dtype, route):
 
 
 def test_mla_block_refuses_a_cache():
+    """A latent cache in another dtype than the compute dtype is refused
+    (K1 takes no mixed dtypes, and a cast would hide the mismatch), as is
+    a prompt longer than the cache; a cache in the compute dtype takes
+    the prompt's latent and rope key at rows 0..S-1 (the serving path is
+    held in ``tests/test_torch_serve.py``)."""
     _, p, x, pos = _mla_inputs(0, "float32")
-    with pytest.raises(NotImplementedError, match="latent cache"):
-        attention.mla_block(params_from_numpy(p), torch.from_numpy(x),
-                            configs.get_smoke_config(ARCH),
-                            positions=torch.from_numpy(pos).long(),
-                            cache={})
+    cfg = configs.get_smoke_config(ARCH).replace(dtype="float32")
+    m = cfg.mla
+
+    def cache(rows, dtype):
+        return {"c_kv": torch.zeros((2, rows, m.kv_lora_rank), dtype=dtype),
+                "k_rope": torch.zeros((2, rows, m.qk_rope_head_dim),
+                                      dtype=dtype)}
+    kw = {"positions": torch.from_numpy(pos).long()}
+    with pytest.raises(ValueError, match="compute dtype"):
+        attention.mla_block(params_from_numpy(p), torch.from_numpy(x), cfg,
+                            cache=cache(SEQ + 4, torch.bfloat16), **kw)
+    with pytest.raises(ValueError, match="overflows"):
+        attention.mla_block(params_from_numpy(p), torch.from_numpy(x), cfg,
+                            cache=cache(SEQ - 1, torch.float32), **kw)
+    c = cache(SEQ + 4, torch.float32)
+    attention.mla_block(params_from_numpy(p), torch.from_numpy(x), cfg,
+                        cache=c, **kw)
+    assert c["c_kv"][:, :SEQ].abs().sum() > 0
+    assert c["c_kv"][:, SEQ:].abs().sum() == 0
 
 
 def test_kv_norm_reads_the_latent_rows_in_place():
@@ -431,7 +450,7 @@ def test_mtp_logits_only_in_training():
     with torch.no_grad():
         logits, aux = transformer.forward(cfg, params, tb)
         eval_logits, eval_aux = transformer.forward(cfg, params, tb,
-                                                    train=False)
+                                                    mode="eval")
         model_logits = transformer.Transformer(cfg, params)(tb)
     assert aux["mtp_logits"].shape == logits.shape
     assert "mtp_logits" not in eval_aux

@@ -122,7 +122,7 @@ def test_config_fields_match_reference(factory):
 
 
 def test_unported_families_still_raise():
-    for arch in ("zamba2-2.7b", "hubert-xlarge", "qwen2-vl-72b"):
+    for arch in ("zamba2-2.7b", "hubert-xlarge"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             configs.get_config(arch)
     base = configs.get_config(ARCH)
@@ -231,8 +231,23 @@ def test_time_and_channel_mix_match_jax(smoke, use_kernels):
                          jnp.asarray(x), cfg)
         assert got.shape == x.shape
         _close(got, want, LOGITS_TOL, group)
-    with pytest.raises(NotImplementedError, match="decode cache"):
-        rwkv6.rwkv6_time_mix({}, torch.from_numpy(x), pcfg, cache={})
+    # from a cache: the token shift reads its row and WKV6 starts from its
+    # state, as the reference's prefill; the cache takes the last row and
+    # the end state in place
+    rng = np.random.default_rng(4)
+    shift = rng.normal(0, 1, (2, 128)).astype(np.float32)
+    wkv = rng.normal(0, 0.3, (2, 4, 32, 32)).astype(np.float32)
+    p = _layer(tree, "time_mix")
+    cache = {"shift": torch.from_numpy(shift.copy()),
+             "wkv": torch.from_numpy(wkv.copy())}
+    got = rwkv6.rwkv6_time_mix({k: torch.from_numpy(v) for k, v in p.items()},
+                               torch.from_numpy(x), pcfg, cache=cache)
+    want, want_cache = ref_rwkv6.rwkv6_time_mix(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x), cfg,
+        cache={"shift": jnp.asarray(shift), "wkv": jnp.asarray(wkv)})
+    _close(got, want, LOGITS_TOL, "time_mix from a cache")
+    for key in ("shift", "wkv"):
+        _close(cache[key], want_cache[key], LOGITS_TOL, key)
 
 
 def test_naive_path_keeps_no_pairwise_tensor():

@@ -77,7 +77,7 @@ def test_config_fields_match_reference(factory):
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        configs.get_config("qwen2-vl-72b")
+        configs.get_config("hubert-xlarge")
     assert set(configs.NOT_YET_PORTED) | set(configs.REGISTRY) == \
         set(ref_configs.ALL_ARCHS)
 
