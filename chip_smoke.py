@@ -5,10 +5,10 @@ the port's main paths (ViT-B/16 eval and training, one card and
 data-parallel under ZeRO 0-3 with augmentation, preempted and resumed from
 checkpoints and supervised under injected faults, ChatGLM3-6B, RWKV6-7B,
 Gemma3-12B, Qwen2.5-14B, GLM-4-9B and Granite-MoE 3B-A800M training, and
-serving Qwen2.5-14B) at full width through its CLI, and DeepSeek-V3 (MLA
-and the multi-token prediction head) and Qwen2-VL-72B training and five
-models' prefill and decode at full width in process, and checks the
-results.
+serving Qwen2.5-14B, HuBERT-XLarge and Zamba2-2.7B training and Zamba2
+serving) at full width through its CLI, and DeepSeek-V3 (MLA and the
+multi-token prediction head) and Qwen2-VL-72B training and six models'
+prefill and decode at full width in process, and checks the results.
 
     python3 chip_smoke.py [--profile]
 
@@ -39,7 +39,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    decoder's shape (4096 x 4096), Gemma3's (4096 x 3840), Qwen2.5's
    (4096 x 5120), Granite-MoE's (4096 x 1536) and DeepSeek-V3's (2048 x
    7168, 2048 x 1536, and 2048 x 512 in rows 576 apart: kv_norm's slice
-   of the w_dkv output) rows, the smoke shape, the reference's
+   of the w_dkv output) and Zamba2-2.7B's (8192 x 2560 and 5120 in
+   training, 2048 x 2560 and 5120 in its serve prefill) rows, the smoke
+   shape, the reference's
    RMS_CASES, one row and odd D, in bf16 and fp32 (out, dx, dscale within
    1e-4 / 6e-2, rinv within 1e-4 relative), K5 twice for a bitwise equal
    dscale; ``torch.autograd.grad`` through ``ops.fused_rmsnorm``; then
@@ -70,6 +72,14 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    with the bytes each kernel's two launches (K6: the state scan, then
    the chunks' outputs; K7: the state-gradient scan, then the chunks'
    adjoints) move as designed.
+6c. K1-K3 at head dim 80 (HuBERT-XLarge's and Zamba2-2.7B's) and at the
+   smoke MLA pair (D 48, Dv 32) against their plain versions in bf16 and
+   fp32 (phase 3's gates), K2 and K3 each run twice for bitwise equal
+   results: HuBERT's attention (B 8, H = KH 16, S = T 781 = 12 x 64 + 13,
+   non-causal, the model's layout), Zamba2's shared block (B 2, H = KH
+   32, S = T 4096, causal) and (48, 32) at B 2, H 4, KH 2, S 300 causal
+   and non-causal; then K1-K3 timed at both D 80 shapes beside their plain
+   versions, SDPA and the bounds.
 7. the eval slice: ``repro_torch.launch.train --arch vit-b16 --steps 0
    --eval-every 1 --eval-batch 128`` on procedural CIFAR-10 (500 examples,
    4 batches, the last mask-padded) with the launch counters reset just
@@ -231,9 +241,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    upper-left aligned: Qwen2.5's serve run, B 4, H 40, KH 8, S 512, T 576,
    D 128; Gemma3's local layers past the window, B 1, H 16, KH 8, S 1100,
    T 1104, D 256, window 1024; MLA's, B 2, H = KH = 128, S 1024, T 1032,
-   D 192, Dv 128) against ``ref_attention`` in bf16 and fp32 (phase 3's
-   gates), K4 at a decode step's rows (4 x 5120, 1 x 8192, 2 x 7168)
-   against ``ref_rmsnorm_fwd``, and K1 timed at Qwen2.5's prefill beside
+   D 192, Dv 128; Zamba2's serve run, B 4, H = KH 32, S 512, T 576, D
+   80) against ``ref_attention`` in bf16 and fp32 (phase 3's gates), K4
+   at a decode step's rows (4 x 5120, 1 x 8192, 2 x 7168; Zamba2's 4 x
+   2560, 2 x 2560 and 2 x 5120) against ``ref_rmsnorm_fwd``, and K1 timed at Qwen2.5's prefill beside
    SDPA and the bound over the live pairs; then ``python -m
    repro_torch.launch.serve --arch qwen2.5-14b --layers 4 --batch 4
    --prompt-len 512 --gen 64`` (fp32) in process with the counters reset
@@ -262,6 +273,34 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    share of the decode loop in each dtype, and one bf16 step under
    ``torch.profiler``.
 
+16. HuBERT-XLarge at full width cut to 24 of 48 layers (0.47 B params;
+   the time limit's cut) through the CLI: ``--arch hubert-xlarge --layers
+   24 --seq 781 --batch 16 --accum 2 --steps 4`` in bf16 (the audio
+   batches drawn each step by ``concrete_batch``) with the counters reset
+   just before and read just after (K1-K3 4 x 2 x 24 = 192 each, no
+   K4/K5: LayerNorm), every loss
+   and grad norm finite, ``step_ok`` 1, the peak; then, from params of
+   seed 0, kernel against naive path on one microbatch of 8 x 781 (fp32
+   within 2e-4, bf16 cosine >= 0.99) and warm frames/s of both paths in
+   turns, every kernel-path run faster (the decoders' training harness,
+   fed the CLI's audio batches).
+17. Zamba2-2.7B at full width cut to 12 of 54 layers (two groups of 6, the
+   shared block used twice): ``--arch zamba2-2.7b --layers 12 --seq 4096
+   --batch 4 --accum 2 --steps 3`` in bf16 (K1-K3 3 x 2 x 2 = 12 each, K4
+   and K5 3 x 2 x (12 x 2 + 2 x 2 + 1) = 174 each: each layer's norm and
+   its inner RMSNorm at 5120, the shared block's two norms a use, the
+   final norm), finite, ``step_ok`` 1, the peak; then from params of seed
+   0 (the decoders' training harness, the kernel path's rate alone): kernel
+   against naive path on one microbatch of 2 x 4096 (``shared_attn.*`` included; the gates above), warm
+   tokens/s, one warm step's device time under ``torch.profiler`` beside
+   the eager SSD scan's forward and backward alone (also profiled) times
+   the layers and microbatches (a reading), prefill of 300 tokens and 4
+   decode steps against train-mode logits (fp32 5e-4, bf16 cosine 0.99;
+   K1 once a group in the prefill, none in decode), and ``python -m
+   repro_torch.launch.serve --arch zamba2-2.7b --layers 12 --batch 4
+   --prompt-len 512 --gen 64`` (fp32) on the same params with the counters
+   read around it (K1 2, K4 64 x 29 = 1,856).
+
 ``--profile`` adds a ``torch.profiler`` table of one warm training step of
 each training slice (DeepSeek-V3's included, and the ZeRO-3 step at world
 1), and at the end (after every timed phase) of one warm bf16 eval pass of
@@ -274,13 +313,15 @@ its training run's launches under ``granite`` and ``granite_launches``,
 DeepSeek-V3's MLA attention times and its training run's launches under
 ``deepseek`` and ``deepseek_launches``, K1's time at the serve run's
 prefill and that run's launches under ``serve`` and ``serve_launches``,
-Qwen2-VL training's under ``qwen2vl_launches``, the
-data-parallel runs'
+Qwen2-VL training's under ``qwen2vl_launches``, HuBERT's and Zamba2's
+attention times at head dim 80 with their training runs' launches under
+``hubert`` and ``zamba2`` and Zamba2's serve run's under
+``zamba2_serve_launches``, the data-parallel runs'
 launches there under ``dp_launches``, the preempted and resumed runs'
 under ``resume_launches`` and phase 8d's under ``data_launches``, K4/K5
 with the RWKV6 run's launches and the decoder's, Gemma3's, Qwen2.5's,
-GLM-4's, Granite-MoE's, DeepSeek-V3's, the serve run's and Qwen2-VL's
-beside them, K6/K7; each
+GLM-4's, Granite-MoE's, DeepSeek-V3's, the serve run's, Qwen2-VL's,
+HuBERT's and Zamba2's (training and serving) beside them, K6/K7; each
 redesigned kernel with its ``routes``), the whole script's time, the
 card's ``nvidia-smi`` name and power limit, and the ``ok`` line.
 """
@@ -334,7 +375,10 @@ TOL_RINV = 1e-4                                # relative
 # (micro-batch 1 x 4096, d 3840), Qwen2.5-14B's (4 x 1024, d 5120),
 # Granite-MoE's (4 x 1024, d 1536), DeepSeek-V3's (2 x 1024: d 7168 for
 # ln1, ln2, the final and the MTP norms, q_norm's 1536, and kv_norm's 512
-# in rows of w_dkv's 576 columns), the smoke config's (4 x 64, d 256), the
+# in rows of w_dkv's 576 columns), Zamba2-2.7B's (2 x 4096: d 2560 for
+# the Mamba2 and shared-block norms and the final norm, the inner norm's
+# 5120; its serve prefill's 4 x 512 at both), the smoke config's (4 x 64,
+# d 256), the
 # reference's RMS_CASES, one row, an odd D (rows not 16-byte aligned:
 # scalar loads) and an odd D in wider rows (16-byte vectors and a scalar
 # tail)
@@ -346,6 +390,10 @@ RMS_CASES = [
     ("deepseek", (2048, 7168), None),
     ("ds q_norm", (2048, 1536), None),
     ("ds kv_norm", (2048, 512), 576),
+    ("zamba2", (8192, 2560), None),
+    ("zamba2 inner", (8192, 5120), None),
+    ("zamba2 prefill", (4, 512, 2560), None),
+    ("zamba2 prefill inner", (4, 512, 5120), None),
     ("smoke", (4, 64, 256), None),
     ("ref", (64, 256), None),
     ("ragged", (3, 37, 128), None),
@@ -449,6 +497,14 @@ GEMMA_TRAIN_ARGS = ["--arch", "gemma3-12b", "--layers", str(GEMMA_LAYERS),
 # the fp32 kernel-vs-naive gradients at a sequence that still exceeds the
 # window, so the local layers' masks bite
 GEMMA_AGREE_SEQ = 2048
+# K1-K3 at head dim 80 (HuBERT-XLarge's and Zamba2-2.7B's) and at the smoke
+# MLA pair (D 48, Dv 32), shapes (B, H, KH, S, T, D[, Dv]): HuBERT's
+# attention (a microbatch of 8, 16 heads, S 781 = 12 x 64 + 13 frames,
+# non-causal, in the model's layout), Zamba2's shared block (2 x 4096
+# tokens, 32 heads, causal) and a small (48, 32) case with a GQA group of 2
+HUBERT_ATTN_SHAPE = (8, 16, 16, 781, 781, 80)
+ZAMBA_ATTN_SHAPE = (2, 32, 32, 4096, 4096, 80)
+MLA_SMOKE_SHAPE = (2, 4, 2, 300, 300, 48, 32)
 REMAT_TOL = 1e-5
 # qwen2.5-14b and glm4-9b at full width (vocabularies 152,064 and 151,552;
 # GLM's norm eps 1.5625e-7), two layers each
@@ -507,17 +563,21 @@ SERVE_ARGS = ["--arch", QWEN, "--layers", str(SERVE_LAYERS), "--batch",
 # K1 where prefill attends over the whole cache (T = prompt + generated
 # rows, causal, S < T): label, shape (B, H, KH, S, T, D[, Dv]), window.
 # Qwen2.5's serve run, Gemma3's local layers with a prompt past the
-# window, DeepSeek-V3's MLA
+# window, DeepSeek-V3's MLA, Zamba2's serve run (head dim 80)
 PREFILL_CASES = [
     ("qwen2.5", (SERVE_BATCH, 40, 8, SERVE_PROMPT,
                  SERVE_PROMPT + SERVE_GEN, 128), 0),
     ("gemma3 local", (1, 16, 8, 1100, 1104, 256), GEMMA_WINDOW),
     ("mla", (2, 128, 128, LM_SEQ, LM_SEQ + 8, 192, 128), 0),
+    ("zamba2", (SERVE_BATCH, 32, 32, SERVE_PROMPT, SERVE_PROMPT + SERVE_GEN,
+                80), 0),
 ]
 # K4 at a decode step's rows (B x d_model): Qwen2.5's serve run, Qwen2-VL,
-# DeepSeek-V3
+# DeepSeek-V3, Zamba2's serve run and its decode against training (d 2560;
+# the inner norm at 5120)
 DECODE_ROWS = [("qwen2.5", (SERVE_BATCH, 5120)), ("qwen2-vl", (1, 8192)),
-               ("deepseek", (2, 7168))]
+               ("deepseek", (2, 7168)), ("zamba2", (SERVE_BATCH, 2560)),
+               ("zamba2", (2, 2560)), ("zamba2 inner", (2, 5120))]
 DECODE_TOL = 5e-4                   # tests/test_arch_smoke.py:80-85
 DECODE_STEPS = 4
 # decode against training at full width: tag, arch, layers, batch, prompt
@@ -543,6 +603,35 @@ DECODE_MODELS = [
 VL_LAYERS, VL_BATCH, VL_STEPS = 1, 2, 3
 VL_PEAK_GB = (58.0, 64.0)       # the predicted peak (PERF.md, §6)
 SERVE_RATE_BATCHES = (SERVE_BATCH, 32)
+
+# HuBERT-XLarge at full width through the CLI, cut to 24 of 48 layers
+# (0.47 B params; at 48 the whole script read 1,127 s of its 1,200 s on a
+# slow host), 16 x 781 frames a step in microbatches of 8 (phase 6c's
+# attention shape), 4 steps
+HUBERT = "hubert-xlarge"
+HUBERT_LAYERS, HUBERT_SEQ, HUBERT_BATCH, HUBERT_ACCUM, HUBERT_STEPS = \
+    24, 781, 16, 2, 4
+HUBERT_ARGS = ["--arch", HUBERT, "--layers", str(HUBERT_LAYERS), "--seq",
+               str(HUBERT_SEQ), "--batch", str(HUBERT_BATCH), "--accum",
+               str(HUBERT_ACCUM), "--steps", str(HUBERT_STEPS),
+               "--log-every", "1"]
+# Zamba2-2.7B at full width cut to two groups of 6 Mamba2 layers (the
+# shared block runs twice; ~0.75 B params), 4 x 4096 tokens a step in
+# microbatches of 2 (phase 6c's attention shape), 3 steps; then its
+# prefill (300 tokens, across two SSD chunk boundaries) and 4 decode
+# steps, and the serve CLI in fp32 as the reference's
+ZAMBA = "zamba2-2.7b"
+ZAMBA_LAYERS, ZAMBA_SEQ, ZAMBA_BATCH, ZAMBA_ACCUM, ZAMBA_STEPS = \
+    12, 4096, 4, 2, 3
+ZAMBA_ARGS = ["--arch", ZAMBA, "--layers", str(ZAMBA_LAYERS), "--seq",
+              str(ZAMBA_SEQ), "--batch", str(ZAMBA_BATCH), "--accum",
+              str(ZAMBA_ACCUM), "--steps", str(ZAMBA_STEPS), "--log-every",
+              "1"]
+ZAMBA_DECODE = [("zamba2", ZAMBA, ZAMBA_LAYERS, 2, 300, 300 + DECODE_STEPS,
+                 {}, None)]
+ZAMBA_SERVE_ARGS = ["--arch", ZAMBA, "--layers", str(ZAMBA_LAYERS),
+                    "--batch", str(SERVE_BATCH), "--prompt-len",
+                    str(SERVE_PROMPT), "--gen", str(SERVE_GEN)]
 
 # The redesigned kernels and the routes each takes; their rows say so, and
 # PERF.md's kernel table keeps the earlier design's times
@@ -1027,6 +1116,37 @@ def phase_gemma_attention(card):
     t = attention_times(card, GEMMA_ATTN_SHAPE, True, inputs, "gemma-attn",
                         window=GEMMA_WINDOW)
     return {key: dict(t[key], max_abs_err=errs[key]) for key in t}
+
+
+def phase_d80_attention(card):
+    """Phase 6c: K1, K2 and K3 at head dim 80 and at (D 48, Dv 32) against
+    their plain versions in bf16 and fp32 (phase 3's gates), K2 and K3
+    each run twice for bitwise equal results: HuBERT's shape (non-causal,
+    ragged S 781, the model's layout), Zamba2's (causal, S 4096), and the
+    (48, 32) case causal in the model's layout and non-causal in
+    contiguous tensors; then K1-K3 timed at both D 80 shapes beside their
+    plain versions, SDPA and the bounds. Returns {"hubert", "zamba2":
+    {"fwd", "dq", "dkv": timing row with the bf16 error}}."""
+    import torch
+
+    inputs = model_layout_inputs(
+        torch.Generator(device="cuda").manual_seed(13))
+    errs = {"hubert": check_attention("d80-attn", "HuBERT's",
+                                      HUBERT_ATTN_SHAPE, inputs,
+                                      causal=False),
+            "zamba2": check_attention("d80-attn", "Zamba2's",
+                                      ZAMBA_ATTN_SHAPE, inputs)}
+    check_attention("d80-attn", "the smoke MLA pair's", MLA_SMOKE_SHAPE,
+                    inputs)
+    check_attention("d80-attn", "the smoke MLA pair's", MLA_SMOKE_SHAPE,
+                    inputs, causal=False, layout=False)
+    out = {}
+    for tag, shape, causal in (("hubert", HUBERT_ATTN_SHAPE, False),
+                               ("zamba2", ZAMBA_ATTN_SHAPE, True)):
+        t = attention_times(card, shape, causal, inputs, "d80-attn")
+        out[tag] = {key: dict(t[key], max_abs_err=errs[tag][key])
+                    for key in t}
+    return out
 
 
 def check_attention(tag, what, shape, inputs, windows=(0,), causal=True,
@@ -2416,19 +2536,27 @@ def dp_rates(profile):
 
 def lm_setup(dtype, use_kernels, *, arch, layers, batch=8, accum=2,
              seq=LM_SEQ, **cfg_kw):
-    """A full-width ``arch`` decoder trainer cut to ``layers`` layers (and
-    any other config field in ``cfg_kw`` replaced) with the CLI's engine
-    settings for 10 steps, and its token pipeline of ``seq`` tokens a
-    sequence."""
+    """A full-width ``arch`` trainer cut to ``layers`` layers (and any
+    other config field in ``cfg_kw`` replaced) with the CLI's engine
+    settings for 10 steps, and its feed: the token pipeline of ``seq``
+    tokens a sequence or, for the audio encoder, a stand-in whose
+    ``batch_at(_, i)`` is the CLI's audio batch of step i
+    (``concrete_batch``, ``seq`` frames, drawn with numpy)."""
+    import types
     from repro_torch.configs import EngineConfig, get_config
     from repro_torch.core.engine import Trainer
     from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.specs import concrete_batch
 
     cfg = get_config(arch).replace(
         num_layers=layers, dtype=dtype, use_kernels=use_kernels, **cfg_kw)
     ecfg = EngineConfig(train_batch_size=batch,
                         gradient_accumulation_steps=accum, total_steps=10,
                         warmup_steps=1)
+    if cfg.arch_type == "audio":
+        return Trainer(cfg, ecfg), types.SimpleNamespace(
+            global_batch=batch, batch_at=lambda _, i: concrete_batch(
+                cfg, batch, seq, seed=i))
     return Trainer(cfg, ecfg), DataPipeline(
         kind="token", global_batch=batch, vocab=cfg.vocab_size,
         seq_len=seq, epoch_size=batch * 10)
@@ -3141,24 +3269,36 @@ def require_kernel_wins(tag, rates):
              f"naive-path run")
 
 
+def check_rows(tag, hist, steps):
+    """Fail unless the CLI's rows are steps 0..steps-1, each with a finite
+    loss and grad norm and ``step_ok`` 1."""
+    import math
+    if [r["step"] for r in hist] != list(range(steps)) or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+            and r["step_ok"] == 1 for r in hist):
+        fail(f"{tag} train: bad rows {hist}")
+
+
 def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None,
                   *, seq=LM_SEQ, batch=8, accum=2, agree=(4, LM_SEQ),
-                  rate_seq=None, agreement=None):
-    """A decoder's training slice at full width cut to ``layers`` layers:
-    ``argv`` (bf16, ``batch`` x ``seq``, ``accum``, 10 steps) through the
-    CLI with the launch counters reset just before and read just after
-    (``expect``), every loss and grad-norm finite and ``step_ok`` 1, the
-    peak of allocated device memory; then ``kernel_naive_agreement`` on
-    one microbatch of ``agree`` (rows, tokens) (or ``agreement``, a
-    function with its signature and result), and warm training
-    tokens/s of both paths in turns (every kernel-path run faster than
+                  rate_seq=None, agreement=None, steps=10, timed=(4, 2),
+                  paths=("kernel", "naive", "naive", "kernel"),
+                  unit="tokens"):
+    """A model's training slice at full width cut to ``layers`` layers:
+    ``argv`` (bf16, ``batch`` x ``seq``, ``accum``, ``steps`` steps)
+    through the CLI with the launch counters reset just before and read
+    just after (``expect``), every loss and grad-norm finite and
+    ``step_ok`` 1, the peak of allocated device memory; then
+    ``kernel_naive_agreement`` on one microbatch of ``agree`` (rows,
+    tokens) (or ``agreement``, a function with its signature and result),
+    and warm training ``unit``/s (``timed``: timed and warm-up steps a
+    run) of the ``paths`` in turns (every kernel-path run faster than
     every naive-path run, or the phase fails; at ``rate_seq`` tokens a
     sequence when given, and then the kernel path's at ``seq`` as well),
     all from params of seed 0. The previous phase's tensors are freed
     first, so two models never stand together. Returns (launches, the
     CLI's metrics rows, the params on the host)."""
     import gc
-    import math
     import torch
 
     def free():
@@ -3168,12 +3308,7 @@ def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None,
     torch.cuda.reset_peak_memory_stats()
     launches, hist = run_cli(argv, expect, f"{arch} train")
     peak = torch.cuda.max_memory_allocated()
-    if [r["step"] for r in hist] != list(range(10)):
-        fail(f"{arch} train: unexpected rows {hist}")
-    for r in hist:
-        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
-                and r["step_ok"] == 1):
-            fail(f"{arch} train: bad step row {r}")
+    check_rows(arch, hist, steps)
     print(f"[{tag}] {arch} ({layers} layers, full width) losses "
           f"{[round(r['loss'], 4) for r in hist]}; grad norms "
           f"{[round(r['grad_norm'], 3) for r in hist]}; step_ok all 1; "
@@ -3190,16 +3325,17 @@ def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None,
     rates = {}
     rate_seq = rate_seq or seq
     shape = {"batch": batch, "accum": accum, "seq": rate_seq}
-    for label in ("kernel", "naive", "naive", "kernel"):
+    for label in paths:
         trainer, pipe = lm_setup("bfloat16", label == "kernel", **shape,
                                  **kw)
-        rates.setdefault(label, []).append(train_rate(trainer, pipe, params))
+        rates.setdefault(label, []).append(
+            train_rate(trainer, pipe, params, *timed))
         free()
     if rate_seq != seq:
         trainer, pipe = lm_setup("bfloat16", True, batch=batch, accum=accum,
                                  seq=seq, **kw)
-        rates[f"kernel path at {seq} tokens"] = [
-            train_rate(trainer, pipe, params)]
+        rates[f"kernel path at {seq} {unit}"] = [
+            train_rate(trainer, pipe, params, *timed)]
         free()
     for label, rs in rates.items():
         n = seq if label.startswith("kernel path") else rate_seq
@@ -3207,11 +3343,12 @@ def decoder_train(arch, layers, argv, expect, tag, profile, fp32_eps=None,
         ms = sum(r[1] for r in rs) / len(rs)
         what = label if label.startswith("kernel path") else f"{label} path"
         print(f"[{tag}] {arch} bf16 warm training, {what}: "
-              f"{tps:.1f} tokens/s, {ms:.2f} ms per optimizer step (batch "
+              f"{tps:.1f} {unit}/s, {ms:.2f} ms per optimizer step (batch "
               f"{batch} x {n}, accum {accum}; runs "
-              f"{[round(r[0] * n, 1) for r in rs]} tokens/s; "
+              f"{[round(r[0] * n, 1) for r in rs]} {unit}/s; "
               f"{smi_line()})", flush=True)
-    require_kernel_wins(arch, rates)
+    if "naive" in rates:
+        require_kernel_wins(arch, rates)
     if profile:
         trainer, pipe = lm_setup("bfloat16", True, **shape, **kw)
         profile_step(f"{arch} ({layers} layers, bf16, batch {batch} x {seq}, "
@@ -3486,13 +3623,15 @@ def phase_prefill_kernels(card):
             "library_ms": library, "max_abs_err": errs[label]}
 
 
-def phase_serve_cli():
-    """``python -m repro_torch.launch.serve`` with SERVE_ARGS (fp32, as the
-    reference's serve) in this process, the counters reset just before and
-    read just after: K1 once a layer in the prefill (the decode steps take
-    the naive sdpa), K4 twice a layer and once for the final norm in the
-    prefill and in each of the 63 decode steps, no other kernel and no
-    layout copy; its two ``[serve]`` lines. Returns (launches, its
+def phase_serve_cli(argv=SERVE_ARGS, attn=SERVE_LAYERS,
+                    norms=(2 * SERVE_LAYERS + 1) * SERVE_GEN):
+    """``python -m repro_torch.launch.serve`` with ``argv`` (SERVE_ARGS:
+    fp32, as the reference's serve) in this process, the counters reset
+    just before and read just after: K1 ``attn`` times in the prefill
+    (once an attention layer; the decode steps take the naive sdpa), K4
+    ``norms`` times (SERVE_ARGS: twice a layer and once for the final norm
+    in the prefill and in each of the 63 decode steps), no other kernel
+    and no layout copy; its two ``[serve]`` lines. Returns (launches, its
     result)."""
     import gc
     import io
@@ -3500,20 +3639,19 @@ def phase_serve_cli():
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.launch import serve
 
-    norms = (2 * SERVE_LAYERS + 1) * SERVE_GEN
-    expect = dict({name: 0 for name in counters()}, flash_fwd=SERVE_LAYERS,
+    expect = dict({name: 0 for name in counters()}, flash_fwd=attn,
                   rmsnorm_fwd=norms)
     reset_counters()
     buf = io.StringIO()
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
-        res = serve.main(SERVE_ARGS)
+        res = serve.main(argv)
     wall = time.time() - t0
     text = buf.getvalue()
     print(text, end="", flush=True)
     launches = read_counters()
     lines = [ln for ln in text.splitlines() if ln.startswith("[serve]")]
-    print(f"[serve] the CLI ({' '.join(SERVE_ARGS)}): launches {launches} "
+    print(f"[serve] the CLI ({' '.join(argv)}): launches {launches} "
           f"(expected {expect}); row layout copies {rms.row_layout.copies}; "
           f"{wall:.1f}s with the draw of the params", flush=True)
     if launches != expect or rms.row_layout.copies or len(lines) != 2 or \
@@ -3582,14 +3720,15 @@ def decode_params(tag, params):
             else v for k, v in params.items() if k in keys}
 
 
-def phase_decode_vs_train(held):
-    """Each of DECODE_MODELS at full width, from its params in ``held``
+def phase_decode_vs_train(held, models=DECODE_MODELS):
+    """Each of ``models`` at full width, from its params in ``held``
     (seed 0, on the host; popped as used): train-mode logits of the whole sequence, then prefill of the prompt
     into a cache of the compute dtype and DECODE_STEPS decode steps; the
     prefill's and every step's logits against the train-mode ones: fp32
     max |d| within DECODE_TOL, bf16 cosine >= MIN_COSINE_BF16. The prefill
-    launches K1 once a layer (K6 for RWKV6, from the cache's state) and
-    the decode steps no attention or WKV kernel. A model with a gate eps
+    launches K1 once an attention layer (a hybrid's: once a group; K6 for
+    RWKV6, from the cache's state) and the decode steps no attention or
+    WKV kernel. A model with a gate eps
     takes its fp32 gate at that norm eps, and its fp32 reading at its own
     eps is printed, its launches and finiteness checked but not its
     tolerance."""
@@ -3597,10 +3736,11 @@ def phase_decode_vs_train(held):
     import torch
     from repro_torch.models import transformer as tr
 
-    for tag, arch, layers, batch, s, max_len, kw, gate_eps in \
-            DECODE_MODELS:
+    for tag, arch, layers, batch, s, max_len, kw, gate_eps in models:
         t0 = time.time()
         cfg = decode_cfg(arch, layers, kw)
+        prefills = layers // cfg.hybrid_group if cfg.hybrid_group \
+            else layers
         want = {k: tuple(v.shape) for k, v in
                 tr.init_params(cfg, device="meta").items()}
         host = held.pop(tag)
@@ -3643,7 +3783,7 @@ def phase_decode_vs_train(held):
                      for a, b in pairs]
             coss = [cosine(a, b) for a, b in pairs]
             finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs)
-            ok = finite and prefill_launches == layers and \
+            ok = finite and prefill_launches == prefills and \
                 decode_launches == 0 and (
                     not gated or (max(diffs) <= DECODE_TOL
                                   if dname == "float32"
@@ -3776,7 +3916,6 @@ def serve_rates(card):
     import gc
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.core.engine import Server, greedy
@@ -3845,17 +3984,7 @@ def serve_rates(card):
         steps["bfloat16"]()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, None
-    for a, b in spans:              # the union of the device spans
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
+    spans, busy = device_spans(prof)
     print(f"[serve] one bf16 decode step under torch.profiler: "
           + (f"{len(spans)} device spans, device time {busy / 1e3:.3f} ms of "
              f"a {wall:.3f} ms step (busy {busy / 1e3 / wall:.1%} under the "
@@ -3900,6 +4029,175 @@ def phase_serving(card, held):
     return prefill, serve_launches, vl_launches
 
 
+def phase_hubert(profile):
+    """Phase 16: HuBERT-XLarge through the training CLI at full width cut
+    to HUBERT_LAYERS layers (HUBERT_ARGS, bf16, the audio batches drawn
+    each step) by
+    ``decoder_train``: K1-K3 once a layer and microbatch, no K4/K5
+    (LayerNorm); kernel against naive path on one microbatch (8 x 781) and
+    warm frames/s of both paths in turns (1 warm-up and 3 timed steps a
+    run). Returns the CLI run's launches."""
+    t0 = time.time()
+    attn = HUBERT_STEPS * HUBERT_ACCUM * HUBERT_LAYERS
+    launches, _, _ = decoder_train(
+        HUBERT, HUBERT_LAYERS, HUBERT_ARGS, {
+            "flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn},
+        "hubert", profile, seq=HUBERT_SEQ, batch=HUBERT_BATCH,
+        accum=HUBERT_ACCUM, agree=(HUBERT_BATCH // HUBERT_ACCUM, HUBERT_SEQ),
+        steps=HUBERT_STEPS, timed=(3, 1), unit="frames")
+    print(f"[hubert] phase 16 in {time.time() - t0:.1f}s", flush=True)
+    return launches
+
+
+def device_spans(prof):
+    """(the device spans of a ``torch.profiler`` session, the time in us
+    their union covers)."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:              # the union of the device spans
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return spans, busy
+
+
+def scan_split(card, trainer, pipe, params):
+    """A reading of where a warm zamba2 training step's device time goes,
+    under torch.profiler: the step's device time (the union of its device
+    spans) and the top of its table, and the eager SSD scan's forward and
+    backward alone at one layer's shape, times the layers and microbatches
+    of a step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.engine import to_device
+    from repro_torch.models import mamba2
+
+    def device_ms(fn):
+        fn()                                    # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        spans, busy = device_spans(prof)
+        if not spans:
+            fail("zamba2: torch.profiler recorded no device time")
+        return busy / 1e3, prof
+
+    cfg = trainer.cfg
+    state = trainer.init_state({k: v.to("cuda", copy=True)
+                                for k, v in params.items()})
+    batch = to_device(pipe.batch_at(0, 0), "cuda")
+
+    def step():
+        nonlocal state
+        state, _ = trainer.train_step(state, batch)
+    step_ms, prof = device_ms(step)
+    table = prof.key_averages().table(sort_by="self_device_time_total",
+                                      row_limit=15)
+    del state, batch, prof
+    d_in, h, _ = mamba2.dims(cfg)
+    p, n = cfg.ssm.head_dim, cfg.ssm.state_dim
+    b, s = ZAMBA_BATCH // ZAMBA_ACCUM, ZAMBA_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    xh = torch.randn((b, s, h, p), device="cuda", generator=gen).bfloat16()
+    bm, cm = (torch.randn((b, s, n), device="cuda", generator=gen)
+              .bfloat16() for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn(
+        (b, s, h), device="cuda", generator=gen) + 0.5)
+    leaves = [t.requires_grad_() for t in (xh, bm, cm, dt)]
+    a_log, h0 = torch.zeros(h, device="cuda"), torch.zeros(
+        (b, h, p, n), device="cuda")
+
+    def scan():
+        y, h_end = mamba2._ssd_chunk_scan(*leaves, a_log,
+                                          cfg.ssm.chunk_size, h0)
+        torch.autograd.grad((y.sum() + h_end.sum()), leaves)
+    scan_ms, _ = device_ms(scan)
+    uses = ZAMBA_LAYERS * ZAMBA_ACCUM
+    print(f"[zamba2] one warm training step under torch.profiler: device "
+          f"time {step_ms:.2f} ms; the SSD scan alone (forward and "
+          f"backward, B {b}, S {s}, H {h}, P {p}, N {n}, chunk "
+          f"{cfg.ssm.chunk_size}) {scan_ms:.3f} ms of device time a layer, "
+          f"x {uses} = {scan_ms * uses:.1f} ms, "
+          f"{scan_ms * uses / step_ms:.1%} of the step's (a reading; "
+          f"{card})", flush=True)
+    print(f"[profile] one warm {ZAMBA} ({ZAMBA_LAYERS} layers) training "
+          f"step:\n{table}", flush=True)
+
+
+def phase_zamba2(card):
+    """Phase 17: Zamba2-2.7B through the training CLI at full width cut to
+    ZAMBA_LAYERS layers (ZAMBA_ARGS, bf16) by ``decoder_train``: K1-K3
+    once a group and microbatch; K4/K5 twice a Mamba2 layer (its norm and
+    the inner RMSNorm at 5120), twice a use of the shared block, once for
+    the final norm; kernel against naive path on one microbatch (2 x 4096,
+    ``shared_attn.*`` among the gradients) and warm tokens/s of the kernel
+    path. Then, from the same params of seed 0 on the host: the step's
+    device time split (``scan_split``), prefill and decode against
+    train-mode logits (``ZAMBA_DECODE``) and the serve CLI (fp32; K1 once
+    a group in the prefill, K4 29 times a forward). Returns (the training
+    run's launches, the serve CLI's)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_params
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    groups = ZAMBA_LAYERS // get_config(ZAMBA).hybrid_group
+    attn = ZAMBA_STEPS * ZAMBA_ACCUM * groups
+    norms = ZAMBA_STEPS * ZAMBA_ACCUM * (2 * ZAMBA_LAYERS + 2 * groups + 1)
+    shape = {"seq": ZAMBA_SEQ, "batch": ZAMBA_BATCH, "accum": ZAMBA_ACCUM}
+    launches, _, host = decoder_train(
+        ZAMBA, ZAMBA_LAYERS, ZAMBA_ARGS, {
+            "flash_fwd": attn, "flash_bwd_dq": attn, "flash_bwd_dkv": attn,
+            "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}, "zamba2", False,
+        agree=(ZAMBA_BATCH // ZAMBA_ACCUM, ZAMBA_SEQ), steps=ZAMBA_STEPS,
+        timed=(3, 1), paths=("kernel",), **shape)
+    trainer, pipe = lm_setup("bfloat16", True, arch=ZAMBA,
+                             layers=ZAMBA_LAYERS, **shape)
+    scan_split(card, trainer, pipe, host)
+    del trainer
+    free()
+    phase_decode_vs_train({"zamba2": host}, ZAMBA_DECODE)
+    draw = serve.init_params
+
+    def held(cfg, seed=0, device="cuda"):
+        # the serve CLI's seed-0 draw is this phase's, on the host
+        want = {k: tuple(v.shape) for k, v in
+                init_params(cfg, device="meta").items()}
+        if seed != 0 or {k: tuple(v.shape) for k, v in host.items()} \
+                != want:
+            fail("the serve CLI's config does not fit the held params")
+        return {k: v.to(device) for k, v in host.items()}
+    serve.init_params = held
+    try:
+        serve_launches, res = phase_serve_cli(
+            ZAMBA_SERVE_ARGS, attn=groups,
+            norms=(2 * ZAMBA_LAYERS + 2 * groups + 1) * SERVE_GEN)
+    finally:
+        serve.init_params = draw
+    print(f"[serve] {ZAMBA} ({ZAMBA_LAYERS} layers) fp32 through the CLI, "
+          f"batch {SERVE_BATCH}: prefill ({SERVE_PROMPT} tokens) "
+          f"{res['prefill_ms']:.1f} ms, decode {res['tok_s']:.1f} tokens/s "
+          f"({SERVE_GEN - 1} steps in {res['decode_ms']:.1f} ms; cold; a "
+          f"reading, not gated; {card})", flush=True)
+    del host
+    free()
+    print(f"[zamba2] phase 17 in {time.time() - t0:.1f}s", flush=True)
+    return launches, serve_launches
+
+
 def main():
     t_script = time.time()
     card = phase_card()
@@ -3911,6 +4209,9 @@ def main():
     lm_attn = phase_lm_attention(card.split(",")[0])
     gemma_attn = phase_gemma_attention(card.split(",")[0])
     wkv_rows = phase_wkv6(card.split(",")[0])
+    t6c = time.time()
+    d80_attn = phase_d80_attention(card.split(",")[0])
+    print(f"[d80-attn] phase 6c in {time.time() - t6c:.1f}s", flush=True)
     profile = "--profile" in sys.argv[1:]
     phase_slice()
     vit_launches, vit_hist = phase_train(profile)
@@ -3932,6 +4233,8 @@ def main():
     print(f"[deepseek] phase 14 (MLA attention and DeepSeek-V3 training) "
           f"in {time.time() - t14:.1f}s", flush=True)
     prefill, serve_launches, vl_launches = phase_serving(card, held)
+    hubert_launches = phase_hubert(profile)
+    zamba_launches, zamba_serve_launches = phase_zamba2(card)
     if profile:
         profile_eval()
     # K1-K3 run on both training paths: the row's numbers are the
@@ -3974,6 +4277,13 @@ def main():
         if key == "fwd":
             serve["serve"] = dict(prefill,
                                   launches=serve_launches[row["name"]])
+        # head dim 80: HuBERT's and Zamba2's attention timed in phase 6c,
+        # their training runs' launches (phases 16, 17), Zamba2's serve CLI
+        d80 = {"hubert": dict(d80_attn["hubert"][key],
+                              launches=hubert_launches[row["name"]]),
+               "zamba2": dict(d80_attn["zamba2"][key],
+                              launches=zamba_launches[row["name"]]),
+               "zamba2_serve_launches": zamba_serve_launches[row["name"]]}
         kernels.append(dict(row, **lm_attn[key], **serve,
                             launches=lm_launches[row["name"]], vit=vit,
                             gemma3_launches=gemma_launches[row["name"]],
@@ -3983,7 +4293,7 @@ def main():
                             granite_launches=granite_launches[row["name"]],
                             granite=granite,
                             deepseek_launches=deepseek_launches[row["name"]],
-                            deepseek=deepseek))
+                            deepseek=deepseek, **d80))
     # K4-K7's launches are the RWKV6 run's; K4/K5 run on both decoder
     # paths, so their rows carry the ChatGLM3 run's beside them
     for row in rms_rows + wkv_rows:
@@ -3997,6 +4307,10 @@ def main():
                                        in dense_launches.items()}
             extra["granite_launches"] = granite_launches[row["name"]]
             extra["deepseek_launches"] = deepseek_launches[row["name"]]
+            extra["hubert_launches"] = hubert_launches[row["name"]]
+            extra["zamba2_launches"] = zamba_launches[row["name"]]
+            extra["zamba2_serve_launches"] = \
+                zamba_serve_launches[row["name"]]
         if row["name"] in REDESIGNED:
             extra.update(redesigned=True, routes=ROUTES[row["name"]])
         kernels.append(dict(row, **extra))

@@ -1,14 +1,21 @@
-"""Model and engine configuration (the ViT, dense-decoder, MoE-decoder,
-vision-language, MLA and RWKV6 subset of ``repro.configs.base``).
+"""Model and engine configuration (``repro.configs.base``): every model
+family of the JAX package.
 
 Field names and defaults follow the JAX package, so a config can be
 compared field by field with its reference. Fields the ported paths do
-not read (the audio frontend; tensor, sequence and pipeline parallelism)
-are left out until a slice needs them; ``use_kernels`` stands in for the
-reference's ``use_pallas``. A config that asks for a branch no slice has
-ported (the mamba2 or hybrid blocks, the audio family, another
-activation, a multi-token prediction head on RWKV6) raises
-``NotImplementedError``. The vision-language family (``arch_type="vlm"``:
+not read (tensor, sequence and pipeline parallelism) are left out until a
+slice needs them; ``use_kernels`` stands in for the reference's
+``use_pallas``. A config that asks for a branch the port does not have
+(another activation, a multi-token prediction head on a recurrent or an
+encoder model) raises ``NotImplementedError``; an arch type and block
+kind that do not go together raise ``ValueError``: RWKV6 blocks make an
+``ssm`` model, Mamba2 blocks an ``ssm`` model or, with ``hybrid_group``
+> 0, a ``hybrid`` one (Zamba2: one weight-shared attention block after
+every ``hybrid_group`` Mamba2 layers), attention blocks the rest. The
+audio family (``arch_type="audio"``, HuBERT: an encoder fed
+``audio_feat_dim``-wide precomputed frame features, masked prediction
+over its codebook) is ported for training; it has no decode step. The
+vision-language family (``arch_type="vlm"``:
 Qwen2-VL's decoder with M-RoPE, ``rope_style="mrope"`` split by
 ``mrope_sections``, fed ``vision_tokens`` precomputed image embeddings)
 is ported, and so is serving: ``supports_decode`` says which configs have
@@ -27,8 +34,8 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 
-_ARCH_TYPES = ("vit", "dense", "moe", "ssm", "vlm")
-_BLOCK_KINDS = ("attn", "mla", "rwkv6")
+_ARCH_TYPES = ("vit", "dense", "moe", "ssm", "vlm", "audio", "hybrid")
+_BLOCK_KINDS = ("attn", "mla", "rwkv6", "mamba2")
 _ROPE_STYLES = ("full", "half", "mrope", "none")
 _ACTS = ("swiglu", "geglu", "gelu", "sqrelu")
 _ATTN_IMPLS = ("naive", "blockwise")
@@ -50,8 +57,7 @@ class MLAConfig:
 @dataclass(frozen=True)
 class SSMConfig:
     """Mamba2 (SSD) / RWKV6 recurrent-block dimensions
-    (``repro/configs/base.py:41-49``, same fields and defaults; only the
-    RWKV6 block is ported)."""
+    (``repro/configs/base.py:41-49``, same fields and defaults)."""
     state_dim: int = 64             # N (mamba2) / head_size (rwkv6)
     head_dim: int = 64              # P per-head channel dim (mamba2)
     expand: int = 2                 # d_inner = expand * d_model (mamba2)
@@ -76,7 +82,7 @@ class MoEConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                  # vit | dense | moe | ssm | vlm ported
+    arch_type: str                  # dense|moe|vlm|audio|hybrid|ssm|vit
     num_layers: int
     d_model: int
     num_heads: int
@@ -86,8 +92,10 @@ class ModelConfig:
     head_dim: int = 0               # 0 -> d_model // num_heads
 
     # --- block structure -------------------------------------------------
-    block_kind: str = "attn"        # attn | mla | rwkv6 (mamba2 not ported)
-    causal: bool = True
+    block_kind: str = "attn"        # attn | mla | mamba2 | rwkv6
+    # hybrid (zamba2): `hybrid_group` mamba layers share one attention block
+    hybrid_group: int = 0           # 0 = not hybrid
+    causal: bool = True             # False for encoder-only (hubert)
 
     # --- attention flavour ------------------------------------------------
     qkv_bias: bool = False
@@ -109,6 +117,9 @@ class ModelConfig:
     mtp_depth: int = 0              # > 0: one multi-token prediction head
     embed_scale: bool = False       # gemma-style sqrt(d) embedding scale
 
+    # --- audio: the conv frontend is stubbed; a batch brings (B, S,
+    # audio_feat_dim) precomputed frame features -------------------------
+    audio_feat_dim: int = 0
     # --- vlm: the vision tower is stubbed; a batch brings (B, n_img,
     # d_model) patch embeddings and a (B, S, 3) M-RoPE position grid --------
     vision_tokens: int = 0          # image tokens per sample
@@ -142,16 +153,13 @@ class ModelConfig:
              f"arch_type {self.arch_type!r}"),
             (self.block_kind not in _BLOCK_KINDS,
              f"block_kind {self.block_kind!r}"),
-            ((self.arch_type == "ssm") != (self.block_kind == "rwkv6"),
-             f"arch_type {self.arch_type!r} with block_kind "
-             f"{self.block_kind!r}"),
             (self.rope_style not in _ROPE_STYLES,
              f"rope_style {self.rope_style!r}"),
             (self.act not in _ACTS, f"act {self.act!r}"),
             (self.arch_type == "vit" and self.block_kind == "mla",
              "an mla block in a ViT"),
-            (self.mtp_depth > 0 and (self.block_kind == "rwkv6"
-                                     or self.arch_type == "vit"),
+            (self.mtp_depth > 0 and (self.is_attention_free or
+                                     self.arch_type in ("vit", "audio")),
              f"mtp_depth {self.mtp_depth} on a {self.block_kind} "
              f"{self.arch_type} model"),
         ]
@@ -159,6 +167,22 @@ class ModelConfig:
             if needed:
                 raise NotImplementedError(
                     f"{self.name}: {what} is not yet ported to repro_torch")
+        # the pairs the reference's forward dispatches (transformer.py:
+        # 452-492): a recurrent block in an ssm model, or mamba2 grouped
+        # around a shared attention block in a hybrid one
+        recurrent = self.arch_type in ("ssm", "hybrid")
+        if recurrent != self.is_attention_free or \
+                (self.block_kind == "rwkv6" and self.arch_type != "ssm") or \
+                (self.arch_type == "hybrid") != (self.hybrid_group > 0):
+            raise ValueError(
+                f"{self.name}: arch_type {self.arch_type!r} with block_kind "
+                f"{self.block_kind!r} and hybrid_group {self.hybrid_group}: "
+                f"rwkv6 blocks make an ssm model, mamba2 blocks an ssm one "
+                f"or, with hybrid_group > 0, a hybrid one")
+        if self.hybrid_group > 0 and self.num_layers % self.hybrid_group:
+            raise ValueError(
+                f"{self.name}: num_layers {self.num_layers} is not a whole "
+                f"number of groups of {self.hybrid_group}")
         if self.attn_impl not in _ATTN_IMPLS:
             raise ValueError(f"{self.name}: attn_impl {self.attn_impl!r} "
                              f"not in {_ATTN_IMPLS}")
@@ -174,8 +198,9 @@ class ModelConfig:
                 f"{self.name}: mrope_sections {self.mrope_sections} must "
                 f"split the {self.head_dim // 2} rope pairs of head_dim "
                 f"{self.head_dim}")
-        if self.block_kind == "rwkv6" and self.ssm is None:
-            raise ValueError(f"{self.name}: an rwkv6 block needs ssm")
+        if self.is_attention_free and self.ssm is None:
+            raise ValueError(f"{self.name}: an {self.block_kind} block needs "
+                             f"ssm")
         if self.block_kind == "mla" and self.mla is None:
             raise ValueError(f"{self.name}: an mla block needs mla")
         if self.moe is not None and \
@@ -195,11 +220,13 @@ class ModelConfig:
 
     def supports_long_decode(self) -> bool:
         """True if the decode state is sub-linear in the context (a
-        recurrent block) or the attention is windowed (bounded local KV).
-        The reference's dry-run reads it to choose a config's long-context
+        recurrent block, or a hybrid whose shared attention is a few
+        layers) or the attention is windowed (bounded local KV). The
+        reference's dry-run reads it to choose a config's long-context
         shapes (``repro/configs/shapes.py:35``); the port's dry-run is
         ROADMAP item 17."""
-        return self.is_attention_free or self.sliding_window > 0
+        return self.is_attention_free or self.hybrid_group > 0 or \
+            self.sliding_window > 0
 
     def supports_decode(self) -> bool:
         return not self.is_encoder_only and self.arch_type != "vit"

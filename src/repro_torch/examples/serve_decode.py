@@ -2,8 +2,8 @@
 batched prefill and greedy decode with a cache, at smoke size, through
 ``python -m repro_torch.launch.serve``, on the reference's list of
 architecture families: attention (``qwen2.5-14b``), recurrent
-(``rwkv6-7b``) and hybrid (``zamba2-2.7b``, whose mamba2 blocks are not
-ported yet, ROADMAP item 15: one line says so and the example carries on).
+(``rwkv6-7b``) and hybrid (``zamba2-2.7b``: Mamba2 layers and a shared
+attention block, decoding from the SSM state and one KV cache a group).
 
     PYTHONPATH=src python -m repro_torch.examples.serve_decode [--device cpu]
 
@@ -15,8 +15,6 @@ import argparse
 import os
 import subprocess
 import sys
-
-from repro_torch.configs import NOT_YET_PORTED
 
 SRC = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -34,11 +32,6 @@ def main(argv=None) -> int:
                                              else ""))
     for arch in ARCHS:
         print(f"\n=== {arch} ===", flush=True)
-        if arch in NOT_YET_PORTED:
-            print(f"[serve_decode] {arch}: its mamba2 hybrid is not yet "
-                  f"ported to repro_torch (ROADMAP item 15); skipped",
-                  flush=True)
-            continue
         r = subprocess.call(
             [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
              arch, "--smoke", "--batch", "2", "--prompt-len", "32", "--gen",

@@ -77,7 +77,8 @@
 // fp32: scalar FMAs on the fp32 CUDA cores (TF32 would miss the fp32 gate
 // of 1e-4). 128 threads; thread t owns rows 4*(t/8) .. +3 of the CTA's
 // resident tile; for a 64x64 score tile it owns columns (t%8) + 8j, and for
-// a 64xD accumulator the float4 column groups (t%8) + 8jj; row sums reduce
+// a 64xD accumulator the float4 column groups (t%8) + 8jj (f4_owns: at
+// D 80 threads t%8 < 4 own three, the others two); row sums reduce
 // with three xor shuffles. Tiles are staged in shared memory as fp32, rows
 // padded by 4 floats against bank conflicts.
 //
@@ -188,15 +189,15 @@ __device__ __forceinline__ void tile_dot(const float* A, const float* B,
 
 // acc[i][c] += sum_n W[r0+i][n] * X[n][col c]: a 64 x NK weight tile W
 // (stride NK + 4) times NK rows of a tile X (stride D + 4) from its column
-// X on, for the thread's rows r0+i and its float4 column groups cg + 8jj
-// of the first DC columns.
+// X on, for the thread's rows r0+i and the float4 column groups cg + 8jj
+// of the first DC columns it owns (f4_owns).
 template <int D, int NK, int DC>
-__device__ __forceinline__ void tile_matmul(const float* W, const float* X,
-                                            int r0, int cg,
-                                            float (&acc)[4][DC / 8]) {
+__device__ __forceinline__ void tile_matmul(
+    const float* W, const float* X, int r0, int cg,
+    float (&acc)[4][4 * f4_groups<DC>()]) {
   constexpr int LD = D + 4;
   constexpr int LDW = NK + 4;
-  constexpr int DV = DC / 32;
+  constexpr int DV = f4_groups<DC>();
 #pragma unroll 2
   for (int n = 0; n < NK; n += 4) {
     float4 w[4];
@@ -208,6 +209,7 @@ __device__ __forceinline__ void tile_matmul(const float* W, const float* X,
       const float* xrow = X + (n + u) * LD;
 #pragma unroll
       for (int jj = 0; jj < DV; ++jj) {
+        if (!f4_owns<DC>(cg, jj)) continue;
         const float4 xb =
             *reinterpret_cast<const float4*>(xrow + 4 * (cg + 8 * jj));
 #pragma unroll
@@ -225,19 +227,20 @@ __device__ __forceinline__ void tile_matmul(const float* W, const float* X,
 
 // Write the thread's rows r0+i < rows of a 64 x DC accumulator, in T.
 template <typename T, int DC>
-__device__ __forceinline__ void store_rows(T* base, long long ld, int rows,
-                                           int r0, int cg,
-                                           const float (&acc)[4][DC / 8]) {
-  constexpr int DV = DC / 32;
+__device__ __forceinline__ void store_rows(
+    T* base, long long ld, int rows, int r0, int cg,
+    const float (&acc)[4][4 * f4_groups<DC>()]) {
+  constexpr int DV = f4_groups<DC>();
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     if (r0 + i < rows) {
       T* row = base + (r0 + i) * ld;
 #pragma unroll
       for (int jj = 0; jj < DV; ++jj)
-        store4(row + 4 * (cg + 8 * jj),
-               make_float4(acc[i][4 * jj + 0], acc[i][4 * jj + 1],
-                           acc[i][4 * jj + 2], acc[i][4 * jj + 3]));
+        if (f4_owns<DC>(cg, jj))
+          store4(row + 4 * (cg + 8 * jj),
+                 make_float4(acc[i][4 * jj + 0], acc[i][4 * jj + 1],
+                             acc[i][4 * jj + 2], acc[i][4 * jj + 3]));
     }
   }
 }
@@ -266,7 +269,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
   constexpr int LD = D + 4;
   constexpr int LDV = DV + 4;     // dO, V and O rows
   constexpr int LDS = KB + 4;     // padded dS row stride
-  constexpr int NG = DV / 32;     // float4 column groups of a Dv row
+  constexpr int NG = f4_groups<DV>();   // float4 groups of a Dv row
   static_assert(BM * LDV <= KB * (LD + LDV),
                 "K2 stages O's rows in the K and V buffers");
   extern __shared__ float4 smem_f4[];
@@ -308,6 +311,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
     float part = 0.f;
 #pragma unroll
     for (int jj = 0; jj < NG; ++jj) {
+      if (!f4_owns<DV>(cg, jj)) continue;
       const int col = 4 * (cg + 8 * jj);
       const float4 a =
           *reinterpret_cast<const float4*>(dOs + (r0 + i) * LDV + col);
@@ -321,11 +325,11 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(const Params p) {
     if (in && cg == 0) p.delta[row_base + q0 + r0 + i] = delta[i];
   }
 
-  float acc[4][D / 8];
+  float acc[4][4 * f4_groups<D>()];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 4 * f4_groups<D>(); ++c) acc[i][c] = 0.f;
 
   // the key tiles this q tile can see (K1's loop bounds)
   int k_lo = 0, k_hi = p.t;
@@ -379,7 +383,6 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
   constexpr int LD = D + 4;
   constexpr int LDV = DV + 4;     // V and dO rows
   constexpr int LDS = QB + 4;     // padded P/dS row stride
-  static_assert(DCV % 32 == 0, "K3 fp32: dv's columns in float4 groups");
   extern __shared__ float4 smem_f4[];
   float* Ks = reinterpret_cast<float*>(smem_f4);
   float* Vs = Ks + BN * LD;
@@ -408,13 +411,13 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(const Params p) {
   const int r0 = (tid >> 3) * 4;
   const int cg = tid & 7;
 
-  float dk[4][DC / 8], dv[4][DCV / 8];
+  float dk[4][4 * f4_groups<DC>()], dv[4][4 * f4_groups<DCV>()];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int c = 0; c < DC / 8; ++c) dk[i][c] = 0.f;
+    for (int c = 0; c < 4 * f4_groups<DC>(); ++c) dk[i][c] = 0.f;
 #pragma unroll
-    for (int c = 0; c < DCV / 8; ++c) dv[i][c] = 0.f;
+    for (int c = 0; c < 4 * f4_groups<DCV>(); ++c) dv[i][c] = 0.f;
   }
 
   // the q tiles that can see this key tile: q >= k for causal, and
@@ -572,7 +575,7 @@ __device__ __forceinline__ void dq_tile(const Params& p, const bf16* Qs,
   }
 }
 
-// K2 on the tensor cores (bf16): see the note at the top. Where D <= 64 the
+// K2 on the tensor cores (bf16): see the note at the top. Where D <= 80 the
 // registers are capped at 168 a lane, so that three CTAs share an SM (at
 // D 128 shared memory allows two, at D 192 and 256 one, whose lanes may
 // take 255).
@@ -857,7 +860,8 @@ __device__ __forceinline__ void dkv_tile(
 // and v's dtype; otherwise as fp32 partials to part (gs, 2, B, KH, T, D),
 // dV's in the first Dv columns of its rows, which dkv_reduce_kernel sums.
 // At D 64 the registers are capped at 168 a lane, so that three CTAs share
-// an SM (D 32 fits three uncapped).
+// an SM (D 32 and 48 fit three uncapped; at D 80, 2 x 80 accumulator
+// registers a lane, a lane may take 255).
 template <int D, int DV>
 __global__ void __launch_bounds__(NT, D == 64 ? 3 : 1)
     flash_bwd_dkv_tc_kernel(const Params p, int gs, float* part) {

@@ -24,7 +24,8 @@
 // elements (V and dO tiles: Dv + 8): each row starts 16 bytes later in the
 // bank pattern than the one before, so the eight 16-byte rows that one
 // ldmatrix phase reads hit eight different bank groups (no conflicts), for
-// every width here (32, 64, 128, 192 and 256: (w + 8) / 8 is odd).
+// every width here (32, 48, 64, 80, 128, 192 and 256: (w + 8) / 8 is
+// odd).
 
 #pragma once
 
@@ -33,12 +34,14 @@
 #include <stdint.h>
 
 // The (D, Dv) pairs the kernels are built for: q and k rows of D, v rows
-// (and O, dO, dv) of Dv. D = Dv for the MHA/GQA models; (192, 128) is
-// DeepSeek-V3's MLA (nope 128 + rope 64 for q and k, 128 for v), whose V
-// is not padded to D. Every dispatch keys on this table, and
+// (and O, dO, dv) of Dv. D = Dv for the MHA/GQA models (80: HuBERT's and
+// Zamba2's heads); (192, 128) is DeepSeek-V3's MLA (nope 128 + rope 64 for
+// q and k, 128 for v), whose V is not padded to D, and (48, 32) its smoke
+// config's. Every dispatch keys on this table, and
 // kernels/flash_attention.py's HEAD_DIM_PAIRS lists the same pairs.
 #define FLASH_HEAD_DIM_PAIRS(X) \
-  X(32, 32) X(64, 64) X(128, 128) X(256, 256) X(192, 128)
+  X(32, 32) X(64, 64) X(80, 80) X(128, 128) X(256, 256) X(192, 128) \
+  X(48, 32)
 
 namespace {
 
@@ -56,6 +59,20 @@ typedef __nv_bfloat16 bf16;
 // tiles of every operand would not fit the 227 KB a CTA may hold.
 template <int D>
 __host__ __device__ constexpr int f32_tile() { return D == 256 ? 32 : 64; }
+
+// The fp32 routes spread a W-wide row's W / 4 float4 column groups over
+// the 8 threads that share its rows: thread cg owns groups cg + 8 jj for
+// jj < f4_groups<W>() where f4_owns<W>(cg, jj). Where 32 divides W every
+// thread owns W / 32 and the test folds away; at W 80 (20 groups) threads
+// 0-3 own three and threads 4-7 two, at W 48 (12) 0-3 two and 4-7 one.
+template <int W>
+__host__ __device__ constexpr int f4_groups() { return (W / 4 + 7) / 8; }
+
+template <int W>
+__device__ __forceinline__ bool f4_owns(int cg, int jj) {
+  static_assert(W % 8 == 0, "rows move in 8-element chunks");
+  return cg + 8 * jj < W / 4;
+}
 
 // ---- masks -------------------------------------------------------------
 

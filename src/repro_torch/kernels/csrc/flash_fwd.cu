@@ -47,7 +47,9 @@
 // reverse, so the tiles that see the most keys start first. O is staged
 // through the warp's own Q rows and written with 16-byte stores. Where
 // D <= 64 the registers are capped so that four CTAs share an SM, at the
-// cost of a few spilled bytes. D 256 runs the same loop: its Q tile and
+// cost of a few spilled bytes (three at D 80: HuBERT's and Zamba2's heads
+// take the same loops with ten 8-column blocks of O, five 16-deep steps
+// of S). D 256 runs the same loop: its Q tile and
 // two K and V buffers take 169 KB, one CTA an SM, and its O accumulator
 // 128 fp32 registers a lane of the 255 it may use. With 64 x 64 tiles and
 // one 16-row block per warp, the ldmatrix traffic and the latency of short
@@ -60,7 +62,8 @@
 // 4*(t/8) .. +3 of the tile; for the scores it owns keys (t%8) + 8j of
 // each key tile (64 keys; 32 at D 256, where the fp32 tiles would not fit
 // otherwise: 139 KB then), and for O the float4 column groups
-// (t%8) + 8jj; row max and sum reduce with three xor shuffles. Tiles are
+// (t%8) + 8jj (f4_owns: at Dv 80 threads t%8 < 4 own three groups, the
+// others two); row max and sum reduce with three xor shuffles. Tiles are
 // staged as fp32, Q and K rows padded by 4 floats against bank conflicts.
 //
 // Element strides are passed in, so the caller can hand in the model's
@@ -103,8 +106,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
   constexpr int NJ = KB / 8;   // keys per thread in a score tile
   constexpr int LDQ = D + 4;   // padded Q/K row stride (floats)
   constexpr int LDP = KB + 4;  // padded P row stride
-  constexpr int NG = DV / 32;  // float4 column groups of O per thread
-  static_assert(DV % 32 == 0, "K1 fp32: O's columns in float4 groups of 8");
+  constexpr int NG = f4_groups<DV>();  // float4 column groups of O a thread
   extern __shared__ float4 smem_f4[];
   float* Qs = reinterpret_cast<float*>(smem_f4);
   float* Ks = Qs + BM * LDQ;
@@ -209,7 +211,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
     }
     __syncthreads();
 
-    // O += P V: rows r0+i, float4 column groups cg + 8jj
+    // O += P V: rows r0+i, the float4 column groups cg + 8jj it owns
 #pragma unroll 2
     for (int n = 0; n < KB; n += 4) {
       float4 pa[4];
@@ -221,6 +223,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
         const float* vrow = Vs + (n + u) * DV;
 #pragma unroll
         for (int jj = 0; jj < NG; ++jj) {
+          if (!f4_owns<DV>(cg, jj)) continue;
           const float4 vb =
               *reinterpret_cast<const float4*>(vrow + 4 * (cg + 8 * jj));
 #pragma unroll
@@ -247,11 +250,12 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
                 qpos * p.o_ss;
 #pragma unroll
       for (int jj = 0; jj < NG; ++jj)
-        store4(orow + 4 * (cg + 8 * jj),
-               make_float4(acc[i][4 * jj + 0] / lsafe,
-                           acc[i][4 * jj + 1] / lsafe,
-                           acc[i][4 * jj + 2] / lsafe,
-                           acc[i][4 * jj + 3] / lsafe));
+        if (f4_owns<DV>(cg, jj))
+          store4(orow + 4 * (cg + 8 * jj),
+                 make_float4(acc[i][4 * jj + 0] / lsafe,
+                             acc[i][4 * jj + 1] / lsafe,
+                             acc[i][4 * jj + 2] / lsafe,
+                             acc[i][4 * jj + 3] / lsafe));
       if (cg == 0)
         p.lse[(static_cast<long long>(bb) * p.h + hh) * p.s + qpos] =
             m[i] > 0.5f * NEG_INF ? m[i] + logf(lsafe) : LSE_BIG;
@@ -360,12 +364,13 @@ __device__ __forceinline__ void fwd_tile(const Params& p, const bf16* Qs,
 }
 
 // The bf16 route: see the note at the top. Where D <= 64 the registers
-// are capped at 128 a lane, so that four CTAs share an SM; at D 128, 192
-// and 256 a lane may take 255 (the O accumulator alone is 128 fp32
+// are capped at 128 a lane, so that four CTAs share an SM; at D 80 at 168,
+// three CTAs (its 40 O registers a lane would spill under 128); at D 128,
+// 192 and 256 a lane may take 255 (the O accumulator alone is 128 fp32
 // registers a lane at D 256, where shared memory holds one CTA an SM
 // anyway; 64 at (192, 128)).
 template <int D, int DV>
-__global__ void __launch_bounds__(NT, D >= 128 ? 1 : 4)
+__global__ void __launch_bounds__(NT, D >= 128 ? 1 : D > 64 ? 3 : 4)
     flash_fwd_tc_kernel(const Params p) {
   constexpr int LD = D + 8;     // padded Q and K row stride (elements)
   constexpr int LDV = DV + 8;   // padded V row stride

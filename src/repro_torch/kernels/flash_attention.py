@@ -14,10 +14,11 @@ versions, ``kernels/ref.py::ref_attention`` and ``ref_attention_bwd``.
 Each kernel takes two routes by dtype: bf16 runs on the tensor cores
 (``mma.sync``), fp32 on the CUDA cores (the fp32 gate of 1e-4 rules out
 TF32), at the (q/k head dim D, v head dim Dv) pairs of
-``HEAD_DIM_PAIRS``: D = Dv in ``HEAD_DIMS`` (256 is Gemma3's; K3 then
-gives each key tile's dk and dv columns to two CTAs) and DeepSeek's MLA
-pair (192, 128), whose V is not padded: K1's output, dO and dv are Dv
-wide, the products over V run over Dv. The CUDA sources' dispatch keys on
+``HEAD_DIM_PAIRS``: D = Dv in ``HEAD_DIMS`` (80 is HuBERT's and
+Zamba2's, 256 Gemma3's; K3 then gives each key tile's dk and dv columns
+to two CTAs) and DeepSeek's MLA pairs, (192, 128) and its smoke config's
+(48, 32), whose V is not padded: K1's output, dO and dv are Dv wide, the
+products over V run over Dv. The CUDA sources' dispatch keys on
 the same table (``FLASH_HEAD_DIM_PAIRS`` in ``csrc/flash_common.cuh``).
 Each wrapper's ``.launches`` counts one per call that launched its kernel
 (CPU calls do not count), so a run can show that its attention went
@@ -36,9 +37,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_attention, ref_attention_bwd
 
-HEAD_DIMS = (32, 64, 128, 256)
-# (D, Dv) the kernels are built for: D = Dv, and DeepSeek's MLA pair
-HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
+HEAD_DIMS = (32, 64, 80, 128, 256)
+# (D, Dv) the kernels are built for: D = Dv, and DeepSeek's MLA pairs (the
+# full config's and the smoke config's), in FLASH_HEAD_DIM_PAIRS' order
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (48, 32))
 KEY_TILE = 64               # keys per K3 CTA where no library is loaded
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_MAX = 65535           # grid.y (heads) and grid.z (batch)

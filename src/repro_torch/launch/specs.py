@@ -3,7 +3,9 @@
 ``concrete_batch`` gives a small batch with the structure of the
 reference's (``specs.py:46-74``): token ids for a decoder, and for a
 vision-language decoder also the stubbed vision tower's patch embeddings
-(B, n_img, d_model), n_img = min(vision_tokens, seq // 2). The reference
+(B, n_img, d_model), n_img = min(vision_tokens, seq // 2); for the audio
+encoder the stubbed frontend's frame features, the mask of the frames to
+predict and their codebook labels. The reference
 draws with threefry; here numpy's generator, seeded with ``seed``, draws
 the same shapes and dtypes, other values (ROADMAP deviation D5). The
 dry-run's ``input_specs`` is not ported.
@@ -16,12 +18,21 @@ import numpy as np
 def concrete_batch(cfg, batch: int, seq: int, *, seed: int = 0) -> dict:
     """{name: numpy array} for a token or vlm decoder: ``tokens`` int32
     (batch, seq) uniform over the vocabulary, and for a vlm
-    ``image_embeds`` fp32 (batch, n_img, d_model) standard normal."""
+    ``image_embeds`` fp32 (batch, n_img, d_model) standard normal; for the
+    audio encoder ``features`` fp32 (batch, seq, audio_feat_dim) standard
+    normal, ``mask`` bool (batch, seq), each frame set with probability
+    0.2, and ``labels`` int32 (batch, seq) uniform over the codebook."""
     rng = np.random.default_rng(seed)
-    if cfg.arch_type in ("vit", "audio"):
-        raise ValueError(f"{cfg.name}: concrete_batch is for token and vlm "
-                         f"decoders; a {cfg.arch_type} batch comes from "
+    if cfg.arch_type == "vit":
+        raise ValueError(f"{cfg.name}: concrete_batch is for the decoders "
+                         f"and the audio encoder; a vit batch comes from "
                          f"its data pipeline")
+    if cfg.arch_type == "audio":
+        return {"features": rng.standard_normal(
+                    (batch, seq, cfg.audio_feat_dim), dtype=np.float32),
+                "mask": rng.random((batch, seq)) < 0.2,
+                "labels": rng.integers(0, cfg.vocab_size, (batch, seq),
+                                       dtype=np.int32)}
     out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, seq),
                                   dtype=np.int32)}
     if cfg.arch_type == "vlm":

@@ -14,10 +14,13 @@ or ``gemma3-12b``, the MoE ``--arch granite-moe-3b-a800m``, whose rows
 carry its load-balance loss as ``moe_aux``, or the recurrent ``--arch
 rwkv6-7b``) trains on the synthetic token stream of ``--seq`` tokens per
 sequence (an epoch of ``--batch`` x ``--steps`` sequences, as the
-reference sizes it); the vision-language ``--arch qwen2-vl-72b`` on
-batches drawn for each step by ``launch/specs.py::concrete_batch``
-(tokens and ``min(vision_tokens, seq // 2)`` image embeddings, no data
-cursor); ``--layers`` cuts the depth:
+reference sizes it; the Mamba2 hybrid ``--arch zamba2-2.7b`` too); the
+vision-language ``--arch qwen2-vl-72b`` and the audio encoder ``--arch
+hubert-xlarge`` on batches drawn for each step by
+``launch/specs.py::concrete_batch`` (tokens and ``min(vision_tokens, seq
+// 2)`` image embeddings; frame features, the mask of the frames to
+predict and their labels), with no data cursor; ``--layers`` cuts the
+depth:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
         --layers 4 --seq 1024 --batch 8 --accum 2 --steps 10
@@ -318,13 +321,17 @@ def _run(args, world):
         f"micro_batch={ecfg.derived_micro_batch(dp)} accum={args.accum} "
         f"zero={args.zero} opt={args.optimizer} "
         f"aug={'on' if aug else 'off'}")
-    # a vlm's batches are addressed by the step, with no cursor (one
-    # endless epoch), as the reference's spec-derived feed
-    # (train.py:375-392); the rest ride the data pipeline's cursor
-    by_step = cfg.arch_type == "vlm"
-    if by_step:
+    # a vlm's and the audio encoder's batches are addressed by the step,
+    # with no cursor (one endless epoch), as the reference's spec-derived
+    # feed (train.py:375-392); the rest ride the data pipeline's cursor
+    by_step = cfg.arch_type in ("vlm", "audio")
+    if cfg.arch_type == "vlm":
         say(f"[train] vlm: seq={args.seq} vocab={cfg.vocab_size} image "
             f"tokens={min(cfg.vision_tokens, args.seq // 2)}")
+    elif by_step:
+        say(f"[train] audio: frames={args.seq} features="
+            f"{cfg.audio_feat_dim} codebook={cfg.vocab_size}")
+    if by_step:
         pipe = None
     elif not vit:
         say(f"[train] tokens: seq={args.seq} vocab={cfg.vocab_size}")
@@ -413,7 +420,7 @@ def _run(args, world):
     def fetch():
         """-> (device batch, the cursor after it): from the prefetcher, or
         under --no-prefetch built at the state's cursor and copied here; a
-        vlm's drawn for the state's step."""
+        vlm's or the audio encoder's drawn for the state's step."""
         if by_step:
             batch = concrete_batch(cfg, args.batch, args.seq, seed=state.step)
             return to_device(batch, device), (0, state.step + 1)

@@ -1,6 +1,7 @@
-"""The ViT, dense-decoder, MoE-decoder (with DeepSeek's MLA and MTP head)
-and RWKV6 branches of ``repro.models.transformer``: init, forward, the
-training loss and the eval counts.
+"""Every branch of ``repro.models.transformer`` (the ViT, the dense,
+MoE (with DeepSeek's MLA and MTP head) and vision-language decoders,
+RWKV6, the HuBERT audio encoder and the Mamba2 / Zamba2 hybrid): init,
+forward, the training loss and the eval counts.
 
 Parameters keep the reference's layout so weights cross without
 transposes: dense weights are (in, out) and applied as ``x @ w``, the
@@ -33,12 +34,24 @@ vision-language decoder (``arch_type="vlm"``, Qwen2-VL) is the dense one
 with M-RoPE: a batch's ``image_embeds`` (B, n_img, D) replace the first
 n_img token embeddings, its ``positions`` (B, S, 3) give the rope grid (by
 default every section takes 0..S-1), and the loss skips the image
-positions.
+positions. The audio encoder (``arch_type="audio"``, HuBERT) embeds a
+batch's ``features`` (B, S, audio_feat_dim) through ``embed.feat_proj``
+and ``embed.feat_b``, puts ``embed.mask_emb`` where ``batch["mask"]`` is
+set and adds a sinusoidal position table; its pre-LN blocks (LayerNorm
+with a bias, as the ViT's) attend non-causally, and the loss is the
+cross-entropy over the masked frames only. With ``block_kind="mamba2"``
+each layer is ``h += mamba2(norm(h))`` (``models/mamba2.py``; params
+``stack.ln.scale`` and ``stack.mamba.*``); a hybrid (Zamba2,
+``hybrid_group`` > 0) applies the one unstacked attention + MLP block
+``shared_attn.*`` (window 0) after every ``hybrid_group`` of them, so its
+gradient sums over every use.
 
 Serving: ``init_cache`` makes the reference's cache tree (``{"layers":
 ...}``, or an MoE decoder's ``{"dense": ..., "moe": ...}``; per layer a
 GQA layer's ``k``/``v`` (L, B, Smax, KH, hd), MLA's ``c_kv``/``k_rope``, or
-RWKV6's ``att_shift``/``ffn_shift``/``wkv``), and ``forward(...,
+RWKV6's ``att_shift``/``ffn_shift``/``wkv``; a Mamba2 model's ``{"mamba":
+{"conv", "ssd"}}``, and a hybrid's ``"attn"`` ``k``/``v`` (G, B, Smax,
+KH, hd), one slot per group of the shared block), and ``forward(...,
 mode="prefill"|"decode", cache=...)`` threads it layer by layer, each layer
 writing its slice in place.
 """
@@ -54,6 +67,8 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
 
 from repro_torch.core.sharding import is_stacked
 from repro_torch.models.attention import attention_block, mla_block
+from repro_torch.models.mamba2 import init_mamba2, init_mamba2_cache, \
+    mamba2_block
 from repro_torch.models.mlp import is_gated, mlp
 from repro_torch.models.moe import init_moe, moe_ffn, moe_ffn_gather
 from repro_torch.models.norms import layernorm, rmsnorm
@@ -71,13 +86,27 @@ def compute_dtype(cfg) -> torch.dtype:
 
 
 def _is_vit(cfg) -> bool:
-    """The ViT branch, else a decoder: dense or RWKV6 (the config admits no
-    other family: ``ModelConfig`` raises on one)."""
+    """The ViT branch; the audio encoder is :func:`_is_audio`, the rest are
+    decoders."""
     return cfg.arch_type == "vit"
+
+
+def _is_audio(cfg) -> bool:
+    return cfg.arch_type == "audio"
 
 
 def _is_rwkv(cfg) -> bool:
     return cfg.block_kind == "rwkv6"
+
+
+def _is_mamba(cfg) -> bool:
+    return cfg.block_kind == "mamba2"
+
+
+def _layer_norm(cfg) -> bool:
+    """LayerNorm (with a bias) for the ViT and the audio encoder, RMSNorm
+    for the rest (the reference's ``_norm_kind``)."""
+    return cfg.arch_type in ("vit", "audio")
 
 
 def _stacks(cfg):
@@ -115,15 +144,28 @@ def init_cache(cfg, batch, max_len, *, dtype=torch.bfloat16, device="cuda"):
     ``"layers"`` (``"dense"`` and ``"moe"`` for an MoE decoder, ``"dense"``
     only with leading dense layers). An attention cache's dtype must be
     the compute dtype (``attention.write_cache`` raises otherwise); RWKV6's
-    is cast to and from as the reference does."""
+    and Mamba2's are cast to and from as the reference does. A Mamba2
+    model's is ``{"mamba": ...}``, a hybrid's with ``"attn"``: the shared
+    block's K and V, one slot per group (G = num_layers / hybrid_group)."""
     if not cfg.supports_decode():
         raise ValueError(f"{cfg.name} has no decode step")
     meta = {"dtype": dtype, "device": "meta"}       # one layer's shapes
+
+    def stacked(layer, n):
+        return {k: torch.zeros((n,) + tuple(v.shape), dtype=dtype,
+                               device=device) for k, v in layer.items()}
+    if _is_mamba(cfg):
+        out = {"mamba": stacked(init_mamba2_cache(cfg, batch, **meta),
+                                cfg.num_layers)}
+        if cfg.hybrid_group > 0:
+            out["attn"] = stacked(
+                _attn_layer_cache(cfg, batch, max_len, meta),
+                cfg.num_layers // cfg.hybrid_group)
+        return out
     layer = init_rwkv6_cache(cfg, batch, **meta) if _is_rwkv(cfg) else \
         _attn_layer_cache(cfg, batch, max_len, meta)
-    return {_CACHE_GROUP[prefix]: {
-        k: torch.zeros((n,) + tuple(v.shape), dtype=dtype, device=device)
-        for k, v in layer.items()} for prefix, n, _ in _stacks(cfg)}
+    return {_CACHE_GROUP[prefix]: stacked(layer, n)
+            for prefix, n, _ in _stacks(cfg)}
 
 
 def init_params(cfg, *, seed=0, device="cuda"):
@@ -142,6 +184,12 @@ def init_params(cfg, *, seed=0, device="cuda"):
             "embed.cls": zeros((1, 1, d), device=device),
             "embed.pos": embed_init((n_patch + 1, d), **kw),
         }
+    elif _is_audio(cfg):
+        p = {
+            "embed.feat_proj": dense_init((cfg.audio_feat_dim, d), **kw),
+            "embed.feat_b": zeros((d,), device=device),
+            "embed.mask_emb": embed_init((d,), **kw),
+        }
     else:
         p = {"embed.tok": embed_init((cfg.vocab_size, d), **kw)}
     if _is_rwkv(cfg):
@@ -154,11 +202,20 @@ def init_params(cfg, *, seed=0, device="cuda"):
         p["final_norm.scale"] = ones((d,), device=device)
         p["head.w"] = dense_init((d, cfg.vocab_size), **kw)
         return p
-    for prefix, n, use_moe in _stacks(cfg):
-        p.update(_init_layer(cfg, prefix, (n,), use_moe, kw))
+    if _is_mamba(cfg):
+        p["stack.ln.scale"] = ones((L, d), device=device)
+        p.update({f"stack.mamba.{k}": v
+                  for k, v in init_mamba2(cfg, L, **kw).items()})
+        if cfg.hybrid_group > 0:
+            # Zamba2's one weight-shared attention + MLP block, unstacked
+            p.update(_init_layer(cfg, "shared_attn.", (), False, kw))
+    else:
+        for prefix, n, use_moe in _stacks(cfg):
+            p.update(_init_layer(cfg, prefix, (n,), use_moe, kw))
     p["final_norm.scale"] = ones((d,), device=device)
-    if vit:
+    if _layer_norm(cfg):
         p["final_norm.bias"] = zeros((d,), device=device)
+    if vit:
         p["head.w"] = dense_init((d, cfg.num_classes), **kw)
         p["head.b"] = zeros((cfg.num_classes,), device=device)
     elif not cfg.tie_embeddings:
@@ -176,8 +233,9 @@ def init_params(cfg, *, seed=0, device="cuda"):
 def _init_layer(cfg, prefix, lead, use_moe, kw):
     """One attention (or MLA) layer's params under ``prefix``, each with
     the leading dims ``lead``: ``(n,)`` for a stack of n layers, ``()``
-    for the MTP head's one block. The ViT's LayerNorm has a bias, RMSNorm
-    only a scale (the reference's ``_init_norm``); an MLA layer's
+    for the MTP head's one block and Zamba2's shared block. LayerNorm (the
+    ViT, the audio encoder) has a bias, RMSNorm only a scale (the
+    reference's ``_init_norm``); an MLA layer's
     ``attn.*`` are the reference's ``init_mla`` keys, its two latent norms
     ones."""
     device = kw["device"]
@@ -186,7 +244,7 @@ def _init_layer(cfg, prefix, lead, use_moe, kw):
     p = {}
     for ln in ("ln1", "ln2"):
         p[f"{prefix}{ln}.scale"] = ones(lead + (d,), device=device)
-        if _is_vit(cfg):
+        if _layer_norm(cfg):
             p[f"{prefix}{ln}.bias"] = zeros(lead + (d,), device=device)
     if cfg.block_kind == "mla":
         m = cfg.mla
@@ -233,9 +291,10 @@ def _init_layer(cfg, prefix, lead, use_moe, kw):
 
 
 def _apply_norm(cfg, params, prefix, h):
-    """LayerNorm for the ViT, RMSNorm for the decoder, with the params
-    under ``prefix`` (``final_norm.`` or one layer's ``ln1.``/``ln2.``)."""
-    if _is_vit(cfg):
+    """LayerNorm for the ViT and the audio encoder, RMSNorm for the rest,
+    with the params under ``prefix`` (``final_norm.`` or one layer's
+    ``ln1.``/``ln2.``/``ln.``)."""
+    if _layer_norm(cfg):
         return layernorm(h, params[prefix + "scale"], params[prefix + "bias"],
                          cfg.norm_eps)
     return rmsnorm(h, params[prefix + "scale"], cfg.norm_eps,
@@ -250,13 +309,28 @@ def _layer(params, prefix, i):
             if k.startswith(prefix)}
 
 
+def _sinusoidal_pos(s, d, device):
+    """The (S, D) fp32 sinusoidal position table (``transformer.py:
+    373-381``): sin at the even columns, cos at the odd ones."""
+    pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((s, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
 def _embed(cfg, params, batch, mode="train"):
     """``(h (B,S,D) in the compute dtype, rope positions or None)``
     (``transformer.py:362-430``). ViT: NHWC patchify (reshape + transpose,
     then a matmul — not a conv), a zero CLS token in front, and learned
-    positions. Decoder: the embedding of ``batch["tokens"]`` (B,S), or in
-    decode of ``batch["token"]`` (B,1) (times sqrt(d_model) rounded to the
-    compute dtype first, with ``embed_scale``, as the reference's
+    positions. Audio: ``features @ feat_proj + feat_b``, ``mask_emb`` at
+    the frames ``batch["mask"]`` sets (when it has one), plus the
+    sinusoidal table; no positions. Decoder: the embedding of
+    ``batch["tokens"]`` (B,S), or in decode of ``batch["token"]`` (B,1)
+    (times sqrt(d_model) rounded to the compute dtype first, with
+    ``embed_scale``, as the reference's
     ``jnp.asarray(math.sqrt(d), dtype)``: 62.0 in bf16 at d 3840). A vlm
     batch's ``image_embeds`` (B, n_img, D) replace the first n_img rows
     (not in decode). Positions (None for RWKV6, which has none): in
@@ -264,6 +338,14 @@ def _embed(cfg, params, batch, mode="train"):
     (B,S), or for M-RoPE ``batch["positions"]`` (B,S,3) when given, else
     0..S-1 in each of the three sections."""
     dt = compute_dtype(cfg)
+    if _is_audio(cfg):
+        h = batch["features"].to(dt) @ params["embed.feat_proj"].to(dt) + \
+            params["embed.feat_b"].to(dt)
+        if "mask" in batch:                 # masked prediction
+            h = torch.where(batch["mask"][..., None],
+                            params["embed.mask_emb"].to(dt), h)
+        return h + _sinusoidal_pos(h.shape[1], cfg.d_model,
+                                   h.device).to(dt)[None], None
     if not _is_vit(cfg):
         decode = mode == "decode"
         tokens = (batch["token"] if decode else batch["tokens"]).long()
@@ -389,8 +471,13 @@ def forward(cfg, params, batch, gather=None, reduce=None, *, mode="train",
     (B, S, vocab) of the MTP head (:func:`_mtp_logits`). Pre-norm blocks:
     ``h += attn(norm1 h)`` (MLA with ``block_kind="mla"``), then ``h +=
     mlp(norm2 h)`` or the MoE; for RWKV6 ``h += time_mix(norm1 h)``, then
-    ``h += channel_mix(norm2 h)``. The layers run stack by stack
-    (``_stacks``), each with its window of ``cfg.layer_windows()``.
+    ``h += channel_mix(norm2 h)``; for Mamba2 ``h += mamba2(norm h)``,
+    and in a hybrid the shared block (window 0) after every
+    ``hybrid_group`` layers (the reference's ``_group_body``). The layers
+    run stack by stack (``_stacks``), each with its window of
+    ``cfg.layer_windows()``. The audio encoder's ``batch`` brings
+    ``features`` (B, S, audio_feat_dim) and ``mask`` (B, S); its logits
+    are (B, S, vocab).
 
     Serving (``transformer.py:452-528``): "prefill" runs the prompt
     ``batch["tokens"]`` (B, S) and writes it into ``cache`` (from
@@ -406,7 +493,9 @@ def forward(cfg, params, batch, gather=None, reduce=None, *, mode="train",
     at a time in the layer loop (ZeRO-3 gathers its shards there). The
     gather of a layer runs inside its checkpointed body under
     ``cfg.remat``, so the backward's recompute gathers the layer again
-    rather than keeping it whole. ``reduce`` is the MoE's hook for its
+    rather than keeping it whole (the reference checkpoints a hybrid's
+    whole group; here each Mamba2 layer and each use of the shared block,
+    the same arithmetic). ``reduce`` is the MoE's hook for its
     routed fractions (``models/moe.py``): their mean over the
     data-parallel ranks."""
     if mode not in ("train", "eval", "prefill", "decode"):
@@ -426,17 +515,29 @@ def forward(cfg, params, batch, gather=None, reduce=None, *, mode="train",
     index = int(batch["index"]) if mode == "decode" else 0
 
     def step(h, shards, prefix, window, use_moe, layer_cache=None):
-        layer = shards if gather is None else gather(shards)
-        return _block(cfg, _layer(layer, prefix, None), h, window,
-                      positions, use_moe, reduce, layer_cache, index)
+        layer = _layer(shards if gather is None else gather(shards), prefix,
+                       None)
+        if _is_mamba(cfg):
+            return h + mamba2_block(_layer(layer, "mamba.", None),
+                                    _apply_norm(cfg, layer, "ln.", h), cfg,
+                                    cache=layer_cache), None
+        return _block(cfg, layer, h, window, positions, use_moe, reduce,
+                      layer_cache, index)
+
+    def shared_step(h, layer_cache=None):
+        # the hybrid's shared block, on params gathered before the embed
+        return _block(cfg, _layer(params, "shared_attn.", None), h, 0,
+                      positions, cache=layer_cache, cache_index=index)[0]
 
     if not serving:
-        step = _remat(cfg, step)
+        step, shared_step = _remat(cfg, step), _remat(cfg, shared_step)
     windows = iter(cfg.layer_windows())
     moe_aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    g = cfg.hybrid_group
     for prefix, n, use_moe in _stacks(cfg):
         group = {k: v for k, v in stacked.items() if k.startswith(prefix)}
-        caches = cache[_CACHE_GROUP[prefix]] if serving else None
+        caches = cache["mamba" if _is_mamba(cfg) else _CACHE_GROUP[prefix]] \
+            if serving else None
         for i in range(n):
             layer_cache = {k: v[i] for k, v in caches.items()} \
                 if serving else None
@@ -444,6 +545,10 @@ def forward(cfg, params, batch, gather=None, reduce=None, *, mode="train",
                           next(windows), use_moe, layer_cache)
             if aux is not None:
                 moe_aux = moe_aux + aux
+            if g and (i + 1) % g == 0:
+                h = shared_step(h, {k: v[i // g] for k, v in
+                                    cache["attn"].items()}
+                                if serving else None)
     aux = {"moe_aux": moe_aux}
     if cfg.mtp_depth > 0 and mode == "train":
         aux["mtp_logits"] = _mtp_logits(cfg, params, batch, h, positions)
@@ -503,7 +608,7 @@ def _soft_xent(logits, labels, *, smoothing=0.0):
     return (-(y * logp).sum(dim=-1)).mean()
 
 
-def loss_from_logits(cfg, logits, batch, aux=None):
+def loss_from_logits(cfg, logits, batch, aux=None, reduce=None):
     """``(loss, metrics)`` of the reference's ``loss_from_logits``
     (``transformer.py:592-627``). ViT: ``_soft_xent`` for soft labels or
     label smoothing, else ``_xent``; metrics ``acc``, ``moe_aux`` and
@@ -512,10 +617,27 @@ def loss_from_logits(cfg, logits, batch, aux=None):
     ``transformer.py:617-619``); with ``aux["mtp_logits"]`` (the MTP
     head) plus 0.3 times its ``_xent`` against the labels shifted by two,
     the last two positions masked (reference ``transformer.py:622-625``);
-    metrics ``moe_aux`` and ``loss``. The loss adds ``aux["moe_aux"]``
+    metrics ``moe_aux`` and ``loss``. Audio: ``_xent`` of every frame
+    against ``batch["labels"]`` over the frames ``batch["mask"]`` sets
+    (``transformer.py:612-613``): the mean over the masked frames of the
+    whole microbatch, whose count ``reduce`` (the data-parallel mean over
+    the ranks, each holding its rows) makes the global one, so the ranks'
+    mean loss is the reference's at any world (rows mask different
+    numbers of frames). The loss adds ``aux["moe_aux"]``
     (``forward``'s; 0 when ``aux`` is None)."""
     moe_aux = aux["moe_aux"] if aux is not None else torch.zeros(
         (), dtype=torch.float32, device=logits.device)
+    if _is_audio(cfg):
+        mask = batch["mask"].to(torch.float32)
+        logits = logits.to(torch.float32)
+        nll = torch.logsumexp(logits, dim=-1) - logits.gather(
+            -1, batch["labels"].long()[..., None])[..., 0]
+        count = mask.sum() if reduce is None else reduce(mask.sum())
+        # a whole count of 0 leaves the sum 0: max(count, 1) as the
+        # reference's, at the ranks' mean count too
+        loss = (nll * mask).sum() / torch.where(count > 0, count, 1.0) \
+            + moe_aux
+        return loss, {"moe_aux": moe_aux, "loss": loss}
     if not _is_vit(cfg):
         tok = batch["tokens"]
         mask = torch.ones(tok.shape, dtype=torch.bool, device=tok.device)
@@ -546,7 +668,7 @@ def loss_from_logits(cfg, logits, batch, aux=None):
 def loss_fn(cfg, params, batch, gather=None, reduce=None):
     """Scalar training loss and its metrics for a preprocessed batch."""
     logits, aux = forward(cfg, params, batch, gather, reduce)
-    return loss_from_logits(cfg, logits, batch, aux)
+    return loss_from_logits(cfg, logits, batch, aux, reduce)
 
 
 def classification_counts(logits, labels, mask=None, *, topk=5):

@@ -552,11 +552,13 @@ def test_flash_plain_path_at_head_dim_256(b, h, kh, s, causal, window):
 
 
 def test_kernel_inputs_take_head_dim_256_only_beside_the_others():
+    """D = Dv = 256 is taken beside 32, 64, 80 (HuBERT's and Zamba2's) and
+    128; another width, or 256 against another Dv, raises."""
     ok = torch.zeros((1, 2, 8, 256))
     fa.check_kernel_inputs(ok, ok, ok)
     fa.check_kernel_inputs(*(t.bfloat16() for t in (ok, ok, ok)))
-    assert fa.HEAD_DIMS == (32, 64, 128, 256)
-    for q, k, v in ((torch.zeros(1, 2, 8, 80),) * 3,
+    assert fa.HEAD_DIMS == (32, 64, 80, 128, 256)
+    for q, k, v in ((torch.zeros(1, 2, 8, 96),) * 3,
                     (ok, ok, torch.zeros(1, 2, 8, 128)),
                     (torch.zeros(1, 2, 8, 512),) * 3):
         with pytest.raises(ValueError, match="head dims"):

@@ -3,7 +3,10 @@ reference's ``param_specs``, microbatch membership, and training,
 evaluation, the anomaly guard and the batch invariant on gloo worlds of
 1, 2 and 4 CPU processes, against the single-device ``Trainer`` and the
 reference's pure functions; the MoE decoder's global load-balance loss
-and its ZeRO-3 checkpoint, saved at world 2 and restored on one device.
+and its ZeRO-3 checkpoint, saved at world 2 and restored on one device;
+Zamba2's shared attention block, whose gradient sums over its uses, at
+ZeRO 0 and 3 (gathered once before the embed, not a stacked leaf); the
+HuBERT encoder on its drawn audio batches.
 
 One world per size is spawned for the whole module (``_worlds``); its ranks
 run every job of ``JOBS`` in order and send back numpy results. The ranks
@@ -41,6 +44,7 @@ from repro_torch.data.datasets import CIFARSource  # noqa: E402
 from repro_torch.data.pipeline import DataPipeline, rank_rows  # noqa: E402
 from repro_torch.data.synthetic import DATASETS  # noqa: E402
 from repro_torch.launch import train as cli  # noqa: E402
+from repro_torch.launch.specs import concrete_batch  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.transformer import Transformer, \
     init_params  # noqa: E402
@@ -77,7 +81,11 @@ TRAIN_JOBS = {
     "granite-z3": (GRANITE, 3, "adamw", False, "tokens"),
     "granite-gather-z3": (GRANITE + ":gather", 3, "adamw", False, "tokens"),
     "deepseek-z3": ("deepseek-v3-671b", 3, "adamw", False, "tokens"),
+    "zamba2-z3": ("zamba2-2.7b", 3, "adamw", False, "tokens"),
+    "hubert-z3": ("hubert-xlarge", 3, "adamw", False, "audio"),
 }
+# the hybrid's gradients of one batch, whole, at each ZeRO stage here
+HYBRID_GRAD_STAGES = (0, 3)
 GRANITE_JOBS = [j for j in TRAIN_JOBS if j.startswith("granite")]
 # the MoE decoders: Granite's jobs, and DeepSeek's smoke config at ZeRO-3
 # (MLA, the MTP head, a shared expert and a leading dense layer, with every
@@ -115,6 +123,9 @@ def _setup(job, world, init=None):
         pipe = DataPipeline(kind="token", global_batch=BATCH,
                             vocab=cfg.vocab_size, seq_len=32,
                             epoch_size=BATCH * STEPS)
+    elif data == "audio":       # the CLI's audio feed: drawn by the step
+        pipe = types.SimpleNamespace(batch_at=lambda _, i: concrete_batch(
+            cfg, BATCH, 32, seed=i))
     elif data == "cifar":
         source = CIFARSource("cifar10", resolution=32, eval_size=8)
         preproc = source.preproc
@@ -248,6 +259,19 @@ def _moe_gather(world):
                       for k in keys}}
 
 
+def _hybrid_grads(world, zero):
+    """Loss and every gradient, whole, of zamba2-smoke's first batch from
+    fresh params at ZeRO ``zero`` (one device: None)."""
+    trainer, pipe, params = _setup(("zamba2-2.7b", zero, "adamw", False,
+                                    "tokens"), world)
+    state = trainer.init_state(params)
+    grads, m = trainer.grads(state.params,
+                             to_device(pipe.batch_at(0, 0), "cpu"))
+    if world is not None:
+        grads = trainer._whole(grads, trainer.opt_dims)
+    return {"loss": float(m["loss"]), "grads": _np(grads)}
+
+
 def _moe_ckpt(world, root):
     """Two granite-smoke steps at ZeRO-3, saved under ``root``; returns the
     whole state."""
@@ -284,12 +308,15 @@ def _run_jobs(world, jobs, init, root):
             out[name] = _moe_gather(world)
         elif name == "moe-ckpt":
             out[name] = _moe_ckpt(world, root)
+        elif name.startswith("hybrid-grads"):
+            out[name] = _hybrid_grads(world, int(name[-1]))
     return out
 
 
 def _jobs(size):
     jobs = list(TRAIN_JOBS) + ["eval", "collectives"] + \
-        [f"guard{z}" for z in GUARD_STAGES]
+        [f"guard{z}" for z in GUARD_STAGES] + \
+        [f"hybrid-grads{z}" for z in HYBRID_GRAD_STAGES]
     if size > 1:
         jobs += ["invariant", "moe-gather"]
     if size == 2:
@@ -355,7 +382,8 @@ def _flat_specs(tree, prefix=""):
 
 @pytest.mark.parametrize("world", [2, 4, 8])
 @pytest.mark.parametrize("arch", ["vit-b16", "chatglm3-6b", "rwkv6-7b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b", "hubert-xlarge",
+                                  "zamba2-2.7b"])
 def test_shard_dims_match_reference(arch, world):
     """At full size, for params at ZeRO-3 and the optimizer state at
     stages 1-3, the port's sharded dimension of every key is where the
@@ -484,7 +512,8 @@ def test_vit_dp_matches_single_device(_worlds, single, world, job):
 
 @pytest.mark.parametrize("world", [2, 4])
 @pytest.mark.parametrize("job", ["chatglm3-z3", "rwkv6-z3", "gemma3-z3",
-                                 "gemma3-z3-block", "gemma3-z3-dots"])
+                                 "gemma3-z3-block", "gemma3-z3-dots",
+                                 "zamba2-z3", "hubert-z3"])
 def test_decoders_at_zero3_match_single_device(_worlds, single, world, job):
     """A decoder's ZeRO-3 run against the single-device one; with remat
     against the single device's run without it (the layer's gather runs
@@ -501,7 +530,8 @@ def test_decoders_at_zero3_match_single_device(_worlds, single, world, job):
 def test_zero3_state_holds_a_chunk_of_each_sharded_leaf(_worlds, world):
     """Each rank's persistent params and moments hold 1/world of every
     sharded leaf (its own chunk), and replicated leaves whole."""
-    for job in ("vit-z3", "chatglm3-z3", "rwkv6-z3", "deepseek-z3"):
+    for job in ("vit-z3", "chatglm3-z3", "rwkv6-z3", "deepseek-z3",
+                "zamba2-z3"):
         full = {k: v.shape for k, v in _worlds[world][0][job]["params"]
                 .items()}
         dims = shard_dims(full, zero_stage=3, world=world)
@@ -739,3 +769,22 @@ def test_cli_refuses_a_world_it_cannot_build():
         pytest.skip("this host has two GPUs")
     with pytest.raises(RuntimeError, match=re.escape("GPU")):
         cli.main(["--smoke", "--steps", "1", "--devices", "2"])
+
+
+@pytest.mark.parametrize("zero", HYBRID_GRAD_STAGES)
+@pytest.mark.parametrize("world", WORLDS)
+def test_hybrid_shared_block_gradient_matches_one_process(_worlds, world,
+                                                          zero):
+    """Zamba2's shared attention block (one unstacked leaf set, used after
+    every group, its gradient summed over the uses) and every other
+    gradient of one batch at worlds 1, 2 and 4 under ZeRO 0 and 3 against
+    the single-device ``Trainer``'s: within 2e-4, on every rank."""
+    want = _hybrid_grads(None, 0)
+    shared = [k for k in want["grads"] if k.startswith("shared_attn.")]
+    assert shared and all(np.abs(want["grads"][k]).max() > 0
+                          for k in shared)
+    for rank, res in enumerate(_worlds[world]):
+        got = res[f"hybrid-grads{zero}"]
+        assert abs(got["loss"] - want["loss"]) <= TOL
+        _close(got["grads"], want["grads"], f"world {world} zero {zero} "
+               f"rank {rank}")

@@ -107,15 +107,18 @@ def test_config_fields_match_reference(factory):
     {"rope_style": "mrope"}, {"arch_type": "hybrid"},
     {"block_kind": "mamba2"}])
 def test_unported_branches_raise(change):
-    """The unported branches raise; an mla block and M-RoPE are ported,
-    and without their MLAConfig or rope sections they raise the config's
-    ValueError."""
-    error, match = (ValueError, "an mla block needs mla") \
-        if change == {"block_kind": "mla"} \
-        else (ValueError, "mrope_sections") \
-        if change == {"rope_style": "mrope"} \
-        else (NotImplementedError, "not yet ported")
-    with pytest.raises(error, match=match):
+    """Every branch is ported now: an mla block, M-RoPE and the mamba2
+    block without their MLAConfig, rope sections or SSMConfig, and a
+    hybrid arch over attention blocks, raise the config's ValueError; the
+    audio arch over chatglm3's blocks is a valid (encoder-style) config."""
+    if change == {"arch_type": "audio"}:
+        cfg = configs.get_config(ARCH).replace(**change)
+        assert cfg.arch_type == "audio" and cfg.block_kind == "attn"
+        return
+    match = {"block_kind": "mla"} == change and "an mla block needs mla" \
+        or {"rope_style": "mrope"} == change and "mrope_sections" \
+        or "arch_type .* with block_kind"
+    with pytest.raises(ValueError, match=match):
         configs.get_config(ARCH).replace(**change)
 
 

@@ -332,14 +332,15 @@ def test_flash_mha_at_dv_below_d_matches_reference(s, causal):
 
 
 def test_kernel_inputs_take_the_mla_pair_only():
-    """The wrapper admits (D, Dv) = (192, 128) beside D = Dv; (192, 64)
-    and the smoke pair (48, 32) raise (they run on the CPU only). The CUDA
+    """The wrapper admits (D, Dv) = (192, 128) and the smoke pair (48, 32)
+    beside D = Dv; (192, 64), (48, 48) and the others raise. The CUDA
     sources' dispatch table lists the same pairs."""
-    q = torch.zeros((1, 2, 8, 192))
-    fa.check_kernel_inputs(q, q, torch.zeros((1, 2, 8, 128)))
-    fa.check_kernel_inputs(*(t.bfloat16() for t in (
-        q, q, torch.zeros((1, 2, 8, 128)))))
-    for d, dv in ((192, 64), (48, 32), (128, 192), (192, 192)):
+    for d, dv in ((192, 128), (48, 32)):
+        q = torch.zeros((1, 2, 8, d))
+        fa.check_kernel_inputs(q, q, torch.zeros((1, 2, 8, dv)))
+        fa.check_kernel_inputs(*(t.bfloat16() for t in (
+            q, q, torch.zeros((1, 2, 8, dv)))))
+    for d, dv in ((192, 64), (48, 48), (128, 192), (192, 192)):
         with pytest.raises(ValueError, match="head dims"):
             fa.check_kernel_inputs(torch.zeros((1, 2, 8, d)),
                                    torch.zeros((1, 2, 8, d)),

@@ -122,14 +122,17 @@ def test_config_fields_match_reference(factory):
 
 
 def test_unported_families_still_raise():
+    """Zamba2 and HuBERT are ported now; a mismatched arch/block pair
+    still raises: an ssm model takes rwkv6 or mamba2 blocks (mamba2 is the
+    plain Mamba2 model), a hybrid needs mamba2 blocks in groups."""
     for arch in ("zamba2-2.7b", "hubert-xlarge"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            configs.get_config(arch)
+        assert configs.get_config(arch).name == arch
     base = configs.get_config(ARCH)
-    for change in ({"block_kind": "mamba2"}, {"arch_type": "hybrid"},
-                   {"block_kind": "mla"}, {"arch_type": "dense"},
-                   {"block_kind": "attn"}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    assert base.replace(block_kind="mamba2").is_attention_free
+    for change in ({"arch_type": "hybrid"}, {"block_kind": "mla"},
+                   {"arch_type": "dense"}, {"block_kind": "attn"},
+                   {"hybrid_group": 4}):
+        with pytest.raises(ValueError, match="with block_kind"):
             base.replace(**change)
     with pytest.raises(ValueError, match="needs ssm"):
         base.replace(ssm=None)
@@ -430,7 +433,10 @@ def test_rwkv6_cli_on_the_cpu(tmp_path, capsys):
 
 
 def test_model_config_rejects_rwkv_without_its_family():
-    with pytest.raises(NotImplementedError, match="block_kind"):
+    """An rwkv6 block outside an ssm model is a mismatched pair: the
+    config's ValueError (every family is ported, so nothing is refused as
+    not yet ported)."""
+    with pytest.raises(ValueError, match="block_kind"):
         ModelConfig(name="x", arch_type="dense", num_layers=1, d_model=64,
                     num_heads=2, num_kv_heads=2, d_ff=64, vocab_size=8,
                     block_kind="rwkv6", ssm=SSMConfig())

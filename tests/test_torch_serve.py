@@ -1,5 +1,6 @@
 """Port parity for serving: ``transformer.init_cache``, prefill and greedy
-decode through the KV, latent (MLA) and recurrent-state (RWKV6) caches,
+decode through the KV, latent (MLA) and recurrent-state (RWKV6, Mamba2)
+caches, Zamba2's shared-block KV cache (one slot a group),
 ``engine.Server``, the serve CLI and the ``serve_decode`` example.
 
 The reference side is the JAX package's pure functions
@@ -47,9 +48,10 @@ LOGITS_TOL, CACHE_TOL, TRAIN_TOL = 1e-4, 1e-5, 5e-4
 B, EXTRA = 2, 4
 DECODERS = ("chatglm3-6b", "qwen2.5-14b", "glm4-9b", "gemma3-12b",
             "granite-moe-3b-a800m", "deepseek-v3-671b", "rwkv6-7b",
-            "qwen2-vl-72b")
-# prompt lengths: gemma3's goes past its smoke window of 64
-PROMPT = {"gemma3-12b": 72}
+            "qwen2-vl-72b", "zamba2-2.7b")
+# prompt lengths: gemma3's goes past its smoke window of 64, zamba2's
+# across two of its smoke SSD chunks of 32
+PROMPT = {"gemma3-12b": 72, "zamba2-2.7b": 70}
 
 
 def _replace(cfg, **kw):
@@ -128,6 +130,9 @@ def test_init_cache_matches_reference(arch):
         assert all(not v.any() for v in got.values())
     full_cfg = configs.get_config(arch)
     layers = {"layers": full_cfg.num_layers}
+    if full_cfg.hybrid_group:       # 54 Mamba2 layers, 9 shared-block uses
+        layers = {"mamba": full_cfg.num_layers,
+                  "attn": full_cfg.num_layers // full_cfg.hybrid_group}
     if full_cfg.has_moe:
         nd = full_cfg.moe.first_dense_layers
         layers = {"dense": nd, "moe": full_cfg.num_layers - nd}
@@ -148,7 +153,7 @@ def test_init_cache_refuses_a_model_without_decode():
 
 @pytest.mark.parametrize("arch", ["qwen2.5-14b", "gemma3-12b",
                                   "granite-moe-3b-a800m", "deepseek-v3-671b",
-                                  "rwkv6-7b"])
+                                  "rwkv6-7b", "zamba2-2.7b"])
 def test_prefill_and_decode_match_reference(arch):
     """Prefill logits and every cache leaf, then four decode steps, against
     the reference's ``forward(mode="prefill" / "decode")`` at the same
@@ -198,7 +203,8 @@ def test_prefill_and_decode_match_reference(arch):
     ("qwen2.5-14b", {"attn_impl": "blockwise", "use_kernels": False,
                      "attn_block_k": 8, "attn_block_q": 8}),
     ("deepseek-v3-671b", {"use_kernels": False}),
-    ("rwkv6-7b", {"use_kernels": False})])
+    ("rwkv6-7b", {"use_kernels": False}),
+    ("zamba2-2.7b", {"use_kernels": False})])
 def test_decode_matches_train_logits(arch, kw):
     """Prefill the first S tokens, decode four more: the prefill logits and
     each decode step's equal train-mode logits of the whole sequence within
@@ -371,7 +377,7 @@ def test_serve_cli_on_the_cpu(capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--devices", "2"], "item 16"), (["--model-axis", "2"], "item 16"),
     (["--arch", "vit-b16"], "no decode step"),
-    (["--arch", "zamba2-2.7b"], "not yet ported")])
+    (["--arch", "hubert-xlarge"], "no decode step")])
 def test_serve_cli_refuses_what_is_not_ported(argv, match):
     with pytest.raises((SystemExit, NotImplementedError), match=match):
         serve.main(["--smoke", "--device", "cpu"] + argv)
@@ -384,8 +390,7 @@ def test_serve_decode_example_on_the_cpu():
         timeout=300, env={"PATH": "/usr/bin:/bin",
                           "PYTHONPATH": str(ROOT / "src")})
     assert r.returncode == 0, r.stderr
-    for arch in ("qwen2.5-14b-smoke", "rwkv6-7b-smoke"):
+    for arch in ("qwen2.5-14b-smoke", "rwkv6-7b-smoke", "zamba2-2.7b-smoke"):
         assert f"[serve] arch={arch} batch=2 prefill(32 tok)=" in r.stdout
-    assert r.stdout.count("[serve] sample generations") == 2
-    assert "zamba2-2.7b: its mamba2 hybrid is not yet ported" in r.stdout
-    assert "ROADMAP item 15" in r.stdout
+    assert r.stdout.count("[serve] sample generations") == 3
+    assert "not yet ported" not in r.stdout

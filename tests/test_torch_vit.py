@@ -76,8 +76,12 @@ def test_config_fields_match_reference(factory):
 
 
 def test_unported_arch_raises():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        configs.get_config("hubert-xlarge")
+    """Every arch of the reference's registry is ported (HuBERT and Zamba2
+    last), so ``NOT_YET_PORTED`` is empty; an unknown arch raises."""
+    assert configs.NOT_YET_PORTED == ()
+    assert configs.get_config("hubert-xlarge").arch_type == "audio"
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get_config("hubert-xxlarge")
     assert set(configs.NOT_YET_PORTED) | set(configs.REGISTRY) == \
         set(ref_configs.ALL_ARCHS)
 
