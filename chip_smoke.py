@@ -6,9 +6,10 @@ data-parallel under ZeRO 0-3 with augmentation, preempted and resumed from
 checkpoints and supervised under injected faults, ChatGLM3-6B, RWKV6-7B,
 Gemma3-12B, Qwen2.5-14B, GLM-4-9B and Granite-MoE 3B-A800M training, and
 serving Qwen2.5-14B, HuBERT-XLarge and Zamba2-2.7B training and Zamba2
-serving) at full width through its CLI, and DeepSeek-V3 (MLA and the
-multi-token prediction head) and Qwen2-VL-72B training and six models'
-prefill and decode at full width in process, and checks the results.
+serving, ViT-B/16 and ChatGLM3-6B through the 1F1B pipeline) at full
+width through its CLI, and DeepSeek-V3 (MLA and the multi-token
+prediction head) and Qwen2-VL-72B training and six models' prefill and
+decode at full width in process, and checks the results.
 
     python3 chip_smoke.py [--profile]
 
@@ -16,7 +17,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 
 1. card: a CUDA device must be present; prints its name and power limit.
 2. build: compiles every kernel (``kernels/build.py``), timed, and prints
-   each kernel's ``-Xptxas -v`` registers and spills.
+   each kernel's ``-Xptxas -v`` registers and spills. From here on a draw
+   of params onto the card that repeats the draw before it (the same
+   config and seed) copies that draw's host tensors (``share_draws``; the
+   same values, without a second host draw of up to 3.5 B params).
 3. K1 against ``ref_attention`` on the card, at the ViT-B/16 eval shape,
    the smoke shape, ragged S (1, 63, 130, 197), causal, GQA (groups of 4
    and of 5, the odd one also at D 256), windowed (also with S > T, rows
@@ -273,11 +277,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    share of the decode loop in each dtype, and one bf16 step under
    ``torch.profiler``.
 
-16. HuBERT-XLarge at full width cut to 24 of 48 layers (0.47 B params;
+16. HuBERT-XLarge at full width cut to 12 of 48 layers (0.24 B params;
    the time limit's cut) through the CLI: ``--arch hubert-xlarge --layers
-   24 --seq 781 --batch 16 --accum 2 --steps 4`` in bf16 (the audio
+   12 --seq 781 --batch 16 --accum 2 --steps 4`` in bf16 (the audio
    batches drawn each step by ``concrete_batch``) with the counters reset
-   just before and read just after (K1-K3 4 x 2 x 24 = 192 each, no
+   just before and read just after (K1-K3 4 x 2 x 12 = 96 each, no
    K4/K5: LayerNorm), every loss
    and grad norm finite, ``step_ok`` 1, the peak; then, from params of
    seed 0, kernel against naive path on one microbatch of 8 x 781 (fp32
@@ -300,6 +304,32 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    repro_torch.launch.serve --arch zamba2-2.7b --layers 12 --batch 4
    --prompt-len 512 --gen 64`` (fp32) on the same params with the counters
    read around it (K1 2, K4 64 x 29 = 1,856).
+18. pipeline parallelism (run after phase 8d and the quickstart): the
+   1F1B executor with every stage in this process on the one card,
+   ViT-B/16 at full width (12 layers). (a) ``--batch 128 --accum 4
+   --steps 6`` in bf16 at ``--pp 1`` (K1-K3 6 x 4 x 12 = 288 each) and at
+   ``--pp 2``, ``--pp 4`` and ``--pp 2 --pp-interleave 3`` (K1 576: the
+   forward slot and the backward slot's recompute; K2/K3 288), finite,
+   ``step_ok`` 1, the largest loss difference from ``--pp 1`` printed; (b)
+   fp32 ``--batch 32 --accum 4 --steps 3`` at the same layouts and as rank
+   0 of a torchrun world of one (``--devices 1 --pp 2``) at ZeRO 0 and 3,
+   losses and grad norms within 3e-4 of ``--pp 1``; (c) an fp32 ``--pp 2
+   --stop-after 2`` checkpoint under ``build/`` (removed after) resumed at
+   ``--pp 1``, step 2 within 1e-5 of the uninterrupted ``--pp 2`` run;
+   (d) one bf16 step at a microbatch of 32 with 2 stages at M = 4 and 8:
+   the peak of allocated memory at M = 8 at most 1.05 times M = 4's; the
+   executor alone on the next batch: its growth over the memory allocated
+   before it at M = 8 less than one residual (a chunk input) above M =
+   4's, and its live residuals per stage at the caps [2, 1]; (e) warm
+   images/s of ``--pp 1/2/4`` and the interleaved layout, one turn each
+   (the median of 3 steps timed alone, and their spread), beside the
+   analytic bubble, and one profiled step of ``--pp 1`` and of the
+   interleaved layout: its device time against its wall time (recorded:
+   the step is host-bound, and on one card the stages share the device,
+   so the bubble is no idle time); (f) ``--arch chatglm3-6b --layers 4
+   --seq 1024 --batch 8 --accum 4 --steps 3 --pp 2`` in bf16 (K1 96, K2
+   and K3 48, K4 3 x 4 x 2 x 9 = 216, K5 108), finite, ``step_ok`` 1; (g)
+   ``--devices 2 --pp 2`` on one card raises its clear error.
 
 ``--profile`` adds a ``torch.profiler`` table of one warm training step of
 each training slice (DeepSeek-V3's included, and the ZeRO-3 step at world
@@ -316,8 +346,11 @@ prefill and that run's launches under ``serve`` and ``serve_launches``,
 Qwen2-VL training's under ``qwen2vl_launches``, HuBERT's and Zamba2's
 attention times at head dim 80 with their training runs' launches under
 ``hubert`` and ``zamba2`` and Zamba2's serve run's under
-``zamba2_serve_launches``, the data-parallel runs'
-launches there under ``dp_launches``, the preempted and resumed runs'
+``zamba2_serve_launches``, the ``--pp 2`` ChatGLM3 run's under
+``pipeline_chatglm3_launches`` (K1-K5), the data-parallel runs'
+launches there under ``dp_launches``, the ``--pp 2`` ViT run's under
+``pipeline_launches`` and the phase's warm rates under
+``pipeline_images_per_s``, the preempted and resumed runs'
 under ``resume_launches`` and phase 8d's under ``data_launches``, K4/K5
 with the RWKV6 run's launches and the decoder's, Gemma3's, Qwen2.5's,
 GLM-4's, Granite-MoE's, DeepSeek-V3's, the serve run's, Qwen2-VL's,
@@ -604,19 +637,20 @@ VL_LAYERS, VL_BATCH, VL_STEPS = 1, 2, 3
 VL_PEAK_GB = (58.0, 64.0)       # the predicted peak (PERF.md, §6)
 SERVE_RATE_BATCHES = (SERVE_BATCH, 32)
 
-# HuBERT-XLarge at full width through the CLI, cut to 24 of 48 layers
-# (0.47 B params; at 48 the whole script read 1,127 s of its 1,200 s on a
-# slow host), 16 x 781 frames a step in microbatches of 8 (phase 6c's
-# attention shape), 4 steps
+# HuBERT-XLarge at full width through the CLI, cut to 12 of 48 layers
+# (0.24 B params; at 48 the whole script read 1,127 s of its 1,200 s on a
+# slow host, at 24 with the pipeline phase 1,144.5 s), 16 x 781 frames a
+# step in microbatches of 8 (phase 6c's attention shape), 4 steps
 HUBERT = "hubert-xlarge"
 HUBERT_LAYERS, HUBERT_SEQ, HUBERT_BATCH, HUBERT_ACCUM, HUBERT_STEPS = \
-    24, 781, 16, 2, 4
+    12, 781, 16, 2, 4
 HUBERT_ARGS = ["--arch", HUBERT, "--layers", str(HUBERT_LAYERS), "--seq",
                str(HUBERT_SEQ), "--batch", str(HUBERT_BATCH), "--accum",
                str(HUBERT_ACCUM), "--steps", str(HUBERT_STEPS),
                "--log-every", "1"]
-# Zamba2-2.7B at full width cut to two groups of 6 Mamba2 layers (the
-# shared block runs twice; ~0.75 B params), 4 x 4096 tokens a step in
+# Zamba2-2.7B at full width cut to two groups of 6 Mamba2 layers (12 of
+# 54), so the shared block runs twice: its gradient summed over its uses,
+# one KV cache a group (~0.9 B params), 4 x 4096 tokens a step in
 # microbatches of 2 (phase 6c's attention shape), 3 steps; then its
 # prefill (300 tokens, across two SSD chunk boundaries) and 4 decode
 # steps, and the serve CLI in fp32 as the reference's
@@ -782,6 +816,37 @@ def time_ms(fn, warmup=5, reps=25, calls=1):
         b.synchronize()
         times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
+
+
+def share_draws():
+    """Let every later draw of ``init_params`` onto the card that repeats
+    the one before it (the same config and seed) copy that draw's host
+    tensors instead of drawing again: the values are the same, and a
+    phase draws its full-width params several times (its CLI run, its
+    agreement, its rates), each a host draw of up to 3.5 B params. Draws
+    to the host or ``meta`` are made as before. Returns the counts
+    ``{"draws": n, "shared": n}``."""
+    import torch
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer
+
+    draw, held, counts = transformer.init_params, {}, {"draws": 0,
+                                                       "shared": 0}
+
+    def init_params(cfg, *, seed=0, device="cuda"):
+        if torch.device(device).type != "cuda":
+            return draw(cfg, seed=seed, device=device)
+        key = (repr(cfg), seed)
+        if key in held:
+            counts["shared"] += 1
+        else:
+            held.clear()
+            held[key] = draw(cfg, seed=seed, device="cpu")
+            counts["draws"] += 1
+        return {k: v.to(device, copy=True) for k, v in held[key].items()}
+    for module in (transformer, train, serve):
+        module.init_params = init_params
+    return counts
 
 
 def phase_card():
@@ -2458,6 +2523,306 @@ def phase_quickstart():
         print(r.stdout[-2000:] + r.stderr[-4000:], file=sys.stderr)
         fail(f"quickstart exit {r.returncode}")
     print(f"[quickstart] exit 0 in {time.time() - t0:.1f}s", flush=True)
+
+
+# phase 18, pipeline parallelism: ViT-B/16 at full width (12 layers, K1-K3
+# non-causal at D 64) through the 1F1B executor, every stage in this
+# process on the one card
+PP_ARGS = ["--arch", "vit-b16", "--batch", "128", "--accum", "4", "--steps",
+           "6", "--log-every", "1"]
+PP_F32_ARGS = ["--arch", "vit-b16", "--dtype", "float32", "--batch", "32",
+               "--accum", "4", "--steps", "3", "--log-every", "1"]
+PP_LAYOUTS = {"--pp 2": ["--pp", "2"], "--pp 4": ["--pp", "4"],
+              "--pp 2 --pp-interleave 3": ["--pp", "2", "--pp-interleave",
+                                           "3"]}
+PP_TOL = 3e-4                       # tests/test_pipeline.py's pp-vs-dp bound
+PP_MEM_MICRO = 32                   # the memory reading's fixed microbatch
+PP_MEM_RATIO = 1.05
+PP_RATE_LAYOUTS = [(1, 1), (2, 1), (4, 1), (2, 3)]
+PP_LM_ARGS = ["--arch", "chatglm3-6b", "--layers", str(LM_LAYERS), "--seq",
+              str(LM_SEQ), "--batch", "8", "--accum", "4", "--steps", "3",
+              "--log-every", "1", "--pp", "2"]
+
+
+def vit_pp_launches(steps, micro, pp):
+    """K1-K3 of a ViT-B/16 run: each layer's attention once a microbatch
+    forward and backward, and under the pipeline (``pp`` > 1) once more
+    forward in the backward slot's recompute."""
+    fwd = steps * micro * 12
+    return {"flash_fwd": fwd * (2 if pp > 1 else 1), "flash_bwd_dq": fwd,
+            "flash_bwd_dkv": fwd}
+
+
+def pp_setup(dtype, batch, accum, pp, v=1):
+    """A full-width ViT-B/16 trainer through the pipeline (``pp`` stages,
+    ``v`` chunks a stage, every stage in this process) on procedural
+    CIFAR-10, and its data pipeline."""
+    from repro_torch.configs import EngineConfig, get_config
+    from repro_torch.core.engine import Trainer
+    from repro_torch.data.datasets import CIFARSource
+    from repro_torch.data.pipeline import DataPipeline
+
+    cfg = get_config("vit-b16").replace(dtype=dtype)
+    source = CIFARSource("cifar10", resolution=cfg.image_size)
+    ecfg = EngineConfig(train_batch_size=batch,
+                        gradient_accumulation_steps=accum, total_steps=10,
+                        warmup_steps=1, pipeline_stages=pp,
+                        pipeline_interleave=v)
+    return Trainer(cfg, ecfg, preproc=source.preproc), \
+        DataPipeline(global_batch=batch, source=source)
+
+
+def pp_memory(card):
+    """Peak memory with 2 stages at a microbatch of 32, at M = 4 and at
+    M = 8 (after one warm step each). (1) One bf16 step, the peak of
+    allocated memory reset before it: at most PP_MEM_RATIO times M = 4's.
+    (2) The executor alone (``Trainer.grads``) on the next batch, its
+    growth over the memory allocated before it, so that activations and
+    not the params, grads and moments make the number: the 1F1B model
+    keeps that flat in M, so the growth at M = 8 may exceed M = 4's by
+    less than one residual (a chunk input, 32 x 197 x 768 bf16), where an
+    executor that kept every microbatch's input (GPipe) would add four.
+    Returns the step's peaks in GB."""
+    import gc
+    import torch
+    from repro_torch.core.engine import to_device
+    from repro_torch.models.transformer import init_params
+
+    host = init_params(pp_setup("bfloat16", 128, 4, 2)[0].cfg, seed=0,
+                       device="cpu")
+    peaks_gb, growth, residuals = {}, {}, {}
+    for micro in (4, 8):
+        trainer, pipe = pp_setup("bfloat16", PP_MEM_MICRO * micro, micro, 2)
+        state = trainer.init_state({k: v.to("cuda", copy=True)
+                                    for k, v in host.items()})
+        batches = [to_device(pipe.batch_at(0, i), "cuda") for i in range(3)]
+        state, _ = trainer.train_step(state, batches[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, m = trainer.train_step(state, batches[1])
+        torch.cuda.synchronize()
+        peaks_gb[micro] = torch.cuda.max_memory_allocated() / 1e9
+        if not m["step_ok"]:
+            fail(f"pipeline memory step at M={micro} was skipped")
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        grads, _ = trainer.grads(state.params, batches[2])
+        torch.cuda.synchronize()
+        growth[micro] = torch.cuda.max_memory_allocated() - base
+        residuals[micro] = trainer.schedule_out["in_flight"]
+        cfg = trainer.cfg
+        del trainer, pipe, state, batches, m, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    ratio = peaks_gb[8] / peaks_gb[4]
+    tokens = (cfg.image_size // cfg.patch_size) ** 2 + 1
+    residual = PP_MEM_MICRO * tokens * cfg.d_model * 2
+    more = growth[8] - growth[4]
+    print(f"[pipeline] memory, bf16, S=2, microbatch {PP_MEM_MICRO}: one "
+          f"step's peak allocated {peaks_gb[4]:.3f} GB at M=4 and "
+          f"{peaks_gb[8]:.3f} GB at M=8 (ratio {ratio:.4f}, gate "
+          f"{PP_MEM_RATIO}); the executor's own growth over the memory "
+          f"allocated before it {growth[4] / 1e6:.2f} MB at M=4 and "
+          f"{growth[8] / 1e6:.2f} MB at M=8, {more / 1e6:+.2f} MB (gate: "
+          f"less than one residual, {residual / 1e6:.2f} MB; GPipe would "
+          f"add {4 * residual / 1e6:.2f}); the executor's largest live "
+          f"residuals per stage {residuals[4]} at M=4, {residuals[8]} at "
+          f"M=8 (caps S - d = [2, 1]); on {card}", flush=True)
+    if not ratio <= PP_MEM_RATIO:
+        fail(f"pipeline peak memory grows with M: {peaks_gb}")
+    if not more < residual:
+        fail(f"the executor's memory grows with M: {growth} bytes, one "
+             f"residual {residual}")
+    if residuals[4] != [2, 1] or residuals[8] != [2, 1]:
+        fail(f"pipeline residuals {residuals} off the 1F1B caps")
+    return peaks_gb
+
+
+def pp_rates(card):
+    """Warm bf16 images/s (batch 128, accum 4) of the plain accumulation
+    (pp 1) and the pipelined layouts, one turn each in order (each
+    layout's trainer and state built once, on the same pre-built batches;
+    1 warm-up step, then 3 steps each timed alone, ending in a
+    synchronize), each beside its analytic flat bubble; for ``--pp 1``
+    and the interleaved layout (the fewest and the most slots) one more
+    step under ``torch.profiler``: its wall time and the device time the
+    union of its kernels covers. Recorded, not gated: the step is
+    host-bound, so the rate moves with the host, and each line gives the
+    spread of its steps."""
+    import gc
+    import statistics
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.engine import to_device
+    from repro_torch.core.pipeline import bubble_fraction, \
+        simulated_bubble_fraction
+    from repro_torch.models.transformer import init_params
+
+    out, batches = {}, None
+    for pp, v in PP_RATE_LAYOUTS:
+        trainer, pipe = pp_setup("bfloat16", 128, 4, pp, v)
+        if batches is None:
+            host = init_params(trainer.cfg, seed=0, device="cpu")
+            batches = [to_device(pipe.batch_at(0, j), "cuda")
+                       for j in range(4)]
+        state = trainer.init_state({k: t.to("cuda", copy=True)
+                                    for k, t in host.items()})
+        state, _ = trainer.train_step(state, batches[0])
+        torch.cuda.synchronize()
+        steps = []
+        for batch in batches[1:]:
+            t0 = time.perf_counter()
+            state, m = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            if not m["step_ok"]:
+                fail("a timed pipeline step was skipped by the guard")
+        busy = "not profiled"
+        if pp == 1 or v > 1:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state, _ = trainer.train_step(state, batches[0])
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            dev = device_spans(prof)[1] / 1e3
+            busy = (f"{dev:.1f} ms of device time in {wall:.1f} ms of "
+                    f"wall time (busy {dev / wall:.1%})")
+            del prof
+        del trainer, pipe, state
+        ips = 128 / statistics.median(steps)
+        rates = [round(128 / t, 1) for t in steps]
+        bubble = bubble_fraction(4, pp) if pp > 1 else 0.0
+        sim = simulated_bubble_fraction(4, pp, v) if pp > 1 else 0.0
+        out[f"pp{pp}" + (f"_v{v}" if v > 1 else "")] = ips
+        print(f"[pipeline] warm bf16 training, --pp {pp}"
+              + (f" --pp-interleave {v}" if v > 1 else "")
+              + f": {ips:.1f} images/s (median of 3 steps; the steps' "
+              f"{rates}, spread {max(rates) - min(rates):.1f}); one "
+              f"profiled step: {busy}; analytic bubble (S-1)/(M+S-1) = "
+              f"{bubble:.3f}, the simulated schedule's {sim:.3f}; on one "
+              f"card the stages share the device and run one after "
+              f"another, so the bubble is no idle time here and the "
+              f"pipelined rate pays the backward slot's recompute; on "
+              f"{card}", flush=True)
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_pipeline(card):
+    """Pipeline parallelism (phase 18) on one card: the 1F1B executor runs
+    every stage in this process. (a) bf16 CLI runs of ViT-B/16 at
+    ``--pp 1/2/4`` and interleaved, exact K1-K3 counts; (b) fp32 parity
+    with ``--pp 1`` (3e-4), also as rank 0 of a torchrun world of one at
+    ZeRO 0 and 3; (c) a ``--pp 2`` checkpoint resumed at ``--pp 1``
+    (1e-5); (d) peak memory flat in M; (e) warm rates (recorded); (f)
+    ChatGLM3-6B at 4 layers through the pipeline, exact K1-K5 counts; (g)
+    ``--devices 2 --pp 2`` on one card refused. Returns the launches of
+    the ``--pp 2`` ViT and ChatGLM3 runs."""
+    import gc
+    import shutil
+    import torch
+
+    t0 = last = time.time()
+
+    def lap(part):
+        nonlocal last
+        now = time.time()
+        print(f"[pipeline] ({part}) in {now - last:.1f}s", flush=True)
+        last = now
+    # (a) bf16 through the CLI, 6 steps at batch 128 in 4 microbatches
+    _, hist = run_cli(PP_ARGS, vit_pp_launches(6, 4, 1),
+                      "vit-b16 bf16 --pp 1")
+    ref = train_rows(hist, "vit-b16 bf16 --pp 1", 6)
+    launches = {}
+    for label, extra in PP_LAYOUTS.items():
+        tag = f"vit-b16 bf16 {label}"
+        launches[label], hist = run_cli(PP_ARGS + extra,
+                                        vit_pp_launches(6, 4, 2), tag)
+        rows = train_rows(hist, tag, 6)
+        print(f"[pipeline] {tag}: losses {[round(r['loss'], 4) for r in rows]}"
+              f"; step_ok all 1; largest |dloss| from --pp 1 "
+              f"{max_diff(rows, ref, 'loss'):.3e}, |dgnorm| "
+              f"{max_diff(rows, ref, 'grad_norm'):.3e} (bf16, not gated)",
+              flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("a")
+    # (b) fp32 parity with --pp 1 at batch 32, 3 steps
+    _, hist = run_cli(PP_F32_ARGS, vit_pp_launches(3, 4, 1),
+                      "vit-b16 fp32 --pp 1")
+    f32 = {"--pp 1": train_rows(hist, "vit-b16 fp32 --pp 1", 3)}
+    runs = [(label, extra, False) for label, extra in PP_LAYOUTS.items()] + \
+        [(f"--devices 1 --pp 2 --zero {z}",
+          ["--devices", "1", "--pp", "2", "--zero", str(z)], True)
+         for z in (0, 3)]
+    for label, extra, torchrun in runs:
+        tag = f"vit-b16 fp32 {label}"
+        with torchrun_env() if torchrun else contextlib.nullcontext():
+            _, hist = run_cli(PP_F32_ARGS + extra, vit_pp_launches(3, 4, 2),
+                              tag)
+        rows = f32[label] = train_rows(hist, tag, 3)
+        d_loss = max_diff(rows, f32["--pp 1"], "loss")
+        d_norm = max_diff(rows, f32["--pp 1"], "grad_norm")
+        print(f"[pipeline] {tag}: max |dloss| {d_loss:.3e}, max |dgnorm| "
+              f"{d_norm:.3e} against --pp 1 (tol {PP_TOL})", flush=True)
+        if not (d_loss <= PP_TOL and d_norm <= PP_TOL):
+            fail(f"{tag} disagrees with --pp 1")
+    lap("b")
+    # (c) a --pp 2 checkpoint resumed at --pp 1
+    d = ROOT / "build" / "ckpt-pipeline"
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        ck = ["--ckpt-dir", str(d), "--ckpt-sync"]
+        run_cli(PP_F32_ARGS + ["--pp", "2", "--stop-after", "2"] + ck,
+                vit_pp_launches(2, 4, 2), "vit-b16 fp32 --pp 2 stop-after 2")
+        _, hist = run_cli(PP_F32_ARGS + ["--resume"] + ck,
+                          vit_pp_launches(1, 4, 1),
+                          "vit-b16 fp32 --pp 1 resumed")
+        resumed_rows(hist, "pipeline: --pp 2 saved, --pp 1 resumed", [2],
+                     {r["step"]: r for r in f32["--pp 2"]})
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("c")
+    # (d) memory, (e) rates
+    pp_memory(card)
+    lap("d")
+    rates = pp_rates(card)
+    lap("e")
+    # (f) a decoder through the pipeline: K1-K3 causal GQA at D 128, K4/K5
+    # (per microbatch: each layer's two norms forward in both slots and
+    # backward once, the final norm forward in both and backward once)
+    attn = 3 * 4 * LM_LAYERS
+    lm_expect = {"flash_fwd": 2 * attn, "flash_bwd_dq": attn,
+                 "flash_bwd_dkv": attn,
+                 "rmsnorm_fwd": 3 * 4 * 2 * (2 * LM_LAYERS + 1),
+                 "rmsnorm_bwd": 3 * 4 * (2 * LM_LAYERS + 1)}
+    lm_launches, hist = run_cli(PP_LM_ARGS, lm_expect,
+                                "chatglm3-6b bf16 --pp 2")
+    rows = train_rows(hist, "chatglm3-6b bf16 --pp 2", 3)
+    print(f"[pipeline] chatglm3-6b (4 layers, 8 x 1024, accum 4) --pp 2: "
+          f"losses {[round(r['loss'], 4) for r in rows]}; step_ok all 1",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("f")
+    # (g) two ranks on one card
+    if torch.cuda.device_count() < 2:
+        from repro_torch.launch.train import main as cli
+        try:
+            cli(PP_ARGS + ["--pp", "2", "--devices", "2"])
+        except RuntimeError as e:
+            print(f"[pipeline] --devices 2 --pp 2 on "
+                  f"{torch.cuda.device_count()} card: {e}", flush=True)
+        else:
+            fail("--devices 2 --pp 2 on one card did not raise")
+    print(f"[pipeline] phase 18 in {time.time() - t0:.1f}s on {card}",
+          flush=True)
+    return launches["--pp 2"], lm_launches, rates
 
 
 def augment_on_card():
@@ -4203,6 +4568,7 @@ def main():
     card = phase_card()
     sys.path.insert(0, str(ROOT / "src"))
     phase_build()
+    draws = share_draws()
     k1 = phase_k1(card.split(",")[0])
     vit_rows = [k1] + phase_k23(card.split(",")[0])
     rms_rows = phase_rms(card.split(",")[0])
@@ -4219,6 +4585,7 @@ def main():
     resume_launches = phase_ckpt(vit_hist, f32_ref)
     data_launches = phase_data(vit_hist)
     phase_quickstart()
+    pp_launches, pp_lm_launches, pp_rates_ = phase_pipeline(card)
     lm_launches = phase_lm_train(profile)
     # each training phase hands phase 15 its params of seed 0, on the host
     held = {}
@@ -4235,6 +4602,9 @@ def main():
     prefill, serve_launches, vl_launches = phase_serving(card, held)
     hubert_launches = phase_hubert(profile)
     zamba_launches, zamba_serve_launches = phase_zamba2(card)
+    print(f"[draws] params drawn on the host for the card: {draws['draws']} "
+          f"draws made, {draws['shared']} repeats copied from the draw "
+          f"before them", flush=True)
     if profile:
         profile_eval()
     # K1-K3 run on both training paths: the row's numbers are the
@@ -4256,6 +4626,10 @@ def main():
         # fault, and from shards (phase 8d)
         vit["data_launches"] = {run: n[row["name"]]
                                 for run, n in data_launches.items()}
+        # the training slice through the 1F1B pipeline at --pp 2 (phase 18,
+        # batch 128 in 4 microbatches, 6 steps) and the warm rates there
+        vit["pipeline_launches"] = pp_launches[row["name"]]
+        vit["pipeline_images_per_s"] = pp_rates_
         if row["name"] in REDESIGNED:
             row = dict(row, redesigned=True, routes=ROUTES[row["name"]])
         # the dense-decoder family: Gemma3's attention (head dim 256) timed
@@ -4293,7 +4667,9 @@ def main():
                             granite_launches=granite_launches[row["name"]],
                             granite=granite,
                             deepseek_launches=deepseek_launches[row["name"]],
-                            deepseek=deepseek, **d80))
+                            deepseek=deepseek,
+                            pipeline_chatglm3_launches=pp_lm_launches[
+                                row["name"]], **d80))
     # K4-K7's launches are the RWKV6 run's; K4/K5 run on both decoder
     # paths, so their rows carry the ChatGLM3 run's beside them
     for row in rms_rows + wkv_rows:
@@ -4311,6 +4687,7 @@ def main():
             extra["zamba2_launches"] = zamba_launches[row["name"]]
             extra["zamba2_serve_launches"] = \
                 zamba_serve_launches[row["name"]]
+            extra["pipeline_chatglm3_launches"] = pp_lm_launches[row["name"]]
         if row["name"] in REDESIGNED:
             extra.update(redesigned=True, routes=ROUTES[row["name"]])
         kernels.append(dict(row, **extra))

@@ -22,6 +22,10 @@ reference's pytree paths do) whose leaves are:
   process writes that chunk, with its ``[start, stop)`` index ranges,
   ``spec`` (``"data"`` at the split dimension) and ``mesh`` ``{"data": W,
   "model": 1}``;
+* :class:`Blocks` — this process's blocks of a leaf laid out over a data x
+  pipe mesh (pipeline parallelism: a stage holds its chunks' layers, each
+  perhaps split over its data group), each written with its own index
+  ranges; a process whose blocks another one writes passes none;
 * a ``torch.Tensor`` — a replicated leaf, written by process 0 only;
 * a numpy array or scalar — a host leaf (step counters, rng), written by
   process 0 only.
@@ -48,7 +52,9 @@ collective:
    merged ``manifest.json``, and performs the ONE ``os.rename`` commit.
 
 Restore is **elastic and lazy**: ``shardings`` names, for each leaf, the
-dimension the restoring layout splits over the ranks (or None: whole), and
+dimension the restoring layout splits over the ranks (or None: whole), or
+the list of blocks (index ranges) this process holds, stacked along the
+leading dimension (a pipeline stage's chunks), and
 each process assembles only its own block from the manifest shards whose
 index ranges INTERSECT it — at any world size and ZeRO stage, whatever
 layout wrote the step. :func:`last_restore_stats` reports the bytes read.
@@ -113,6 +119,20 @@ class Sharded:
     equal contiguous chunks along ``dim``."""
     local: torch.Tensor
     dim: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Blocks:
+    """This process's blocks of a leaf of logical ``shape`` and ``dtype``:
+    ``parts`` ``[(ranges, tensor)]``, each tensor the block at its ``[start,
+    stop)`` index ranges (empty where another process writes the leaf).
+    ``spec`` (the mesh axis of each dimension, or None) and ``mesh``
+    (``{axis: extent}``) go into the manifest as they are."""
+    shape: tuple
+    dtype: torch.dtype
+    parts: tuple
+    spec: tuple
+    mesh: dict
 
 
 # ---------------------------------------------------------------------------
@@ -301,6 +321,15 @@ def _snapshot(tree) -> dict:
     mesh = {"data": procs, "model": 1}
     snap = {"mesh": None, "leaves": {}, "process": proc, "processes": procs}
     for key, leaf in _flatten(tree):
+        if isinstance(leaf, Blocks):
+            shape, spec = list(leaf.shape), list(leaf.spec)
+            shards = [([list(r) for r in ranges], _host_copy(x), proc)
+                      for ranges, x in leaf.parts]
+            snap["leaves"][key] = {"dtype": _dtype_name(leaf.dtype),
+                                   "shape": shape, "spec": spec,
+                                   "shards": shards}
+            snap["mesh"] = snap["mesh"] or dict(leaf.mesh)
+            continue
         if isinstance(leaf, Sharded):
             t = leaf.local
             shape = list(t.shape)
@@ -791,8 +820,16 @@ def _restore_blocks(ckpt_dir: str, step: int, like, shardings) -> tuple:
             stats.logical_bytes += int(np.prod(shape)) * carrier.itemsize
             stats.entries_total += len(meta["shards"])
             reader = _LeafReader(d, cache, carrier, stats, key)
-            ranges = _chunk_ranges(shape, shardings.get(key), proc, procs)
-            block = _assemble_block(key, meta, ranges, reader)
+            spec = shardings.get(key)
+            if isinstance(spec, (list, tuple)):
+                # explicit blocks, stacked along the leading dimension
+                ranges = [[list(r) for r in rs] for rs in spec]
+                block = np.concatenate(
+                    [_assemble_block(key, meta, rs, reader)
+                     for rs in ranges], 0)
+            else:
+                ranges = _chunk_ranges(shape, spec, proc, procs)
+                block = _assemble_block(key, meta, ranges, reader)
             stats.partition_bytes += block.nbytes
             out[key] = (ranges, _as_leaf(block, template, meta["dtype"]))
     return out, stats

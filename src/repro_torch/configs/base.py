@@ -3,7 +3,7 @@ family of the JAX package.
 
 Field names and defaults follow the JAX package, so a config can be
 compared field by field with its reference. Fields the ported paths do
-not read (tensor, sequence and pipeline parallelism) are left out until a
+not read (tensor and sequence parallelism) are left out until a
 slice needs them; ``use_kernels`` stands in for the reference's
 ``use_pallas``. A config that asks for a branch the port does not have
 (another activation, a multi-token prediction head on a recurrent or an
@@ -258,7 +258,13 @@ class EngineConfig:
     * dp_world``. ``zero_stage`` 0-3 picks what the data-parallel engine
     shards (``core/sharding.py``). ``cast_params_bf16`` casts the fp32 matrices (ndim >= 2)
     to bf16 before compute, as the reference's ZeRO-3 gather optimisation
-    does; the master params and the optimizer stay fp32."""
+    does; the master params and the optimizer stay fp32.
+    ``pipeline_stages`` S > 1 trains through the 1F1B pipeline
+    (``core/pipeline.py``) over the gradient-accumulation microbatches, so
+    accum >= S; ``pipeline_interleave`` v > 1 gives each stage v chunks
+    (Megatron's interleaved schedule) and needs accum % S == 0. The
+    layer count must divide into S * v chunks (checked where the model is
+    known, ``pipeline.stage_partition``)."""
     train_batch_size: int = 32
     micro_batch_per_gpu: int = 0        # 0 -> derived
     gradient_accumulation_steps: int = 1
@@ -272,6 +278,8 @@ class EngineConfig:
     total_steps: int = 1000
     seed: int = 0
     cast_params_bf16: bool = False
+    pipeline_stages: int = 1
+    pipeline_interleave: int = 1
     # elastic checkpointing (repro_torch.checkpoint): cadence in optimizer
     # steps (0 = end-of-run only), async saves and their bounded in-flight
     # count, and retention (keep the newest K, 0 = all; the GC never
@@ -310,6 +318,33 @@ class EngineConfig:
                 "DeepSpeed batch invariant violated: "
                 f"{mb} * {self.gradient_accumulation_steps} * {dp_world} "
                 f"= {got} != train_batch_size={self.train_batch_size}")
+        if self.pipeline_stages < 1:
+            raise ValueError(f"pipeline_stages must be >= 1: "
+                             f"{self.pipeline_stages}")
+        if self.pipeline_stages > 1 and \
+                self.gradient_accumulation_steps < self.pipeline_stages:
+            # 1F1B fill/drain needs at least one microbatch per stage
+            raise ValueError(
+                "1F1B needs microbatch count >= pipeline depth: "
+                f"gradient_accumulation_steps="
+                f"{self.gradient_accumulation_steps} < pipeline_stages="
+                f"{self.pipeline_stages}")
+        if self.pipeline_interleave < 1:
+            raise ValueError(
+                f"pipeline_interleave must be >= 1: "
+                f"{self.pipeline_interleave}")
+        if self.pipeline_interleave > 1:
+            if self.pipeline_stages <= 1:
+                raise ValueError(
+                    "pipeline_interleave > 1 requires pipeline_stages > 1")
+            if self.gradient_accumulation_steps % self.pipeline_stages:
+                # Megatron's interleaved 1F1B groups microbatches in runs
+                # of S per chunk round
+                raise ValueError(
+                    "interleaved 1F1B needs microbatch count divisible by "
+                    "pipeline depth: gradient_accumulation_steps="
+                    f"{self.gradient_accumulation_steps} % pipeline_stages="
+                    f"{self.pipeline_stages} != 0")
         if self.ckpt_every < 0:
             raise ValueError(
                 f"ckpt_every must be >= 0 (0 = end-of-run only): "

@@ -10,6 +10,12 @@ per card (device ``LOCAL_RANK``), ``gloo`` on ``cpu``. Every group gets a
 timeout, so a collective that one rank never joins raises instead of
 hanging. A world of one goes through the same calls as any other.
 
+A :class:`World` is the default group, or a subgroup of it (``group``, the
+global ``ranks`` of its members in group-rank order): pipeline parallelism
+(``launch/mesh.py``) runs ZeRO over a stage's data group and hands
+activations and cotangents between the ranks of a pipe group with
+:meth:`World.exchange`, point to point.
+
 A leaf sharded on dimension ``d`` is split into ``size`` contiguous chunks
 of that dimension, and rank r holds chunk r. On the wire the chunks are
 laid out rank-major, ``torch.cat([c.reshape(-1) for c in
@@ -41,19 +47,34 @@ COLLECTIVE_TIMEOUT_S = 600.0
 
 @dataclass(frozen=True)
 class World:
-    """This process's place in the data-parallel group (the default
-    process group)."""
+    """This process's place in a process group: the default one
+    (``group`` None), or a subgroup whose members are the global ``ranks``
+    (``rank`` and ``size`` are then this process's place in it)."""
     rank: int
     size: int
     local_rank: int
     device: torch.device
+    group: object = None
+    ranks: tuple = None
+
+    def subgroup(self, group, ranks) -> "World":
+        """This process's place in ``group`` (made by ``dist.new_group``
+        over the global ``ranks``, this process among them)."""
+        ranks = tuple(ranks)
+        return World(rank=ranks.index(dist.get_rank()), size=len(ranks),
+                     local_rank=self.local_rank, device=self.device,
+                     group=group, ranks=ranks)
+
+    def global_rank(self, r: int) -> int:
+        """The global rank of this group's rank ``r``."""
+        return r if self.ranks is None else self.ranks[r]
 
     def all_reduce(self, t: torch.Tensor, op: str = "mean") -> torch.Tensor:
         """Sum (``op="sum"``) or mean of ``t`` over the ranks, in place;
         returns ``t``."""
         if op not in ("sum", "mean"):
             raise ValueError(f"op must be 'sum' or 'mean': {op!r}")
-        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         if op == "mean":
             t.div_(self.size)
         return t
@@ -62,7 +83,7 @@ class World:
         """Whether ``flag`` holds on any rank (a MAX all-reduce): every rank
         gets the same answer, so all take the same branch."""
         t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return bool(t.item())
 
     def all_reduce_many(self, ts: list, op: str = "mean") -> list:
@@ -105,7 +126,8 @@ class World:
                 wire[:, off:off + n].view(moved.shape).copy_(moved)
                 off += n
             flat = torch.empty(sum(sizes), dtype=t0.dtype, device=t0.device)
-            _reduce_scatter(flat, wire.view(-1), op=dist.ReduceOp.SUM)
+            _reduce_scatter(flat, wire.view(-1), op=dist.ReduceOp.SUM,
+                            group=self.group)
             for i, part in zip(idx, flat.split(sizes)):
                 shape = list(ts[i].shape)
                 shape[dims[i]] //= self.size
@@ -122,7 +144,7 @@ class World:
             flat = torch.cat([shards[i].reshape(-1) for i in idx])
             wire = torch.empty((self.size, flat.numel()), dtype=s0.dtype,
                                device=s0.device)
-            _all_gather(wire.view(-1), flat)
+            _all_gather(wire.view(-1), flat, group=self.group)
             off = 0
             for i, n in zip(idx, sizes):
                 shape = list(shards[i].shape)
@@ -135,6 +157,24 @@ class World:
                 off += n
         return out
 
+    def exchange(self, sends: list, recvs: list) -> list:
+        """Point to point within the group, in one
+        ``dist.batch_isend_irecv``: ``sends`` ``[(tensor, rank)]`` and
+        ``recvs`` ``[(shape, dtype, rank)]`` (group ranks; at most one
+        message each way between two ranks per call). Returns the received
+        tensors in the order of ``recvs``. A receive whose peer never sends
+        raises at the group's timeout."""
+        out = [torch.empty(shape, dtype=dtype, device=self.device)
+               for shape, dtype, _ in recvs]
+        ops = [dist.P2POp(dist.isend, t.contiguous(), self.global_rank(r),
+                          self.group) for t, r in sends] + \
+            [dist.P2POp(dist.irecv, buf, self.global_rank(r), self.group)
+             for buf, (_, _, r) in zip(out, recvs)]
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return out
+
 
 def _by_dtype(ts) -> list:
     """Indices of ``ts`` grouped by dtype, in first-seen order."""
@@ -144,14 +184,15 @@ def _by_dtype(ts) -> list:
     return list(groups.values())
 
 
-def _reduce_scatter(out, wire, op):
+def _reduce_scatter(out, wire, op, group=None):
     # the newer name where the installed torch has it (the older one warns)
     getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)(
-        out, wire, op=op)
+        out, wire, op=op, group=group)
 
 
-def _all_gather(out, wire):
-    getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(out, wire)
+def _all_gather(out, wire, group=None):
+    getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(
+        out, wire, group=group)
 
 
 def _check_cards(size: int) -> None:

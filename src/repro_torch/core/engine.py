@@ -40,6 +40,22 @@ weights them with its own mean router probabilities, so the mean of the
 ranks' losses and gradients is the reference's. The gather dispatch
 counts its capacity over this rank's tokens (ROADMAP deviation D4).
 
+Pipeline parallelism (``ecfg.pipeline_stages`` S > 1, the reference's
+``_pipeline_grads``, ``engine.py:311-414``): the step's gradients come from
+``core.pipeline.pipelined_value_and_grad`` over the accumulation
+microbatches, with the same seeds and the same finishing of each
+microbatch. Without a world, or on a world of one, this process runs every
+stage. On a larger world the ranks form a data x pipe layout
+(``launch/mesh.py``): each rank holds its chunks' layers of every stacked
+leaf (``core/sharding.py::stage_chunks``), ZeRO runs over its stage's data
+group, and the non-stacked leaves are replicated over the pipe group, whose
+gradients (only the first and last stages have any; a tied embedding gets
+both) are summed over it. The global grad norm sums the stage-local
+squares over the pipe group and counts a replicated leaf once; the loss and
+the metrics, taken on the last stage, are summed over the pipe group, so
+every rank's guard takes the same branch. Eval gathers the stacked leaves
+whole over the pipe group and runs the plain forward.
+
 A leaf that the world does not divide (``embed.cls``, ``stack.mlp.b_up``)
 stays replicated: its gradient is all-reduced, every rank applies the same
 whole update, and the norms count it once. The anomaly guard decides from
@@ -59,7 +75,11 @@ the reference's ``TrainState`` pytree does (``params/embed/cls``,
 ``epoch``, ``batch_index``, ``rng``), each rank writing its chunks of the
 leaves its ZeRO stage shards; ``restore_state`` reads back this rank's part
 under its own layout, whatever layout wrote the step, and copies it into
-the live tensors.
+the live tensors. Under a pipe group every tensor leaf goes as
+``Blocks``: a stacked leaf as one block per chunk at its layer range (and
+its data chunk under ZeRO), written by the stage's data rank 0 unless ZeRO
+splits it; a non-stacked one by stage 0's ranks. A restore re-slices them
+into any dp x pp x ZeRO layout.
 """
 from __future__ import annotations
 
@@ -69,15 +89,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import AsyncCheckpointer, Sharded, \
+from repro_torch.checkpoint import AsyncCheckpointer, Blocks, Sharded, \
     last_restore_stats, restore_checkpoint, restore_latest_valid, \
     save_checkpoint
 from repro_torch.configs.base import EngineConfig
+from repro_torch.core import pipeline
 from repro_torch.core.grad_accum import accumulate_gradients
-from repro_torch.core.sharding import is_stacked, shard_dims
+from repro_torch.core.sharding import is_stacked, shard_dims, stage_chunks
 from repro_torch.data.augment import augment_batch, device_preprocess, \
     draw_augment, step_seed
 from repro_torch.data.pipeline import rank_rows
+from repro_torch.launch.mesh import make_layout
 from repro_torch.models import transformer as model
 from repro_torch.optim import OptState, make_optimizer, make_schedule
 from repro_torch.optim.optimizers import global_norm
@@ -190,8 +212,19 @@ class Trainer:
         train-time augmentation (ViT only). ``world``: a
         ``core.distributed.World`` for the data-parallel step under
         ``ecfg.zero_stage`` (its device is the rank's); None trains on one
-        device without a process group."""
-        ecfg.validate(world.size if world is not None else 1)
+        device without a process group. With ``ecfg.pipeline_stages`` > 1
+        a world of more than one rank is laid out data x pipe
+        (``launch.mesh.make_layout``, a collective)."""
+        self.data = self.pipe = None
+        if world is not None:
+            layout = make_layout(world, ecfg.pipeline_stages)
+            self.data, self.pipe = layout.data, layout.pipe
+        ecfg.validate(self.data.size if self.data is not None else 1)
+        if ecfg.pipeline_stages > 1:
+            pipeline.check_supported(cfg)
+            pipeline.stage_partition(
+                cfg.num_layers,
+                ecfg.pipeline_stages * ecfg.pipeline_interleave)
         if world is None and ecfg.zero_stage:
             raise ValueError(f"zero_stage {ecfg.zero_stage} needs a "
                              f"data-parallel world")
@@ -201,7 +234,6 @@ class Trainer:
         self.ecfg = ecfg
         self.preproc = preproc
         self.aug = aug.validate() if aug is not None else None
-        self.world = world
         self.device = resolve_device(device)
         if world is not None:
             if world.device.type != self.device.type:
@@ -214,6 +246,8 @@ class Trainer:
         self.schedule = make_schedule(ecfg.lr_schedule, ecfg.lr,
                                       ecfg.warmup_steps, ecfg.total_steps)
         self.param_dims = self.opt_dims = None
+        # the executor's schedule accounting of the last pipelined step
+        self.schedule_out = {}
 
     # --- layout ---------------------------------------------------------
 
@@ -222,7 +256,7 @@ class Trainer:
         and the optimizer state (``opt_dims``, ZeRO 1-3) shard; all None on
         one device."""
         shapes = {k: p.shape for k, p in params.items()}
-        size = self.world.size if self.world is not None else 1
+        size = self.data.size if self.data is not None else 1
         stage = self.ecfg.zero_stage
         self.param_dims = shard_dims(shapes, zero_stage=stage, world=size)
         self.opt_dims = shard_dims(shapes, zero_stage=stage, world=size,
@@ -232,19 +266,30 @@ class Trainer:
         """The part of each leaf this rank's optimizer state covers: its
         chunk of a leaf whose state is sharded while the param is not
         (ZeRO 1-2), else the leaf (a ZeRO-3 param is its chunk already)."""
-        return {k: self.world.chunk(p, self.opt_dims[k])
+        return {k: self.data.chunk(p, self.opt_dims[k])
                 if self.opt_dims[k] is not None
                 and self.param_dims[k] is None else p
                 for k, p in params.items()}
 
+    def _chunks(self) -> list:
+        """The layer ranges of this rank's pipeline chunks."""
+        e = self.ecfg
+        return stage_chunks(self.cfg.num_layers, e.pipeline_stages,
+                            e.pipeline_interleave, self.pipe.rank)
+
     def init_state(self, params: dict) -> TrainState:
         """A fresh state around ``params`` (e.g. ``ViT.params()``, whose
         tensors it then updates in place; every rank passes the same
-        values). Under ZeRO-3 the state keeps this rank's chunk of each
-        sharded leaf, and the caller's whole tensors can go."""
+        values). Under a pipe group the state keeps this rank's chunks of
+        each stacked leaf; under ZeRO-3 this rank's chunk of each sharded
+        leaf, and the caller's whole tensors can go."""
+        if self.pipe is not None:
+            # this rank's chunks of each stacked leaf, in chunk order
+            params = {k: torch.cat([p[lo:hi] for lo, hi in self._chunks()])
+                      if is_stacked(k) else p for k, p in params.items()}
         self._layout(params)
         if self.ecfg.zero_stage == 3:
-            params = {k: self.world.chunk(p, d).clone() if d is not None
+            params = {k: self.data.chunk(p, d).clone() if d is not None
                       else p for k, p in params.items()
                       for d in (self.param_dims[k],)}
         return TrainState(params=params,
@@ -261,7 +306,7 @@ class Trainer:
             return group
         # a stacked leaf comes as one layer's slice: its L axis is gone
         dims = [self.param_dims[k] - is_stacked(k) for k in keys]
-        full = GatherShards.apply(self.world, dims,
+        full = GatherShards.apply(self.data, dims,
                                   *[group[k] for k in keys])
         return dict(group, **dict(zip(keys, full)))
 
@@ -277,38 +322,57 @@ class Trainer:
         (``models/moe.py``); a checkpointed layer's recompute calls it
         again, on every rank alike."""
         with torch.no_grad():
-            return self.world.all_reduce(t.detach().clone(), "mean")
+            return self.data.all_reduce(t.detach().clone(), "mean")
 
     @property
     def forward_reduce(self):
-        """``mean_over_ranks`` on a world of more than one rank, else
+        """``mean_over_ranks`` on a data group of more than one rank, else
         None."""
-        w = self.world
+        w = self.data
         return self.mean_over_ranks if w is not None and w.size > 1 \
             else None
 
     def _whole(self, tree: dict, dims: dict) -> dict:
         """``tree`` with each leaf that ``dims`` shards gathered whole."""
         keys = [k for k in tree if dims[k] is not None]
-        full = self.world.all_gather_many([tree[k] for k in keys],
-                                          [dims[k] for k in keys])
+        full = self.data.all_gather_many([tree[k] for k in keys],
+                                         [dims[k] for k in keys])
         return dict(tree, **dict(zip(keys, full)))
 
+    def pipe_whole(self, tree: dict) -> dict:
+        """``tree`` with each stacked leaf gathered whole over the pipe
+        group (its chunks in layer order); ``tree`` itself without one."""
+        if self.pipe is None:
+            return tree
+        keys = [k for k in tree if is_stacked(k)]
+        e = self.ecfg
+        S, v = e.pipeline_stages, e.pipeline_interleave
+        full = self.pipe.all_gather_many([tree[k] for k in keys],
+                                         [0] * len(keys))
+        # rows come stage-major (p, k, layer); the layers run (k, p, layer)
+        out = {k: f.view((S, v, -1) + tuple(f.shape[1:])).transpose(0, 1)
+               .reshape(f.shape) for k, f in zip(keys, full)}
+        return dict(tree, **out)
+
     def full_params(self, state: TrainState) -> dict:
-        """Every param whole (a collective under ZeRO-3)."""
-        if self.forward_gather is None:
-            return state.params
-        return self._whole(state.params, self.param_dims)
+        """Every param whole (a collective under ZeRO-3 or a pipe
+        group)."""
+        params = state.params
+        if self.forward_gather is not None:
+            params = self._whole(params, self.param_dims)
+        return self.pipe_whole(params)
 
     def full_opt_state(self, state: TrainState) -> OptState:
         """The optimizer state with every moment whole (a collective under
-        ZeRO 1-3)."""
-        if self.world is None:
+        ZeRO 1-3 or a pipe group)."""
+        if self.data is None:
             return state.opt_state
         st = state.opt_state
-        return OptState(st.step, self._whole(st.mu, self.opt_dims),
-                        self._whole(st.nu, self.opt_dims)
-                        if st.nu != () else ())
+
+        def whole(tree):
+            return self.pipe_whole(self._whole(tree, self.opt_dims))
+        return OptState(st.step, whole(st.mu),
+                        whole(st.nu) if st.nu != () else ())
 
     # --- checkpoints -------------------------------------------------------
 
@@ -338,12 +402,57 @@ class Trainer:
                              "epoch": scalar, "batch_index": scalar,
                              "rng": np.zeros(2, np.uint32)})
 
+    def _blocks(self, key: str, shape, dim) -> list:
+        """Under a pipe group, the index ranges of this rank's blocks of
+        the leaf ``key`` (logical ``shape``, ZeRO dimension ``dim``): a
+        stacked leaf's chunks, each at its layer range; the data group's
+        chunk of ``dim`` where ZeRO splits it."""
+        ranges = [[0, int(n)] for n in shape]
+        if dim is not None:
+            n = shape[dim] // self.data.size
+            ranges[dim] = [self.data.rank * n, (self.data.rank + 1) * n]
+        if not is_stacked(key):
+            return [ranges]
+        return [[[lo, hi]] + ranges[1:] for lo, hi in self._chunks()]
+
+    def _stage_blocks(self, key: str, t: torch.Tensor, dim) -> Blocks:
+        """Leaf ``key`` (this rank's tensor ``t``) as ``Blocks``: written
+        by the stage's data rank 0 (and its ZeRO peers when ``dim`` splits
+        it), and a non-stacked leaf by stage 0's ranks only."""
+        shape = list(t.shape)
+        if dim is not None:
+            shape[dim] *= self.data.size
+        stacked = is_stacked(key)
+        if stacked:
+            shape[0] = self.cfg.num_layers
+        spec = [None] * len(shape)
+        if dim is not None:
+            spec[dim] = "data"
+        if stacked:
+            spec[0] = "pipe"
+        writes = (dim is not None or self.data.rank == 0) and \
+            (stacked or self.pipe.rank == 0)
+        parts = ()
+        if writes:
+            blocks = self._blocks(key, shape, dim)
+            pieces = t.split([b[0][1] - b[0][0] for b in blocks]) \
+                if stacked else (t,)
+            parts = tuple(zip(blocks, pieces))
+        return Blocks(tuple(shape), t.dtype, parts, tuple(spec),
+                      {"data": self.data.size, "pipe": self.pipe.size,
+                       "model": 1})
+
     def checkpoint_tree(self, state: TrainState) -> dict:
         """The state as a checkpoint tree: each sharded leaf as this
         rank's chunk (``Sharded``), replicated tensors and host leaves whole
-        (written by rank 0)."""
-        tree = {k: Sharded(t, d) if d is not None else t for k, t, d in
-                self._ckpt_leaves(state.params, state.opt_state, True)}
+        (written by rank 0); under a pipe group every tensor leaf as
+        ``Blocks``."""
+        leaves = self._ckpt_leaves(state.params, state.opt_state, True)
+        if self.pipe is not None:
+            tree = {k: self._stage_blocks(k, t, d) for k, t, d in leaves}
+        else:
+            tree = {k: Sharded(t, d) if d is not None else t
+                    for k, t, d in leaves}
         return dict(tree, **{
             "opt_state/step": np.int32(state.opt_state.step),
             "step": np.int32(state.step), "epoch": np.int32(state.epoch),
@@ -379,9 +488,12 @@ class Trainer:
                       for k, p in model.init_params(
                           self.cfg, device="meta").items()}
             state = self.init_state(params)
+        like = self.abstract_state()
         dims = {k: d for k, _, d in self._ckpt_leaves(
             state.params, state.opt_state, True)}
-        like = self.abstract_state()
+        if self.pipe is not None:
+            dims = {k: self._blocks(k, like[k].shape, d)
+                    for k, d in dims.items()}
         if step is None:
             tree, step = restore_latest_valid(ckpt_dir, like, dims)
         else:
@@ -408,14 +520,15 @@ class Trainer:
 
     # --- the step ------------------------------------------------------------
 
-    def _microbatch_loss(self, params, mb, rng=None):
-        """Loss of this rank's rows of one (global) microbatch. Each is
-        finished on the device one microbatch at a time, so one
-        microbatch's fp32 images live at a time."""
+    def _finish_microbatch(self, mb, rng=None):
+        """This rank's rows of one (global) microbatch, finished on the
+        device (augmented with the seed ``rng``, or preprocessed). Each is
+        finished one microbatch at a time, so one microbatch's fp32 images
+        live at a time."""
         rows = None
-        if self.world is not None:
+        if self.data is not None:
             n = next(iter(mb.values())).shape[0]
-            rows = rank_rows(n, self.world.rank, self.world.size)
+            rows = rank_rows(n, self.data.rank, self.data.size)
         if self.aug is not None:
             gen = torch.Generator().manual_seed(rng)
             draws = draw_augment(gen, mb["images"].shape[0],
@@ -426,13 +539,18 @@ class Trainer:
             if rows is not None:
                 mb = {k: v[rows] for k, v in mb.items()}
             mb = device_preprocess(mb, self.preproc, self.cfg.image_size)
-        return model.loss_fn(self.cfg, params, mb, self.forward_gather,
-                             self.forward_reduce)
+        return mb
+
+    def _microbatch_loss(self, params, mb, rng=None):
+        """Loss of this rank's rows of one (global) microbatch."""
+        return model.loss_fn(self.cfg, params,
+                             self._finish_microbatch(mb, rng),
+                             self.forward_gather, self.forward_reduce)
 
     def _reduce_microbatch(self, grads: dict) -> dict:
         """ZeRO-2: each microbatch's mean gradient reduce-scattered into
         the shard (all-reduced for a replicated leaf)."""
-        w = self.world
+        w = self.data
         shard = [k for k in grads if self.opt_dims[k] is not None]
         rest = [k for k in grads if self.opt_dims[k] is None]
         out = dict(zip(shard, w.reduce_scatter_many(
@@ -442,15 +560,19 @@ class Trainer:
                 for k in grads}
 
     def _reduce_sq(self, sq: dict) -> dict:
-        """The optimizer's reducer: sums of squares over the ranks for the
-        leaves the update sees in chunks; a replicated leaf is counted
+        """The optimizer's reducer: sums of squares over the data group for
+        the leaves the update sees in chunks, and over the pipe group for
+        the stage-local stacked leaves; a replicated leaf is counted
         once."""
-        keys = [k for k in sq if self.opt_dims[k] is not None]
-        if not keys:
-            return sq
-        total = self.world.all_reduce(torch.stack([sq[k] for k in keys]),
-                                      "sum")
-        return dict(sq, **dict(zip(keys, total.unbind())))
+        for group, keys in (
+                (self.data, [k for k in sq if self.opt_dims[k] is not None]),
+                (self.pipe, [k for k in sq if is_stacked(k)])):
+            if group is None or not keys:
+                continue
+            total = group.all_reduce(torch.stack([sq[k] for k in keys]),
+                                     "sum")
+            sq = dict(sq, **dict(zip(keys, total.unbind())))
+        return sq
 
     def _check_batch(self, batch: dict) -> None:
         """Raise, on every rank and before any collective, on a batch the
@@ -459,8 +581,8 @@ class Trainer:
         accum = self.ecfg.gradient_accumulation_steps
         if n % accum:
             raise ValueError(f"batch {n} not divisible by accum {accum}")
-        if self.world is not None:
-            rank_rows(n // accum, self.world.rank, self.world.size)
+        if self.data is not None:
+            rank_rows(n // accum, self.data.rank, self.data.size)
 
     def grads(self, params: dict, batch: dict, rngs=None):
         """Mean fp32 grads and mean metrics of one device batch, taken
@@ -468,16 +590,20 @@ class Trainer:
         microbatches' augmentation seeds (needed with ``aug``). Under data
         parallelism both are means over the world, and the grads of leaves
         whose optimizer state is sharded come back as this rank's chunk
-        under ZeRO 2 and 3 (whole under 0 and 1)."""
+        under ZeRO 2 and 3 (whole under 0 and 1). With
+        ``pipeline_stages`` > 1 they come from the 1F1B pipeline
+        (:meth:`_pipeline_grads`)."""
         if self.aug is not None and rngs is None:
             raise ValueError("augmented training needs the microbatch "
                              "seeds (rngs)")
         self._check_batch(batch)
         if self.param_dims is None:
             self._layout(params)
+        if self.ecfg.pipeline_stages > 1:
+            return self._pipeline_grads(params, batch, rngs)
         view = {k: p.detach().requires_grad_()
                 for k, p in compute_params(params, self.ecfg).items()}
-        stage, w = self.ecfg.zero_stage, self.world
+        stage, w = self.ecfg.zero_stage, self.data
         grads, metrics = accumulate_gradients(
             self._microbatch_loss, view, batch,
             self.ecfg.gradient_accumulation_steps, rngs=rngs,
@@ -493,6 +619,55 @@ class Trainer:
         mean = w.all_reduce(torch.stack([metrics[k].to(torch.float32)
                                          for k in keys]), "mean")
         return grads, dict(zip(keys, mean.unbind()))
+
+    def _pipeline_grads(self, params: dict, batch: dict, rngs):
+        """``grads`` through ``pipelined_value_and_grad`` (the reference's
+        ``_pipeline_grads``): the same microbatches, seeds and finishing as
+        the data-parallel path. The executor's gradients are local: the
+        stacked leaves' this stage's (a ZeRO-3 shard's averaged over the
+        data group by the gather's backward), the non-stacked ones this
+        rank's share, whole. So the non-stacked gradients and the metrics
+        are summed over the pipe group, then every gradient takes the data
+        group's mean under its ZeRO stage."""
+        e = self.ecfg
+        stage, d = e.zero_stage, self.data
+        view = {k: p.detach() for k, p in compute_params(params, e).items()}
+        gather = self.forward_gather
+        if gather is not None:
+            # ZeRO-3: the non-stacked leaves whole, once a step
+            rest = {k: p for k, p in view.items() if not is_stacked(k)}
+            view = dict(view, **self._whole(rest, self.param_dims))
+        (_, metrics), grads = pipeline.pipelined_value_and_grad(
+            self.cfg, view, batch, stages=e.pipeline_stages,
+            num_micro=e.gradient_accumulation_steps,
+            interleave=e.pipeline_interleave, rngs=rngs,
+            microbatch_fn=self._finish_microbatch,
+            schedule_out=self.schedule_out, pipe=self.pipe, gather=gather,
+            reduce=self.forward_reduce)
+        keys = list(metrics)
+        values = torch.stack([metrics[k].to(torch.float32) for k in keys])
+        if self.pipe is not None:
+            self.pipe.all_reduce_many(
+                [g for k, g in grads.items() if not is_stacked(k)], "sum")
+            self.pipe.all_reduce(values, "sum")
+        if d is not None:
+            if stage == 3:
+                # the non-stacked shards' gradients came back whole
+                shard = [k for k in grads if not is_stacked(k)
+                         and self.param_dims[k] is not None]
+                parts = d.reduce_scatter_many(
+                    [grads[k] for k in shard],
+                    [self.param_dims[k] for k in shard])
+                grads.update({k: g.div_(d.size)
+                              for k, g in zip(shard, parts)})
+                d.all_reduce_many([g for k, g in grads.items()
+                                   if self.param_dims[k] is None], "mean")
+            elif stage == 2:
+                grads = self._reduce_microbatch(grads)
+            else:
+                d.all_reduce_many(list(grads.values()), "mean")
+            d.all_reduce(values, "mean")
+        return grads, dict(zip(keys, values.unbind()))
 
     def _step_rngs(self, state: TrainState) -> list:
         """The augmentation seeds of ``state.step``'s microbatches."""
@@ -515,7 +690,7 @@ class Trainer:
             state.params, batch,
             self._step_rngs(state) if self.aug is not None else None)
         lr = self.schedule(state.step)
-        dp = self.world is not None
+        dp = self.data is not None
         if dp and self.ecfg.zero_stage == 1:
             grads = self._opt_view(grads)
         reduce = self._reduce_sq if dp else None
@@ -544,11 +719,14 @@ class Trainer:
 
 class Evaluator:
     def __init__(self, cfg, vit: model.ViT, *, ecfg: EngineConfig = None,
-                 preproc=None, device="cuda", world=None, gather=None):
-        """``world``: evaluate data-parallel, each rank its rows of every
-        batch, the counts summed over the ranks. ``gather``: the
-        ``Trainer.forward_gather`` of a ZeRO-3 state whose chunks ``vit``
-        holds."""
+                 preproc=None, device="cuda", trainer: Trainer = None):
+        """``trainer``: the ``Trainer`` whose state ``vit`` holds, the one
+        source of the state's layout. On a world the eval is data-parallel
+        over its data group (each rank its rows of every batch, the counts
+        summed over the ranks), a ZeRO-3 state's chunks are gathered by
+        its ``forward_gather`` and a pipeline stage's layers by its
+        ``pipe_whole`` (each rank of the pipe group then computes the same
+        rows). None: ``vit`` holds every param whole."""
         if cfg.arch_type != "vit":
             raise NotImplementedError(
                 f"{cfg.name}: the eval loop counts classes; only the vit "
@@ -556,14 +734,17 @@ class Evaluator:
         self.cfg = cfg
         self.ecfg = ecfg or EngineConfig()
         self.preproc = preproc
-        self.world = world
-        self.gather = gather
-        self.device = world.device if world is not None else \
+        self.trainer = trainer
+        self.world = trainer.data if trainer is not None else None
+        self.device = self.world.device if self.world is not None else \
             resolve_device(device)
         self.model = vit.to(self.device)
 
     def _compute_params(self):
-        return compute_params(self.model.params(), self.ecfg)
+        params = self.model.params()
+        if self.trainer is not None:
+            params = self.trainer.pipe_whole(params)
+        return compute_params(params, self.ecfg)
 
     def _preprocess_batch(self, batch):
         """Upsample and normalise a uint8 batch on the device. A uint8
@@ -580,8 +761,10 @@ class Evaluator:
         """Forward of one device batch (preprocessed here)."""
         with torch.inference_mode():
             batch = self._preprocess_batch(batch)
+            gather = self.trainer.forward_gather \
+                if self.trainer is not None else None
             return model.forward(self.cfg, self._compute_params(), batch,
-                                 self.gather, mode="eval")[0]
+                                 gather, mode="eval")[0]
 
     def eval_step(self, batch):
         """No-grad ``batch -> {top1, top5, count, loss_sum}`` tensors."""

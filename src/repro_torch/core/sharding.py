@@ -13,6 +13,13 @@ the reference's shard index maps.
   stage 1: optimizer state sharded (``for_opt_state``), params replicated.
   stage 2: stage 1, and the gradients reduce-scattered into the shard.
   stage 3: the params sharded too, gathered a layer at a time on use.
+
+Under pipeline parallelism (the reference's ``pipeline_axis``,
+``sharding.py:111-158``) the stacked leaves are stage-local: a rank holds
+the layers of its own chunks (:func:`stage_chunks`), and ZeRO shards those
+over its stage's data group on the same dimension as above; the
+non-stacked leaves (embed, positions, head, final norm) are replicated on
+every stage.
 """
 from __future__ import annotations
 
@@ -114,3 +121,17 @@ def shard_dims(shapes: dict, *, zero_stage: int, world: int,
         spec = _spec(key, tuple(shape), fsdp, world)
         out[key] = spec.index(_F) if _F in spec else None
     return out
+
+
+def stage_chunks(num_layers: int, stages: int, interleave: int,
+                 stage: int) -> list:
+    """The ``[lo, hi)`` layer ranges of the chunks pipeline stage ``stage``
+    holds: chunk ``c`` of ``stages * interleave`` equal chunks lives on
+    stage ``c % stages`` (Megatron's round-robin placement), in the order
+    of ``c``."""
+    chunks = stages * interleave
+    if num_layers % chunks:
+        raise ValueError(f"num_layers={num_layers} not divisible by "
+                         f"{chunks} pipeline chunks")
+    n = num_layers // chunks
+    return [(c * n, (c + 1) * n) for c in range(stage, chunks, stages)]

@@ -72,8 +72,18 @@ the newest K steps (never the newest valid one);
 deterministic chaos schedule whose firings land once in
 ``<ckpt-dir>/faults.jsonl``.
 
-Options of the reference that are not ported yet (pipeline parallelism)
-are refused, never ignored.
+Pipeline parallelism (``core/pipeline.py``, the 1F1B schedule over the
+``--accum`` microbatches): ``--pp S`` cuts the layers into S stages and
+``--pp-interleave v`` gives each stage v chunks (Megatron's interleaved
+schedule; accum % S == 0 and layers % (S * v) == 0). One process runs every
+stage itself; ``--devices N --pp S`` lays N ranks out as dp = N / S
+replicas of an S-stage pipe, ZeRO over each stage's data group:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch vit-b16 \\
+        --smoke --steps 3 --batch 16 --accum 4 --pp 2 --device cpu
+
+Options of the reference that are not ported yet (tensor and sequence
+parallelism) are refused, never ignored.
 """
 from __future__ import annotations
 
@@ -100,9 +110,11 @@ from repro_torch.resilience import RESTARTABLE_EXIT, FaultPlan, child_argv, \
 from repro_torch.resilience import faults as _faults
 
 # the reference's options that wait for a later slice: flag -> (argparse
-# kwargs, what it needs)
+# kwargs, the reference's default, which changes nothing, what it needs)
 NOT_YET_PORTED = {
-    "--pp": ({"type": int}, "pipeline parallelism (item 16)"),
+    "--model-axis": ({"type": int}, 1, "tensor parallelism (item 16)"),
+    "--seq-parallel": ({}, "none",
+                       "Ulysses sequence parallelism (item 16)"),
 }
 
 
@@ -172,6 +184,12 @@ def parse_args(argv=None):
                          "cuda); 0 = one device, no process group")
     ap.add_argument("--zero", type=int, default=0, choices=[0, 1, 2, 3],
                     help="ZeRO stage of the data-parallel run")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages (1F1B; requires --accum >= --pp)")
+    ap.add_argument("--pp-interleave", type=int, default=1,
+                    help="chunks per pipeline stage (Megatron interleaved "
+                         "1F1B; v > 1 requires --accum %% --pp == 0 and "
+                         "layers %% (pp * v) == 0)")
     ap.add_argument("--augment", action="store_true",
                     help="random crop, flip and Mixup/CutMix (vit archs)")
     ap.add_argument("--ckpt-dir", default="")
@@ -200,14 +218,14 @@ def parse_args(argv=None):
                     help="chaos schedule 'kind@step[:mode[:count]],...' "
                          "(kinds: nan_grad ckpt_write ckpt_corrupt data "
                          "preempt; '@rand' draws a seeded step) or 'seeded'")
-    for flag, (kw, _) in NOT_YET_PORTED.items():
+    for flag, (kw, _, _) in NOT_YET_PORTED.items():
         ap.add_argument(flag, default=None, help="not yet ported", **kw)
     args = ap.parse_args(argv)
     if args.prefetch_depth < 1:
         raise SystemExit(f"[train] --prefetch-depth must be >= 1: "
                          f"{args.prefetch_depth}")
-    for flag, (_, needs) in NOT_YET_PORTED.items():
-        if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
+    for flag, (_, neutral, needs) in NOT_YET_PORTED.items():
+        if getattr(args, flag[2:].replace("-", "_")) not in (None, neutral):
             raise SystemExit(f"[train] {flag} is not yet ported to "
                              f"repro_torch: it needs {needs}")
     return args
@@ -263,7 +281,9 @@ def run(args, world):
 
 def _run(args, world):
     device = resolve_device(args.device) if world is None else world.device
-    dp = world.size if world is not None else 1
+    # a world of one runs every pipeline stage; a larger one holds
+    # world / pp data-parallel replicas of the pipe
+    dp = 1 if world is None else max(world.size // args.pp, 1)
     lead = world is None or world.rank == 0
 
     def say(*a, **kw):
@@ -304,7 +324,8 @@ def _run(args, world):
         seed=args.seed, ckpt_every=args.ckpt_every,
         ckpt_async=not args.ckpt_sync, ckpt_keep_last=args.keep_last,
         guard_anomalies=not args.no_guard,
-        guard_max_skips=args.guard_max_skips)
+        guard_max_skips=args.guard_max_skips, pipeline_stages=args.pp,
+        pipeline_interleave=args.pp_interleave)
     preproc = source.preproc if source is not None else None
     aug = AugmentConfig(num_classes=cfg.num_classes) if args.augment \
         else None
@@ -318,7 +339,10 @@ def _run(args, world):
     say(f"[train] arch={cfg.name} params={n_params / 1e6:.1f}M "
         f"layers={cfg.num_layers} device={device} dtype={cfg.dtype} "
         f"kernels={'on' if cfg.use_kernels else 'off'} dp={dp} "
-        f"micro_batch={ecfg.derived_micro_batch(dp)} accum={args.accum} "
+        f"pp={args.pp}"
+        + (f" interleave={args.pp_interleave}" if args.pp_interleave > 1
+           else "")
+        + f" micro_batch={ecfg.derived_micro_batch(dp)} accum={args.accum} "
         f"zero={args.zero} opt={args.optimizer} "
         f"aug={'on' if aug else 'off'}")
     # a vlm's and the audio encoder's batches are addressed by the step,
@@ -387,8 +411,8 @@ def _run(args, world):
     hist = []
     t0 = time.time()
     ev = Evaluator(cfg, model, ecfg=ecfg, preproc=trainer.preproc,
-                   device=device, world=world, gather=trainer.forward_gather) \
-        if args.eval_every else None
+                   device=device,
+                   trainer=trainer) if args.eval_every else None
     last_eval_step = -1
 
     def run_eval(at_step):

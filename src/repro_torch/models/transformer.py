@@ -431,6 +431,22 @@ def _block(cfg, layer, h, window, positions, use_moe=False, reduce=None,
     return h + ff, aux
 
 
+def _step(cfg, gather, reduce, positions, index, h, shards, prefix, window,
+          use_moe, layer_cache=None):
+    """One layer of a stack, the body :func:`forward` and
+    :func:`stack_forward` share: ``shards`` (its slice of each stacked
+    param, gathered whole through ``gather`` when given), then a Mamba2
+    layer or :func:`_block`. Returns ``(h, the layer's MoE aux or None)``."""
+    layer = _layer(shards if gather is None else gather(shards), prefix,
+                   None)
+    if _is_mamba(cfg):
+        return h + mamba2_block(_layer(layer, "mamba.", None),
+                                _apply_norm(cfg, layer, "ln.", h), cfg,
+                                cache=layer_cache), None
+    return _block(cfg, layer, h, window, positions, use_moe, reduce,
+                  layer_cache, index)
+
+
 def _dots_policy(ctx, op, *args, **kwargs):
     """``remat="dots"``: save the outputs of ``x @ w`` (activations, folded
     to 2-D, against a weight: ``aten.mm``) and recompute the rest, batched
@@ -513,16 +529,7 @@ def forward(cfg, params, batch, gather=None, reduce=None, *, mode="train",
                          if k not in stacked})
     h, positions = _embed(cfg, params, batch, mode)
     index = int(batch["index"]) if mode == "decode" else 0
-
-    def step(h, shards, prefix, window, use_moe, layer_cache=None):
-        layer = _layer(shards if gather is None else gather(shards), prefix,
-                       None)
-        if _is_mamba(cfg):
-            return h + mamba2_block(_layer(layer, "mamba.", None),
-                                    _apply_norm(cfg, layer, "ln.", h), cfg,
-                                    cache=layer_cache), None
-        return _block(cfg, layer, h, window, positions, use_moe, reduce,
-                      layer_cache, index)
+    step = functools.partial(_step, cfg, gather, reduce, positions, index)
 
     def shared_step(h, layer_cache=None):
         # the hybrid's shared block, on params gathered before the embed
@@ -554,6 +561,39 @@ def forward(cfg, params, batch, gather=None, reduce=None, *, mode="train",
         aux["mtp_logits"] = _mtp_logits(cfg, params, batch, h, positions)
     logits = _head(cfg, params, h)
     return (logits, cache, aux) if serving else (logits, aux)
+
+
+def embed(cfg, params, batch):
+    """The pipeline's first stage (``transformer.py:642-644``): ``(h in
+    the compute dtype, rope positions or None)`` of a training batch."""
+    return _embed(cfg, params, batch)
+
+
+def stack_forward(cfg, stack, h, positions, windows, gather=None):
+    """A contiguous slice of an attention (or MLA) stack in train mode, no
+    cache: the pipeline's unit of work (``transformer.py:652-660``).
+    ``stack``: ``{"stack.<name>": (n, ...)}`` (each leaf's rows of the
+    slice), ``windows``: the n layers' windows. Each layer takes its row
+    through one ``unbind`` of each leaf (one backward for the slice, not a
+    whole-leaf select per layer), runs :func:`forward`'s layer body, and is
+    checkpointed under ``cfg.remat``; ``gather`` as :func:`forward`'s, for
+    the stacked leaves."""
+    if cfg.block_kind not in ("attn", "mla") or cfg.has_moe:
+        raise ValueError(f"{cfg.name}: stack_forward runs dense attn/mla "
+                         f"stacks only")
+    step = _remat(cfg, functools.partial(_step, cfg, gather, None,
+                                         positions, 0))
+    rows = {k: v.unbind(0) for k, v in stack.items()}
+    for i, window in enumerate(windows):
+        h, _ = step(h, {k: r[i] for k, r in rows.items()}, "stack.",
+                    window, False)
+    return h
+
+
+def apply_head(cfg, params, h):
+    """The pipeline's last stage before the loss: the final norm and the
+    classifier or LM head (``transformer.py:647-649``)."""
+    return _head(cfg, params, h)
 
 
 def _mtp_logits(cfg, params, batch, h, positions):
@@ -663,6 +703,13 @@ def loss_from_logits(cfg, logits, batch, aux=None, reduce=None):
     loss = loss + moe_aux
     acc = (logits.argmax(-1) == hard).to(torch.float32).mean()
     return loss, {"acc": acc, "moe_aux": moe_aux, "loss": loss}
+
+
+def metric_names(cfg) -> tuple:
+    """The keys of :func:`loss_from_logits`' metrics for ``cfg``, known
+    before any loss is taken (a pipeline stage without the head reduces
+    zeros under them)."""
+    return ("acc", "moe_aux", "loss") if _is_vit(cfg) else ("moe_aux", "loss")
 
 
 def loss_fn(cfg, params, batch, gather=None, reduce=None):

@@ -175,8 +175,7 @@ def _eval_counts(world, gather_stage=3):
                       world=world)
     state = trainer.init_state(init_params(cfg, seed=0, device="cpu"))
     ev = Evaluator(cfg, Transformer(cfg, state.params), ecfg=ecfg,
-                   preproc=source.preproc, device="cpu", world=world,
-                   gather=trainer.forward_gather)
+                   preproc=source.preproc, device="cpu", trainer=trainer)
     return ev.evaluate(source.eval_batches(EVAL_BATCH))
 
 

@@ -44,11 +44,12 @@ def test_kernels_flag_does_not_change_cpu_counts():
 
 
 def test_training_steps_are_refused():
-    """Training steps run since slice 2; steps that need an option of the
-    reference the port does not have yet are refused, never run without
-    it."""
-    with pytest.raises(SystemExit, match="not yet ported"):
-        main(ARGS[:1] + ["--steps", "1", "--pp", "2", "--device", "cpu"])
+    """Training steps run since slice 2 (pipelined since slice 16); steps
+    that need an option of the reference the port does not have yet
+    (tensor parallelism, item 16) are refused, never run without it."""
+    with pytest.raises(SystemExit, match="not yet ported.*item 16"):
+        main(ARGS[:1] + ["--steps", "1", "--model-axis", "2", "--device",
+                         "cpu"])
 
 
 def test_cuda_is_the_default_and_never_falls_back():

@@ -129,13 +129,23 @@ def test_train_vit_cifar_resumes_the_same_trajectory(tmp_path, capfd):
 
 def test_scaling_sweep_runs_gloo_worlds_and_refuses_layouts(tmp_path,
                                                             capsys):
+    """The strong-scaling counts and a dp x pp layout (``1x2``: one
+    replica of a two-stage pipe, two gloo ranks) run through the CLI, and
+    the record holds each run's wall time and the layout's simulated
+    bubble, as the reference's sweep writes them; a malformed layout is
+    refused."""
+    from repro_torch.core.pipeline import simulated_bubble_fraction
     from repro_torch.examples import scaling_sweep
     out = tmp_path / "sweep.json"
     res = scaling_sweep.main(["--device", "cpu", "--counts", "1", "2",
-                              "--batch", "8", "--json-out", str(out)])
+                              "--layouts", "1x2", "--batch", "8",
+                              "--json-out", str(out)])
     assert json.loads(out.read_text()) == res
-    assert set(res) == {"dp1", "dp2"}
+    assert set(res) == {"dp1", "dp2", "dp1_pp2", "dp1_pp2_bubble"}
+    assert res["dp1_pp2"] > 0
+    assert res["dp1_pp2_bubble"] == simulated_bubble_fraction(2, 2) == 1 / 3
     printed = capsys.readouterr().out
     assert "analytic projection to the paper's T4 cluster" in printed
-    with pytest.raises(SystemExit, match="item 16"):
-        scaling_sweep.main(["--device", "cpu", "--layouts", "2x2"])
+    assert "dp1_pp2:" in printed and "bubble 0.333" in printed
+    with pytest.raises(SystemExit, match="not DPxPP"):
+        scaling_sweep.main(["--device", "cpu", "--layouts", "2"])

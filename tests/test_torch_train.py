@@ -470,9 +470,10 @@ def test_training_cli_synthetic_stream():
                   "--eval-every", "1", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("extra", [["--pp", "2"]])
+@pytest.mark.parametrize("extra", [["--model-axis", "2"],
+                                   ["--seq-parallel", "ulysses"]])
 def test_unported_options_are_refused(extra):
-    with pytest.raises(SystemExit, match="not yet ported"):
+    with pytest.raises(SystemExit, match="not yet ported.*item 16"):
         cli.main(["--smoke", "--steps", "1", "--device", "cpu"] + extra)
 
 
