@@ -6,8 +6,9 @@ data-parallel under ZeRO 0-3 with augmentation, preempted and resumed from
 checkpoints and supervised under injected faults, ChatGLM3-6B, RWKV6-7B,
 Gemma3-12B, Qwen2.5-14B, GLM-4-9B and Granite-MoE 3B-A800M training, and
 serving Qwen2.5-14B, HuBERT-XLarge and Zamba2-2.7B training and Zamba2
-serving, ViT-B/16 and ChatGLM3-6B through the 1F1B pipeline) at full
-width through its CLI, and DeepSeek-V3 (MLA and the multi-token
+serving, ViT-B/16 and ChatGLM3-6B through the 1F1B pipeline and
+tensor-parallel, ranks sharing the card) at full width through its CLI,
+and DeepSeek-V3 (MLA and the multi-token
 prediction head) and Qwen2-VL-72B training and six models' prefill and
 decode at full width in process, and checks the results.
 
@@ -21,6 +22,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    of params onto the card that repeats the draw before it (the same
    config and seed) copies that draw's host tensors (``share_draws``; the
    same values, without a second host draw of up to 3.5 B params).
+   DeepSeek-V3's and Qwen2-VL-72B's params (3.5 and 3.4 B, each drawn once
+   and used by gates that compare two paths on the same params) are drawn
+   on the card (``init_params(draw_on="cuda")``) and copied to the host.
 3. K1 against ``ref_attention`` on the card, at the ViT-B/16 eval shape,
    the smoke shape, ragged S (1, 63, 130, 197), causal, GQA (groups of 4
    and of 5, the odd one also at D 256), windowed (also with S > T, rows
@@ -330,6 +334,30 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    --seq 1024 --batch 8 --accum 4 --steps 3 --pp 2`` in bf16 (K1 96, K2
    and K3 48, K4 3 x 4 x 2 x 9 = 216, K5 108), finite, ``step_ok`` 1; (g)
    ``--devices 2 --pp 2`` on one card raises its clear error.
+19. tensor parallelism (run after phase 18), every rank on the one card:
+   ranks spawned over gloo (``distributed.spawn(backend="gloo")``: NCCL
+   refuses two ranks on one card, so each collective is staged through
+   host memory), each running the training CLI's ``run``. (d) K1-K3 at a
+   model-axis-4 rank's shape of ChatGLM3-6B (B 2, H 8, one KV head
+   sliced from the (B, S, 2, D) projection, S = T = 1024, D 128, causal)
+   against their plain versions in bf16 and fp32 (phase 3's gates, K2 and
+   K3 twice for bitwise equality); ``--arch chatglm3-6b --layers 4 --seq
+   1024 --batch 2 --accum 1 --steps 2 --dtype float32`` at ``--model-axis
+   1`` in process (K1-K3 8, K4/K5 18); then a world of 2: ViT-B/16 fp32
+   (phase 8b's ``--steps 3 --batch 16 --accum 2``) at ``--model-axis 2``,
+   bf16 ``--steps 3 --batch 128 --accum 2 --eval-every 3`` at
+   ``--model-axis 2`` (K1 72 + 48, K2/K3 72 a rank; the eval counts equal
+   on both ranks) and ChatGLM3-6B at ``--model-axis 2``; and a world of 4:
+   the fp32 ViT at data 2 x ``--model-axis 2 --zero 3`` and ChatGLM3-6B at
+   ``--model-axis 4`` (D6: the KV projections whole, each rank slicing the
+   KV head its 8 query heads use). On every rank the K1-K5 launches are
+   exact (the ViT's fp32 72 each, ChatGLM3's K1-K3 8 and K4/K5 18), no
+   layout copy, the (query, KV) heads ``flash_mha`` sees (6, 6), (16, 1)
+   or (8, 1), every loss and grad norm finite, ``step_ok`` 1, and the fp32
+   losses and grad norms within 3e-4 of one rank's (phase 8b's run for
+   the ViT). The bf16 run's warm images/s is printed as a host-staged
+   reading, not gated. (e) ``--devices 2 --model-axis 2`` through the CLI
+   on one card raises its clear error.
 
 ``--profile`` adds a ``torch.profiler`` table of one warm training step of
 each training slice (DeepSeek-V3's included, and the ZeRO-3 step at world
@@ -347,10 +375,13 @@ Qwen2-VL training's under ``qwen2vl_launches``, HuBERT's and Zamba2's
 attention times at head dim 80 with their training runs' launches under
 ``hubert`` and ``zamba2`` and Zamba2's serve run's under
 ``zamba2_serve_launches``, the ``--pp 2`` ChatGLM3 run's under
-``pipeline_chatglm3_launches`` (K1-K5), the data-parallel runs'
-launches there under ``dp_launches``, the ``--pp 2`` ViT run's under
-``pipeline_launches`` and the phase's warm rates under
-``pipeline_images_per_s``, the preempted and resumed runs'
+``pipeline_chatglm3_launches`` (K1-K5), phase 19's ChatGLM3-6B runs' at
+model axis 2 and 4 under ``tp_chatglm3_launches`` (K1-K5, a rank's) and
+K1-K3's errors at a model-axis-4 rank's shape under ``tp_rank_shape``,
+the data-parallel runs' launches there under ``dp_launches``, the ``--pp
+2`` ViT run's under ``pipeline_launches``, the phase's warm rates under
+``pipeline_images_per_s`` and phase 19's ViT runs' under
+``tp_launches``, the preempted and resumed runs'
 under ``resume_launches`` and phase 8d's under ``data_launches``, K4/K5
 with the RWKV6 run's launches and the decoder's, Gemma3's, Qwen2.5's,
 GLM-4's, Granite-MoE's, DeepSeek-V3's, the serve run's, Qwen2-VL's,
@@ -833,9 +864,9 @@ def share_draws():
     draw, held, counts = transformer.init_params, {}, {"draws": 0,
                                                        "shared": 0}
 
-    def init_params(cfg, *, seed=0, device="cuda"):
-        if torch.device(device).type != "cuda":
-            return draw(cfg, seed=seed, device=device)
+    def init_params(cfg, *, seed=0, device="cuda", draw_on="cpu"):
+        if torch.device(device).type != "cuda" or draw_on != "cpu":
+            return draw(cfg, seed=seed, device=device, draw_on=draw_on)
         key = (repr(cfg), seed)
         if key in held:
             counts["shared"] += 1
@@ -846,6 +877,7 @@ def share_draws():
         return {k: v.to(device, copy=True) for k, v in held[key].items()}
     for module in (transformer, train, serve):
         module.init_params = init_params
+    share_draws.held = held         # the last draw's host tensors
     return counts
 
 
@@ -2825,6 +2857,250 @@ def phase_pipeline(card):
     return launches["--pp 2"], lm_launches, rates
 
 
+# Phase 19, tensor parallelism on the one card: ranks spawned over gloo
+# (each collective staged through host memory), every rank on the card,
+# each running the training CLI's ``run``. The fp32 gate is the
+# reference's tensor-parallel bound (tests/test_engine_distributed.py:
+# 92-101); the ViT's fp32 runs are held against phase 8b's one-card fp32
+# run (DP_F32_ARGS)
+TP_TOL = 3e-4
+TP_VIT_BF16_ARGS = ["--arch", "vit-b16", "--steps", "3", "--batch", "128",
+                    "--accum", "2", "--eval-every", "3", "--eval-batch",
+                    "128", "--log-every", "1"]
+# ChatGLM3-6B at full width, 4 of 28 layers, fp32, 2 steps of 2 x 1024
+TP_LM_ARGS = ["--arch", "chatglm3-6b", "--layers", str(LM_LAYERS), "--seq",
+              str(LM_SEQ), "--batch", "2", "--accum", "1", "--steps", "2",
+              "--dtype", "float32", "--log-every", "1"]
+TP_LM_STEPS = 2
+# ChatGLM3-6B's attention on one rank of model axis 4 (one microbatch of 2
+# x 1024): 8 of its 32 query heads and the one KV head of its 2 they use,
+# a head slice of the whole KV projection (D6)
+TP_RANK_SHAPE = (2, 8, 1, LM_SEQ, LM_SEQ, 128)
+
+
+def tp_jobs():
+    """{world size: [(label, CLI argv, {kernel: launches a rank},
+    (query heads, KV heads) a rank sees, the one-rank rows' key)]}: the
+    ranks of a world run its jobs in turn, the two worlds at once, so the
+    ChatGLM3 runs come first in one and last in the other."""
+    vit_f32 = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                            3 * 2 * 12)
+    vit_bf16 = dict(vit_f32, flash_fwd=3 * 2 * 12 + 4 * 12)
+    lm = dict(dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                            TP_LM_STEPS * LM_LAYERS),
+              rmsnorm_fwd=TP_LM_STEPS * (2 * LM_LAYERS + 1),
+              rmsnorm_bwd=TP_LM_STEPS * (2 * LM_LAYERS + 1))
+    return {
+        2: [("vit-b16 fp32 --model-axis 2",
+             DP_F32_ARGS + ["--devices", "2", "--model-axis", "2"], vit_f32,
+             (6, 6), "vit"),
+            ("vit-b16 bf16 --model-axis 2",
+             TP_VIT_BF16_ARGS + ["--devices", "2", "--model-axis", "2"],
+             vit_bf16, (6, 6), None),
+            ("chatglm3-6b fp32 --model-axis 2",
+             TP_LM_ARGS + ["--devices", "2", "--model-axis", "2"], lm,
+             (16, 1), "lm")],
+        4: [("chatglm3-6b fp32 --model-axis 4 (D6)",
+             TP_LM_ARGS + ["--devices", "4", "--model-axis", "4"], lm,
+             (8, 1), "lm"),
+            ("vit-b16 fp32 data 2 x --model-axis 2 --zero 3",
+             DP_F32_ARGS + ["--devices", "4", "--model-axis", "2", "--zero",
+                            "3"], vit_f32, (6, 6), "vit")]}
+
+
+def tp_rank(world, jobs, draw=None):
+    """One spawned rank of phase 19: each job's CLI ``run`` on this
+    rank's share of the world, the launch counters reset just before and
+    read just after, the (query, KV) head counts ``flash_mha`` saw, the
+    layout copies and the peak of allocated memory. ``draw``: a file of
+    the parent's host draw ``{"key": (repr(cfg), seed), "params": ...}``,
+    which the CLI's ``init_params`` copies for that config and seed
+    instead of drawing again (the same values)."""
+    import gc
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.launch import train
+    from repro_torch.models import attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)        # six ranks share the host's cores
+    if draw is not None:
+        held, real_init = torch.load(draw, mmap=True), train.init_params
+
+        def init_params(cfg, *, seed=0, device="cuda", draw_on="cpu"):
+            if (repr(cfg), seed) == tuple(held["key"]) and draw_on == "cpu":
+                return {k: v.to(device, copy=True)
+                        for k, v in held["params"].items()}
+            return real_init(cfg, seed=seed, device=device, draw_on=draw_on)
+        train.init_params = init_params
+    seen, real = [], attention.flash_mha
+
+    def spy(q, k, v, **kw):
+        seen.append((q.shape[2], k.shape[2]))
+        return real(q, k, v, **kw)
+    attention.flash_mha = spy
+    out = {}
+    for label, argv, *_ in jobs:
+        seen.clear()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.time()
+        hist = train.run(train.parse_args(argv), world)
+        torch.cuda.synchronize()
+        out[label] = {"hist": hist, "launches": read_counters(),
+                      "copies": fa.kernel_layout.copies
+                      + rms.row_layout.copies,
+                      "heads": sorted(set(seen)), "s": time.time() - t0,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def sliced_kv_inputs(seed):
+    """``model_layout_inputs``' signature, but K and V one head sliced
+    from the model's (B, T, 2, D) projections (the second head: a view
+    whose start is D elements in), as a rank of model axis 4 hands
+    ChatGLM3-6B's attention to the kernels; drawn on the card from
+    ``seed``."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def inputs(b, h, kh, s, t, d, dtype, model_layout, dv=None):
+        assert kh == 1 and model_layout and dv in (None, d)
+
+        def mk(n, hh):
+            return torch.randn((b, n, hh, d), device="cuda",
+                               generator=gen).to(dtype)
+        q, do = mk(s, h), mk(s, h)
+        k, v = (mk(t, 2)[:, :, 1:2] for _ in range(2))
+        return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), \
+            do.transpose(1, 2)
+    return inputs
+
+
+def phase_tp(card, f32_ref):
+    """Phase 19, tensor parallelism with every rank on the one card (gloo,
+    collectives staged through host memory; NCCL refuses two ranks on one
+    card): (d) K1-K3 at a model-axis-4 rank's shape of ChatGLM3-6B (a KV
+    head sliced from the whole projection) against their plain versions;
+    ChatGLM3-6B fp32 at ``--model-axis 1`` in process; then a world of 2
+    (model axis 2: the ViT in fp32 and in bf16 with its eval, ChatGLM3)
+    and a world of 4 (the ViT at data 2 x model 2 under ZeRO 3, ChatGLM3
+    at model axis 4, the D6 path), each rank running the CLI's ``run``:
+    every rank's K1-K5 launches exact, no layout copy, its query and KV
+    heads the expected ones, every loss and grad norm finite and
+    ``step_ok`` 1, the fp32 runs within 3e-4 of one rank, the bf16 eval
+    counts equal on both ranks; (e) ``--devices 2 --model-axis 2`` through
+    the CLI on one card refused. The rates read here are host-staged
+    gloo's, not the model axis's: printed, not gated. Returns {label:
+    rank 0's launches} and the sliced-KV check's bf16 errors."""
+    import concurrent.futures
+    import gc
+    import torch
+    from repro_torch.core import distributed
+    from repro_torch.launch.train import main as cli
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    free()
+    errs = check_attention("tp-attn", "a model-axis-4 rank's",
+                           TP_RANK_SHAPE, sliced_kv_inputs(19))
+    jobs = tp_jobs()
+    lm_expect = jobs[4][0][2]
+    _, hist = run_cli(TP_LM_ARGS, lm_expect, "chatglm3-6b fp32 "
+                      "--model-axis 1")
+    refs = {"vit": f32_ref,
+            "lm": train_rows(hist, "chatglm3-6b fp32 --model-axis 1",
+                             TP_LM_STEPS)}
+    free()
+    # the ranks copy that run's host draw (1.35 B params) from a file
+    # rather than each drawing it again
+    draw = None
+    for key, params in getattr(share_draws, "held", {}).items():
+        draw = ROOT / "build" / "tp-draw.pt"
+        t_save = time.time()
+        torch.save({"key": key, "params": params}, draw)
+        print(f"[tp] the one-rank run's draw written for the ranks in "
+              f"{time.time() - t_save:.1f}s", flush=True)
+    # both worlds at once (peaks ~38 GB and ~27 GB: the ChatGLM3 runs
+    # come first in one world and last in the other)
+    t_worlds = time.time()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+            runs = {size: pool.submit(
+                distributed.spawn, tp_rank, size, world_jobs,
+                None if draw is None else str(draw), device="cuda",
+                backend="gloo", deadline_s=600)
+                for size, world_jobs in jobs.items()}
+            results = {size: run.result() for size, run in runs.items()}
+    finally:
+        if draw is not None:
+            draw.unlink(missing_ok=True)
+    print(f"[tp] worlds of {sorted(jobs)} side by side on one card (gloo, "
+          f"host-staged): {time.time() - t_worlds:.1f}s with the ranks' "
+          f"start", flush=True)
+    launches = {}
+    for size, world_jobs in jobs.items():
+        ranks = results[size]
+        for label, _, expect, heads, ref in world_jobs:
+            expect = dict({name: 0 for name in counters()}, **expect)
+            evals = []
+            for rank, got in enumerate(r[label] for r in ranks):
+                rows = train_rows(got["hist"], f"{label} rank {rank}",
+                                  len(refs[ref]) if ref else 3)
+                evals.append([(e["eval_top1_count"], e["eval_top5_count"],
+                               e["eval_count"]) for e in got["hist"]
+                              if "eval_count" in e])
+                msg = (f"[tp] {label} rank {rank}/{size}: launches "
+                       f"{got['launches']} (expected {expect}); layout "
+                       f"copies {got['copies']}; (query, KV) heads "
+                       f"{got['heads']} (expected {[heads]}); losses "
+                       f"{[round(r['loss'], 5) for r in rows]}; "
+                       f"{got['s']:.1f}s; peak {got['peak_gb']:.2f} GB")
+                if ref:
+                    d_loss = max_diff(rows, refs[ref], "loss")
+                    d_norm = max_diff(rows, refs[ref], "grad_norm")
+                    msg += (f"; max |dloss| {d_loss:.3e}, |dgnorm| "
+                            f"{d_norm:.3e} against one rank (tol {TP_TOL})")
+                print(msg, flush=True)
+                if got["launches"] != expect or got["copies"] or \
+                        got["heads"] != [heads]:
+                    fail(f"{label} rank {rank}: launches, copies or heads "
+                         f"off")
+                if ref and not (d_loss <= TP_TOL and d_norm <= TP_TOL):
+                    fail(f"{label} rank {rank} disagrees with one rank")
+            if ref is None:
+                if len(evals[0]) != 1 or evals[0][0][2] != 500 or \
+                        any(e != evals[0] for e in evals):
+                    fail(f"{label}: eval counts {evals} not one 500-example "
+                         f"pass equal on every rank")
+                w = [r["wall_s"] for r in ranks[0][label]["hist"]
+                     if "loss" in r]
+                print(f"[tp] {label}: eval counts (top1, top5, count) "
+                      f"{evals[0][0]} on every rank; warm steps 2-3 "
+                      f"{2 * 128 / (w[2] - w[0]):.1f} images/s "
+                      f"(host-staged gloo collectives between two ranks "
+                      f"on one card: not the model axis's rate, not "
+                      f"gated; {smi_line()})", flush=True)
+            launches[label] = ranks[0][label]["launches"]
+    del results
+    free()
+    if torch.cuda.device_count() < 2:
+        try:
+            cli(TRAIN_ARGS + ["--devices", "2", "--model-axis", "2"])
+        except RuntimeError as e:
+            print(f"[tp] --devices 2 --model-axis 2 through the CLI on "
+                  f"{torch.cuda.device_count()} card: {e}", flush=True)
+        else:
+            fail("--devices 2 --model-axis 2 on one card did not raise")
+    print(f"[tp] phase 19 in {time.time() - t0:.1f}s on {card}", flush=True)
+    return launches, errs
+
+
 def augment_on_card():
     """One augmented global microbatch of the training slice (64 images of
     step 0, microbatch 0, every recipe step drawn, mixing forced on) on
@@ -3538,13 +3814,13 @@ def phase_deepseek(profile, card):
     shape = {"batch": DS_BATCH, "accum": 1, "seq": LM_SEQ}
     trainer, pipe = lm_setup("bfloat16", True, **shape, **kw)
     t_init = time.time()
-    params = init_params(trainer.cfg, seed=0, device="cuda")
+    params = init_params(trainer.cfg, seed=0, device="cuda", draw_on="cuda")
     n_params = sum(p.numel() for p in params.values())
     host = {k: v.cpu() for k, v in params.items()}
     print(f"[deepseek] {DEEPSEEK} cut to {DS_LAYERS} MoE layer of "
           f"{DS_EXPERTS} routed experts at full width: {n_params:,} params "
-          f"({n_params / 1e9:.3f} B), drawn and copied in "
-          f"{time.time() - t_init:.1f}s", flush=True)
+          f"({n_params / 1e9:.3f} B), drawn on the card and copied to the "
+          f"host in {time.time() - t_init:.1f}s", flush=True)
     batches = [to_device(pipe.batch_at(0, i), "cuda")
                for i in range(DS_STEPS)]
     main, mtp = mtp_reading(trainer, params, batches[0])
@@ -4381,9 +4657,9 @@ def phase_serving(card, held):
           f"first calls included; a reading, not gated; {card})", flush=True)
     t_draw = time.time()
     vl_host = init_params(get_config(VL).replace(num_layers=VL_LAYERS),
-                          seed=0, device="cpu")
-    print(f"[serve] {VL} ({VL_LAYERS} layer) params drawn on the host in "
-          f"{time.time() - t_draw:.1f}s", flush=True)
+                          seed=0, device="cpu", draw_on="cuda")
+    print(f"[serve] {VL} ({VL_LAYERS} layer) params drawn on the card and "
+          f"copied to the host in {time.time() - t_draw:.1f}s", flush=True)
     phase_decode_vs_train(dict(held, **{"qwen2-vl": vl_host}))
     held.clear()
     vl_launches = phase_vl_train(card, vl_host)
@@ -4586,6 +4862,7 @@ def main():
     data_launches = phase_data(vit_hist)
     phase_quickstart()
     pp_launches, pp_lm_launches, pp_rates_ = phase_pipeline(card)
+    tp_launches, tp_errs = phase_tp(card, f32_ref)
     lm_launches = phase_lm_train(profile)
     # each training phase hands phase 15 its params of seed 0, on the host
     held = {}
@@ -4630,6 +4907,11 @@ def main():
         # batch 128 in 4 microbatches, 6 steps) and the warm rates there
         vit["pipeline_launches"] = pp_launches[row["name"]]
         vit["pipeline_images_per_s"] = pp_rates_
+        # the training slice at model axis 2 (and data 2 x model 2),
+        # each rank on the one card (phase 19): a rank's launches
+        vit["tp_launches"] = {label: n[row["name"]]
+                              for label, n in tp_launches.items()
+                              if label.startswith("vit")}
         if row["name"] in REDESIGNED:
             row = dict(row, redesigned=True, routes=ROUTES[row["name"]])
         # the dense-decoder family: Gemma3's attention (head dim 256) timed
@@ -4658,7 +4940,15 @@ def main():
                "zamba2": dict(d80_attn["zamba2"][key],
                               launches=zamba_launches[row["name"]]),
                "zamba2_serve_launches": zamba_serve_launches[row["name"]]}
-        kernels.append(dict(row, **lm_attn[key], **serve,
+        # ChatGLM3-6B at model axis 2 and 4 (phase 19): a rank's launches,
+        # and K1-K3 at a model-axis-4 rank's shape (a KV head sliced from
+        # the whole projection) against their plain versions
+        tp = {"tp_chatglm3_launches": {
+                  label: n[row["name"]] for label, n in tp_launches.items()
+                  if label.startswith("chatglm3")},
+              "tp_rank_shape": {"shape": list(TP_RANK_SHAPE),
+                                "max_abs_err": tp_errs[key]}}
+        kernels.append(dict(row, **lm_attn[key], **serve, **tp,
                             launches=lm_launches[row["name"]], vit=vit,
                             gemma3_launches=gemma_launches[row["name"]],
                             gemma3=gemma, dense_launches={
@@ -4688,6 +4978,9 @@ def main():
             extra["zamba2_serve_launches"] = \
                 zamba_serve_launches[row["name"]]
             extra["pipeline_chatglm3_launches"] = pp_lm_launches[row["name"]]
+            extra["tp_chatglm3_launches"] = {
+                label: n[row["name"]] for label, n in tp_launches.items()
+                if label.startswith("chatglm3")}
         if row["name"] in REDESIGNED:
             extra.update(redesigned=True, routes=ROUTES[row["name"]])
         kernels.append(dict(row, **extra))

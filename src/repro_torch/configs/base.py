@@ -3,8 +3,9 @@ family of the JAX package.
 
 Field names and defaults follow the JAX package, so a config can be
 compared field by field with its reference. Fields the ported paths do
-not read (tensor and sequence parallelism) are left out until a
-slice needs them; ``use_kernels`` stands in for the reference's
+not read (sequence parallelism; ``tensor_parallel``: the port splits the
+layers whenever the ``Trainer``'s model axis is above 1, the extent the
+reference reads off its mesh) are left out until a slice needs them; ``use_kernels`` stands in for the reference's
 ``use_pallas``. A config that asks for a branch the port does not have
 (another activation, a multi-token prediction head on a recurrent or an
 encoder model) raises ``NotImplementedError``; an arch type and block

@@ -10,6 +10,16 @@ per card (device ``LOCAL_RANK``), ``gloo`` on ``cpu``. Every group gets a
 timeout, so a collective that one rank never joins raises instead of
 hanging. A world of one goes through the same calls as any other.
 
+``backend="gloo"`` on ``cuda``, passed explicitly to :func:`init_world` or
+:func:`spawn` (the CLI never does), lets several ranks share cards: rank r
+computes on card ``r % device_count``, and each collective moves its
+tensors through host memory (``World.host_staged``), where gloo runs it
+(point-to-point ``exchange`` is not staged: the pipeline's, which no
+such world runs).
+That is a transport, not a fallback: the compute stays on the card. It is
+how one card runs a world of ranks (tensor parallelism's model groups,
+``chip_smoke.py``); NCCL is what runs across cards.
+
 A :class:`World` is the default group, or a subgroup of it (``group``, the
 global ``ranks`` of its members in group-rank order): pipeline parallelism
 (``launch/mesh.py``) runs ZeRO over a stage's data group and hands
@@ -56,6 +66,8 @@ class World:
     device: torch.device
     group: object = None
     ranks: tuple = None
+    # gloo on cuda: each collective copies its tensors to the host and back
+    host_staged: bool = False
 
     def subgroup(self, group, ranks) -> "World":
         """This process's place in ``group`` (made by ``dist.new_group``
@@ -63,18 +75,34 @@ class World:
         ranks = tuple(ranks)
         return World(rank=ranks.index(dist.get_rank()), size=len(ranks),
                      local_rank=self.local_rank, device=self.device,
-                     group=group, ranks=ranks)
+                     group=group, ranks=ranks, host_staged=self.host_staged)
 
     def global_rank(self, r: int) -> int:
         """The global rank of this group's rank ``r``."""
         return r if self.ranks is None else self.ranks[r]
 
+    def _staged(self, fn, out: torch.Tensor, *ins: torch.Tensor) -> None:
+        """``fn(out, *ins)``, a collective that writes ``out``; under
+        ``host_staged`` on host copies, the result copied back into
+        ``out``."""
+        if not self.host_staged or out.device.type == "cpu":
+            fn(out, *ins)
+            return
+        host = out.cpu()
+        fn(host, *(t.cpu() for t in ins))
+        # an inference tensor (the eval's counts) takes the copy in
+        # inference mode; any other outside it
+        with torch.inference_mode(out.is_inference()):
+            out.copy_(host)
+
     def all_reduce(self, t: torch.Tensor, op: str = "mean") -> torch.Tensor:
-        """Sum (``op="sum"``) or mean of ``t`` over the ranks, in place;
-        returns ``t``."""
-        if op not in ("sum", "mean"):
-            raise ValueError(f"op must be 'sum' or 'mean': {op!r}")
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        """Sum (``op="sum"``), mean or max of ``t`` over the ranks, in
+        place; returns ``t``."""
+        if op not in ("sum", "mean", "max"):
+            raise ValueError(f"op must be 'sum', 'mean' or 'max': {op!r}")
+        red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
+        self._staged(lambda x: dist.all_reduce(x, op=red, group=self.group),
+                     t)
         if op == "mean":
             t.div_(self.size)
         return t
@@ -83,8 +111,7 @@ class World:
         """Whether ``flag`` holds on any rank (a MAX all-reduce): every rank
         gets the same answer, so all take the same branch."""
         t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
-        return bool(t.item())
+        return bool(self.all_reduce(t, "max").item())
 
     def all_reduce_many(self, ts: list, op: str = "mean") -> list:
         """``all_reduce`` of every tensor of ``ts`` in place, one collective
@@ -126,8 +153,9 @@ class World:
                 wire[:, off:off + n].view(moved.shape).copy_(moved)
                 off += n
             flat = torch.empty(sum(sizes), dtype=t0.dtype, device=t0.device)
-            _reduce_scatter(flat, wire.view(-1), op=dist.ReduceOp.SUM,
-                            group=self.group)
+            self._staged(lambda o, i: _reduce_scatter(
+                o, i, op=dist.ReduceOp.SUM, group=self.group),
+                flat, wire.view(-1))
             for i, part in zip(idx, flat.split(sizes)):
                 shape = list(ts[i].shape)
                 shape[dims[i]] //= self.size
@@ -144,7 +172,8 @@ class World:
             flat = torch.cat([shards[i].reshape(-1) for i in idx])
             wire = torch.empty((self.size, flat.numel()), dtype=s0.dtype,
                                device=s0.device)
-            _all_gather(wire.view(-1), flat, group=self.group)
+            self._staged(lambda o, i: _all_gather(o, i, group=self.group),
+                         wire.view(-1), flat)
             off = 0
             for i, n in zip(idx, sizes):
                 shape = list(shards[i].shape)
@@ -208,12 +237,30 @@ def _check_cards(size: int) -> None:
             f"torch sees {n}")
 
 
+def _backend(device: torch.device, backend) -> str:
+    """The backend of ``device``: its default (``nccl`` on ``cuda``,
+    ``gloo`` on ``cpu``), or ``backend`` where it is given; on ``cuda``
+    only ``"gloo"`` may be asked for (ranks that share cards)."""
+    default = {"cuda": "nccl", "cpu": "gloo"}.get(device.type)
+    if default is None:
+        raise ValueError(f"no data-parallel backend for device {device}")
+    if backend is None or backend == default:
+        return default
+    if device.type == "cuda" and backend == "gloo":
+        return backend
+    raise ValueError(f"backend {backend!r} on {device.type}: the choices "
+                     f"are {default!r} and, on cuda, 'gloo'")
+
+
 def init_world(device="cuda", *, rank=None, size=None, init_method=None,
-               timeout_s: float = COLLECTIVE_TIMEOUT_S) -> World:
+               timeout_s: float = COLLECTIVE_TIMEOUT_S,
+               backend=None) -> World:
     """Join the process group. Without ``rank``/``size`` the world is
     ``torchrun``'s (its environment variables); ``init_method`` defaults to
     ``env://``. ``nccl`` on ``cuda`` (the rank's card is ``LOCAL_RANK``),
-    ``gloo`` on ``cpu``."""
+    ``gloo`` on ``cpu``. ``backend="gloo"`` on ``cuda`` puts the rank on
+    card ``LOCAL_RANK % device_count`` (ranks may share one) and stages
+    every collective through host memory."""
     device = torch.device(device)
     local_rank = None
     if rank is None:
@@ -227,19 +274,18 @@ def init_world(device="cuda", *, rank=None, size=None, init_method=None,
         local_rank = int(os.environ.get("LOCAL_RANK", rank))
     if local_rank is None:
         local_rank = rank
+    backend = _backend(device, backend)
+    staged = device.type == "cuda" and backend == "gloo"
     if device.type == "cuda":
-        _check_cards(local_rank + 1)
-        device = torch.device("cuda", local_rank)
+        _check_cards(1 if staged else local_rank + 1)
+        device = torch.device("cuda", local_rank % torch.cuda.device_count()
+                              if staged else local_rank)
         torch.cuda.set_device(device)
-        backend = "nccl"
-    elif device.type == "cpu":
-        backend = "gloo"
-    else:
-        raise ValueError(f"no data-parallel backend for device {device}")
     dist.init_process_group(
         backend, init_method=init_method or "env://", rank=rank,
         world_size=size, timeout=datetime.timedelta(seconds=timeout_s))
-    return World(rank=rank, size=size, local_rank=local_rank, device=device)
+    return World(rank=rank, size=size, local_rank=local_rank, device=device,
+                 host_staged=staged)
 
 
 def close_world() -> None:
@@ -247,7 +293,8 @@ def close_world() -> None:
         dist.destroy_process_group()
 
 
-def _child(rank, size, device, init_method, timeout_s, fn, args, results):
+def _child(rank, size, device, init_method, timeout_s, backend, fn, args,
+           results):
     """A spawned rank: join the group, run ``fn(world, *args)``, send
     ``(rank, "ok", result)``, ``(rank, "error", traceback)``, or ``(rank,
     "exit", code)`` for a ``SystemExit`` with a nonzero int code (e.g. the
@@ -256,7 +303,8 @@ def _child(rank, size, device, init_method, timeout_s, fn, args, results):
         if device == "cpu":
             torch.set_num_threads(1)
         world = init_world(device, rank=rank, size=size,
-                           init_method=init_method, timeout_s=timeout_s)
+                           init_method=init_method, timeout_s=timeout_s,
+                           backend=backend)
         out = fn(world, *args)
         close_world()
     except SystemExit as e:
@@ -296,7 +344,7 @@ def _forward_signals(procs):
 
 
 def spawn(fn, nprocs: int, *args, device="cuda", deadline_s=None,
-          timeout_s: float = COLLECTIVE_TIMEOUT_S) -> list:
+          timeout_s: float = COLLECTIVE_TIMEOUT_S, backend=None) -> list:
     """Run ``fn(world, *args)`` on ``nprocs`` fresh processes (the
     ``spawn`` start method; ``fn`` and ``args`` must pickle, so ``fn`` lives
     in an importable module) and return their results by rank.
@@ -309,16 +357,17 @@ def spawn(fn, nprocs: int, *args, device="cuda", deadline_s=None,
     ``deadline_s`` bounds the whole run; at it every rank is killed and
     ``TimeoutError`` raised. ``timeout_s`` is
     each collective's limit. On ``cuda`` a world larger than the card count
-    raises before any process starts."""
+    raises before any process starts, unless ``backend="gloo"`` is given
+    (see :func:`init_world`: the ranks then share the cards)."""
     device = torch.device(device)
     if device.type == "cuda":
-        _check_cards(nprocs)
+        _check_cards(1 if _backend(device, backend) == "gloo" else nprocs)
     ctx = mp.get_context("spawn")
     store = tempfile.mkdtemp(prefix="repro_torch_world_")
     results = ctx.Queue()
     procs = [ctx.Process(target=_child, args=(
-        rank, nprocs, device.type, f"file://{store}/store", timeout_s, fn,
-        args, results)) for rank in range(nprocs)]
+        rank, nprocs, device.type, f"file://{store}/store", timeout_s,
+        backend, fn, args, results)) for rank in range(nprocs)]
     out, exits, end = {}, {}, None if deadline_s is None else \
         time.monotonic() + deadline_s
     try:

@@ -62,6 +62,25 @@ whole update, and the norms count it once. The anomaly guard decides from
 the all-reduced loss and the global grad norm, so every rank takes the same
 branch; metrics are averaged over the ranks.
 
+Tensor parallelism (``Trainer(model_axis=M)``, M > 1: the extent of the
+reference's ``model`` mesh axis): a world is laid out data x model
+(``launch/mesh.py``), and each rank keeps its model chunk of every leaf
+the model axis splits
+(``core/sharding.py::model_dims``: Megatron's column/row split and the
+vocab-parallel embedding and head), then ZeRO's data chunk of that. The
+forward and backward run with the model group installed
+(``models/shardctx.py``), so the layers' collectives sum the partial
+products; every other leaf is replicated over the model group and its
+gradient is the same on each model rank, except the KV projections kept
+whole under D6 (``sharding.kv_replicated``), whose gradients are summed
+over the model group. The ZeRO collectives and the metrics' mean run over
+the data group; the global grad norm sums a model-split leaf's squares
+over the model group and counts a replicated one once. Batches are split
+by the data rank, so the M ranks of a replica see the same rows and the
+same augmentation draws. Checkpoints write every tensor leaf as
+``Blocks``: a model chunk (and its data chunk) at its index ranges, a
+replicated leaf by model rank 0.
+
 ``Server`` serves on one device (the reference's ``_prefill`` and
 ``_decode_step``, ``engine.py:517-528``): ``prefill`` runs a prompt batch
 into a cache and returns the last position's logits; ``decode_step`` runs
@@ -95,11 +114,14 @@ from repro_torch.checkpoint import AsyncCheckpointer, Blocks, Sharded, \
 from repro_torch.configs.base import EngineConfig
 from repro_torch.core import pipeline
 from repro_torch.core.grad_accum import accumulate_gradients
-from repro_torch.core.sharding import is_stacked, shard_dims, stage_chunks
+from repro_torch.core.sharding import check_model_axis, \
+    is_kv_projection, is_stacked, kv_replicated, model_dims, shard_dims, \
+    stage_chunks
 from repro_torch.data.augment import augment_batch, device_preprocess, \
     draw_augment, step_seed
 from repro_torch.data.pipeline import rank_rows
 from repro_torch.launch.mesh import make_layout
+from repro_torch.models import shardctx
 from repro_torch.models import transformer as model
 from repro_torch.optim import OptState, make_optimizer, make_schedule
 from repro_torch.optim.optimizers import global_norm
@@ -205,7 +227,7 @@ class GatherShards(torch.autograd.Function):
 
 class Trainer:
     def __init__(self, cfg, ecfg: EngineConfig, *, preproc=None,
-                 device="cuda", aug=None, world=None):
+                 device="cuda", aug=None, world=None, model_axis=1):
         """``preproc``: the dataset's :class:`Preproc`, needed when batches
         come as uint8 (every dataset source ships them so); the fp32
         synthetic stream needs none. ``aug``: an ``AugmentConfig`` for
@@ -213,12 +235,18 @@ class Trainer:
         ``core.distributed.World`` for the data-parallel step under
         ``ecfg.zero_stage`` (its device is the rank's); None trains on one
         device without a process group. With ``ecfg.pipeline_stages`` > 1
-        a world of more than one rank is laid out data x pipe
-        (``launch.mesh.make_layout``, a collective)."""
-        self.data = self.pipe = None
+        a world of more than one rank is laid out data x pipe, with
+        ``model_axis`` M > 1 data x model (``launch.mesh.make_layout``, a
+        collective): each replica's layers split over M ranks."""
+        self.data = self.pipe = self.tp = None
+        M = model_axis
+        check_model_axis(cfg, M)
+        if world is None and M > 1:
+            raise ValueError(f"model_axis {M} needs a world of ranks")
         if world is not None:
-            layout = make_layout(world, ecfg.pipeline_stages)
-            self.data, self.pipe = layout.data, layout.pipe
+            layout = make_layout(world, ecfg.pipeline_stages, M)
+            self.data, self.pipe, self.tp = layout.data, layout.pipe, \
+                layout.model
         ecfg.validate(self.data.size if self.data is not None else 1)
         if ecfg.pipeline_stages > 1:
             pipeline.check_supported(cfg)
@@ -246,6 +274,15 @@ class Trainer:
         self.schedule = make_schedule(ecfg.lr_schedule, ecfg.lr,
                                       ecfg.warmup_steps, ecfg.total_steps)
         self.param_dims = self.opt_dims = None
+        # the dimension of each (whole) leaf split over the model group
+        shapes = {k: p.shape
+                  for k, p in model.init_params(cfg, device="meta").items()}
+        self.model_dims = model_dims(shapes, cfg, M) if self.tp is not None \
+            else dict.fromkeys(shapes)
+        # D6: the whole KV projections, their gradients summed over the
+        # model group
+        self.kv_summed = [k for k in shapes if self.tp is not None
+                          and kv_replicated(cfg, M) and is_kv_projection(k)]
         # the executor's schedule accounting of the last pipelined step
         self.schedule_out = {}
 
@@ -281,8 +318,14 @@ class Trainer:
         """A fresh state around ``params`` (e.g. ``ViT.params()``, whose
         tensors it then updates in place; every rank passes the same
         values). Under a pipe group the state keeps this rank's chunks of
-        each stacked leaf; under ZeRO-3 this rank's chunk of each sharded
+        each stacked leaf; under a model group this rank's model chunk of
+        each leaf the model axis splits (copies: build the model on
+        ``state.params``); under ZeRO-3 this rank's chunk of each sharded
         leaf, and the caller's whole tensors can go."""
+        if self.tp is not None:
+            params = {k: self.tp.chunk(p, d).clone() if d is not None
+                      else p for k, p in params.items()
+                      for d in (self.model_dims[k],)}
         if self.pipe is not None:
             # this rank's chunks of each stacked leaf, in chunk order
             params = {k: torch.cat([p[lo:hi] for lo, hi in self._chunks()])
@@ -354,39 +397,53 @@ class Trainer:
                .reshape(f.shape) for k, f in zip(keys, full)}
         return dict(tree, **out)
 
+    def model_whole(self, tree: dict) -> dict:
+        """``tree`` (model chunks) with each leaf the model axis splits
+        gathered whole over the model group; ``tree`` itself without
+        one."""
+        if self.tp is None:
+            return tree
+        keys = [k for k in tree if self.model_dims[k] is not None]
+        full = self.tp.all_gather_many([tree[k] for k in keys],
+                                       [self.model_dims[k] for k in keys])
+        return dict(tree, **dict(zip(keys, full)))
+
     def full_params(self, state: TrainState) -> dict:
-        """Every param whole (a collective under ZeRO-3 or a pipe
-        group)."""
+        """Every param whole (a collective under ZeRO-3, a pipe group or
+        a model group)."""
         params = state.params
         if self.forward_gather is not None:
             params = self._whole(params, self.param_dims)
-        return self.pipe_whole(params)
+        return self.pipe_whole(self.model_whole(params))
 
     def full_opt_state(self, state: TrainState) -> OptState:
         """The optimizer state with every moment whole (a collective under
-        ZeRO 1-3 or a pipe group)."""
+        ZeRO 1-3, a pipe group or a model group)."""
         if self.data is None:
             return state.opt_state
         st = state.opt_state
 
         def whole(tree):
-            return self.pipe_whole(self._whole(tree, self.opt_dims))
+            return self.pipe_whole(self.model_whole(
+                self._whole(tree, self.opt_dims)))
         return OptState(st.step, whole(st.mu),
                         whole(st.nu) if st.nu != () else ())
 
     # --- checkpoints -------------------------------------------------------
 
     def _ckpt_leaves(self, params: dict, opt_state: OptState, dims: bool):
-        """``(checkpoint key, tensor, sharded dim)`` of every param and
-        moment (the dims this rank's layout splits, or all None)."""
+        """``(checkpoint key, tensor, ZeRO dim, model dim)`` of every param
+        and moment (the dims this rank's layout splits, or all None)."""
         out = [(f"params/{_ckpt_key(k)}", p,
-                self.param_dims[k] if dims else None)
+                self.param_dims[k] if dims else None,
+                self.model_dims[k] if dims else None)
                for k, p in params.items()]
         moments = [("mu", opt_state.mu)] + \
             ([("nu", opt_state.nu)] if opt_state.nu != () else [])
         for name, tree in moments:
             out += [(f"opt_state/{name}/{_ckpt_key(k)}", m,
-                     self.opt_dims[k] if dims else None)
+                     self.opt_dims[k] if dims else None,
+                     self.model_dims[k] if dims else None)
                     for k, m in tree.items()]
         return out
 
@@ -396,63 +453,80 @@ class Trainer:
         the host leaves), as ``repro/core/engine.py::abstract_state``."""
         params = model.init_params(self.cfg, device="meta")
         opt = self.optimizer.init(params)
-        tree = {k: t for k, t, _ in self._ckpt_leaves(params, opt, False)}
+        tree = {k: t for k, t, _, _ in self._ckpt_leaves(params, opt, False)}
         scalar = np.zeros((), np.int32)
         return dict(tree, **{"opt_state/step": scalar, "step": scalar,
                              "epoch": scalar, "batch_index": scalar,
                              "rng": np.zeros(2, np.uint32)})
 
-    def _blocks(self, key: str, shape, dim) -> list:
-        """Under a pipe group, the index ranges of this rank's blocks of
-        the leaf ``key`` (logical ``shape``, ZeRO dimension ``dim``): a
-        stacked leaf's chunks, each at its layer range; the data group's
-        chunk of ``dim`` where ZeRO splits it."""
+    @property
+    def _blocked(self) -> bool:
+        """Whether checkpoints go as ``Blocks`` (a pipe or a model group)."""
+        return self.pipe is not None or self.tp is not None
+
+    def _blocks(self, key: str, shape, dim, mdim=None) -> list:
+        """Under a pipe or a model group, the index ranges of this rank's
+        blocks of the leaf ``key`` (logical ``shape``, ZeRO dimension
+        ``dim``, model dimension ``mdim``): the model group's chunk of
+        ``mdim``; the data group's chunk of ``dim`` where ZeRO splits it;
+        under a pipe group a stacked leaf's chunks, each at its layer
+        range."""
         ranges = [[0, int(n)] for n in shape]
-        if dim is not None:
-            n = shape[dim] // self.data.size
-            ranges[dim] = [self.data.rank * n, (self.data.rank + 1) * n]
-        if not is_stacked(key):
+        for d, group in ((dim, self.data), (mdim, self.tp)):
+            if d is not None:
+                n = shape[d] // group.size
+                ranges[d] = [group.rank * n, (group.rank + 1) * n]
+        if self.pipe is None or not is_stacked(key):
             return [ranges]
         return [[[lo, hi]] + ranges[1:] for lo, hi in self._chunks()]
 
-    def _stage_blocks(self, key: str, t: torch.Tensor, dim) -> Blocks:
+    def _leaf_blocks(self, key: str, t: torch.Tensor, dim, mdim) -> Blocks:
         """Leaf ``key`` (this rank's tensor ``t``) as ``Blocks``: written
-        by the stage's data rank 0 (and its ZeRO peers when ``dim`` splits
-        it), and a non-stacked leaf by stage 0's ranks only."""
+        by data rank 0 (and its ZeRO peers when ``dim`` splits it) of
+        model rank 0 (and its peers when ``mdim`` splits it); under a pipe
+        group by each stage for its layers, and a non-stacked leaf by stage
+        0's ranks only."""
         shape = list(t.shape)
         if dim is not None:
             shape[dim] *= self.data.size
-        stacked = is_stacked(key)
-        if stacked:
+        if mdim is not None:
+            shape[mdim] *= self.tp.size
+        staged = self.pipe is not None and is_stacked(key)
+        if staged:
             shape[0] = self.cfg.num_layers
         spec = [None] * len(shape)
         if dim is not None:
             spec[dim] = "data"
-        if stacked:
+        if mdim is not None:
+            spec[mdim] = "model"
+        if staged:
             spec[0] = "pipe"
         writes = (dim is not None or self.data.rank == 0) and \
-            (stacked or self.pipe.rank == 0)
+            (mdim is not None or self.tp is None or self.tp.rank == 0) and \
+            (self.pipe is None or staged or self.pipe.rank == 0)
         parts = ()
         if writes:
-            blocks = self._blocks(key, shape, dim)
+            blocks = self._blocks(key, shape, dim, mdim)
             pieces = t.split([b[0][1] - b[0][0] for b in blocks]) \
-                if stacked else (t,)
+                if staged else (t,)
             parts = tuple(zip(blocks, pieces))
         return Blocks(tuple(shape), t.dtype, parts, tuple(spec),
-                      {"data": self.data.size, "pipe": self.pipe.size,
-                       "model": 1})
+                      {"data": self.data.size,
+                       "pipe": self.pipe.size if self.pipe else 1,
+                       "model": self.tp.size if self.tp else 1})
 
     def checkpoint_tree(self, state: TrainState) -> dict:
         """The state as a checkpoint tree: each sharded leaf as this
         rank's chunk (``Sharded``), replicated tensors and host leaves whole
-        (written by rank 0); under a pipe group every tensor leaf as
-        ``Blocks``."""
+        (written by rank 0); under a pipe or a model group every tensor
+        leaf as ``Blocks``."""
         leaves = self._ckpt_leaves(state.params, state.opt_state, True)
-        if self.pipe is not None:
-            tree = {k: self._stage_blocks(k, t, d) for k, t, d in leaves}
+        if self._blocked:
+            tree = {k: self._leaf_blocks(k, t, d, md)
+                    for k, t, d, md in leaves}
         else:
             tree = {k: Sharded(t, d) if d is not None else t
-                    for k, t, d in leaves}
+                    for k, t, d, _ in leaves}
         return dict(tree, **{
             "opt_state/step": np.int32(state.opt_state.step),
             "step": np.int32(state.step), "epoch": np.int32(state.epoch),
@@ -489,11 +563,9 @@ class Trainer:
                           self.cfg, device="meta").items()}
             state = self.init_state(params)
         like = self.abstract_state()
-        dims = {k: d for k, _, d in self._ckpt_leaves(
-            state.params, state.opt_state, True)}
-        if self.pipe is not None:
-            dims = {k: self._blocks(k, like[k].shape, d)
-                    for k, d in dims.items()}
+        leaves = self._ckpt_leaves(state.params, state.opt_state, True)
+        dims = {k: self._blocks(k, like[k].shape, d, md) if self._blocked
+                else d for k, _, d, md in leaves}
         if step is None:
             tree, step = restore_latest_valid(ckpt_dir, like, dims)
         else:
@@ -506,8 +578,7 @@ class Trainer:
               f"{stats.logical_bytes / mib:.1f} MiB logical state",
               flush=True)
         with torch.no_grad():
-            for key, t, _ in self._ckpt_leaves(state.params,
-                                               state.opt_state, True):
+            for key, t, _, _ in leaves:
                 if t.shape != tree[key].shape:
                     raise ValueError(f"{key}: restored {tuple(tree[key].shape)}"
                                      f" for a {tuple(t.shape)} tensor")
@@ -561,12 +632,14 @@ class Trainer:
 
     def _reduce_sq(self, sq: dict) -> dict:
         """The optimizer's reducer: sums of squares over the data group for
-        the leaves the update sees in chunks, and over the pipe group for
-        the stage-local stacked leaves; a replicated leaf is counted
-        once."""
+        the leaves the update sees in chunks, over the pipe group for the
+        stage-local stacked leaves and over the model group for the leaves
+        the model axis splits; a replicated leaf is counted once."""
         for group, keys in (
                 (self.data, [k for k in sq if self.opt_dims[k] is not None]),
-                (self.pipe, [k for k in sq if is_stacked(k)])):
+                (self.pipe, [k for k in sq if is_stacked(k)]),
+                (self.tp, [k for k in sq
+                           if self.model_dims[k] is not None])):
             if group is None or not keys:
                 continue
             total = group.all_reduce(torch.stack([sq[k] for k in keys]),
@@ -592,7 +665,8 @@ class Trainer:
         whose optimizer state is sharded come back as this rank's chunk
         under ZeRO 2 and 3 (whole under 0 and 1). With
         ``pipeline_stages`` > 1 they come from the 1F1B pipeline
-        (:meth:`_pipeline_grads`)."""
+        (:meth:`_pipeline_grads`). Under a model group each is this rank's
+        model chunk (the D6 leaves' summed over the group)."""
         if self.aug is not None and rngs is None:
             raise ValueError("augmented training needs the microbatch "
                              "seeds (rngs)")
@@ -601,6 +675,16 @@ class Trainer:
             self._layout(params)
         if self.ecfg.pipeline_stages > 1:
             return self._pipeline_grads(params, batch, rngs)
+        with shardctx.use(self.tp):
+            grads, metrics = self._data_grads(params, batch, rngs)
+        if self.kv_summed:
+            self.tp.all_reduce_many([grads[k] for k in self.kv_summed],
+                                    "sum")
+        return grads, metrics
+
+    def _data_grads(self, params: dict, batch: dict, rngs):
+        """:meth:`grads` without the pipeline: accumulated over the
+        microbatches, reduced over the data group."""
         view = {k: p.detach().requires_grad_()
                 for k, p in compute_params(params, self.ecfg).items()}
         stage, w = self.ecfg.zero_stage, self.data
@@ -758,8 +842,10 @@ class Evaluator:
         return to_device(batch, self.device)
 
     def logits(self, batch):
-        """Forward of one device batch (preprocessed here)."""
-        with torch.inference_mode():
+        """Forward of one device batch (preprocessed here), under the
+        trainer's model group (whole logits on every model rank)."""
+        tp = self.trainer.tp if self.trainer is not None else None
+        with torch.inference_mode(), shardctx.use(tp):
             batch = self._preprocess_batch(batch)
             gather = self.trainer.forward_gather \
                 if self.trainer is not None else None

@@ -1,13 +1,17 @@
-"""Which dimension of each leaf ZeRO shards: the data-parallel half of
-``repro/core/sharding.py``.
+"""Which dimension of each leaf ZeRO shards over the data axis, and which
+tensor parallelism splits over the model axis (``repro/core/sharding.py``).
 
 The reference maps DeepSpeed's stages to GSPMD PartitionSpecs over a
-``data`` and a ``model`` mesh axis. The port has data parallelism only, so
-its table is the reference's with the model axis left out (``tp=None``),
-and a spec reduces to one number per leaf: the dimension split over the
-ranks, or ``None`` (replicated). Rank r holds the r-th contiguous chunk of
-that dimension, as ``NamedSharding`` lays it out, so a checkpoint can use
-the reference's shard index maps.
+``data`` and a ``model`` mesh axis. Here a spec reduces to one number per
+leaf and axis: the dimension split over that axis's ranks, or ``None``
+(replicated). Rank r of an axis holds the r-th contiguous chunk of its
+dimension, as ``NamedSharding`` lays it out, so a checkpoint can use the
+reference's shard index maps. :func:`shard_dims` is the table with the
+model axis left out (``tp=None``), :func:`model_dims` the one with the
+data axis left out (``fsdp=None``): a leaf can be split on both, on
+different dimensions (``stack.attn.wq`` (L, D, H·hd): data on D under
+ZeRO-3, model on H·hd); a rank of model rank m and data rank d holds
+chunk d of model chunk m.
 
   stage 0: params and optimizer state replicated (DDP, the paper's).
   stage 1: optimizer state sharded (``for_opt_state``), params replicated.
@@ -25,51 +29,61 @@ from __future__ import annotations
 
 import re
 
-_F = "data"         # the data-parallel axis in the table below
+_F = "data"         # the data-parallel axis in the tables below
+_TP = "model"       # the tensor-parallel axis
+
+# the families whose layers the model axis splits (attention + MLP); the
+# rest wait for ROADMAP item 16.1b
+TP_ARCH_TYPES = ("vit", "audio", "dense", "vlm")
 
 
-def _rules(fsdp):
-    """``repro/core/sharding.py:32-76`` with ``tp=None``: (pattern on the
-    slash-joined key, spec of the unstacked leaf), first match wins."""
+def _rules(fsdp, tp=None):
+    """``repro/core/sharding.py:32-76``: (pattern on the slash-joined key,
+    spec of the unstacked leaf), first match wins; the embedding in the
+    reference's default "vocab" layout (Megatron's vocab-parallel)."""
     return [
-        # --- MoE experts ---
-        (r"experts/w_(gate|up)$", (None, fsdp, None)),
-        (r"experts/w_out$", (None, None, fsdp)),
+        # --- MoE experts (leading E axis: expert parallel over tp) ---
+        (r"experts/w_(gate|up)$", (tp, fsdp, None)),
+        (r"experts/w_out$", (tp, None, fsdp)),
         (r"/router$", (fsdp, None)),
-        # --- attention projections ---
-        (r"attn/w?[qkvg]$|attn/w_(uq|uk|uv)$", (fsdp, None)),
-        (r"attn/(wo|w_o)$", (None, fsdp)),
+        # --- attention projections (Megatron column/row) ---
+        (r"attn/w?[qkvg]$|attn/w_(uq|uk|uv)$", (fsdp, tp)),
+        (r"attn/(wo|w_o)$", (tp, fsdp)),
         (r"attn/w_(dq|dkv)$", (fsdp, None)),
-        (r"attn/b[qkv]$", (None,)),
+        (r"attn/b[qkv]$", (tp,)),
         # --- dense mlp ---
-        (r"mlp/w_(gate|up)$|shared/w_(gate|up)$", (fsdp, None)),
-        (r"mlp/w_out$|shared/w_out$", (None, fsdp)),
-        (r"mlp/b_up$", (None,)),
+        (r"mlp/w_(gate|up)$|shared/w_(gate|up)$", (fsdp, tp)),
+        (r"mlp/w_out$|shared/w_out$", (tp, fsdp)),
+        (r"mlp/b_up$", (tp,)),
         # --- mamba2 ---
-        (r"mamba/w_in$", (fsdp, None)),
-        (r"mamba/w_out$", (None, fsdp)),
-        (r"mamba/conv_w$", (None, None)),
-        (r"mamba/conv_b$", (None,)),
+        (r"mamba/w_in$", (fsdp, tp)),
+        (r"mamba/w_out$", (tp, fsdp)),
+        (r"mamba/conv_w$", (None, tp)),
+        (r"mamba/conv_b$", (tp,)),
         # --- rwkv6 ---
-        (r"time_mix/w_[rkvg]$", (fsdp, None)),
-        (r"time_mix/w_o$", (None, fsdp)),
+        (r"time_mix/w_[rkvg]$", (fsdp, tp)),
+        (r"time_mix/w_o$", (tp, fsdp)),
         (r"time_mix/decay_w1$", (fsdp, None)),
-        (r"time_mix/decay_w2$", (None, None)),
+        (r"time_mix/decay_w2$", (None, tp)),
         (r"time_mix/lora_w1$", (fsdp, None)),
         (r"time_mix/lora_w2$", (None, None, fsdp)),
-        (r"time_mix/(ln_scale|ln_bias|decay_base)$", (None,)),
-        (r"time_mix/bonus_u$", (None, None)),
-        (r"channel_mix/w_[k]$", (fsdp, None)),
-        (r"channel_mix/w_v$", (None, fsdp)),
-        (r"channel_mix/w_r$", (fsdp, None)),
-        # --- embeddings / head (the reference's default "vocab" layout) ---
-        (r"embed/tok$", (None, fsdp)),
-        (r"head/w$", (fsdp, None)),
+        (r"time_mix/(ln_scale|ln_bias|decay_base)$", (tp,)),
+        (r"time_mix/bonus_u$", (tp, None)),
+        (r"channel_mix/w_[k]$", (fsdp, tp)),
+        (r"channel_mix/w_v$", (tp, fsdp)),
+        (r"channel_mix/w_r$", (fsdp, tp)),
+        # --- embeddings / head ---
+        (r"embed/tok$", (tp, fsdp)),
+        (r"head/w$", (fsdp, tp)),
         (r"embed/(patch_w|feat_proj)$", (None, fsdp)),
         (r"embed/pos$", (None, fsdp)),
         # --- mtp projection ---
         (r"mtp/proj$", (fsdp, None)),
     ]
+
+# D6: the KV projections that stay replicated over the model axis where it
+# does not divide the KV heads
+_KV = re.compile(r"attn/(wk|wv|bk|bv)$")
 
 
 _STACKED = re.compile(r"(^|/)(stack|dense_stack|moe_stack)(/|$)")
@@ -88,12 +102,13 @@ def _sanitize(spec, shape, world):
                  for i, ax in enumerate(spec))
 
 
-def _spec(key, shape, fsdp, world):
-    """``param_specs``' ``spec_one`` for one leaf of ``shape``."""
+def _spec(key, shape, fsdp, world, tp=None):
+    """``param_specs``' ``spec_one`` for one leaf of ``shape``, on one
+    axis (``fsdp`` or ``tp``) of ``world`` ranks."""
     ks = key.replace(".", "/")
     stacked = is_stacked(ks)
-    base = next((spec for pat, spec in _rules(fsdp) if re.search(pat, ks)),
-                None)
+    base = next((spec for pat, spec in _rules(fsdp, tp)
+                 if re.search(pat, ks)), None)
     if base is None:
         # norms, scalars, small vectors: sharded where the world divides
         if stacked:
@@ -121,6 +136,63 @@ def shard_dims(shapes: dict, *, zero_stage: int, world: int,
         spec = _spec(key, tuple(shape), fsdp, world)
         out[key] = spec.index(_F) if _F in spec else None
     return out
+
+
+def kv_replicated(cfg, model: int) -> bool:
+    """D6: whether the KV projections stay whole on every model rank (the
+    model axis does not divide the KV heads). The reference splits them
+    into part-heads and lets GSPMD mend that with a replicated ``attn_kv``
+    hint; an explicit split needs whole heads."""
+    return model > 1 and cfg.num_kv_heads % model != 0
+
+
+def is_kv_projection(key: str) -> bool:
+    """``attn.wk``, ``attn.wv``, ``attn.bk``, ``attn.bv`` (any prefix)."""
+    return bool(_KV.search(key.replace(".", "/")))
+
+
+def model_dims(shapes: dict, cfg, model: int) -> dict:
+    """``{key: the dimension split over the model axis, or None}`` for
+    ``{key: shape}`` (whole leaves), as ``param_specs(...,
+    tensor_parallel=True)`` puts ``"model"`` on a mesh of ``model`` model
+    ranks, but for D6 (:func:`kv_replicated`): the KV projections stay
+    replicated where the model axis does not divide the KV heads."""
+    d6 = kv_replicated(cfg, model)
+    out = {}
+    for key, shape in shapes.items():
+        spec = _spec(key, tuple(shape), None, model, _TP)
+        dim = spec.index(_TP) if _TP in spec else None
+        out[key] = None if d6 and is_kv_projection(key) else dim
+    return out
+
+
+def check_model_axis(cfg, model: int) -> None:
+    """Raise ``ValueError`` for a config the model axis cannot split: a
+    family other than attention + MLP (ROADMAP item 16.1b), query heads or
+    an MLP width it does not divide, or query heads that straddle a KV
+    head when the KV projections stay whole (D6)."""
+    if model < 1:
+        raise ValueError(f"model axis must be >= 1: {model}")
+    if model == 1:
+        return
+    what = "MLA" if cfg.block_kind == "mla" else \
+        None if cfg.arch_type in TP_ARCH_TYPES and cfg.block_kind == "attn" \
+        else f"the {cfg.arch_type!r} family"
+    if what is not None:
+        raise ValueError(f"{cfg.name}: tensor parallelism for {what} is not "
+                         f"yet ported to repro_torch (ROADMAP item 16.1b)")
+    if cfg.num_heads % model:
+        raise ValueError(f"{cfg.name}: {cfg.num_heads} query heads are not "
+                         f"divisible by the model axis {model} (the port "
+                         f"splits whole heads; ROADMAP item 16.1)")
+    if cfg.d_ff % model:
+        raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} is not divisible by "
+                         f"the model axis {model} (ROADMAP item 16.1)")
+    per, group = cfg.num_heads // model, cfg.num_heads // cfg.num_kv_heads
+    if kv_replicated(cfg, model) and group % per:
+        raise ValueError(
+            f"{cfg.name}: {per} query heads a rank straddle the KV heads "
+            f"(groups of {group}) at model axis {model} (ROADMAP item 16.1)")
 
 
 def stage_chunks(num_layers: int, stages: int, interleave: int,

@@ -23,8 +23,11 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("flash_fwd", "flash_bwd", "rmsnorm", "wkv6")
+# -split-compile=0: each nvcc optimises a source's kernels on every core
+# (wkv6.cu's 64 instantiations took most of the build serially)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              "-split-compile=0")
 
 _loaded: dict = {}
 

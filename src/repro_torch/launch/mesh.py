@@ -1,14 +1,18 @@
-"""The data x pipe rank layout (the counterpart of
+"""The data x pipe x model rank layout (the counterpart of
 ``repro/launch/mesh.py::make_local_mesh(model, pipe)``).
 
 The reference orders its mesh axes ``("data", "pipe", "model")``, so the
-pipe index varies fastest: here rank ``r = d * S + p`` is pipeline stage
-``p`` of data replica ``d``, for ``S`` stages and ``dp = W / S`` replicas of
-a world of ``W`` ranks. Stage ``p``'s ranks form its data group (ZeRO runs
-over it); replica ``d``'s ranks form its pipe group (activations and
-cotangents move between them). A world of one process runs every stage
-itself: it has no pipe group, and its data group is the world. The model
-axis (tensor parallelism) is ROADMAP item 16 and is refused.
+model index varies fastest, then the pipe index: here rank ``r = (d * S +
+p) * M + m`` is model rank ``m`` of pipeline stage ``p`` of data replica
+``d``, for ``S`` stages, ``M`` model ranks and ``dp = W / (S * M)``
+replicas of a world of ``W`` ranks. The ranks with the same ``(p, m)``
+form a data group (ZeRO and the batch rows run over it); those with the
+same ``(d, m)`` a pipe group (activations and cotangents move between
+them); those with the same ``(d, p)`` a model group (tensor parallelism:
+the Megatron column/row split of each layer, ``models/shardctx.py``). A
+world of one process runs every stage itself and M = 1 only: it has no
+pipe or model group, and its data group is the world. Pipeline and model
+parallelism together are ROADMAP item 16.1c and are refused.
 """
 from __future__ import annotations
 
@@ -24,53 +28,82 @@ from repro_torch.core.distributed import COLLECTIVE_TIMEOUT_S, World
 
 @dataclass(frozen=True)
 class Layout:
-    """This rank's place in the data x pipe layout.
+    """This rank's place in the data x pipe x model layout.
 
-    data    the World ZeRO and the batch rows run over (this stage's data
-            group; the whole world without a pipe)
+    data    the World ZeRO and the batch rows run over (the ranks of this
+            rank's stage and model rank; the whole world without a pipe
+            or a model axis)
     pipe    the World of this replica's pipeline stages (this rank's
             stage is its rank there), or None when this process runs
             every stage
+    model   the World of the M ranks that split this replica's layers
+            (tensor parallelism), or None for M = 1
     """
     data: World
     pipe: Optional[World]
+    model: Optional[World] = None
 
 
 def make_layout(world: World, pipe: int = 1, model: int = 1, *,
                 timeout_s: float = COLLECTIVE_TIMEOUT_S) -> Layout:
-    """The layout of ``world`` for ``pipe`` stages. Every rank calls it
-    (``dist.new_group`` is collective). ``pipe`` 1 keeps the world as the
-    data group; a world of one runs every stage itself; a larger world must
-    be a multiple of ``pipe``."""
-    if model != 1:
-        raise ValueError(f"model axis {model}: tensor parallelism is not "
-                         f"yet ported to repro_torch (ROADMAP item 16)")
-    if pipe < 1:
-        raise ValueError(f"pipe must be >= 1: {pipe}")
-    if pipe == 1 or world.size == 1:
+    """The layout of ``world`` for ``pipe`` stages and ``model`` model
+    ranks. Every rank calls it (``dist.new_group`` is collective).
+    ``pipe`` and ``model`` 1 keep the world as the data group; a world of
+    one runs every stage itself and needs ``model`` 1; a larger world must
+    be a multiple of ``pipe * model``."""
+    if pipe < 1 or model < 1:
+        raise ValueError(f"pipe and model must be >= 1: {pipe}, {model}")
+    if pipe > 1 and model > 1:
+        raise ValueError(f"--pp {pipe} with --model-axis {model}: pipeline "
+                         f"and tensor parallelism together are not yet "
+                         f"ported to repro_torch (ROADMAP item 16.1c)")
+    if world.size == 1:
+        if model != 1:
+            raise ValueError(f"model axis {model} on a world of one rank: "
+                             f"tensor parallelism needs {model} ranks")
         return Layout(data=world, pipe=None)
-    if world.size % pipe:
-        raise ValueError(f"a world of {world.size} ranks is not a multiple "
-                         f"of {pipe} pipeline stages")
-    dp = world.size // pipe
+    if pipe == 1 and model == 1:
+        return Layout(data=world, pipe=None)
+    if world.size % (pipe * model):
+        raise ValueError(
+            f"a world of {world.size} ranks is not a multiple of {pipe} "
+            f"pipeline stages" + (f" x {model} model ranks (tensor "
+                                  f"parallelism, ROADMAP item 16.1)"
+                                  if model > 1 else ""))
+    dp = world.size // (pipe * model)
     timeout = datetime.timedelta(seconds=timeout_s)
-    d, p = divmod(world.rank, pipe)
+    rest, m = divmod(world.rank, model)
+    d, p = divmod(rest, pipe)
+
+    def rank(dd, pp, mm):
+        return (dd * pipe + pp) * model + mm
+
+    # every rank makes every group, in the same order: pipe, data, model
     mine = {}
-    # every rank makes every group, in the same order
-    for dd in range(dp):
-        ranks = [dd * pipe + q for q in range(pipe)]
-        g = dist.new_group(ranks, timeout=timeout)
-        if dd == d:
-            mine["pipe"] = (g, ranks)
+    if pipe > 1:
+        for dd in range(dp):
+            for mm in range(model):
+                ranks = [rank(dd, q, mm) for q in range(pipe)]
+                g = dist.new_group(ranks, timeout=timeout)
+                if (dd, mm) == (d, m):
+                    mine["pipe"] = (g, ranks)
     for q in range(pipe):
-        ranks = [dd * pipe + q for dd in range(dp)]
-        g = dist.new_group(ranks, timeout=timeout)
-        if q == p:
-            mine["data"] = (g, ranks)
-    data = world.subgroup(*mine["data"])
-    pipe_world = world.subgroup(*mine["pipe"])
+        for mm in range(model):
+            ranks = [rank(dd, q, mm) for dd in range(dp)]
+            g = dist.new_group(ranks, timeout=timeout)
+            if (q, mm) == (p, m):
+                mine["data"] = (g, ranks)
+    if model > 1:
+        for dd in range(dp):
+            for q in range(pipe):
+                ranks = [rank(dd, q, mm) for mm in range(model)]
+                g = dist.new_group(ranks, timeout=timeout)
+                if (dd, q) == (d, p):
+                    mine["model"] = (g, ranks)
+    groups = {name: world.subgroup(*gr) for name, gr in mine.items()}
     # one collective on each group, with all its members, before any
     # point-to-point call (NCCL's rule for a group's first call)
-    for w in (data, pipe_world):
+    for w in groups.values():
         w.all_reduce(torch.zeros(1, device=world.device), "sum")
-    return Layout(data=data, pipe=pipe_world)
+    return Layout(data=groups["data"], pipe=groups.get("pipe"),
+                  model=groups.get("model"))

@@ -29,7 +29,7 @@ from repro_torch.core.engine import Server, greedy, resolve_device
 from repro_torch.models.transformer import init_params
 
 # the flags of the reference's that wait for a later slice
-NOT_PORTED = "serving across ranks and the model axis (ROADMAP item 16)"
+NOT_PORTED = "serving across ranks and the model axis (ROADMAP item 16.3)"
 
 
 def parse_args(argv=None):

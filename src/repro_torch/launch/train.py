@@ -82,8 +82,19 @@ replicas of an S-stage pipe, ZeRO over each stage's data group:
     PYTHONPATH=src python -m repro_torch.launch.train --arch vit-b16 \\
         --smoke --steps 3 --batch 16 --accum 4 --pp 2 --device cpu
 
-Options of the reference that are not ported yet (tensor and sequence
-parallelism) are refused, never ignored.
+Tensor parallelism (``models/shardctx.py``, Megatron's column/row split
+and the vocab-parallel embedding, head and loss): ``--model-axis M``
+splits each replica's layers over M ranks, so ``--devices N`` is dp x M
+(``--devices 4 --model-axis 2`` is data 2 x model 2), ZeRO over each
+model rank's data group. It covers the ViT, HuBERT and the dense and
+vision-language decoders; the MoE, RWKV6 and Mamba2 families, MLA and
+``--pp`` with ``--model-axis`` are refused (ROADMAP items 16.1b, 16.1c):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch vit-b16 \\
+        --smoke --device cpu --devices 4 --model-axis 2 --zero 3 --steps 3
+
+Options of the reference that are not ported yet (sequence parallelism)
+are refused, never ignored.
 """
 from __future__ import annotations
 
@@ -99,6 +110,7 @@ from repro_torch.configs import EngineConfig, get_config, get_smoke_config
 from repro_torch.core import distributed
 from repro_torch.core.engine import Evaluator, Trainer, resolve_device, \
     to_device
+from repro_torch.core.sharding import check_model_axis
 from repro_torch.data.augment import AugmentConfig
 from repro_torch.data.datasets import make_source
 from repro_torch.data.pipeline import DataPipeline
@@ -112,7 +124,6 @@ from repro_torch.resilience import faults as _faults
 # the reference's options that wait for a later slice: flag -> (argparse
 # kwargs, the reference's default, which changes nothing, what it needs)
 NOT_YET_PORTED = {
-    "--model-axis": ({"type": int}, 1, "tensor parallelism (item 16)"),
     "--seq-parallel": ({}, "none",
                        "Ulysses sequence parallelism (item 16)"),
 }
@@ -186,6 +197,9 @@ def parse_args(argv=None):
                     help="ZeRO stage of the data-parallel run")
     ap.add_argument("--pp", type=int, default=1,
                     help="pipeline stages (1F1B; requires --accum >= --pp)")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="model ranks per replica (tensor parallelism); "
+                         "--devices counts dp x model ranks")
     ap.add_argument("--pp-interleave", type=int, default=1,
                     help="chunks per pipeline stage (Megatron interleaved "
                          "1F1B; v > 1 requires --accum %% --pp == 0 and "
@@ -246,6 +260,7 @@ def main(argv=None):
                                    seed=args.seed))
     if args.devices < 0:
         raise SystemExit(f"[train] --devices must be >= 0: {args.devices}")
+    _check_model_axis(args)
     if _torchrun():
         world = distributed.init_world(args.device)
         if args.devices not in (0, world.size):
@@ -262,6 +277,44 @@ def main(argv=None):
         raise SystemExit("[train] --zero needs a data-parallel world: "
                          "--devices N, or torchrun")
     return run(args, None)
+
+
+def _config(args):
+    """The model config the flags ask for."""
+    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    cfg = cfg.replace(use_kernels=not args.no_kernels)
+    if args.dtype:
+        cfg = cfg.replace(dtype=args.dtype)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
+    return cfg
+
+
+def _check_model_axis(args) -> None:
+    """Refuse, before any rank starts, a ``--model-axis`` the port cannot
+    run."""
+    m = args.model_axis
+    if m < 1:
+        raise SystemExit(f"[train] --model-axis must be >= 1: {m}")
+    if m == 1:
+        return
+    if args.pp > 1:
+        raise SystemExit(f"[train] --pp {args.pp} with --model-axis {m}: "
+                         f"pipeline and tensor parallelism together are "
+                         f"not yet ported to repro_torch (ROADMAP item "
+                         f"16.1c)")
+    if not args.devices and not _torchrun():
+        raise SystemExit(f"[train] --model-axis {m} without a world: a "
+                         f"model axis inside one process is not yet "
+                         f"ported to repro_torch; start dp x {m} ranks "
+                         f"with --devices (ROADMAP item 16.1)")
+    if args.devices % m:
+        raise SystemExit(f"[train] --devices {args.devices} is not a "
+                         f"multiple of --model-axis {m}")
+    try:
+        check_model_axis(_config(args), m)
+    except ValueError as e:
+        raise SystemExit(f"[train] {e}") from None
 
 
 def _rank_main(world, argv):
@@ -282,20 +335,16 @@ def run(args, world):
 def _run(args, world):
     device = resolve_device(args.device) if world is None else world.device
     # a world of one runs every pipeline stage; a larger one holds
-    # world / pp data-parallel replicas of the pipe
-    dp = 1 if world is None else max(world.size // args.pp, 1)
+    # world / (pp x model) data-parallel replicas
+    dp = 1 if world is None else \
+        max(world.size // (args.pp * args.model_axis), 1)
     lead = world is None or world.rank == 0
 
     def say(*a, **kw):
         if lead:
             print(*a, **kw)
 
-    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
-    cfg = cfg.replace(use_kernels=not args.no_kernels)
-    if args.dtype:
-        cfg = cfg.replace(dtype=args.dtype)
-    if args.layers:
-        cfg = cfg.replace(num_layers=args.layers)
+    cfg = _config(args)
     vit = cfg.arch_type == "vit"
     if args.augment and not vit:
         raise SystemExit(f"[train] --augment is for the vit archs, not "
@@ -330,7 +379,7 @@ def _run(args, world):
     aug = AugmentConfig(num_classes=cfg.num_classes) if args.augment \
         else None
     trainer = Trainer(cfg, ecfg, preproc=preproc, device=device, aug=aug,
-                      world=world)
+                      world=world, model_axis=args.model_axis)
     params = init_params(cfg, seed=args.seed, device=device)
     n_params = sum(p.numel() for p in params.values())
     state = trainer.init_state(params)
@@ -342,6 +391,7 @@ def _run(args, world):
         f"pp={args.pp}"
         + (f" interleave={args.pp_interleave}" if args.pp_interleave > 1
            else "")
+        + (f" model={args.model_axis}" if args.model_axis > 1 else "")
         + f" micro_batch={ecfg.derived_micro_batch(dp)} accum={args.accum} "
         f"zero={args.zero} opt={args.optimizer} "
         f"aug={'on' if aug else 'off'}")

@@ -24,12 +24,24 @@ latent space through ``w_uk`` and the context out through ``w_uv``, so no
 per-head K or V is formed. The cache is written in place. Its dtype must be
 the compute dtype: another one raises (K1 takes no mixed dtypes, and a cast
 would hide the mismatch).
+
+Tensor parallelism (``models/shardctx.py``): with a model group of M
+ranks installed, ``attention_block`` gets this rank's column chunk of
+``wq`` (and ``bq``), so H/M query heads, and its row chunk of ``wo``,
+whose partial output is summed over the group (Megatron's column/row
+split; the input goes through ``copy_to_model``). The KV projections come
+as KH/M heads, or, where M does not divide KH (ROADMAP deviation D6),
+whole: the rank then takes only the one KV head its query heads use (a
+column slice of ``wk``/``wv``/``bk``/``bv``), so the kernel's ``h // g``
+sees its own group, and the engine sums those leaves' gradients over the
+group. Rope, the masks and the kernels are per head and unchanged.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.ops import flash_mha
+from repro_torch.models import shardctx
 from repro_torch.models.blockwise import blockwise_attention_qchunked
 from repro_torch.models.norms import rmsnorm
 from repro_torch.models.rope import apply_rope, apply_rope_1d
@@ -117,11 +129,28 @@ def attention_block(p, x, cfg, *, window, positions=None, cache=None,
     "none"). ``cache``: this layer's {"k", "v"} (B, Smax, KH, hd), written
     in place (prefill at row 0, decode at ``cache_index``)."""
     b, s, _ = x.shape
-    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    # this rank's query and KV heads (all of them without a model group)
+    h, kh = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     dt = x.dtype
-    q, k, v = (x @ p[w].to(dt) for w in ("wq", "wk", "wv"))
+    proj = {w: p[w] for w in ("wq", "wk", "wv", "bq", "bk", "bv") if w in p}
+    tp = shardctx.active()
+    if tp is not None:
+        if cache is not None:
+            raise ValueError("serving on the model axis is not yet ported "
+                             "(ROADMAP item 16.3)")
+        x = shardctx.copy_to_model(x)
+        if kh == cfg.num_kv_heads:
+            # D6: whole KV projections; this rank's query heads all use
+            # KV head `first // group` (check_model_axis)
+            kv = tp.rank * h // (cfg.num_heads // cfg.num_kv_heads)
+            cols = slice(kv * hd, (kv + 1) * hd)
+            proj.update({w: proj[w][..., cols] for w in ("wk", "wv", "bk",
+                                                         "bv") if w in proj})
+            kh = 1
+    q, k, v = (x @ proj[w].to(dt) for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
-        q, k, v = (t + p[bias].to(dt)
+        q, k, v = (t + proj[bias].to(dt)
                    for t, bias in zip((q, k, v), ("bq", "bk", "bv")))
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, kh, hd)
@@ -141,7 +170,8 @@ def attention_block(p, x, cfg, *, window, positions=None, cache=None,
         k = write_cache(cache, "k", k, 0)
         v = write_cache(cache, "v", v, 0)
         out = _attend(q, k, v, cfg, window, cfg.causal, softcap)
-    return out.reshape(b, s, h * hd) @ p["wo"].to(dt)
+    return shardctx.reduce_from_model(out.reshape(b, s, h * hd)
+                                      @ p["wo"].to(dt))
 
 
 def mla_block(p, x, cfg, *, positions, cache=None, cache_index=0):

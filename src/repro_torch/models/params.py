@@ -2,7 +2,8 @@
 and σ = 0.02 for embeddings, as ``repro.models.params``.
 
 Draws come from an explicit CPU ``torch.Generator`` and are then moved to
-the target device, so one seed gives the same weights on every device.
+the target device, so one seed gives the same weights on every device; a
+generator on a card draws there, with other values from the same seed.
 Torch's generator is not JAX's threefry: the same seed gives other values
 than the reference, which is why parity tests carry the reference's own
 weights across (``models/convert.py``). On the ``meta`` device only the
@@ -19,7 +20,7 @@ def _trunc_normal(shape, std, generator, device):
     device = torch.device(device)
     if device.type == "meta":
         return torch.empty(shape, dtype=torch.float32, device=device)
-    t = torch.empty(shape, dtype=torch.float32)
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (t * std).to(device)
 

@@ -54,6 +54,20 @@ RWKV6's ``att_shift``/``ffn_shift``/``wkv``; a Mamba2 model's ``{"mamba":
 KH, hd), one slot per group of the shared block), and ``forward(...,
 mode="prefill"|"decode", cache=...)`` threads it layer by layer, each layer
 writing its slice in place.
+
+Tensor parallelism (``models/shardctx.py``): under an installed model
+group the params are this rank's model chunks (``core/sharding.py::
+model_dims``). The layers split as ``attention_block`` and ``mlp`` say; a
+decoder's ``embed.tok`` is vocab-parallel (a token outside this rank's
+rows looks up zeros, then the rows are summed over the group, before the
+Gemma3 scale and the vlm splice); the LM head (``head.w``'s column chunk,
+or the tied ``embed.tok`` chunk transposed) leaves the logits
+vocab-sharded, and the loss takes them through ``vocab_parallel_nll``
+(HuBERT's masked-frame loss too). The ViT's ``head.w``, split on the
+classes where M divides them, gives logits gathered whole before the
+replicated ``head.b``, so its loss, accuracy and eval counts see whole
+logits. A leaf the model axis does not divide comes whole and is used as
+on one rank.
 """
 from __future__ import annotations
 
@@ -66,6 +80,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
     create_selective_checkpoint_contexts
 
 from repro_torch.core.sharding import is_stacked
+from repro_torch.models import shardctx
 from repro_torch.models.attention import attention_block, mla_block
 from repro_torch.models.mamba2 import init_mamba2, init_mamba2_cache, \
     mamba2_block
@@ -168,11 +183,14 @@ def init_cache(cfg, batch, max_len, *, dtype=torch.bfloat16, device="cuda"):
             for prefix, n, _ in _stacks(cfg)}
 
 
-def init_params(cfg, *, seed=0, device="cuda"):
-    """Flat {dotted key: fp32 tensor} params, drawn from a CPU generator
-    seeded with ``seed`` in a fixed order, then moved to ``device``."""
+def init_params(cfg, *, seed=0, device="cuda", draw_on="cpu"):
+    """Flat {dotted key: fp32 tensor} params, drawn from a generator on
+    ``draw_on`` seeded with ``seed`` in a fixed order, then moved to
+    ``device``. The CPU's (the default) gives the same weights wherever
+    they go; a card's gives other values from the same seed, many times
+    faster."""
     gen = None if torch.device(device).type == "meta" else \
-        torch.Generator().manual_seed(seed)
+        torch.Generator(device=draw_on).manual_seed(seed)
     kw = {"generator": gen, "device": device}
     d, L = cfg.d_model, cfg.num_layers
     vit = _is_vit(cfg)
@@ -349,7 +367,7 @@ def _embed(cfg, params, batch, mode="train"):
     if not _is_vit(cfg):
         decode = mode == "decode"
         tokens = (batch["token"] if decode else batch["tokens"]).long()
-        h = params["embed.tok"][tokens].to(dt)
+        h = _lookup(params["embed.tok"], tokens, cfg.vocab_size).to(dt)
         if cfg.embed_scale:
             h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=dt,
                                  device=h.device)
@@ -384,17 +402,38 @@ def _embed(cfg, params, batch, mode="train"):
     return h + params["embed.pos"].to(dt)[None], None
 
 
+def _lookup(table, tokens, vocab):
+    """``table[tokens]``; where a model group splits the table's ``vocab``
+    rows, this rank's rows looked up (zeros for the others' tokens) and
+    summed over the group (an exact sum: one rank holds each row)."""
+    tp = shardctx.active()
+    n = table.shape[0]
+    if tp is None or n == vocab:
+        return table[tokens]
+    local = tokens - tp.rank * n
+    mine = (local >= 0) & (local < n)
+    rows = table[torch.where(mine, local, 0)]
+    return shardctx.reduce_from_model(torch.where(mine[..., None], rows, 0))
+
+
 def _head(cfg, params, h):
     """The final norm, then the CLS row's classifier (ViT) or the LM head
-    over every position (the embedding transposed when tied)."""
+    over every position (the embedding transposed when tied). Under a
+    model group the ViT's logits come gathered whole; a decoder's stay
+    vocab-sharded where ``head.w`` (``embed.tok``) is split."""
     h = _apply_norm(cfg, params, "final_norm.", h)
     if _is_vit(cfg):
-        cls = h[:, 0]
-        return cls @ params["head.w"].to(h.dtype) + \
-            params["head.b"].to(h.dtype)
-    if cfg.tie_embeddings:
-        return h @ params["embed.tok"].T.to(h.dtype)
-    return h @ params["head.w"].to(h.dtype)
+        cls, w = h[:, 0], params["head.w"]
+        if shardctx.active() is not None and w.shape[1] != cfg.num_classes:
+            logits = shardctx.gather_from_model(
+                shardctx.copy_to_model(cls) @ w.to(h.dtype))
+        else:
+            logits = cls @ w.to(h.dtype)
+        return logits + params["head.b"].to(h.dtype)
+    w = params["embed.tok"].T if cfg.tie_embeddings else params["head.w"]
+    if w.shape[1] != cfg.vocab_size:
+        h = shardctx.copy_to_model(h)
+    return h @ w.to(h.dtype)
 
 
 def _block(cfg, layer, h, window, positions, use_moe=False, reduce=None,
@@ -619,12 +658,21 @@ def _mtp_logits(cfg, params, batch, h, positions):
     return mh @ params["head.w"].to(h.dtype)
 
 
-def _xent(logits, labels, mask=None):
-    """Mean hard-label cross-entropy in fp32, masked when ``mask`` is given."""
+def _nll(logits, labels, vocab_parallel=False):
+    """Per-position ``-log softmax(logits)[label]`` in fp32; with
+    ``vocab_parallel`` the logits are this rank's vocabulary chunk
+    (``shardctx.vocab_parallel_nll``)."""
+    if vocab_parallel:
+        return shardctx.vocab_parallel_nll(logits, labels)
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    return torch.logsumexp(logits, dim=-1) - \
+        logits.gather(-1, labels.long()[..., None])[..., 0]
+
+
+def _xent(logits, labels, mask=None, vocab_parallel=False):
+    """Mean hard-label cross-entropy in fp32, masked when ``mask`` is given
+    (the logits vocab-sharded with ``vocab_parallel``)."""
+    nll = _nll(logits, labels, vocab_parallel)
     if mask is None:
         return nll.mean()
     mask = mask.to(torch.float32)
@@ -667,11 +715,13 @@ def loss_from_logits(cfg, logits, batch, aux=None, reduce=None):
     (``forward``'s; 0 when ``aux`` is None)."""
     moe_aux = aux["moe_aux"] if aux is not None else torch.zeros(
         (), dtype=torch.float32, device=logits.device)
+    # a decoder's or the audio encoder's logits hold this rank's chunk of
+    # the vocabulary where a model group splits the head
+    sharded = not _is_vit(cfg) and shardctx.active() is not None and \
+        logits.shape[-1] != cfg.vocab_size
     if _is_audio(cfg):
         mask = batch["mask"].to(torch.float32)
-        logits = logits.to(torch.float32)
-        nll = torch.logsumexp(logits, dim=-1) - logits.gather(
-            -1, batch["labels"].long()[..., None])[..., 0]
+        nll = _nll(logits, batch["labels"], sharded)
         count = mask.sum() if reduce is None else reduce(mask.sum())
         # a whole count of 0 leaves the sum 0: max(count, 1) as the
         # reference's, at the ranks' mean count too
@@ -685,7 +735,7 @@ def loss_from_logits(cfg, logits, batch, aux=None, reduce=None):
         if cfg.arch_type == "vlm" and "image_embeds" in batch:
             mask[:, :batch["image_embeds"].shape[1]] = False
         labels = torch.cat([tok[:, 1:], tok[:, -1:]], dim=1)
-        loss = _xent(logits, labels, mask)
+        loss = _xent(logits, labels, mask, sharded)
         if aux is not None and "mtp_logits" in aux:
             l2 = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
             m2 = mask.clone()
