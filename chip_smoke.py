@@ -19,12 +19,18 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 1. card: a CUDA device must be present; prints its name and power limit.
 2. build: compiles every kernel (``kernels/build.py``), timed, and prints
    each kernel's ``-Xptxas -v`` registers and spills. From here on a draw
-   of params onto the card that repeats the draw before it (the same
-   config and seed) copies that draw's host tensors (``share_draws``; the
-   same values, without a second host draw of up to 3.5 B params).
+   of params onto the card that repeats the draw before it (the same seed
+   and ordered param shapes, whatever the dtype or routes) copies that
+   draw's host tensors (``share_draws``; the same values, without a
+   second host draw of up to 3.5 B params); each fresh draw prints its
+   time.
    DeepSeek-V3's and Qwen2-VL-72B's params (3.5 and 3.4 B, each drawn once
    and used by gates that compare two paths on the same params) are drawn
-   on the card (``init_params(draw_on="cuda")``) and copied to the host.
+   on the card (``init_params(draw_on="cuda")``) and copied to the host,
+   and so, since PR 29, are ChatGLM3-6B's, Gemma3-12B's, Qwen2.5-14B's and
+   GLM-4-9B's (``CARD_DRAWS``: every gate on them compares two paths, or
+   ranks, on one draw); RWKV6's, whose fp32 gate failed on a card's draw,
+   and every other model's stay on the host.
 3. K1 against ``ref_attention`` on the card, at the ViT-B/16 eval shape,
    the smoke shape, ragged S (1, 63, 130, 197), causal, GQA (groups of 4
    and of 5, the odd one also at D 256), windowed (also with S > T, rows
@@ -334,7 +340,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    --seq 1024 --batch 8 --accum 4 --steps 3 --pp 2`` in bf16 (K1 96, K2
    and K3 48, K4 3 x 4 x 2 x 9 = 216, K5 108), finite, ``step_ok`` 1; (g)
    ``--devices 2 --pp 2`` on one card raises its clear error.
-19. tensor parallelism (run after phase 18), every rank on the one card:
+19. tensor parallelism (run last, after phase 17, on the training phases'
+   host draws), every rank on the one card:
    ranks spawned over gloo (``distributed.spawn(backend="gloo")``: NCCL
    refuses two ranks on one card, so each collective is staged through
    host memory), each running the training CLI's ``run``. (d) K1-K3 at a
@@ -350,14 +357,37 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    on both ranks) and ChatGLM3-6B at ``--model-axis 2``; and a world of 4:
    the fp32 ViT at data 2 x ``--model-axis 2 --zero 3`` and ChatGLM3-6B at
    ``--model-axis 4`` (D6: the KV projections whole, each rank slicing the
-   KV head its 8 query heads use). On every rank the K1-K5 launches are
-   exact (the ViT's fp32 72 each, ChatGLM3's K1-K3 8 and K4/K5 18), no
-   layout copy, the (query, KV) heads ``flash_mha`` sees (6, 6), (16, 1)
-   or (8, 1), every loss and grad norm finite, ``step_ok`` 1, and the fp32
-   losses and grad norms within 3e-4 of one rank's (phase 8b's run for
-   the ViT). The bf16 run's warm images/s is printed as a host-staged
-   reading, not gated. (e) ``--devices 2 --model-axis 2`` through the CLI
-   on one card raises its clear error.
+   KV head its 8 query heads use). (f)-(h), in both worlds at model axis
+   2 and 4, fp32, ``--seq 1024 --batch 2 --accum 1 --steps 2``, each
+   against its own run at ``--model-axis 1`` in process (one reference
+   for both axes), on the training phases' seed-0 host draws cut to their
+   layers (Zamba2's from phase 17, Granite's and RWKV6's as phase 15
+   decodes them; the ranks copy them from ``build/tp-draw.pt``, removed
+   after): (f) Zamba2-2.7B at 6 layers, one group (D7: ``w_in``, the conv
+   and the head vectors whole, each rank slicing its heads'; K1-K3 2 at
+   D 80 with 16 or 8 heads a rank, K4/K5 18, the split-row K4/K5 and
+   their partial passes 12 at the inner norm, 2048 rows of 2560 or 1280
+   columns a rank); (g) Granite-MoE 3B-A800M at 2 layers, GShard and
+   gather (``moe_impl``, which the CLI has no flag for, set on its
+   config): 20 or 10 experts a rank, K1-K3 4 with (12, 4) or (6, 2)
+   heads, K4/K5 10, the (token, choice) routings that differ from one
+   rank's printed; (h) RWKV6-7B at 2 layers with the group norm's eps at
+   1e-3 (phase 10's fp32 gate condition) and ``--optimizer sgd`` (AdamW's
+   first step is lr·sign(g), and near-zero entries flip sign between two
+   orders of summation): K6/K7 4 at 32 or 16 heads a rank, K4/K5 10. (i)
+   the split-row K4/K5 at Zamba2's inner norm (2048 x 5120 split 2 and 4
+   ways, each part a column slice of the whole rows), bf16 and fp32,
+   against their plain split versions and the whole-row K4/K5 (phase 5's
+   gates), then timed at a model-axis-2 rank's part beside the plain
+   versions and bounds. On every rank the K1-K7 and split-row launches
+   are exact (the ViT's fp32 72 each, ChatGLM3's K1-K3 8 and K4/K5 18),
+   no layout copy, the (query, KV) heads ``flash_mha`` sees ((6, 6), (16,
+   1) or (8, 1), and the families' above) and the heads ``wkv6`` sees,
+   every loss and grad norm finite, ``step_ok`` 1, the fp32 losses and
+   grad norms within 3e-4 of one rank's (phase 8b's run for the ViT),
+   and a rank's peak memory printed. The bf16 run's warm images/s is
+   printed as a host-staged reading, not gated. (e) ``--devices 2
+   --model-axis 2`` through the CLI on one card raises its clear error.
 
 ``--profile`` adds a ``torch.profiler`` table of one warm training step of
 each training slice (DeepSeek-V3's included, and the ZeRO-3 step at world
@@ -375,9 +405,11 @@ Qwen2-VL training's under ``qwen2vl_launches``, HuBERT's and Zamba2's
 attention times at head dim 80 with their training runs' launches under
 ``hubert`` and ``zamba2`` and Zamba2's serve run's under
 ``zamba2_serve_launches``, the ``--pp 2`` ChatGLM3 run's under
-``pipeline_chatglm3_launches`` (K1-K5), phase 19's ChatGLM3-6B runs' at
-model axis 2 and 4 under ``tp_chatglm3_launches`` (K1-K5, a rank's) and
-K1-K3's errors at a model-axis-4 rank's shape under ``tp_rank_shape``,
+``pipeline_chatglm3_launches`` (K1-K5), phase 19's runs at model axis 2
+and 4 under ``tp_chatglm3_launches``, ``tp_zamba2_launches``,
+``tp_granite_launches`` (GShard and gather) and ``tp_rwkv6_launches`` (a
+rank's, on every kernel's row) and K1-K3's errors at a model-axis-4
+rank's shape under ``tp_rank_shape``,
 the data-parallel runs' launches there under ``dp_launches``, the ``--pp
 2`` ViT run's under ``pipeline_launches``, the phase's warm rates under
 ``pipeline_images_per_s`` and phase 19's ViT runs' under
@@ -385,9 +417,13 @@ the data-parallel runs' launches there under ``dp_launches``, the ``--pp
 under ``resume_launches`` and phase 8d's under ``data_launches``, K4/K5
 with the RWKV6 run's launches and the decoder's, Gemma3's, Qwen2.5's,
 GLM-4's, Granite-MoE's, DeepSeek-V3's, the serve run's, Qwen2-VL's,
-HuBERT's and Zamba2's (training and serving) beside them, K6/K7; each
-redesigned kernel with its ``routes``), the whole script's time, the
-card's ``nvidia-smi`` name and power limit, and the ``ok`` line.
+HuBERT's and Zamba2's (training and serving) beside them, K6/K7, then
+the split-row K4/K5 (``rmsnorm_fwd_split``, ``rmsnorm_bwd_split``: phase
+19i's errors and times, their launches and their partial passes' on the
+Zamba2 runs); each redesigned kernel with its ``routes``), then one
+``[chip_smoke] phases`` line with every phase's seconds, the whole
+script's time, the card's ``nvidia-smi`` name and power limit, and the
+``ok`` line.
 """
 from __future__ import annotations
 
@@ -849,13 +885,24 @@ def time_ms(fn, warmup=5, reps=25, calls=1):
     return statistics.median(times)
 
 
+# the models whose seed-0 draws feed only gates that compare two paths (or
+# ranks) on the same params: drawn on the card and copied to the host,
+# many times faster than the host's draw (ROADMAP item 2). RWKV6's fp32
+# gate failed on a card's draw: its draws, and the rest, stay on the host
+CARD_DRAWS = ("chatglm3-6b", "gemma3-12b", "qwen2.5-14b", "glm4-9b")
+
+
 def share_draws():
     """Let every later draw of ``init_params`` onto the card that repeats
-    the one before it (the same config and seed) copy that draw's host
-    tensors instead of drawing again: the values are the same, and a
-    phase draws its full-width params several times (its CLI run, its
-    agreement, its rates), each a host draw of up to 3.5 B params. Draws
-    to the host or ``meta`` are made as before. Returns the counts
+    the one before it (the same seed and the same ordered param shapes,
+    which alone set the drawn values: configs that differ only in dtype,
+    kernels, remat or routing draw the same tensors) copy that draw's host
+    tensors instead of drawing again: a phase draws its full-width params
+    several times (its CLI run, its agreement, its rates), each a host
+    draw of up to 3.5 B params. A CARD_DRAWS model's draw is made on the
+    card and copied to the host. Each fresh draw prints its size and
+    time.
+    Draws to the host or ``meta`` are made as before. Returns the counts
     ``{"draws": n, "shared": n}``."""
     import torch
     from repro_torch.launch import serve, train
@@ -867,13 +914,21 @@ def share_draws():
     def init_params(cfg, *, seed=0, device="cuda", draw_on="cpu"):
         if torch.device(device).type != "cuda" or draw_on != "cpu":
             return draw(cfg, seed=seed, device=device, draw_on=draw_on)
-        key = (repr(cfg), seed)
+        key = (seed, tuple((k, tuple(v.shape)) for k, v in
+                           draw(cfg, device="meta").items()))
         if key in held:
             counts["shared"] += 1
         else:
             held.clear()
-            held[key] = draw(cfg, seed=seed, device="cpu")
+            t0 = time.time()
+            on = "cuda" if cfg.name in CARD_DRAWS else "cpu"
+            held[key] = draw(cfg, seed=seed, device="cpu", draw_on=on)
             counts["draws"] += 1
+            n = sum(v.numel() for v in held[key].values())
+            print(f"[draws] {cfg.name} ({cfg.num_layers} layers, "
+                  f"{n / 1e9:.3f} B params) drawn on the "
+                  f"{'card' if on == 'cuda' else 'host'} for the host in "
+                  f"{time.time() - t0:.1f}s", flush=True)
         return {k: v.to(device, copy=True) for k, v in held[key].items()}
     for module in (transformer, train, serve):
         module.init_params = init_params
@@ -1635,7 +1690,13 @@ def counters():
             "flash_bwd_dkv": fa.flash_attention_bwd_dkv,
             "rmsnorm_fwd": rms.fused_rmsnorm_fwd,
             "rmsnorm_bwd": rms.fused_rmsnorm_bwd,
-            "wkv6_fwd": wk.wkv6_fwd, "wkv6_bwd": wk.wkv6_bwd}
+            "wkv6_fwd": wk.wkv6_fwd, "wkv6_bwd": wk.wkv6_bwd,
+            # the split-row K4/K5 (tensor parallelism's Mamba2 inner
+            # norm), each after its partial pass
+            "rmsnorm_sumsq": rms.fused_rmsnorm_sumsq,
+            "rmsnorm_fwd_split": rms.fused_rmsnorm_fwd_split,
+            "rmsnorm_bwd_dot": rms.fused_rmsnorm_bwd_dot,
+            "rmsnorm_bwd_split": rms.fused_rmsnorm_bwd_split}
 
 
 def reset_counters():
@@ -2876,13 +2937,80 @@ TP_LM_STEPS = 2
 # x 1024): 8 of its 32 query heads and the one KV head of its 2 they use,
 # a head slice of the whole KV projection (D6)
 TP_RANK_SHAPE = (2, 8, 1, LM_SEQ, LM_SEQ, 128)
+# 19f-h: the families of ROADMAP item 16.1b at full width, fp32, 2 steps
+# of 2 x 1024 (accum 1): Zamba2-2.7B at 6 layers (one group: the shared
+# block once), Granite-MoE 3B-A800M at 2 layers, GShard and gather (the
+# config's moe_impl, which the CLI has no flag for, as the reference's),
+# RWKV6-7B at 2 layers with the group norm's eps at RWKV_GATE_EPS (phase
+# 10's fp32 gate condition) and SGD (AdamW's first step is lr·sign(g),
+# and near-zero gradient entries take either sign under two orders of
+# summation). Their params are the training phases' seed-0 draws on the
+# host (phases 10, 13 and 17), cut to these layers: no new draw
+TP_FAMILY_STEPS = 2
+TP_ZAMBA_LAYERS = 6
+TP_FAMILY_RUN = ["--seq", str(LM_SEQ), "--batch", "2", "--accum", "1",
+                 "--steps", str(TP_FAMILY_STEPS), "--dtype", "float32",
+                 "--log-every", "1"]
+# tag -> (arch, layers, extra CLI flags, config fields without a flag)
+TP_FAMILIES = {
+    "zamba2": (ZAMBA, TP_ZAMBA_LAYERS, [], {}),
+    "granite": (GRANITE, 2, [], {}),
+    "granite-gather": (GRANITE, 2, [], {"moe_impl": "gather"}),
+    "rwkv6": ("rwkv6-7b", 2, ["--optimizer", "sgd"],
+              {"norm_eps": RWKV_GATE_EPS}),
+}
+# 19i: the split-row K4/K5 at Zamba2's inner norm in 19f: 2 x 1024 rows of
+# its 5120 columns, split 2 and 4 ways
+TP_SPLIT_ROWS, TP_SPLIT_WIDTH = 2 * LM_SEQ, 5120
+SPLIT_NAMES = ("rmsnorm_sumsq", "rmsnorm_fwd_split", "rmsnorm_bwd_dot",
+               "rmsnorm_bwd_split")
+
+
+def family_argv(tag):
+    arch, layers, extra, _ = TP_FAMILIES[tag]
+    return ["--arch", arch, "--layers", str(layers)] + extra + TP_FAMILY_RUN
+
+
+def family_expect(tag, m):
+    """(launches a rank, the (query, KV) heads ``flash_mha`` sees, the
+    heads ``wkv6`` sees) of a TP_FAMILIES run at model axis ``m`` (1: one
+    rank, the inner norm whole-row)."""
+    from repro_torch.configs import get_config
+
+    arch, layers, _, _ = TP_FAMILIES[tag]
+    cfg, s = get_config(arch), TP_FAMILY_STEPS
+    # a KV head a rank where the model axis does not divide them (D6)
+    heads = [(cfg.num_heads // m, cfg.num_kv_heads // m
+              if cfg.num_kv_heads % m == 0 else 1)]
+    if tag == "zamba2":
+        groups = layers // cfg.hybrid_group
+        attn = s * groups
+        inner = s * layers
+        norms = s * (layers + 2 * groups + 1) + (inner if m == 1 else 0)
+        out = dict(dict.fromkeys(("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv"), attn),
+                   rmsnorm_fwd=norms, rmsnorm_bwd=norms)
+        if m > 1:
+            out.update(dict.fromkeys(SPLIT_NAMES, inner))
+        return out, heads, []
+    norms = s * (2 * layers + 1)
+    if tag == "rwkv6":
+        return {"wkv6_fwd": s * layers, "wkv6_bwd": s * layers,
+                "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}, [], \
+            [cfg.num_heads // m]
+    attn = s * layers
+    return dict(dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                              attn), rmsnorm_fwd=norms,
+                rmsnorm_bwd=norms), heads, []
 
 
 def tp_jobs():
     """{world size: [(label, CLI argv, {kernel: launches a rank},
-    (query heads, KV heads) a rank sees, the one-rank rows' key)]}: the
-    ranks of a world run its jobs in turn, the two worlds at once, so the
-    ChatGLM3 runs come first in one and last in the other."""
+    (query heads, KV heads) a rank's ``flash_mha`` sees, the heads its
+    ``wkv6`` sees, the one-rank rows' key, config fields without a CLI
+    flag)]}: the ranks of a world run its jobs in turn, the two worlds at
+    once, so the ChatGLM3 runs come first in one and last in the
+    other."""
     vit_f32 = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
                             3 * 2 * 12)
     vit_bf16 = dict(vit_f32, flash_fwd=3 * 2 * 12 + 4 * 12)
@@ -2890,71 +3018,144 @@ def tp_jobs():
                             TP_LM_STEPS * LM_LAYERS),
               rmsnorm_fwd=TP_LM_STEPS * (2 * LM_LAYERS + 1),
               rmsnorm_bwd=TP_LM_STEPS * (2 * LM_LAYERS + 1))
+
+    def families(m):
+        out = []
+        for tag, (_, _, _, fields) in TP_FAMILIES.items():
+            expect, heads, wkv = family_expect(tag, m)
+            out.append((f"{tag} fp32 --model-axis {m}", family_argv(tag)
+                        + ["--devices", str(m), "--model-axis", str(m)],
+                        expect, heads, wkv, tag, fields))
+        return out
     return {
         2: [("vit-b16 fp32 --model-axis 2",
              DP_F32_ARGS + ["--devices", "2", "--model-axis", "2"], vit_f32,
-             (6, 6), "vit"),
+             [(6, 6)], [], "vit", {}),
             ("vit-b16 bf16 --model-axis 2",
              TP_VIT_BF16_ARGS + ["--devices", "2", "--model-axis", "2"],
-             vit_bf16, (6, 6), None),
+             vit_bf16, [(6, 6)], [], None, {})] + families(2) + [
             ("chatglm3-6b fp32 --model-axis 2",
              TP_LM_ARGS + ["--devices", "2", "--model-axis", "2"], lm,
-             (16, 1), "lm")],
+             [(16, 1)], [], "lm", {})],
         4: [("chatglm3-6b fp32 --model-axis 4 (D6)",
              TP_LM_ARGS + ["--devices", "4", "--model-axis", "4"], lm,
-             (8, 1), "lm"),
+             [(8, 1)], [], "lm", {}),
             ("vit-b16 fp32 data 2 x --model-axis 2 --zero 3",
              DP_F32_ARGS + ["--devices", "4", "--model-axis", "2", "--zero",
-                            "3"], vit_f32, (6, 6), "vit")]}
+                            "3"], vit_f32, [(6, 6)], [], "vit", {})]
+        + families(4)}
+
+
+@contextlib.contextmanager
+def held_draws(draws):
+    """The CLI's ``init_params`` (``launch.train``) copies the held host
+    params ``draws`` ({(config name, layers): params}) for a seed-0 draw
+    of those configs instead of drawing again; any other draw as
+    before."""
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import init_params as meta_init
+
+    real = train.init_params
+
+    def init_params(cfg, *, seed=0, device="cuda", draw_on="cpu"):
+        held = draws.get((cfg.name, cfg.num_layers))
+        if held is None or seed != 0 or draw_on != "cpu":
+            return real(cfg, seed=seed, device=device, draw_on=draw_on)
+        want = {k: tuple(v.shape) for k, v in
+                meta_init(cfg, device="meta").items()}
+        if {k: tuple(v.shape) for k, v in held.items()} != want:
+            fail(f"{cfg.name}: the held params do not fit the config")
+        return {k: v.to(device, copy=True) for k, v in held.items()}
+    train.init_params = init_params
+    try:
+        yield
+    finally:
+        train.init_params = real
+
+
+@contextlib.contextmanager
+def cli_fields(fields):
+    """The CLI's config (``launch.train._config``) with ``fields``
+    replaced: the config fields the CLI has no flag for."""
+    from repro_torch.launch import train
+
+    real = train._config
+    train._config = lambda args: real(args).replace(**fields)
+    try:
+        yield
+    finally:
+        train._config = real
+
+
+@contextlib.contextmanager
+def head_spies(routes):
+    """Records the (query, KV) heads of every ``flash_mha`` call and the
+    heads of every ``wkv6`` call, and appends each MoE routing's expert
+    indices (``moe.top_k``, one call a layer and microbatch) to
+    ``routes``: yields (attention heads, WKV6 heads)."""
+    from repro_torch.models import attention, moe, rwkv6
+
+    attn, wkv = [], []
+    real_mha, real_wkv, real_top_k = attention.flash_mha, rwkv6.wkv6, \
+        moe.top_k
+
+    def mha(q, k, v, **kw):
+        attn.append((q.shape[2], k.shape[2]))
+        return real_mha(q, k, v, **kw)
+
+    def wkv6(r, *a, **kw):
+        wkv.append(r.shape[2])
+        return real_wkv(r, *a, **kw)
+
+    def top_k(probs, k):
+        out = real_top_k(probs, k)
+        routes.append(out[1].detach().cpu().numpy())
+        return out
+    attention.flash_mha, rwkv6.wkv6, moe.top_k = mha, wkv6, top_k
+    try:
+        yield attn, wkv
+    finally:
+        attention.flash_mha, rwkv6.wkv6, moe.top_k = real_mha, real_wkv, \
+            real_top_k
 
 
 def tp_rank(world, jobs, draw=None):
     """One spawned rank of phase 19: each job's CLI ``run`` on this
-    rank's share of the world, the launch counters reset just before and
-    read just after, the (query, KV) head counts ``flash_mha`` saw, the
-    layout copies and the peak of allocated memory. ``draw``: a file of
-    the parent's host draw ``{"key": (repr(cfg), seed), "params": ...}``,
-    which the CLI's ``init_params`` copies for that config and seed
-    instead of drawing again (the same values)."""
+    rank's share of the world (its config fields replaced as the job
+    says), the launch counters reset just before and read just after, the
+    heads ``flash_mha`` and ``wkv6`` saw, the MoE routings, the layout
+    copies and the peak of allocated memory. ``draw``: a file of the
+    parent's host draws ``{(config name, layers): params}``, which the
+    CLI's ``init_params`` copies for a seed-0 draw of those configs
+    (``held_draws``) instead of drawing again (the same values)."""
     import gc
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.launch import train
-    from repro_torch.models import attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_num_threads(2)        # six ranks share the host's cores
-    if draw is not None:
-        held, real_init = torch.load(draw, mmap=True), train.init_params
-
-        def init_params(cfg, *, seed=0, device="cuda", draw_on="cpu"):
-            if (repr(cfg), seed) == tuple(held["key"]) and draw_on == "cpu":
-                return {k: v.to(device, copy=True)
-                        for k, v in held["params"].items()}
-            return real_init(cfg, seed=seed, device=device, draw_on=draw_on)
-        train.init_params = init_params
-    seen, real = [], attention.flash_mha
-
-    def spy(q, k, v, **kw):
-        seen.append((q.shape[2], k.shape[2]))
-        return real(q, k, v, **kw)
-    attention.flash_mha = spy
+    draws = {} if draw is None else torch.load(draw, mmap=True)
     out = {}
-    for label, argv, *_ in jobs:
-        seen.clear()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counters()
-        t0 = time.time()
-        hist = train.run(train.parse_args(argv), world)
-        torch.cuda.synchronize()
-        out[label] = {"hist": hist, "launches": read_counters(),
-                      "copies": fa.kernel_layout.copies
-                      + rms.row_layout.copies,
-                      "heads": sorted(set(seen)), "s": time.time() - t0,
-                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-        gc.collect()
-        torch.cuda.empty_cache()
+    with held_draws(draws):
+        for label, argv, _, _, _, _, fields in jobs:
+            routes = []
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            t0 = time.time()
+            with cli_fields(fields), head_spies(routes) as (attn, wkv):
+                hist = train.run(train.parse_args(argv), world)
+            torch.cuda.synchronize()
+            out[label] = {"hist": hist, "launches": read_counters(),
+                          "copies": fa.kernel_layout.copies
+                          + rms.row_layout.copies,
+                          "heads": sorted(set(attn)),
+                          "wkv_heads": sorted(set(wkv)), "routes": routes,
+                          "s": time.time() - t0,
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            gc.collect()
+            torch.cuda.empty_cache()
     return out
 
 
@@ -2980,25 +3181,174 @@ def sliced_kv_inputs(seed):
     return inputs
 
 
-def phase_tp(card, f32_ref):
+def split_row_norms(card):
+    """19i: the split-row K4/K5 at Zamba2's inner norm (TP_SPLIT_ROWS rows
+    of TP_SPLIT_WIDTH, each part a strided column slice of the whole
+    rows), split 2 and 4 ways, in bf16 and fp32: each part's partial sums
+    (``fused_rmsnorm_sumsq``, ``fused_rmsnorm_bwd_dot``) summed over the
+    parts as the model group's all-reduce sums them, then K4's and K5's
+    split modes; out, dx and dscale joined over the parts against the
+    plain split-row versions and against the whole-row K4/K5 on the whole
+    rows (phase 5's gates: 1e-4 / 6e-2; rinv 1e-4 relative), K5's split
+    mode twice for a bitwise equal dscale, no layout copy. Then both
+    routes timed at a model-axis-2 rank's part (2048 x 2560), bf16 and
+    fp32, beside their plain versions and bounds (no PyTorch call
+    computes a row's norm from another rank's sums: no library time).
+    Returns the kernel rows of the JSON line (bf16)."""
+    import torch
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels.ref import ref_rmsnorm_apply, \
+        ref_rmsnorm_bwd_apply, ref_rmsnorm_bwd_dot, ref_rmsnorm_sumsq
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    rows, width = TP_SPLIT_ROWS, TP_SPLIT_WIDTH
+
+    def draw(dtype):
+        x, dy = (torch.randn((rows, width), device="cuda",
+                             generator=gen).to(dtype) for _ in range(2))
+        return x, dy, torch.randn(width, device="cuda", generator=gen)
+
+    def split(x, dy, scale, parts, sumsq, apply, dot, bwd):
+        ss = sum(sumsq(x[:, c]) for c in parts)
+        fwd = [apply(x[:, c], scale[c], ss, width, LM_EPS) for c in parts]
+        dots = sum(dot(x[:, c], scale[c], dy[:, c]) for c in parts)
+        grads = [bwd(x[:, c], scale[c], r, dy[:, c], dots, width)
+                 for c, (_, r) in zip(parts, fwd)]
+        return (torch.cat([o for o, _ in fwd], 1), fwd[0][1],
+                torch.cat([g for g, _ in grads], 1),
+                torch.cat([d for _, d in grads]))
+    kernel = (rms.fused_rmsnorm_sumsq, rms.fused_rmsnorm_fwd_split,
+              rms.fused_rmsnorm_bwd_dot, rms.fused_rmsnorm_bwd_split)
+    plain = (ref_rmsnorm_sumsq, ref_rmsnorm_apply, ref_rmsnorm_bwd_dot,
+             ref_rmsnorm_bwd_apply)
+    rms.row_layout.copies = 0
+    errs = {}
+    for m in (2, 4):
+        parts = [slice(i * width // m, (i + 1) * width // m)
+                 for i in range(m)]
+        for dname in ("bfloat16", "float32"):
+            dtype, tol = getattr(torch, dname), RMS_TOL[dname]
+            x, dy, scale = draw(dtype)
+            got = split(x, dy, scale, parts, *kernel)
+            again = split(x, dy, scale, parts, *kernel)
+            want = split(x, dy, scale, parts, *plain)
+            w_out, w_rinv = rms.fused_rmsnorm_fwd(x, scale, LM_EPS)
+            whole = (w_out, w_rinv) + rms.fused_rmsnorm_bwd(x, scale, w_rinv,
+                                                            dy)
+            torch.cuda.synchronize()
+            res, ok = {}, True
+            for name, ref in (("plain", want), ("whole-row K4/K5", whole)):
+                r = [close(g, w, tol) for g, w in zip(got[::2], ref[::2])] \
+                    + [close(got[3], ref[3], tol)]
+                d_rinv = ((got[1] - ref[1]).abs() / ref[1]).max().item()
+                res[name] = (r, d_rinv)
+                ok &= all(v[1] for v in r) and d_rinv <= TOL_RINV
+            same = torch.equal(got[2], again[2]) and \
+                torch.equal(got[3], again[3])
+            types = tuple(t.dtype for t in got) == \
+                (dtype, torch.float32, dtype, torch.float32)
+            ok &= same and types and bool(torch.isfinite(got[1]).all())
+            print(f"[tp] split-row K4/K5 {m} parts of ({rows}, {width}) "
+                  f"{dname}: " + "; ".join(
+                      f"against {name} max|dout|={r[0][0]:.3e} "
+                      f"max|ddx|={r[1][0]:.3e} max|ddscale|={r[2][0]:.3e} "
+                      f"rel|drinv|={dr:.3e}"
+                      for name, (r, dr) in res.items())
+                  + f" (tol {tol}, rinv {TOL_RINV}); K5 split bitwise "
+                  f"repeatable {same}; dtypes {types} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"the split-row K4/K5 disagree at {m} parts {dname}")
+            if m == 2 and dtype == torch.bfloat16:
+                r = res["plain"][0]
+                errs = {"fwd": r[0][0], "bwd": max(r[1][0], r[2][0])}
+    if rms.row_layout.copies:
+        fail("the split-row K4/K5 copied a column slice they should take "
+             "as it is")
+
+    out_rows = []
+    d = width // 2
+    for dname in ("bfloat16", "float32"):
+        x, dy, scale = draw(getattr(torch, dname))
+        x, dy, scale = x[:, :d], dy[:, :d], scale[:d].contiguous()
+        ss = rms.fused_rmsnorm_sumsq(x)
+        _, rinv = rms.fused_rmsnorm_fwd_split(x, scale, ss, width, LM_EPS)
+        dot = rms.fused_rmsnorm_bwd_dot(x, scale, dy)
+        ms = {"fwd": time_ms(lambda: rms.fused_rmsnorm_fwd_split(
+                  x, scale, rms.fused_rmsnorm_sumsq(x), width, LM_EPS)),
+              "bwd": time_ms(lambda: rms.fused_rmsnorm_bwd_split(
+                  x, scale, rinv, dy, rms.fused_rmsnorm_bwd_dot(x, scale,
+                                                                dy),
+                  width))}
+        plain_ms = {"fwd": time_ms(lambda: ref_rmsnorm_apply(
+                        x, scale, ref_rmsnorm_sumsq(x), width, LM_EPS)),
+                    "bwd": time_ms(lambda: ref_rmsnorm_bwd_apply(
+                        x, scale, rinv, dy, ref_rmsnorm_bwd_dot(
+                            x, scale, dy), width))}
+        del ss, dot
+        el, n = x.element_size(), rows * d
+        work = {    # bytes moved once, the per-row partials written and
+                    # the whole rows' sums read back; ~4 and ~10 fp32
+                    # operations a value
+            "fwd": (2 * n * el + 4 * d + 4 * rows + 8 * rows, 4 * n),
+            "bwd": (3 * n * el + 8 * d + 4 * rows + 8 * rows, 10 * n)}
+        for key, name, line in (("fwd", "rmsnorm_fwd_split", 49),
+                                ("bwd", "rmsnorm_bwd_split", 94)):
+            bound_ms, bound_by, how = bound(card, *work[key], rate="fp32")
+            print(f"[tp] {name} (with its partial pass) timing at a "
+                  f"model-axis-2 rank's part ({rows}, {d}) of rows {width} "
+                  f"wide, {dname}, on {card}: kernel {ms[key]:.4f} ms, "
+                  f"plain {plain_ms[key]:.4f} ms; bound {bound_ms:.4f} ms "
+                  f"by {bound_by} ({how})", flush=True)
+            if dname == "bfloat16":
+                out_rows.append({
+                    "name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "replaces": f"src/repro/kernels/rmsnorm.py:{line}",
+                    "shape": [rows, d, width], "launches": None,
+                    "max_abs_err": errs[key], "ms": ms[key],
+                    "plain_ms": plain_ms[key], "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None})
+    return out_rows
+
+
+def routing_flips(label, got, want):
+    """Print the (token, choice) routings of each MoE call that differ
+    from the one-rank run's (a discontinuity to report, not an error)."""
+    if len(got) != len(want):
+        fail(f"{label}: {len(got)} MoE routings, one rank made {len(want)}")
+    flips = [int((g != w).sum()) for g, w in zip(got, want)]
+    print(f"[tp] {label}: (token, choice) routings that differ from one "
+          f"rank's, by layer and step: {flips} of {want[0].size} each",
+          flush=True)
+
+
+def phase_tp(card, f32_ref, family_params):
     """Phase 19, tensor parallelism with every rank on the one card (gloo,
     collectives staged through host memory; NCCL refuses two ranks on one
     card): (d) K1-K3 at a model-axis-4 rank's shape of ChatGLM3-6B (a KV
     head sliced from the whole projection) against their plain versions;
-    ChatGLM3-6B fp32 at ``--model-axis 1`` in process; then a world of 2
-    (model axis 2: the ViT in fp32 and in bf16 with its eval, ChatGLM3)
-    and a world of 4 (the ViT at data 2 x model 2 under ZeRO 3, ChatGLM3
-    at model axis 4, the D6 path), each rank running the CLI's ``run``:
-    every rank's K1-K5 launches exact, no layout copy, its query and KV
-    heads the expected ones, every loss and grad norm finite and
-    ``step_ok`` 1, the fp32 runs within 3e-4 of one rank, the bf16 eval
-    counts equal on both ranks; (e) ``--devices 2 --model-axis 2`` through
-    the CLI on one card refused. The rates read here are host-staged
-    gloo's, not the model axis's: printed, not gated. Returns {label:
-    rank 0's launches} and the sliced-KV check's bf16 errors."""
+    (i) the split-row K4/K5 (``split_row_norms``); ChatGLM3-6B and each
+    TP_FAMILIES run fp32 at ``--model-axis 1`` in process (the families
+    on ``family_params``, the training phases' host draws cut to their
+    layers); then a world of 2 (model axis 2: the ViT in fp32 and in bf16
+    with its eval, (f) Zamba2-2.7B, (g) Granite-MoE GShard and gather, (h)
+    RWKV6-7B, ChatGLM3) and a world of 4 (the ViT at data 2 x model 2
+    under ZeRO 3, ChatGLM3 at model axis 4, the D6 path, and (f)-(h) at
+    model axis 4), each rank running the CLI's ``run`` on the parent's
+    draws: every rank's K1-K7 and split-row launches exact, no layout
+    copy, the heads ``flash_mha`` and ``wkv6`` see the expected ones,
+    every loss and grad norm finite and ``step_ok`` 1, the fp32 runs
+    within 3e-4 of one rank, the MoE routings that differ from one rank's
+    printed, the bf16 eval counts equal on both ranks; (e) ``--devices 2
+    --model-axis 2`` through the CLI on one card refused. The rates read
+    here are host-staged gloo's, not the model axis's: printed, not gated.
+    Returns ({label: rank 0's launches}, the sliced-KV check's bf16
+    errors, 19i's kernel rows)."""
     import concurrent.futures
     import gc
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.core import distributed
     from repro_torch.launch.train import main as cli
 
@@ -3009,6 +3359,7 @@ def phase_tp(card, f32_ref):
     free()
     errs = check_attention("tp-attn", "a model-axis-4 rank's",
                            TP_RANK_SHAPE, sliced_kv_inputs(19))
+    split_rows = split_row_norms(card)
     jobs = tp_jobs()
     lm_expect = jobs[4][0][2]
     _, hist = run_cli(TP_LM_ARGS, lm_expect, "chatglm3-6b fp32 "
@@ -3016,37 +3367,53 @@ def phase_tp(card, f32_ref):
     refs = {"vit": f32_ref,
             "lm": train_rows(hist, "chatglm3-6b fp32 --model-axis 1",
                              TP_LM_STEPS)}
+    # the ranks copy the parent's host draws from a file rather than each
+    # drawing them again: ChatGLM3's (1.35 B params, the run above) and
+    # the families'
+    draws = {(get_config(arch).name, layers):
+             family_params[tag.split("-")[0]]
+             for tag, (arch, layers, _, _) in TP_FAMILIES.items()}
+    for params in getattr(share_draws, "held", {}).values():
+        draws[get_config("chatglm3-6b").name, LM_LAYERS] = params
+    one_rank_routes = {}
+    with held_draws(draws):
+        for tag, (_, _, _, fields) in TP_FAMILIES.items():
+            free()
+            routes = []
+            with cli_fields(fields), head_spies(routes):
+                _, hist = run_cli(family_argv(tag),
+                                  family_expect(tag, 1)[0],
+                                  f"{tag} fp32 --model-axis 1")
+            refs[tag] = train_rows(hist, f"{tag} fp32 --model-axis 1",
+                                   TP_FAMILY_STEPS)
+            one_rank_routes[tag] = routes
     free()
-    # the ranks copy that run's host draw (1.35 B params) from a file
-    # rather than each drawing it again
-    draw = None
-    for key, params in getattr(share_draws, "held", {}).items():
-        draw = ROOT / "build" / "tp-draw.pt"
-        t_save = time.time()
-        torch.save({"key": key, "params": params}, draw)
-        print(f"[tp] the one-rank run's draw written for the ranks in "
-              f"{time.time() - t_save:.1f}s", flush=True)
-    # both worlds at once (peaks ~38 GB and ~27 GB: the ChatGLM3 runs
-    # come first in one world and last in the other)
+    draw = ROOT / "build" / "tp-draw.pt"
+    t_save = time.time()
+    torch.save(draws, draw)
+    n = sum(p.numel() for d in draws.values() for p in d.values())
+    print(f"[tp] the parent's host draws ({n / 1e9:.2f} B params) written "
+          f"for the ranks in {time.time() - t_save:.1f}s", flush=True)
+    del draws
+    # both worlds at once (the ChatGLM3 runs, the largest, come first in
+    # one world and last in the other)
     t_worlds = time.time()
     try:
         with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
             runs = {size: pool.submit(
-                distributed.spawn, tp_rank, size, world_jobs,
-                None if draw is None else str(draw), device="cuda",
-                backend="gloo", deadline_s=600)
+                distributed.spawn, tp_rank, size, world_jobs, str(draw),
+                device="cuda", backend="gloo", deadline_s=600)
                 for size, world_jobs in jobs.items()}
             results = {size: run.result() for size, run in runs.items()}
     finally:
-        if draw is not None:
-            draw.unlink(missing_ok=True)
+        draw.unlink(missing_ok=True)
     print(f"[tp] worlds of {sorted(jobs)} side by side on one card (gloo, "
           f"host-staged): {time.time() - t_worlds:.1f}s with the ranks' "
           f"start", flush=True)
     launches = {}
     for size, world_jobs in jobs.items():
         ranks = results[size]
-        for label, _, expect, heads, ref in world_jobs:
+        for label, _, expect, heads, wkv, ref, _ in world_jobs:
             expect = dict({name: 0 for name in counters()}, **expect)
             evals = []
             for rank, got in enumerate(r[label] for r in ranks):
@@ -3058,7 +3425,8 @@ def phase_tp(card, f32_ref):
                 msg = (f"[tp] {label} rank {rank}/{size}: launches "
                        f"{got['launches']} (expected {expect}); layout "
                        f"copies {got['copies']}; (query, KV) heads "
-                       f"{got['heads']} (expected {[heads]}); losses "
+                       f"{got['heads']} (expected {heads}), WKV6 heads "
+                       f"{got['wkv_heads']} (expected {wkv}); losses "
                        f"{[round(r['loss'], 5) for r in rows]}; "
                        f"{got['s']:.1f}s; peak {got['peak_gb']:.2f} GB")
                 if ref:
@@ -3068,11 +3436,14 @@ def phase_tp(card, f32_ref):
                             f"{d_norm:.3e} against one rank (tol {TP_TOL})")
                 print(msg, flush=True)
                 if got["launches"] != expect or got["copies"] or \
-                        got["heads"] != [heads]:
+                        got["heads"] != heads or got["wkv_heads"] != wkv:
                     fail(f"{label} rank {rank}: launches, copies or heads "
                          f"off")
                 if ref and not (d_loss <= TP_TOL and d_norm <= TP_TOL):
                     fail(f"{label} rank {rank} disagrees with one rank")
+                if ref in one_rank_routes and one_rank_routes[ref]:
+                    routing_flips(f"{label} rank {rank}", got["routes"],
+                                  one_rank_routes[ref])
             if ref is None:
                 if len(evals[0]) != 1 or evals[0][0][2] != 500 or \
                         any(e != evals[0] for e in evals):
@@ -3098,7 +3469,7 @@ def phase_tp(card, f32_ref):
         else:
             fail("--devices 2 --model-axis 2 on one card did not raise")
     print(f"[tp] phase 19 in {time.time() - t0:.1f}s on {card}", flush=True)
-    return launches, errs
+    return launches, errs, split_rows
 
 
 def augment_on_card():
@@ -4784,10 +5155,12 @@ def phase_zamba2(card):
     device time split (``scan_split``), prefill and decode against
     train-mode logits (``ZAMBA_DECODE``) and the serve CLI (fp32; K1 once
     a group in the prefill, K4 29 times a forward). Returns (the training
-    run's launches, the serve CLI's)."""
+    run's launches, the serve CLI's, the seed-0 params on the host cut to
+    TP_ZAMBA_LAYERS layers for phase 19)."""
     import gc
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.core.sharding import is_stacked
     from repro_torch.launch import serve
     from repro_torch.models.transformer import init_params
 
@@ -4833,57 +5206,91 @@ def phase_zamba2(card):
           f"{res['prefill_ms']:.1f} ms, decode {res['tok_s']:.1f} tokens/s "
           f"({SERVE_GEN - 1} steps in {res['decode_ms']:.1f} ms; cold; a "
           f"reading, not gated; {card})", flush=True)
+    # phase 19's Zamba2 runs take this draw's first layers
+    tp_host = {k: v[:TP_ZAMBA_LAYERS].clone() if is_stacked(k) else v
+               for k, v in host.items()}
     del host
     free()
     print(f"[zamba2] phase 17 in {time.time() - t0:.1f}s", flush=True)
-    return launches, serve_launches
+    return launches, serve_launches, tp_host
 
 
 def main():
     t_script = time.time()
-    card = phase_card()
+    secs = {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its seconds kept under ``name`` for the
+        ``[chip_smoke] phases`` line."""
+        t0 = time.time()
+        out = fn(*args)
+        secs[name] = round(time.time() - t0, 1)
+        return out
+    card = timed("1 card", phase_card)
+    one = card.split(",")[0]
     sys.path.insert(0, str(ROOT / "src"))
-    phase_build()
+    timed("2 build", phase_build)
     draws = share_draws()
-    k1 = phase_k1(card.split(",")[0])
-    vit_rows = [k1] + phase_k23(card.split(",")[0])
-    rms_rows = phase_rms(card.split(",")[0])
-    lm_attn = phase_lm_attention(card.split(",")[0])
-    gemma_attn = phase_gemma_attention(card.split(",")[0])
-    wkv_rows = phase_wkv6(card.split(",")[0])
-    t6c = time.time()
-    d80_attn = phase_d80_attention(card.split(",")[0])
-    print(f"[d80-attn] phase 6c in {time.time() - t6c:.1f}s", flush=True)
+    k1 = timed("3 K1", phase_k1, one)
+    vit_rows = [k1] + timed("4 K2/K3", phase_k23, one)
+    rms_rows = timed("5 K4/K5", phase_rms, one)
+    lm_attn = timed("6 decoder attention", phase_lm_attention, one)
+    gemma_attn = timed("6a Gemma3 attention", phase_gemma_attention, one)
+    wkv_rows = timed("6b K6/K7", phase_wkv6, one)
+    d80_attn = timed("6c D 80 attention", phase_d80_attention, one)
+    print(f"[d80-attn] phase 6c in {secs['6c D 80 attention']:.1f}s",
+          flush=True)
     profile = "--profile" in sys.argv[1:]
-    phase_slice()
-    vit_launches, vit_hist = phase_train(profile)
-    dp_launches, aug_launches, f32_ref = phase_dp(vit_hist, profile)
-    resume_launches = phase_ckpt(vit_hist, f32_ref)
-    data_launches = phase_data(vit_hist)
-    phase_quickstart()
-    pp_launches, pp_lm_launches, pp_rates_ = phase_pipeline(card)
-    tp_launches, tp_errs = phase_tp(card, f32_ref)
-    lm_launches = phase_lm_train(profile)
+    timed("7 eval slice", phase_slice)
+    vit_launches, vit_hist = timed("8 ViT training", phase_train, profile)
+    dp_launches, aug_launches, f32_ref = timed(
+        "8b data parallel", phase_dp, vit_hist, profile)
+    resume_launches = timed("8c checkpoints", phase_ckpt, vit_hist, f32_ref)
+    data_launches = timed("8d host data", phase_data, vit_hist)
+    timed("quickstart", phase_quickstart)
+    pp_launches, pp_lm_launches, pp_rates_ = timed(
+        "18 pipeline", phase_pipeline, card)
+    lm_launches = timed("9 ChatGLM3", phase_lm_train, profile)
     # each training phase hands phase 15 its params of seed 0, on the host
     held = {}
-    rwkv_launches, held["rwkv6"] = phase_rwkv_train(profile)
-    gemma_launches, held["gemma3"] = phase_gemma_train(profile)
-    dense_launches = phase_dense()
-    granite_attn = phase_granite_attention(card.split(",")[0])
-    granite_launches, held["granite"] = phase_granite(profile, card)
-    t14 = time.time()
-    mla_attn = phase_mla_attention(card.split(",")[0])
-    deepseek_launches, held["deepseek"] = phase_deepseek(profile, card)
+    rwkv_launches, held["rwkv6"] = timed("10 RWKV6", phase_rwkv_train,
+                                         profile)
+    gemma_launches, held["gemma3"] = timed("11 Gemma3", phase_gemma_train,
+                                           profile)
+    dense_launches = timed("12 Qwen2.5, GLM-4", phase_dense)
+    granite_attn = timed("13 Granite attention", phase_granite_attention,
+                         one)
+    granite_launches, held["granite"] = timed("13 Granite-MoE",
+                                              phase_granite, profile, card)
+    # phase 19 takes RWKV6's and Granite's draws too (phase 15 pops them)
+    tp_params = {"rwkv6": held["rwkv6"], "granite": held["granite"]}
+    mla_attn = timed("14 MLA attention", phase_mla_attention, one)
+    deepseek_launches, held["deepseek"] = timed(
+        "14 DeepSeek-V3", phase_deepseek, profile, card)
     print(f"[deepseek] phase 14 (MLA attention and DeepSeek-V3 training) "
-          f"in {time.time() - t14:.1f}s", flush=True)
-    prefill, serve_launches, vl_launches = phase_serving(card, held)
-    hubert_launches = phase_hubert(profile)
-    zamba_launches, zamba_serve_launches = phase_zamba2(card)
+          f"in {secs['14 MLA attention'] + secs['14 DeepSeek-V3']:.1f}s",
+          flush=True)
+    prefill, serve_launches, vl_launches = timed(
+        "15 serving, Qwen2-VL", phase_serving, card, held)
+    hubert_launches = timed("16 HuBERT", phase_hubert, profile)
+    zamba_launches, zamba_serve_launches, tp_params["zamba2"] = timed(
+        "17 Zamba2", phase_zamba2, card)
+    tp_launches, tp_errs, split_rows = timed(
+        "19 tensor parallel", phase_tp, card, f32_ref, tp_params)
+    del tp_params
     print(f"[draws] params drawn on the host for the card: {draws['draws']} "
           f"draws made, {draws['shared']} repeats copied from the draw "
           f"before them", flush=True)
     if profile:
         profile_eval()
+    def tp_family_launches(name):
+        """Phase 19's runs' launches of kernel ``name`` by family, a
+        rank's: ChatGLM3-6B, Zamba2-2.7B, Granite-MoE (GShard and gather)
+        and RWKV6-7B at model axis 2 and 4."""
+        return {f"tp_{fam}_launches": {
+                    label: n[name] for label, n in tp_launches.items()
+                    if label.startswith(fam)}
+                for fam in ("chatglm3", "zamba2", "granite", "rwkv6")}
     # K1-K3 run on both training paths: the row's numbers are the
     # decoder's (this slice's path), with the ViT's beside them under "vit"
     kernels = []
@@ -4943,11 +5350,9 @@ def main():
         # ChatGLM3-6B at model axis 2 and 4 (phase 19): a rank's launches,
         # and K1-K3 at a model-axis-4 rank's shape (a KV head sliced from
         # the whole projection) against their plain versions
-        tp = {"tp_chatglm3_launches": {
-                  label: n[row["name"]] for label, n in tp_launches.items()
-                  if label.startswith("chatglm3")},
-              "tp_rank_shape": {"shape": list(TP_RANK_SHAPE),
-                                "max_abs_err": tp_errs[key]}}
+        tp = dict(tp_family_launches(row["name"]),
+                  tp_rank_shape={"shape": list(TP_RANK_SHAPE),
+                                 "max_abs_err": tp_errs[key]})
         kernels.append(dict(row, **lm_attn[key], **serve, **tp,
                             launches=lm_launches[row["name"]], vit=vit,
                             gemma3_launches=gemma_launches[row["name"]],
@@ -4978,13 +5383,23 @@ def main():
             extra["zamba2_serve_launches"] = \
                 zamba_serve_launches[row["name"]]
             extra["pipeline_chatglm3_launches"] = pp_lm_launches[row["name"]]
-            extra["tp_chatglm3_launches"] = {
-                label: n[row["name"]] for label, n in tp_launches.items()
-                if label.startswith("chatglm3")}
+        extra.update(tp_family_launches(row["name"]))
         if row["name"] in REDESIGNED:
             extra.update(redesigned=True, routes=ROUTES[row["name"]])
         kernels.append(dict(row, **extra))
+    # the split-row K4/K5 (phase 19i's times): launches on the Zamba2 run
+    # at model axis 2 (a rank's), with their partial passes'
+    zamba_m2 = tp_launches["zamba2 fp32 --model-axis 2"]
+    for row, partial in zip(split_rows, ("rmsnorm_sumsq", "rmsnorm_bwd_dot")):
+        kernels.append(dict(
+            row, launches=zamba_m2[row["name"]],
+            partial_launches=zamba_m2[partial],
+            **tp_family_launches(row["name"]),
+            partial_tp_zamba2_launches={
+                label: n[partial] for label, n in tp_launches.items()
+                if label.startswith("zamba2")}))
     print(json.dumps({"kernels": kernels}))
+    print(f"[chip_smoke] phases {json.dumps(secs)}", flush=True)
     print(f"[chip_smoke] whole script {time.time() - t_script:.1f}s",
           flush=True)
     print(card)

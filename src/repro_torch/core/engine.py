@@ -71,9 +71,10 @@ vocab-parallel embedding and head), then ZeRO's data chunk of that. The
 forward and backward run with the model group installed
 (``models/shardctx.py``), so the layers' collectives sum the partial
 products; every other leaf is replicated over the model group and its
-gradient is the same on each model rank, except the KV projections kept
-whole under D6 (``sharding.kv_replicated``), whose gradients are summed
-over the model group. The ZeRO collectives and the metrics' mean run over
+gradient is the same on each model rank, except the leaves of
+``sharding.model_summed`` (D6's whole KV projections, D7's Mamba2
+in-projection, conv and head vectors, the MoE router), each rank's
+gradient its share, summed over the model group. The ZeRO collectives and the metrics' mean run over
 the data group; the global grad norm sums a model-split leaf's squares
 over the model group and counts a replicated one once. Batches are split
 by the data rank, so the M ranks of a replica see the same rows and the
@@ -114,9 +115,8 @@ from repro_torch.checkpoint import AsyncCheckpointer, Blocks, Sharded, \
 from repro_torch.configs.base import EngineConfig
 from repro_torch.core import pipeline
 from repro_torch.core.grad_accum import accumulate_gradients
-from repro_torch.core.sharding import check_model_axis, \
-    is_kv_projection, is_stacked, kv_replicated, model_dims, shard_dims, \
-    stage_chunks
+from repro_torch.core.sharding import check_model_axis, is_stacked, \
+    model_dims, model_summed, shard_dims, stage_chunks
 from repro_torch.data.augment import augment_batch, device_preprocess, \
     draw_augment, step_seed
 from repro_torch.data.pipeline import rank_rows
@@ -279,10 +279,11 @@ class Trainer:
                   for k, p in model.init_params(cfg, device="meta").items()}
         self.model_dims = model_dims(shapes, cfg, M) if self.tp is not None \
             else dict.fromkeys(shapes)
-        # D6: the whole KV projections, their gradients summed over the
-        # model group
-        self.kv_summed = [k for k in shapes if self.tp is not None
-                          and kv_replicated(cfg, M) and is_kv_projection(k)]
+        # the leaves whole on every model rank whose gradients are summed
+        # over the model group (D6's KV projections, D7's Mamba2 leaves,
+        # the MoE router)
+        self.model_summed = [k for k in shapes if self.tp is not None
+                             and model_summed(k, cfg, M)]
         # the executor's schedule accounting of the last pipelined step
         self.schedule_out = {}
 
@@ -666,7 +667,7 @@ class Trainer:
         under ZeRO 2 and 3 (whole under 0 and 1). With
         ``pipeline_stages`` > 1 they come from the 1F1B pipeline
         (:meth:`_pipeline_grads`). Under a model group each is this rank's
-        model chunk (the D6 leaves' summed over the group)."""
+        model chunk (the ``model_summed`` leaves' summed over the group)."""
         if self.aug is not None and rngs is None:
             raise ValueError("augmented training needs the microbatch "
                              "seeds (rngs)")
@@ -677,8 +678,8 @@ class Trainer:
             return self._pipeline_grads(params, batch, rngs)
         with shardctx.use(self.tp):
             grads, metrics = self._data_grads(params, batch, rngs)
-        if self.kv_summed:
-            self.tp.all_reduce_many([grads[k] for k in self.kv_summed],
+        if self.model_summed:
+            self.tp.all_reduce_many([grads[k] for k in self.model_summed],
                                     "sum")
         return grads, metrics
 

@@ -32,9 +32,9 @@ import re
 _F = "data"         # the data-parallel axis in the tables below
 _TP = "model"       # the tensor-parallel axis
 
-# the families whose layers the model axis splits (attention + MLP); the
-# rest wait for ROADMAP item 16.1b
-TP_ARCH_TYPES = ("vit", "audio", "dense", "vlm")
+# the families whose layers the model axis splits; MLA waits for ROADMAP
+# item 16.1b
+TP_ARCH_TYPES = ("vit", "audio", "dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def _rules(fsdp, tp=None):
@@ -84,6 +84,13 @@ def _rules(fsdp, tp=None):
 # D6: the KV projections that stay replicated over the model axis where it
 # does not divide the KV heads
 _KV = re.compile(r"attn/(wk|wv|bk|bv)$")
+# D7: the Mamba2 leaves every model rank keeps whole, slicing its heads'
+# columns and channels on use (the reference splits w_in and conv_* by
+# contiguous columns, which are not head-aligned)
+_D7 = re.compile(r"mamba/(w_in|conv_w|conv_b|A_log|dt_bias|D|norm)$")
+# the MoE router, whole on every model rank, each rank's gradient from
+# its own experts' gates
+_ROUTER = re.compile(r"/router$")
 
 
 _STACKED = re.compile(r"(^|/)(stack|dense_stack|moe_stack)(/|$)")
@@ -146,48 +153,77 @@ def kv_replicated(cfg, model: int) -> bool:
     return model > 1 and cfg.num_kv_heads % model != 0
 
 
-def is_kv_projection(key: str) -> bool:
-    """``attn.wk``, ``attn.wv``, ``attn.bk``, ``attn.bv`` (any prefix)."""
-    return bool(_KV.search(key.replace(".", "/")))
+def model_summed(key: str, cfg, model: int) -> bool:
+    """Whether leaf ``key`` is whole on every rank of a model group of
+    ``model`` ranks while each rank's gradient of it is only its share, so
+    the gradients are summed over the group: the KV projections under D6,
+    Mamba2's D7 leaves, and the MoE router (each rank combines only its
+    own experts' outputs)."""
+    if model <= 1:
+        return False
+    ks = key.replace(".", "/")
+    return bool(kv_replicated(cfg, model) and _KV.search(ks)
+                or _D7.search(ks) or _ROUTER.search(ks))
 
 
 def model_dims(shapes: dict, cfg, model: int) -> dict:
     """``{key: the dimension split over the model axis, or None}`` for
     ``{key: shape}`` (whole leaves), as ``param_specs(...,
     tensor_parallel=True)`` puts ``"model"`` on a mesh of ``model`` model
-    ranks, but for D6 (:func:`kv_replicated`): the KV projections stay
-    replicated where the model axis does not divide the KV heads."""
-    d6 = kv_replicated(cfg, model)
+    ranks, but for the leaves of :func:`model_summed`, whole on every
+    rank: D6's KV projections where the model axis does not divide the KV
+    heads, and D7's Mamba2 in-projection and conv (the reference splits
+    them by contiguous columns)."""
     out = {}
     for key, shape in shapes.items():
         spec = _spec(key, tuple(shape), None, model, _TP)
         dim = spec.index(_TP) if _TP in spec else None
-        out[key] = None if d6 and is_kv_projection(key) else dim
+        out[key] = None if model_summed(key, cfg, model) else dim
     return out
 
 
+def _divides(cfg, model, n, what):
+    if n % model:
+        raise ValueError(f"{cfg.name}: {n} {what} not divisible by the "
+                         f"model axis {model} (the port splits whole "
+                         f"ones; ROADMAP item 16.1)")
+
+
 def check_model_axis(cfg, model: int) -> None:
-    """Raise ``ValueError`` for a config the model axis cannot split: a
-    family other than attention + MLP (ROADMAP item 16.1b), query heads or
-    an MLP width it does not divide, or query heads that straddle a KV
-    head when the KV projections stay whole (D6)."""
+    """Raise ``ValueError`` for a config the model axis cannot split: MLA
+    (ROADMAP item 16.1b), or a count of what each rank takes a whole
+    share of that the model axis does not divide: Mamba2's SSM heads, the
+    MoE's experts, RWKV6's heads and channel-mix width, the attention's
+    query heads and the MLP width; or query heads that straddle a KV head
+    when the KV projections stay whole (D6)."""
     if model < 1:
         raise ValueError(f"model axis must be >= 1: {model}")
     if model == 1:
         return
-    what = "MLA" if cfg.block_kind == "mla" else \
-        None if cfg.arch_type in TP_ARCH_TYPES and cfg.block_kind == "attn" \
-        else f"the {cfg.arch_type!r} family"
+    what = "MLA" if cfg.block_kind == "mla" else None \
+        if cfg.arch_type in TP_ARCH_TYPES else f"the {cfg.arch_type!r} family"
     if what is not None:
         raise ValueError(f"{cfg.name}: tensor parallelism for {what} is not "
                          f"yet ported to repro_torch (ROADMAP item 16.1b)")
-    if cfg.num_heads % model:
-        raise ValueError(f"{cfg.name}: {cfg.num_heads} query heads are not "
-                         f"divisible by the model axis {model} (the port "
-                         f"splits whole heads; ROADMAP item 16.1)")
-    if cfg.d_ff % model:
-        raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} is not divisible by "
-                         f"the model axis {model} (ROADMAP item 16.1)")
+    if cfg.block_kind == "mamba2":
+        s = cfg.ssm
+        _divides(cfg, model, s.expand * cfg.d_model // s.head_dim,
+                 "SSM heads are")
+    if cfg.has_moe:
+        _divides(cfg, model, cfg.moe.num_experts, "experts are")
+        if cfg.moe.num_shared_experts:
+            _divides(cfg, model, cfg.moe.d_ff_expert
+                     * cfg.moe.num_shared_experts, "shared-expert widths are")
+    if cfg.block_kind == "rwkv6":
+        _divides(cfg, model, cfg.num_heads, "heads are")
+        _divides(cfg, model, cfg.d_ff, "channel-mix widths (d_ff) are")
+        return
+    if cfg.block_kind == "mamba2" and cfg.hybrid_group <= 0:
+        return
+    # the attention + MLP layers (a hybrid's shared block among them)
+    _divides(cfg, model, cfg.num_heads, "query heads are")
+    if not cfg.has_moe or cfg.moe.first_dense_layers > 0:
+        _divides(cfg, model, cfg.d_ff, "MLP widths (d_ff) are")
     per, group = cfg.num_heads // model, cfg.num_heads // cfg.num_kv_heads
     if kv_replicated(cfg, model) and group % per:
         raise ValueError(

@@ -41,6 +41,24 @@
 // flight; at the decoder's shape it takes 16 rows, and its 256 CTAs run in
 // one wave on 132 SMs (512 CTAs of 8 rows run in two waves with twice the
 // workspace, and are slower: scripts/rmsnorm_timing.py times both).
+//
+// The split row (tensor parallelism's Mamba2 inner norm, whose row of
+// width W is spread over the ranks of a model group, each holding D = W/M
+// columns): the row's statistic needs every rank's columns, so each pass
+// that K4 and K5 take over a whole row is cut in two around an all-reduce
+// that the caller makes between the launches.
+//   forward:  rmsnorm_rowdot_kernel<T, false> writes each row's fp32 sum of
+//             squares over its D columns; [all-reduce]; K4 in its SPLIT
+//             mode reads the whole row's sum instead of taking it, with
+//             rinv = 1 / sqrt(sum / W + eps), and writes out and rinv.
+//   backward: rmsnorm_rowdot_kernel<T, true> writes each row's fp32
+//             rowsum(dy*s*x) over its D columns; [all-reduce]; K5's row
+//             pass in its SPLIT mode reads that whole-row sum instead of
+//             taking it (no per-row block reduction, no barrier) with
+//             1 / W for 1 / D; dscale over the D columns is K5's, its
+//             fixed-order reduction unchanged.
+// Each pass is bound by its bytes, as K4 and K5 are; the partial passes
+// read x (and dy) once more, and the partials add 8 bytes a row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -154,11 +172,14 @@ __device__ __forceinline__ float block_sum_alternating(float v, float* red) {
 
 // K4: one CTA per row. vec: every row start and the scale are 16-byte
 // aligned, so the first (D / N) * N elements move as 16-byte vectors.
-template <typename T>
+// SPLIT: the row's sum of squares is the whole row's, read from sumsq, and
+// the mean is over its width W, not D.
+template <typename T, bool SPLIT>
 __global__ void __launch_bounds__(MAX_THREADS) rmsnorm_fwd_kernel(
     const T* __restrict__ x, const float* __restrict__ scale,
     T* __restrict__ out, float* __restrict__ rinv, int d, long long x_rs,
-    long long o_rs, float eps, int vec) {
+    long long o_rs, float eps, int vec, const float* __restrict__ sumsq,
+    float width) {
   constexpr int N = VecOf<T>::N;
   __shared__ float red[MAX_THREADS / 32];
   const long long row = blockIdx.x;
@@ -166,20 +187,25 @@ __global__ void __launch_bounds__(MAX_THREADS) rmsnorm_fwd_kernel(
   T* orow = out + row * o_rs;
   const int nvec = vec ? d / N : 0;
 
-  float ss = 0.f;
-  for (int j = threadIdx.x; j < nvec; j += blockDim.x) {
-    float v[N];
-    load_vec(xr + j * N, v);
+  float r;
+  if constexpr (SPLIT) {
+    r = 1.f / sqrtf(sumsq[row] / width + eps);
+  } else {
+    float ss = 0.f;
+    for (int j = threadIdx.x; j < nvec; j += blockDim.x) {
+      float v[N];
+      load_vec(xr + j * N, v);
 #pragma unroll
-    for (int i = 0; i < N; ++i) ss += v[i] * v[i];
+      for (int i = 0; i < N; ++i) ss += v[i] * v[i];
+    }
+    for (int c = nvec * N + threadIdx.x; c < d; c += blockDim.x) {
+      const float v = to_f32(xr[c]);
+      ss += v * v;
+    }
+    ss = block_sum(ss, red);
+    // 1 / sqrt, not rsqrtf: the reference divides by sqrt
+    r = 1.f / sqrtf(ss / static_cast<float>(d) + eps);
   }
-  for (int c = nvec * N + threadIdx.x; c < d; c += blockDim.x) {
-    const float v = to_f32(xr[c]);
-    ss += v * v;
-  }
-  ss = block_sum(ss, red);
-  // 1 / sqrt, not rsqrtf: the reference divides by sqrt
-  const float r = 1.f / sqrtf(ss / static_cast<float>(d) + eps);
   if (threadIdx.x == 0) rinv[row] = r;
 
   for (int j = threadIdx.x; j < nvec; j += blockDim.x) {
@@ -192,6 +218,46 @@ __global__ void __launch_bounds__(MAX_THREADS) rmsnorm_fwd_kernel(
   }
   for (int c = nvec * N + threadIdx.x; c < d; c += blockDim.x)
     put(orow + c, (to_f32(xr[c]) * r) * scale[c]);
+}
+
+// The split row's partial pass: one CTA per row, out[row] = the fp32 sum
+// over the row's D columns of x * x (forward, BWD false) or (dy * s) * x
+// (backward), each thread's share then the CTA's in a fixed order.
+template <typename T, bool BWD>
+__global__ void __launch_bounds__(MAX_THREADS) rmsnorm_rowdot_kernel(
+    const T* __restrict__ x, const float* __restrict__ scale,
+    const T* __restrict__ dy, float* __restrict__ out, int d, long long x_rs,
+    long long dy_rs, int vec) {
+  constexpr int N = VecOf<T>::N;
+  __shared__ float red[MAX_THREADS / 32];
+  const long long row = blockIdx.x;
+  const T* xr = x + row * x_rs;
+  const int nvec = vec ? d / N : 0;
+
+  float acc = 0.f;
+  for (int j = threadIdx.x; j < nvec; j += blockDim.x) {
+    float v[N];
+    load_vec(xr + j * N, v);
+    if constexpr (BWD) {
+      float g[N], s[N];
+      load_vec(dy + row * dy_rs + j * N, g);
+      load_scale<N>(scale + j * N, s);
+#pragma unroll
+      for (int i = 0; i < N; ++i) acc += (g[i] * s[i]) * v[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) acc += v[i] * v[i];
+    }
+  }
+  for (int c = nvec * N + threadIdx.x; c < d; c += blockDim.x) {
+    const float v = to_f32(xr[c]);
+    if constexpr (BWD)
+      acc += (to_f32(dy[row * dy_rs + c]) * scale[c]) * v;
+    else
+      acc += v * v;
+  }
+  acc = block_sum(acc, red);
+  if (threadIdx.x == 0) out[row] = acc;
 }
 
 // K5's staging: unit j of a row is its columns [j N, j N + N), kept raw (16
@@ -229,7 +295,9 @@ __device__ __forceinline__ void store_unit(T* row, int j, int d, int vec,
 // blockDim.x m (m < M) of every row: their scale and dscale partials stay
 // in its registers, each row's x and dy are read once into registers, and
 // the next row's loads are issued before the current row is reduced.
-template <typename T, int M>
+// SPLIT: each row's rowsum(dy*s*x) is the whole row's, read from dots, and
+// the row's width is W, not D.
+template <typename T, int M, bool SPLIT>
 __global__ void __launch_bounds__(M == 8 ? 1024 : 512, M == 1 ? 2 : 1)
     rmsnorm_bwd_kernel(const T* __restrict__ x,
                        const float* __restrict__ scale,
@@ -237,10 +305,11 @@ __global__ void __launch_bounds__(M == 8 ? 1024 : 512, M == 1 ? 2 : 1)
                        const T* __restrict__ dy, T* __restrict__ dx,
                        float* __restrict__ ws, long long rows, int d,
                        long long x_rs, long long dy_rs, long long dx_rs,
-                       int rows_per_block, int vec) {
+                       int rows_per_block, int vec,
+                       const float* __restrict__ dots, float width) {
   constexpr int N = VecOf<T>::N;
   __shared__ float red[2][32];
-  const float dinv = 1.f / static_cast<float>(d);
+  const float dinv = SPLIT ? 1.f / width : 1.f / static_cast<float>(d);
   const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
   const long long r1 = min(rows, r0 + rows_per_block);
 
@@ -267,6 +336,8 @@ __global__ void __launch_bounds__(M == 8 ? 1024 : 512, M == 1 ? 2 : 1)
     cg[m] = load_unit(dy + r0 * dy_rs, j, d, vec);
   }
   float rv = rinv[r0], nrv = 0.f;
+  float dv = 0.f, ndv = 0.f;
+  if constexpr (SPLIT) dv = dots[r0];
   for (long long row = r0; row < r1; ++row) {
     if (row + 1 < r1) {
 #pragma unroll
@@ -276,6 +347,7 @@ __global__ void __launch_bounds__(M == 8 ? 1024 : 512, M == 1 ? 2 : 1)
         ng[m] = load_unit(dy + (row + 1) * dy_rs, j, d, vec);
       }
       nrv = rinv[row + 1];
+      if constexpr (SPLIT) ndv = dots[row + 1];
     }
     float xv[M][N], g[M][N];
     float dot = 0.f;
@@ -283,10 +355,15 @@ __global__ void __launch_bounds__(M == 8 ? 1024 : 512, M == 1 ? 2 : 1)
     for (int m = 0; m < M; ++m) {
       unpack(cx[m], xv[m]);
       unpack(cg[m], g[m]);
+      if constexpr (!SPLIT) {
 #pragma unroll
-      for (int i = 0; i < N; ++i) dot += (g[m][i] * s[m][i]) * xv[m][i];
+        for (int i = 0; i < N; ++i) dot += (g[m][i] * s[m][i]) * xv[m][i];
+      }
     }
-    dot = block_sum_alternating(dot, red[(row - r0) & 1]);
+    if constexpr (SPLIT)
+      dot = dv;
+    else
+      dot = block_sum_alternating(dot, red[(row - r0) & 1]);
 
     const float a = rv * rv * rv * dinv;
     T* dr = dx + row * dx_rs;
@@ -303,6 +380,7 @@ __global__ void __launch_bounds__(M == 8 ? 1024 : 512, M == 1 ? 2 : 1)
       cg[m] = ng[m];
     }
     rv = nrv;
+    dv = ndv;
   }
 
   float* wr = ws + static_cast<long long>(blockIdx.x) * d;
@@ -350,40 +428,65 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// sumsq, width: the split row's whole-row sums of squares and width (K4's
+// SPLIT mode) when sumsq is given, else the whole-row K4
 template <typename T>
 cudaError_t launch_fwd(const void* x, const float* scale, void* out,
                        float* rinv, long long rows, int d, long long x_rs,
-                       long long o_rs, float eps, cudaStream_t stream) {
+                       long long o_rs, float eps, const float* sumsq,
+                       float width, cudaStream_t stream) {
   constexpr int N = VecOf<T>::N;
   const int vec = aligned16(x) && aligned16(out) && aligned16(scale) &&
                   x_rs % N == 0 && o_rs % N == 0;
-  rmsnorm_fwd_kernel<T><<<static_cast<unsigned>(rows), threads_for(d, N), 0,
-                          stream>>>(
-      static_cast<const T*>(x), scale, static_cast<T*>(out), rinv, d, x_rs,
-      o_rs, eps, vec);
+  auto kernel = sumsq ? rmsnorm_fwd_kernel<T, true>
+                      : rmsnorm_fwd_kernel<T, false>;
+  kernel<<<static_cast<unsigned>(rows), threads_for(d, N), 0, stream>>>(static_cast<const T*>(x), scale, static_cast<T*>(out), rinv, d, x_rs, o_rs, eps, vec, sumsq, width);
   return cudaGetLastError();
 }
 
-template <typename T, int M>
+// the split row's partial pass: Σ x*x per row, or Σ (dy*s)*x with dy
+template <typename T>
+cudaError_t launch_rowdot(const void* x, const float* scale, const void* dy,
+                          float* out, long long rows, int d, long long x_rs,
+                          long long dy_rs, cudaStream_t stream) {
+  constexpr int N = VecOf<T>::N;
+  const int vec = aligned16(x) && x_rs % N == 0 &&
+                  (!dy || (aligned16(dy) && aligned16(scale) &&
+                           dy_rs % N == 0));
+  auto kernel = dy ? rmsnorm_rowdot_kernel<T, true>
+                   : rmsnorm_rowdot_kernel<T, false>;
+  kernel<<<static_cast<unsigned>(rows), threads_for(d, N), 0, stream>>>(static_cast<const T*>(x), scale, static_cast<const T*>(dy), out, d, x_rs, dy_rs, vec);
+  return cudaGetLastError();
+}
+
+template <typename T, int M, bool SPLIT>
 cudaError_t launch_bwd_rows(const void* x, const float* scale,
                             const float* rinv, const void* dy, void* dx,
                             float* ws, long long rows, int d, long long x_rs,
                             long long dy_rs, long long dx_rs,
                             int rows_per_block, int n_blocks, int nt, int vec,
+                            const float* dots, float width,
                             cudaStream_t stream) {
-  rmsnorm_bwd_kernel<T, M><<<n_blocks, nt, 0, stream>>>(
-      static_cast<const T*>(x), scale, rinv, static_cast<const T*>(dy),
-      static_cast<T*>(dx), ws, rows, d, x_rs, dy_rs, dx_rs, rows_per_block,
-      vec);
+  rmsnorm_bwd_kernel<T, M, SPLIT><<<n_blocks, nt, 0, stream>>>(static_cast<const T*>(x), scale, rinv, static_cast<const T*>(dy), static_cast<T*>(dx), ws, rows, d, x_rs, dy_rs, dx_rs, rows_per_block, vec, dots, width);
   return cudaGetLastError();
 }
 
+template <typename T, bool SPLIT>
+auto bwd_rows_launcher(int m) {
+  return m == 1 ? launch_bwd_rows<T, 1, SPLIT>
+       : m == 2 ? launch_bwd_rows<T, 2, SPLIT>
+       : m == 4 ? launch_bwd_rows<T, 4, SPLIT>
+                : launch_bwd_rows<T, 8, SPLIT>;
+}
+
+// dots, width: the split row's whole-row sums rowsum(dy*s*x) and width
+// (K5's SPLIT mode) when dots is given, else the whole-row K5
 template <typename T>
 cudaError_t launch_bwd(const void* x, const float* scale, const float* rinv,
                        const void* dy, void* dx, float* ws, float* dscale,
                        long long rows, int d, long long x_rs, long long dy_rs,
                        long long dx_rs, int rows_per_block, int n_blocks,
-                       cudaStream_t stream) {
+                       const float* dots, float width, cudaStream_t stream) {
   constexpr int N = VecOf<T>::N;
   const int vec = aligned16(x) && aligned16(dy) && aligned16(dx) &&
                   aligned16(scale) && x_rs % N == 0 && dy_rs % N == 0 &&
@@ -394,12 +497,11 @@ cudaError_t launch_bwd(const void* x, const float* scale, const float* rinv,
   int m = 1;
   while (m < 8 && (units + m - 1) / m > 512) m *= 2;
   const int nt = ((units + m - 1) / m + 31) / 32 * 32;
-  auto rows_launch = m == 1 ? launch_bwd_rows<T, 1>
-                   : m == 2 ? launch_bwd_rows<T, 2>
-                   : m == 4 ? launch_bwd_rows<T, 4> : launch_bwd_rows<T, 8>;
+  auto rows_launch = dots ? bwd_rows_launcher<T, true>(m)
+                          : bwd_rows_launcher<T, false>(m);
   cudaError_t err = rows_launch(x, scale, rinv, dy, dx, ws, rows, d, x_rs,
                                 dy_rs, dx_rs, rows_per_block, n_blocks, nt,
-                                vec, stream);
+                                vec, dots, width, stream);
   if (err != cudaSuccess) return err;
   dscale_reduce_kernel<<<(d + RED_COLS - 1) / RED_COLS,
                          RED_COLS * RED_GROUPS, 0, stream>>>(ws, dscale,
@@ -422,8 +524,9 @@ int repro_rmsnorm_fwd(int dtype, const void* x, const void* scale, void* out,
   float* r = static_cast<float*>(rinv);
   if (dtype == 1)
     return launch_fwd<__nv_bfloat16>(x, s, out, r, rows, d, x_rs, o_rs, eps,
-                                     st);
-  return launch_fwd<float>(x, s, out, r, rows, d, x_rs, o_rs, eps, st);
+                                     nullptr, 0.f, st);
+  return launch_fwd<float>(x, s, out, r, rows, d, x_rs, o_rs, eps, nullptr,
+                           0.f, st);
 }
 
 // ws is float32 (n_blocks, D) scratch; CTA b covers rows
@@ -441,9 +544,66 @@ int repro_rmsnorm_bwd(int dtype, const void* x, const void* scale,
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16>(x, s, r, dy, dx, w, ds, rows, d, x_rs,
                                      dy_rs, dx_rs, rows_per_block, n_blocks,
-                                     st);
+                                     nullptr, 0.f, st);
   return launch_bwd<float>(x, s, r, dy, dx, w, ds, rows, d, x_rs, dy_rs,
-                           dx_rs, rows_per_block, n_blocks, st);
+                           dx_rs, rows_per_block, n_blocks, nullptr, 0.f,
+                           st);
+}
+
+// The split row's partial pass: out (rows,) fp32 gets each row's Σ x*x over
+// its d columns when dy is null (the forward's), else Σ (dy*scale)*x (the
+// backward's).
+int repro_rmsnorm_rowdot(int dtype, const void* x, const void* scale,
+                         const void* dy, void* out, long long rows, int d,
+                         long long x_rs, long long dy_rs, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* s = static_cast<const float*>(scale);
+  float* o = static_cast<float*>(out);
+  if (dtype == 1)
+    return launch_rowdot<__nv_bfloat16>(x, s, dy, o, rows, d, x_rs, dy_rs,
+                                        st);
+  return launch_rowdot<float>(x, s, dy, o, rows, d, x_rs, dy_rs, st);
+}
+
+// K4's split-row mode: sumsq (rows,) fp32 is the whole row's sum of
+// squares, width the whole row's width.
+int repro_rmsnorm_fwd_split(int dtype, const void* x, const void* scale,
+                            const void* sumsq, void* out, void* rinv,
+                            long long rows, int d, long long x_rs,
+                            long long o_rs, float width, float eps,
+                            void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* s = static_cast<const float*>(scale);
+  const float* ss = static_cast<const float*>(sumsq);
+  float* r = static_cast<float*>(rinv);
+  if (dtype == 1)
+    return launch_fwd<__nv_bfloat16>(x, s, out, r, rows, d, x_rs, o_rs, eps,
+                                     ss, width, st);
+  return launch_fwd<float>(x, s, out, r, rows, d, x_rs, o_rs, eps, ss, width,
+                           st);
+}
+
+// K5's split-row mode: dots (rows,) fp32 is the whole row's
+// rowsum(dy*scale*x), width the whole row's width.
+int repro_rmsnorm_bwd_split(int dtype, const void* x, const void* scale,
+                            const void* rinv, const void* dy,
+                            const void* dots, void* dx, void* ws,
+                            void* dscale, long long rows, int d,
+                            long long x_rs, long long dy_rs, long long dx_rs,
+                            float width, int rows_per_block, int n_blocks,
+                            void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* s = static_cast<const float*>(scale);
+  const float* r = static_cast<const float*>(rinv);
+  const float* dt = static_cast<const float*>(dots);
+  float* w = static_cast<float*>(ws);
+  float* ds = static_cast<float*>(dscale);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(x, s, r, dy, dx, w, ds, rows, d, x_rs,
+                                     dy_rs, dx_rs, rows_per_block, n_blocks,
+                                     dt, width, st);
+  return launch_bwd<float>(x, s, r, dy, dx, w, ds, rows, d, x_rs, dy_rs,
+                           dx_rs, rows_per_block, n_blocks, dt, width, st);
 }
 
 const char* repro_cuda_error_string(int code) {

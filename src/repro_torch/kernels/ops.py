@@ -3,6 +3,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import fused_rmsnorm as _fused_rmsnorm
+from repro_torch.kernels.rmsnorm import split_rmsnorm as _split_rmsnorm
 from repro_torch.kernels.wkv6 import WKV_CHUNK_MAX, pad_to_chunk
 from repro_torch.kernels.wkv6 import wkv6 as _wkv6
 
@@ -27,6 +28,17 @@ def fused_rmsnorm(x, scale, *, eps=1e-6):
     through ``FusedRMSNorm``: K4 forward saving the fp32 rinv, K5 backward
     for dx and dscale."""
     return _fused_rmsnorm(x, scale, eps=eps)
+
+
+def split_rmsnorm(x, scale, *, eps, width, reduce, kernels=True):
+    """RMSNorm of x (..., D), this part's D columns of rows ``width``
+    wide, in x's dtype; ``reduce`` sums a per-row fp32 (rows,) tensor over
+    the parts (an all-reduce over the model group). Differentiable
+    through ``SplitRMSNorm``: with ``kernels`` the split-row K4 forward
+    and K5 backward, each after a partial pass, else their plain
+    versions."""
+    return _split_rmsnorm(x, scale, eps=eps, width=width, reduce=reduce,
+                          kernels=kernels)
 
 
 def wkv6(r, k, v, wlog, u, s0, *, chunk):

@@ -7,7 +7,10 @@ holds the kernel against on the card. It follows
 ``ref_attention_bwd`` is the plain version of K2 and K3
 (``csrc/flash_bwd.cu``), in the same two roles for the backward.
 ``ref_rmsnorm_fwd`` and ``ref_rmsnorm_bwd`` are the plain versions of K4
-and K5 (``csrc/rmsnorm.cu``); ``ref_rmsnorm`` is the JAX package's oracle
+and K5 (``csrc/rmsnorm.cu``), ``ref_rmsnorm_sumsq``/``ref_rmsnorm_apply``
+and ``ref_rmsnorm_bwd_dot``/``ref_rmsnorm_bwd_apply`` those of their
+split-row routes (a row whose columns are spread over ranks);
+``ref_rmsnorm`` is the JAX package's oracle
 ``repro/kernels/ref.py::ref_rmsnorm``. ``ref_wkv6_fwd`` and
 ``ref_wkv6_bwd`` are the plain versions of K6 and K7 (``csrc/wkv6.cu``);
 ``ref_wkv6`` is the JAX package's sequential oracle
@@ -127,6 +130,49 @@ def ref_rmsnorm_bwd(x, scale, rinv, dy):
     dys = dyf * scale.to(torch.float32)
     dot = (dys * xf).sum(dim=-1, keepdim=True)
     dx = r * dys - (r * r * r * (1.0 / d)) * xf * dot
+    dscale = (dyf * xf * r).sum(dim=0)
+    return dx.to(x.dtype).reshape(x.shape), dscale.to(scale.dtype)
+
+
+def ref_rmsnorm_sumsq(x):
+    """The split-row forward's partial pass: per row of x (..., D), the
+    fp32 sum of squares of its D columns, (rows,)."""
+    xf = x.to(torch.float32).reshape(-1, x.shape[-1])
+    return (xf * xf).sum(dim=-1)
+
+
+def ref_rmsnorm_apply(x, scale, sumsq, width, eps=1e-6):
+    """The split-row forward's apply pass: ``rinv = 1 / sqrt(sumsq / width
+    + eps)`` from the whole row's fp32 sum of squares (rows,) and width,
+    then ``out = x · rinv · scale`` on this part's columns. Returns
+    ``(out (..., D) in x's dtype, rinv (rows,) fp32)``."""
+    xf = x.to(torch.float32).reshape(-1, x.shape[-1])
+    rinv = 1.0 / torch.sqrt(sumsq.to(torch.float32) / width + eps)
+    out = (xf * rinv[:, None]) * scale.to(torch.float32)
+    return out.to(x.dtype).reshape(x.shape), rinv
+
+
+def ref_rmsnorm_bwd_dot(x, scale, dy):
+    """The split-row backward's partial pass: per row, the fp32
+    ``rowsum(dy∘s∘x)`` over this part's columns, (rows,)."""
+    d = x.shape[-1]
+    xf = x.to(torch.float32).reshape(-1, d)
+    dys = dy.to(torch.float32).reshape(-1, d) * scale.to(torch.float32)
+    return (dys * xf).sum(dim=-1)
+
+
+def ref_rmsnorm_bwd_apply(x, scale, rinv, dy, dot, width):
+    """The split-row backward's apply pass, K5's formula with the whole
+    row's ``dot`` = rowsum(dy∘s∘x) (rows,) and width: ``dx = rinv·(dy∘s)
+    − rinv³/width·x·dot`` in x's dtype and this part's ``dscale = Σ_rows
+    dy∘x∘rinv`` in scale's dtype."""
+    d = x.shape[-1]
+    xf = x.to(torch.float32).reshape(-1, d)
+    dyf = dy.to(torch.float32).reshape(-1, d)
+    r = rinv.to(torch.float32)[:, None]
+    dys = dyf * scale.to(torch.float32)
+    dx = r * dys - (r * r * r * (1.0 / width)) * xf * \
+        dot.to(torch.float32)[:, None]
     dscale = (dyf * xf * r).sum(dim=0)
     return dx.to(x.dtype).reshape(x.shape), dscale.to(scale.dtype)
 

@@ -12,6 +12,16 @@ forward. On a CUDA tensor each wrapper launches its hand-written kernel or
 raises; only tensors on the CPU take the plain versions,
 ``kernels/ref.py::ref_rmsnorm_fwd`` and ``ref_rmsnorm_bwd``.
 
+The split row (tensor parallelism's Mamba2 inner norm: each rank of a
+model group holds D of a row's W columns) cuts each whole-row pass in two
+around an all-reduce of a per-row fp32 sum: ``fused_rmsnorm_sumsq`` (the
+rows' sums of squares) and ``fused_rmsnorm_fwd_split`` (K4 in its split
+mode, from the whole rows' sums) in the forward, ``fused_rmsnorm_bwd_dot``
+(the rows' ``rowsum(dy∘s∘x)``) and ``fused_rmsnorm_bwd_split`` (K5 in its
+split mode) in the backward; :class:`SplitRMSNorm` joins them with the
+caller's all-reduce. Their plain versions are ``kernels/ref.py``'s
+``ref_rmsnorm_sumsq``, ``_apply``, ``_bwd_dot`` and ``_bwd_apply``.
+
 Each wrapper's ``.launches`` counts kernel calls (CPU calls do not count;
 K5's two launches, the row pass and the dscale reduction, count as one).
 The kernels take x and dy as (rows, D) with one row stride and a unit
@@ -26,7 +36,9 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import ref_rmsnorm_bwd, ref_rmsnorm_fwd
+from repro_torch.kernels.ref import ref_rmsnorm_apply, ref_rmsnorm_bwd, \
+    ref_rmsnorm_bwd_apply, ref_rmsnorm_bwd_dot, ref_rmsnorm_fwd, \
+    ref_rmsnorm_sumsq
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 32768               # K5: a row in 1024 threads x 8 units of 4 fp32
@@ -46,7 +58,17 @@ def _lib():
             [i32] + [ptr] * 4 + [i64, i32, i64, i64, ctypes.c_float, ptr])
         lib.repro_rmsnorm_bwd.argtypes = (
             [i32] + [ptr] * 7 + [i64, i32, i64, i64, i64, i32, i32, ptr])
-        for fn in (lib.repro_rmsnorm_fwd, lib.repro_rmsnorm_bwd):
+        f32 = ctypes.c_float
+        lib.repro_rmsnorm_rowdot.argtypes = (
+            [i32] + [ptr] * 4 + [i64, i32, i64, i64, ptr])
+        lib.repro_rmsnorm_fwd_split.argtypes = (
+            [i32] + [ptr] * 5 + [i64, i32, i64, i64, f32, f32, ptr])
+        lib.repro_rmsnorm_bwd_split.argtypes = (
+            [i32] + [ptr] * 8 + [i64, i32, i64, i64, i64, f32, i32, i32,
+                                 ptr])
+        for fn in (lib.repro_rmsnorm_fwd, lib.repro_rmsnorm_bwd,
+                   lib.repro_rmsnorm_rowdot, lib.repro_rmsnorm_fwd_split,
+                   lib.repro_rmsnorm_bwd_split):
             fn.restype = i32
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -83,16 +105,17 @@ def row_layout(x):
 row_layout.copies = 0
 
 
-def check_kernel_inputs(x2, scale):
+def check_kernel_inputs(x2, scale=None):
     """What the CUDA kernels take, for x as (rows, D) and scale (D,);
     anything else raises (never falls back)."""
     rows, d = x2.shape
     if not 1 <= d <= MAX_D or not 1 <= rows <= _ROWS_MAX:
         raise ValueError(f"kernel shapes are 1 <= D <= {MAX_D} and 1 <= "
                          f"rows <= {_ROWS_MAX}; got rows={rows}, D={d}")
-    if x2.stride(-1) != 1 or scale.stride(-1) != 1:
+    if x2.stride(-1) != 1 or scale is not None and scale.stride(-1) != 1:
         raise ValueError(f"the kernels need a unit stride on the last dim; "
-                         f"got {x2.stride()} and {scale.stride()}")
+                         f"got {x2.stride()} and "
+                         f"{None if scale is None else scale.stride()}")
 
 
 def _check_device(*xs):
@@ -172,8 +195,110 @@ def fused_rmsnorm_bwd(x, scale, rinv, dy):
     return dx.view(x.shape), dscale
 
 
-fused_rmsnorm_fwd.launches = 0
-fused_rmsnorm_bwd.launches = 0
+def _check_sums(t, rows, what):
+    if t.shape != (rows,) or t.dtype != torch.float32 or \
+            not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous float32 ({rows},); "
+                         f"got {t.dtype} {tuple(t.shape)}")
+
+
+def fused_rmsnorm_sumsq(x):
+    """The split row's forward partial pass: x (..., D) in bf16 or fp32 ->
+    each row's fp32 sum of squares over its D columns (rows,)."""
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"x must be float32 or bfloat16; got {x.dtype}")
+    if x.device.type == "cpu":
+        return ref_rmsnorm_sumsq(x)
+    _check_device(x)
+    x2 = row_layout(x)
+    check_kernel_inputs(x2)
+    rows, d = x2.shape
+    out = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    _launch("repro_rmsnorm_rowdot", "rmsnorm_sumsq", x.device, (
+        _DTYPE_CODE[x.dtype], x2, None, None, out, rows, d, x2.stride(0), 0))
+    fused_rmsnorm_sumsq.launches += 1
+    return out
+
+
+def fused_rmsnorm_fwd_split(x, scale, sumsq, width, eps=1e-6):
+    """K4's split mode: x (..., D), this part's scale (D,) fp32 and the
+    whole rows' fp32 sums of squares (rows,) over their ``width`` columns
+    -> (out (..., D) in x's dtype, rinv (rows,) fp32)."""
+    check_shapes(x, scale)
+    rows = math.prod(x.shape[:-1])
+    _check_sums(sumsq, rows, "sumsq")
+    if x.device.type == "cpu" and scale.device.type == "cpu" and \
+            sumsq.device.type == "cpu":
+        return ref_rmsnorm_apply(x, scale, sumsq, width, eps)
+    _check_device(x, scale, sumsq)
+    x2, scale = row_layout(x), row_layout(scale)[0]
+    check_kernel_inputs(x2, scale)
+    d = x2.shape[1]
+    out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    rinv = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    _launch("repro_rmsnorm_fwd_split", "rmsnorm_fwd_split", x.device, (
+        _DTYPE_CODE[x.dtype], x2, scale, sumsq, out, rinv, rows, d,
+        x2.stride(0), out.stride(0), float(width), float(eps)))
+    fused_rmsnorm_fwd_split.launches += 1
+    return out.view(x.shape), rinv
+
+
+def fused_rmsnorm_bwd_dot(x, scale, dy):
+    """The split row's backward partial pass: each row's fp32
+    ``rowsum(dy∘s∘x)`` over its D columns (rows,)."""
+    check_shapes(x, scale)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"dy must be {tuple(x.shape)} {x.dtype}; got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    if x.device.type == "cpu" and scale.device.type == "cpu" and \
+            dy.device.type == "cpu":
+        return ref_rmsnorm_bwd_dot(x, scale, dy)
+    _check_device(x, scale, dy)
+    x2, dy2, scale = row_layout(x), row_layout(dy), row_layout(scale)[0]
+    check_kernel_inputs(x2, scale)
+    rows, d = x2.shape
+    out = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    _launch("repro_rmsnorm_rowdot", "rmsnorm_bwd_dot", x.device, (
+        _DTYPE_CODE[x.dtype], x2, scale, dy2, out, rows, d, x2.stride(0),
+        dy2.stride(0)))
+    fused_rmsnorm_bwd_dot.launches += 1
+    return out
+
+
+def fused_rmsnorm_bwd_split(x, scale, rinv, dy, dot, width):
+    """K5's split mode: (dx (..., D) in x's dtype, this part's dscale (D,))
+    from the forward's fp32 ``rinv`` and the whole rows' fp32
+    ``rowsum(dy∘s∘x)`` (rows,) over their ``width`` columns."""
+    check_shapes(x, scale)
+    rows = math.prod(x.shape[:-1])
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"dy must be {tuple(x.shape)} {x.dtype}; got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    _check_sums(rinv, rows, "rinv")
+    _check_sums(dot, rows, "dot")
+    if all(t.device.type == "cpu" for t in (x, scale, rinv, dy, dot)):
+        return ref_rmsnorm_bwd_apply(x, scale, rinv, dy, dot, width)
+    _check_device(x, scale, rinv, dy, dot)
+    x2, dy2, scale = row_layout(x), row_layout(dy), row_layout(scale)[0]
+    check_kernel_inputs(x2, scale)
+    d = x2.shape[1]
+    per, n_blocks = bwd_blocks(rows)
+    dx = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    ws = torch.empty((n_blocks, d), dtype=torch.float32, device=x.device)
+    dscale = torch.empty((d,), dtype=scale.dtype, device=x.device)
+    _launch("repro_rmsnorm_bwd_split", "rmsnorm_bwd_split", x.device, (
+        _DTYPE_CODE[x.dtype], x2, scale, rinv, dy2, dot, dx, ws, dscale,
+        rows, d, x2.stride(0), dy2.stride(0), dx.stride(0), float(width),
+        per, n_blocks))
+    fused_rmsnorm_bwd_split.launches += 1
+    return dx.view(x.shape), dscale
+
+
+for _fn in (fused_rmsnorm_fwd, fused_rmsnorm_bwd, fused_rmsnorm_sumsq,
+            fused_rmsnorm_fwd_split, fused_rmsnorm_bwd_dot,
+            fused_rmsnorm_bwd_split):
+    _fn.launches = 0
+del _fn
 
 
 class FusedRMSNorm(torch.autograd.Function):
@@ -199,3 +324,39 @@ def fused_rmsnorm(x, scale, *, eps=1e-6):
     """x (..., D) -> rmsnorm(x) * scale in x's dtype, differentiable
     through :class:`FusedRMSNorm`."""
     return FusedRMSNorm.apply(x, scale, eps)
+
+
+class SplitRMSNorm(torch.autograd.Function):
+    """RMSNorm over a row split by columns: this part's ``out = x · rinv ·
+    scale`` with ``rinv`` from the whole row's sum of squares. The forward
+    takes this part's sums (``sumsq``), has ``reduce`` sum them over the
+    parts (an all-reduce over the ranks that hold the row), then applies;
+    the backward likewise sums ``rowsum(dy∘s∘x)`` before dx. dscale is
+    this part's. ``kernels``: the split-row K4/K5 wrappers (the kernels
+    on the card), else their plain versions on any device."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, width, reduce, kernels):
+        sumsq, apply = (fused_rmsnorm_sumsq, fused_rmsnorm_fwd_split) \
+            if kernels else (ref_rmsnorm_sumsq, ref_rmsnorm_apply)
+        out, rinv = apply(x, scale, reduce(sumsq(x)), width, eps)
+        ctx.save_for_backward(x, scale, rinv)
+        ctx.width, ctx.reduce, ctx.kernels = width, reduce, kernels
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, rinv = ctx.saved_tensors
+        dot, apply = (fused_rmsnorm_bwd_dot, fused_rmsnorm_bwd_split) \
+            if ctx.kernels else (ref_rmsnorm_bwd_dot, ref_rmsnorm_bwd_apply)
+        dy = dy.to(x.dtype)
+        dx, dscale = apply(x, scale, rinv, dy, ctx.reduce(dot(x, scale, dy)),
+                           ctx.width)
+        return dx, dscale, None, None, None, None
+
+
+def split_rmsnorm(x, scale, *, eps, width, reduce, kernels=True):
+    """x (..., D), this part of rows ``width`` wide -> rmsnorm(x) * scale
+    in x's dtype, through :class:`SplitRMSNorm`; ``reduce`` maps a
+    (rows,) fp32 tensor to its sum over the parts."""
+    return SplitRMSNorm.apply(x, scale, eps, width, reduce, kernels)

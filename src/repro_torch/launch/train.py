@@ -86,12 +86,15 @@ Tensor parallelism (``models/shardctx.py``, Megatron's column/row split
 and the vocab-parallel embedding, head and loss): ``--model-axis M``
 splits each replica's layers over M ranks, so ``--devices N`` is dp x M
 (``--devices 4 --model-axis 2`` is data 2 x model 2), ZeRO over each
-model rank's data group. It covers the ViT, HuBERT and the dense and
-vision-language decoders; the MoE, RWKV6 and Mamba2 families, MLA and
-``--pp`` with ``--model-axis`` are refused (ROADMAP items 16.1b, 16.1c):
+model rank's data group. It covers the ViT, HuBERT, the dense and
+vision-language decoders, the MoE (experts split over the model axis),
+RWKV6 (heads) and the Mamba2 hybrid (heads; D7); MLA and ``--pp`` with
+``--model-axis`` are refused (ROADMAP items 16.1b, 16.1c):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch vit-b16 \\
         --smoke --device cpu --devices 4 --model-axis 2 --zero 3 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
+        --smoke --device cpu --devices 4 --model-axis 4 --steps 3
 
 Options of the reference that are not ported yet (sequence parallelism)
 are refused, never ignored.

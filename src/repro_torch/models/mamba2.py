@@ -29,13 +29,29 @@ Serving (``mamba2.py:140-201``): with a cache, the conv reads the cached
 last k-1 rows (``conv``) and the scan starts from the cached state
 (``ssd``); decode (S == 1 with a cache) is one step of the recurrence.
 Both are written back in place, cast to the cache's dtype.
+
+Tensor parallelism (``models/shardctx.py``; ROADMAP deviation D7): the
+columns of ``w_in`` are ``[z | x | B | C | dt]``, so a contiguous chunk
+of them is not a set of whole heads. Under a model group of M ranks
+``w_in``, ``conv_w``, ``conv_b``, ``A_log``, ``dt_bias``, ``D`` and the
+inner ``norm`` come whole, and rank m takes, on use, the z, x and dt
+columns (and the x conv channels, head vectors and norm columns) of its
+heads ``[m·H/M, (m+1)·H/M)`` and the shared B and C (one group) whole:
+its input goes through ``copy_to_model``, the scan runs on its heads, the
+inner RMSNorm spans the row over the group (the split-row K4/K5), and
+``w_out``'s row chunk is followed by ``reduce_from_model``. The engine
+sums the whole leaves' gradients over the group. Serving refuses a model
+group (ROADMAP item 16.3).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import shardctx
 from repro_torch.models.norms import rmsnorm
 from repro_torch.models.params import dense_init, ones, zeros
 
@@ -65,12 +81,34 @@ def init_mamba2(cfg, layers, **kw):
     }
 
 
-def _split_proj(cfg, proj):
-    """``proj`` (B,S,·) -> (z, x | B | C, dt_raw)."""
-    d_in, _, _ = dims(cfg)
-    n = cfg.ssm.state_dim
+def _split_proj(proj, d_in, n):
+    """``proj`` (B,S,·) of ``d_in`` inner columns and state ``n`` -> (z,
+    x | B | C, dt_raw)."""
     return proj[..., :d_in], proj[..., d_in:2 * d_in + 2 * n], \
         proj[..., 2 * d_in + 2 * n:]
+
+
+def _rank_params(cfg, p, rank, size):
+    """One layer's params as rank ``rank`` of a model group of ``size``
+    uses them (D7): ``w_in``'s z, x and dt columns of its heads and the
+    B and C columns; the conv's x channels of its heads and the B and C
+    channels; its heads' ``A_log``, ``dt_bias``, ``D`` and ``norm``
+    columns; ``w_out`` is its row chunk already."""
+    d_in, nheads, _ = dims(cfg)
+    n = cfg.ssm.state_dim
+    w, h = d_in // size, nheads // size
+    c0, h0 = rank * w, rank * h
+    dev = p["w_in"].device
+    ar = functools.partial(torch.arange, device=dev)
+    bc = ar(2 * d_in, 2 * d_in + 2 * n)
+    cols = torch.cat([ar(c0, c0 + w), d_in + ar(c0, c0 + w), bc,
+                      2 * d_in + 2 * n + ar(h0, h0 + h)])
+    chans = torch.cat([ar(c0, c0 + w), bc - d_in])
+    return dict(p, w_in=p["w_in"].index_select(-1, cols),
+                conv_w=p["conv_w"].index_select(-1, chans),
+                conv_b=p["conv_b"].index_select(-1, chans),
+                A_log=p["A_log"][h0:h0 + h], dt_bias=p["dt_bias"][h0:h0 + h],
+                D=p["D"][h0:h0 + h], norm=p["norm"][c0:c0 + w])
 
 
 def _causal_conv(xbc, conv_w, conv_b, conv_state=None):
@@ -164,7 +202,15 @@ def mamba2_block(p, x, cfg, *, cache=None):
     d_in, nheads, _ = dims(cfg)
     n, pdim = s_cfg.state_dim, s_cfg.head_dim
     dt_, f32 = x.dtype, torch.float32
-    z, xbc, dt_raw = _split_proj(cfg, x @ p["w_in"].to(dt_))
+    tp = shardctx.active()
+    if tp is not None:
+        if cache is not None:
+            raise ValueError("serving on the model axis is not yet ported "
+                             "(ROADMAP item 16.3)")
+        p = _rank_params(cfg, p, tp.rank, tp.size)
+        d_in, nheads = d_in // tp.size, nheads // tp.size
+        x = shardctx.copy_to_model(x)
+    z, xbc, dt_raw = _split_proj(x @ p["w_in"].to(dt_), d_in, n)
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"],
                                  cache["conv"] if cache is not None else None)
     xc = xbc[..., :d_in].reshape(b, s, nheads, pdim)
@@ -181,11 +227,12 @@ def mamba2_block(p, x, cfg, *, cache=None):
                                    min(s_cfg.chunk_size, s), h0)
     y = y + p["D"].to(f32)[:, None] * xc.to(f32)
     y = y.reshape(b, s, d_in).to(dt_) * F.silu(z)
-    y = rmsnorm(y, p["norm"], cfg.norm_eps, use_kernels=cfg.use_kernels)
+    y = rmsnorm(y, p["norm"], cfg.norm_eps, use_kernels=cfg.use_kernels,
+                split=True)
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["ssd"].copy_(h_end)
-    return y @ p["w_out"].to(dt_)
+    return shardctx.reduce_from_model(y @ p["w_out"].to(dt_))
 
 
 def init_mamba2_cache(cfg, batch, *, dtype, device):

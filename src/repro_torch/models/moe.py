@@ -15,6 +15,18 @@ data-parallel ranks. Each rank then computes ``E·Σ me_global·ce_local``,
 whose mean over the ranks, and whose averaged gradient, are the
 reference's aux over the global batch (GSPMD takes ``jnp.mean`` over the
 sharded batch axis there).
+
+Expert parallelism (``models/shardctx.py``): under a model group of M
+ranks each rank holds E/M experts (the reference's ``"model"`` on the
+experts' E axis) and the shared experts' column/row chunks. The ranks of
+a group see the same tokens, so no all-to-all is needed: every rank
+routes all of them with the whole router, takes its experts' part of the
+dispatch (GShard's (B,S,E,C), or the gather's (E,C) slot table) at the
+capacity one rank would count, runs them, combines only their outputs
+and sums the partial outputs over the group (``reduce_from_model``). The
+router's gradient is then each rank's share (summed by the engine), and
+the load-balance aux, the same value on every rank, keeps its gradient on
+model rank 0 only, so the sum counts it once.
 """
 from __future__ import annotations
 
@@ -23,6 +35,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import shardctx
 from repro_torch.models.params import dense_init
 
 
@@ -110,6 +123,20 @@ def expert_ffn(we, expert_in):
     return torch.bmm(h, we["experts.w_out"].to(dt)).reshape(expert_in.shape)
 
 
+def _expert_part(p):
+    """The ``[lo, hi)`` of the experts this rank holds (all of them
+    without a model group)."""
+    tp, n = shardctx.active(), p["experts.w_gate"].shape[0]
+    lo = 0 if tp is None else tp.rank * n
+    return lo, lo + n
+
+
+def _aux_once(aux):
+    """The aux term with its gradient on model rank 0 only."""
+    tp = shardctx.active()
+    return aux if tp is None or tp.rank == 0 else aux.detach()
+
+
 def _shared(p, x, out):
     if "shared.w_gate" not in p:
         return out
@@ -124,14 +151,18 @@ def moe_ffn(p, x, cfg, reduce=None):
     shared.*}."""
     m = cfg.moe
     b, s, d = x.shape
+    x = shardctx.copy_to_model(x)
     logits = x.to(torch.float32) @ p["router"].to(torch.float32)
     dispatch, combine, aux = top_k_routing(logits, m.top_k, capacity(s, cfg),
                                            reduce)
-    dispatch, combine = dispatch.to(x.dtype), combine.to(x.dtype)
+    lo, hi = _expert_part(p)
+    dispatch, combine = (t[:, :, lo:hi].to(x.dtype)
+                         for t in (dispatch, combine))
     expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, x)
     expert_out = expert_ffn(p, expert_in)
     out = torch.einsum("bsec,ebcd->bsd", combine, expert_out)
-    return _shared(p, x, out), m.router_aux_coef * aux
+    return shardctx.reduce_from_model(_shared(p, x, out)), \
+        m.router_aux_coef * _aux_once(aux)
 
 
 def gather_slots(expert_idx, e, capacity):
@@ -170,16 +201,23 @@ def moe_ffn_gather(p, x, cfg, reduce=None):
     m = cfg.moe
     b, s, d = x.shape
     t, e, k = b * s, m.num_experts, m.top_k
+    x = shardctx.copy_to_model(x)
     x_flat = x.reshape(t, d)
     logits = x_flat.to(torch.float32) @ p["router"].to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = top_k(probs, k)                   # (T, k)
     slot_tok, valid, safe_pos, keep = gather_slots(expert_idx, e,
                                                    capacity(t, cfg))
-    expert_in = x_flat[slot_tok] * valid[..., None].to(x.dtype)  # (E,C,D)
+    lo, hi = _expert_part(p)
+    expert_in = x_flat[slot_tok[lo:hi]] * \
+        valid[lo:hi, :, None].to(x.dtype)                   # (E/M,C,D)
     expert_out = expert_ffn(p, expert_in)
     ek = expert_idx.reshape(t * k)
-    gates = gate_vals.reshape(t * k).to(x.dtype) * keep.to(x.dtype)
-    out = (expert_out[ek, safe_pos] * gates[:, None]).reshape(t, k, d).sum(1)
+    # the (token, choice) entries this rank's experts serve
+    mine = (ek >= lo) & (ek < hi)
+    gates = gate_vals.reshape(t * k).to(x.dtype) * (keep & mine).to(x.dtype)
+    out = (expert_out[torch.where(mine, ek - lo, 0), safe_pos]
+           * gates[:, None]).reshape(t, k, d).sum(1)
     aux = _aux(expert_idx, probs, e, reduce)
-    return _shared(p, x, out.reshape(b, s, d)), m.router_aux_coef * aux
+    return shardctx.reduce_from_model(_shared(p, x, out.reshape(b, s, d))), \
+        m.router_aux_coef * _aux_once(aux)

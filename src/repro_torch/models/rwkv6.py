@@ -22,6 +22,19 @@ cache's dtype as the reference casts them (``init_cache`` makes it).
 Casts follow the reference: the projections run in the compute dtype, the
 decay LoRA in fp32, ``bonus_u`` enters WKV6 in fp32, and o leaves it in
 fp32 and is cast to the compute dtype before the group norm.
+
+Tensor parallelism (``models/shardctx.py``, the reference's rules at
+``repro/core/sharding.py:53-63``): under a model group of M ranks a rank
+holds H/M heads' columns of ``w_r``/``w_k``/``w_v``/``w_g``,
+``decay_w2``, ``decay_base``, ``ln_scale``/``ln_bias`` and rows of
+``bonus_u``; WKV6 and the group norm run on those heads, and ``w_o``'s
+row chunk is followed by ``reduce_from_model``. The token-shift LoRA and
+``decay_w1`` stay whole: ``copy_to_model`` sits on the ddlerp outputs and
+on ``tanh(xw @ decay_w1)``, so their gradients come out whole on every
+rank. The channel mix splits ``w_k`` by columns of F and ``w_v`` by rows;
+``w_r`` keeps the reference's column split, so the gate is gathered whole
+(``gather_from_model``). Serving refuses a model group (ROADMAP item
+16.3).
 """
 from __future__ import annotations
 
@@ -30,6 +43,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ops import wkv6
+from repro_torch.models import shardctx
 from repro_torch.models.norms import groupnorm_heads
 from repro_torch.models.params import dense_init, ones, zeros
 
@@ -137,6 +151,12 @@ def wkv6_chunked(r, k, v, wlog, u, chunk, s0):
     return torch.cat(outs, dim=1)[:, :s], state
 
 
+def _no_cache_on_model_axis(cache):
+    if cache is not None and shardctx.active() is not None:
+        raise ValueError("serving on the model axis is not yet ported "
+                         "(ROADMAP item 16.3)")
+
+
 def _last(x, cache):
     """The row in front of the token shift: the cached one, else zeros."""
     if cache is None:
@@ -148,17 +168,20 @@ def rwkv6_time_mix(p, x, cfg, *, cache=None):
     """x (B,S,D) -> (B,S,D), the reference's ``rwkv6_time_mix``
     (``rwkv6.py:151-212``). ``cache``: this layer's {"shift" (B,D), "wkv"
     (B,H,P,P)}, read, then written in place."""
+    _no_cache_on_model_axis(cache)
     b, s, d = x.shape
-    h, pd, dt = cfg.num_heads, cfg.head_dim, x.dtype
+    pd, dt = cfg.head_dim, x.dtype
+    h = p["w_r"].shape[-1] // pd            # this rank's heads
     xx = _token_shift(x, _last(x, cache))
     xr, xk, xv, xw, xg = _ddlerp(p, x, xx).unbind(2)
+    xr, xk, xv, xg = (shardctx.copy_to_model(t) for t in (xr, xk, xv, xg))
     r = (xr @ p["w_r"].to(dt)).reshape(b, s, h, pd)
     k = (xk @ p["w_k"].to(dt)).reshape(b, s, h, pd)
     v = (xv @ p["w_v"].to(dt)).reshape(b, s, h, pd)
     g = xg @ p["w_g"].to(dt)
     f = torch.float32
-    wraw = p["decay_base"].to(f) + torch.tanh(
-        xw.to(f) @ p["decay_w1"].to(f)) @ p["decay_w2"].to(f)
+    lw = shardctx.copy_to_model(torch.tanh(xw.to(f) @ p["decay_w1"].to(f)))
+    wraw = p["decay_base"].to(f) + lw @ p["decay_w2"].to(f)
     wlog = -torch.exp(wraw).reshape(b, s, h, pd)            # log decay < 0
     s0 = torch.zeros((b, h, pd, pd), dtype=f, device=x.device) \
         if cache is None else cache["wkv"].to(f)
@@ -176,7 +199,7 @@ def rwkv6_time_mix(p, x, cfg, *, cache=None):
         cache["wkv"].copy_(s_end)
     o = groupnorm_heads(o.to(dt), p["ln_scale"], p["ln_bias"], cfg.norm_eps)
     o = o.reshape(b, s, h * pd) * F.silu(g)
-    return o @ p["w_o"].to(dt)
+    return shardctx.reduce_from_model(o @ p["w_o"].to(dt))
 
 
 def wkv6_step(r, k, v, wlog, u, s0):
@@ -194,14 +217,17 @@ def rwkv6_channel_mix(p, x, cfg, *, cache=None):
     """x (B,S,D) -> (B,S,D): ``sigmoid(xr@w_r) * (relu(xk@w_k)² @ w_v)``
     on token-shifted mixes (``rwkv6.py:215-231``). ``cache``: this layer's
     {"shift" (B,D)}, read, then written in place."""
+    _no_cache_on_model_axis(cache)
     dt = x.dtype
     delta = _token_shift(x, _last(x, cache)) - x
     if cache is not None:
         cache["shift"].copy_(x[:, -1])
-    xk = x + delta * p["mu_k"].to(dt)
-    xr = x + delta * p["mu_r"].to(dt)
+    xk = shardctx.copy_to_model(x + delta * p["mu_k"].to(dt))
+    xr = shardctx.copy_to_model(x + delta * p["mu_r"].to(dt))
     hidden = torch.square(F.relu(xk @ p["w_k"].to(dt)))
-    return torch.sigmoid(xr @ p["w_r"].to(dt)) * (hidden @ p["w_v"].to(dt))
+    gate = shardctx.gather_from_model(xr @ p["w_r"].to(dt))
+    return torch.sigmoid(gate) * \
+        shardctx.reduce_from_model(hidden @ p["w_v"].to(dt))
 
 
 def init_rwkv6_cache(cfg, batch, *, dtype, device):

@@ -67,7 +67,12 @@ vocab-sharded, and the loss takes them through ``vocab_parallel_nll``
 classes where M divides them, gives logits gathered whole before the
 replicated ``head.b``, so its loss, accuracy and eval counts see whole
 logits. A leaf the model axis does not divide comes whole and is used as
-on one rank.
+on one rank (Granite-MoE's tied embedding at vocabulary 49,155: a whole
+lookup, a whole head with no ``copy_to_model`` before it, whole logits).
+The Mamba2 layers (D7), the MoE's experts (expert parallelism) and
+RWKV6's mixes (heads) read the installed group as the attention does
+(``mamba2.py``, ``moe.py``, ``rwkv6.py``); a hybrid's shared block is the
+split attention + MLP.
 """
 from __future__ import annotations
 

@@ -261,17 +261,30 @@ def test_shardctx_is_the_identity_without_a_group():
 # --- refusals ----------------------------------------------------------------
 
 @pytest.mark.parametrize("arch,what", [
-    ("granite-moe-3b-a800m", "'moe' family"), ("rwkv6-7b", "'ssm' family"),
-    ("zamba2-2.7b", "'hybrid' family"), ("deepseek-v3-671b", "MLA")])
+    ("granite-moe-3b-a800m", None), ("rwkv6-7b", None),
+    ("zamba2-2.7b", None), ("deepseek-v3-671b", "MLA")])
 def test_families_without_tensor_parallelism_are_refused(arch, what):
-    """Before any rank starts, citing ROADMAP item 16.1b."""
-    with pytest.raises(SystemExit, match=f"{re.escape(what)}.*item 16.1b"):
-        cli.main(["--arch", arch, "--smoke", "--steps", "1", "--devices",
-                  "2", "--model-axis", "2", "--device", "cpu"])
+    """MLA is refused before any rank starts, citing ROADMAP item 16.1b;
+    the MoE, RWKV6 and Mamba2 hybrid families, ported since, train one
+    fp32 step at ``--devices 2 --model-axis 2``: loss and grad norm within
+    3e-4 of ``--devices 0``'s."""
+    one = ["--arch", arch, "--smoke", "--steps", "1", "--device", "cpu"]
+    argv = one + ["--devices", "2", "--model-axis", "2"]
     cfg = configs.get_smoke_config(arch)
+    check_model_axis(cfg, 1)
+    if what is None:
+        run = ["--seq", "32", "--batch", "4", "--log-every", "1", "--dtype",
+               "float32"]
+        got = _losses(cli.main(argv + run))
+        want = _losses(cli.main(one + run))
+        assert len(got) == len(want) == 1
+        assert np.max(np.abs(np.subtract(got, want))) <= TP_TOL
+        check_model_axis(cfg, 2)
+        return
+    with pytest.raises(SystemExit, match=f"{re.escape(what)}.*item 16.1b"):
+        cli.main(argv)
     with pytest.raises(ValueError, match="item 16.1b"):
         check_model_axis(cfg, 2)
-    check_model_axis(cfg, 1)
 
 
 @pytest.mark.parametrize("argv,match", [
@@ -279,6 +292,10 @@ def test_families_without_tensor_parallelism_are_refused(arch, what):
      "item 16.1c"),
     (["--devices", "3", "--model-axis", "3"],
      "4 query heads are not divisible by the model axis 3"),
+    (["--arch", "zamba2-2.7b", "--devices", "3", "--model-axis", "3"],
+     "8 SSM heads are not divisible by the model axis 3"),
+    (["--arch", "granite-moe-3b-a800m", "--devices", "3", "--model-axis",
+      "3"], "4 experts are not divisible by the model axis 3"),
     (["--devices", "4", "--model-axis", "8"], "not a multiple of "
                                               "--model-axis 8"),
     (["--model-axis", "2"], "without a world.*item 16.1"),
@@ -313,7 +330,7 @@ def test_trainer_refusals():
         Trainer(cfg, EngineConfig(train_batch_size=8), device="cpu",
                 model_axis=0)
     with pytest.raises(ValueError, match="item 16.1b"):
-        Trainer(configs.get_smoke_config("rwkv6-7b"),
+        Trainer(configs.get_smoke_config("deepseek-v3-671b"),
                 EngineConfig(train_batch_size=8), device="cpu", model_axis=2)
 
 
