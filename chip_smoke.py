@@ -129,14 +129,16 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    step-2 loss within 1e-5 of phase 8b's one-card fp32 run; phase 8's
    command under ``--supervise --max-restarts 2 --ckpt-every 2 --ckpt-sync
    --keep-last 3 --inject-faults nan_grad@1,preempt@7,ckpt_corrupt@8`` in
-   its own processes (exit 0, a second attempt, the guard's skip, step 8
+   its own processes, started first and run beside the two runs above
+   (exit 0, a second attempt, the guard's skip, step 8
    failing verification and the resume from step 6, the last attempt's
    losses within 1e-5 and every printed loss at its 4 decimals, the eval
    counts, each fault once in ``faults.jsonl``; its log in
    ``chiprun_out/chaos.log``); then the checkpoint's logical and saved
    bytes and the host time of an async save's snapshot, its background
    write, a sync save and a restore of the bf16 training state, recorded
-   beside the card's name and power limit, not gated.
+   beside the card's name and power limit, not gated, once the chaos run
+   has ended. Each part's seconds print.
 8d. the host data layer, in a directory under ``build/`` that is removed
    afterwards (every CLI run before it already takes its batches from the
    two-stage prefetcher at depth 2, pinned copies on a side stream):
@@ -154,8 +156,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    shards each batch loads, the host-to-device copy of the 77 MB fp32
    batch from pageable and pinned memory, and warm training images/s fed
    by ``pipe.prefetch`` (every tensor on the card) and by ``batch_at`` +
-   ``to_device`` in turns. Then the port's quickstart
-   (``python -m repro_torch.examples.quickstart``, smoke size) exits 0
+   ``to_device`` in turns. The port's quickstart (``python -m
+   repro_torch.examples.quickstart``, smoke size, in its own process,
+   started beside phase 8c and waited for before this phase) exits 0
    with its eval line.
 9. the decoder training slice: ``--arch chatglm3-6b --layers 4 --seq 1024
    --batch 8 --accum 2 --steps 10`` in bf16 with the counters reset just
@@ -350,7 +353,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    against their plain versions in bf16 and fp32 (phase 3's gates, K2 and
    K3 twice for bitwise equality); ``--arch chatglm3-6b --layers 4 --seq
    1024 --batch 2 --accum 1 --steps 2 --dtype float32`` at ``--model-axis
-   1`` in process (K1-K3 8, K4/K5 18); then a world of 2: ViT-B/16 fp32
+   1`` in process (K1-K3 8, K4/K5 18); then a world of 2 (its ranks and
+   those of the world of 4 read the parent's draws from
+   ``build/tp-draw.pt``, memory-mapped, and copy only their chunks to the
+   card): ViT-B/16 fp32
    (phase 8b's ``--steps 3 --batch 16 --accum 2``) at ``--model-axis 2``,
    bf16 ``--steps 3 --batch 128 --accum 2 --eval-every 3`` at
    ``--model-axis 2`` (K1 72 + 48, K2/K3 72 a rank; the eval counts equal
@@ -379,7 +385,26 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    ways, each part a column slice of the whole rows), bf16 and fp32,
    against their plain split versions and the whole-row K4/K5 (phase 5's
    gates), then timed at a model-axis-2 rank's part beside the plain
-   versions and bounds. On every rank the K1-K7 and split-row launches
+   versions and bounds. (j) DeepSeek-V3 at full width, cut as phase 14
+   cuts it (one MoE layer of 16 routed experts, the shared expert, the
+   MTP head; 3.476 B params), fp32, ``--seq 1024 --batch 2 --accum 1
+   --steps 2 --optimizer sgd`` (one fp32 moment), at ``--model-axis 1`` in
+   process and at model axis 2 and 4 in the two worlds, on phase 14's
+   draw: MLA's H/M heads (64 or 32) through K1-K3 at (D 192, Dv 128), 4
+   each, K4/K5 24 (``q_norm`` and ``kv_norm`` whole on every rank), the
+   routings that differ from one rank's printed; a rank's state on the
+   card after init must be its own chunks (no rank holds the whole draw);
+   the two DeepSeek runs never share the card with a large job (the world
+   of 4 runs its own first while the world of 2 runs its fp32 ViT job,
+   then the world of 2 its own while the world of 4 runs its ViT jobs); K1-K3 at MLA's shape at a
+   rank's 64 and 32 heads checked against their plain versions (phase 3's
+   gates) and timed beside SDPA and the bounds. (k) pipeline x tensor
+   parallelism in the world of 4 (pipe 2 x model 2): the fp32 ViT run and
+   ChatGLM3-6B at 4 layers, ``--batch 2 --accum 2``, flat and
+   ``--pp-interleave 2``, against their one-rank runs; each rank runs its
+   stage's layers only (ViT: K1 72, K2/K3 36; ChatGLM3: K1 16, K2/K3 8,
+   K4 32 and K5 16 on stage 0, 40 and 20 with the final norm on stage 1).
+   On every rank the K1-K7 and split-row launches
    are exact (the ViT's fp32 72 each, ChatGLM3's K1-K3 8 and K4/K5 18),
    no layout copy, the (query, KV) heads ``flash_mha`` sees ((6, 6), (16,
    1) or (8, 1), and the families' above) and the heads ``wkv6`` sees,
@@ -406,10 +431,12 @@ attention times at head dim 80 with their training runs' launches under
 ``hubert`` and ``zamba2`` and Zamba2's serve run's under
 ``zamba2_serve_launches``, the ``--pp 2`` ChatGLM3 run's under
 ``pipeline_chatglm3_launches`` (K1-K5), phase 19's runs at model axis 2
-and 4 under ``tp_chatglm3_launches``, ``tp_zamba2_launches``,
-``tp_granite_launches`` (GShard and gather) and ``tp_rwkv6_launches`` (a
-rank's, on every kernel's row) and K1-K3's errors at a model-axis-4
-rank's shape under ``tp_rank_shape``,
+and 4 (and ChatGLM3's at pipe 2 x model 2, each stage's) under
+``tp_chatglm3_launches``, ``tp_zamba2_launches``, ``tp_granite_launches``
+(GShard and gather), ``tp_rwkv6_launches`` and ``tp_deepseek_launches``
+(a rank's, on every kernel's row) and K1-K3's errors at a model-axis-4
+rank's shape under ``tp_rank_shape``, and at MLA's shape at a rank's 64
+and 32 heads (times, bounds, plain, SDPA, errors) under ``tp_mla``,
 the data-parallel runs' launches there under ``dp_launches``, the ``--pp
 2`` ViT run's under ``pipeline_launches``, the phase's warm rates under
 ``pipeline_images_per_s`` and phase 19's ViT runs' under
@@ -427,9 +454,11 @@ script's time, the card's ``nvidia-smi`` name and power limit, and the
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import socket
@@ -2188,16 +2217,28 @@ def phase_ckpt(vit_hist, f32_ref):
     the training slice preempted after 5 steps and resumed, against phase
     8's run; an fp32 ZeRO-3 world of one resumed by the one-card CLI,
     against phase 8b's; phase 8's command supervised under injected
-    faults; then the save and restore readings. Returns the K1-K3
-    launches of the preempted and the resumed run."""
+    faults, in its own processes, started first and run beside the two
+    before (their gates compare values, not times); then the save and
+    restore readings, after the chaos run has ended. Each part's seconds
+    print. Returns the K1-K3 launches of the preempted and the resumed
+    run."""
     import shutil
     import tempfile
-    t0 = time.time()
+    t0 = last = time.time()
+
+    def lap(part):
+        nonlocal last
+        now = time.time()
+        print(f"[ckpt] ({part}) in {now - last:.1f}s", flush=True)
+        last = now
     ref = {r["step"]: r for r in train_rows(vit_hist, "vit-b16 train", 10)}
     evals = [r for r in vit_hist if "eval_count" in r]
     (ROOT / "build").mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="ckpt-", dir=ROOT / "build"))
+    chaos = None
     try:
+        # 3. the chaos run under the supervisor, in its own processes
+        chaos = start_chaos(root / "chaos")
         # 1. preempt after 5 steps, then resume (K1 5 x 2 x 12 + the eval)
         d = root / "resume"
         expect = {"flash_fwd": 5 * 2 * 12 + 12 * 4, "flash_bwd_dq": 120,
@@ -2214,6 +2255,7 @@ def phase_ckpt(vit_hist, f32_ref):
         resumed_rows(hist, "vit-b16 resumed at 5", range(5, 10), ref)
         eval_counts(hist, "vit-b16 resumed", evals[0])
         shutil.rmtree(d)
+        lap("1: preempted and resumed")
         # 2. elastic: fp32 ZeRO-3 at world 1 for 2 steps, resumed on one card
         d = root / "elastic"
         per_step = {k: 2 * 12 for k in ("flash_fwd", "flash_bwd_dq",
@@ -2228,12 +2270,18 @@ def phase_ckpt(vit_hist, f32_ref):
         resumed_rows(hist, "fp32 ZeRO-3 world 1 resumed on one card",
                      range(2, 3), {r["step"]: r for r in f32_ref})
         shutil.rmtree(d)
-        # 3. the chaos run under the supervisor, in its own processes
-        chaos_run(root / "chaos", ref, evals[0])
+        lap("2: elastic")
+        finish_chaos(chaos, ref, evals[0])
+        chaos = None
+        lap("3: the chaos run's wait")
         # 4. the readings: blocked time of an async save, its write, a sync
         # save and a restore
         save_readings(root / "timing", sizes)
+        lap("4: save and restore readings")
     finally:
+        if chaos is not None:
+            chaos["proc"].kill()
+            chaos["proc"].wait()
         shutil.rmtree(root, ignore_errors=True)
     print(f"[ckpt] phase done in {time.time() - t0:.1f}s", flush=True)
     return launches
@@ -2252,33 +2300,54 @@ def checkpoint_sizes(d, step):
     return rep
 
 
-def chaos_run(d, ref, want_eval):
-    """Phase 8's command under the supervisor with NaN gradients at step 1,
-    a preemption after step 7 and step 8's checkpoint corrupted: attempt 1
-    saves steps 2, 4, 6 and 8 (corrupted) and exits 75 at step 8; attempt
-    2 falls back to step 6 and replays steps 6 and 7."""
+def start_chaos(d):
+    """Start phase 8's command under the supervisor with NaN gradients at
+    step 1, a preemption after step 7 and step 8's checkpoint corrupted:
+    attempt 1 saves steps 2, 4, 6 and 8 (corrupted) and exits 75 at step
+    8; attempt 2 falls back to step 6 and replays steps 6 and 7. Its
+    output goes to ``chiprun_out/chaos.log``; :func:`finish_chaos` waits
+    for it and checks it."""
+    d.mkdir(parents=True)
     metrics = d / "metrics.json"
     cmd = [sys.executable, "-m", "repro_torch.launch.train"] + TRAIN_ARGS + [
         "--ckpt-dir", str(d), "--ckpt-every", "2", "--ckpt-sync",
         "--keep-last", "3", "--supervise", "--max-restarts", "2",
         "--inject-faults", CHAOS_FAULTS, "--metrics-out", str(metrics)]
-    t0 = time.time()
-    r = subprocess.run(cmd, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-                       capture_output=True, text=True, timeout=600)
-    out = r.stdout
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (ROOT / "chiprun_out" / "chaos.log").write_text(out + r.stderr)
-    print(f"[ckpt] chaos run: exit {r.returncode} in {time.time() - t0:.1f} "
-          f"s (log in chiprun_out/chaos.log)", flush=True)
+    log = ROOT / "chiprun_out" / "chaos.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            cmd, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            stdout=f, stderr=subprocess.STDOUT, text=True)
+    return {"proc": proc, "t0": time.time(), "d": d, "metrics": metrics,
+            "log": log}
+
+
+def finish_chaos(chaos, ref, want_eval):
+    """Wait for the chaos run of :func:`start_chaos` and hold it: exit 0,
+    the restart, the skipped update, the fallback past the corrupt step,
+    the last attempt's rows against the uninterrupted run (``ref``), the
+    eval counts, every printed loss and the fault log."""
+    proc, d, metrics = chaos["proc"], chaos["d"], chaos["metrics"]
+    try:
+        rc = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail("chaos run: no exit in 600 s")
+    out = chaos["log"].read_text()
+    print(f"[ckpt] chaos run: exit {rc} in {time.time() - chaos['t0']:.1f} "
+          f"s, started before parts 1-2 and run beside them (log in "
+          f"chiprun_out/chaos.log)", flush=True)
     for line in out.splitlines():
         if line.startswith(("[supervisor]", "[guard]", "[ckpt]",
                             "[faults]")) or "preempted" in line:
             print(f"[ckpt]   {line}", flush=True)
     needed = ["launch attempt 2/3", "update skipped",
               "[ckpt] step 8 failed verification", "resumed step=6"]
-    if r.returncode != 0 or any(n not in out for n in needed):
-        print(r.stderr[-4000:], file=sys.stderr)
-        fail(f"chaos run: exit {r.returncode}, missing "
+    if rc != 0 or any(n not in out for n in needed):
+        print(out[-4000:], file=sys.stderr)
+        fail(f"chaos run: exit {rc}, missing "
              f"{[n for n in needed if n not in out]}")
     hist = json.loads(metrics.read_text())
     resumed_rows(hist, "chaos run, last attempt", range(6, 10), ref)
@@ -2599,23 +2668,35 @@ def fed_train_rate(trainer, pipe, params, feed, steps=4, warmup=2):
     return steps * pipe.global_batch / dt, dt / steps * 1e3
 
 
-def phase_quickstart():
-    """The port's quickstart on the card at its smoke size, in its own
-    process: it must exit 0 and print its eval line."""
-    t0 = time.time()
-    r = subprocess.run([sys.executable, "-m",
-                        "repro_torch.examples.quickstart"],
-                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-                       capture_output=True, text=True, timeout=600)
-    lines = r.stdout.strip().splitlines()
+def start_quickstart():
+    """Start the port's quickstart on the card at its smoke size, in its
+    own process (main starts it beside phase 8c, whose gates compare
+    values, not times)."""
+    return time.time(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.examples.quickstart"],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_quickstart(started):
+    """The quickstart of :func:`start_quickstart`: it must exit 0 and print
+    its eval line."""
+    t0, proc = started
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, stderr = proc.communicate()
+    lines = stdout.strip().splitlines()
     for line in lines:
         if line.startswith(("model=", "eval:")):
             print(f"[quickstart] {line}", flush=True)
-    if r.returncode or not any(line.startswith("eval: top1")
-                               for line in lines):
-        print(r.stdout[-2000:] + r.stderr[-4000:], file=sys.stderr)
-        fail(f"quickstart exit {r.returncode}")
-    print(f"[quickstart] exit 0 in {time.time() - t0:.1f}s", flush=True)
+    if proc.returncode or not any(line.startswith("eval: top1")
+                                  for line in lines):
+        print(stdout[-2000:] + stderr[-4000:], file=sys.stderr)
+        fail(f"quickstart exit {proc.returncode}")
+    print(f"[quickstart] exit 0 in {time.time() - t0:.1f}s since its start "
+          f"beside phase 8c", flush=True)
 
 
 # phase 18, pipeline parallelism: ViT-B/16 at full width (12 layers, K1-K3
@@ -2959,6 +3040,24 @@ TP_FAMILIES = {
     "rwkv6": ("rwkv6-7b", 2, ["--optimizer", "sgd"],
               {"norm_eps": RWKV_GATE_EPS}),
 }
+# 19j: DeepSeek-V3 at full width, cut as phase 14 cuts it (one MoE layer
+# of DS_EXPERTS routed experts, the shared expert, the MTP head: fields
+# the CLI has no flag for), fp32, 2 steps of 2 x 1024, SGD (one fp32
+# moment, not AdamW's two, over 3.476 B params), on phase 14's draw
+TP_DS_STEPS = 2
+TP_DS_ARGS = ["--arch", DEEPSEEK, "--seq", str(LM_SEQ), "--batch", "2",
+              "--accum", "1", "--steps", str(TP_DS_STEPS), "--dtype",
+              "float32", "--optimizer", "sgd", "--log-every", "1"]
+# 19k: pipeline x tensor parallelism in the world of 4 (pipe 2 x model 2):
+# the ViT's fp32 run (DP_F32_ARGS, 2 microbatches) and ChatGLM3-6B's
+# TP_LM_ARGS at 2 microbatches of 1 x 1024, flat and interleaved, each
+# held against the one-rank run of the same batches (the loss and the
+# grad norm are the microbatches' mean)
+TP_PP = ["--pp", "2", "--model-axis", "2", "--devices", "4"]
+TP_PP_LM_ARGS = ["--arch", "chatglm3-6b", "--layers", str(LM_LAYERS),
+                 "--seq", str(LM_SEQ), "--batch", "2", "--accum", "2",
+                 "--steps", str(TP_LM_STEPS), "--dtype", "float32",
+                 "--log-every", "1"]
 # 19i: the split-row K4/K5 at Zamba2's inner norm in 19f: 2 x 1024 rows of
 # its 5120 columns, split 2 and 4 ways
 TP_SPLIT_ROWS, TP_SPLIT_WIDTH = 2 * LM_SEQ, 5120
@@ -3004,13 +3103,52 @@ def family_expect(tag, m):
                 rmsnorm_bwd=norms), heads, []
 
 
+# one job of a phase-19 world: ``expect`` the launches a rank (a list by
+# rank where the ranks' stages differ), ``heads`` the (query, KV) heads
+# ``flash_mha`` sees and ``wkv`` the heads ``wkv6`` sees, ``ref`` the
+# one-rank rows' key (None: no fp32 reference), ``fields`` config fields
+# without a CLI flag; ``after`` a marker the ranks wait for before the
+# job and ``then`` one they leave after it (once every rank has freed its
+# memory), so the other world's jobs keep off the card's memory
+TPJob = collections.namedtuple(
+    "TPJob", "label argv expect heads wkv ref fields after then",
+    defaults=({}, None, None))
+
+
+def ds_expect(steps):
+    """DeepSeek-V3's launches a rank a run (the cut of phase 14): per
+    step K1-K3 twice (the MoE layer, the MTP block), K4/K5 12 times."""
+    return dict({k: 2 * steps for k in ("flash_fwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv")},
+                rmsnorm_fwd=12 * steps, rmsnorm_bwd=12 * steps)
+
+
+def pp_tp_expect(layers, micro, norms):
+    """A pipe-2 x model-2 run's launches by rank (rank ``(d * 2 + p) * 2 +
+    m`` is stage p): each of the stage's ``layers`` layers runs K1 in the
+    forward slot and again in the backward slot's recompute, K2/K3 once,
+    its ``norms`` norms K4 in both slots and K5 once, the last stage's
+    final norm too (decoders only), over ``micro`` microbatches."""
+    out = []
+    for p in (0, 0, 1, 1):
+        n = layers * norms + (p == 1 and norms > 0)
+        out.append(dict({"flash_fwd": 2 * layers * micro,
+                         "flash_bwd_dq": layers * micro,
+                         "flash_bwd_dkv": layers * micro},
+                        **({"rmsnorm_fwd": 2 * n * micro,
+                            "rmsnorm_bwd": n * micro} if norms else {})))
+    return out
+
+
 def tp_jobs():
-    """{world size: [(label, CLI argv, {kernel: launches a rank},
-    (query heads, KV heads) a rank's ``flash_mha`` sees, the heads its
-    ``wkv6`` sees, the one-rank rows' key, config fields without a CLI
-    flag)]}: the ranks of a world run its jobs in turn, the two worlds at
-    once, so the ChatGLM3 runs come first in one and last in the
-    other."""
+    """{world size: [TPJob]}: the ranks of a world run its jobs in turn,
+    the two worlds at once. The DeepSeek-V3 runs never share the card
+    with a large job: the world of 4 runs its model-4 job first while the
+    world of 2 runs only its fp32 ViT job (3.4 GB); the world of 2 runs
+    its model-2 job once that has ended, while the world of 4 runs only
+    its ViT jobs (4.3 GB) and waits for it before the rest."""
+    from repro_torch.configs import get_config
+
     vit_f32 = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
                             3 * 2 * 12)
     vit_bf16 = dict(vit_f32, flash_fwd=3 * 2 * 12 + 4 * 12)
@@ -3018,40 +3156,63 @@ def tp_jobs():
                             TP_LM_STEPS * LM_LAYERS),
               rmsnorm_fwd=TP_LM_STEPS * (2 * LM_LAYERS + 1),
               rmsnorm_bwd=TP_LM_STEPS * (2 * LM_LAYERS + 1))
+    ds_fields = {"num_layers": DS_LAYERS, "moe": deepseek_kw()["moe"]}
+    ds_heads = get_config(DEEPSEEK).num_heads
+
+    def ds(m, **kw):
+        return TPJob(f"deepseek-v3 fp32 --model-axis {m}",
+                     TP_DS_ARGS + ["--devices", str(m), "--model-axis",
+                                   str(m)], ds_expect(TP_DS_STEPS),
+                     [(ds_heads // m, ds_heads // m)], [], "deepseek",
+                     ds_fields, **kw)
 
     def families(m):
         out = []
         for tag, (_, _, _, fields) in TP_FAMILIES.items():
             expect, heads, wkv = family_expect(tag, m)
-            out.append((f"{tag} fp32 --model-axis {m}", family_argv(tag)
-                        + ["--devices", str(m), "--model-axis", str(m)],
-                        expect, heads, wkv, tag, fields))
+            out.append(TPJob(f"{tag} fp32 --model-axis {m}",
+                             family_argv(tag) + ["--devices", str(m),
+                                                 "--model-axis", str(m)],
+                             expect, heads, wkv, tag, fields))
         return out
+    lm_pp = pp_tp_expect(LM_LAYERS // 2, TP_LM_STEPS * 2, 2)
     return {
-        2: [("vit-b16 fp32 --model-axis 2",
-             DP_F32_ARGS + ["--devices", "2", "--model-axis", "2"], vit_f32,
-             [(6, 6)], [], "vit", {}),
-            ("vit-b16 bf16 --model-axis 2",
-             TP_VIT_BF16_ARGS + ["--devices", "2", "--model-axis", "2"],
-             vit_bf16, [(6, 6)], [], None, {})] + families(2) + [
-            ("chatglm3-6b fp32 --model-axis 2",
-             TP_LM_ARGS + ["--devices", "2", "--model-axis", "2"], lm,
-             [(16, 1)], [], "lm", {})],
-        4: [("chatglm3-6b fp32 --model-axis 4 (D6)",
-             TP_LM_ARGS + ["--devices", "4", "--model-axis", "4"], lm,
-             [(8, 1)], [], "lm", {}),
-            ("vit-b16 fp32 data 2 x --model-axis 2 --zero 3",
-             DP_F32_ARGS + ["--devices", "4", "--model-axis", "2", "--zero",
-                            "3"], vit_f32, [(6, 6)], [], "vit", {})]
+        2: [TPJob("vit-b16 fp32 --model-axis 2",
+                  DP_F32_ARGS + ["--devices", "2", "--model-axis", "2"],
+                  vit_f32, [(6, 6)], [], "vit"),
+            ds(2, after="ds-m4", then="ds-m2"),
+            TPJob("vit-b16 bf16 --model-axis 2",
+                  TP_VIT_BF16_ARGS + ["--devices", "2", "--model-axis", "2"],
+                  vit_bf16, [(6, 6)], [], None)] + families(2) + [
+            TPJob("chatglm3-6b fp32 --model-axis 2",
+                  TP_LM_ARGS + ["--devices", "2", "--model-axis", "2"], lm,
+                  [(16, 1)], [], "lm")],
+        4: [ds(4, then="ds-m4"),
+            TPJob("vit-b16 fp32 data 2 x --model-axis 2 --zero 3",
+                  DP_F32_ARGS + ["--devices", "4", "--model-axis", "2",
+                                 "--zero", "3"], vit_f32, [(6, 6)], [],
+                  "vit"),
+            TPJob("vit-b16 fp32 --pp 2 --model-axis 2", DP_F32_ARGS + TP_PP,
+                  pp_tp_expect(6, 3 * 2, 0), [(6, 6)], [], "vit"),
+            TPJob("chatglm3-6b fp32 --model-axis 4 (D6)",
+                  TP_LM_ARGS + ["--devices", "4", "--model-axis", "4"], lm,
+                  [(8, 1)], [], "lm", after="ds-m2"),
+            TPJob("chatglm3-6b fp32 --pp 2 --model-axis 2",
+                  TP_PP_LM_ARGS + TP_PP, lm_pp, [(16, 1)], [], "lm"),
+            TPJob("chatglm3-6b fp32 --pp 2 --pp-interleave 2 --model-axis 2",
+                  TP_PP_LM_ARGS + TP_PP + ["--pp-interleave", "2"], lm_pp,
+                  [(16, 1)], [], "lm")]
         + families(4)}
 
 
 @contextlib.contextmanager
-def held_draws(draws):
+def held_draws(draws, on_host=False):
     """The CLI's ``init_params`` (``launch.train``) copies the held host
     params ``draws`` ({(config name, layers): params}) for a seed-0 draw
-    of those configs instead of drawing again; any other draw as
-    before."""
+    of those configs instead of drawing again; any other draw as before.
+    ``on_host``: hand out the host tensors themselves (in a rank, the
+    pages of the parent's memory-mapped file), of which the ``Trainer``'s
+    ``init_state`` copies only the rank's chunks to the card."""
     from repro_torch.launch import train
     from repro_torch.models.transformer import init_params as meta_init
 
@@ -3065,12 +3226,58 @@ def held_draws(draws):
                 meta_init(cfg, device="meta").items()}
         if {k: tuple(v.shape) for k, v in held.items()} != want:
             fail(f"{cfg.name}: the held params do not fit the config")
-        return {k: v.to(device, copy=True) for k, v in held.items()}
+        return dict(held) if on_host else \
+            {k: v.to(device, copy=True) for k, v in held.items()}
     train.init_params = init_params
     try:
         yield
     finally:
         train.init_params = real
+
+
+@contextlib.contextmanager
+def init_spy(seen):
+    """Appends to ``seen``, for each ``Trainer.init_state``, the bytes of
+    the state's params, those of its params and optimizer moments, and the
+    peak of allocated device memory when it returns (the job's peak is
+    reset before it): what the rank put on the card of a draw it holds on
+    the host."""
+    import torch
+    from repro_torch.core.engine import Trainer
+
+    real = Trainer.init_state
+
+    def init_state(self, params):
+        state = real(self, params)
+        torch.cuda.synchronize()
+
+        def nbytes(tree):
+            return sum(t.numel() * t.element_size() for t in tree.values())
+        moments = [state.opt_state.mu] + ([state.opt_state.nu]
+                                          if state.opt_state.nu != () else [])
+        own = nbytes(state.params)
+        seen.append((own, own + sum(nbytes(m) for m in moments),
+                     torch.cuda.max_memory_allocated()))
+        return state
+    Trainer.init_state = init_state
+    try:
+        yield
+    finally:
+        Trainer.init_state = real
+
+
+def marker_wait(markers, name, timeout_s=600):
+    """Block until the marker ``name`` (of the parent or the other world)
+    exists; raise at the marker "abort", which the parent leaves when it
+    stops early."""
+    path, abort = Path(markers) / name, Path(markers) / "abort"
+    t0 = time.time()
+    while not path.exists():
+        if abort.exists() or time.time() - t0 > timeout_s:
+            raise RuntimeError(f"phase 19: no marker {name} (the parent "
+                               f"stopped, or {timeout_s} s passed)")
+        time.sleep(0.1)
+    return time.time() - t0
 
 
 @contextlib.contextmanager
@@ -3119,15 +3326,61 @@ def head_spies(routes):
             real_top_k
 
 
-def tp_rank(world, jobs, draw=None):
+def write_draws(draws, path):
+    """Write the host draws ``{(config name, layers): {key: tensor}}`` raw
+    into ``path`` (each tensor's bytes at a 64-byte aligned offset) and
+    their index into ``path``.json: no archive, no checksum, and the
+    writes release the interpreter, so a thread writes it beside the
+    one-rank runs. Returns the seconds it took."""
+    import torch
+
+    t0 = time.time()
+    index, off = [], 0
+    with open(path, "wb") as f:
+        for (name, layers), params in draws.items():
+            for key, t in params.items():
+                t = t.detach().contiguous()
+                pad = -off % 64
+                f.write(b"\0" * pad)
+                off += pad
+                f.write(t.reshape(-1).view(torch.uint8).numpy())
+                index.append([name, layers, key, str(t.dtype).split(".")[-1],
+                              list(t.shape), off])
+                off += t.numel() * t.element_size()
+    Path(f"{path}.json").write_text(json.dumps(index))
+    return time.time() - t0
+
+
+def read_draws(path):
+    """The draws of :func:`write_draws`, each tensor a view of the file
+    mapped copy-on-write: a page is read when a rank first touches it."""
+    import numpy as np
+    import torch
+
+    buf = torch.from_numpy(np.memmap(path, dtype=np.uint8, mode="c"))
+    draws = {}
+    for name, layers, key, dtype, shape, off in json.loads(
+            Path(f"{path}.json").read_text()):
+        dt = getattr(torch, dtype)
+        n = math.prod(shape) * dt.itemsize
+        draws.setdefault((name, layers), {})[key] = \
+            buf[off:off + n].view(dt).view(shape)
+    return draws
+
+
+def tp_rank(world, jobs, draw=None, markers=None):
     """One spawned rank of phase 19: each job's CLI ``run`` on this
     rank's share of the world (its config fields replaced as the job
     says), the launch counters reset just before and read just after, the
     heads ``flash_mha`` and ``wkv6`` saw, the MoE routings, the layout
-    copies and the peak of allocated memory. ``draw``: a file of the
-    parent's host draws ``{(config name, layers): params}``, which the
-    CLI's ``init_params`` copies for a seed-0 draw of those configs
-    (``held_draws``) instead of drawing again (the same values)."""
+    copies, the bytes its state took on the card at init and the peak of
+    allocated memory. ``draw``: the file of the parent's host draws
+    ``{(config name, layers): params}`` (:func:`write_draws`), mapped
+    once the marker "draws" says it is whole, which the CLI's
+    ``init_params`` hands out for a seed-0 draw of those configs
+    (``held_draws``) instead of drawing again (the same values).
+    ``markers``: the directory of the markers, "draws" and the jobs'
+    ``after``/``then``."""
     import gc
     import torch
     from repro_torch.kernels import flash_attention as fa
@@ -3136,26 +3389,33 @@ def tp_rank(world, jobs, draw=None):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_num_threads(2)        # six ranks share the host's cores
-    draws = {} if draw is None else torch.load(draw, mmap=True)
-    out = {}
-    with held_draws(draws):
-        for label, argv, _, _, _, _, fields in jobs:
-            routes = []
+    waited = marker_wait(markers, "draws")
+    draws = {} if draw is None else read_draws(draw)
+    out = {"draws_waited": waited}
+    with held_draws(draws, on_host=True):
+        for job in jobs:
+            waited = marker_wait(markers, job.after) if job.after else 0.0
+            routes, seen = [], []
             torch.cuda.reset_peak_memory_stats()
             reset_counters()
             t0 = time.time()
-            with cli_fields(fields), head_spies(routes) as (attn, wkv):
-                hist = train.run(train.parse_args(argv), world)
+            with cli_fields(job.fields), init_spy(seen), \
+                    head_spies(routes) as (attn, wkv):
+                hist = train.run(train.parse_args(job.argv), world)
             torch.cuda.synchronize()
-            out[label] = {"hist": hist, "launches": read_counters(),
-                          "copies": fa.kernel_layout.copies
-                          + rms.row_layout.copies,
-                          "heads": sorted(set(attn)),
-                          "wkv_heads": sorted(set(wkv)), "routes": routes,
-                          "s": time.time() - t0,
-                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            out[job.label] = {
+                "hist": hist, "launches": read_counters(),
+                "copies": fa.kernel_layout.copies + rms.row_layout.copies,
+                "heads": sorted(set(attn)), "wkv_heads": sorted(set(wkv)),
+                "routes": routes, "s": time.time() - t0, "waited": waited,
+                "init_gb": [tuple(n / 1e9 for n in r) for r in seen],
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
             gc.collect()
             torch.cuda.empty_cache()
+            if job.then:
+                world.all_reduce(torch.zeros(1, device=world.device), "sum")
+                if world.rank == 0:
+                    (Path(markers) / job.then).touch()
     return out
 
 
@@ -3328,25 +3588,36 @@ def phase_tp(card, f32_ref, family_params):
     collectives staged through host memory; NCCL refuses two ranks on one
     card): (d) K1-K3 at a model-axis-4 rank's shape of ChatGLM3-6B (a KV
     head sliced from the whole projection) against their plain versions;
-    (i) the split-row K4/K5 (``split_row_norms``); ChatGLM3-6B and each
-    TP_FAMILIES run fp32 at ``--model-axis 1`` in process (the families
-    on ``family_params``, the training phases' host draws cut to their
-    layers); then a world of 2 (model axis 2: the ViT in fp32 and in bf16
-    with its eval, (f) Zamba2-2.7B, (g) Granite-MoE GShard and gather, (h)
+    (i) the split-row K4/K5 (``split_row_norms``); ChatGLM3-6B, each
+    TP_FAMILIES run and (j) DeepSeek-V3 fp32 at ``--model-axis 1`` in
+    process (the families on ``family_params``, the training phases' host
+    draws cut to their layers; DeepSeek-V3 on phase 14's); then a world of
+    2 (model axis 2: (j) DeepSeek-V3, the ViT in fp32 and in bf16 with its
+    eval, (f) Zamba2-2.7B, (g) Granite-MoE GShard and gather, (h)
     RWKV6-7B, ChatGLM3) and a world of 4 (the ViT at data 2 x model 2
-    under ZeRO 3, ChatGLM3 at model axis 4, the D6 path, and (f)-(h) at
-    model axis 4), each rank running the CLI's ``run`` on the parent's
-    draws: every rank's K1-K7 and split-row launches exact, no layout
-    copy, the heads ``flash_mha`` and ``wkv6`` see the expected ones,
-    every loss and grad norm finite and ``step_ok`` 1, the fp32 runs
+    under ZeRO 3, (k) the ViT at pipe 2 x model 2, (j) DeepSeek-V3 at
+    model axis 4, ChatGLM3 at model axis 4, the D6 path, (k) ChatGLM3 at
+    pipe 2 x model 2, flat and interleaved, and (f)-(h) at model axis 4),
+    each rank running the CLI's ``run`` on the parent's draws, memory-
+    mapped (a rank copies only its chunks to the card): every rank's
+    K1-K7 and split-row launches exact (a pipeline stage's layers only),
+    no layout copy, the heads ``flash_mha`` and ``wkv6`` see the expected
+    ones, every loss and grad norm finite and ``step_ok`` 1, the fp32 runs
     within 3e-4 of one rank, the MoE routings that differ from one rank's
-    printed, the bf16 eval counts equal on both ranks; (e) ``--devices 2
+    printed, DeepSeek-V3's state on the card after init this rank's
+    chunks alone (no rank holds the whole draw), a rank's peak printed,
+    the bf16 eval counts equal on both ranks; (e) ``--devices 2
     --model-axis 2`` through the CLI on one card refused. The rates read
     here are host-staged gloo's, not the model axis's: printed, not gated.
-    Returns ({label: rank 0's launches}, the sliced-KV check's bf16
-    errors, 19i's kernel rows)."""
+    (j)'s attention: K1-K3 at MLA's shape at 64 and 32 heads (a rank's at
+    model axis 2 and 4) checked against their plain versions and timed.
+    Returns ({label: rank 0's launches; a pipeline run's stage 1 under
+    "<label> stage 1"}, the sliced-KV check's bf16 errors, 19i's kernel
+    rows, {"model_axis_2"/"_4": K1-K3's rows at MLA's per-rank shape})."""
     import concurrent.futures
     import gc
+    import shutil
+    import tempfile
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import distributed
@@ -3355,80 +3626,138 @@ def phase_tp(card, f32_ref, family_params):
     def free():
         gc.collect()
         torch.cuda.empty_cache()
-    t0 = time.time()
+    t0 = last = time.time()
+
+    def lap(part):
+        nonlocal last
+        now = time.time()
+        print(f"[tp] ({part}) in {now - last:.1f}s", flush=True)
+        last = now
     free()
     errs = check_attention("tp-attn", "a model-axis-4 rank's",
                            TP_RANK_SHAPE, sliced_kv_inputs(19))
     split_rows = split_row_norms(card)
+    # (j)'s attention: K1-K3 at MLA's shape at a model rank's H/M heads,
+    # checked and timed (phase 14 times the whole 128 heads)
+    mla_tp = {}
+    inputs = model_layout_inputs(torch.Generator(device="cuda").manual_seed(
+        30))
+    for m in (2, 4):
+        shape = (MLA_ATTN_SHAPE[0], MLA_ATTN_SHAPE[1] // m,
+                 MLA_ATTN_SHAPE[2] // m) + MLA_ATTN_SHAPE[3:]
+        e = check_attention("tp-mla", f"MLA at model axis {m}'s", shape,
+                            inputs)
+        t = attention_times(card, shape, True, inputs, "tp-mla")
+        mla_tp[f"model_axis_{m}"] = {key: dict(t[key], shape=list(shape),
+                                               max_abs_err=e[key])
+                                     for key in t}
+    lap("d, i, j: kernel checks")
     jobs = tp_jobs()
-    lm_expect = jobs[4][0][2]
-    _, hist = run_cli(TP_LM_ARGS, lm_expect, "chatglm3-6b fp32 "
-                      "--model-axis 1")
-    refs = {"vit": f32_ref,
-            "lm": train_rows(hist, "chatglm3-6b fp32 --model-axis 1",
-                             TP_LM_STEPS)}
-    # the ranks copy the parent's host draws from a file rather than each
-    # drawing them again: ChatGLM3's (1.35 B params, the run above) and
-    # the families'
-    draws = {(get_config(arch).name, layers):
-             family_params[tag.split("-")[0]]
-             for tag, (arch, layers, _, _) in TP_FAMILIES.items()}
-    for params in getattr(share_draws, "held", {}).values():
-        draws[get_config("chatglm3-6b").name, LM_LAYERS] = params
-    one_rank_routes = {}
-    with held_draws(draws):
-        for tag, (_, _, _, fields) in TP_FAMILIES.items():
-            free()
-            routes = []
-            with cli_fields(fields), head_spies(routes):
-                _, hist = run_cli(family_argv(tag),
-                                  family_expect(tag, 1)[0],
-                                  f"{tag} fp32 --model-axis 1")
-            refs[tag] = train_rows(hist, f"{tag} fp32 --model-axis 1",
-                                   TP_FAMILY_STEPS)
-            one_rank_routes[tag] = routes
-    free()
-    draw = ROOT / "build" / "tp-draw.pt"
-    t_save = time.time()
-    torch.save(draws, draw)
-    n = sum(p.numel() for d in draws.values() for p in d.values())
-    print(f"[tp] the parent's host draws ({n / 1e9:.2f} B params) written "
-          f"for the ranks in {time.time() - t_save:.1f}s", flush=True)
-    del draws
-    # both worlds at once (the ChatGLM3 runs, the largest, come first in
-    # one world and last in the other)
+    by_label = {job.label: job for w in jobs.values() for job in w}
+    # both worlds start now, beside the one-rank runs, and wait for the
+    # draws' file (the marker "draws")
+    (ROOT / "build").mkdir(exist_ok=True)
+    markers = tempfile.mkdtemp(prefix="tp-markers-", dir=ROOT / "build")
+    draw = ROOT / "build" / "tp-draw.bin"
+    pool = concurrent.futures.ThreadPoolExecutor(len(jobs) + 1)
     t_worlds = time.time()
+    runs = {size: pool.submit(
+        distributed.spawn, tp_rank, size, world_jobs, str(draw), markers,
+        device="cuda", backend="gloo", deadline_s=600)
+        for size, world_jobs in jobs.items()}
     try:
-        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-            runs = {size: pool.submit(
-                distributed.spawn, tp_rank, size, world_jobs, str(draw),
-                device="cuda", backend="gloo", deadline_s=600)
-                for size, world_jobs in jobs.items()}
-            results = {size: run.result() for size, run in runs.items()}
+        _, hist = run_cli(TP_LM_ARGS, by_label[
+            "chatglm3-6b fp32 --model-axis 4 (D6)"].expect,
+            "chatglm3-6b fp32 --model-axis 1")
+        refs = {"vit": f32_ref,
+                "lm": train_rows(hist, "chatglm3-6b fp32 --model-axis 1",
+                                 TP_LM_STEPS)}
+        # the ranks read the parent's host draws from a file rather than
+        # each drawing them again: ChatGLM3's (1.35 B params, the run
+        # above), the families' and DeepSeek-V3's (phase 14's, drawn on
+        # the card), written by a thread beside the one-rank runs below
+        ds_name = get_config(DEEPSEEK).name
+        draws = {(get_config(arch).name, layers):
+                 family_params[tag.split("-")[0]]
+                 for tag, (arch, layers, _, _) in TP_FAMILIES.items()}
+        draws[ds_name, DS_LAYERS] = family_params["deepseek"]
+        for lm_params in getattr(share_draws, "held", {}).values():
+            draws[get_config("chatglm3-6b").name, LM_LAYERS] = lm_params
+        n = sum(p.numel() for d in draws.values() for p in d.values())
+        whole_ds = sum(p.numel() * p.element_size()
+                       for p in draws[ds_name, DS_LAYERS].values()) / 1e9
+        t_save = time.time()
+        writer = pool.submit(write_draws, draws, draw)
+        ds = by_label["deepseek-v3 fp32 --model-axis 2"]
+        one_rank_routes = {}
+        one_rank = [(tag, family_argv(tag), family_expect(tag, 1)[0],
+                     fields, TP_FAMILY_STEPS)
+                    for tag, (_, _, _, fields) in TP_FAMILIES.items()] + \
+            [("deepseek", TP_DS_ARGS, ds.expect, ds.fields, TP_DS_STEPS)]
+        with held_draws(draws):
+            for tag, argv, expect, fields, steps in one_rank:
+                free()
+                routes = []
+                with cli_fields(fields), head_spies(routes):
+                    _, hist = run_cli(argv, expect,
+                                      f"{tag} fp32 --model-axis 1")
+                refs[tag] = train_rows(hist, f"{tag} fp32 --model-axis 1",
+                                       steps)
+                one_rank_routes[tag] = routes
+        free()
+        lap("one-rank references")
+        print(f"[tp] the parent's host draws ({n / 1e9:.2f} B params, "
+              f"DeepSeek-V3's {whole_ds:.2f} GB of them) written for the "
+              f"ranks in {writer.result():.1f}s, beside the one-rank runs "
+              f"(done {time.time() - t_save:.1f}s after their start)",
+              flush=True)
+        (Path(markers) / "draws").touch()
+        lap("the draws' file, after the one-rank references")
+        # the host copies go: the ranks read the file's pages
+        del draws
+        family_params.clear()
+        gc.collect()
+        results = {size: run.result() for size, run in runs.items()}
     finally:
+        # ranks still waiting for a marker stop (after the worlds' end, no
+        # rank reads it)
+        (Path(markers) / "abort").touch()
+        pool.shutdown(wait=True)
         draw.unlink(missing_ok=True)
+        Path(f"{draw}.json").unlink(missing_ok=True)
+        shutil.rmtree(markers, ignore_errors=True)
     print(f"[tp] worlds of {sorted(jobs)} side by side on one card (gloo, "
           f"host-staged): {time.time() - t_worlds:.1f}s with the ranks' "
-          f"start", flush=True)
+          f"start (beside the one-rank runs); the ranks waited "
+          f"{max(r['draws_waited'] for w in results.values() for r in w):.1f}"
+          f"s for the draws", flush=True)
     launches = {}
     for size, world_jobs in jobs.items():
         ranks = results[size]
-        for label, _, expect, heads, wkv, ref, _ in world_jobs:
-            expect = dict({name: 0 for name in counters()}, **expect)
+        for job in world_jobs:
+            label, ref = job.label, job.ref
             evals = []
             for rank, got in enumerate(r[label] for r in ranks):
+                expect = job.expect[rank] if isinstance(job.expect, list) \
+                    else job.expect
+                expect = dict({name: 0 for name in counters()}, **expect)
                 rows = train_rows(got["hist"], f"{label} rank {rank}",
                                   len(refs[ref]) if ref else 3)
                 evals.append([(e["eval_top1_count"], e["eval_top5_count"],
                                e["eval_count"]) for e in got["hist"]
                               if "eval_count" in e])
+                (state_gb, with_opt_gb, init_peak_gb), = got["init_gb"]
                 msg = (f"[tp] {label} rank {rank}/{size}: launches "
                        f"{got['launches']} (expected {expect}); layout "
                        f"copies {got['copies']}; (query, KV) heads "
-                       f"{got['heads']} (expected {heads}), WKV6 heads "
-                       f"{got['wkv_heads']} (expected {wkv}); losses "
+                       f"{got['heads']} (expected {job.heads}), WKV6 heads "
+                       f"{got['wkv_heads']} (expected {job.wkv}); losses "
                        f"{[round(r['loss'], 5) for r in rows]}; "
-                       f"{got['s']:.1f}s; peak {got['peak_gb']:.2f} GB")
+                       f"{got['s']:.1f}s (waited {got['waited']:.1f}s "
+                       f"before it); params {state_gb:.2f} GB on the card "
+                       f"after init, {with_opt_gb:.2f} GB with the optimizer "
+                       f"moments (peak then {init_peak_gb:.2f} GB); peak "
+                       f"{got['peak_gb']:.2f} GB")
                 if ref:
                     d_loss = max_diff(rows, refs[ref], "loss")
                     d_norm = max_diff(rows, refs[ref], "grad_norm")
@@ -3436,11 +3765,21 @@ def phase_tp(card, f32_ref, family_params):
                             f"{d_norm:.3e} against one rank (tol {TP_TOL})")
                 print(msg, flush=True)
                 if got["launches"] != expect or got["copies"] or \
-                        got["heads"] != heads or got["wkv_heads"] != wkv:
+                        got["heads"] != job.heads or \
+                        got["wkv_heads"] != job.wkv:
                     fail(f"{label} rank {rank}: launches, copies or heads "
                          f"off")
                 if ref and not (d_loss <= TP_TOL and d_norm <= TP_TOL):
                     fail(f"{label} rank {rank} disagrees with one rank")
+                # the card held no more than the rank's own params and
+                # moments at any time of the init: never the whole draw
+                if ref == "deepseek" and not (
+                        init_peak_gb <= 1.02 * with_opt_gb + 0.05
+                        and state_gb < 0.6 * whole_ds):
+                    fail(f"{label} rank {rank}: {init_peak_gb:.2f} GB on "
+                         f"the card after init for a {state_gb:.2f} GB "
+                         f"share of the {whole_ds:.2f} GB draw "
+                         f"({with_opt_gb:.2f} GB with the moments)")
                 if ref in one_rank_routes and one_rank_routes[ref]:
                     routing_flips(f"{label} rank {rank}", got["routes"],
                                   one_rank_routes[ref])
@@ -3458,8 +3797,12 @@ def phase_tp(card, f32_ref, family_params):
                       f"on one card: not the model axis's rate, not "
                       f"gated; {smi_line()})", flush=True)
             launches[label] = ranks[0][label]["launches"]
+            if isinstance(job.expect, list):
+                # a pipeline run: the last stage's launches too
+                launches[f"{label} stage 1"] = ranks[-1][label]["launches"]
     del results
     free()
+    lap("the worlds' gates")
     if torch.cuda.device_count() < 2:
         try:
             cli(TRAIN_ARGS + ["--devices", "2", "--model-axis", "2"])
@@ -3469,7 +3812,7 @@ def phase_tp(card, f32_ref, family_params):
         else:
             fail("--devices 2 --model-axis 2 on one card did not raise")
     print(f"[tp] phase 19 in {time.time() - t0:.1f}s on {card}", flush=True)
-    return launches, errs, split_rows
+    return launches, errs, split_rows, mla_tp
 
 
 def augment_on_card():
@@ -4166,7 +4509,8 @@ def phase_deepseek(profile, card):
     fp32 within 2e-4 on the kernel path's routing, bf16 cosine >= 0.99);
     then warm tokens/s of both paths in turns (a reading, not gated: at
     this shape attention is a small part of the step). Returns (the run's
-    launches, the initial params as phase 15 decodes them)."""
+    launches, the initial params as phase 15 decodes them, the initial
+    params on the host, which phase 19 trains on the model axis)."""
     import gc
     import math
     import torch
@@ -4265,10 +4609,9 @@ def phase_deepseek(profile, card):
                      host)
         del trainer
     held = decode_params("deepseek", host)
-    del host
     free()
     print(f"[deepseek] phase done in {time.time() - t0:.1f}s", flush=True)
-    return launches, held
+    return launches, held, host
 
 
 def require_kernel_wins(tag, rates):
@@ -5245,9 +5588,10 @@ def main():
     vit_launches, vit_hist = timed("8 ViT training", phase_train, profile)
     dp_launches, aug_launches, f32_ref = timed(
         "8b data parallel", phase_dp, vit_hist, profile)
+    quickstart = start_quickstart()
     resume_launches = timed("8c checkpoints", phase_ckpt, vit_hist, f32_ref)
+    timed("quickstart", phase_quickstart, quickstart)
     data_launches = timed("8d host data", phase_data, vit_hist)
-    timed("quickstart", phase_quickstart)
     pp_launches, pp_lm_launches, pp_rates_ = timed(
         "18 pipeline", phase_pipeline, card)
     lm_launches = timed("9 ChatGLM3", phase_lm_train, profile)
@@ -5262,10 +5606,11 @@ def main():
                          one)
     granite_launches, held["granite"] = timed("13 Granite-MoE",
                                               phase_granite, profile, card)
-    # phase 19 takes RWKV6's and Granite's draws too (phase 15 pops them)
+    # phase 19 takes RWKV6's, Granite's and DeepSeek-V3's draws too (phase
+    # 15 pops the first two)
     tp_params = {"rwkv6": held["rwkv6"], "granite": held["granite"]}
     mla_attn = timed("14 MLA attention", phase_mla_attention, one)
-    deepseek_launches, held["deepseek"] = timed(
+    deepseek_launches, held["deepseek"], tp_params["deepseek"] = timed(
         "14 DeepSeek-V3", phase_deepseek, profile, card)
     print(f"[deepseek] phase 14 (MLA attention and DeepSeek-V3 training) "
           f"in {secs['14 MLA attention'] + secs['14 DeepSeek-V3']:.1f}s",
@@ -5275,7 +5620,7 @@ def main():
     hubert_launches = timed("16 HuBERT", phase_hubert, profile)
     zamba_launches, zamba_serve_launches, tp_params["zamba2"] = timed(
         "17 Zamba2", phase_zamba2, card)
-    tp_launches, tp_errs, split_rows = timed(
+    tp_launches, tp_errs, split_rows, tp_mla = timed(
         "19 tensor parallel", phase_tp, card, f32_ref, tp_params)
     del tp_params
     print(f"[draws] params drawn on the host for the card: {draws['draws']} "
@@ -5285,12 +5630,15 @@ def main():
         profile_eval()
     def tp_family_launches(name):
         """Phase 19's runs' launches of kernel ``name`` by family, a
-        rank's: ChatGLM3-6B, Zamba2-2.7B, Granite-MoE (GShard and gather)
-        and RWKV6-7B at model axis 2 and 4."""
+        rank's: ChatGLM3-6B (at model axis 2 and 4, and at pipe 2 x model
+        2 flat and interleaved, by stage), Zamba2-2.7B, Granite-MoE
+        (GShard and gather), RWKV6-7B and DeepSeek-V3 at model axis 2 and
+        4."""
         return {f"tp_{fam}_launches": {
                     label: n[name] for label, n in tp_launches.items()
                     if label.startswith(fam)}
-                for fam in ("chatglm3", "zamba2", "granite", "rwkv6")}
+                for fam in ("chatglm3", "zamba2", "granite", "rwkv6",
+                            "deepseek")}
     # K1-K3 run on both training paths: the row's numbers are the
     # decoder's (this slice's path), with the ViT's beside them under "vit"
     kernels = []
@@ -5314,8 +5662,9 @@ def main():
         # batch 128 in 4 microbatches, 6 steps) and the warm rates there
         vit["pipeline_launches"] = pp_launches[row["name"]]
         vit["pipeline_images_per_s"] = pp_rates_
-        # the training slice at model axis 2 (and data 2 x model 2),
-        # each rank on the one card (phase 19): a rank's launches
+        # the training slice at model axis 2 (and data 2 x model 2, and
+        # pipe 2 x model 2 by stage), each rank on the one card (phase
+        # 19): a rank's launches
         vit["tp_launches"] = {label: n[row["name"]]
                               for label, n in tp_launches.items()
                               if label.startswith("vit")}
@@ -5352,7 +5701,8 @@ def main():
         # the whole projection) against their plain versions
         tp = dict(tp_family_launches(row["name"]),
                   tp_rank_shape={"shape": list(TP_RANK_SHAPE),
-                                 "max_abs_err": tp_errs[key]})
+                                 "max_abs_err": tp_errs[key]},
+                  tp_mla={m: rows[key] for m, rows in tp_mla.items()})
         kernels.append(dict(row, **lm_attn[key], **serve, **tp,
                             launches=lm_launches[row["name"]], vit=vit,
                             gemma3_launches=gemma_launches[row["name"]],

@@ -14,8 +14,7 @@ hanging. A world of one goes through the same calls as any other.
 :func:`spawn` (the CLI never does), lets several ranks share cards: rank r
 computes on card ``r % device_count``, and each collective moves its
 tensors through host memory (``World.host_staged``), where gloo runs it
-(point-to-point ``exchange`` is not staged: the pipeline's, which no
-such world runs).
+(the pipeline's point-to-point ``exchange`` too).
 That is a transport, not a fallback: the compute stays on the card. It is
 how one card runs a world of ranks (tensor parallelism's model groups,
 ``chip_smoke.py``); NCCL is what runs across cards.
@@ -100,6 +99,10 @@ class World:
         place; returns ``t``."""
         if op not in ("sum", "mean", "max"):
             raise ValueError(f"op must be 'sum', 'mean' or 'max': {op!r}")
+        if self.size == 1 and self.host_staged:
+            # one rank's sum, mean and max are its own: no trip through
+            # host memory (a model-parallel run's data group of one)
+            return t
         red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
         self._staged(lambda x: dist.all_reduce(x, op=red, group=self.group),
                      t)
@@ -116,6 +119,8 @@ class World:
     def all_reduce_many(self, ts: list, op: str = "mean") -> list:
         """``all_reduce`` of every tensor of ``ts`` in place, one collective
         per dtype (the tensors go through one flat buffer)."""
+        if self.size == 1 and self.host_staged:
+            return ts
         for idx in _by_dtype(ts):
             flat = self.all_reduce(torch.cat([ts[i].reshape(-1)
                                               for i in idx]), op)
@@ -192,17 +197,21 @@ class World:
         ``recvs`` ``[(shape, dtype, rank)]`` (group ranks; at most one
         message each way between two ranks per call). Returns the received
         tensors in the order of ``recvs``. A receive whose peer never sends
-        raises at the group's timeout."""
-        out = [torch.empty(shape, dtype=dtype, device=self.device)
+        raises at the group's timeout. Under ``host_staged`` the tensors
+        travel as host copies."""
+        staged = self.host_staged and self.device.type != "cpu"
+        wire = torch.device("cpu") if staged else self.device
+        out = [torch.empty(shape, dtype=dtype, device=wire)
                for shape, dtype, _ in recvs]
-        ops = [dist.P2POp(dist.isend, t.contiguous(), self.global_rank(r),
-                          self.group) for t, r in sends] + \
+        ops = [dist.P2POp(dist.isend, t.contiguous().to(wire),
+                          self.global_rank(r), self.group)
+               for t, r in sends] + \
             [dist.P2POp(dist.irecv, buf, self.global_rank(r), self.group)
              for buf, (_, _, r) in zip(out, recvs)]
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
-        return out
+        return [t.to(self.device) for t in out]
 
 
 def _by_dtype(ts) -> list:

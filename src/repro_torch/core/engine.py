@@ -63,8 +63,9 @@ the all-reduced loss and the global grad norm, so every rank takes the same
 branch; metrics are averaged over the ranks.
 
 Tensor parallelism (``Trainer(model_axis=M)``, M > 1: the extent of the
-reference's ``model`` mesh axis): a world is laid out data x model
-(``launch/mesh.py``), and each rank keeps its model chunk of every leaf
+reference's ``model`` mesh axis): a world is laid out data x model, or
+data x pipe x model with pipeline stages (``launch/mesh.py``), and each
+rank keeps its model chunk of every leaf
 the model axis splits
 (``core/sharding.py::model_dims``: Megatron's column/row split and the
 vocab-parallel embedding and head), then ZeRO's data chunk of that. The
@@ -236,8 +237,9 @@ class Trainer:
         ``ecfg.zero_stage`` (its device is the rank's); None trains on one
         device without a process group. With ``ecfg.pipeline_stages`` > 1
         a world of more than one rank is laid out data x pipe, with
-        ``model_axis`` M > 1 data x model (``launch.mesh.make_layout``, a
-        collective): each replica's layers split over M ranks."""
+        ``model_axis`` M > 1 data x (pipe x) model
+        (``launch.mesh.make_layout``, a collective): each replica's (each
+        stage's) layers split over M ranks."""
         self.data = self.pipe = self.tp = None
         M = model_axis
         check_model_axis(cfg, M)
@@ -322,15 +324,19 @@ class Trainer:
         each stacked leaf; under a model group this rank's model chunk of
         each leaf the model axis splits (copies: build the model on
         ``state.params``); under ZeRO-3 this rank's chunk of each sharded
-        leaf, and the caller's whole tensors can go."""
-        if self.tp is not None:
-            params = {k: self.tp.chunk(p, d).clone() if d is not None
-                      else p for k, p in params.items()
-                      for d in (self.model_dims[k],)}
-        if self.pipe is not None:
-            # this rank's chunks of each stacked leaf, in chunk order
-            params = {k: torch.cat([p[lo:hi] for lo, hi in self._chunks()])
-                      if is_stacked(k) else p for k, p in params.items()}
+        leaf, and the caller's whole tensors can go. ``params`` may lie
+        on the host (a memory-mapped file's): only this rank's parts are
+        copied to its device."""
+        def local(k, p):
+            d = self.model_dims[k] if self.tp is not None else None
+            if d is not None:
+                p = self.tp.chunk(p, d)
+            if self.pipe is not None and is_stacked(k):
+                # this rank's chunks of each stacked leaf, in chunk order
+                return torch.cat([p[lo:hi].to(self.device)
+                                  for lo, hi in self._chunks()])
+            return p.to(self.device, copy=d is not None)
+        params = {k: local(k, p) for k, p in params.items()}
         self._layout(params)
         if self.ecfg.zero_stage == 3:
             params = {k: self.data.chunk(p, d).clone() if d is not None
@@ -666,18 +672,21 @@ class Trainer:
         whose optimizer state is sharded come back as this rank's chunk
         under ZeRO 2 and 3 (whole under 0 and 1). With
         ``pipeline_stages`` > 1 they come from the 1F1B pipeline
-        (:meth:`_pipeline_grads`). Under a model group each is this rank's
-        model chunk (the ``model_summed`` leaves' summed over the group)."""
+        (:meth:`_pipeline_grads`, with the model group installed around
+        the executor as around the plain path). Under a model group each
+        is this rank's model chunk (the ``model_summed`` leaves' summed
+        over the group: a stacked one's stage-local rows under a pipe
+        group)."""
         if self.aug is not None and rngs is None:
             raise ValueError("augmented training needs the microbatch "
                              "seeds (rngs)")
         self._check_batch(batch)
         if self.param_dims is None:
             self._layout(params)
-        if self.ecfg.pipeline_stages > 1:
-            return self._pipeline_grads(params, batch, rngs)
         with shardctx.use(self.tp):
-            grads, metrics = self._data_grads(params, batch, rngs)
+            grads, metrics = self._pipeline_grads(params, batch, rngs) \
+                if self.ecfg.pipeline_stages > 1 else \
+                self._data_grads(params, batch, rngs)
         if self.model_summed:
             self.tp.all_reduce_many([grads[k] for k in self.model_summed],
                                     "sum")
@@ -713,7 +722,10 @@ class Trainer:
         data group by the gather's backward), the non-stacked ones this
         rank's share, whole. So the non-stacked gradients and the metrics
         are summed over the pipe group, then every gradient takes the data
-        group's mean under its ZeRO stage."""
+        group's mean under its ZeRO stage. Under a model group (installed
+        by :meth:`grads`) the pipe group joins the ranks of one model
+        index, so each sum runs between the ranks that hold the same
+        model chunks."""
         e = self.ecfg
         stage, d = e.zero_stage, self.data
         view = {k: p.detach() for k, p in compute_params(params, e).items()}

@@ -32,8 +32,8 @@ import re
 _F = "data"         # the data-parallel axis in the tables below
 _TP = "model"       # the tensor-parallel axis
 
-# the families whose layers the model axis splits; MLA waits for ROADMAP
-# item 16.1b
+# the families whose layers the model axis splits (DeepSeek's MLA, an
+# "moe" family, among them)
 TP_ARCH_TYPES = ("vit", "audio", "dense", "vlm", "moe", "ssm", "hybrid")
 
 
@@ -190,21 +190,22 @@ def _divides(cfg, model, n, what):
 
 
 def check_model_axis(cfg, model: int) -> None:
-    """Raise ``ValueError`` for a config the model axis cannot split: MLA
-    (ROADMAP item 16.1b), or a count of what each rank takes a whole
-    share of that the model axis does not divide: Mamba2's SSM heads, the
-    MoE's experts, RWKV6's heads and channel-mix width, the attention's
-    query heads and the MLP width; or query heads that straddle a KV head
-    when the KV projections stay whole (D6)."""
+    """Raise ``ValueError`` for a config the model axis cannot split: a
+    family outside ``TP_ARCH_TYPES``, or a count of what each rank takes a
+    whole share of that the model axis does not divide: Mamba2's SSM
+    heads, the MoE's experts and shared-expert width, RWKV6's heads and
+    channel-mix width, the attention's (or MLA's) query heads and the MLP
+    width of the dense layers (an MoE decoder's leading ones and the MTP
+    head's block); or query heads that straddle a KV head when the KV
+    projections stay whole (D6)."""
     if model < 1:
         raise ValueError(f"model axis must be >= 1: {model}")
     if model == 1:
         return
-    what = "MLA" if cfg.block_kind == "mla" else None \
-        if cfg.arch_type in TP_ARCH_TYPES else f"the {cfg.arch_type!r} family"
-    if what is not None:
-        raise ValueError(f"{cfg.name}: tensor parallelism for {what} is not "
-                         f"yet ported to repro_torch (ROADMAP item 16.1b)")
+    if cfg.arch_type not in TP_ARCH_TYPES:
+        raise ValueError(f"{cfg.name}: tensor parallelism for the "
+                         f"{cfg.arch_type!r} family is not yet ported to "
+                         f"repro_torch (ROADMAP item 16.1)")
     if cfg.block_kind == "mamba2":
         s = cfg.ssm
         _divides(cfg, model, s.expand * cfg.d_model // s.head_dim,
@@ -222,7 +223,8 @@ def check_model_axis(cfg, model: int) -> None:
         return
     # the attention + MLP layers (a hybrid's shared block among them)
     _divides(cfg, model, cfg.num_heads, "query heads are")
-    if not cfg.has_moe or cfg.moe.first_dense_layers > 0:
+    if not cfg.has_moe or cfg.moe.first_dense_layers > 0 \
+            or cfg.mtp_depth > 0:
         _divides(cfg, model, cfg.d_ff, "MLP widths (d_ff) are")
     per, group = cfg.num_heads // model, cfg.num_heads // cfg.num_kv_heads
     if kv_replicated(cfg, model) and group % per:

@@ -11,8 +11,9 @@ same ``(d, m)`` a pipe group (activations and cotangents move between
 them); those with the same ``(d, p)`` a model group (tensor parallelism:
 the Megatron column/row split of each layer, ``models/shardctx.py``). A
 world of one process runs every stage itself and M = 1 only: it has no
-pipe or model group, and its data group is the world. Pipeline and model
-parallelism together are ROADMAP item 16.1c and are refused.
+pipe or model group, and its data group is the world. With both a pipe
+and a model axis (Megatron-DeepSpeed's 3D layout) model rank m of stage p
+hands its activations to model rank m of stage p + 1 over its pipe group.
 """
 from __future__ import annotations
 
@@ -53,10 +54,6 @@ def make_layout(world: World, pipe: int = 1, model: int = 1, *,
     be a multiple of ``pipe * model``."""
     if pipe < 1 or model < 1:
         raise ValueError(f"pipe and model must be >= 1: {pipe}, {model}")
-    if pipe > 1 and model > 1:
-        raise ValueError(f"--pp {pipe} with --model-axis {model}: pipeline "
-                         f"and tensor parallelism together are not yet "
-                         f"ported to repro_torch (ROADMAP item 16.1c)")
     if world.size == 1:
         if model != 1:
             raise ValueError(f"model axis {model} on a world of one rank: "

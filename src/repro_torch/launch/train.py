@@ -88,13 +88,17 @@ splits each replica's layers over M ranks, so ``--devices N`` is dp x M
 (``--devices 4 --model-axis 2`` is data 2 x model 2), ZeRO over each
 model rank's data group. It covers the ViT, HuBERT, the dense and
 vision-language decoders, the MoE (experts split over the model axis),
-RWKV6 (heads) and the Mamba2 hybrid (heads; D7); MLA and ``--pp`` with
-``--model-axis`` are refused (ROADMAP items 16.1b, 16.1c):
+DeepSeek-V3 (MLA's heads, the shared expert, the MTP head), RWKV6 (heads)
+and the Mamba2 hybrid (heads; D7). With ``--pp S`` too, ``--devices N``
+is dp x S x M (Megatron-DeepSpeed's 3D layout) for the stacks the
+pipeline takes (the ViT, HuBERT, the dense decoders):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch vit-b16 \\
         --smoke --device cpu --devices 4 --model-axis 2 --zero 3 --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
         --smoke --device cpu --devices 4 --model-axis 4 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
+        --smoke --device cpu --devices 4 --pp 2 --model-axis 2 --accum 2
 
 Options of the reference that are not ported yet (sequence parallelism)
 are refused, never ignored.
@@ -110,7 +114,7 @@ import time
 
 from repro_torch.checkpoint import latest_step, save_checkpoint
 from repro_torch.configs import EngineConfig, get_config, get_smoke_config
-from repro_torch.core import distributed
+from repro_torch.core import distributed, pipeline
 from repro_torch.core.engine import Evaluator, Trainer, resolve_device, \
     to_device
 from repro_torch.core.sharding import check_model_axis
@@ -301,21 +305,21 @@ def _check_model_axis(args) -> None:
         raise SystemExit(f"[train] --model-axis must be >= 1: {m}")
     if m == 1:
         return
-    if args.pp > 1:
-        raise SystemExit(f"[train] --pp {args.pp} with --model-axis {m}: "
-                         f"pipeline and tensor parallelism together are "
-                         f"not yet ported to repro_torch (ROADMAP item "
-                         f"16.1c)")
     if not args.devices and not _torchrun():
         raise SystemExit(f"[train] --model-axis {m} without a world: a "
                          f"model axis inside one process is not yet "
                          f"ported to repro_torch; start dp x {m} ranks "
                          f"with --devices (ROADMAP item 16.1)")
-    if args.devices % m:
+    if args.devices % (args.pp * m):
         raise SystemExit(f"[train] --devices {args.devices} is not a "
-                         f"multiple of --model-axis {m}")
+                         f"multiple of "
+                         + (f"--pp {args.pp} x " if args.pp > 1 else "")
+                         + f"--model-axis {m}")
     try:
-        check_model_axis(_config(args), m)
+        cfg = _config(args)
+        check_model_axis(cfg, m)
+        if args.pp > 1:
+            pipeline.check_supported(cfg)
     except ValueError as e:
         raise SystemExit(f"[train] {e}") from None
 

@@ -35,6 +35,16 @@ whole: the rank then takes only the one KV head its query heads use (a
 column slice of ``wk``/``wv``/``bk``/``bv``), so the kernel's ``h // g``
 sees its own group, and the engine sums those leaves' gradients over the
 group. Rope, the masks and the kernels are per head and unchanged.
+
+MLA under a model group: every rank computes the down-projections, both
+latent norms and the shared rope key whole (``w_dq``, ``q_norm``,
+``w_dkv``, ``kv_norm`` are replicated), takes its H/M heads through its
+column chunks of ``w_uq``, ``w_uk`` and ``w_uv`` (whole heads: the
+reference's contiguous columns) and ends with ``wo``'s row chunk and the
+sum over the group. ``copy_to_model`` sits on the three latents (``cq``,
+``c_kv``, the rotated rope key: q_lora + kv_lora + rope columns, 2112 in
+DeepSeek-V3) rather than on x (7168): the backward's all-reduce moves
+those, and the replicated leaves' gradients come out whole on every rank.
 """
 from __future__ import annotations
 
@@ -177,7 +187,9 @@ def attention_block(p, x, cfg, *, window, positions=None, cache=None,
 def mla_block(p, x, cfg, *, positions, cache=None, cache_index=0):
     """DeepSeek's multi-head latent attention (the reference's
     ``mla_block``, ``attention.py:181-256``). p: this layer's {w_dq,
-    q_norm, w_uq, w_dkv, kv_norm, w_uk, w_uv, wo}; x (B,S,D) in the compute
+    q_norm, w_uq, w_dkv, kv_norm, w_uk, w_uv, wo} (under a model group the
+    up-projections' and ``wo``'s chunks of this rank's heads); x (B,S,D)
+    in the compute
     dtype; positions (B,S). ``cache``: this layer's {"c_kv" (B, Smax,
     kv_lora_rank), "k_rope" (B, Smax, qk_rope_head_dim)}, written in place.
 
@@ -196,12 +208,17 @@ def mla_block(p, x, cfg, *, positions, cache=None, cache_index=0):
     norms take K4/K5 with ``cfg.use_kernels``."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.num_heads
     nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    # this rank's heads (all of them without a model group)
+    h = p["w_uq"].shape[-1] // (nope + rope_d)
+    if cache is not None and shardctx.active() is not None:
+        raise ValueError("serving on the model axis is not yet ported "
+                         "(ROADMAP item 16.3)")
     dt = x.dtype
     cq = rmsnorm(x @ p["w_dq"].to(dt), p["q_norm"], cfg.norm_eps,
                  use_kernels=cfg.use_kernels)
-    q = (cq @ p["w_uq"].to(dt)).reshape(b, s, h, nope + rope_d)
+    q = (shardctx.copy_to_model(cq) @ p["w_uq"].to(dt)).reshape(
+        b, s, h, nope + rope_d)
     dkv = x @ p["w_dkv"].to(dt)
     c_kv = rmsnorm(dkv[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps,
                    use_kernels=cfg.use_kernels)
@@ -232,9 +249,12 @@ def mla_block(p, x, cfg, *, positions, cache=None, cache_index=0):
         w_uv = p["w_uv"].to(dt).reshape(m.kv_lora_rank, h, vd)
         out = torch.einsum("bshr,rhd->bshd", ctx, w_uv)
     else:
+        c_kv = shardctx.copy_to_model(c_kv)
+        k_rope = shardctx.copy_to_model(k_rope)
         k_nope = (c_kv @ p["w_uk"].to(dt)).reshape(b, t, h, nope)
         v = (c_kv @ p["w_uv"].to(dt)).reshape(b, t, h, vd)
         k = torch.cat([k_nope, k_rope.expand(b, t, h, rope_d)], dim=-1)
         out = _attend(torch.cat([q_nope, q_rope], dim=-1), k, v, cfg, 0,
                       True)
-    return out.reshape(b, s, h * vd) @ p["wo"].to(dt)
+    return shardctx.reduce_from_model(out.reshape(b, s, h * vd)
+                                      @ p["wo"].to(dt))

@@ -72,7 +72,9 @@ lookup, a whole head with no ``copy_to_model`` before it, whole logits).
 The Mamba2 layers (D7), the MoE's experts (expert parallelism) and
 RWKV6's mixes (heads) read the installed group as the attention does
 (``mamba2.py``, ``moe.py``, ``rwkv6.py``); a hybrid's shared block is the
-split attention + MLP.
+split attention + MLP. MLA splits by heads (``mla_block``), and the MTP
+head takes the vocab-parallel lookup, head and loss as the main head
+does.
 """
 from __future__ import annotations
 
@@ -435,6 +437,12 @@ def _head(cfg, params, h):
         else:
             logits = cls @ w.to(h.dtype)
         return logits + params["head.b"].to(h.dtype)
+    return _lm_head(cfg, params, h)
+
+
+def _lm_head(cfg, params, h):
+    """``h @ head.w`` (the embedding transposed when tied); where a model
+    group splits the vocabulary, this rank's chunk of the logits."""
     w = params["embed.tok"].T if cfg.tie_embeddings else params["head.w"]
     if w.shape[1] != cfg.vocab_size:
         h = shardctx.copy_to_model(h)
@@ -648,19 +656,20 @@ def _mtp_logits(cfg, params, batch, h, positions):
     one dense block (window 0, never checkpointed, as in the reference),
     ``mtp.final_norm`` and the LM head (the embedding transposed when
     tied). Its logits feed the loss's 0.3-weighted term for the token two
-    ahead (:func:`loss_from_logits`)."""
+    ahead (:func:`loss_from_logits`). Under a model group the next tokens
+    take the vocab-parallel lookup, ``mtp.proj`` is replicated, the block
+    splits as a dense layer and the logits stay vocab-sharded, as the
+    main head's."""
     tok = batch["tokens"].long()
     nxt = torch.cat([tok[:, 1:], tok[:, -1:]], dim=1)
-    e_next = params["embed.tok"][nxt].to(h.dtype)
+    e_next = _lookup(params["embed.tok"], nxt, cfg.vocab_size).to(h.dtype)
     mh = torch.cat([_apply_norm(cfg, params, "mtp.norm_h.", h),
                     _apply_norm(cfg, params, "mtp.norm_e.", e_next)],
                    dim=-1) @ params["mtp.proj"].to(h.dtype)
     mh, _ = _block(cfg, _layer(params, "mtp.block.", None), mh, 0,
                    positions)
-    mh = _apply_norm(cfg, params, "mtp.final_norm.", mh)
-    if cfg.tie_embeddings:
-        return mh @ params["embed.tok"].T.to(h.dtype)
-    return mh @ params["head.w"].to(h.dtype)
+    return _lm_head(cfg, params,
+                    _apply_norm(cfg, params, "mtp.final_norm.", mh))
 
 
 def _nll(logits, labels, vocab_parallel=False):
@@ -745,7 +754,7 @@ def loss_from_logits(cfg, logits, batch, aux=None, reduce=None):
             l2 = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
             m2 = mask.clone()
             m2[:, -2:] = False
-            loss = loss + 0.3 * _xent(aux["mtp_logits"], l2, m2)
+            loss = loss + 0.3 * _xent(aux["mtp_logits"], l2, m2, sharded)
         loss = loss + moe_aux
         return loss, {"moe_aux": moe_aux, "loss": loss}
     labels = batch["labels"]

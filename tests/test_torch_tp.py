@@ -5,7 +5,9 @@ model_dims``) against the reference's ``param_specs(...,
 tensor_parallel=True)`` at full size, with the D6 leaves named; the
 vocab-parallel cross-entropy (``models/shardctx.py``) and its gradient
 against the reference's ``_xent`` on the same logits split M ways; the
-refusals; and the CLI's model axis against one rank.
+refusals; and the CLI's model axis against one rank. With a pipe axis
+too, each leaf's pipe and model dimensions against the reference's
+``param_specs(pipeline_axis="pipe", tensor_parallel=True)``.
 
 The spawned ranks import this module (the spawn start method pickles
 ``_run_jobs`` by reference), so it imports no JAX at module level.
@@ -19,7 +21,6 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import concurrent.futures  # noqa: E402
-import re  # noqa: E402
 from types import SimpleNamespace  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -28,8 +29,8 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.configs.base import EngineConfig  # noqa: E402
 from repro_torch.core import distributed  # noqa: E402
 from repro_torch.core.engine import Trainer  # noqa: E402
-from repro_torch.core.sharding import check_model_axis, model_dims, \
-    shard_dims  # noqa: E402
+from repro_torch.core.sharding import check_model_axis, is_stacked, \
+    model_dims, shard_dims  # noqa: E402
 from repro_torch.launch import train as cli  # noqa: E402
 from repro_torch.launch.mesh import make_layout  # noqa: E402
 from repro_torch.models import shardctx, transformer  # noqa: E402
@@ -40,7 +41,11 @@ DEADLINE_S = 240
 WORLDS = (1, 2, 4, 8)
 # this slice's families at full size
 SPEC_ARCHS = ("vit-b16", "hubert-xlarge", "chatglm3-6b", "glm4-9b",
-              "qwen2.5-14b", "gemma3-12b", "qwen2-vl-72b")
+              "qwen2.5-14b", "gemma3-12b", "qwen2-vl-72b",
+              "deepseek-v3-671b")
+# the families the pipeline takes (pipeline.check_supported)
+PIPE_ARCHS = ("vit-b16", "hubert-xlarge", "chatglm3-6b", "glm4-9b",
+              "qwen2.5-14b", "gemma3-12b")
 # D6: the KV projections the port keeps whole where the reference splits
 # them into part-heads (KH 2 on a model axis of 4)
 D6 = {("chatglm3-6b", 4), ("glm4-9b", 4)}
@@ -125,8 +130,7 @@ def worlds():
 def test_layout_groups_follow_the_rank_formula(size, pp, m, worlds):
     """Rank ``(d * S + p) * M + m``: its data group the ranks of the same
     (p, m), its pipe group those of the same (d, m), its model group those
-    of the same (d, p); a world of one runs every stage, with M 1 only;
-    pipe and model together are refused (item 16.1c)."""
+    of the same (d, p); a world of one runs every stage, with M 1 only."""
     if size == 1:
         one = distributed.World(rank=0, size=1, local_rank=0,
                                 device=torch.device("cpu"))
@@ -139,9 +143,6 @@ def test_layout_groups_follow_the_rank_formula(size, pp, m, worlds):
         return
     grid = np.arange(size).reshape(size // (pp * m), pp, m)
     for r, got in enumerate(w["layouts"][pp, m] for w in worlds[size]):
-        if pp > 1 and m > 1:
-            assert "item 16.1c" in got
-            continue
         d, p, mm = (int(i[0]) for i in np.nonzero(grid == r))
         data, pipe, model = got
         assert data == tuple(grid[:, p, mm])
@@ -152,7 +153,8 @@ def test_layout_groups_follow_the_rank_formula(size, pp, m, worlds):
 def test_layout_refusals():
     three = distributed.World(rank=0, size=3, local_rank=0,
                               device=torch.device("cpu"))
-    with pytest.raises(ValueError, match="item 16.1c"):
+    with pytest.raises(ValueError, match="3 ranks is not a multiple of 2 "
+                                         "pipeline stages x 2 model"):
         make_layout(three, 2, model=2)
     with pytest.raises(ValueError, match="3 ranks is not a multiple of 1 "
                                          "pipeline stages x 2 model"):
@@ -163,13 +165,11 @@ def test_layout_refusals():
 
 # --- the model dims against the reference's specs ----------------------------
 
-@pytest.mark.parametrize("arch", SPEC_ARCHS)
-@pytest.mark.parametrize("m", [2, 4])
-def test_model_dims_match_reference_specs(arch, m):
-    """Each leaf's model dimension is where the reference's
-    ``param_specs(..., tensor_parallel=True)`` puts ``"model"`` on a data
-    2 x model M mesh, but for the D6 leaves, kept whole; the ZeRO-3 data
-    dimension is the reference's too."""
+def _ref_specs(arch, axes, extents, **kw):
+    """The reference's ``param_specs(..., zero_stage=3,
+    tensor_parallel=True, **kw)`` of ``arch`` at full size on a mesh of
+    ``axes`` and ``extents``, as ``{dotted key: spec tuple}``, and the
+    port's ``{key: shape}`` with its config."""
     import jax
     from repro import configs as ref_configs
     from repro.core.sharding import _keystr, param_specs
@@ -177,10 +177,10 @@ def test_model_dims_match_reference_specs(arch, m):
     rcfg = ref_configs.get_config(arch)
     shapes = jax.eval_shape(lambda: ref_model.init_params(
         rcfg, jax.random.PRNGKey(0)))
-    mesh = SimpleNamespace(axis_names=("data", "model"),
-                           devices=np.empty((2, m), object))
+    mesh = SimpleNamespace(axis_names=axes,
+                           devices=np.empty(extents, object))
     specs = param_specs(shapes, zero_stage=3, tensor_parallel=True,
-                        mesh=mesh)
+                        mesh=mesh, **kw)
     flat = jax.tree_util.tree_flatten_with_path(
         specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
     want = {_keystr(p).replace("/", "."): tuple(s) for p, s in flat}
@@ -188,17 +188,53 @@ def test_model_dims_match_reference_specs(arch, m):
     port = {k: t.shape for k, t in transformer.init_params(
         cfg, device="meta").items()}
     assert set(port) == set(want)
+    return want, port, cfg
+
+
+def _axis_dim(spec, axis):
+    return spec.index(axis) if axis in spec else None
+
+
+@pytest.mark.parametrize("arch", SPEC_ARCHS)
+@pytest.mark.parametrize("m", [2, 4])
+def test_model_dims_match_reference_specs(arch, m):
+    """Each leaf's model dimension is where the reference's
+    ``param_specs(..., tensor_parallel=True)`` puts ``"model"`` on a data
+    2 x model M mesh, but for the D6 leaves, kept whole; the ZeRO-3 data
+    dimension is the reference's too. DeepSeek-V3's MLA up-projections
+    split by whole heads, so none of its leaves differs."""
+    want, port, cfg = _ref_specs(arch, ("data", "model"), (2, m))
     got = model_dims(port, cfg, m)
     data = shard_dims(port, zero_stage=3, world=2)
     differ = set()
     for k, spec in want.items():
-        ref_dim = spec.index("model") if "model" in spec else None
-        if got[k] != ref_dim:
+        if got[k] != _axis_dim(spec, "model"):
             differ.add(k)
-        assert data[k] == (spec.index("data") if "data" in spec else None), k
+        assert data[k] == _axis_dim(spec, "data"), k
     assert differ == (D6_LEAVES & set(port) if (arch, m) in D6 else set())
     for k in differ:
         assert got[k] is None and want[k][-1] == "model"
+
+
+@pytest.mark.parametrize("arch", PIPE_ARCHS)
+def test_pipe_and_model_dims_match_reference_specs(arch):
+    """On a data 2 x pipe 2 x model 2 mesh the reference's
+    ``param_specs(..., tensor_parallel=True, pipeline_axis="pipe")`` puts
+    ``"pipe"`` on the L axis of every stacked leaf (a stage's layers) and
+    of no other, ``"model"`` where the port's ``model_dims`` puts it and
+    ``"data"`` where ``shard_dims`` does: the three axes of a leaf fall on
+    three different dimensions, as the engine lays them out."""
+    want, port, cfg = _ref_specs(arch, ("data", "pipe", "model"), (2, 2, 2),
+                                 pipeline_axis="pipe")
+    got = model_dims(port, cfg, 2)
+    data = shard_dims(port, zero_stage=3, world=2)
+    for k, spec in want.items():
+        assert _axis_dim(spec, "pipe") == (0 if is_stacked(k) else None), k
+        assert got[k] == _axis_dim(spec, "model"), k
+        assert data[k] == _axis_dim(spec, "data"), k
+        dims = [d for d in (0 if is_stacked(k) else None, got[k], data[k])
+                if d is not None]
+        assert len(dims) == len(set(dims)), k
 
 
 def test_model_dims_keep_whole_heads():
@@ -260,36 +296,29 @@ def test_shardctx_is_the_identity_without_a_group():
 
 # --- refusals ----------------------------------------------------------------
 
-@pytest.mark.parametrize("arch,what", [
-    ("granite-moe-3b-a800m", None), ("rwkv6-7b", None),
-    ("zamba2-2.7b", None), ("deepseek-v3-671b", "MLA")])
-def test_families_without_tensor_parallelism_are_refused(arch, what):
-    """MLA is refused before any rank starts, citing ROADMAP item 16.1b;
-    the MoE, RWKV6 and Mamba2 hybrid families, ported since, train one
-    fp32 step at ``--devices 2 --model-axis 2``: loss and grad norm within
-    3e-4 of ``--devices 0``'s."""
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "rwkv6-7b",
+                                  "zamba2-2.7b", "deepseek-v3-671b"])
+def test_families_without_tensor_parallelism_are_refused(arch):
+    """The families the model axis once refused, the MoE, RWKV6, the
+    Mamba2 hybrid and DeepSeek-V3's MLA, all ported since, train one fp32
+    step at ``--devices 2 --model-axis 2``: loss and grad norm within 3e-4
+    of ``--devices 0``'s."""
     one = ["--arch", arch, "--smoke", "--steps", "1", "--device", "cpu"]
     argv = one + ["--devices", "2", "--model-axis", "2"]
     cfg = configs.get_smoke_config(arch)
     check_model_axis(cfg, 1)
-    if what is None:
-        run = ["--seq", "32", "--batch", "4", "--log-every", "1", "--dtype",
-               "float32"]
-        got = _losses(cli.main(argv + run))
-        want = _losses(cli.main(one + run))
-        assert len(got) == len(want) == 1
-        assert np.max(np.abs(np.subtract(got, want))) <= TP_TOL
-        check_model_axis(cfg, 2)
-        return
-    with pytest.raises(SystemExit, match=f"{re.escape(what)}.*item 16.1b"):
-        cli.main(argv)
-    with pytest.raises(ValueError, match="item 16.1b"):
-        check_model_axis(cfg, 2)
+    run = ["--seq", "32", "--batch", "4", "--log-every", "1", "--dtype",
+           "float32"]
+    got = _losses(cli.main(argv + run))
+    want = _losses(cli.main(one + run))
+    assert len(got) == len(want) == 1
+    assert np.max(np.abs(np.subtract(got, want))) <= TP_TOL
+    check_model_axis(cfg, 2)
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--pp", "2", "--accum", "2", "--devices", "4", "--model-axis", "2"],
-     "item 16.1c"),
+    (["--arch", "granite-moe-3b-a800m", "--pp", "2", "--accum", "2",
+      "--devices", "4", "--model-axis", "2"], "MoE"),
     (["--devices", "3", "--model-axis", "3"],
      "4 query heads are not divisible by the model axis 3"),
     (["--arch", "zamba2-2.7b", "--devices", "3", "--model-axis", "3"],
@@ -329,9 +358,10 @@ def test_trainer_refusals():
     with pytest.raises(ValueError, match="model axis must be >= 1"):
         Trainer(cfg, EngineConfig(train_batch_size=8), device="cpu",
                 model_axis=0)
-    with pytest.raises(ValueError, match="item 16.1b"):
+    with pytest.raises(ValueError, match="4 experts are not divisible by "
+                                         "the model axis 3"):
         Trainer(configs.get_smoke_config("deepseek-v3-671b"),
-                EngineConfig(train_batch_size=8), device="cpu", model_axis=2)
+                EngineConfig(train_batch_size=8), device="cpu", model_axis=3)
 
 
 # --- the CLI -----------------------------------------------------------------
