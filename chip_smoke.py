@@ -105,9 +105,12 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    just before and read just after (K1 10 x 2 x 12 + 48 = 288, K2 and K3
    240 each); every loss and grad-norm finite and ``step_ok`` 1; then the
    loss and all parameter gradients of one full-width microbatch through
-   the kernel and the naive path (fp32 within 2e-4; bf16 cosine >= 0.99),
-   and warm training images/s of both paths, every kernel-path run faster
-   than every naive-path run.
+   the kernel and the naive path (fp32 within 2e-4; bf16 cosine >= 0.99);
+   the 1-bit AdamW (``optim/onebit.py``): 5 updates of that fp32
+   microbatch from the engine's gradients, the loss falling, the last
+   update within 1e-6 of the same update on host copies; and warm
+   training images/s of both paths, every kernel-path run faster than
+   every naive-path run.
 8b. the data-parallel slice, on NCCL at world size 1 (one card): the CLI
    with ``--devices 1`` as rank 0 of a torchrun world in this process (so
    its launch counters are read): fp32 ``--steps 3 --batch 16 --accum 2``
@@ -411,8 +414,16 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    every loss and grad norm finite, ``step_ok`` 1, the fp32 losses and
    grad norms within 3e-4 of one rank's (phase 8b's run for the ViT),
    and a rank's peak memory printed. The bf16 run's warm images/s is
-   printed as a host-staged reading, not gated. (e) ``--devices 2
-   --model-axis 2`` through the CLI on one card raises its clear error.
+   printed as a host-staged reading, not gated. (l) Ulysses sequence
+   parallelism (``--seq-parallel ulysses``): the fp32 ViT run at model
+   axis 2 (197 rows split 99/98, 6 heads a rank) in the world of 2 and 4
+   (50/49/49/49, 3 heads) in the world of 4, and ChatGLM3-6B's fp32 run at
+   model axis 2 (16 query heads and 1 KV head a rank; after the DeepSeek-V3
+   model-2 job, the world of 4 waiting for it), each against its one-rank
+   run (3e-4), a rank's K1-K5 launches and heads exact; a rank's peak
+   printed beside the tensor-parallel job's at the same model axis. (e)
+   ``--devices 2 --model-axis 2`` through the CLI on one card raises its
+   clear error.
 
 ``--profile`` adds a ``torch.profiler`` table of one warm training step of
 each training slice (DeepSeek-V3's included, and the ZeRO-3 step at world
@@ -434,7 +445,8 @@ attention times at head dim 80 with their training runs' launches under
 and 4 (and ChatGLM3's at pipe 2 x model 2, each stage's) under
 ``tp_chatglm3_launches``, ``tp_zamba2_launches``, ``tp_granite_launches``
 (GShard and gather), ``tp_rwkv6_launches`` and ``tp_deepseek_launches``
-(a rank's, on every kernel's row) and K1-K3's errors at a model-axis-4
+(a rank's, on every kernel's row; the Ulysses runs among them, their
+labels naming ``--seq-parallel ulysses``) and K1-K3's errors at a model-axis-4
 rank's shape under ``tp_rank_shape``, and at MLA's shape at a rank's 64
 and 32 heads (times, bounds, plain, SDPA, errors) under ``tp_mla``,
 the data-parallel runs' launches there under ``dp_launches``, the ``--pp
@@ -1934,6 +1946,61 @@ def compare_train_paths(dtype):
     return grad_agreement(trainer_k, trainer_n, params, batch, dtype)
 
 
+# the 1-bit AdamW (optim/onebit.py) on the card: updates of one full-width
+# fp32 microbatch, and one update held against the CPU's on the same values
+ONEBIT_STEPS = 5
+ONEBIT_LR = 1e-4
+ONEBIT_TOL = 1e-6                   # tests/test_torch_onebit.py
+
+
+def onebit_check():
+    """ViT-B/16 at full width, fp32, on the kernel path: ONEBIT_STEPS
+    updates of ``make_onebit_optimizer("adamw")`` on one microbatch of 64
+    from the engine's gradients (``Trainer.grads``); the loss must fall.
+    The last update also runs on host copies of the params, gradients and
+    state: params, error buffer and moments within ONEBIT_TOL."""
+    import torch
+    from repro_torch.core.engine import to_device
+    from repro_torch.optim import make_onebit_optimizer
+
+    t0 = time.time()
+    trainer, pipe = train_setup("float32", True, batch=64, accum=1)
+    params = {k: p.detach() for k, p in new_vit(trainer).params().items()}
+    batch = to_device(pipe.batch_at(0, 0), "cuda")
+    opt = make_onebit_optimizer("adamw", weight_decay=0.0)
+    state = opt.init(params)
+    losses, err = [], None
+    for i in range(ONEBIT_STEPS + 1):
+        grads, m = trainer.grads(params, batch)
+        losses.append(float(m["loss"]))
+        if i == ONEBIT_STEPS:
+            break
+        if i == ONEBIT_STEPS - 1:
+            def host(t):
+                return {k: v.cpu() for k, v in t.items()}
+            inner = state.inner
+            on_host = opt.update(host(grads), type(state)(
+                host(state.error), inner._replace(
+                    mu=host(inner.mu), nu=host(inner.nu))), host(params),
+                ONEBIT_LR)
+        params, state, _ = opt.update(grads, state, params, ONEBIT_LR)
+        if i == ONEBIT_STEPS - 1:
+            pairs = [(params, on_host[0]), (state.error, on_host[1].error),
+                     (state.inner.mu, on_host[1].inner.mu),
+                     (state.inner.nu, on_host[1].inner.nu)]
+            err = max((a[k].cpu() - b[k]).abs().max().item()
+                      for a, b in pairs for k in a)
+    print(f"[onebit] vit-b16 fp32, one microbatch of 64, 1-bit AdamW at lr "
+          f"{ONEBIT_LR}: losses {[round(x, 5) for x in losses]}; the last "
+          f"update against the CPU's on the same values: max |d| {err:.3e} "
+          f"(params, error buffer, moments; tol {ONEBIT_TOL}); "
+          f"{time.time() - t0:.1f}s", flush=True)
+    if not losses[-1] < losses[0]:
+        fail(f"1-bit AdamW: the loss did not fall: {losses}")
+    if not err <= ONEBIT_TOL:
+        fail(f"1-bit AdamW: the card's update is {err:.3e} off the CPU's")
+
+
 def report_agreement(label, dtype, result, tol=TOL_GRADS_F32, why=""):
     """Gate one ``grad_agreement``: fp32 max |dgrad| within ``tol``, bf16
     cosine at least MIN_COSINE_BF16."""
@@ -2018,6 +2085,7 @@ def phase_train(profile):
     for dtype in ("float32", "bfloat16"):
         report_agreement("vit-b16, one microbatch of 64,", dtype,
                          compare_train_paths(dtype))
+    onebit_check()
 
     rates = {}
     for label in ("kernel", "naive", "naive", "kernel"):
@@ -3063,6 +3131,15 @@ TP_PP_LM_ARGS = ["--arch", "chatglm3-6b", "--layers", str(LM_LAYERS),
 TP_SPLIT_ROWS, TP_SPLIT_WIDTH = 2 * LM_SEQ, 5120
 SPLIT_NAMES = ("rmsnorm_sumsq", "rmsnorm_fwd_split", "rmsnorm_bwd_dot",
                "rmsnorm_bwd_split")
+# 19l: Ulysses sequence parallelism (the label's prefix before the model
+# axis): the fp32 ViT at model axis 2 and 4 and ChatGLM3-6B's TP_LM_ARGS at
+# 2, each held against its one-rank run; a rank's peak beside the
+# tensor-parallel job's at the same model axis (TP_PEAK_PAIRS)
+ULYSSES = "--seq-parallel ulysses --model-axis"
+TP_PEAK_PAIRS = [(f"vit-b16 fp32 {ULYSSES} 2", "vit-b16 fp32 --model-axis 2"),
+                 (f"vit-b16 fp32 {ULYSSES} 4", None),
+                 (f"chatglm3-6b fp32 {ULYSSES} 2",
+                  "chatglm3-6b fp32 --model-axis 2")]
 
 
 def family_argv(tag):
@@ -3142,11 +3219,13 @@ def pp_tp_expect(layers, micro, norms):
 
 def tp_jobs():
     """{world size: [TPJob]}: the ranks of a world run its jobs in turn,
-    the two worlds at once. The DeepSeek-V3 runs never share the card
-    with a large job: the world of 4 runs its model-4 job first while the
-    world of 2 runs only its fp32 ViT job (3.4 GB); the world of 2 runs
-    its model-2 job once that has ended, while the world of 4 runs only
-    its ViT jobs (4.3 GB) and waits for it before the rest."""
+    the two worlds at once. The DeepSeek-V3 runs and ChatGLM3-6B under
+    Ulysses (every leaf whole on both ranks: ~22 GB a rank with AdamW)
+    never share the card with a large job: the world of 4 runs its
+    model-4 DeepSeek job first while the world of 2 runs only its fp32 ViT
+    jobs (3.4 GB); the world of 2 runs its model-2 DeepSeek job and then
+    ChatGLM3 under Ulysses once that has ended, while the world of 4 runs
+    only its ViT jobs (4.3 GB) and waits for both before the rest."""
     from repro_torch.configs import get_config
 
     vit_f32 = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
@@ -3175,12 +3254,23 @@ def tp_jobs():
                                                  "--model-axis", str(m)],
                              expect, heads, wkv, tag, fields))
         return out
+    def uly(m):
+        return ["--devices", str(m), "--model-axis", str(m),
+                "--seq-parallel", "ulysses"]
     lm_pp = pp_tp_expect(LM_LAYERS // 2, TP_LM_STEPS * 2, 2)
     return {
         2: [TPJob("vit-b16 fp32 --model-axis 2",
                   DP_F32_ARGS + ["--devices", "2", "--model-axis", "2"],
                   vit_f32, [(6, 6)], [], "vit"),
-            ds(2, after="ds-m4", then="ds-m2"),
+            # 19l: Ulysses, the ViT's 197 rows split 99/98, 6 heads a rank
+            TPJob(f"vit-b16 fp32 {ULYSSES} 2", DP_F32_ARGS + uly(2),
+                  vit_f32, [(6, 6)], [], "vit"),
+            ds(2, after="ds-m4"),
+            # 19l: ChatGLM3 under Ulysses at its full width: 512 rows of
+            # each 1,024-token sequence a rank, 16 query heads and the one
+            # KV head of 2 they use
+            TPJob(f"chatglm3-6b fp32 {ULYSSES} 2", TP_LM_ARGS + uly(2), lm,
+                  [(16, 1)], [], "lm", then="ds-m2"),
             TPJob("vit-b16 bf16 --model-axis 2",
                   TP_VIT_BF16_ARGS + ["--devices", "2", "--model-axis", "2"],
                   vit_bf16, [(6, 6)], [], None)] + families(2) + [
@@ -3194,6 +3284,9 @@ def tp_jobs():
                   "vit"),
             TPJob("vit-b16 fp32 --pp 2 --model-axis 2", DP_F32_ARGS + TP_PP,
                   pp_tp_expect(6, 3 * 2, 0), [(6, 6)], [], "vit"),
+            # 19l: Ulysses, 197 rows split 50/49/49/49, 3 heads a rank
+            TPJob(f"vit-b16 fp32 {ULYSSES} 4", DP_F32_ARGS + uly(4),
+                  vit_f32, [(3, 3)], [], "vit"),
             TPJob("chatglm3-6b fp32 --model-axis 4 (D6)",
                   TP_LM_ARGS + ["--devices", "4", "--model-axis", "4"], lm,
                   [(8, 1)], [], "lm", after="ds-m2"),
@@ -3376,7 +3469,9 @@ def tp_rank(world, jobs, draw=None, markers=None):
     copies, the bytes its state took on the card at init and the peak of
     allocated memory. ``draw``: the file of the parent's host draws
     ``{(config name, layers): params}`` (:func:`write_draws`), mapped
-    once the marker "draws" says it is whole, which the CLI's
+    once the marker "draws" says it is whole (before the rank's first job
+    that is not the ViT's, whose params are drawn in the job), which the
+    CLI's
     ``init_params`` hands out for a seed-0 draw of those configs
     (``held_draws``) instead of drawing again (the same values).
     ``markers``: the directory of the markers, "draws" and the jobs'
@@ -3389,11 +3484,17 @@ def tp_rank(world, jobs, draw=None, markers=None):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_num_threads(2)        # six ranks share the host's cores
-    waited = marker_wait(markers, "draws")
-    draws = {} if draw is None else read_draws(draw)
-    out = {"draws_waited": waited}
+    draws, out, mapped = {}, {"draws_waited": 0.0}, False
     with held_draws(draws, on_host=True):
         for job in jobs:
+            # the ViT draws its own params: its jobs run before the draws'
+            # file is whole
+            if not mapped and \
+                    job.argv[job.argv.index("--arch") + 1] != "vit-b16":
+                out["draws_waited"] = marker_wait(markers, "draws")
+                mapped = True
+                if draw is not None:
+                    draws.update(read_draws(draw))
             waited = marker_wait(markers, job.after) if job.after else 0.0
             routes, seen = [], []
             torch.cuda.reset_peak_memory_stats()
@@ -3597,14 +3698,15 @@ def phase_tp(card, f32_ref, family_params):
     RWKV6-7B, ChatGLM3) and a world of 4 (the ViT at data 2 x model 2
     under ZeRO 3, (k) the ViT at pipe 2 x model 2, (j) DeepSeek-V3 at
     model axis 4, ChatGLM3 at model axis 4, the D6 path, (k) ChatGLM3 at
-    pipe 2 x model 2, flat and interleaved, and (f)-(h) at model axis 4),
+    pipe 2 x model 2, flat and interleaved, and (f)-(h) at model axis 4;
+    (l) the Ulysses jobs: the fp32 ViT at model 2 and 4, ChatGLM3 at 2),
     each rank running the CLI's ``run`` on the parent's draws, memory-
     mapped (a rank copies only its chunks to the card): every rank's
     K1-K7 and split-row launches exact (a pipeline stage's layers only),
     no layout copy, the heads ``flash_mha`` and ``wkv6`` see the expected
     ones, every loss and grad norm finite and ``step_ok`` 1, the fp32 runs
     within 3e-4 of one rank, the MoE routings that differ from one rank's
-    printed, DeepSeek-V3's state on the card after init this rank's
+    printed, a Ulysses rank's peak beside the TP job's at its model axis, DeepSeek-V3's state on the card after init this rank's
     chunks alone (no rank holds the whole draw), a rank's peak printed,
     the bf16 eval counts equal on both ranks; (e) ``--devices 2
     --model-axis 2`` through the CLI on one card refused. The rates read
@@ -3731,7 +3833,7 @@ def phase_tp(card, f32_ref, family_params):
           f"start (beside the one-rank runs); the ranks waited "
           f"{max(r['draws_waited'] for w in results.values() for r in w):.1f}"
           f"s for the draws", flush=True)
-    launches = {}
+    launches, peaks = {}, {}
     for size, world_jobs in jobs.items():
         ranks = results[size]
         for job in world_jobs:
@@ -3797,10 +3899,17 @@ def phase_tp(card, f32_ref, family_params):
                       f"on one card: not the model axis's rate, not "
                       f"gated; {smi_line()})", flush=True)
             launches[label] = ranks[0][label]["launches"]
+            peaks[label] = max(r[label]["peak_gb"] for r in ranks)
             if isinstance(job.expect, list):
                 # a pipeline run: the last stage's launches too
                 launches[f"{label} stage 1"] = ranks[-1][label]["launches"]
     del results
+    for uly, tp in TP_PEAK_PAIRS:
+        print(f"[tp] a rank's peak under Ulysses, {uly}: "
+              f"{peaks[uly]:.2f} GB (every leaf whole); under tensor "
+              f"parallelism at the same model axis: "
+              + (f"{peaks[tp]:.2f} GB ({tp})" if tp else "no such job")
+              + f" (readings, not gated; {smi_line()})", flush=True)
     free()
     lap("the worlds' gates")
     if torch.cuda.device_count() < 2:

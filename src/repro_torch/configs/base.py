@@ -251,6 +251,9 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+SEQUENCE_PARALLEL = ("none", "ulysses")
+
+
 @dataclass(frozen=True)
 class EngineConfig:
     """The engine knobs (``repro/configs/base.py:167-229``, same names and
@@ -265,7 +268,11 @@ class EngineConfig:
     accum >= S; ``pipeline_interleave`` v > 1 gives each stage v chunks
     (Megatron's interleaved schedule) and needs accum % S == 0. The
     layer count must divide into S * v chunks (checked where the model is
-    known, ``pipeline.stage_partition``)."""
+    known, ``pipeline.stage_partition``). ``sequence_parallel`` "ulysses"
+    runs DeepSpeed-Ulysses on the model axis where the model allows it
+    (``core/ulysses.py::applies``); it does not compose with a pipeline,
+    and a value other than "none" or "ulysses" is refused (the reference
+    reads any other value as "none": ROADMAP caveat R6)."""
     train_batch_size: int = 32
     micro_batch_per_gpu: int = 0        # 0 -> derived
     gradient_accumulation_steps: int = 1
@@ -279,6 +286,7 @@ class EngineConfig:
     total_steps: int = 1000
     seed: int = 0
     cast_params_bf16: bool = False
+    sequence_parallel: str = "none"     # none | ulysses
     pipeline_stages: int = 1
     pipeline_interleave: int = 1
     # elastic checkpointing (repro_torch.checkpoint): cadence in optimizer
@@ -311,6 +319,17 @@ class EngineConfig:
                 f"accum={self.gradient_accumulation_steps} * dp={dp_world}")
         return mb
 
+    def check_sequence_parallel(self) -> None:
+        """Refuse an unknown ``sequence_parallel`` and Ulysses with a
+        pipeline (``repro/configs/base.py:243-246``)."""
+        if self.sequence_parallel not in SEQUENCE_PARALLEL:
+            raise ValueError(f"sequence_parallel must be one of "
+                             f"{SEQUENCE_PARALLEL}: "
+                             f"{self.sequence_parallel!r}")
+        if self.pipeline_stages > 1 and self.sequence_parallel != "none":
+            raise ValueError("pipeline_stages > 1 does not compose with "
+                             "Ulysses sequence parallelism yet")
+
     def validate(self, dp_world: int) -> None:
         mb = self.derived_micro_batch(dp_world)
         got = mb * self.gradient_accumulation_steps * dp_world
@@ -322,6 +341,7 @@ class EngineConfig:
         if self.pipeline_stages < 1:
             raise ValueError(f"pipeline_stages must be >= 1: "
                              f"{self.pipeline_stages}")
+        self.check_sequence_parallel()
         if self.pipeline_stages > 1 and \
                 self.gradient_accumulation_steps < self.pipeline_stages:
             # 1F1B fill/drain needs at least one microbatch per stage

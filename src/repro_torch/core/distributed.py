@@ -32,11 +32,14 @@ t.chunk(size, d)])``, which is what ``all_gather_into_tensor`` and
 ``reduce_scatter_tensor`` exchange. The ``*_many`` collectives move a
 group of leaves (a layer's params, every gradient) in one call per dtype:
 rank r's part of the wire is its chunk of each leaf in turn.
+:meth:`World.all_to_all` sends each rank its own block (Ulysses' reshard
+between sequence rows and heads, ``models/shardctx.py``).
 """
 from __future__ import annotations
 
 import contextlib
 import datetime
+import math
 import os
 import queue as queue_mod
 import shutil
@@ -118,12 +121,21 @@ class World:
 
     def all_reduce_many(self, ts: list, op: str = "mean") -> list:
         """``all_reduce`` of every tensor of ``ts`` in place, one collective
-        per dtype (the tensors go through one flat buffer)."""
+        per dtype (the tensors go through one flat buffer; under
+        ``host_staged`` a buffer in host memory, filled and emptied a
+        tensor at a time, so the card holds no second copy of them)."""
         if self.size == 1 and self.host_staged:
             return ts
         for idx in _by_dtype(ts):
-            flat = self.all_reduce(torch.cat([ts[i].reshape(-1)
-                                              for i in idx]), op)
+            if self.host_staged and ts[idx[0]].device.type != "cpu":
+                sizes = [ts[i].numel() for i in idx]
+                flat = torch.empty(sum(sizes), dtype=ts[idx[0]].dtype)
+                for i, part in zip(idx, flat.split(sizes)):
+                    part.copy_(ts[i].reshape(-1))
+                self.all_reduce(flat, op)
+            else:
+                flat = self.all_reduce(torch.cat([ts[i].reshape(-1)
+                                                  for i in idx]), op)
             for i, part in zip(idx, flat.split([ts[i].numel()
                                                 for i in idx])):
                 ts[i].copy_(part.view(ts[i].shape))
@@ -190,6 +202,21 @@ class World:
                 out[i] = full
                 off += n
         return out
+
+    def all_to_all(self, sends: list, shapes: list) -> list:
+        """Block ``sends[i]`` to rank i, and from each rank i a block of
+        ``shapes[i]`` back, in rank order (one dtype; the blocks may differ
+        in size, as an uneven sequence split makes them). One
+        ``all_to_all_single`` on flat buffers, the blocks packed along
+        dimension 0 with uneven split sizes (gloo's list form refuses
+        uneven blocks); under ``host_staged`` through host memory."""
+        sizes = [math.prod(s) for s in shapes]
+        flat = torch.cat([t.reshape(-1) for t in sends])
+        out = torch.empty(sum(sizes), dtype=flat.dtype, device=flat.device)
+        self._staged(lambda o, i: dist.all_to_all_single(
+            o, i, sizes, [t.numel() for t in sends], group=self.group),
+            out, flat)
+        return [p.view(s) for p, s in zip(out.split(sizes), shapes)]
 
     def exchange(self, sends: list, recvs: list) -> list:
         """Point to point within the group, in one

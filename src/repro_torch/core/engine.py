@@ -83,6 +83,20 @@ same augmentation draws. Checkpoints write every tensor leaf as
 ``Blocks``: a model chunk (and its data chunk) at its index ranges, a
 replicated leaf by model rank 0.
 
+Ulysses sequence parallelism (``ecfg.sequence_parallel`` "ulysses", where
+``core/ulysses.py::applies`` says the model allows it; elsewhere the
+tensor-parallel layout above): the same data x model layout, but every
+model rank holds every leaf whole (``model_dims`` None), and the model
+group is installed as the sequence group (``shardctx.use_sequence``), so
+each rank runs its rows of the sequence. Each rank's gradient of a leaf is
+its rows' share, summed over the model group (``model_summed``), but the
+ViT's final norm and head, computed whole on every rank
+(``ulysses.whole``); a decoder's or HuBERT's loss and metrics are summed
+over the group too, so every rank's guard decides on the whole loss. The
+global grad norm then needs no model-group sum. Checkpoints go as
+``Blocks`` with every leaf whole on the model axis, written by model rank
+0, and restore into any layout.
+
 ``Server`` serves on one device (the reference's ``_prefill`` and
 ``_decode_step``, ``engine.py:517-528``): ``prefill`` runs a prompt batch
 into a cache and returns the last position's logits; ``decode_step`` runs
@@ -104,6 +118,7 @@ into any dp x pp x ZeRO layout.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 
@@ -114,7 +129,7 @@ from repro_torch.checkpoint import AsyncCheckpointer, Blocks, Sharded, \
     last_restore_stats, restore_checkpoint, restore_latest_valid, \
     save_checkpoint
 from repro_torch.configs.base import EngineConfig
-from repro_torch.core import pipeline
+from repro_torch.core import pipeline, ulysses
 from repro_torch.core.grad_accum import accumulate_gradients
 from repro_torch.core.sharding import check_model_axis, is_stacked, \
     model_dims, model_summed, shard_dims, stage_chunks
@@ -239,10 +254,16 @@ class Trainer:
         a world of more than one rank is laid out data x pipe, with
         ``model_axis`` M > 1 data x (pipe x) model
         (``launch.mesh.make_layout``, a collective): each replica's (each
-        stage's) layers split over M ranks."""
+        stage's) layers split over M ranks. With ``ecfg.sequence_parallel``
+        "ulysses" the M ranks split the sequence instead where
+        ``ulysses.applies``."""
         self.data = self.pipe = self.tp = None
         M = model_axis
-        check_model_axis(cfg, M)
+        # the Ulysses layout on the model group, else tensor parallelism
+        self.ulysses = world is not None and ulysses.applies(
+            cfg, M, ecfg.sequence_parallel)
+        if not self.ulysses:
+            check_model_axis(cfg, M)
         if world is None and M > 1:
             raise ValueError(f"model_axis {M} needs a world of ranks")
         if world is not None:
@@ -279,17 +300,28 @@ class Trainer:
         # the dimension of each (whole) leaf split over the model group
         shapes = {k: p.shape
                   for k, p in model.init_params(cfg, device="meta").items()}
-        self.model_dims = model_dims(shapes, cfg, M) if self.tp is not None \
+        self.model_dims = model_dims(shapes, cfg, M) \
+            if self.tp is not None and not self.ulysses \
             else dict.fromkeys(shapes)
         # the leaves whole on every model rank whose gradients are summed
         # over the model group (D6's KV projections, D7's Mamba2 leaves,
-        # the MoE router)
-        self.model_summed = [k for k in shapes if self.tp is not None
-                             and model_summed(k, cfg, M)]
+        # the MoE router; under Ulysses every leaf a rank computes on its
+        # rows)
+        self.model_summed = [k for k in shapes if self.tp is not None and (
+            not ulysses.whole(k, cfg) if self.ulysses
+            else model_summed(k, cfg, M))]
         # the executor's schedule accounting of the last pipelined step
         self.schedule_out = {}
 
     # --- layout ---------------------------------------------------------
+
+    def group_context(self):
+        """The model group installed for a forward and its backward: as
+        the sequence group under Ulysses, else as the tensor-parallel
+        group (None without one)."""
+        if self.ulysses:
+            return shardctx.use_sequence(self.tp)
+        return shardctx.use(self.tp)
 
     def _layout(self, params: dict) -> None:
         """Which dimension of each leaf the params (``param_dims``, ZeRO-3)
@@ -676,20 +708,28 @@ class Trainer:
         the executor as around the plain path). Under a model group each
         is this rank's model chunk (the ``model_summed`` leaves' summed
         over the group: a stacked one's stage-local rows under a pipe
-        group)."""
+        group). Under Ulysses (:attr:`ulysses`) every gradient is whole,
+        summed over the model group but for ``ulysses.whole``'s leaves, and
+        a decoder's or HuBERT's metrics are summed over the group (each
+        rank's loss is its rows' share)."""
         if self.aug is not None and rngs is None:
             raise ValueError("augmented training needs the microbatch "
                              "seeds (rngs)")
         self._check_batch(batch)
         if self.param_dims is None:
             self._layout(params)
-        with shardctx.use(self.tp):
+        with self.group_context():
             grads, metrics = self._pipeline_grads(params, batch, rngs) \
                 if self.ecfg.pipeline_stages > 1 else \
                 self._data_grads(params, batch, rngs)
         if self.model_summed:
             self.tp.all_reduce_many([grads[k] for k in self.model_summed],
                                     "sum")
+        if self.ulysses and self.cfg.arch_type != "vit":
+            keys = list(metrics)
+            total = self.tp.all_reduce(torch.stack(
+                [metrics[k].to(torch.float32) for k in keys]), "sum")
+            metrics = dict(zip(keys, total.unbind()))
         return grads, metrics
 
     def _data_grads(self, params: dict, batch: dict, rngs):
@@ -857,8 +897,9 @@ class Evaluator:
     def logits(self, batch):
         """Forward of one device batch (preprocessed here), under the
         trainer's model group (whole logits on every model rank)."""
-        tp = self.trainer.tp if self.trainer is not None else None
-        with torch.inference_mode(), shardctx.use(tp):
+        group = self.trainer.group_context() if self.trainer is not None \
+            else contextlib.nullcontext()
+        with torch.inference_mode(), group:
             batch = self._preprocess_batch(batch)
             gather = self.trainer.forward_gather \
                 if self.trainer is not None else None

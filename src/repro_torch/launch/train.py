@@ -100,8 +100,20 @@ pipeline takes (the ViT, HuBERT, the dense decoders):
     PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b \\
         --smoke --device cpu --devices 4 --pp 2 --model-axis 2 --accum 2
 
-Options of the reference that are not ported yet (sequence parallelism)
-are refused, never ignored.
+Ulysses sequence parallelism (``core/ulysses.py``, DeepSpeed-Ulysses):
+``--seq-parallel ulysses`` makes the ``--model-axis`` ranks split each
+sequence (the ViT's patches) instead of the weights, for the ViT, HuBERT
+and the dense and vision-language decoders where M divides the query and
+the KV heads; elsewhere, and for the MoE, MLA, RWKV6 and Mamba2 families,
+the run keeps the tensor-parallel layout (ROADMAP D8). On one process the
+flag changes nothing; with ``--pp`` it is refused:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch vit-b16 \\
+        --smoke --device cpu --devices 4 --model-axis 4 \\
+        --seq-parallel ulysses --steps 3
+
+Options of the reference that are not ported yet are refused, never
+ignored.
 """
 from __future__ import annotations
 
@@ -114,7 +126,7 @@ import time
 
 from repro_torch.checkpoint import latest_step, save_checkpoint
 from repro_torch.configs import EngineConfig, get_config, get_smoke_config
-from repro_torch.core import distributed, pipeline
+from repro_torch.core import distributed, pipeline, ulysses
 from repro_torch.core.engine import Evaluator, Trainer, resolve_device, \
     to_device
 from repro_torch.core.sharding import check_model_axis
@@ -130,10 +142,7 @@ from repro_torch.resilience import faults as _faults
 
 # the reference's options that wait for a later slice: flag -> (argparse
 # kwargs, the reference's default, which changes nothing, what it needs)
-NOT_YET_PORTED = {
-    "--seq-parallel": ({}, "none",
-                       "Ulysses sequence parallelism (item 16)"),
-}
+NOT_YET_PORTED = {}
 
 
 def parse_args(argv=None):
@@ -207,6 +216,10 @@ def parse_args(argv=None):
     ap.add_argument("--model-axis", type=int, default=1,
                     help="model ranks per replica (tensor parallelism); "
                          "--devices counts dp x model ranks")
+    ap.add_argument("--seq-parallel", default="none",
+                    help="none | ulysses: the --model-axis ranks split "
+                         "the sequence (DeepSpeed-Ulysses) where the "
+                         "model allows it, else the weights")
     ap.add_argument("--pp-interleave", type=int, default=1,
                     help="chunks per pipeline stage (Megatron interleaved "
                          "1F1B; v > 1 requires --accum %% --pp == 0 and "
@@ -267,6 +280,10 @@ def main(argv=None):
                                    seed=args.seed))
     if args.devices < 0:
         raise SystemExit(f"[train] --devices must be >= 0: {args.devices}")
+    try:
+        _engine_config(args).check_sequence_parallel()
+    except ValueError as e:
+        raise SystemExit(f"[train] {e}") from None
     _check_model_axis(args)
     if _torchrun():
         world = distributed.init_world(args.device)
@@ -297,6 +314,20 @@ def _config(args):
     return cfg
 
 
+def _engine_config(args) -> EngineConfig:
+    """The engine knobs the flags ask for."""
+    return EngineConfig(
+        train_batch_size=args.batch, gradient_accumulation_steps=args.accum,
+        zero_stage=args.zero, optimizer=args.optimizer, lr=args.lr,
+        total_steps=args.steps, warmup_steps=max(1, args.steps // 10),
+        seed=args.seed, ckpt_every=args.ckpt_every,
+        ckpt_async=not args.ckpt_sync, ckpt_keep_last=args.keep_last,
+        guard_anomalies=not args.no_guard,
+        guard_max_skips=args.guard_max_skips, pipeline_stages=args.pp,
+        pipeline_interleave=args.pp_interleave,
+        sequence_parallel=args.seq_parallel)
+
+
 def _check_model_axis(args) -> None:
     """Refuse, before any rank starts, a ``--model-axis`` the port cannot
     run."""
@@ -317,7 +348,8 @@ def _check_model_axis(args) -> None:
                          + f"--model-axis {m}")
     try:
         cfg = _config(args)
-        check_model_axis(cfg, m)
+        if not ulysses.applies(cfg, m, args.seq_parallel):
+            check_model_axis(cfg, m)
         if args.pp > 1:
             pipeline.check_supported(cfg)
     except ValueError as e:
@@ -373,15 +405,7 @@ def _run(args, world):
     if args.eval_every and eval_batch % dp:
         raise SystemExit(f"[train] eval batch {eval_batch} not divisible "
                          f"by the {dp} data-parallel ranks")
-    ecfg = EngineConfig(
-        train_batch_size=args.batch, gradient_accumulation_steps=args.accum,
-        zero_stage=args.zero, optimizer=args.optimizer, lr=args.lr,
-        total_steps=args.steps, warmup_steps=max(1, args.steps // 10),
-        seed=args.seed, ckpt_every=args.ckpt_every,
-        ckpt_async=not args.ckpt_sync, ckpt_keep_last=args.keep_last,
-        guard_anomalies=not args.no_guard,
-        guard_max_skips=args.guard_max_skips, pipeline_stages=args.pp,
-        pipeline_interleave=args.pp_interleave)
+    ecfg = _engine_config(args)
     preproc = source.preproc if source is not None else None
     aug = AugmentConfig(num_classes=cfg.num_classes) if args.augment \
         else None
@@ -399,6 +423,7 @@ def _run(args, world):
         + (f" interleave={args.pp_interleave}" if args.pp_interleave > 1
            else "")
         + (f" model={args.model_axis}" if args.model_axis > 1 else "")
+        + (" seq=ulysses" if trainer.ulysses else "")
         + f" micro_batch={ecfg.derived_micro_batch(dp)} accum={args.accum} "
         f"zero={args.zero} opt={args.optimizer} "
         f"aug={'on' if aug else 'off'}")

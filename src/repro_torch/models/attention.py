@@ -45,6 +45,15 @@ sum over the group. ``copy_to_model`` sits on the three latents (``cq``,
 ``c_kv``, the rotated rope key: q_lora + kv_lora + rope columns, 2112 in
 DeepSeek-V3) rather than on x (7168): the backward's all-reduce moves
 those, and the replicated leaves' gradients come out whole on every rank.
+
+Ulysses (``core/ulysses.py``): given the forward's ``seq`` split,
+``attention_block`` gets this rank's S_m rows and whole weights. It
+projects and rotates them (at their global positions), moves q, k and v
+from rows to heads (``shardctx.seq_to_heads``: H/M query heads and the
+KH/M KV heads they use, so the kernel's ``h // g`` holds), attends over
+the whole sequence on the usual routes (windows and softcap as on one
+rank), moves the output back to rows (``heads_to_seq``) and applies the
+whole ``wo``.
 """
 from __future__ import annotations
 
@@ -132,12 +141,14 @@ def _attend(q, k, v, cfg, window, causal, softcap=0.0):
 
 
 def attention_block(p, x, cfg, *, window, positions=None, cache=None,
-                    cache_index=0):
+                    cache_index=0, seq=None):
     """p: this layer's {wq, wk, wv, wo} (and {bq, bk, bv} with
     ``cfg.qkv_bias``); x (B,S,D) in the compute dtype; positions (B,S), or
     (B,S,3) for M-RoPE, for the rope (unused when ``cfg.rope_style`` is
     "none"). ``cache``: this layer's {"k", "v"} (B, Smax, KH, hd), written
-    in place (prefill at row 0, decode at ``cache_index``)."""
+    in place (prefill at row 0, decode at ``cache_index``). ``seq``: the
+    forward's ``shardctx.SeqSplit`` under Ulysses (x and positions are
+    this rank's rows), else None."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     # this rank's query and KV heads (all of them without a model group)
@@ -169,6 +180,11 @@ def attention_block(p, x, cfg, *, window, positions=None, cache=None,
         q, k = apply_rope(q, k, positions, style=cfg.rope_style,
                           theta=cfg.rope_theta, sections=cfg.mrope_sections)
     softcap = cfg.attn_logit_softcap
+    if seq is not None:
+        q, k, v = (shardctx.seq_to_heads(t, seq) for t in (q, k, v))
+        out = shardctx.heads_to_seq(
+            _attend(q, k, v, cfg, window, cfg.causal, softcap), seq)
+        return out.reshape(b, s, h * hd) @ p["wo"].to(dt)
     if cache is None:
         out = _attend(q, k, v, cfg, window, cfg.causal, softcap)
     elif s == 1:

@@ -23,17 +23,34 @@ identity, so a model runs unchanged on one rank.
 :func:`vocab_parallel_nll` is the cross-entropy of logits whose vocabulary
 is split over the group (Megatron's vocab-parallel loss, in fp32).
 
+The sequence group (DeepSpeed-Ulysses, ``core/ulysses.py``): the engine
+installs the same M ranks with :func:`use_sequence` instead, and the TP
+operators above stay the identity (the weights are whole on every rank).
+:func:`split_sequence` gives a forward's :class:`SeqSplit`, rank m's
+contiguous rows of S (``torch.tensor_split``'s sizes: the first S mod M
+ranks take one row more), and three operators move rows:
+
+  seq_to_heads        (B, S_m, H, hd) -> (B, S, H/M, hd): every rank's
+                      rows of this rank's heads (an all-to-all); its
+                      backward is heads_to_seq
+  heads_to_seq        the inverse; its backward is seq_to_heads
+  gather_seq          (B, S_m, ...) -> (B, S, ...), every rank's rows; the
+                      backward takes this rank's rows of the gradient, with
+                      no collective
+
 Models never import ``repro_torch.core``, so this lives under models/ and
-reads the group's ``rank``, ``size``, ``all_reduce`` and
-``all_gather_many`` by duck typing.
+reads the group's ``rank``, ``size``, ``all_reduce``, ``all_gather_many``
+and ``all_to_all`` by duck typing.
 """
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple
 
 import torch
 
 _GROUP = None
+_SEQ = None
 
 
 def active():
@@ -145,3 +162,119 @@ def vocab_parallel_nll(logits, labels):
     last dimension is this rank's chunk of the vocabulary, over the
     installed model group."""
     return _VocabParallelNLL.apply(logits, labels, active())
+
+
+# --- the sequence group (Ulysses) -----------------------------------------
+
+
+def sequence():
+    """The installed sequence group if it has more than one rank, else
+    None."""
+    return _SEQ if _SEQ is not None and _SEQ.size > 1 else None
+
+
+@contextlib.contextmanager
+def use_sequence(group):
+    """Install ``group`` (a World, or None) as the sequence group for the
+    forwards (and the backwards' recomputes) run inside."""
+    global _SEQ
+    prev, _SEQ = _SEQ, group
+    try:
+        yield
+    finally:
+        _SEQ = prev
+
+
+def seq_split(s: int, m: int) -> list:
+    """The rows of each of ``m`` ranks of a sequence of ``s``: contiguous,
+    the first ``s % m`` ranks one row more (``torch.tensor_split``)."""
+    return [s // m + (r < s % m) for r in range(m)]
+
+
+class SeqSplit(NamedTuple):
+    """A forward's split of its S rows over the sequence group."""
+    group: object
+    sizes: list
+
+    @property
+    def rows(self) -> slice:
+        """This rank's rows."""
+        lo = sum(self.sizes[:self.group.rank])
+        return slice(lo, lo + self.sizes[self.group.rank])
+
+
+def split_sequence(s: int):
+    """The :class:`SeqSplit` of ``s`` rows over the installed sequence
+    group, or None without one."""
+    group = sequence()
+    return None if group is None else SeqSplit(group,
+                                               seq_split(s, group.size))
+
+
+def _seq_to_heads(x, split):
+    g, m = split.group, split.group.size
+    b, n, h, d = x.shape
+    blocks = x.reshape(b, n, m, h // m, d).movedim(2, 0).unbind(0)
+    return torch.cat(g.all_to_all(list(blocks), [(b, s, h // m, d)
+                                                 for s in split.sizes]), 1)
+
+
+def _heads_to_seq(y, split):
+    g, m = split.group, split.group.size
+    b, _, hm, d = y.shape
+    n = split.sizes[g.rank]
+    recv = g.all_to_all(list(y.split(split.sizes, 1)), [(b, n, hm, d)] * m)
+    return torch.stack(recv, 2).reshape(b, n, m * hm, d)
+
+
+class _SeqToHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return _seq_to_heads(x, split)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _heads_to_seq(g, ctx.split), None
+
+
+class _HeadsToSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, split):
+        ctx.split = split
+        return _heads_to_seq(y, split)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_to_heads(g, ctx.split), None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        rest = tuple(x.shape[2:])
+        recv = split.group.all_to_all(
+            [x] * split.group.size,
+            [(x.shape[0], s) + rest for s in split.sizes])
+        return torch.cat(recv, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[:, ctx.split.rows].contiguous(), None
+
+
+def seq_to_heads(x, split):
+    """(B, S_m, H, hd), this rank's rows of every head -> (B, S, H/M, hd),
+    every row of this rank's heads ``[m·H/M, (m+1)·H/M)``."""
+    return _SeqToHeads.apply(x, split)
+
+
+def heads_to_seq(y, split):
+    """(B, S, H/M, hd) -> (B, S_m, H, hd): :func:`seq_to_heads` undone."""
+    return _HeadsToSeq.apply(y, split)
+
+
+def gather_seq(x, split):
+    """(B, S_m, ...) -> (B, S, ...): every rank's rows, in rank order."""
+    return _GatherSeq.apply(x, split)

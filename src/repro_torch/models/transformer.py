@@ -75,6 +75,17 @@ RWKV6's mixes (heads) read the installed group as the attention does
 split attention + MLP. MLA splits by heads (``mla_block``), and the MTP
 head takes the vocab-parallel lookup, head and loss as the main head
 does.
+
+Ulysses (``core/ulysses.py``, D8): under an installed sequence group the
+training and eval forwards embed whole, then keep this rank's rows of the
+hidden state and the positions (``shardctx.split_sequence``; the vlm
+splice, M-RoPE's grid and HuBERT's mask and sinusoidal rows are taken
+whole first); every layer runs on those rows with whole params, attention
+moving them to heads and back. A decoder's and HuBERT's logits are this
+rank's rows, and :func:`loss_from_logits` divides their loss by the whole
+microbatch's count (a partial sum: the engine sums it over the group);
+the ViT gathers its final rows first, so its logits and loss are whole on
+every rank. The families of ``core/ulysses.py::applies`` only.
 """
 from __future__ import annotations
 
@@ -86,6 +97,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
     create_selective_checkpoint_contexts
 
+from repro_torch.core import ulysses
 from repro_torch.core.sharding import is_stacked
 from repro_torch.models import shardctx
 from repro_torch.models.attention import attention_block, mla_block
@@ -450,12 +462,13 @@ def _lm_head(cfg, params, h):
 
 
 def _block(cfg, layer, h, window, positions, use_moe=False, reduce=None,
-           cache=None, cache_index=0):
+           cache=None, cache_index=0, seq=None):
     """One pre-norm layer on ``layer``'s params (its stack's slice with the
     prefix dropped): ``h += attn(norm1 h)``, then ``h += mlp(norm2 h)`` (or
     the MoE's output with ``use_moe``); for RWKV6 the time mix and the
     channel mix. ``cache``: this layer's slice of the serving cache,
-    written in place. Returns ``(h, the layer's MoE aux or None)``."""
+    written in place; ``seq``: the Ulysses split (``h`` is this rank's
+    rows). Returns ``(h, the layer's MoE aux or None)``."""
     a_in = _apply_norm(cfg, layer, "ln1.", h)
     if _is_rwkv(cfg):
         tc = cc = None
@@ -474,7 +487,8 @@ def _block(cfg, layer, h, window, positions, use_moe=False, reduce=None,
     else:
         h = h + attention_block(_layer(layer, "attn.", None), a_in, cfg,
                                 window=window, positions=positions,
-                                cache=cache, cache_index=cache_index)
+                                cache=cache, cache_index=cache_index,
+                                seq=seq)
     m_in = _apply_norm(cfg, layer, "ln2.", h)
     if not use_moe:
         return h + mlp(_layer(layer, "mlp.", None), m_in, cfg.act), None
@@ -483,12 +497,13 @@ def _block(cfg, layer, h, window, positions, use_moe=False, reduce=None,
     return h + ff, aux
 
 
-def _step(cfg, gather, reduce, positions, index, h, shards, prefix, window,
-          use_moe, layer_cache=None):
+def _step(cfg, gather, reduce, positions, index, seq, h, shards, prefix,
+          window, use_moe, layer_cache=None):
     """One layer of a stack, the body :func:`forward` and
     :func:`stack_forward` share: ``shards`` (its slice of each stacked
     param, gathered whole through ``gather`` when given), then a Mamba2
-    layer or :func:`_block`. Returns ``(h, the layer's MoE aux or None)``."""
+    layer or :func:`_block` (``seq``: the Ulysses split, or None). Returns
+    ``(h, the layer's MoE aux or None)``."""
     layer = _layer(shards if gather is None else gather(shards), prefix,
                    None)
     if _is_mamba(cfg):
@@ -496,7 +511,7 @@ def _step(cfg, gather, reduce, positions, index, h, shards, prefix, window,
                                 _apply_norm(cfg, layer, "ln.", h), cfg,
                                 cache=layer_cache), None
     return _block(cfg, layer, h, window, positions, use_moe, reduce,
-                  layer_cache, index)
+                  layer_cache, index, seq)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -580,8 +595,19 @@ def forward(cfg, params, batch, gather=None, reduce=None, *, mode="train",
         params = gather({k: v for k, v in params.items()
                          if k not in stacked})
     h, positions = _embed(cfg, params, batch, mode)
+    seq = None if serving else shardctx.split_sequence(h.shape[1])
+    if seq is not None:
+        if not ulysses.supports(cfg):
+            raise ValueError(f"{cfg.name}: the Ulysses layout runs plain "
+                             f"attention families only (ROADMAP D8)")
+        # the rank's rows in a buffer of their own (the norms take them
+        # as a matrix of rows)
+        h = h[:, seq.rows].contiguous()
+        if positions is not None:
+            positions = positions[:, seq.rows]
     index = int(batch["index"]) if mode == "decode" else 0
-    step = functools.partial(_step, cfg, gather, reduce, positions, index)
+    step = functools.partial(_step, cfg, gather, reduce, positions, index,
+                             seq)
 
     def shared_step(h, layer_cache=None):
         # the hybrid's shared block, on params gathered before the embed
@@ -611,6 +637,8 @@ def forward(cfg, params, batch, gather=None, reduce=None, *, mode="train",
     aux = {"moe_aux": moe_aux}
     if cfg.mtp_depth > 0 and mode == "train":
         aux["mtp_logits"] = _mtp_logits(cfg, params, batch, h, positions)
+    if seq is not None and _is_vit(cfg):
+        h = shardctx.gather_seq(h, seq)
     logits = _head(cfg, params, h)
     return (logits, cache, aux) if serving else (logits, aux)
 
@@ -634,7 +662,7 @@ def stack_forward(cfg, stack, h, positions, windows, gather=None):
         raise ValueError(f"{cfg.name}: stack_forward runs dense attn/mla "
                          f"stacks only")
     step = _remat(cfg, functools.partial(_step, cfg, gather, None,
-                                         positions, 0))
+                                         positions, 0, None))
     rows = {k: v.unbind(0) for k, v in stack.items()}
     for i, window in enumerate(windows):
         h, _ = step(h, {k: r[i] for k, r in rows.items()}, "stack.",
@@ -683,14 +711,18 @@ def _nll(logits, labels, vocab_parallel=False):
         logits.gather(-1, labels.long()[..., None])[..., 0]
 
 
-def _xent(logits, labels, mask=None, vocab_parallel=False):
+def _xent(logits, labels, mask=None, vocab_parallel=False,
+          rows=slice(None)):
     """Mean hard-label cross-entropy in fp32, masked when ``mask`` is given
-    (the logits vocab-sharded with ``vocab_parallel``)."""
-    nll = _nll(logits, labels, vocab_parallel)
+    (the logits vocab-sharded with ``vocab_parallel``). With a mask the
+    logits are the positions ``rows`` of the labels' and mask's last
+    dimension (a Ulysses rank's, else all), and their sum is divided by
+    the whole mask's count."""
     if mask is None:
-        return nll.mean()
+        return _nll(logits, labels, vocab_parallel).mean()
     mask = mask.to(torch.float32)
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    nll = _nll(logits, labels[..., rows], vocab_parallel)
+    return (nll * mask[..., rows]).sum() / mask.sum().clamp_min(1.0)
 
 
 def _soft_xent(logits, labels, *, smoothing=0.0):
@@ -726,21 +758,27 @@ def loss_from_logits(cfg, logits, batch, aux=None, reduce=None):
     the ranks, each holding its rows) makes the global one, so the ranks'
     mean loss is the reference's at any world (rows mask different
     numbers of frames). The loss adds ``aux["moe_aux"]``
-    (``forward``'s; 0 when ``aux`` is None)."""
+    (``forward``'s; 0 when ``aux`` is None). Under a sequence group a
+    decoder's and HuBERT's logits are this rank's rows (``forward``): the
+    labels and masks are built whole and sliced, and the count stays the
+    whole microbatch's, so the loss is this rank's share of the sum."""
     moe_aux = aux["moe_aux"] if aux is not None else torch.zeros(
         (), dtype=torch.float32, device=logits.device)
     # a decoder's or the audio encoder's logits hold this rank's chunk of
     # the vocabulary where a model group splits the head
     sharded = not _is_vit(cfg) and shardctx.active() is not None and \
         logits.shape[-1] != cfg.vocab_size
+    seq = None if _is_vit(cfg) else shardctx.split_sequence(
+        (batch["labels"] if _is_audio(cfg) else batch["tokens"]).shape[1])
+    rows = seq.rows if seq is not None else slice(None)
     if _is_audio(cfg):
         mask = batch["mask"].to(torch.float32)
-        nll = _nll(logits, batch["labels"], sharded)
+        nll = _nll(logits, batch["labels"][:, rows], sharded)
         count = mask.sum() if reduce is None else reduce(mask.sum())
         # a whole count of 0 leaves the sum 0: max(count, 1) as the
         # reference's, at the ranks' mean count too
-        loss = (nll * mask).sum() / torch.where(count > 0, count, 1.0) \
-            + moe_aux
+        loss = (nll * mask[:, rows]).sum() / torch.where(count > 0, count,
+                                                          1.0) + moe_aux
         return loss, {"moe_aux": moe_aux, "loss": loss}
     if not _is_vit(cfg):
         tok = batch["tokens"]
@@ -749,7 +787,7 @@ def loss_from_logits(cfg, logits, batch, aux=None, reduce=None):
         if cfg.arch_type == "vlm" and "image_embeds" in batch:
             mask[:, :batch["image_embeds"].shape[1]] = False
         labels = torch.cat([tok[:, 1:], tok[:, -1:]], dim=1)
-        loss = _xent(logits, labels, mask, sharded)
+        loss = _xent(logits, labels, mask, sharded, rows)
         if aux is not None and "mtp_logits" in aux:
             l2 = torch.cat([labels[:, 1:], labels[:, -1:]], dim=1)
             m2 = mask.clone()

@@ -471,10 +471,24 @@ def test_training_cli_synthetic_stream():
 
 
 @pytest.mark.parametrize("extra", [["--model-axis", "2"],
-                                   ["--seq-parallel", "ulysses"]])
+                                   ["--seq-parallel", "ulysses",
+                                    "--model-axis", "2"]])
 def test_unported_options_are_refused(extra):
+    """A model axis inside one process, with or without Ulysses."""
     with pytest.raises(SystemExit, match="not yet ported.*item 16"):
         cli.main(["--smoke", "--steps", "1", "--device", "cpu"] + extra)
+
+
+def test_seq_parallel_on_one_process_is_the_plain_run():
+    """``--seq-parallel ulysses`` on one process (no model axis) changes
+    nothing, as ``make_hints`` at a model axis of 1: the same rows."""
+    argv = ["--smoke", "--steps", "2", "--batch", "8", "--log-every", "1",
+            "--device", "cpu"]
+    plain = cli.main(argv)
+    ulysses = cli.main(argv + ["--seq-parallel", "ulysses"])
+    strip = [{k: v for k, v in r.items() if k != "wall_s"}
+             for r in (*plain, *ulysses)]
+    assert strip[:len(plain)] == strip[len(plain):]
 
 
 def _saved(d):
