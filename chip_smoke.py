@@ -713,10 +713,12 @@ PREFILL_CASES = [
     ("zamba2", (SERVE_BATCH, 32, 32, SERVE_PROMPT, SERVE_PROMPT + SERVE_GEN,
                 80), 0),
 ]
-# K4 at a decode step's rows (B x d_model): Qwen2.5's serve run, Qwen2-VL,
-# DeepSeek-V3, Zamba2's serve run and its decode against training (d 2560;
-# the inner norm at 5120)
-DECODE_ROWS = [("qwen2.5", (SERVE_BATCH, 5120)), ("qwen2-vl", (1, 8192)),
+# K4 at a decode step's rows (B x d_model): Qwen2.5's serve run (and a
+# data rank's half of it, phase 19m), Qwen2-VL, DeepSeek-V3, Zamba2's serve
+# run and its decode against training (d 2560; the inner norm at 5120)
+DECODE_ROWS = [("qwen2.5", (SERVE_BATCH, 5120)),
+               ("qwen2.5 data 2", (SERVE_BATCH // 2, 5120)),
+               ("qwen2-vl", (1, 8192)),
                ("deepseek", (2, 7168)), ("zamba2", (SERVE_BATCH, 2560)),
                ("zamba2", (2, 2560)), ("zamba2 inner", (2, 5120))]
 DECODE_TOL = 5e-4                   # tests/test_arch_smoke.py:80-85
@@ -3140,6 +3142,49 @@ TP_PEAK_PAIRS = [(f"vit-b16 fp32 {ULYSSES} 2", "vit-b16 fp32 --model-axis 2"),
                  (f"vit-b16 fp32 {ULYSSES} 4", None),
                  (f"chatglm3-6b fp32 {ULYSSES} 2",
                   "chatglm3-6b fp32 --model-axis 2")]
+# 19m: serving across ranks (ROADMAP item 16.3, deviation D9), in the two
+# worlds above after their training jobs. (m1) the serve CLI's run
+# (SERVE_ARGS) at model axis 2 in the world of 2 and at data 2 x model 2
+# in the world of 4, on phase 15's host draw; (m2) a prefill and
+# DECODE_STEPS teacher-forced decode steps through ``Server`` for each
+# TP_SERVE_MODELS entry at model axis 2 (the world of 2) and ChatGLM3-6B at
+# TP_LM_ARGS' width and depth at model axis 4 (the world of 4; D6: one KV
+# head a rank), fp32 (RWKV6 at its gate eps), each step's logits gathered
+# whole against the one-rank decode's (SERVE_ONE_RANK: phases 15 and 17,
+# and ChatGLM3-6B's in phase 19's parent)
+TP_SERVE_MODELS = DECODE_MODELS + ZAMBA_DECODE
+TP_SERVE_LM = ("chatglm3", "chatglm3-6b", LM_LAYERS, 2, LM_SEQ,
+               LM_SEQ + DECODE_STEPS, {}, None)
+TP_SERVE_CLI = {2: ["--devices", "2", "--model-axis", "2"],
+                4: ["--devices", "4", "--model-axis", "2"]}
+# (m3) K1 at a model-axis-2 rank's prefill shapes: label, shape (B, H, KH,
+# S, T, D[, Dv]), window, the one-rank shape it is timed beside (None: not
+# timed). Qwen2.5's serve run (phase 15 times its one-rank shape), Zamba2's
+# at 16 heads of D 80, Gemma3's local layers past the window, MLA
+TP_PREFILL_CASES = [
+    ("qwen2.5 model 2", (SERVE_BATCH, 20, 4, SERVE_PROMPT,
+                         SERVE_PROMPT + SERVE_GEN, 128), 0,
+     PREFILL_CASES[0][1]),
+    ("zamba2 model 2", (SERVE_BATCH, 16, 16, SERVE_PROMPT,
+                        SERVE_PROMPT + SERVE_GEN, 80), 0,
+     PREFILL_CASES[3][1]),
+    ("gemma3 local model 2", (1, 8, 4, 1100, 1104, 256), GEMMA_WINDOW, None),
+    ("mla model 2", (2, 64, 64, LM_SEQ, LM_SEQ + 8, 192, 128), 0, None),
+]
+# K6 at RWKV6's prefill on a model-axis-2 rank (B, S, H, P, chunk), from a
+# nonzero state; the split-row K4 at Zamba2's inner norm of a decode step
+# (rows, width) split 2 ways
+TP_WKV_PREFILL = (2, 512, 32, 64, 32)
+TP_SPLIT_DECODE = (2, 5120)
+# tag -> (the one-rank decode's fp32 logits, numpy (B, 1 + DECODE_STEPS,
+# vocab): the prefill's last position, then each step's; its cache's GB)
+SERVE_ONE_RANK = {}
+# (config name, layers) -> the fingerprint of phase 15's card draw of
+# Qwen2.5 (the serve CLI's), Qwen2-VL and Gemma3: 19m's ranks draw them
+# again on the card (``serve_params``), not from phase 19's file (the
+# chip machine takes ~45 GiB of disk writes a call, and its host 96 GiB
+# of memory: neither holds their 33.5 GB besides)
+SERVE_PRINTS = {}
 
 
 def family_argv(tag):
@@ -3186,10 +3231,13 @@ def family_expect(tag, m):
 # one-rank rows' key (None: no fp32 reference), ``fields`` config fields
 # without a CLI flag; ``after`` a marker the ranks wait for before the
 # job and ``then`` one they leave after it (once every rank has freed its
-# memory), so the other world's jobs keep off the card's memory
+# memory), so the other world's jobs keep off the card's memory; ``kind``
+# "train" (the training CLI's ``run``), "serve" (the serve CLI's ``run``)
+# or "decode" (``rank_decode`` of ``case``: (a TP_SERVE_MODELS entry,
+# model axis))
 TPJob = collections.namedtuple(
-    "TPJob", "label argv expect heads wkv ref fields after then",
-    defaults=({}, None, None))
+    "TPJob", "label argv expect heads wkv ref fields after then kind case",
+    defaults=({}, None, None, "train", None))
 
 
 def ds_expect(steps):
@@ -3217,6 +3265,80 @@ def pp_tp_expect(layers, micro, norms):
     return out
 
 
+def serve_cfg(entry):
+    """The fp32 config of a TP_SERVE_MODELS entry (or TP_SERVE_LM), at
+    its gate's norm eps: the one-rank decode's gated fp32 run."""
+    _, arch, layers, _, _, _, kw, gate_eps = entry
+    return decode_cfg(arch, layers, kw).replace(
+        dtype="float32", **({"norm_eps": gate_eps} if gate_eps else {}))
+
+
+def serve_expect(entry, m):
+    """(launches a rank, the (query, KV) heads ``flash_mha`` sees, the
+    heads ``wkv6`` sees) of a prefill and DECODE_STEPS decode steps of
+    ``entry`` at model axis ``m``: K1 once an attention layer (a hybrid's:
+    once a group) in the prefill only, K6 once an RWKV6 layer in the
+    prefill only, K4 on every norm of every forward (MLA's two latent
+    norms too); under a model group Mamba2's inner norm is the split-row
+    K4 (its partial pass, then its split mode)."""
+    cfg = serve_cfg(entry)
+    L, n = cfg.num_layers, 1 + DECODE_STEPS
+    h, kh = cfg.num_heads // m, cfg.num_kv_heads
+    kh = kh // m if kh % m == 0 else 1
+    if cfg.block_kind == "rwkv6":
+        return {"wkv6_fwd": L, "rmsnorm_fwd": n * (2 * L + 1)}, [], [h]
+    if cfg.block_kind == "mamba2":
+        g = L // cfg.hybrid_group
+        out = {"flash_fwd": g, "rmsnorm_fwd": n * (L + 2 * g + 1)}
+        if m > 1:
+            out.update(rmsnorm_sumsq=n * L, rmsnorm_fwd_split=n * L)
+        else:
+            out["rmsnorm_fwd"] += n * L
+        return out, [(h, kh)], []
+    if cfg.block_kind == "mla":
+        return {"flash_fwd": L, "rmsnorm_fwd": n * (4 * L + 1)}, \
+            [(h, h)], []
+    return {"flash_fwd": L, "rmsnorm_fwd": n * (2 * L + 1)}, [(h, kh)], []
+
+
+def serve_jobs(size):
+    """19m's jobs in the world of ``size``: the serve CLI (m1) and the
+    teacher-forced decodes (m2). The serve CLI's prefill runs K1 once a
+    layer at 20 query and 4 KV heads a rank, K4 twice a layer and once
+    more a forward, in the prefill and each of the SERVE_GEN - 1 steps.
+    The jobs whose ranks each draw a whole model on the card
+    (``serve_params``: the serve CLI's Qwen2.5, Qwen2-VL, Gemma3) keep
+    off each other through markers: the world of 2 runs its small decodes
+    first, then its card-drawn jobs once the world of 4 has left "w4-idle"
+    (after ChatGLM3-6B's decode), and leaves "w2-served"; the world of 4
+    then runs its serve CLI (4 ranks, a whole Qwen2.5 each for a moment)."""
+    from repro_torch.configs import get_config
+
+    qwen = get_config(QWEN)
+
+    def cli(**kw):
+        return TPJob(f"serve CLI {' '.join(TP_SERVE_CLI[size])}",
+                     SERVE_ARGS + TP_SERVE_CLI[size],
+                     {"flash_fwd": SERVE_LAYERS,
+                      "rmsnorm_fwd": (2 * SERVE_LAYERS + 1) * SERVE_GEN},
+                     [(qwen.num_heads // 2, qwen.num_kv_heads // 2)], [],
+                     "serve", kind="serve", **kw)
+
+    def decode(entry, m, **kw):
+        expect, heads, wkv = serve_expect(entry, m)
+        return TPJob(f"serve {entry[0]} --model-axis {m}",
+                     ["--arch", entry[1]], expect, heads, wkv, entry[0],
+                     kind="decode", case=(entry, m), **kw)
+    if size == 4:
+        return [decode(TP_SERVE_LM, 4, then="w4-idle"),
+                cli(after="w2-served")]
+    drawn = ("qwen2-vl", "gemma3")      # card draws, as phase 15's
+    return [decode(e, 2) for e in TP_SERVE_MODELS if e[0] not in drawn] + \
+        [cli(after="w4-idle")] + \
+        [decode(e, 2, then="w2-served" if e[0] == drawn[-1] else None)
+         for e in TP_SERVE_MODELS if e[0] in drawn]
+
+
 def tp_jobs():
     """{world size: [TPJob]}: the ranks of a world run its jobs in turn,
     the two worlds at once. The DeepSeek-V3 runs and ChatGLM3-6B under
@@ -3225,7 +3347,8 @@ def tp_jobs():
     model-4 DeepSeek job first while the world of 2 runs only its fp32 ViT
     jobs (3.4 GB); the world of 2 runs its model-2 DeepSeek job and then
     ChatGLM3 under Ulysses once that has ended, while the world of 4 runs
-    only its ViT jobs (4.3 GB) and waits for both before the rest."""
+    only its ViT jobs (4.3 GB) and waits for both before the rest. Each
+    world ends with 19m's serving jobs (``serve_jobs``)."""
     from repro_torch.configs import get_config
 
     vit_f32 = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
@@ -3276,7 +3399,7 @@ def tp_jobs():
                   vit_bf16, [(6, 6)], [], None)] + families(2) + [
             TPJob("chatglm3-6b fp32 --model-axis 2",
                   TP_LM_ARGS + ["--devices", "2", "--model-axis", "2"], lm,
-                  [(16, 1)], [], "lm")],
+                  [(16, 1)], [], "lm")] + serve_jobs(2),
         4: [ds(4, then="ds-m4"),
             TPJob("vit-b16 fp32 data 2 x --model-axis 2 --zero 3",
                   DP_F32_ARGS + ["--devices", "4", "--model-axis", "2",
@@ -3295,37 +3418,133 @@ def tp_jobs():
             TPJob("chatglm3-6b fp32 --pp 2 --pp-interleave 2 --model-axis 2",
                   TP_PP_LM_ARGS + TP_PP + ["--pp-interleave", "2"], lm_pp,
                   [(16, 1)], [], "lm")]
-        + families(4)}
+        + families(4) + serve_jobs(4)}
+
+
+def held_params(draws, cfg):
+    """The held host draw of seed 0 for ``cfg`` from ``draws`` ({(config
+    name, layers): params}): the one of its depth, or a deeper one of the
+    same config cut to its first layers (as the training phases cut
+    theirs), with only the keys ``cfg`` has; None when none is held. Fails
+    when the leaves do not fit the config."""
+    from repro_torch.core.sharding import is_stacked
+    from repro_torch.models.transformer import init_params as meta_init
+
+    depths = sorted(n for name, n in draws
+                    if name == cfg.name and n >= cfg.num_layers)
+    if not depths:
+        return None
+    held, cut = draws[cfg.name, depths[0]], depths[0] > cfg.num_layers
+    want = {k: tuple(v.shape) for k, v in
+            meta_init(cfg, device="meta").items()}
+    out = {k: held[k][:cfg.num_layers] if cut and is_stacked(k) else held[k]
+           for k in want if k in held}
+    if {k: tuple(v.shape) for k, v in out.items()} != want:
+        fail(f"{cfg.name}: the held params do not fit the config")
+    return out
 
 
 @contextlib.contextmanager
 def held_draws(draws, on_host=False):
     """The CLI's ``init_params`` (``launch.train``) copies the held host
-    params ``draws`` ({(config name, layers): params}) for a seed-0 draw
-    of those configs instead of drawing again; any other draw as before.
-    ``on_host``: hand out the host tensors themselves (in a rank, the
-    pages of the parent's memory-mapped file), of which the ``Trainer``'s
-    ``init_state`` copies only the rank's chunks to the card."""
+    params ``draws`` ({(config name, layers): params}; ``held_params``)
+    for a seed-0 draw of those configs instead of drawing again; any other
+    draw as before. ``on_host``: hand out the host tensors themselves (in
+    a rank, the pages of the parent's memory-mapped files), of which the
+    ``Trainer``'s ``init_state`` copies only the rank's chunks to the
+    card."""
     from repro_torch.launch import train
-    from repro_torch.models.transformer import init_params as meta_init
 
     real = train.init_params
 
     def init_params(cfg, *, seed=0, device="cuda", draw_on="cpu"):
-        held = draws.get((cfg.name, cfg.num_layers))
-        if held is None or seed != 0 or draw_on != "cpu":
+        held = held_params(draws, cfg) if seed == 0 and draw_on == "cpu" \
+            else None
+        if held is None:
             return real(cfg, seed=seed, device=device, draw_on=draw_on)
-        want = {k: tuple(v.shape) for k, v in
-                meta_init(cfg, device="meta").items()}
-        if {k: tuple(v.shape) for k, v in held.items()} != want:
-            fail(f"{cfg.name}: the held params do not fit the config")
-        return dict(held) if on_host else \
+        return held if on_host else \
             {k: v.to(device, copy=True) for k, v in held.items()}
     train.init_params = init_params
     try:
         yield
     finally:
         train.init_params = real
+
+
+def serve_params(cfg, draws, prints, device):
+    """A 19m rank's seed-0 params of ``cfg``: drawn again on ``device``
+    (the rank's card) where phase 15's was a card draw (``prints`` holds
+    its fingerprint, checked: a card's draw repeats from its seed), else
+    the held host draw (``held_params``)."""
+    from repro_torch.models.transformer import init_params
+
+    key = (cfg.name, cfg.num_layers)
+    if key in prints:
+        params = init_params(cfg, seed=0, device=device, draw_on="cuda")
+        if fingerprint(params) != prints[key]:
+            fail(f"{key}: the card's draw again is not phase 15's")
+        return params
+    held = held_params(draws, cfg)
+    if held is None:
+        fail(f"{cfg.name}: no held draw for a serving job")
+    return held
+
+
+@contextlib.contextmanager
+def held_serve(draws, prints, device):
+    """The serve CLI's ``init_params`` hands out ``serve_params``: a rank
+    never draws on the host, and ``Server`` keeps only its parts."""
+    from repro_torch.launch import serve
+
+    real = serve.init_params
+
+    def init_params(cfg, *, seed=0, **_):
+        if seed != 0:
+            fail(f"{cfg.name}: the serve CLI drew seed {seed}")
+        return serve_params(cfg, draws, prints, device)
+    serve.init_params = init_params
+    try:
+        yield
+    finally:
+        serve.init_params = real
+
+
+def serve_decode(server, entry):
+    """A prefill of ``entry``'s prompt (``decode_batch``, seed 1, as phase
+    15's) and DECODE_STEPS teacher-forced decode steps through ``server``
+    (one rank, or this rank of its layout): (the prefill's last logits and
+    each step's, whole, a numpy array (B, 1 + DECODE_STEPS, vocab), the
+    rank's cache's GB)."""
+    import torch
+
+    tag, _, _, batch, s, max_len, _, _ = entry
+    full = decode_batch(server.cfg, tag, batch, s + DECODE_STEPS, seed=1)
+    prompt = {k: v[:, :s] if k != "image_embeds" else v
+              for k, v in full.items()}
+    cache = server.init_cache(batch, max_len, torch.float32)
+    last, cache = server.prefill(prompt, cache)
+    outs = [last[:, 0]]
+    for i in range(DECODE_STEPS):
+        logits, cache = server.decode_logits(
+            cache, full["tokens"][:, s + i:s + i + 1], s + i)
+        outs.append(logits[:, 0])
+    # numpy: a rank's result crosses to the parent pickled
+    logits = server.gather_rows(torch.stack(outs, 1)).cpu().numpy()
+    return logits, nbytes(cache) / 1e9
+
+
+def rank_decode(world, draws, prints, entry, m):
+    """19m2 on one rank: ``serve_decode`` of ``entry`` through a
+    ``Server`` at model axis ``m`` on ``serve_params``."""
+    from repro_torch.core.engine import Server
+
+    cfg = serve_cfg(entry)
+    t0 = time.time()
+    server = Server(cfg, serve_params(cfg, draws, prints, world.device),
+                    world=world, model_axis=m)
+    init_s = time.time() - t0
+    logits, cache_gb = serve_decode(server, entry)
+    return {"logits": logits, "cache_gb": cache_gb, "init_s": init_s}
 
 
 @contextlib.contextmanager
@@ -3444,6 +3663,11 @@ def write_draws(draws, path):
     return time.time() - t0
 
 
+def fingerprint(params):
+    """The first values of every leaf: enough to tell two draws apart."""
+    return {k: v.reshape(-1)[:8].tolist() for k, v in params.items()}
+
+
 def read_draws(path):
     """The draws of :func:`write_draws`, each tensor a view of the file
     mapped copy-on-write: a page is read when a rank first touches it."""
@@ -3461,13 +3685,13 @@ def read_draws(path):
     return draws
 
 
-def tp_rank(world, jobs, draw=None, markers=None):
+def tp_rank(world, jobs, draw=(), markers=None, prints=None):
     """One spawned rank of phase 19: each job's CLI ``run`` on this
     rank's share of the world (its config fields replaced as the job
     says), the launch counters reset just before and read just after, the
     heads ``flash_mha`` and ``wkv6`` saw, the MoE routings, the layout
     copies, the bytes its state took on the card at init and the peak of
-    allocated memory. ``draw``: the file of the parent's host draws
+    allocated memory. ``draw``: the files of the parent's host draws
     ``{(config name, layers): params}`` (:func:`write_draws`), mapped
     once the marker "draws" says it is whole (before the rank's first job
     that is not the ViT's, whose params are drawn in the job), which the
@@ -3475,12 +3699,15 @@ def tp_rank(world, jobs, draw=None, markers=None):
     ``init_params`` hands out for a seed-0 draw of those configs
     (``held_draws``) instead of drawing again (the same values).
     ``markers``: the directory of the markers, "draws" and the jobs'
-    ``after``/``then``."""
+    ``after``/``then``. ``prints``: SERVE_PRINTS, for ``serve_params``.
+    A "serve" job runs the serve CLI's ``run``, a
+    "decode" job ``rank_decode`` (19m); their result stands under
+    "hist"."""
     import gc
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rms
-    from repro_torch.launch import train
+    from repro_torch.launch import serve, train
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_num_threads(2)        # six ranks share the host's cores
@@ -3493,8 +3720,8 @@ def tp_rank(world, jobs, draw=None, markers=None):
                     job.argv[job.argv.index("--arch") + 1] != "vit-b16":
                 out["draws_waited"] = marker_wait(markers, "draws")
                 mapped = True
-                if draw is not None:
-                    draws.update(read_draws(draw))
+                for path in draw or ():
+                    draws.update(read_draws(path))
             waited = marker_wait(markers, job.after) if job.after else 0.0
             routes, seen = [], []
             torch.cuda.reset_peak_memory_stats()
@@ -3502,11 +3729,18 @@ def tp_rank(world, jobs, draw=None, markers=None):
             t0 = time.time()
             with cli_fields(job.fields), init_spy(seen), \
                     head_spies(routes) as (attn, wkv):
-                hist = train.run(train.parse_args(job.argv), world)
+                if job.kind == "serve":
+                    with held_serve(draws, prints, world.device):
+                        hist = serve.run(serve.parse_args(job.argv), world)
+                elif job.kind == "decode":
+                    hist = rank_decode(world, draws, prints, *job.case)
+                else:
+                    hist = train.run(train.parse_args(job.argv), world)
             torch.cuda.synchronize()
             out[job.label] = {
                 "hist": hist, "launches": read_counters(),
                 "copies": fa.kernel_layout.copies + rms.row_layout.copies,
+                "copies_rms": rms.row_layout.copies,
                 "heads": sorted(set(attn)), "wkv_heads": sorted(set(wkv)),
                 "routes": routes, "s": time.time() - t0, "waited": waited,
                 "init_gb": [tuple(n / 1e9 for n in r) for r in seen],
@@ -3673,6 +3907,135 @@ def split_row_norms(card):
     return out_rows
 
 
+def serve_rank_kernels(card, one_rank_row):
+    """19m3: the kernels of serving at a model-axis-2 rank's shapes
+    against their plain versions: K1 at each TP_PREFILL_CASES shape
+    (``check_prefill_k1``; Qwen2.5's and Zamba2's timed, ``time_prefill_k1``,
+    beside the one-rank shape's row: phase 15's ``one_rank_row`` for
+    Qwen2.5, Zamba2's timed here); K6 at RWKV6's prefill from a nonzero
+    state in fp32, primal only (TP_WKV_PREFILL, phase 6b's gate); the
+    split-row K4 forward at Zamba2's inner norm of a decode step
+    (TP_SPLIT_DECODE, 2 parts, fp32: the partial sums summed as the model
+    group sums them, phase 5's gates). Returns {label: K1's row at the
+    rank's shape, with "one_rank": the one-rank shape's}."""
+    import torch
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.kernels.ref import ref_rmsnorm_apply, \
+        ref_rmsnorm_sumsq, ref_wkv6_fwd
+
+    inputs = model_layout_inputs(
+        torch.Generator(device="cuda").manual_seed(32))
+    rows = {}
+    for label, shape, window, one_shape in TP_PREFILL_CASES:
+        err = check_prefill_k1("tp-serve", label, shape, window, inputs)
+        if one_shape is None:
+            continue
+        row = time_prefill_k1(card, "tp-serve", label, shape, inputs)
+        one = one_rank_row if one_shape == PREFILL_CASES[0][1] else \
+            time_prefill_k1(card, "tp-serve", label.replace(
+                "model 2", "one rank"), one_shape, inputs)
+        print(f"[tp-serve] K1 at {label}'s prefill {shape}: "
+              f"{row['ms']:.4f} ms against {one['ms']:.4f} ms at the "
+              f"one-rank shape {tuple(one['shape'])} (bound "
+              f"{row['bound_ms']:.4f} / {one['bound_ms']:.4f} ms; {card})",
+              flush=True)
+        rows[label] = dict(row, max_abs_err=err, one_rank=one)
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    b, s, h, p, cs = TP_WKV_PREFILL
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=gen)
+    r, k, v = (randn(b, s, h, p) for _ in range(3))
+    wlog = -torch.exp(randn(b, s, h, p) - 0.5)
+    u, s0 = 0.3 * randn(h, p), 0.1 * randn(b, h, p, p)
+    o, se, _ = wk.wkv6_fwd(r, k, v, wlog, u, s0, chunk=cs,
+                           with_states=False)
+    torch.cuda.synchronize()
+    want_o, want_se, _ = ref_wkv6_fwd(r, k, v, wlog, u, s0, chunk=cs,
+                                      with_states=False)
+    tol = WKV_TOL["float32"]
+    res = {"o": close(o, want_o, tol), "s_end": close(se, want_se, tol)}
+    ok = all(x[1] for x in res.values())
+    print(f"[tp-serve] K6 at RWKV6's prefill on a model-axis-2 rank "
+          f"{TP_WKV_PREFILL} fp32 from a nonzero state: " + " ".join(
+              f"max|d{key}|={x[0]:.3e}" for key, x in res.items())
+          + f" (tol {tol}, rtol {tol}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("K6 disagrees with its plain version at a rank's prefill")
+    rows_, width = TP_SPLIT_DECODE
+    x = randn(rows_, width)
+    scale = randn(width)
+    parts = [slice(0, width // 2), slice(width // 2, width)]
+    outs = {}
+    for name, sumsq, apply in (
+            ("kernel", rms.fused_rmsnorm_sumsq, rms.fused_rmsnorm_fwd_split),
+            ("plain", ref_rmsnorm_sumsq, ref_rmsnorm_apply)):
+        ss = sum(sumsq(x[:, c]) for c in parts)
+        outs[name] = torch.cat([apply(x[:, c], scale[c], ss, width,
+                                      LM_EPS)[0] for c in parts], 1)
+    err, ok = close(outs["kernel"], outs["plain"], RMS_TOL["float32"])
+    print(f"[tp-serve] split-row K4 at Zamba2's inner norm of a decode "
+          f"step {TP_SPLIT_DECODE}, 2 parts, fp32: max|dout|={err:.3e} (tol "
+          f"{RMS_TOL['float32']}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the split-row K4 disagrees at a decode step's rows")
+    return rows
+
+
+def serve_gates(job, ranks, cli_tokens):
+    """19m's gates on every rank of a world's serving ``job``: the
+    launches exact, no row layout copy, the heads ``flash_mha`` and
+    ``wkv6`` saw; the serve CLI's tokens (SERVE_BATCH, SERVE_GEN) the same
+    on every rank, their agreement with phase 15's one-rank ``cli_tokens``
+    and its milliseconds printed (host-staged gloo: a reading); a decode
+    job's gathered fp32 logits finite and within TP_TOL of the one-rank
+    decode's (SERVE_ONE_RANK), each rank's cache's GB beside one rank's.
+    Returns rank 0's launches."""
+    import numpy as np
+
+    for rank, got in enumerate(r[job.label] for r in ranks):
+        expect = dict({name: 0 for name in counters()}, **job.expect)
+        msg = (f"[tp-serve] {job.label} rank {rank}/{len(ranks)}: launches "
+               f"{got['launches']} (expected {expect}); layout copies "
+               f"{got['copies']}; (query, KV) heads {got['heads']} "
+               f"(expected {job.heads}), WKV6 heads {got['wkv_heads']} "
+               f"(expected {job.wkv}); {got['s']:.1f}s (waited "
+               f"{got['waited']:.1f}s before it); peak {got['peak_gb']:.2f} "
+               f"GB")
+        res = got["hist"]
+        if job.kind == "serve":
+            tokens = res["tokens"]
+            same = int((tokens == cli_tokens).sum()) \
+                if tokens.shape == cli_tokens.shape else -1
+            msg += (f"; tokens {tokens.shape}, {same} of {cli_tokens.size} "
+                    f"equal to phase 15's one-rank run; prefill "
+                    f"{res['prefill_ms']:.1f} ms, decode "
+                    f"{res['decode_ms']:.1f} ms ({res['tok_s']:.1f} "
+                    f"tokens/s: host-staged gloo collectives between ranks "
+                    f"on one card, a reading, not the model axis's rate)")
+            ok = tokens.shape == (SERVE_BATCH, SERVE_GEN) and \
+                np.array_equal(tokens, ranks[0][job.label]["hist"]["tokens"])
+        else:
+            want, one_gb = SERVE_ONE_RANK[job.ref]
+            logits = res["logits"]
+            d = float(np.abs(logits - want).max()) \
+                if logits.shape == want.shape else float("inf")
+            msg += (f"; logits {logits.shape} max|d| {d:.3e} against one "
+                    f"rank's (tol {TP_TOL}); cache {res['cache_gb']:.4f} GB "
+                    f"a rank, {one_gb:.4f} GB on one rank; the Server's "
+                    f"init (its chunks of the host params to the card) "
+                    f"{res['init_s']:.1f}s")
+            ok = d <= TP_TOL and bool(np.isfinite(logits).all())
+        print(msg, flush=True)
+        if got["launches"] != expect or got["copies_rms"] or \
+                got["heads"] != job.heads or got["wkv_heads"] != job.wkv:
+            fail(f"{job.label} rank {rank}: launches, copies or heads off")
+        if not ok:
+            fail(f"{job.label} rank {rank} disagrees with one rank")
+    return ranks[0][job.label]["launches"]
+
+
 def routing_flips(label, got, want):
     """Print the (token, choice) routings of each MoE call that differ
     from the one-rank run's (a discontinuity to report, not an error)."""
@@ -3684,7 +4047,7 @@ def routing_flips(label, got, want):
           flush=True)
 
 
-def phase_tp(card, f32_ref, family_params):
+def phase_tp(card, f32_ref, family_params, serving):
     """Phase 19, tensor parallelism with every rank on the one card (gloo,
     collectives staged through host memory; NCCL refuses two ranks on one
     card): (d) K1-K3 at a model-axis-4 rank's shape of ChatGLM3-6B (a KV
@@ -3709,13 +4072,21 @@ def phase_tp(card, f32_ref, family_params):
     printed, a Ulysses rank's peak beside the TP job's at its model axis, DeepSeek-V3's state on the card after init this rank's
     chunks alone (no rank holds the whole draw), a rank's peak printed,
     the bf16 eval counts equal on both ranks; (e) ``--devices 2
-    --model-axis 2`` through the CLI on one card refused. The rates read
+    --model-axis 2`` through the training and serve CLIs on one card
+    refused. The rates read
     here are host-staged gloo's, not the model axis's: printed, not gated.
     (j)'s attention: K1-K3 at MLA's shape at 64 and 32 heads (a rank's at
     model axis 2 and 4) checked against their plain versions and timed.
-    Returns ({label: rank 0's launches; a pipeline run's stage 1 under
-    "<label> stage 1"}, the sliced-KV check's bf16 errors, 19i's kernel
-    rows, {"model_axis_2"/"_4": K1-K3's rows at MLA's per-rank shape})."""
+    (m) serving across ranks: the kernels at a rank's shapes
+    (``serve_rank_kernels``), ChatGLM3-6B's one-rank decode in the parent
+    beside the one-rank references, then each world's ``serve_jobs``
+    (``serve_gates``). ``serving``: phase 15's {"prefill": K1's one-rank
+    prefill row, "tokens": the serve CLI's}; the ranks draw Qwen2.5,
+    Qwen2-VL and Gemma3 again on the card (``serve_params``, against
+    SERVE_PRINTS). Returns ({label: rank 0's launches; a pipeline
+    run's stage 1 under "<label> stage 1"}, the sliced-KV check's bf16
+    errors, 19i's kernel rows, {"model_axis_2"/"_4": K1-K3's rows at MLA's
+    per-rank shape}, {19m label: rank 0's launches}, 19m3's K1 rows)."""
     import concurrent.futures
     import gc
     import shutil
@@ -3723,6 +4094,8 @@ def phase_tp(card, f32_ref, family_params):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import distributed
+    from repro_torch.core.engine import Server
+    from repro_torch.launch.serve import main as serve_cli
     from repro_torch.launch.train import main as cli
 
     def free():
@@ -3753,7 +4126,8 @@ def phase_tp(card, f32_ref, family_params):
         mla_tp[f"model_axis_{m}"] = {key: dict(t[key], shape=list(shape),
                                                max_abs_err=e[key])
                                      for key in t}
-    lap("d, i, j: kernel checks")
+    serve_rows = serve_rank_kernels(card, serving["prefill"])
+    lap("d, i, j, m: kernel checks")
     jobs = tp_jobs()
     by_label = {job.label: job for w in jobs.values() for job in w}
     # both worlds start now, beside the one-rank runs, and wait for the
@@ -3764,9 +4138,11 @@ def phase_tp(card, f32_ref, family_params):
     pool = concurrent.futures.ThreadPoolExecutor(len(jobs) + 1)
     t_worlds = time.time()
     runs = {size: pool.submit(
-        distributed.spawn, tp_rank, size, world_jobs, str(draw), markers,
-        device="cuda", backend="gloo", deadline_s=600)
+        distributed.spawn, tp_rank, size, world_jobs,
+        [str(draw)], markers, dict(SERVE_PRINTS), device="cuda",
+        backend="gloo", deadline_s=600)
         for size, world_jobs in jobs.items()}
+
     try:
         _, hist = run_cli(TP_LM_ARGS, by_label[
             "chatglm3-6b fp32 --model-axis 4 (D6)"].expect,
@@ -3779,7 +4155,10 @@ def phase_tp(card, f32_ref, family_params):
         # above), the families' and DeepSeek-V3's (phase 14's, drawn on
         # the card), written by a thread beside the one-rank runs below
         ds_name = get_config(DEEPSEEK).name
-        draws = {(get_config(arch).name, layers):
+        # Zamba2's is phase 17's whole draw: its training runs take its
+        # first layers (``held_params``), its decode job all of them
+        depth = {"zamba2": ZAMBA_LAYERS}
+        draws = {(get_config(arch).name, depth.get(tag, layers)):
                  family_params[tag.split("-")[0]]
                  for tag, (arch, layers, _, _) in TP_FAMILIES.items()}
         draws[ds_name, DS_LAYERS] = family_params["deepseek"]
@@ -3807,6 +4186,19 @@ def phase_tp(card, f32_ref, family_params):
                                        steps)
                 one_rank_routes[tag] = routes
         free()
+        # 19m2: ChatGLM3-6B's one-rank decode on the same draw
+        lm_cfg = serve_cfg(TP_SERVE_LM)
+        reset_counters()
+        SERVE_ONE_RANK["chatglm3"] = serve_decode(
+            Server(lm_cfg, held_params(draws, lm_cfg), device="cuda"),
+            TP_SERVE_LM)
+        torch.cuda.synchronize()
+        expect = dict({name: 0 for name in counters()},
+                      **serve_expect(TP_SERVE_LM, 1)[0])
+        if read_counters() != expect:
+            fail(f"ChatGLM3-6B's one-rank decode: launches "
+                 f"{read_counters()} (expected {expect})")
+        free()
         lap("one-rank references")
         print(f"[tp] the parent's host draws ({n / 1e9:.2f} B params, "
               f"DeepSeek-V3's {whole_ds:.2f} GB of them) written for the "
@@ -3833,11 +4225,15 @@ def phase_tp(card, f32_ref, family_params):
           f"start (beside the one-rank runs); the ranks waited "
           f"{max(r['draws_waited'] for w in results.values() for r in w):.1f}"
           f"s for the draws", flush=True)
-    launches, peaks = {}, {}
+    launches, peaks, serve_launches = {}, {}, {}
     for size, world_jobs in jobs.items():
         ranks = results[size]
         for job in world_jobs:
             label, ref = job.label, job.ref
+            if job.kind != "train":
+                serve_launches[label] = serve_gates(job, ranks,
+                                                    serving["tokens"])
+                continue
             evals = []
             for rank, got in enumerate(r[label] for r in ranks):
                 expect = job.expect[rank] if isinstance(job.expect, list) \
@@ -3920,8 +4316,15 @@ def phase_tp(card, f32_ref, family_params):
                   f"{torch.cuda.device_count()} card: {e}", flush=True)
         else:
             fail("--devices 2 --model-axis 2 on one card did not raise")
+        try:
+            serve_cli(SERVE_ARGS + TP_SERVE_CLI[2])
+        except RuntimeError as e:
+            print(f"[tp-serve] the serve CLI at {' '.join(TP_SERVE_CLI[2])} "
+                  f"on {torch.cuda.device_count()} card: {e}", flush=True)
+        else:
+            fail("the serve CLI's --devices 2 on one card did not raise")
     print(f"[tp] phase 19 in {time.time() - t0:.1f}s on {card}", flush=True)
-    return launches, errs, split_rows, mla_tp
+    return launches, errs, split_rows, mla_tp, serve_launches, serve_rows
 
 
 def augment_on_card():
@@ -5000,47 +5403,87 @@ def rwkv_after_steps(hist, steps=(1, 2)):
     torch.cuda.empty_cache()
 
 
-def phase_prefill_kernels(card):
-    """K1 at the prefill shapes (PREFILL_CASES: causal, S < T, the keys
-    past the prompt zeros as in a fresh cache) against ``ref_attention``
-    in bf16 and fp32 (phase 3's gates), K4 at a decode step's rows
-    (DECODE_ROWS) against ``ref_rmsnorm_fwd``, then K1 timed at the first
-    shape beside its plain version, SDPA (upper-left causal, as K1) and
-    the bound over the live pairs. Returns the timing row."""
+def check_prefill_k1(tag, label, shape, window, inputs):
+    """K1 at a prefill shape (causal, S < T, the keys past the prompt
+    zeros as in a fresh cache) against ``ref_attention`` in bf16 and fp32
+    (phase 3's gates); fails on a disagreement. Returns the bf16 max
+    |error| of the output."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import ref_attention
+
+    s, err = shape[3], None
+    for dname in ("bfloat16", "float32"):
+        dtype, tol = getattr(torch, dname), TOL_OUT[dname]
+        q, k, v, _ = shape_inputs(inputs, shape, dtype, True)
+        k[:, :, s:] = 0         # a cache's unwritten rows
+        v[:, :, s:] = 0
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True,
+                                          window=window)
+        torch.cuda.synchronize()
+        want, want_lse = ref_attention(q, k, v, causal=True, window=window)
+        res = {"out": close(out, want, tol),
+               "lse": close(lse, want_lse, TOL_LSE)}
+        ok = all(r[1] for r in res.values())
+        print(f"[{tag}] K1 {label} {shape} {dname} causal window={window}: "
+              + " ".join(f"max|d{key}|={r[0]:.3e}" for key, r in res.items())
+              + f" (tol {tol}, rtol {tol}; lse {TOL_LSE}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"K1 disagrees with its plain version at the {label} "
+                 f"prefill shape in {dname}")
+        err = res["out"][0] if err is None else err
+        del q, k, v, out, lse, want, want_lse
+    return err
+
+
+def time_prefill_k1(card, tag, label, shape, inputs):
+    """K1 timed at a prefill shape in bf16 (causal, S < T) beside its
+    plain version, SDPA (upper-left causal, as K1) and the bound over the
+    live pairs. Returns the timing row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import ref_attention
+
+    q, k, v, _ = shape_inputs(inputs, shape, torch.bfloat16, True)
+    k[:, :, shape[3]:] = 0
+    v[:, :, shape[3]:] = 0
+    ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+    plain = time_ms(lambda: ref_attention(q, k, v, causal=True), reps=10)
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    kw = {"is_causal": True, "enable_gqa": True}
+    with torch.no_grad():
+        library = time_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, **kw), calls=10)
+        d_sdpa = (F.scaled_dot_product_attention(qc, kc, vc, **kw).float()
+                  - fa.flash_attention_fwd(q, k, v)[0].float()).abs().max()
+    bound_ms, bound_by, how = bound(card, *attn_work(shape, 2, True)["fwd"])
+    print(f"[{tag}] K1 flash_fwd timing at {label}'s prefill {shape} bf16 "
+          f"causal (S < T) on {card}: kernel {ms:.4f} ms, plain {plain:.4f} "
+          f"ms, SDPA forward (yardstick; max |SDPA - K1| "
+          f"{d_sdpa.item():.3e}) {library:.4f} ms; bound {bound_ms:.4f} ms "
+          f"by {bound_by} over {live_pairs(shape[3], shape[4], True, 0):,} "
+          f"live pairs and {live_keys(shape[3], shape[4], True, 0)} of "
+          f"{shape[4]} keys a head ({how})", flush=True)
+    return {"shape": list(shape), "ms": ms, "plain_ms": plain,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library}
+
+
+def phase_prefill_kernels(card):
+    """K1 at the prefill shapes (PREFILL_CASES) against ``ref_attention``
+    (``check_prefill_k1``), K4 at a decode step's rows (DECODE_ROWS)
+    against ``ref_rmsnorm_fwd``, then K1 timed at the first shape
+    (``time_prefill_k1``). Returns the timing row."""
+    import torch
     from repro_torch.kernels import rmsnorm as rms
-    from repro_torch.kernels.ref import ref_attention, ref_rmsnorm_fwd
+    from repro_torch.kernels.ref import ref_rmsnorm_fwd
 
     inputs = model_layout_inputs(
         torch.Generator(device="cuda").manual_seed(11))
-    errs = {}
-    for label, shape, window in PREFILL_CASES:
-        s = shape[3]
-        for dname in ("bfloat16", "float32"):
-            dtype, tol = getattr(torch, dname), TOL_OUT[dname]
-            q, k, v, _ = shape_inputs(inputs, shape, dtype, True)
-            k[:, :, s:] = 0         # a cache's unwritten rows
-            v[:, :, s:] = 0
-            out, lse = fa.flash_attention_fwd(q, k, v, causal=True,
-                                              window=window)
-            torch.cuda.synchronize()
-            want, want_lse = ref_attention(q, k, v, causal=True,
-                                           window=window)
-            res = {"out": close(out, want, tol),
-                   "lse": close(lse, want_lse, TOL_LSE)}
-            ok = all(r[1] for r in res.values())
-            print(f"[prefill] K1 {label} {shape} {dname} causal window="
-                  f"{window}: " + " ".join(f"max|d{key}|={r[0]:.3e}"
-                                           for key, r in res.items())
-                  + f" (tol {tol}, rtol {tol}; lse {TOL_LSE}) "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                fail(f"K1 disagrees with its plain version at the {label} "
-                     f"prefill shape in {dname}")
-            errs.setdefault(label, res["out"][0])
-            del q, k, v, out, lse, want, want_lse
+    errs = {label: check_prefill_k1("prefill", label, shape, window, inputs)
+            for label, shape, window in PREFILL_CASES}
     gen = torch.Generator(device="cuda").manual_seed(12)
     for label, shape in DECODE_ROWS:
         for dname in ("bfloat16", "float32"):
@@ -5060,31 +5503,9 @@ def phase_prefill_kernels(card):
             if not ok:
                 fail(f"K4 disagrees with its plain version at {label}'s "
                      f"decode rows in {dname}")
-
     label, shape, _ = PREFILL_CASES[0]
-    q, k, v, _ = shape_inputs(inputs, shape, torch.bfloat16, True)
-    k[:, :, shape[3]:] = 0
-    v[:, :, shape[3]:] = 0
-    ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
-    plain = time_ms(lambda: ref_attention(q, k, v, causal=True), reps=10)
-    qc, kc, vc = (x.contiguous() for x in (q, k, v))
-    kw = {"is_causal": True, "enable_gqa": True}
-    with torch.no_grad():
-        library = time_ms(lambda: F.scaled_dot_product_attention(
-            qc, kc, vc, **kw), calls=10)
-        d_sdpa = (F.scaled_dot_product_attention(qc, kc, vc, **kw).float()
-                  - fa.flash_attention_fwd(q, k, v)[0].float()).abs().max()
-    bound_ms, bound_by, how = bound(card, *attn_work(shape, 2, True)["fwd"])
-    print(f"[prefill] K1 flash_fwd timing at {label}'s prefill {shape} bf16 "
-          f"causal (S < T) on {card}: kernel {ms:.4f} ms, plain {plain:.4f} "
-          f"ms, SDPA forward (yardstick; max |SDPA - K1| "
-          f"{d_sdpa.item():.3e}) {library:.4f} ms; bound {bound_ms:.4f} ms "
-          f"by {bound_by} over {live_pairs(shape[3], shape[4], True, 0):,} "
-          f"live pairs and {live_keys(shape[3], shape[4], True, 0)} of "
-          f"{shape[4]} keys a head ({how})", flush=True)
-    return {"shape": list(shape), "ms": ms, "plain_ms": plain,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library, "max_abs_err": errs[label]}
+    return dict(time_prefill_k1(card, "prefill", label, shape, inputs),
+                max_abs_err=errs[label])
 
 
 def phase_serve_cli(argv=SERVE_ARGS, attn=SERVE_LAYERS,
@@ -5149,6 +5570,13 @@ def decode_batch(cfg, tag, batch, n, seed):
             for k, v in out.items()}
 
 
+def nbytes(tree):
+    """The bytes of the tensors of a cache tree ({group: {leaf: tensor}})
+    or a flat dict of tensors."""
+    return sum(nbytes(v) if isinstance(v, dict) else
+               v.numel() * v.element_size() for v in tree.values())
+
+
 def cosine(a, b):
     a, b = a.double().flatten(), b.double().flatten()
     return float((a * b).sum() / (a.norm() * b.norm()))
@@ -5195,7 +5623,8 @@ def phase_decode_vs_train(held, models=DECODE_MODELS):
     WKV kernel. A model with a gate eps
     takes its fp32 gate at that norm eps, and its fp32 reading at its own
     eps is printed, its launches and finiteness checked but not its
-    tolerance."""
+    tolerance. The gated fp32 run's logits (the prefill's last position
+    and each step's) and its cache's bytes go into SERVE_ONE_RANK."""
     import gc
     import torch
     from repro_torch.models import transformer as tr
@@ -5243,6 +5672,12 @@ def phase_decode_vs_train(held, models=DECODE_MODELS):
                     pairs.append((step[:, 0], want[:, s + i]))
                 torch.cuda.synchronize()
                 decode_launches = read_counters()[kernel] - prefill_launches
+            if dname == "float32" and gated:
+                # phase 19m holds each model rank's logits against these
+                SERVE_ONE_RANK[tag] = (
+                    torch.stack([pairs[0][0][:, -1]] + [a for a, _ in
+                                                        pairs[1:]], 1)
+                    .cpu().numpy(), nbytes(cache) / 1e9)
             diffs = [(a.float() - b.float()).abs().max().item()
                      for a, b in pairs]
             coss = [cosine(a, b) for a, b in pairs]
@@ -5465,32 +5900,51 @@ def serve_rates(card):
 def phase_serving(card, held):
     """Phase 15: serving and Qwen2-VL (15a-15e), from the params ``held``
     by the training phases ({DECODE_MODELS tag: params on the host}) and
-    Qwen2-VL's, drawn here once. Returns (K1's prefill timing row, the
-    serve CLI's launches, Qwen2-VL training's launches)."""
+    Qwen2-VL's, drawn here once. The serve CLI's, Qwen2-VL's and Gemma3's
+    draws (all three made on the card) leave their fingerprints in
+    SERVE_PRINTS: phase 19m's ranks draw them again (``serve_params``).
+    Returns
+    (K1's prefill timing row, the serve CLI's launches, Qwen2-VL
+    training's launches, the serve CLI's tokens)."""
     from repro_torch.configs import get_config
+    from repro_torch.launch import serve
     from repro_torch.models.transformer import init_params
 
     t0 = time.time()
     prefill = phase_prefill_kernels(card.split(",")[0])
-    serve_launches, res = phase_serve_cli()
+    # the serve CLI's seed-0 draw's fingerprint, for phase 19m
+    draw = serve.init_params
+
+    def keep(cfg, **kw):
+        params = draw(cfg, **kw)
+        SERVE_PRINTS[cfg.name, cfg.num_layers] = fingerprint(params)
+        return params
+    serve.init_params = keep
+    try:
+        serve_launches, res = phase_serve_cli()
+    finally:
+        serve.init_params = draw
     print(f"[serve] {QWEN} ({SERVE_LAYERS} layers) fp32 through the CLI, "
           f"batch {SERVE_BATCH}: prefill ({SERVE_PROMPT} tokens) "
           f"{res['prefill_ms']:.1f} ms, decode {res['tok_s']:.1f} tokens/s "
           f"({SERVE_GEN - 1} steps in {res['decode_ms']:.1f} ms; cold: the "
           f"first calls included; a reading, not gated; {card})", flush=True)
     t_draw = time.time()
-    vl_host = init_params(get_config(VL).replace(num_layers=VL_LAYERS),
-                          seed=0, device="cpu", draw_on="cuda")
+    vl_cfg = get_config(VL).replace(num_layers=VL_LAYERS)
+    vl_host = init_params(vl_cfg, seed=0, device="cpu", draw_on="cuda")
     print(f"[serve] {VL} ({VL_LAYERS} layer) params drawn on the card and "
           f"copied to the host in {time.time() - t_draw:.1f}s", flush=True)
     phase_decode_vs_train(dict(held, **{"qwen2-vl": vl_host}))
+    SERVE_PRINTS[get_config("gemma3-12b").name, GEMMA_LAYERS] = \
+        fingerprint(held["gemma3"])
+    SERVE_PRINTS[vl_cfg.name, VL_LAYERS] = fingerprint(vl_host)
     held.clear()
     vl_launches = phase_vl_train(card, vl_host)
     del vl_host
     serve_rates(card)
     print(f"[serve] phase 15 (serving and Qwen2-VL) in "
           f"{time.time() - t0:.1f}s", flush=True)
-    return prefill, serve_launches, vl_launches
+    return prefill, serve_launches, vl_launches, res["tokens"]
 
 
 def phase_hubert(profile):
@@ -5607,12 +6061,12 @@ def phase_zamba2(card):
     device time split (``scan_split``), prefill and decode against
     train-mode logits (``ZAMBA_DECODE``) and the serve CLI (fp32; K1 once
     a group in the prefill, K4 29 times a forward). Returns (the training
-    run's launches, the serve CLI's, the seed-0 params on the host cut to
-    TP_ZAMBA_LAYERS layers for phase 19)."""
+    run's launches, the serve CLI's, the seed-0 params on the host for
+    phase 19: its training runs take their first TP_ZAMBA_LAYERS layers,
+    its decode job all of them)."""
     import gc
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.sharding import is_stacked
     from repro_torch.launch import serve
     from repro_torch.models.transformer import init_params
 
@@ -5658,13 +6112,9 @@ def phase_zamba2(card):
           f"{res['prefill_ms']:.1f} ms, decode {res['tok_s']:.1f} tokens/s "
           f"({SERVE_GEN - 1} steps in {res['decode_ms']:.1f} ms; cold; a "
           f"reading, not gated; {card})", flush=True)
-    # phase 19's Zamba2 runs take this draw's first layers
-    tp_host = {k: v[:TP_ZAMBA_LAYERS].clone() if is_stacked(k) else v
-               for k, v in host.items()}
-    del host
     free()
     print(f"[zamba2] phase 17 in {time.time() - t0:.1f}s", flush=True)
-    return launches, serve_launches, tp_host
+    return launches, serve_launches, host
 
 
 def main():
@@ -5724,13 +6174,14 @@ def main():
     print(f"[deepseek] phase 14 (MLA attention and DeepSeek-V3 training) "
           f"in {secs['14 MLA attention'] + secs['14 DeepSeek-V3']:.1f}s",
           flush=True)
-    prefill, serve_launches, vl_launches = timed(
+    prefill, serve_launches, vl_launches, cli_tokens = timed(
         "15 serving, Qwen2-VL", phase_serving, card, held)
     hubert_launches = timed("16 HuBERT", phase_hubert, profile)
     zamba_launches, zamba_serve_launches, tp_params["zamba2"] = timed(
         "17 Zamba2", phase_zamba2, card)
-    tp_launches, tp_errs, split_rows, tp_mla = timed(
-        "19 tensor parallel", phase_tp, card, f32_ref, tp_params)
+    tp_launches, tp_errs, split_rows, tp_mla, tp_serve, tp_serve_k1 = timed(
+        "19 tensor parallel", phase_tp, card, f32_ref, tp_params,
+        {"prefill": prefill, "tokens": cli_tokens})
     del tp_params
     print(f"[draws] params drawn on the host for the card: {draws['draws']} "
           f"draws made, {draws['shared']} repeats copied from the draw "
@@ -5748,6 +6199,10 @@ def main():
                     if label.startswith(fam)}
                 for fam in ("chatglm3", "zamba2", "granite", "rwkv6",
                             "deepseek")}
+    def tp_serve_launches(name):
+        """Phase 19m's serving runs' launches of kernel ``name``, a
+        rank's, by run."""
+        return {label: n[name] for label, n in tp_serve.items()}
     # K1-K3 run on both training paths: the row's numbers are the
     # decoder's (this slice's path), with the ViT's beside them under "vit"
     kernels = []
@@ -5811,7 +6266,12 @@ def main():
         tp = dict(tp_family_launches(row["name"]),
                   tp_rank_shape={"shape": list(TP_RANK_SHAPE),
                                  "max_abs_err": tp_errs[key]},
-                  tp_mla={m: rows[key] for m, rows in tp_mla.items()})
+                  tp_mla={m: rows[key] for m, rows in tp_mla.items()},
+                  tp_serve_launches=tp_serve_launches(row["name"]))
+        if key == "fwd":
+            # serving across ranks (19m): K1 at a model-axis-2 rank's
+            # prefill shapes, beside the one-rank shape's
+            tp["tp_serve"] = tp_serve_k1
         kernels.append(dict(row, **lm_attn[key], **serve, **tp,
                             launches=lm_launches[row["name"]], vit=vit,
                             gemma3_launches=gemma_launches[row["name"]],
@@ -5843,6 +6303,7 @@ def main():
                 zamba_serve_launches[row["name"]]
             extra["pipeline_chatglm3_launches"] = pp_lm_launches[row["name"]]
         extra.update(tp_family_launches(row["name"]))
+        extra["tp_serve_launches"] = tp_serve_launches(row["name"])
         if row["name"] in REDESIGNED:
             extra.update(redesigned=True, routes=ROUTES[row["name"]])
         kernels.append(dict(row, **extra))
@@ -5853,6 +6314,7 @@ def main():
         kernels.append(dict(
             row, launches=zamba_m2[row["name"]],
             partial_launches=zamba_m2[partial],
+            tp_serve_launches=tp_serve_launches(row["name"]),
             **tp_family_launches(row["name"]),
             partial_tp_zamba2_launches={
                 label: n[partial] for label, n in tp_launches.items()

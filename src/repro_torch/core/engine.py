@@ -97,11 +97,13 @@ global grad norm then needs no model-group sum. Checkpoints go as
 ``Blocks`` with every leaf whole on the model axis, written by model rank
 0, and restore into any layout.
 
-``Server`` serves on one device (the reference's ``_prefill`` and
-``_decode_step``, ``engine.py:517-528``): ``prefill`` runs a prompt batch
-into a cache and returns the last position's logits; ``decode_step`` runs
-one token a sequence at a given index and returns the greedy next token
-(int32). Both run under ``torch.inference_mode()`` on whole params.
+``Server`` serves (the reference's ``_prefill`` and ``_decode_step``,
+``engine.py:517-568``): ``prefill`` runs a prompt batch into a cache and
+returns the last position's logits; ``decode_step`` runs one token a
+sequence at a given index and returns the greedy next token (int32). Both
+run under ``torch.inference_mode()``, on one device or as one rank of a
+data x model layout (each data rank its rows, each model rank its model
+chunks of the params and its heads of the cache; ROADMAP D9).
 
 Checkpoints (``repro_torch.checkpoint``, the reference's
 ``repro-elastic-ckpt/v2``): ``checkpoint_tree`` names the state's leaves as
@@ -131,8 +133,8 @@ from repro_torch.checkpoint import AsyncCheckpointer, Blocks, Sharded, \
 from repro_torch.configs.base import EngineConfig
 from repro_torch.core import pipeline, ulysses
 from repro_torch.core.grad_accum import accumulate_gradients
-from repro_torch.core.sharding import check_model_axis, is_stacked, \
-    model_dims, model_summed, shard_dims, stage_chunks
+from repro_torch.core.sharding import check_model_axis, check_serving, \
+    is_stacked, model_dims, model_summed, shard_dims, stage_chunks
 from repro_torch.data.augment import augment_batch, device_preprocess, \
     draw_augment, step_seed
 from repro_torch.data.pipeline import rank_rows
@@ -956,39 +958,115 @@ def greedy(logits) -> torch.Tensor:
 
 
 class Server:
-    """Prefill and greedy decode of a decoder on one device, on whole
-    params (fp32 masters, cast to ``cfg.dtype`` where used). Serving
-    across ranks or the model axis is not ported."""
+    """Prefill and greedy decode of a decoder (fp32 masters, cast to
+    ``cfg.dtype`` where used), on one device or as one rank of a data x
+    model layout of ``world`` (``launch/mesh.py::make_layout(world, 1,
+    model_axis)``, a collective: every rank builds its ``Server``).
 
-    def __init__(self, cfg, params: dict, *, device="cuda"):
+    Across ranks (the reference's ``DistributedEngine.jit_prefill`` and
+    ``jit_decode_step``, ``repro/core/engine.py:540-568``): data rank d
+    serves rows ``[d·B/dp, (d+1)·B/dp)`` of every batch leaf and holds
+    only those rows of the cache; the M ranks of a model group split each
+    layer as training does (``core/sharding.py::model_dims``) and cache
+    their own heads (``cache_dims``, ROADMAP deviation D9). Only this
+    rank's parts of the host params are copied to its device. The logits
+    of a vocabulary split over the model group are gathered whole before
+    the greedy token is taken, so every rank of a group decodes the same
+    tokens."""
+
+    def __init__(self, cfg, params: dict, *, device="cuda", world=None,
+                 model_axis: int = 1):
         if not cfg.supports_decode():
             raise ValueError(f"{cfg.name} has no decode step")
+        if world is None and model_axis > 1:
+            raise ValueError(f"model_axis {model_axis} needs a world of "
+                             f"ranks")
+        check_model_axis(cfg, model_axis)
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.params = {k: v.to(self.device) for k, v in params.items()}
+        self.data = self.tp = None
+        if world is not None:
+            layout = make_layout(world, 1, model_axis)
+            self.data, self.tp = layout.data, layout.model
+            self.device = world.device
+        else:
+            self.device = resolve_device(device)
+        self.model = model_axis
+        shapes = {k: v.shape for k, v in params.items()}
+        self.model_dims = model_dims(shapes, cfg, model_axis) \
+            if self.tp is not None else dict.fromkeys(shapes)
+
+        def local(k, v):
+            d = self.model_dims[k]
+            if d is None:
+                return v.to(self.device)
+            return self.tp.chunk(v, d).to(self.device, copy=True)
+        self.params = {k: local(k, v) for k, v in params.items()}
+        self.batch = None
+
+    @property
+    def dp(self) -> int:
+        return self.data.size if self.data is not None else 1
 
     def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:
-        """A zero cache in ``dtype`` (the compute dtype by default)."""
+        """This rank's part of a zero cache of ``batch`` sequences (the
+        whole batch; a data rank holds ``batch / dp`` rows) in ``dtype``
+        (the compute dtype by default)."""
+        check_serving(self.cfg, batch, self.dp, self.model)
+        self.batch = batch
         return model.init_cache(
             self.cfg, batch, max_len, device=self.device,
-            dtype=dtype or model.compute_dtype(self.cfg))
+            dtype=dtype or model.compute_dtype(self.cfg), data=self.dp,
+            model=self.model)
+
+    def _rows(self, t):
+        """This data rank's rows of ``t``, a leaf of the whole batch (a
+        leaf of this rank's rows passes as it is)."""
+        if self.dp == 1 or t.shape[0] != self.batch:
+            return t
+        return t[rank_rows(t.shape[0], self.data.rank, self.dp)]
+
+    def _whole(self, logits):
+        """``logits`` with a vocabulary split over the model group
+        gathered whole."""
+        if logits.shape[-1] == self.cfg.vocab_size:
+            return logits
+        return shardctx.gather_from_model(logits)
 
     def prefill(self, batch: dict, cache: dict):
         """``batch["tokens"]`` (B, S) (and a vlm's ``image_embeds``,
-        ``positions``) into ``cache`` at rows 0..S-1 -> (logits of the last
-        position (B, 1, vocab), the cache)."""
-        with torch.inference_mode():
+        ``positions``; the whole batch, or this data rank's rows) into
+        ``cache`` at rows 0..S-1 -> (logits of the last position, this
+        data rank's rows, the vocabulary whole (B/dp, 1, vocab), the
+        cache)."""
+        batch = to_device({k: self._rows(v) for k, v in batch.items()},
+                          self.device)
+        with torch.inference_mode(), shardctx.use(self.tp):
             logits, cache, _ = model.forward(
-                self.cfg, self.params, to_device(batch, self.device),
-                mode="prefill", cache=cache)
-            return logits[:, -1:], cache
+                self.cfg, self.params, batch, mode="prefill", cache=cache)
+            return self._whole(logits[:, -1:]), cache
+
+    def decode_logits(self, cache: dict, token, index: int):
+        """One token a sequence, ``token`` (B, 1) (the whole batch, or this
+        data rank's rows), at position ``index`` -> (the logits of this
+        data rank's rows, the vocabulary whole (B/dp, 1, vocab), the
+        cache)."""
+        token = self._rows(token).to(self.device)
+        with torch.inference_mode(), shardctx.use(self.tp):
+            logits, cache, _ = model.forward(
+                self.cfg, self.params, {"token": token, "index": int(index)},
+                mode="decode", cache=cache)
+            return self._whole(logits), cache
 
     def decode_step(self, cache: dict, token, index: int):
         """One token a sequence, ``token`` (B, 1), at position ``index``
-        -> (the greedy next token (B, 1) int32, the cache)."""
-        with torch.inference_mode():
-            logits, cache, _ = model.forward(
-                self.cfg, self.params,
-                {"token": token.to(self.device), "index": int(index)},
-                mode="decode", cache=cache)
-            return greedy(logits), cache
+        -> (the greedy next token of this data rank's rows (B/dp, 1)
+        int32, the cache)."""
+        logits, cache = self.decode_logits(cache, token, index)
+        return greedy(logits), cache
+
+    def gather_rows(self, t):
+        """``t`` of this data rank's rows gathered whole over the data
+        ranks, in row order (the data ranks' generated tokens)."""
+        if self.dp == 1:
+            return t
+        return self.data.all_gather_many([t.contiguous()], [0])[0]

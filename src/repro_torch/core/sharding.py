@@ -245,3 +245,82 @@ def stage_chunks(num_layers: int, stages: int, interleave: int,
                          f"{chunks} pipeline chunks")
     n = num_layers // chunks
     return [(c * n, (c + 1) * n) for c in range(stage, chunks, stages)]
+
+
+# --- the serving cache (the reference's ``cache_specs``) ----------------------
+
+_CACHE_HEADS = re.compile(r"(^|/)(wkv|ssd)$")
+_CACHE_KV = re.compile(r"(^|/)(k|v)$")
+
+
+def cache_dims(cfg, cache_shapes: dict, data: int, model: int) -> dict:
+    """``{group: {leaf: (batch dimension, model dimension or None, why)}}``
+    for the cache tree ``cache_shapes`` (``{group: {leaf: shape}}``, each
+    leaf stacked on a leading L axis), as the port lays it out over
+    ``data`` data ranks and ``model`` model ranks: the counterpart of
+    ``cache_specs`` (``repro/core/sharding.py:220-252``). Every leaf's
+    batch (dimension 1) goes over the data axis. The model axis splits
+    heads where the reference's does (RWKV6's ``wkv``, Mamba2's ``ssd``)
+    and where the port's tensor parallelism gives a rank whole KV heads
+    (attention ``k``/``v``; the reference splits their sequence: ROADMAP
+    deviation D9). ``why`` says why a leaf is not split on the model
+    axis, or which part a rank keeps: D6's one KV head, MLA's latents,
+    the shifts, D7's conv channels; None for a plain split or with no
+    model axis."""
+    out = {}
+    for group, leaves in cache_shapes.items():
+        dims = out[group] = {}
+        for key, shape in leaves.items():
+            m, why = None, None
+            if model > 1:
+                if _CACHE_HEADS.search(key):
+                    m = 2
+                elif _CACHE_KV.search(key):
+                    if kv_replicated(cfg, model):
+                        why = ("D6: the one KV head this rank's query "
+                               "heads use")
+                    else:
+                        m = 3
+                elif key in ("c_kv", "k_rope"):
+                    why = "MLA: the latents whole, every head shares them"
+                elif key == "conv":
+                    why = ("D7: the x channels of this rank's heads, then "
+                           "the B and C channels whole")
+                else:
+                    why = "a shift: whole, x is copied to the model group"
+            if shape[1] % data:
+                raise ValueError(f"cache {group}/{key}: batch {shape[1]} "
+                                 f"not divisible by {data} data ranks")
+            dims[key] = (1, m, why)
+    return out
+
+
+def cache_shape(cfg, key: str, shape, dims, data: int, model: int) -> tuple:
+    """The shape of one rank's part of cache leaf ``key`` of whole
+    ``shape``, by its :func:`cache_dims` entry ``dims``."""
+    batch, m, _ = dims
+    out = list(shape)
+    out[batch] //= data
+    if m is not None:
+        out[m] //= model
+    elif model > 1 and _CACHE_KV.search(key) and kv_replicated(cfg, model):
+        out[3] = 1
+    elif model > 1 and key == "conv":
+        s = cfg.ssm
+        out[3] = s.expand * cfg.d_model // model + 2 * s.state_dim
+    return tuple(out)
+
+
+def check_serving(cfg, batch: int, data: int, model: int) -> None:
+    """Raise ``ValueError`` for a serving layout the port cannot run: a
+    family without a decode step, a batch the ``data`` ranks do not
+    divide (the reference's ``_sanitize`` then replicates it; ROADMAP F2),
+    and what :func:`check_model_axis` refuses."""
+    if not cfg.supports_decode():
+        raise ValueError(f"{cfg.name} has no decode step (an encoder or a "
+                         f"classifier)")
+    if data < 1 or batch % data:
+        raise ValueError(f"batch {batch} not divisible by {data} data "
+                         f"ranks (each serves an equal share of the rows; "
+                         f"ROADMAP F2)")
+    check_model_axis(cfg, model)

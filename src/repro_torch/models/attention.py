@@ -35,6 +35,11 @@ whole: the rank then takes only the one KV head its query heads use (a
 column slice of ``wk``/``wv``/``bk``/``bv``), so the kernel's ``h // g``
 sees its own group, and the engine sums those leaves' gradients over the
 group. Rope, the masks and the kernels are per head and unchanged.
+Serving under a model group (ROADMAP deviation D9) caches this rank's
+KV heads, (B, Smax, KH/M, hd), or under D6 the one KV head its query
+heads use, (B, Smax, 1, hd): prefill and decode attend over the rank's
+own heads, so no softmax spans ranks, and ``wo``'s row chunk is summed
+over the group as in training.
 
 MLA under a model group: every rank computes the down-projections, both
 latent norms and the shared rope key whole (``w_dq``, ``q_norm``,
@@ -45,6 +50,9 @@ sum over the group. ``copy_to_model`` sits on the three latents (``cq``,
 ``c_kv``, the rotated rope key: q_lora + kv_lora + rope columns, 2112 in
 DeepSeek-V3) rather than on x (7168): the backward's all-reduce moves
 those, and the replicated leaves' gradients come out whole on every rank.
+Serving under a model group caches the latents whole on every rank (D9):
+prefill and the absorbed decode run this rank's heads of ``w_uk`` and
+``w_uv`` over them.
 
 Ulysses (``core/ulysses.py``): given the forward's ``seq`` split,
 ``attention_block`` gets this rank's S_m rows and whole weights. It
@@ -157,9 +165,6 @@ def attention_block(p, x, cfg, *, window, positions=None, cache=None,
     proj = {w: p[w] for w in ("wq", "wk", "wv", "bq", "bk", "bv") if w in p}
     tp = shardctx.active()
     if tp is not None:
-        if cache is not None:
-            raise ValueError("serving on the model axis is not yet ported "
-                             "(ROADMAP item 16.3)")
         x = shardctx.copy_to_model(x)
         if kh == cfg.num_kv_heads:
             # D6: whole KV projections; this rank's query heads all use
@@ -227,9 +232,6 @@ def mla_block(p, x, cfg, *, positions, cache=None, cache_index=0):
     nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     # this rank's heads (all of them without a model group)
     h = p["w_uq"].shape[-1] // (nope + rope_d)
-    if cache is not None and shardctx.active() is not None:
-        raise ValueError("serving on the model axis is not yet ported "
-                         "(ROADMAP item 16.3)")
     dt = x.dtype
     cq = rmsnorm(x @ p["w_dq"].to(dt), p["q_norm"], cfg.norm_eps,
                  use_kernels=cfg.use_kernels)

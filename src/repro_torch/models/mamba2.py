@@ -40,8 +40,11 @@ heads ``[m·H/M, (m+1)·H/M)`` and the shared B and C (one group) whole:
 its input goes through ``copy_to_model``, the scan runs on its heads, the
 inner RMSNorm spans the row over the group (the split-row K4/K5), and
 ``w_out``'s row chunk is followed by ``reduce_from_model``. The engine
-sums the whole leaves' gradients over the group. Serving refuses a model
-group (ROADMAP item 16.3).
+sums the whole leaves' gradients over the group. Serving under a model
+group caches this rank's heads of the SSD state, (B, H/M, P, N), as the
+reference does, and its conv channels in ``_rank_params``' order, (B,
+k-1, d_in/M + 2N): its heads' x channels, then B and C whole (ROADMAP
+deviations D7, D9; the reference splits the conv state contiguously).
 """
 from __future__ import annotations
 
@@ -204,9 +207,6 @@ def mamba2_block(p, x, cfg, *, cache=None):
     dt_, f32 = x.dtype, torch.float32
     tp = shardctx.active()
     if tp is not None:
-        if cache is not None:
-            raise ValueError("serving on the model axis is not yet ported "
-                             "(ROADMAP item 16.3)")
         p = _rank_params(cfg, p, tp.rank, tp.size)
         d_in, nheads = d_in // tp.size, nheads // tp.size
         x = shardctx.copy_to_model(x)

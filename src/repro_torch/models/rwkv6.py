@@ -33,8 +33,9 @@ row chunk is followed by ``reduce_from_model``. The token-shift LoRA and
 on ``tanh(xw @ decay_w1)``, so their gradients come out whole on every
 rank. The channel mix splits ``w_k`` by columns of F and ``w_v`` by rows;
 ``w_r`` keeps the reference's column split, so the gate is gathered whole
-(``gather_from_model``). Serving refuses a model group (ROADMAP item
-16.3).
+(``gather_from_model``). Serving under a model group caches this rank's
+heads of the WKV state, (B, H/M, P, P), as the reference's ``cache_specs``
+does, and both shifts whole (x is whole on every rank).
 """
 from __future__ import annotations
 
@@ -151,12 +152,6 @@ def wkv6_chunked(r, k, v, wlog, u, chunk, s0):
     return torch.cat(outs, dim=1)[:, :s], state
 
 
-def _no_cache_on_model_axis(cache):
-    if cache is not None and shardctx.active() is not None:
-        raise ValueError("serving on the model axis is not yet ported "
-                         "(ROADMAP item 16.3)")
-
-
 def _last(x, cache):
     """The row in front of the token shift: the cached one, else zeros."""
     if cache is None:
@@ -168,7 +163,6 @@ def rwkv6_time_mix(p, x, cfg, *, cache=None):
     """x (B,S,D) -> (B,S,D), the reference's ``rwkv6_time_mix``
     (``rwkv6.py:151-212``). ``cache``: this layer's {"shift" (B,D), "wkv"
     (B,H,P,P)}, read, then written in place."""
-    _no_cache_on_model_axis(cache)
     b, s, d = x.shape
     pd, dt = cfg.head_dim, x.dtype
     h = p["w_r"].shape[-1] // pd            # this rank's heads
@@ -217,7 +211,6 @@ def rwkv6_channel_mix(p, x, cfg, *, cache=None):
     """x (B,S,D) -> (B,S,D): ``sigmoid(xr@w_r) * (relu(xk@w_k)² @ w_v)``
     on token-shifted mixes (``rwkv6.py:215-231``). ``cache``: this layer's
     {"shift" (B,D)}, read, then written in place."""
-    _no_cache_on_model_axis(cache)
     dt = x.dtype
     delta = _token_shift(x, _last(x, cache)) - x
     if cache is not None:

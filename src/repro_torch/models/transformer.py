@@ -53,7 +53,9 @@ RWKV6's ``att_shift``/``ffn_shift``/``wkv``; a Mamba2 model's ``{"mamba":
 {"conv", "ssd"}}``, and a hybrid's ``"attn"`` ``k``/``v`` (G, B, Smax,
 KH, hd), one slot per group of the shared block), and ``forward(...,
 mode="prefill"|"decode", cache=...)`` threads it layer by layer, each layer
-writing its slice in place.
+writing its slice in place. Across ranks ``init_cache(..., data=, model=)``
+makes one rank's part (``core/sharding.py::cache_dims``, ROADMAP D9) and
+the forward runs under the installed model group as in training.
 
 Tensor parallelism (``models/shardctx.py``): under an installed model
 group the params are this rank's model chunks (``core/sharding.py::
@@ -98,7 +100,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
     create_selective_checkpoint_contexts
 
 from repro_torch.core import ulysses
-from repro_torch.core.sharding import is_stacked
+from repro_torch.core.sharding import cache_dims, cache_shape, is_stacked
 from repro_torch.models import shardctx
 from repro_torch.models.attention import attention_block, mla_block
 from repro_torch.models.mamba2 import init_mamba2, init_mamba2_cache, \
@@ -171,7 +173,8 @@ def _attn_layer_cache(cfg, batch, max_len, kw):
     return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
 
 
-def init_cache(cfg, batch, max_len, *, dtype=torch.bfloat16, device="cuda"):
+def init_cache(cfg, batch, max_len, *, dtype=torch.bfloat16, device="cuda",
+               data=1, model=1):
     """The zero serving cache of ``batch`` sequences of up to ``max_len``
     tokens in ``dtype`` on ``device`` (``transformer.py:186-217``): every
     leaf of one layer's cache stacked on a leading L axis, under
@@ -180,26 +183,35 @@ def init_cache(cfg, batch, max_len, *, dtype=torch.bfloat16, device="cuda"):
     the compute dtype (``attention.write_cache`` raises otherwise); RWKV6's
     and Mamba2's are cast to and from as the reference does. A Mamba2
     model's is ``{"mamba": ...}``, a hybrid's with ``"attn"``: the shared
-    block's K and V, one slot per group (G = num_layers / hybrid_group)."""
+    block's K and V, one slot per group (G = num_layers / hybrid_group).
+
+    ``data`` and ``model``: one rank's part of the cache of a layout of
+    ``data`` data ranks and ``model`` model ranks
+    (``core/sharding.py::cache_dims``): ``batch / data`` rows, and on the
+    model axis this rank's heads (D9). The defaults give the whole cache."""
     if not cfg.supports_decode():
         raise ValueError(f"{cfg.name} has no decode step")
     meta = {"dtype": dtype, "device": "meta"}       # one layer's shapes
 
     def stacked(layer, n):
-        return {k: torch.zeros((n,) + tuple(v.shape), dtype=dtype,
-                               device=device) for k, v in layer.items()}
+        return {k: (n,) + tuple(v.shape) for k, v in layer.items()}
     if _is_mamba(cfg):
-        out = {"mamba": stacked(init_mamba2_cache(cfg, batch, **meta),
-                                cfg.num_layers)}
+        whole = {"mamba": stacked(init_mamba2_cache(cfg, batch, **meta),
+                                  cfg.num_layers)}
         if cfg.hybrid_group > 0:
-            out["attn"] = stacked(
+            whole["attn"] = stacked(
                 _attn_layer_cache(cfg, batch, max_len, meta),
                 cfg.num_layers // cfg.hybrid_group)
-        return out
-    layer = init_rwkv6_cache(cfg, batch, **meta) if _is_rwkv(cfg) else \
-        _attn_layer_cache(cfg, batch, max_len, meta)
-    return {_CACHE_GROUP[prefix]: stacked(layer, n)
-            for prefix, n, _ in _stacks(cfg)}
+    else:
+        layer = init_rwkv6_cache(cfg, batch, **meta) if _is_rwkv(cfg) \
+            else _attn_layer_cache(cfg, batch, max_len, meta)
+        whole = {_CACHE_GROUP[prefix]: stacked(layer, n)
+                 for prefix, n, _ in _stacks(cfg)}
+    dims = cache_dims(cfg, whole, data, model)
+    return {group: {k: torch.zeros(
+        cache_shape(cfg, k, shape, dims[group][k], data, model),
+        dtype=dtype, device=device) for k, shape in leaves.items()}
+        for group, leaves in whole.items()}
 
 
 def init_params(cfg, *, seed=0, device="cuda", draw_on="cpu"):

@@ -375,7 +375,8 @@ def test_serve_cli_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--devices", "2"], "item 16"), (["--model-axis", "2"], "item 16"),
+    (["--devices", "2", "--batch", "3"], "not divisible by 2 data ranks"),
+    (["--model-axis", "2"], "without a world"),
     (["--arch", "vit-b16"], "no decode step"),
     (["--arch", "hubert-xlarge"], "no decode step")])
 def test_serve_cli_refuses_what_is_not_ported(argv, match):

@@ -11,7 +11,8 @@ reference's ``param_specs(..., tensor_parallel=True)`` at full size, the
 D7 leaves named; the split-row plain RMSNorm against the JAX package's
 ``ref_rmsnorm`` and its gradient; the load-balance aux's gradient counted
 once over a model group; checkpoints of a model group resumed in one
-process; the serving caches refused on the model axis.
+process; a prefill into the Mamba2 and RWKV6 caches on the model axis
+against one rank's.
 
 Tolerances: the reference's tensor-parallel bound for losses and grad
 norms (3e-4, ``tests/test_engine_distributed.py:92-101``), 2e-4 for each
@@ -189,12 +190,39 @@ def _aux_grad(impl, world=None):
     return float(aux.detach()), g.numpy().copy()
 
 
+def _serve_prefill(arch, world=None):
+    """A prefill of 2 x 12 tokens into a 16-row cache on this rank's model
+    chunks of the seed-0 params, under ``world`` as the model group: the
+    last position's logits gathered whole, and the cache leaves every
+    rank holds whole (the RWKV6 shifts)."""
+    cfg = _cfg(arch)
+    params = transformer.init_params(cfg, seed=0, device="cpu")
+    size = 1 if world is None else world.size
+    if world is not None:
+        dims = model_dims({k: v.shape for k, v in params.items()}, cfg, size)
+        params = {k: world.chunk(v, dims[k]) if dims[k] is not None else v
+                  for k, v in params.items()}
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 12)))
+    cache = transformer.init_cache(cfg, 2, 16, dtype=torch.float32,
+                                   device="cpu", model=size)
+    with torch.inference_mode(), shardctx.use(world):
+        logits, cache, _ = transformer.forward(
+            cfg, params, {"tokens": tokens}, mode="prefill", cache=cache)
+        logits = shardctx.gather_from_model(logits[:, -1])
+    return {"logits": logits.numpy(),
+            "whole": {k: v.numpy() for k, v in cache["layers"].items()
+                      if k.endswith("shift")} if "layers" in cache else {}}
+
+
 def _run_jobs(world, lay, root):
     out = {case: _case(world, case, root) for case in CASES
            if case[1] == lay}
     if lay == "m2":
         out["aux"] = {impl: _aux_grad(impl, world)
                       for impl in ("gshard", "gather")}
+        out["serve"] = {arch: _serve_prefill(arch, world)
+                        for arch in ("zamba2-2.7b", "rwkv6-7b")}
     return out
 
 
@@ -438,14 +466,20 @@ def test_split_rmsnorm_function_matches_whole_row(kernels):
 # --- serving ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-7b"])
-def test_serving_refused_on_the_model_axis(arch):
-    """A Mamba2 or RWKV6 cache under a model group raises before any
-    collective, citing ROADMAP item 16.3, as the attention's does."""
-    cfg = _cfg(arch)
-    params = transformer.init_params(cfg, seed=0, device="cpu")
-    cache = transformer.init_cache(cfg, 1, 8, dtype=torch.float32,
-                                   device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
-    with shardctx.use(SimpleNamespace(rank=0, size=2)), \
-            pytest.raises(ValueError, match="item 16.3"):
-        transformer.forward(cfg, params, batch, mode="prefill", cache=cache)
+def test_serving_refused_on_the_model_axis(arch, worlds):
+    """A Mamba2 or RWKV6 prefill into a cache under a model group of 2
+    (each rank its heads of the SSD or WKV state, the conv state its
+    heads' x channels and the B and C channels; ROADMAP D9) runs, and its
+    logits, gathered whole, and its cache leaves that stay whole on every
+    rank match one rank's within 3e-4, the same on both ranks."""
+    want = _serve_prefill(arch)
+    ranks = worlds[0]["m2"]
+    for rank, res in enumerate(ranks):
+        got = res["serve"][arch]
+        np.testing.assert_allclose(got["logits"], want["logits"],
+                                   atol=TP_TOL, rtol=0, err_msg=f"{rank}")
+        np.testing.assert_array_equal(got["logits"],
+                                      ranks[0]["serve"][arch]["logits"])
+        for key, leaf in got["whole"].items():
+            np.testing.assert_allclose(leaf, want["whole"][key],
+                                       atol=TP_TOL, rtol=0, err_msg=key)

@@ -7,7 +7,8 @@ vocab-sharded logits gathered whole against one process's; the smoke
 config's training on worlds of model 2, model 4 and data 2 x model 2 (at
 ZeRO 0 and 3) against the one-process ``Trainer``; the CLI at ``--devices
 2 --model-axis 2`` and ``--devices 4 --model-axis 4`` against
-``--devices 0``; MLA's absorbed decode refused on the model axis.
+``--devices 0``; MLA's prefill and absorbed decode on the model axis
+against one rank's.
 
 Tolerances: ``tests/test_torch_mla.py``'s 1e-5 (absolute and relative)
 for ``mla_block`` in fp32, and for its gradients against one process;
@@ -22,7 +23,6 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import concurrent.futures  # noqa: E402
-from types import SimpleNamespace  # noqa: E402
 
 import numpy as np  # noqa: E402
 
@@ -185,11 +185,38 @@ def _case(world, case):
             "summed": sorted(trainer.model_summed)}
 
 
+def _mla_serve(world=None):
+    """``mla_block`` with a cache on this rank's chunks: a prefill of the
+    first SEQ - 4 rows, then 4 absorbed decode steps -> the outputs,
+    summed over the model group (2, SEQ, d)."""
+    p, x, pos, _ = _block_inputs()
+    rank, size = (0, 1) if world is None else (world.rank, world.size)
+    params = {k: torch.tensor(_chunk(k, v, rank, size))
+              for k, v in p.items()}
+    cfg = _cfg()
+    cache = {k: v[0] for k, v in transformer.init_cache(
+        cfg, 2, SEQ, dtype=torch.float32, device="cpu",
+        model=size)["dense"].items()}
+    x, pos = torch.from_numpy(x), torch.from_numpy(pos).long()
+    s = SEQ - 4
+    outs = []
+    with torch.inference_mode(), shardctx.use(world):
+        outs.append(attention.mla_block(params, x[:, :s], cfg,
+                                        positions=pos[:, :s], cache=cache))
+        for i in range(s, SEQ):
+            outs.append(attention.mla_block(
+                params, x[:, i:i + 1], cfg, positions=pos[:, i:i + 1],
+                cache=cache, cache_index=i))
+    return torch.cat(outs, 1).numpy()
+
+
 def _run_jobs(world, lay):
     out = {case: _case(world, case) for case in CASES if case[0] == lay}
     if lay != "dp2-m2":
         out["block"] = {route: _block(route, world) for route in ROUTES}
         out["mtp"] = _mtp(world)
+    if lay == "m2":
+        out["serve"] = _mla_serve(world)
     return out
 
 
@@ -264,19 +291,17 @@ def test_mla_block_gradients_across_ranks(lay, route, worlds, one_process):
                                    rtol=BLOCK_GRAD_TOL, err_msg=k)
 
 
-def test_mla_decode_is_refused_on_the_model_axis():
-    """MLA's absorbed decode under a model group raises before any
-    collective, citing ROADMAP item 16.3."""
-    cfg = _cfg()
-    p, x, pos, _ = _block_inputs()
-    cache = {k: v[0] for k, v in transformer.init_cache(
-        cfg, 2, SEQ, dtype=torch.float32, device="cpu")["dense"].items()}
-    with shardctx.use(SimpleNamespace(rank=0, size=2)), \
-            pytest.raises(ValueError, match="item 16.3"):
-        attention.mla_block({k: torch.from_numpy(v) for k, v in p.items()},
-                            torch.from_numpy(x[:, :1]), cfg,
-                            positions=torch.from_numpy(pos[:, :1]).long(),
-                            cache=cache, cache_index=0)
+def test_mla_decode_is_refused_on_the_model_axis(worlds):
+    """MLA's prefill and absorbed decode at model axis 2, each rank its
+    heads of ``w_uq``/``w_uk``/``w_uv``/``wo`` over the whole latent cache
+    (ROADMAP D9), summed over the group: within 1e-5 of one rank's, the
+    same on both ranks."""
+    want = _mla_serve()
+    ranks = worlds["m2"]
+    for rank, res in enumerate(ranks):
+        np.testing.assert_allclose(res["serve"], want, atol=BLOCK_TOL,
+                                   rtol=BLOCK_TOL, err_msg=f"rank {rank}")
+        np.testing.assert_array_equal(res["serve"], ranks[0]["serve"])
 
 
 # --- the MTP head -------------------------------------------------------------
