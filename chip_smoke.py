@@ -110,7 +110,14 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    microbatch from the engine's gradients, the loss falling, the last
    update within 1e-6 of the same update on host copies; and warm
    training images/s of both paths, every kernel-path run faster than
-   every naive-path run.
+   every naive-path run. (a) One more step of each path, not timed, the
+   guard off, under the dry run's op counter (``launch/op_count.py``; the
+   kernels charge their analytic work): its FLOPs and bytes equal, exactly,
+   the same step counted on ``meta`` as the dry run counts it (the
+   microbatches by their trip count); the dry run's bound on one rank
+   printed beside the measured ms a step, and its peak beside the card's
+   (``max_memory_allocated`` less what else the card held), the ratio
+   within COUNT_PEAK_RATIO.
 8b. the data-parallel slice, on NCCL at world size 1 (one card): the CLI
    with ``--devices 1`` as rank 0 of a torchrun world in this process (so
    its launch counters are read): fp32 ``--steps 3 --batch 16 --accum 2``
@@ -421,9 +428,14 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    model axis 2 (16 query heads and 1 KV head a rank; after the DeepSeek-V3
    model-2 job, the world of 4 waiting for it), each against its one-rank
    run (3e-4), a rank's K1-K5 launches and heads exact; a rank's peak
-   printed beside the tensor-parallel job's at the same model axis. (e)
-   ``--devices 2 --model-axis 2`` through the CLI on one card raises its
-   clear error.
+   printed beside the tensor-parallel job's at the same model axis. (b)
+   For COUNTED_JOBS (the ViT at data 2 x model 2 under ZeRO 3, ChatGLM3-6B
+   under Ulysses at model 2 and at pipe 2 x model 2) each rank's
+   ``count_collectives()`` of the job's first step equals, exactly, a
+   recording world's count of the same step for the same rank and layout
+   (``core/distributed.py::RecordingWorld`` on ``meta``, the dry run's).
+   (e) ``--devices 2 --model-axis 2`` through the CLI on one card raises
+   its clear error.
 
 ``--profile`` adds a ``torch.profiler`` table of one warm training step of
 each training slice (DeepSeek-V3's included, and the ZeRO-3 step at world
@@ -481,16 +493,12 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# the kernels' work and bound formulas, the dry run's own
+# (launch/op_count.py)
+from repro_torch.launch.op_count import attn_work, bound, head_dims, \
+    live_keys, live_pairs, rms_work, wkv6_work  # noqa: E402
 
-# Published dense peaks (NVIDIA data sheets) by card: HBM bytes/s, bf16
-# tensor-core FLOP/s and fp32 FLOP/s outside the tensor cores. The SXM part
-# is the H100 80GB HBM3.
-PEAKS = {
-    "H100 PCIe": (2.0e12, {"bf16": 756e12, "fp32": 51e12}),
-    "H100 NVL": (3.9e12, {"bf16": 835e12, "fp32": 60e12}),
-    "H100": (3.35e12, {"bf16": 989e12, "fp32": 67e12}),
-    "H200": (4.8e12, {"bf16": 989e12, "fp32": 67e12}),
-}
 VIT_SHAPE = (128, 12, 12, 197, 197, 64)      # B, H, KH, S, T, D
 TRAIN_SHAPE = (64, 12, 12, 197, 197, 64)     # batch 128 / accum 2
 TOL_OUT = {"float32": 1e-4, "bfloat16": 2e-2}  # tests/test_flash_grad.py
@@ -817,80 +825,6 @@ def smi_line() -> str:
     if r.returncode:
         fail(f"nvidia-smi exit {r.returncode}: {r.stderr}")
     return r.stdout.strip().splitlines()[0]
-
-
-def peaks(name):
-    for key, val in PEAKS.items():
-        if key in name:
-            return key, val
-    fail(f"no peak rates known for card {name!r}")
-
-
-def bound(card, n_bytes, flops, rate="bf16"):
-    """(bound_ms, bound_by, how): the least time the card could take to
-    move ``n_bytes`` (each input read once, each output written once) and
-    to do ``flops`` at the published ``rate`` peak, the larger of the two."""
-    part, (bw, rates) = peaks(card)
-    t_bytes, t_ops = n_bytes / bw * 1e3, flops / rates[rate] * 1e3
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    how = (f"{n_bytes / 1e6:.1f} MB at {bw / 1e12:.2f} TB/s = {t_bytes:.4f} "
-           f"ms; {flops / 1e9:.2f} GFLOP at {rates[rate] / 1e12:.0f} "
-           f"TFLOP/s {rate} = {t_ops:.4f} ms; peaks of the {part} data "
-           f"sheet")
-    return max(t_bytes, t_ops), bound_by, how
-
-
-def live_pairs(s, t, causal, window):
-    """The (query, key) pairs that the causal mask and the window leave
-    live: keys k < T with k <= q (causal) and q - k < window (window > 0)."""
-    n = 0
-    for q in range(s):
-        hi = min(t, q + 1) if causal else t
-        lo = max(0, q - window + 1) if window > 0 else 0
-        n += max(0, hi - lo)
-    return n
-
-
-def live_keys(s, t, causal, window):
-    """The keys that some live (query, key) pair of ``live_pairs`` reads:
-    a kernel that skips dead tiles never needs the others (under the
-    top-left causal mask, keys S..T-1 of an S < T call)."""
-    n = end = 0
-    for q in range(s):      # each query's range [lo, hi) moves right
-        hi = min(t, q + 1) if causal else t
-        lo = max(0, q - window + 1) if window > 0 else 0
-        lo = max(lo, end)
-        if hi > lo:
-            n, end = n + hi - lo, hi
-    return n
-
-
-def head_dims(shape):
-    """(D, Dv) of an attention shape (B, H, KH, S, T, D[, Dv])."""
-    return shape[5], shape[6] if len(shape) > 6 else shape[5]
-
-
-def attn_work(shape, el, causal, window=0):
-    """Bytes each attention kernel must move and the FLOPs of its products
-    at ``shape`` (B, H, KH, S, T, D[, Dv]) with ``el``-byte elements,
-    counting the live (query, key) pairs only (``live_pairs``: the causal
-    triangle, cut by the window) and the K and V rows they read
-    (``live_keys``); dK and dV are written at all T rows. Q K^T and dq = dS
-    K run over D, P V and dO V^T over Dv."""
-    b, h, kh, s, t = shape[:5]
-    d, dv = head_dims(shape)
-    pairs = b * h * live_pairs(s, t, causal, window)
-    q, o = b * h * s * d * el, b * h * s * dv * el
-    keys = live_keys(s, t, causal, window)
-    k, v, rows = b * kh * keys * d * el, b * kh * keys * dv * el, \
-        b * h * s * 4
-    dk, dv_ = b * kh * t * d * el, b * kh * t * dv * el
-    return {    # K1: q, k, v, o, lse; K2: + dO, dq, delta; K3: dk, dv
-        "fwd": (q + k + v + o + rows, 2 * pairs * (d + dv)),
-        "dq": (2 * q + k + v + 2 * o + 2 * rows, 2 * pairs * (2 * d + dv)),
-        "dkv": (q + o + k + v + dk + dv_ + 2 * rows,
-                2 * pairs * (2 * d + 2 * dv)),
-    }
 
 
 def close(got, want, tol):
@@ -1494,11 +1428,7 @@ def phase_rms(card):
         lib_fwd = time_ms(lambda: F.rms_norm(xl, (d,), wl, LM_EPS), calls=10)
     library = {"fwd": lib_fwd,
                "bwd": time_ms(lib_fwd_bwd, calls=10) - lib_fwd}
-    el, n = x.element_size(), rows * d
-    work = {    # bytes moved once; about 4 and 10 fp32 operations a value
-        "fwd": (2 * n * el + 4 * d + 4 * rows, 4 * n),
-        "bwd": (3 * n * el + 8 * d + 4 * rows, 10 * n),
-    }
+    work = rms_work(rows, d, x.element_size())
     out_rows = []
     for key, name, line in (("fwd", "rmsnorm_fwd", 49),
                             ("bwd", "rmsnorm_bwd", 94)):
@@ -1516,50 +1446,6 @@ def phase_rms(card):
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": library[key]})
     return out_rows
-
-
-def wkv6_work(shape, el, w_el):
-    """Bytes each WKV6 kernel must move (each input read once, each output
-    written once) and its fp32 operations at ``shape`` (B, S, H, P, chunk)
-    with ``el``-byte r/k/v and ``w_el``-byte wlog; an exp counts as one
-    operation, a multiply-add as two. Per (b, h) and chunk of cs rows and
-    its cs (cs - 1) / 2 live pairs (t, j), each pairwise decay
-    exp(lprev_t - L_j) counted once (a subtraction and an exp): K6 takes
-    4 cs P^2 + 2 P^2 for the carried state and its update, 7 per pair and
-    column (the decay 2, the att dot 3, att·v 2) and ~9 cs P elementwise;
-    K7 takes 8 cs P^2 + 4 P^2 for its four state products, 14 per pair and
-    column (the decay 2, att 3, dr_att 3, dk_att 2 with dA·decay shared,
-    dA 2, dv 2) and ~20 cs P elementwise. Returns {"fwd": with states,
-    "primal": without, "bwd", "fwd_design": the bytes K6's two launches
-    move as designed, with or without states: the scan reads k, v, wlog and
-    s0 and writes every S_c (the states, or a scratch of their size) and
-    s_end; the chunk launch reads r, k, v, wlog, u and the S_c and writes
-    o; "bwd_design": the bytes K7's two launches move as designed, each
-    reading dO once: the scan reads r, wlog, dO and dS_end and writes every
-    G_c (the size of the states) and ds0; the chunk launch reads r, k, v,
-    wlog, u, dO, the states and the G_c and writes the gradients and the du
-    partials}."""
-    b, s, h, p, cs = shape
-    n, pp, bh = b * s * h * p, b * h * p * p, b * h
-    nc, pairs = s // cs, cs * (cs - 1) // 2
-    ins = 3 * n * el + n * w_el + h * p * 4
-    states = bh * nc * p * p * 4
-    fwd_ops = bh * nc * (4 * cs * p * p + 2 * p * p + 7 * pairs * p
-                         + 9 * cs * p)
-    bwd_ops = bh * nc * (8 * cs * p * p + 4 * p * p + 14 * pairs * p
-                         + 20 * cs * p)
-    primal = ins + 2 * pp * 4 + n * 4               # + s0, s_end, o
-    outs = 3 * n * el + n * w_el                    # dr/dk/dv, dwlog
-    fwd_scan = 2 * n * el + n * w_el + pp * 4 + states + pp * 4
-    fwd_chunks = ins + states + n * 4
-    scan = n * el + n * w_el + n * 4 + pp * 4 + states + pp * 4
-    chunks = ins + n * 4 + 2 * states + outs + bh * nc * p * 4
-    return {"fwd": (primal + states, fwd_ops), "primal": (primal, fwd_ops),
-            "fwd_design": (fwd_scan + fwd_chunks, fwd_ops),
-            # + states, dO, dS_end; dr/dk/dv, dwlog, ds0, du per (b, h)
-            "bwd": (ins + states + n * 4 + pp * 4 + outs + pp * 4
-                    + bh * p * 4, bwd_ops),
-            "bwd_design": (scan + chunks, bwd_ops)}
 
 
 def phase_wkv6(card):
@@ -1886,9 +1772,11 @@ def phase_slice():
         fail(f"smoke eval: unexpected rows {hist}")
 
 
-def train_setup(dtype, use_kernels, *, batch=128, accum=2):
+def train_setup(dtype, use_kernels, *, batch=128, accum=2, device="cuda",
+                **fields):
     """A full-width ViT-B/16 trainer with the CLI's engine settings for 10
-    steps, on procedural CIFAR-10, and its data pipeline."""
+    steps (and the engine ``fields``), on procedural CIFAR-10, and its
+    data pipeline."""
     from repro_torch.configs import EngineConfig, get_config
     from repro_torch.core.engine import Trainer
     from repro_torch.data.datasets import CIFARSource
@@ -1898,8 +1786,8 @@ def train_setup(dtype, use_kernels, *, batch=128, accum=2):
     source = CIFARSource("cifar10", resolution=cfg.image_size)
     ecfg = EngineConfig(train_batch_size=batch,
                         gradient_accumulation_steps=accum, total_steps=10,
-                        warmup_steps=1)
-    return Trainer(cfg, ecfg, preproc=source.preproc), \
+                        warmup_steps=1, **fields)
+    return Trainer(cfg, ecfg, preproc=source.preproc, device=device), \
         DataPipeline(global_batch=batch, source=source)
 
 
@@ -2064,7 +1952,106 @@ def profile_step(label, trainer, pipe, params):
     print(f"[profile] one warm {label} training step:\n" + table, flush=True)
 
 
-def phase_train(profile):
+# phase 8 (a): the dry run's count of a vit-train step on meta against the
+# same step counted on the card; its peak against the card's, within
+# COUNT_PEAK_RATIO (the card read 0.94-0.95 on both paths, PERF.md)
+COUNT_PEAK_RATIO = (0.8, 1.25)
+
+
+def count_check(card, step_ms):
+    """Phase 8 (a): one extra vit-train step (bf16, batch 128, accum 2, the
+    guard off: the dry run cannot read a meta tensor), not timed, under
+    ``launch/op_count.py``'s counter on the card, with the kernels (each
+    charging its analytic work) and without; the same step counted on
+    ``meta`` as the dry run counts it (the microbatches by their trip
+    count) must give the same FLOPs and bytes, exactly. Prints the dry
+    run's ``bound_step_s`` on one rank beside the measured ms a step
+    (``step_ms``: {path: ms}), and its peak beside the step's
+    ``torch.cuda.max_memory_allocated`` (less what else the card held),
+    with their ratio, gated at COUNT_PEAK_RATIO. Returns the readings."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm_model import roofline
+    from repro_torch.core.engine import to_device
+    from repro_torch.launch import op_count
+    from repro_torch.models.transformer import init_params
+
+    out = {}
+    for label in ("kernel", "naive"):
+        counted = {}
+        for device in ("cuda", "meta"):
+            trainer, pipe = train_setup("bfloat16", label == "kernel",
+                                        device=device, guard_anomalies=False)
+            params = new_vit(trainer).params() if device == "cuda" else \
+                init_params(trainer.cfg, device="meta")
+            state = trainer.init_state(params)
+            batch = to_device(pipe.batch_at(0, 0), "cuda")
+            if device == "meta":
+                batch = {k: torch.empty(v.shape, dtype=v.dtype,
+                                        device="meta")
+                         for k, v in batch.items()}
+            moments = [state.opt_state.mu] + (
+                [state.opt_state.nu] if state.opt_state.nu != () else [])
+            args = list(state.params.values()) + [
+                t for m in moments for t in m.values()] + list(batch.values())
+            args_bytes = sum(op_count.tensor_bytes(t) for t in args)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                other = torch.cuda.memory_allocated() - args_bytes
+                torch.cuda.reset_peak_memory_stats()
+            with op_count.OpCounter(skip_repeats=device == "meta",
+                                    args_bytes=args_bytes,
+                                    arg_tensors=args) as c:
+                trainer.train_step(state, batch)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                card_peak = torch.cuda.max_memory_allocated() - other
+            counted[device] = c
+            del trainer, state, params, batch, args
+        got, want = counted["cuda"], counted["meta"]
+        same = (got.totals.flops, got.totals.hbm_bytes) == \
+            (want.totals.flops, want.totals.hbm_bytes)
+        if not same:
+            diff = {k: (got.by_op.get(k), want.by_op.get(k))
+                    for k in set(got.by_op) | set(want.by_op)
+                    if got.by_op.get(k) != want.by_op.get(k)}
+            print(f"[count] vit-b16 {label}: ops whose counts differ "
+                  f"(card, meta): {diff}", flush=True)
+        n_params = sum(p.numel() for p in init_params(
+            get_config("vit-b16"), device="meta").values())
+        rl = roofline(want.totals, chips=1,
+                      model_flops=6.0 * n_params * 128 * 197)
+        ratio = want.peak_bytes / card_peak
+        out[label] = {"flops": want.totals.flops,
+                      "bytes": want.totals.hbm_bytes,
+                      "bound_step_s": rl["bound_step_s"],
+                      "dominant": rl["dominant"],
+                      "measured_ms": step_ms[label],
+                      "peak_gb": want.peak_bytes / 1e9,
+                      "card_peak_gb": card_peak / 1e9,
+                      "peak_ratio": ratio}
+        print(f"[count] vit-b16 bf16 train step (batch 128, accum 2), "
+              f"{label} path: the card's count {got.totals.flops:.6e} "
+              f"FLOPs, {got.totals.hbm_bytes:.6e} bytes; on meta "
+              f"{want.totals.flops:.6e} FLOPs, {want.totals.hbm_bytes:.6e} "
+              f"bytes ({'equal' if same else 'DIFFERENT'}); the dry run's "
+              f"bound on one rank {rl['bound_step_s'] * 1e3:.3f} ms "
+              f"({rl['dominant']}; compute {rl['compute_s'] * 1e3:.3f}, "
+              f"memory {rl['memory_s'] * 1e3:.3f} ms) beside "
+              f"{step_ms[label]:.2f} ms measured a step; its peak "
+              f"{want.peak_bytes / 1e9:.3f} GB beside the card's "
+              f"{card_peak / 1e9:.3f} GB (ratio {ratio:.3f}, gate "
+              f"{COUNT_PEAK_RATIO}; {card})", flush=True)
+        if not same:
+            fail(f"vit-b16 {label}: the card's counted step differs from "
+                 f"the dry run's on meta")
+        if not COUNT_PEAK_RATIO[0] <= ratio <= COUNT_PEAK_RATIO[1]:
+            fail(f"vit-b16 {label}: the dry run's peak is {ratio:.3f} of "
+                 f"the card's")
+    return out
+
+
+def phase_train(profile, card):
     import math
     expect = {"flash_fwd": 10 * 2 * 12 + 12 * 4, "flash_bwd_dq": 240,
               "flash_bwd_dkv": 240, "rmsnorm_fwd": 0, "rmsnorm_bwd": 0}
@@ -2102,11 +2089,13 @@ def phase_train(profile):
               f"128, accum 2; runs {[round(r[0], 1) for r in rs]} "
               f"images/s)", flush=True)
     require_kernel_wins("vit-b16", rates)
+    counts = count_check(card, {label: sum(r[1] for r in rs) / len(rs)
+                                for label, rs in rates.items()})
     if profile:
         trainer, pipe = train_setup("bfloat16", True)
         profile_step("vit-b16 (bf16, batch 128, accum 2)", trainer, pipe,
                      new_vit(trainer).params())
-    return launches, hist
+    return launches, hist, counts
 
 
 DP_STAGES = (0, 1, 2, 3)
@@ -3685,6 +3674,65 @@ def read_draws(path):
     return draws
 
 
+# phase 19 (b): the jobs whose first step's collective bytes a rank holds
+# against a recording world's count of the same step (the dry run's world)
+COUNTED_JOBS = ("vit-b16 fp32 data 2 x --model-axis 2 --zero 3",
+                f"chatglm3-6b fp32 {ULYSSES} 2",
+                "chatglm3-6b fp32 --pp 2 --model-axis 2")
+
+
+@contextlib.contextmanager
+def step_spy(seen):
+    """Fills ``seen`` at the first ``Trainer.train_step``: the collective
+    bytes by kind of that step alone (``count_collectives``, reset just
+    before it) and what a recording world needs to take the same step
+    (the config, the engine config, the preprocessing, the model axis, the
+    batch's shapes and dtypes)."""
+    from repro_torch.core import distributed
+    from repro_torch.core.engine import Trainer
+
+    real = Trainer.train_step
+
+    def train_step(self, state, batch):
+        if seen:
+            return real(self, state, batch)
+        distributed.reset_collectives()
+        out = real(self, state, batch)
+        seen.update(counts=distributed.count_collectives(), cfg=self.cfg,
+                    ecfg=self.ecfg, preproc=self.preproc,
+                    model_axis=self.tp.size if self.tp is not None else 1,
+                    batch={k: (tuple(v.shape), v.dtype)
+                           for k, v in batch.items()})
+        return out
+    Trainer.train_step = train_step
+    try:
+        yield
+    finally:
+        Trainer.train_step = real
+
+
+def recorded_collectives(seen, world):
+    """The collective bytes by kind of the step ``step_spy`` saw, taken
+    again by rank ``world.rank`` of a recording world of ``world.size`` on
+    ``meta`` (the guard off: it cannot read a meta tensor)."""
+    import torch
+    from repro_torch.core import distributed
+    from repro_torch.core.engine import Trainer
+    from repro_torch.models.transformer import init_params
+
+    trainer = Trainer(seen["cfg"], dataclasses.replace(
+        seen["ecfg"], guard_anomalies=False), preproc=seen["preproc"],
+        device="meta", world=distributed.recording_world(world.rank,
+                                                          world.size),
+        model_axis=seen["model_axis"])
+    state = trainer.init_state(init_params(seen["cfg"], device="meta"))
+    batch = {k: torch.empty(shape, dtype=dtype, device="meta")
+             for k, (shape, dtype) in seen["batch"].items()}
+    distributed.reset_collectives()
+    trainer.train_step(state, batch)
+    return distributed.count_collectives()
+
+
 def tp_rank(world, jobs, draw=(), markers=None, prints=None):
     """One spawned rank of phase 19: each job's CLI ``run`` on this
     rank's share of the world (its config fields replaced as the job
@@ -3723,11 +3771,13 @@ def tp_rank(world, jobs, draw=(), markers=None, prints=None):
                 for path in draw or ():
                     draws.update(read_draws(path))
             waited = marker_wait(markers, job.after) if job.after else 0.0
-            routes, seen = [], []
+            routes, seen, step = [], [], {}
             torch.cuda.reset_peak_memory_stats()
             reset_counters()
             t0 = time.time()
-            with cli_fields(job.fields), init_spy(seen), \
+            spy = step_spy(step) if job.label in COUNTED_JOBS else \
+                contextlib.nullcontext()
+            with cli_fields(job.fields), init_spy(seen), spy, \
                     head_spies(routes) as (attn, wkv):
                 if job.kind == "serve":
                     with held_serve(draws, prints, world.device):
@@ -3745,6 +3795,9 @@ def tp_rank(world, jobs, draw=(), markers=None, prints=None):
                 "routes": routes, "s": time.time() - t0, "waited": waited,
                 "init_gb": [tuple(n / 1e9 for n in r) for r in seen],
                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            if step:
+                out[job.label]["collectives"] = (
+                    step["counts"], recorded_collectives(step, world))
             gc.collect()
             torch.cuda.empty_cache()
             if job.then:
@@ -3881,12 +3934,8 @@ def split_row_norms(card):
                         x, scale, rinv, dy, ref_rmsnorm_bwd_dot(
                             x, scale, dy), width))}
         del ss, dot
-        el, n = x.element_size(), rows * d
-        work = {    # bytes moved once, the per-row partials written and
-                    # the whole rows' sums read back; ~4 and ~10 fp32
-                    # operations a value
-            "fwd": (2 * n * el + 4 * d + 4 * rows + 8 * rows, 4 * n),
-            "bwd": (3 * n * el + 8 * d + 4 * rows + 8 * rows, 10 * n)}
+        # the per-row partials written and the whole rows' sums read back
+        work = rms_work(rows, d, x.element_size(), split=True)
         for key, name, line in (("fwd", "rmsnorm_fwd_split", 49),
                                 ("bwd", "rmsnorm_bwd_split", 94)):
             bound_ms, bound_by, how = bound(card, *work[key], rate="fp32")
@@ -4225,7 +4274,7 @@ def phase_tp(card, f32_ref, family_params, serving):
           f"start (beside the one-rank runs); the ranks waited "
           f"{max(r['draws_waited'] for w in results.values() for r in w):.1f}"
           f"s for the draws", flush=True)
-    launches, peaks, serve_launches = {}, {}, {}
+    launches, peaks, serve_launches, collectives = {}, {}, {}, {}
     for size, world_jobs in jobs.items():
         ranks = results[size]
         for job in world_jobs:
@@ -4281,6 +4330,18 @@ def phase_tp(card, f32_ref, family_params, serving):
                 if ref in one_rank_routes and one_rank_routes[ref]:
                     routing_flips(f"{label} rank {rank}", got["routes"],
                                   one_rank_routes[ref])
+                if label in COUNTED_JOBS:
+                    card_b, rec_b = got["collectives"]
+                    collectives[label, rank] = card_b
+                    print(f"[tp] (b) {label} rank {rank}/{size}: one "
+                          f"step's collective bytes by kind on the card "
+                          f"{card_b}; a recording world's count of the same "
+                          f"step on meta {rec_b} ("
+                          f"{'equal' if card_b == rec_b else 'DIFFERENT'})",
+                          flush=True)
+                    if card_b != rec_b or not sum(card_b.values()):
+                        fail(f"{label} rank {rank}: the recording world's "
+                             f"collective bytes differ from the card's")
             if ref is None:
                 if len(evals[0]) != 1 or evals[0][0][2] != 500 or \
                         any(e != evals[0] for e in evals):
@@ -4324,7 +4385,8 @@ def phase_tp(card, f32_ref, family_params, serving):
         else:
             fail("the serve CLI's --devices 2 on one card did not raise")
     print(f"[tp] phase 19 in {time.time() - t0:.1f}s on {card}", flush=True)
-    return launches, errs, split_rows, mla_tp, serve_launches, serve_rows
+    return launches, errs, split_rows, mla_tp, serve_launches, serve_rows, \
+        collectives
 
 
 def augment_on_card():
@@ -6144,7 +6206,8 @@ def main():
           flush=True)
     profile = "--profile" in sys.argv[1:]
     timed("7 eval slice", phase_slice)
-    vit_launches, vit_hist = timed("8 ViT training", phase_train, profile)
+    vit_launches, vit_hist, counts = timed("8 ViT training", phase_train,
+                                           profile, one)
     dp_launches, aug_launches, f32_ref = timed(
         "8b data parallel", phase_dp, vit_hist, profile)
     quickstart = start_quickstart()
@@ -6179,9 +6242,10 @@ def main():
     hubert_launches = timed("16 HuBERT", phase_hubert, profile)
     zamba_launches, zamba_serve_launches, tp_params["zamba2"] = timed(
         "17 Zamba2", phase_zamba2, card)
-    tp_launches, tp_errs, split_rows, tp_mla, tp_serve, tp_serve_k1 = timed(
-        "19 tensor parallel", phase_tp, card, f32_ref, tp_params,
-        {"prefill": prefill, "tokens": cli_tokens})
+    tp_launches, tp_errs, split_rows, tp_mla, tp_serve, tp_serve_k1, \
+        tp_collectives = timed(
+            "19 tensor parallel", phase_tp, card, f32_ref, tp_params,
+            {"prefill": prefill, "tokens": cli_tokens})
     del tp_params
     print(f"[draws] params drawn on the host for the card: {draws['draws']} "
           f"draws made, {draws['shared']} repeats copied from the draw "
@@ -6319,6 +6383,11 @@ def main():
             partial_tp_zamba2_launches={
                 label: n[partial] for label, n in tp_launches.items()
                 if label.startswith("zamba2")}))
+    # phase 8 (a) and phase 19 (b): the dry run's counts against the card's
+    print("[chip_smoke] counts " + json.dumps({
+        "vit_train_step": counts,
+        "tp_collectives": {f"{label} rank {rank}": c for (label, rank), c
+                           in tp_collectives.items()}}), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"[chip_smoke] phases {json.dumps(secs)}", flush=True)
     print(f"[chip_smoke] whole script {time.time() - t_script:.1f}s",

@@ -17,12 +17,20 @@ from repro_torch.configs import chatglm3_6b, deepseek_v3_671b, gemma3_12b, \
     rwkv6_7b, vit_b16, zamba2_2_7b
 from repro_torch.configs.base import EngineConfig, MLAConfig, ModelConfig, \
     MoEConfig, SSMConfig
+from repro_torch.configs.shapes import SHAPES, InputShape, applicable, \
+    get_shape
 
 REGISTRY = {m.ARCH_ID: m for m in (vit_b16, chatglm3_6b, rwkv6_7b,
                                    qwen2_5_14b, glm4_9b, gemma3_12b,
                                    granite_moe_3b, deepseek_v3_671b,
                                    qwen2_vl_72b, hubert_xlarge,
                                    zamba2_2_7b)}
+# the ten assigned architectures in the reference's order (its
+# ``ASSIGNED_ARCHS``: every one but the paper's ViT-B/16), then all eleven
+ASSIGNED_ARCHS = ("deepseek-v3-671b", "qwen2.5-14b", "qwen2-vl-72b",
+                  "hubert-xlarge", "glm4-9b", "zamba2-2.7b", "chatglm3-6b",
+                  "gemma3-12b", "rwkv6-7b", "granite-moe-3b-a800m")
+ALL_ARCHS = ASSIGNED_ARCHS + ("vit-b16",)
 
 # the reference registry's archs that have no port yet
 # (repro/configs/__init__.py): none
@@ -47,6 +55,7 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke()
 
 
-__all__ = ["EngineConfig", "MLAConfig", "ModelConfig", "MoEConfig",
-           "NOT_YET_PORTED", "REGISTRY", "SSMConfig", "get_config",
-           "get_smoke_config"]
+__all__ = ["ALL_ARCHS", "ASSIGNED_ARCHS", "EngineConfig", "InputShape",
+           "MLAConfig", "ModelConfig", "MoEConfig", "NOT_YET_PORTED",
+           "REGISTRY", "SHAPES", "SSMConfig", "applicable", "get_config",
+           "get_shape", "get_smoke_config"]

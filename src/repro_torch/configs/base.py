@@ -222,10 +222,9 @@ class ModelConfig:
     def supports_long_decode(self) -> bool:
         """True if the decode state is sub-linear in the context (a
         recurrent block, or a hybrid whose shared attention is a few
-        layers) or the attention is windowed (bounded local KV). The
-        reference's dry-run reads it to choose a config's long-context
-        shapes (``repro/configs/shapes.py:35``); the port's dry-run is
-        ROADMAP item 17."""
+        layers) or the attention is windowed (bounded local KV): the
+        dry run's ``configs/shapes.py::applicable`` reads it to choose a
+        config's long-context shapes."""
         return self.is_attention_free or self.hybrid_group > 0 or \
             self.sliding_window > 0
 

@@ -47,6 +47,57 @@ class Hardware:
 
 H100_SXM = Hardware()
 
+# the kinds of collective, as ``core/distributed.py`` records them
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+
+
+def comm_time_seconds(coll: dict, hw: Hardware = H100_SXM,
+                      network: dict = None) -> float:
+    """A rank's collective time (the reference's ``comm_time_seconds``,
+    ``repro/launch/dryrun.py:31-44``) from its result bytes by kind
+    ``coll``: an all-reduce moves ~2x its bytes (the reduce-scatter and
+    all-gather phases of a ring), the other kinds ~1x. Each byte is charged
+    at the bandwidth of its group: ``hw.nvlink_bw`` where the group lies
+    inside one 8-card node, ``hw.ib_bw`` for the part ``network`` (bytes
+    by kind) whose groups span nodes. On the reference's 16 x 16 layout
+    both the model groups (16 consecutive ranks: two nodes) and the data
+    groups (ranks 16 apart) span nodes, so all of it goes at ``ib_bw``."""
+    network = network or {}
+    t = 0.0
+    for kind in COLLECTIVE_KINDS:
+        n = coll.get(kind, 0.0)
+        far = network.get(kind, 0.0)
+        factor = 2.0 if kind == "all-reduce" else 1.0
+        t += factor * ((n - far) / hw.nvlink_bw + far / hw.ib_bw)
+    return t
+
+
+def roofline(totals, *, chips: int, model_flops: float,
+             hw: Hardware = H100_SXM) -> dict:
+    """The three terms of a rank's step, in seconds (the reference's
+    ``roofline``, ``repro/launch/dryrun.py:47-70``), from a
+    ``launch.op_count.Totals``: its FLOPs at ``hw.peak_flops`` (bf16 dense),
+    its bytes at ``hw.hbm_bw``, its collectives by
+    :func:`comm_time_seconds`; the dominant term, the useful fraction
+    (``model_flops`` over ``chips`` ranks against the counted FLOPs) and
+    the bound, the largest term."""
+    flops = totals.flops
+    terms = {"compute_s": flops / hw.peak_flops,
+             "memory_s": totals.hbm_bytes / hw.hbm_bw,
+             "collective_s": comm_time_seconds(
+                 totals.coll, hw, getattr(totals, "coll_network", None))}
+    dom = max(terms, key=terms.get)
+    return {
+        **terms,
+        "dominant": dom,
+        "hlo_flops_per_dev": flops,
+        "hlo_bytes_per_dev": totals.hbm_bytes,
+        "model_flops_per_dev": model_flops / chips,
+        "useful_flops_frac": model_flops / chips / flops if flops else 0.0,
+        "bound_step_s": max(terms.values()),
+    }
+
 # The paper's clusters (§III Fig.3), fp32 GEMM throughput estimates.
 GPU_SPECS = {
     "rtx3070": 20.3e12, "gtx1070": 6.5e12, "tesla_p4": 5.5e12,

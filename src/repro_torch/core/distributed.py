@@ -34,6 +34,18 @@ group of leaves (a layer's params, every gradient) in one call per dtype:
 rank r's part of the wire is its chunk of each leaf in turn.
 :meth:`World.all_to_all` sends each rank its own block (Ulysses' reshard
 between sequence rows and heads, ``models/shardctx.py``).
+
+Every collective of a group of more than one rank records its kind
+(:data:`COLLECTIVE_KINDS`, the reference's names) and the bytes of its
+result on this rank, the convention of ``repro/launch/hlo_analysis.py``:
+:func:`count_collectives` reads the tally since :func:`reset_collectives`,
+and an op counter (``launch/op_count.py``) registered with
+:func:`add_recorder` is told of each one, with whether its group spans
+more than one node of :data:`NODE_CARDS` cards. A :class:`RecordingWorld`
+is rank r of a world of N that moves nothing: its collectives return
+tensors of their results' shapes (on ``meta`` for the dry run) and record
+the same bytes as a real world's, and its subgroups need no process
+group.
 """
 from __future__ import annotations
 
@@ -54,7 +66,34 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch.core.comm_model import COLLECTIVE_KINDS
+
 COLLECTIVE_TIMEOUT_S = 600.0
+# the cards of one node (an NVLink domain: DGX H100)
+NODE_CARDS = 8
+
+_COUNTS = dict.fromkeys(COLLECTIVE_KINDS, 0)
+_RECORDERS = []
+
+
+def count_collectives() -> dict:
+    """``{kind: bytes}``: the result bytes on this rank of every collective
+    since :func:`reset_collectives`, by kind."""
+    return dict(_COUNTS)
+
+
+def reset_collectives() -> None:
+    for k in _COUNTS:
+        _COUNTS[k] = 0
+
+
+def add_recorder(fn) -> None:
+    """Call ``fn(kind, nbytes, network)`` at each collective from now on."""
+    _RECORDERS.append(fn)
+
+
+def remove_recorder(fn) -> None:
+    _RECORDERS.remove(fn)
 
 
 @dataclass(frozen=True)
@@ -70,6 +109,8 @@ class World:
     ranks: tuple = None
     # gloo on cuda: each collective copies its tensors to the host and back
     host_staged: bool = False
+    # a RecordingWorld's: collectives record their bytes and move nothing
+    recording = False
 
     def subgroup(self, group, ranks) -> "World":
         """This process's place in ``group`` (made by ``dist.new_group``
@@ -82,6 +123,22 @@ class World:
     def global_rank(self, r: int) -> int:
         """The global rank of this group's rank ``r``."""
         return r if self.ranks is None else self.ranks[r]
+
+    @property
+    def spans_nodes(self) -> bool:
+        """Whether the group's cards lie in more than one node of
+        :data:`NODE_CARDS` (global rank // NODE_CARDS)."""
+        ranks = self.ranks if self.ranks is not None else range(self.size)
+        return len({r // NODE_CARDS for r in ranks}) > 1
+
+    def _record(self, kind: str, nbytes: int) -> None:
+        """Tally one collective of ``kind`` with ``nbytes`` of result on
+        this rank (none for a group of one: it moves nothing)."""
+        if self.size <= 1:
+            return
+        _COUNTS[kind] += nbytes
+        for fn in _RECORDERS:
+            fn(kind, nbytes, self.spans_nodes)
 
     def _staged(self, fn, out: torch.Tensor, *ins: torch.Tensor) -> None:
         """``fn(out, *ins)``, a collective that writes ``out``; under
@@ -106,6 +163,7 @@ class World:
             # one rank's sum, mean and max are its own: no trip through
             # host memory (a model-parallel run's data group of one)
             return t
+        self._record("all-reduce", t.numel() * t.element_size())
         red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
         self._staged(lambda x: dist.all_reduce(x, op=red, group=self.group),
                      t)
@@ -170,6 +228,7 @@ class World:
                 wire[:, off:off + n].view(moved.shape).copy_(moved)
                 off += n
             flat = torch.empty(sum(sizes), dtype=t0.dtype, device=t0.device)
+            self._record("reduce-scatter", flat.numel() * flat.element_size())
             self._staged(lambda o, i: _reduce_scatter(
                 o, i, op=dist.ReduceOp.SUM, group=self.group),
                 flat, wire.view(-1))
@@ -189,6 +248,7 @@ class World:
             flat = torch.cat([shards[i].reshape(-1) for i in idx])
             wire = torch.empty((self.size, flat.numel()), dtype=s0.dtype,
                                device=s0.device)
+            self._record("all-gather", wire.numel() * wire.element_size())
             self._staged(lambda o, i: _all_gather(o, i, group=self.group),
                          wire.view(-1), flat)
             off = 0
@@ -213,6 +273,7 @@ class World:
         sizes = [math.prod(s) for s in shapes]
         flat = torch.cat([t.reshape(-1) for t in sends])
         out = torch.empty(sum(sizes), dtype=flat.dtype, device=flat.device)
+        self._record("all-to-all", out.numel() * out.element_size())
         self._staged(lambda o, i: dist.all_to_all_single(
             o, i, sizes, [t.numel() for t in sends], group=self.group),
             out, flat)
@@ -230,6 +291,9 @@ class World:
         wire = torch.device("cpu") if staged else self.device
         out = [torch.empty(shape, dtype=dtype, device=wire)
                for shape, dtype, _ in recvs]
+        if out:
+            self._record("collective-permute",
+                         sum(t.numel() * t.element_size() for t in out))
         ops = [dist.P2POp(dist.isend, t.contiguous().to(wire),
                           self.global_rank(r), self.group)
                for t, r in sends] + \
@@ -239,6 +303,39 @@ class World:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         return [t.to(self.device) for t in out]
+
+
+@dataclass(frozen=True)
+class RecordingWorld(World):
+    """Rank ``rank`` of a world of ``size`` that moves nothing (the dry
+    run's world, on ``meta``): every collective records the bytes a real
+    world's would and leaves its result as an empty tensor of its shape
+    (an in-place one untouched); its subgroups are formed from the global
+    ``ranks`` without a process group."""
+    recording = True
+
+    def subgroup(self, group, ranks) -> "RecordingWorld":
+        ranks = tuple(ranks)
+        return RecordingWorld(rank=ranks.index(self.global_rank(self.rank)),
+                              size=len(ranks), local_rank=self.local_rank,
+                              device=self.device, group=None, ranks=ranks)
+
+    def _staged(self, fn, out, *ins) -> None:
+        return None
+
+    def exchange(self, sends: list, recvs: list) -> list:
+        out = [torch.empty(shape, dtype=dtype, device=self.device)
+               for shape, dtype, _ in recvs]
+        if out:
+            self._record("collective-permute",
+                         sum(t.numel() * t.element_size() for t in out))
+        return out
+
+
+def recording_world(rank: int, size: int, device="meta") -> RecordingWorld:
+    """Rank ``rank`` of a :class:`RecordingWorld` of ``size``."""
+    return RecordingWorld(rank=rank, size=size, local_rank=0,
+                          device=torch.device(device))
 
 
 def _by_dtype(ts) -> list:

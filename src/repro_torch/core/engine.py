@@ -134,7 +134,8 @@ from repro_torch.configs.base import EngineConfig
 from repro_torch.core import pipeline, ulysses
 from repro_torch.core.grad_accum import accumulate_gradients
 from repro_torch.core.sharding import check_model_axis, check_serving, \
-    is_stacked, model_dims, model_summed, shard_dims, stage_chunks
+    is_stacked, model_dims, model_summed, serving_rows, shard_dims, \
+    stage_chunks
 from repro_torch.data.augment import augment_batch, device_preprocess, \
     draw_augment, step_seed
 from repro_torch.data.pipeline import rank_rows
@@ -966,7 +967,9 @@ class Server:
     Across ranks (the reference's ``DistributedEngine.jit_prefill`` and
     ``jit_decode_step``, ``repro/core/engine.py:540-568``): data rank d
     serves rows ``[d·B/dp, (d+1)·B/dp)`` of every batch leaf and holds
-    only those rows of the cache; the M ranks of a model group split each
+    only those rows of the cache (a batch the data ranks do not divide is
+    served whole by each, and :meth:`gather_rows` keeps data rank 0's, as
+    the reference's ``_sanitize`` replicates it); the M ranks of a model group split each
     layer as training does (``core/sharding.py::model_dims``) and cache
     their own heads (``cache_dims``, ROADMAP deviation D9). Only this
     rank's parts of the host params are copied to its device. The logits
@@ -1002,6 +1005,9 @@ class Server:
             return self.tp.chunk(v, d).to(self.device, copy=True)
         self.params = {k: local(k, v) for k, v in params.items()}
         self.batch = None
+        # the data ranks the batch's rows are split over (1: each serves
+        # every row)
+        self.row_split = self.dp
 
     @property
     def dp(self) -> int:
@@ -1009,19 +1015,21 @@ class Server:
 
     def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:
         """This rank's part of a zero cache of ``batch`` sequences (the
-        whole batch; a data rank holds ``batch / dp`` rows) in ``dtype``
-        (the compute dtype by default)."""
+        whole batch; a data rank holds ``batch / dp`` rows, or every row
+        where dp does not divide ``batch``) in ``dtype`` (the compute dtype
+        by default)."""
         check_serving(self.cfg, batch, self.dp, self.model)
         self.batch = batch
+        self.row_split = serving_rows(batch, self.dp)
         return model.init_cache(
             self.cfg, batch, max_len, device=self.device,
-            dtype=dtype or model.compute_dtype(self.cfg), data=self.dp,
-            model=self.model)
+            dtype=dtype or model.compute_dtype(self.cfg),
+            data=self.row_split, model=self.model)
 
     def _rows(self, t):
         """This data rank's rows of ``t``, a leaf of the whole batch (a
         leaf of this rank's rows passes as it is)."""
-        if self.dp == 1 or t.shape[0] != self.batch:
+        if self.row_split == 1 or t.shape[0] != self.batch:
             return t
         return t[rank_rows(t.shape[0], self.data.rank, self.dp)]
 
@@ -1066,7 +1074,9 @@ class Server:
 
     def gather_rows(self, t):
         """``t`` of this data rank's rows gathered whole over the data
-        ranks, in row order (the data ranks' generated tokens)."""
+        ranks, in row order (the data ranks' generated tokens); where each
+        data rank served every row, data rank 0's."""
         if self.dp == 1:
             return t
-        return self.data.all_gather_many([t.contiguous()], [0])[0]
+        rows = self.data.all_gather_many([t.contiguous()], [0])[0]
+        return rows if self.row_split > 1 else rows[:t.shape[0]]

@@ -1,9 +1,12 @@
 """Gradient accumulation: DeepSpeed's gradient_accumulation_steps semantics
 (``repro/core/grad_accum.py``) as a Python loop over microbatches with fp32
-accumulators."""
+accumulators. Under the dry run's op counter the loop's body runs once,
+counted times the microbatch count (``launch/op_count.py::repeat``)."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.launch import op_count
 
 
 def split_microbatches(batch: dict, accum: int) -> list:
@@ -52,14 +55,19 @@ def accumulate_gradients(loss_fn, params: dict, batch: dict, accum: int,
 
     acc = None
     history = []
-    for i, mb in enumerate(split_microbatches(batch, accum)):
+    for i, mb in op_count.repeat(enumerate(split_microbatches(batch,
+                                                              accum))):
         grads, metrics = grads_of(mb, i)
         if acc is None:
-            acc = {k: torch.zeros(g.shape, dtype=torch.float32,
-                                  device=g.device) for k, g in grads.items()}
+            with op_count.once():
+                acc = {k: torch.zeros(g.shape, dtype=torch.float32,
+                                      device=g.device)
+                       for k, g in grads.items()}
         for k, g in grads.items():
             acc[k] += g.to(torch.float32) / accum
         del grads       # before the next microbatch's backward
         history.append(metrics)
+    # the microbatches a counter skipped (their metrics as the first's)
+    history += history[-1:] * (accum - len(history))
     return acc, {k: torch.stack([m[k] for m in history]).mean(0)
                  for k in history[0]}

@@ -153,13 +153,69 @@ def kv_replicated(cfg, model: int) -> bool:
     return model > 1 and cfg.num_kv_heads % model != 0
 
 
+# the leaves of each block that runs whole on every model rank where the
+# model axis does not divide its split count (:func:`whole_blocks`)
+_BLOCK_LEAVES = {
+    "attn": re.compile(r"(^|/)attn/"),
+    "mlp": re.compile(r"(^|/)mlp/"),
+    "moe": re.compile(r"(^|/)moe/"),
+    "mamba": re.compile(r"(^|/)mamba/"),
+    "time_mix": re.compile(r"(^|/)time_mix/"),
+    "channel_mix": re.compile(r"(^|/)channel_mix/"),
+}
+
+
+def whole_blocks(cfg, model: int) -> frozenset:
+    """The kinds of block (of :data:`_BLOCK_LEAVES`) that run whole on
+    every one of ``model`` model ranks because the model axis does not
+    divide what the port splits of them (ROADMAP F2; the reference's
+    ``_sanitize`` replicates any dimension the axis does not divide):
+    the attention's (or MLA's) query heads, or query heads that would
+    straddle a KV head kept whole (D6); the MLP width ``d_ff``; the MoE's
+    experts or its shared-expert width; Mamba2's SSM heads; RWKV6's heads
+    (the time mix) and its channel-mix width or model width. A whole
+    block needs no collective, and its leaves' gradients are the same on
+    every model rank. The reference keeps an attention's ``wq`` split by
+    columns and pads the heads (ROADMAP deviation D10)."""
+    if model <= 1:
+        return frozenset()
+    out = set()
+    h, kh = cfg.num_heads, cfg.num_kv_heads
+    if h % model or kh and kv_replicated(cfg, model) and \
+            (h // kh) % (h // model):
+        out.add("attn")
+    if cfg.d_ff % model:
+        out.add("mlp")
+    m = cfg.moe
+    if cfg.has_moe and (m.num_experts % model or
+                        m.d_ff_expert * m.num_shared_experts % model):
+        out.add("moe")
+    if cfg.ssm is not None and cfg.block_kind == "mamba2" and \
+            cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim % model:
+        out.add("mamba")
+    if cfg.block_kind == "rwkv6":
+        if h % model:
+            out.add("time_mix")
+        if cfg.d_ff % model or cfg.d_model % model:
+            out.add("channel_mix")
+    return frozenset(out)
+
+
+def in_whole_block(key: str, whole) -> bool:
+    """Whether leaf ``key`` belongs to a block of ``whole`` (from
+    :func:`whole_blocks`)."""
+    ks = key.replace(".", "/")
+    return any(_BLOCK_LEAVES[kind].search(ks) for kind in whole)
+
+
 def model_summed(key: str, cfg, model: int) -> bool:
     """Whether leaf ``key`` is whole on every rank of a model group of
     ``model`` ranks while each rank's gradient of it is only its share, so
     the gradients are summed over the group: the KV projections under D6,
     Mamba2's D7 leaves, and the MoE router (each rank combines only its
-    own experts' outputs)."""
-    if model <= 1:
+    own experts' outputs); none of a block that runs whole
+    (:func:`whole_blocks`)."""
+    if model <= 1 or in_whole_block(key, whole_blocks(cfg, model)):
         return False
     ks = key.replace(".", "/")
     return bool(kv_replicated(cfg, model) and _KV.search(ks)
@@ -173,64 +229,29 @@ def model_dims(shapes: dict, cfg, model: int) -> dict:
     ranks, but for the leaves of :func:`model_summed`, whole on every
     rank: D6's KV projections where the model axis does not divide the KV
     heads, and D7's Mamba2 in-projection and conv (the reference splits
-    them by contiguous columns)."""
+    them by contiguous columns); and the leaves of the blocks that run
+    whole (:func:`whole_blocks`, F2)."""
+    whole = whole_blocks(cfg, model)
     out = {}
     for key, shape in shapes.items():
         spec = _spec(key, tuple(shape), None, model, _TP)
         dim = spec.index(_TP) if _TP in spec else None
-        out[key] = None if model_summed(key, cfg, model) else dim
+        out[key] = None if model_summed(key, cfg, model) \
+            or in_whole_block(key, whole) else dim
     return out
 
 
-def _divides(cfg, model, n, what):
-    if n % model:
-        raise ValueError(f"{cfg.name}: {n} {what} not divisible by the "
-                         f"model axis {model} (the port splits whole "
-                         f"ones; ROADMAP item 16.1)")
-
-
 def check_model_axis(cfg, model: int) -> None:
-    """Raise ``ValueError`` for a config the model axis cannot split: a
-    family outside ``TP_ARCH_TYPES``, or a count of what each rank takes a
-    whole share of that the model axis does not divide: Mamba2's SSM
-    heads, the MoE's experts and shared-expert width, RWKV6's heads and
-    channel-mix width, the attention's (or MLA's) query heads and the MLP
-    width of the dense layers (an MoE decoder's leading ones and the MTP
-    head's block); or query heads that straddle a KV head when the KV
-    projections stay whole (D6)."""
+    """Raise ``ValueError`` for a model axis the port cannot lay out: one
+    below 1, or a family outside ``TP_ARCH_TYPES``. A count the model
+    axis does not divide is no refusal: that block runs whole on every
+    model rank (:func:`whole_blocks`)."""
     if model < 1:
         raise ValueError(f"model axis must be >= 1: {model}")
-    if model == 1:
-        return
-    if cfg.arch_type not in TP_ARCH_TYPES:
+    if model > 1 and cfg.arch_type not in TP_ARCH_TYPES:
         raise ValueError(f"{cfg.name}: tensor parallelism for the "
                          f"{cfg.arch_type!r} family is not yet ported to "
                          f"repro_torch (ROADMAP item 16.1)")
-    if cfg.block_kind == "mamba2":
-        s = cfg.ssm
-        _divides(cfg, model, s.expand * cfg.d_model // s.head_dim,
-                 "SSM heads are")
-    if cfg.has_moe:
-        _divides(cfg, model, cfg.moe.num_experts, "experts are")
-        if cfg.moe.num_shared_experts:
-            _divides(cfg, model, cfg.moe.d_ff_expert
-                     * cfg.moe.num_shared_experts, "shared-expert widths are")
-    if cfg.block_kind == "rwkv6":
-        _divides(cfg, model, cfg.num_heads, "heads are")
-        _divides(cfg, model, cfg.d_ff, "channel-mix widths (d_ff) are")
-        return
-    if cfg.block_kind == "mamba2" and cfg.hybrid_group <= 0:
-        return
-    # the attention + MLP layers (a hybrid's shared block among them)
-    _divides(cfg, model, cfg.num_heads, "query heads are")
-    if not cfg.has_moe or cfg.moe.first_dense_layers > 0 \
-            or cfg.mtp_depth > 0:
-        _divides(cfg, model, cfg.d_ff, "MLP widths (d_ff) are")
-    per, group = cfg.num_heads // model, cfg.num_heads // cfg.num_kv_heads
-    if kv_replicated(cfg, model) and group % per:
-        raise ValueError(
-            f"{cfg.name}: {per} query heads a rank straddle the KV heads "
-            f"(groups of {group}) at model axis {model} (ROADMAP item 16.1)")
 
 
 def stage_chunks(num_layers: int, stages: int, interleave: int,
@@ -251,6 +272,10 @@ def stage_chunks(num_layers: int, stages: int, interleave: int,
 
 _CACHE_HEADS = re.compile(r"(^|/)(wkv|ssd)$")
 _CACHE_KV = re.compile(r"(^|/)(k|v)$")
+# the block whose layer writes each cache leaf
+_CACHE_BLOCK = {"k": "attn", "v": "attn", "c_kv": "attn", "k_rope": "attn",
+                "wkv": "time_mix", "att_shift": "time_mix",
+                "ffn_shift": "channel_mix", "ssd": "mamba", "conv": "mamba"}
 
 
 def cache_dims(cfg, cache_shapes: dict, data: int, model: int) -> dict:
@@ -265,14 +290,18 @@ def cache_dims(cfg, cache_shapes: dict, data: int, model: int) -> dict:
     (attention ``k``/``v``; the reference splits their sequence: ROADMAP
     deviation D9). ``why`` says why a leaf is not split on the model
     axis, or which part a rank keeps: D6's one KV head, MLA's latents,
-    the shifts, D7's conv channels; None for a plain split or with no
-    model axis."""
+    the shifts, D7's conv channels, the whole leaf of a block that runs
+    whole on every model rank (F2, :func:`whole_blocks`); None for a plain
+    split or with no model axis."""
+    whole = whole_blocks(cfg, model)
     out = {}
     for group, leaves in cache_shapes.items():
         dims = out[group] = {}
         for key, shape in leaves.items():
             m, why = None, None
-            if model > 1:
+            if model > 1 and _CACHE_BLOCK.get(key) in whole:
+                why = "F2: the block runs whole on every model rank"
+            elif model > 1:
                 if _CACHE_HEADS.search(key):
                     m = 2
                 elif _CACHE_KV.search(key):
@@ -298,14 +327,14 @@ def cache_dims(cfg, cache_shapes: dict, data: int, model: int) -> dict:
 def cache_shape(cfg, key: str, shape, dims, data: int, model: int) -> tuple:
     """The shape of one rank's part of cache leaf ``key`` of whole
     ``shape``, by its :func:`cache_dims` entry ``dims``."""
-    batch, m, _ = dims
+    batch, m, why = dims
     out = list(shape)
     out[batch] //= data
     if m is not None:
         out[m] //= model
-    elif model > 1 and _CACHE_KV.search(key) and kv_replicated(cfg, model):
+    elif why is not None and why.startswith("D6"):
         out[3] = 1
-    elif model > 1 and key == "conv":
+    elif why is not None and why.startswith("D7"):
         s = cfg.ssm
         out[3] = s.expand * cfg.d_model // model + 2 * s.state_dim
     return tuple(out)
@@ -313,14 +342,21 @@ def cache_shape(cfg, key: str, shape, dims, data: int, model: int) -> tuple:
 
 def check_serving(cfg, batch: int, data: int, model: int) -> None:
     """Raise ``ValueError`` for a serving layout the port cannot run: a
-    family without a decode step, a batch the ``data`` ranks do not
-    divide (the reference's ``_sanitize`` then replicates it; ROADMAP F2),
-    and what :func:`check_model_axis` refuses."""
+    family without a decode step, fewer than one data rank or a batch
+    below one row, and what :func:`check_model_axis` refuses. A batch the
+    ``data`` ranks do not divide is served whole by every data rank, as
+    the reference's ``_sanitize`` replicates it (:func:`serving_rows`)."""
     if not cfg.supports_decode():
         raise ValueError(f"{cfg.name} has no decode step (an encoder or a "
                          f"classifier)")
-    if data < 1 or batch % data:
-        raise ValueError(f"batch {batch} not divisible by {data} data "
-                         f"ranks (each serves an equal share of the rows; "
-                         f"ROADMAP F2)")
+    if data < 1 or batch < 1:
+        raise ValueError(f"a serving batch of {batch} rows over {data} "
+                         f"data ranks")
     check_model_axis(cfg, model)
+
+
+def serving_rows(batch: int, data: int) -> int:
+    """The data ranks a serving batch of ``batch`` rows is split over:
+    ``data`` where they divide it, else 1 (every data rank serves every
+    row, the reference's ``_sanitize`` on the batch)."""
+    return data if batch % data == 0 else 1

@@ -25,7 +25,10 @@ Each wrapper's ``.launches`` counts one per call that launched its kernel
 through the kernels.
 ``kernel_layout.copies`` counts the output gradients whose strides the
 backward kernels do not take and that were therefore copied to a
-contiguous buffer.
+contiguous buffer. On ``meta`` tensors (the dry run) a wrapper checks its
+inputs as on the card and returns empty outputs of the kernel's shapes,
+launching nothing; on ``meta`` and on the card alike it charges an active
+op counter with its kernel's work (``launch/op_count.py::attn_work``).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_attention, ref_attention_bwd
+from repro_torch.launch import op_count
 
 HEAD_DIMS = (32, 64, 80, 128, 256)
 # (D, Dv) the kernels are built for: D = Dv, and DeepSeek's MLA pairs (the
@@ -124,7 +128,7 @@ def check_kernel_inputs(q, k, v):
 
 def _check_device(*xs):
     dev = xs[0].device
-    if dev.type != "cuda" or any(x.device != dev for x in xs):
+    if dev.type not in ("cuda", "meta") or any(x.device != dev for x in xs):
         raise ValueError(f"flash attention runs on cuda (kernel) or cpu "
                          f"(plain); got {[str(x.device) for x in xs]}")
 
@@ -156,6 +160,9 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0):
     kh, t, dv = k.shape[1], k.shape[2], v.shape[3]
     out = empty_in_layout(q, dv)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _charge("flash_fwd", "fwd", q, k, v, causal, window)
+    if q.device.type == "meta":
+        return out, lse
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -213,10 +220,22 @@ def kernel_layout(do):
 kernel_layout.copies = 0
 
 
+def _charge(name, part, q, k, v, causal, window):
+    """Charge an active op counter with kernel ``name``'s work, part
+    ``part`` of ``launch.op_count.attn_work`` at this call's shape."""
+    op_count.charge(name, lambda: op_count.attn_work(
+        (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+         q.shape[3], v.shape[3]), q.element_size(), bool(causal),
+        int(window))[part])
+
+
 def _launch(fn, name, args):
     """Call ``fn`` of the K2/K3 library on the current stream of the
     tensors' card (``args[3]``, after the dtype code and the two head dims,
-    is q); tensors pass as their pointers."""
+    is q); tensors pass as their pointers. On ``meta`` nothing runs and 0
+    is returned, else 1 (a launch)."""
+    if args[3].device.type == "meta":
+        return 0
     lib = _lib_bwd()
     with torch.cuda.device(args[3].device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -225,6 +244,7 @@ def _launch(fn, name, args):
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
+    return 1
 
 
 def _strides(*xs):
@@ -249,12 +269,13 @@ def flash_attention_bwd_dq(q, k, v, out, lse, do, *, causal=True, window=0):
     b, h, s, d = q.shape
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch("repro_flash_bwd_dq", "flash_bwd_dq", (
+    _charge("flash_bwd_dq", "dq", q, k, v, causal, window)
+    flash_attention_bwd_dq.launches += _launch(
+        "repro_flash_bwd_dq", "flash_bwd_dq", (
         _DTYPE_CODE[q.dtype], d, v.shape[3], q, k, v, out, do, lse, dq,
         delta, b, h,
         k.shape[1], s, k.shape[2], _strides(q, k, v, do, out, dq),
         int(bool(causal)), int(window), d ** -0.5))
-    flash_attention_bwd_dq.launches += 1
     return dq, delta
 
 
@@ -304,7 +325,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
     kh, t, d_v = k.shape[1], k.shape[2], v.shape[3]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     split, scratch = DkvSplit(1, ()), None
-    if q.dtype == torch.bfloat16:   # fp32 takes the CUDA-core kernel, unsplit
+    _charge("flash_bwd_dkv", "dkv", q, k, v, causal, window)
+    if q.dtype == torch.bfloat16 and q.device.type == "cuda":
+        # fp32 takes the CUDA-core kernel, unsplit
         lib = _lib_bwd()
         split = dkv_group_split(
             b, kh, t, d, h // kh, torch.cuda.get_device_properties(
@@ -313,11 +336,11 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
         if split.gs > 1:
             scratch = torch.empty(split.scratch_shape, dtype=torch.float32,
                                   device=q.device)
-    _launch("repro_flash_bwd_dkv", "flash_bwd_dkv", (
-        _DTYPE_CODE[q.dtype], d, d_v, q, k, v, do, lse, delta, dk, dv, b, h,
-        kh, s, t, _strides(q, k, v, do, dk, dv),
-        int(bool(causal)), int(window), d ** -0.5, split.gs, scratch))
-    flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.launches += _launch(
+        "repro_flash_bwd_dkv", "flash_bwd_dkv", (
+            _DTYPE_CODE[q.dtype], d, d_v, q, k, v, do, lse, delta, dk, dv,
+            b, h, kh, s, t, _strides(q, k, v, do, dk, dv),
+            int(bool(causal)), int(window), d ** -0.5, split.gs, scratch))
     return dk, dv
 
 

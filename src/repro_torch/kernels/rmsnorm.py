@@ -26,7 +26,12 @@ Each wrapper's ``.launches`` counts kernel calls (CPU calls do not count;
 K5's two launches, the row pass and the dscale reduction, count as one).
 The kernels take x and dy as (rows, D) with one row stride and a unit
 stride on the last dim; ``row_layout.copies`` counts the inputs that had
-another layout and were therefore copied.
+another layout and were therefore copied. On ``meta`` tensors (the dry
+run) a wrapper returns empty outputs of the kernel's shapes, launching
+nothing; there and on the card it charges an active op counter with its
+kernel's work (``launch/op_count.py::rms_work``; the split row's partial
+pass is counted with its apply, as the kernel table's bound counts the
+pair).
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch import op_count
 from repro_torch.kernels.ref import ref_rmsnorm_apply, ref_rmsnorm_bwd, \
     ref_rmsnorm_bwd_apply, ref_rmsnorm_bwd_dot, ref_rmsnorm_fwd, \
     ref_rmsnorm_sumsq
@@ -120,14 +126,17 @@ def check_kernel_inputs(x2, scale=None):
 
 def _check_device(*xs):
     dev = xs[0].device
-    if dev.type != "cuda" or any(x.device != dev for x in xs):
+    if dev.type not in ("cuda", "meta") or any(x.device != dev for x in xs):
         raise ValueError(f"rmsnorm runs on cuda (kernel) or cpu (plain); "
                          f"got {[str(x.device) for x in xs]}")
 
 
 def _launch(fn, name, device, args):
     """Call ``fn`` of the library on the current stream of ``device``;
-    tensors pass as their pointers."""
+    tensors pass as their pointers. Returns 1 (a launch), or 0 on
+    ``meta``, where nothing runs."""
+    if device.type == "meta":
+        return 0
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -136,6 +145,14 @@ def _launch(fn, name, device, args):
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
+    return 1
+
+
+def _charge(name, part, x2, split=False):
+    """Charge an active op counter with ``op_count.rms_work``'s ``part``
+    at x2's (rows, D)."""
+    op_count.charge(name, lambda: op_count.rms_work(
+        x2.shape[0], x2.shape[1], x2.element_size(), split)[part])
 
 
 def fused_rmsnorm_fwd(x, scale, eps=1e-6):
@@ -149,10 +166,11 @@ def fused_rmsnorm_fwd(x, scale, eps=1e-6):
     rows, d = x2.shape
     out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     rinv = torch.empty((rows,), dtype=torch.float32, device=x.device)
-    _launch("repro_rmsnorm_fwd", "rmsnorm_fwd", x.device, (
+    _charge("rmsnorm_fwd", "fwd", x2)
+    fused_rmsnorm_fwd.launches += _launch(
+        "repro_rmsnorm_fwd", "rmsnorm_fwd", x.device, (
         _DTYPE_CODE[x.dtype], x2, scale, out, rinv, rows, d, x2.stride(0),
         out.stride(0), float(eps)))
-    fused_rmsnorm_fwd.launches += 1
     return out.view(x.shape), rinv
 
 
@@ -188,10 +206,11 @@ def fused_rmsnorm_bwd(x, scale, rinv, dy):
     dx = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     ws = torch.empty((n_blocks, d), dtype=torch.float32, device=x.device)
     dscale = torch.empty((d,), dtype=scale.dtype, device=x.device)
-    _launch("repro_rmsnorm_bwd", "rmsnorm_bwd", x.device, (
+    _charge("rmsnorm_bwd", "bwd", x2)
+    fused_rmsnorm_bwd.launches += _launch(
+        "repro_rmsnorm_bwd", "rmsnorm_bwd", x.device, (
         _DTYPE_CODE[x.dtype], x2, scale, rinv, dy2, dx, ws, dscale, rows, d,
         x2.stride(0), dy2.stride(0), dx.stride(0), per, n_blocks))
-    fused_rmsnorm_bwd.launches += 1
     return dx.view(x.shape), dscale
 
 
@@ -214,9 +233,9 @@ def fused_rmsnorm_sumsq(x):
     check_kernel_inputs(x2)
     rows, d = x2.shape
     out = torch.empty((rows,), dtype=torch.float32, device=x.device)
-    _launch("repro_rmsnorm_rowdot", "rmsnorm_sumsq", x.device, (
+    fused_rmsnorm_sumsq.launches += _launch(
+        "repro_rmsnorm_rowdot", "rmsnorm_sumsq", x.device, (
         _DTYPE_CODE[x.dtype], x2, None, None, out, rows, d, x2.stride(0), 0))
-    fused_rmsnorm_sumsq.launches += 1
     return out
 
 
@@ -236,10 +255,11 @@ def fused_rmsnorm_fwd_split(x, scale, sumsq, width, eps=1e-6):
     d = x2.shape[1]
     out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     rinv = torch.empty((rows,), dtype=torch.float32, device=x.device)
-    _launch("repro_rmsnorm_fwd_split", "rmsnorm_fwd_split", x.device, (
+    _charge("rmsnorm_fwd_split", "fwd", x2, split=True)
+    fused_rmsnorm_fwd_split.launches += _launch(
+        "repro_rmsnorm_fwd_split", "rmsnorm_fwd_split", x.device, (
         _DTYPE_CODE[x.dtype], x2, scale, sumsq, out, rinv, rows, d,
         x2.stride(0), out.stride(0), float(width), float(eps)))
-    fused_rmsnorm_fwd_split.launches += 1
     return out.view(x.shape), rinv
 
 
@@ -258,10 +278,10 @@ def fused_rmsnorm_bwd_dot(x, scale, dy):
     check_kernel_inputs(x2, scale)
     rows, d = x2.shape
     out = torch.empty((rows,), dtype=torch.float32, device=x.device)
-    _launch("repro_rmsnorm_rowdot", "rmsnorm_bwd_dot", x.device, (
+    fused_rmsnorm_bwd_dot.launches += _launch(
+        "repro_rmsnorm_rowdot", "rmsnorm_bwd_dot", x.device, (
         _DTYPE_CODE[x.dtype], x2, scale, dy2, out, rows, d, x2.stride(0),
         dy2.stride(0)))
-    fused_rmsnorm_bwd_dot.launches += 1
     return out
 
 
@@ -286,11 +306,12 @@ def fused_rmsnorm_bwd_split(x, scale, rinv, dy, dot, width):
     dx = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     ws = torch.empty((n_blocks, d), dtype=torch.float32, device=x.device)
     dscale = torch.empty((d,), dtype=scale.dtype, device=x.device)
-    _launch("repro_rmsnorm_bwd_split", "rmsnorm_bwd_split", x.device, (
+    _charge("rmsnorm_bwd_split", "bwd", x2, split=True)
+    fused_rmsnorm_bwd_split.launches += _launch(
+        "repro_rmsnorm_bwd_split", "rmsnorm_bwd_split", x.device, (
         _DTYPE_CODE[x.dtype], x2, scale, rinv, dy2, dot, dx, ws, dscale,
         rows, d, x2.stride(0), dy2.stride(0), dx.stride(0), float(width),
         per, n_blocks))
-    fused_rmsnorm_bwd_split.launches += 1
     return dx.view(x.shape), dscale
 
 

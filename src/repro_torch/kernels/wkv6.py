@@ -25,7 +25,10 @@ Each wrapper's ``.launches`` counts one per call that launched its kernel
 (B,S,H,P) strides, with a unit stride on the last dim; ``kernel_layout.copies``
 counts the inputs that had another layout and were therefore copied.
 ``pad_to_chunk.pads`` counts the calls of ``ops.wkv6`` whose sequence was
-padded to a chunk multiple.
+padded to a chunk multiple. On ``meta`` tensors (the dry run) a wrapper
+returns empty outputs of the kernel's shapes, launching nothing; there and
+on the card it charges an active op counter with its kernel's work
+(``launch/op_count.py::wkv6_work``).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ref_wkv6_bwd, ref_wkv6_fwd
+from repro_torch.launch import op_count
 
 HEAD_DIMS = (32, 64)
 CHUNKS = (16, 32)
@@ -120,7 +124,7 @@ pad_to_chunk.pads = 0
 
 def _check_device(*xs):
     dev = xs[0].device
-    if dev.type != "cuda" or any(x.device != dev for x in xs):
+    if dev.type not in ("cuda", "meta") or any(x.device != dev for x in xs):
         raise ValueError(f"wkv6 runs on cuda (kernel) or cpu (plain); got "
                          f"{[str(x.device) for x in xs]}")
 
@@ -132,7 +136,10 @@ def _strides(*xs):
 
 def _launch(fn, name, device, args):
     """Call ``fn`` of the library on the current stream of ``device``;
-    tensors pass as their pointers, None as a null pointer."""
+    tensors pass as their pointers, None as a null pointer. On ``meta``
+    nothing runs."""
+    if device.type == "meta":
+        return
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -153,8 +160,11 @@ def wkv6_fwd(r, k, v, wlog, u, s0, *, chunk, with_states):
     if all(x.device.type == "cpu" for x in xs):
         return ref_wkv6_fwd(*xs, chunk=chunk, with_states=with_states)
     _check_device(*xs)
+    op_count.charge("wkv6_fwd", lambda: op_count.wkv6_work(
+        (*r.shape, chunk), r.element_size(), wlog.element_size())[
+            "fwd" if with_states else "primal"])
     out = _fwd_kernel(*xs, chunk, with_states)
-    wkv6_fwd.launches += 1
+    wkv6_fwd.launches += r.device.type == "cuda"
     return out
 
 
@@ -210,8 +220,10 @@ def wkv6_bwd(r, k, v, wlog, u, states, do, ds_end, *, chunk):
     if all(x.device.type == "cpu" for x in xs):
         return ref_wkv6_bwd(*xs, chunk=chunk)
     _check_device(*xs)
+    op_count.charge("wkv6_bwd", lambda: op_count.wkv6_work(
+        (b, s, h, p, chunk), r.element_size(), wlog.element_size())["bwd"])
     out = _bwd_kernel(*xs, chunk)
-    wkv6_bwd.launches += 1
+    wkv6_bwd.launches += r.device.type == "cuda"
     return out
 
 

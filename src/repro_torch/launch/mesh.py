@@ -28,6 +28,60 @@ from repro_torch.core.distributed import COLLECTIVE_TIMEOUT_S, World
 
 
 @dataclass(frozen=True)
+class ProductionLayout:
+    """The reference's production mesh: ``data`` x ``pipe`` x ``model``
+    ranks (the pod axis folded into data, which it precedes in the
+    reference's axis order ``("pod", "data", "pipe", "model")``)."""
+    data: int
+    pipe: int
+    model: int
+
+    @property
+    def size(self) -> int:
+        return self.data * self.pipe * self.model
+
+
+def production_layout(multi_pod: bool = False, pipe: int = 1
+                      ) -> ProductionLayout:
+    """16 x 16 = 256 ranks (data 16, model 16), the pipe axis carved out of
+    the data axis, or with ``multi_pod`` two pods: data 32 x model 16 =
+    512 (``make_production_mesh``)."""
+    if pipe < 1 or 16 % pipe:
+        raise ValueError(f"pipe {pipe} does not divide the data axis 16")
+    return ProductionLayout(data=16 // pipe * (2 if multi_pod else 1),
+                            pipe=pipe, model=16)
+
+
+def group_ranks(size: int, pipe: int = 1, model: int = 1) -> dict:
+    """``{"pipe": [...], "data": [...], "model": [...]}``: the global ranks
+    of every group of a world of ``size`` laid out data x ``pipe`` x
+    ``model`` (rank ``(d * pipe + p) * model + m``), in the order every
+    rank makes them; no pipe (model) groups for ``pipe`` (``model``) 1."""
+    dp = size // (pipe * model)
+
+    def rank(dd, pp, mm):
+        return (dd * pipe + pp) * model + mm
+    return {
+        "pipe": [[rank(dd, q, mm) for q in range(pipe)]
+                 for dd in range(dp) for mm in range(model)]
+        if pipe > 1 else [],
+        "data": [[rank(dd, q, mm) for dd in range(dp)]
+                 for q in range(pipe) for mm in range(model)],
+        "model": [[rank(dd, q, mm) for mm in range(model)]
+                  for dd in range(dp) for q in range(pipe)]
+        if model > 1 else [],
+    }
+
+
+def layout_ranks(size: int, rank: int, pipe: int = 1, model: int = 1
+                 ) -> dict:
+    """``{"data": ranks, "pipe": ranks or None, "model": ranks or None}``:
+    the global ranks of rank ``rank``'s groups (see :func:`group_ranks`)."""
+    return {name: next((g for g in groups if rank in g), None)
+            for name, groups in group_ranks(size, pipe, model).items()}
+
+
+@dataclass(frozen=True)
 class Layout:
     """This rank's place in the data x pipe x model layout.
 
@@ -67,37 +121,22 @@ def make_layout(world: World, pipe: int = 1, model: int = 1, *,
             f"pipeline stages" + (f" x {model} model ranks (tensor "
                                   f"parallelism, ROADMAP item 16.1)"
                                   if model > 1 else ""))
-    dp = world.size // (pipe * model)
-    timeout = datetime.timedelta(seconds=timeout_s)
-    rest, m = divmod(world.rank, model)
-    d, p = divmod(rest, pipe)
-
-    def rank(dd, pp, mm):
-        return (dd * pipe + pp) * model + mm
-
-    # every rank makes every group, in the same order: pipe, data, model
-    mine = {}
-    if pipe > 1:
-        for dd in range(dp):
-            for mm in range(model):
-                ranks = [rank(dd, q, mm) for q in range(pipe)]
+    me = world.global_rank(world.rank)
+    if world.recording:
+        groups = {name: world.subgroup(None, ranks) for name, ranks in
+                  layout_ranks(world.size, me, pipe, model).items()
+                  if ranks is not None}
+    else:
+        timeout = datetime.timedelta(seconds=timeout_s)
+        # every rank makes every group, in the same order: pipe, data,
+        # model
+        groups = {}
+        for name, ranks_list in group_ranks(world.size, pipe,
+                                            model).items():
+            for ranks in ranks_list:
                 g = dist.new_group(ranks, timeout=timeout)
-                if (dd, mm) == (d, m):
-                    mine["pipe"] = (g, ranks)
-    for q in range(pipe):
-        for mm in range(model):
-            ranks = [rank(dd, q, mm) for dd in range(dp)]
-            g = dist.new_group(ranks, timeout=timeout)
-            if (q, mm) == (p, m):
-                mine["data"] = (g, ranks)
-    if model > 1:
-        for dd in range(dp):
-            for q in range(pipe):
-                ranks = [rank(dd, q, mm) for mm in range(model)]
-                g = dist.new_group(ranks, timeout=timeout)
-                if (dd, q) == (d, p):
-                    mine["model"] = (g, ranks)
-    groups = {name: world.subgroup(*gr) for name, gr in mine.items()}
+                if me in ranks:
+                    groups[name] = world.subgroup(g, ranks)
     # one collective on each group, with all its members, before any
     # point-to-point call (NCCL's rule for a group's first call)
     for w in groups.values():

@@ -24,11 +24,11 @@ splits each replica's layers over M of them, so ``--devices N`` is dp x M
         --smoke --device cpu --devices 4 --model-axis 2
 
 Each data rank serves ``batch / dp`` of the rows, each model rank its heads
-(``core/engine.py::Server``, ROADMAP D9); rank 0 prints the two lines over
+(``core/engine.py::Server``, ROADMAP D9); a batch the data ranks do not
+divide is served whole by each of them; rank 0 prints the two lines over
 every row. ``--model-axis`` without a world, a world that is not a
-multiple of it, a batch the data ranks do not divide, a config the model
-axis cannot split and more ranks than cards are refused before any rank
-starts. :func:`run` serves as one rank of a world its caller owns.
+multiple of it, a family without a decode step and more ranks than cards
+are refused before any rank starts. :func:`run` serves as one rank of a world its caller owns.
 """
 from __future__ import annotations
 

@@ -1,18 +1,51 @@
-"""Concrete model inputs drawn on the host (``repro/launch/specs.py``).
+"""Model inputs (``repro/launch/specs.py``).
 
-``concrete_batch`` gives a small batch with the structure of the
+``input_specs`` gives the dry run's inputs of an (arch, shape) pair as
+``meta`` tensors, the counterpart of the reference's ``ShapeDtypeStruct``
+stand-ins: shapes and dtypes, no storage. ``concrete_batch`` gives a small batch with the structure of the
 reference's (``specs.py:46-74``): token ids for a decoder, and for a
 vision-language decoder also the stubbed vision tower's patch embeddings
 (B, n_img, d_model), n_img = min(vision_tokens, seq // 2); for the audio
 encoder the stubbed frontend's frame features, the mask of the frames to
 predict and their codebook labels. The reference
 draws with threefry; here numpy's generator, seeded with ``seed``, draws
-the same shapes and dtypes, other values (ROADMAP deviation D5). The
-dry-run's ``input_specs`` is not ported.
+the same shapes and dtypes, other values (ROADMAP deviation D5).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from repro_torch.models.transformer import compute_dtype
+
+
+def input_specs(cfg, shape, device="meta") -> dict:
+    """The training or prefill batch of ``shape`` (a
+    ``configs.shapes.InputShape``: global batch x sequence) as empty
+    tensors on ``device``, with the reference's names, shapes and dtypes
+    (``specs.py:21-43``): audio frame features in the compute dtype, the
+    mask and the codebook labels; a vlm's tokens, patch embeddings
+    (B, vision_tokens, d_model) and M-RoPE grid (B, S, 3); a ViT's fp32
+    NHWC images and labels; else the tokens."""
+    b, s = shape.global_batch, shape.seq_len
+    act = compute_dtype(cfg)
+
+    def empty(size, dtype):
+        return torch.empty(size, dtype=dtype, device=device)
+    if cfg.arch_type == "audio":
+        return {"features": empty((b, s, cfg.audio_feat_dim), act),
+                "mask": empty((b, s), torch.bool),
+                "labels": empty((b, s), torch.int32)}
+    if cfg.arch_type == "vlm":
+        return {"tokens": empty((b, s), torch.int32),
+                "image_embeds": empty((b, cfg.vision_tokens, cfg.d_model),
+                                      act),
+                "positions": empty((b, s, 3), torch.int32)}
+    if cfg.arch_type == "vit":
+        return {"images": empty((b, cfg.image_size, cfg.image_size, 3),
+                                torch.float32),
+                "labels": empty((b,), torch.int32)}
+    return {"tokens": empty((b, s), torch.int32)}
 
 
 def concrete_batch(cfg, batch: int, seq: int, *, seed: int = 0) -> dict:

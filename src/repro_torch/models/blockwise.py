@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.launch import op_count
+
 NEG_INF = -2.0 ** 30
 
 
@@ -54,7 +56,7 @@ def _fwd_scan(qg, k, v, *, causal, window, block_k, q_offset):
     m = torch.full((b, kh, g, s), NEG_INF, device=qg.device)
     l = torch.zeros((b, kh, g, s), device=qg.device)
     acc = torch.zeros((b, kh, g, s, dv), device=qg.device)
-    for k0 in range(0, t, block_k):
+    for k0 in op_count.repeat(range(0, t, block_k)):
         kblk = k[:, k0:k0 + block_k].float()
         vblk = v[:, k0:k0 + block_k]
         scores = torch.einsum("bskgd,btkd->bkgst", qf, kblk)
@@ -103,7 +105,7 @@ class BlockwiseAttention(torch.autograd.Function):
         delta_t = delta.permute(0, 2, 3, 1)[..., None]
         dq = torch.zeros((b, s, kh, g, d), device=q.device)
         dks, dvs = [], []
-        for k0 in range(0, t, bk):
+        for k0 in op_count.repeat(range(0, t, bk)):
             kblk = k[:, k0:k0 + bk].float()
             vblk = v[:, k0:k0 + bk].float()
             scores = torch.einsum("bskgd,btkd->bkgst", qf, kblk)
@@ -116,6 +118,9 @@ class BlockwiseAttention(torch.autograd.Function):
             ds = p * (dp - delta_t)
             dq += torch.einsum("bkgst,btkd->bskgd", ds, kblk)
             dks.append(torch.einsum("bkgst,bskgd->btkd", ds, qf))
+        # the blocks a counter skipped (their gradients as the first's)
+        dks += dks[-1:] * (t // bk - len(dks))
+        dvs += dvs[-1:] * (t // bk - len(dvs))
         dq = (dq * d ** -0.5).reshape(b, s, kh * g, d).to(q.dtype)
         dk = torch.cat(dks, dim=1).to(k.dtype)
         dvv = torch.cat(dvs, dim=1).to(v.dtype)

@@ -36,7 +36,7 @@ def mrope_angles(positions, dim, theta, sections):
                          f"{n}")
     sec_ids = torch.repeat_interleave(
         torch.arange(3, device=positions.device),
-        torch.tensor(sections, device=positions.device))
+        torch.tensor(sections, device=positions.device), output_size=n)
     pos = positions.to(torch.float32)[..., sec_ids]           # (B, S, n)
     return pos * _inv_freq(dim, theta, positions.device)
 

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ops import wkv6
+from repro_torch.launch import op_count
 from repro_torch.models import shardctx
 from repro_torch.models.norms import groupnorm_heads
 from repro_torch.models.params import dense_init, ones, zeros
@@ -144,11 +145,18 @@ def wkv6_chunked(r, k, v, wlog, u, chunk, s0):
                      for t in (r, k, v, wlog))
     u = u.to(f32)
     state, outs = s0.to(f32), []
-    for c in range(0, s + pad, chunk):
+    starts = range(0, s + pad, chunk)
+    if not torch.is_grad_enabled():
+        # no backward to count a chunk at a time: under the dry run's
+        # counter one chunk, counted by the chunk count
+        starts = op_count.repeat(starts)
+    for c in starts:
         sl = slice(c, c + chunk)
         state, o = checkpoint(_wkv6_chunk, state, r[:, sl], k[:, sl],
                               v[:, sl], wlog[:, sl], u, use_reentrant=False)
         outs.append(o)
+    # the chunks a counter skipped (their outputs as the first's)
+    outs += outs[-1:] * ((s + pad) // chunk - len(outs))
     return torch.cat(outs, dim=1)[:, :s], state
 
 

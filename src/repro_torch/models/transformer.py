@@ -91,6 +91,7 @@ every rank. The families of ``core/ulysses.py::applies`` only.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -100,7 +101,8 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
     create_selective_checkpoint_contexts
 
 from repro_torch.core import ulysses
-from repro_torch.core.sharding import cache_dims, cache_shape, is_stacked
+from repro_torch.core.sharding import cache_dims, cache_shape, \
+    is_stacked, whole_blocks
 from repro_torch.models import shardctx
 from repro_torch.models.attention import attention_block, mla_block
 from repro_torch.models.mamba2 import init_mamba2, init_mamba2_cache, \
@@ -473,6 +475,17 @@ def _lm_head(cfg, params, h):
     return h @ w.to(h.dtype)
 
 
+def _whole_if(cfg, kind):
+    """The model group lifted around a block of ``kind`` that runs whole on
+    every model rank because the model axis does not divide its split
+    count (``core/sharding.py::whole_blocks``, ROADMAP F2): inside it the
+    block's collectives are the identity. Else nothing changes."""
+    tp = shardctx.active()
+    if tp is not None and kind in whole_blocks(cfg, tp.size):
+        return shardctx.use(None)
+    return contextlib.nullcontext()
+
+
 def _block(cfg, layer, h, window, positions, use_moe=False, reduce=None,
            cache=None, cache_index=0, seq=None):
     """One pre-norm layer on ``layer``'s params (its stack's slice with the
@@ -487,25 +500,30 @@ def _block(cfg, layer, h, window, positions, use_moe=False, reduce=None,
         if cache is not None:
             tc = {"shift": cache["att_shift"], "wkv": cache["wkv"]}
             cc = {"shift": cache["ffn_shift"]}
-        h = h + rwkv6_time_mix(_layer(layer, "time_mix.", None), a_in, cfg,
-                               cache=tc)
-        return h + rwkv6_channel_mix(_layer(layer, "channel_mix.", None),
-                                     _apply_norm(cfg, layer, "ln2.", h),
-                                     cfg, cache=cc), None
-    if cfg.block_kind == "mla":
-        h = h + mla_block(_layer(layer, "attn.", None), a_in, cfg,
-                          positions=positions, cache=cache,
-                          cache_index=cache_index)
-    else:
-        h = h + attention_block(_layer(layer, "attn.", None), a_in, cfg,
-                                window=window, positions=positions,
-                                cache=cache, cache_index=cache_index,
-                                seq=seq)
+        with _whole_if(cfg, "time_mix"):
+            h = h + rwkv6_time_mix(_layer(layer, "time_mix.", None), a_in,
+                                   cfg, cache=tc)
+        with _whole_if(cfg, "channel_mix"):
+            return h + rwkv6_channel_mix(
+                _layer(layer, "channel_mix.", None),
+                _apply_norm(cfg, layer, "ln2.", h), cfg, cache=cc), None
+    with _whole_if(cfg, "attn"):
+        if cfg.block_kind == "mla":
+            h = h + mla_block(_layer(layer, "attn.", None), a_in, cfg,
+                              positions=positions, cache=cache,
+                              cache_index=cache_index)
+        else:
+            h = h + attention_block(_layer(layer, "attn.", None), a_in, cfg,
+                                    window=window, positions=positions,
+                                    cache=cache, cache_index=cache_index,
+                                    seq=seq)
     m_in = _apply_norm(cfg, layer, "ln2.", h)
     if not use_moe:
-        return h + mlp(_layer(layer, "mlp.", None), m_in, cfg.act), None
+        with _whole_if(cfg, "mlp"):
+            return h + mlp(_layer(layer, "mlp.", None), m_in, cfg.act), None
     moe = moe_ffn_gather if cfg.moe_impl == "gather" else moe_ffn
-    ff, aux = moe(_layer(layer, "moe.", None), m_in, cfg, reduce)
+    with _whole_if(cfg, "moe"):
+        ff, aux = moe(_layer(layer, "moe.", None), m_in, cfg, reduce)
     return h + ff, aux
 
 
@@ -519,9 +537,10 @@ def _step(cfg, gather, reduce, positions, index, seq, h, shards, prefix,
     layer = _layer(shards if gather is None else gather(shards), prefix,
                    None)
     if _is_mamba(cfg):
-        return h + mamba2_block(_layer(layer, "mamba.", None),
-                                _apply_norm(cfg, layer, "ln.", h), cfg,
-                                cache=layer_cache), None
+        with _whole_if(cfg, "mamba"):
+            return h + mamba2_block(_layer(layer, "mamba.", None),
+                                    _apply_norm(cfg, layer, "ln.", h), cfg,
+                                    cache=layer_cache), None
     return _block(cfg, layer, h, window, positions, use_moe, reduce,
                   layer_cache, index, seq)
 

@@ -170,9 +170,16 @@ def test_host_checks_reject_bad_inputs():
         rms.check_kernel_inputs(torch.zeros(64, 4).t(), sc)
     with pytest.raises(ValueError, match="unit stride"):
         rms.check_kernel_inputs(x, torch.ones(128)[::2])
-    # a tensor of another device than cuda or cpu never reaches a kernel
+    # tensors on more than one device never reach a kernel; on meta (the
+    # dry run) the wrapper gives empty outputs of the kernel's shapes and
+    # launches nothing
     with pytest.raises(ValueError, match="runs on cuda"):
-        rms.fused_rmsnorm_fwd(x.to("meta"), sc.to("meta"))
+        rms.fused_rmsnorm_fwd(x, sc.to("meta"))
+    before = rms.fused_rmsnorm_fwd.launches
+    out, rinv = rms.fused_rmsnorm_fwd(x.to("meta"), sc.to("meta"))
+    assert (out.device.type, out.shape, rinv.shape) == \
+        ("meta", x.shape, (x.numel() // x.shape[-1],))
+    assert rms.fused_rmsnorm_fwd.launches == before
 
 
 def test_cpu_calls_do_not_count_launches():

@@ -375,13 +375,24 @@ def test_serve_cli_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--devices", "2", "--batch", "3"], "not divisible by 2 data ranks"),
     (["--model-axis", "2"], "without a world"),
     (["--arch", "vit-b16"], "no decode step"),
     (["--arch", "hubert-xlarge"], "no decode step")])
 def test_serve_cli_refuses_what_is_not_ported(argv, match):
     with pytest.raises((SystemExit, NotImplementedError), match=match):
         serve.main(["--smoke", "--device", "cpu"] + argv)
+
+
+def test_serve_cli_serves_a_batch_the_data_ranks_do_not_divide():
+    """ROADMAP F2: ``--devices 2 --batch 3``, once refused, serves every
+    row on both data ranks (the reference's ``_sanitize`` replicates such
+    a batch) and keeps data rank 0's: the tokens of one process."""
+    base = ["--arch", "qwen2.5-14b", "--smoke", "--batch", "3",
+            "--prompt-len", "16", "--gen", "5", "--device", "cpu"]
+    want = serve.main(base)["tokens"]
+    got = serve.main(base + ["--devices", "2"])["tokens"]
+    assert got.shape == (3, 5)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_serve_decode_example_on_the_cpu():

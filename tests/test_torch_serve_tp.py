@@ -34,7 +34,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.core import distributed  # noqa: E402
 from repro_torch.core.engine import Server, greedy  # noqa: E402
 from repro_torch.core.sharding import cache_dims, cache_shape, \
-    check_serving  # noqa: E402
+    check_serving, serving_rows  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
@@ -45,14 +45,16 @@ ARCHS = ("qwen2.5-14b", "chatglm3-6b", "gemma3-12b", "granite-moe-3b-a800m",
          "deepseek-v3-671b", "qwen2-vl-72b", "rwkv6-7b", "zamba2-2.7b")
 QWEN = "qwen2.5-14b"
 # layout -> (data ranks, model ranks)
-LAYOUTS = {"m2": (1, 2), "m4": (1, 4), "dp2-m2": (2, 2), "dp2-m4": (2, 4)}
+LAYOUTS = {"m2": (1, 2), "m4": (1, 4), "dp2-m2": (2, 2), "dp2-m4": (2, 4),
+           "dp2-b3": (2, 1)}
 # every family at model 2; model 4 where the smoke heads allow it (D6: one
-# KV head a rank); data 2 x model 2; the reference's own case
+# KV head a rank); data 2 x model 2; the reference's own case; a batch of 3
+# over data 2 (F2: every data rank serves every row)
 CASES = [(a, "m2") for a in ARCHS] + \
     [(a, "m4") for a in (QWEN, "chatglm3-6b", "gemma3-12b")] + \
-    [(QWEN, "dp2-m2"), (QWEN, "dp2-m4")]
+    [(QWEN, "dp2-m2"), (QWEN, "dp2-m4"), (QWEN, "dp2-b3")]
 # world size -> the layouts its ranks serve in turn
-WORLDS = {2: ("m2",), 4: ("m4", "dp2-m2"), 8: ("dp2-m4",)}
+WORLDS = {2: ("m2", "dp2-b3"), 4: ("m4", "dp2-m2"), 8: ("dp2-m4",)}
 # prompts past gemma3's smoke window of 64 and across zamba2's SSD chunks
 # of 32
 PROMPT = {"gemma3-12b": 72, "zamba2-2.7b": 70}
@@ -67,6 +69,8 @@ def _shape(arch, lay):
     """(batch, prompt tokens, decode steps) of a case."""
     if lay == "dp2-m4":
         return 4, 32, 8
+    if lay == "dp2-b3":
+        return 3, 24, 4
     return (4 if lay == "dp2-m2" else 2), PROMPT.get(arch, 24), 4
 
 
@@ -193,6 +197,7 @@ def test_decode_across_ranks_matches_one_process(case, worlds):
     shapes ``cache_dims`` gives."""
     arch, lay = case
     data, model = LAYOUTS[lay]
+    data = serving_rows(_shape(arch, lay)[0], data)
     one, whole = _decode(arch, lay)
     want = _reference(arch, lay)
     assert one.shape == want.shape
@@ -329,29 +334,46 @@ def test_serve_cli_across_ranks(capfd):
 
 @pytest.mark.parametrize("argv,match", [
     (["--devices", "3", "--model-axis", "2"], "not a multiple"),
-    (["--devices", "3", "--model-axis", "3"], "not divisible by the model"),
-    (["--devices", "4", "--model-axis", "2", "--batch", "3"],
-     "not divisible by 2 data ranks"),
     (["--model-axis", "4"], "without a world")])
 def test_serve_cli_refuses_a_layout(argv, match):
     """Refused before any rank starts: a world that is not a multiple of
-    the model axis, a model axis that does not divide the heads, a batch
-    the data ranks do not divide, a model axis without a world."""
+    the model axis, a model axis without a world."""
     with pytest.raises(SystemExit, match=match):
         serve.main(["--arch", QWEN, "--smoke", "--device", "cpu"] + argv)
 
 
+@pytest.mark.parametrize("argv,batch", [
+    (["--devices", "3", "--model-axis", "3"], 2),
+    (["--devices", "4", "--model-axis", "2"], 3)],
+    ids=["model3", "batch3-data2-model2"])
+def test_serve_cli_layouts_once_refused_match_one_process(argv, batch):
+    """ROADMAP F2, both of the layouts the serve CLI once refused: a model
+    axis of 3, which divides none of the smoke Qwen2.5's counts (every
+    block runs whole on each model rank), and a batch of 3 over 2 data
+    ranks (each data rank serves every row; rank 0's rows are kept): the
+    same tokens as one process."""
+    base = ["--arch", QWEN, "--smoke", "--device", "cpu", "--batch",
+            str(batch), "--prompt-len", "16", "--gen", "5"]
+    want = serve.main(base)["tokens"]
+    got = serve.main(base + argv)["tokens"]
+    assert got.shape == (batch, 5)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_server_and_check_serving_refuse_a_layout():
-    """``check_serving`` refuses a batch the data ranks do not divide, a
-    model without decode and a model axis that does not divide the heads;
-    ``Server`` a model axis without a world."""
+    """``check_serving`` refuses a model without decode and an empty
+    batch; a batch the data ranks do not divide is served whole on each
+    (``serving_rows`` 1) and a model axis that divides no count is laid
+    out with whole blocks (F2); ``Server`` refuses a model axis without a
+    world."""
     cfg = _cfg(QWEN)
     check_serving(cfg, 4, 2, 2)
-    with pytest.raises(ValueError, match="not divisible by 2 data ranks"):
-        check_serving(cfg, 3, 2, 1)
+    check_serving(cfg, 3, 2, 1)
+    assert serving_rows(3, 2) == 1 and serving_rows(4, 2) == 2
     with pytest.raises(ValueError, match="no decode step"):
         check_serving(configs.get_smoke_config("vit-b16"), 4, 1, 1)
-    with pytest.raises(ValueError, match="not divisible by the model"):
-        check_serving(cfg, 4, 1, 3)
+    with pytest.raises(ValueError, match="a serving batch of 0 rows"):
+        check_serving(cfg, 0, 1, 1)
+    check_serving(cfg, 4, 1, 3)
     with pytest.raises(ValueError, match="model_axis 2 needs a world"):
         Server(cfg, {}, device="cpu", model_axis=2)

@@ -30,7 +30,7 @@ from repro_torch.configs.base import EngineConfig  # noqa: E402
 from repro_torch.core import distributed  # noqa: E402
 from repro_torch.core.engine import Trainer  # noqa: E402
 from repro_torch.core.sharding import check_model_axis, is_stacked, \
-    model_dims, shard_dims  # noqa: E402
+    model_dims, model_summed, shard_dims, whole_blocks  # noqa: E402
 from repro_torch.launch import train as cli  # noqa: E402
 from repro_torch.launch.mesh import make_layout  # noqa: E402
 from repro_torch.models import shardctx, transformer  # noqa: E402
@@ -319,12 +319,6 @@ def test_families_without_tensor_parallelism_are_refused(arch):
 @pytest.mark.parametrize("argv,match", [
     (["--arch", "granite-moe-3b-a800m", "--pp", "2", "--accum", "2",
       "--devices", "4", "--model-axis", "2"], "MoE"),
-    (["--devices", "3", "--model-axis", "3"],
-     "4 query heads are not divisible by the model axis 3"),
-    (["--arch", "zamba2-2.7b", "--devices", "3", "--model-axis", "3"],
-     "8 SSM heads are not divisible by the model axis 3"),
-    (["--arch", "granite-moe-3b-a800m", "--devices", "3", "--model-axis",
-      "3"], "4 experts are not divisible by the model axis 3"),
     (["--devices", "4", "--model-axis", "8"], "not a multiple of "
                                               "--model-axis 8"),
     (["--model-axis", "2"], "without a world.*item 16.1"),
@@ -333,6 +327,53 @@ def test_families_without_tensor_parallelism_are_refused(arch):
 def test_model_axis_refusals(argv, match):
     with pytest.raises(SystemExit, match=match):
         cli.main(["--smoke", "--steps", "1", "--device", "cpu"] + argv)
+
+
+@pytest.mark.parametrize("arch", ["vit-b16", "qwen2.5-14b",
+                                  "granite-moe-3b-a800m",
+                                  "deepseek-v3-671b", "zamba2-2.7b"])
+def test_model_axis_that_divides_nothing_matches_one_process(arch):
+    """ROADMAP F2: at ``--devices 3 --model-axis 3`` the smoke configs'
+    counts (4 or 8 query heads, 8 SSM heads, 4 experts, d_ff 256 or 512,
+    vocab 512) do not divide by 3, where the model axis once refused
+    them. Each such block now runs whole on every model rank
+    (``sharding.whole_blocks``), as the reference's ``_sanitize``
+    replicates what the axis does not divide: two fp32 steps within 3e-4
+    of one process's losses and grad norms."""
+    cfg = configs.get_smoke_config(arch)
+    assert whole_blocks(cfg, 3) and not whole_blocks(cfg, 2)
+    check_model_axis(cfg, 3)
+    one = ["--arch", arch, "--smoke", "--steps", "2", "--device", "cpu",
+           "--seq", "32", "--batch", "6", "--log-every", "1", "--dtype",
+           "float32"]
+    want = _losses(cli.main(one))
+    got = _losses(cli.main(one + ["--devices", "3", "--model-axis", "3"]))
+    assert len(got) == len(want) == 2
+    assert np.max(np.abs(np.subtract(got, want))) <= TP_TOL
+
+
+def test_whole_blocks_at_the_production_model_axis():
+    """At the reference's model axis of 16 the full configs' blocks whose
+    counts 16 does not divide run whole (F2): Qwen2.5-14B's 40 query heads
+    (its attention leaves whole on every rank, D10; its MLP still split),
+    Granite-MoE's 40 experts and 24 heads; the model dims then leave those
+    leaves unsplit and nothing of them is summed over the group."""
+    qwen = configs.get_config("qwen2.5-14b")
+    granite = configs.get_config("granite-moe-3b-a800m")
+    assert whole_blocks(qwen, 16) == {"attn"}
+    assert whole_blocks(granite, 16) == {"attn", "moe"}
+    assert whole_blocks(configs.get_config("chatglm3-6b"), 16) == set()
+    shapes = {k: v.shape for k, v in transformer.init_params(
+        qwen, device="meta").items()}
+    dims = model_dims(shapes, qwen, 16)
+    assert all(dims[k] is None for k in shapes if ".attn." in k)
+    assert dims["stack.mlp.w_up"] == 2 and dims["stack.mlp.w_out"] == 1
+    assert not any(model_summed(k, qwen, 16) for k in shapes)
+    shapes = {k: v.shape for k, v in transformer.init_params(
+        granite, device="meta").items()}
+    assert not any(model_summed(k, granite, 16) for k in shapes)
+    assert all(d is None for k, d in model_dims(shapes, granite, 16).items()
+               if ".moe." in k or ".attn." in k)
 
 
 def test_more_ranks_than_cards_are_refused(monkeypatch):
@@ -358,8 +399,9 @@ def test_trainer_refusals():
     with pytest.raises(ValueError, match="model axis must be >= 1"):
         Trainer(cfg, EngineConfig(train_batch_size=8), device="cpu",
                 model_axis=0)
-    with pytest.raises(ValueError, match="4 experts are not divisible by "
-                                         "the model axis 3"):
+    # a model axis that divides none of DeepSeek's counts is no refusal
+    # (F2: those blocks run whole), but it still needs a world
+    with pytest.raises(ValueError, match="model_axis 3 needs a world"):
         Trainer(configs.get_smoke_config("deepseek-v3-671b"),
                 EngineConfig(train_batch_size=8), device="cpu", model_axis=3)
 

@@ -273,12 +273,22 @@ def test_checks_raise():
         wk.wkv6_bwd(r, k, v, w, u, states[:, :, :2], r, s0, chunk=16)
     with pytest.raises(ValueError, match="states must be"):
         wk.wkv6_bwd(r, k, v, w, u, states, r.bfloat16(), s0, chunk=16)
-    # a tensor of another device than cuda or cpu never reaches a kernel
+    # tensors on more than one device never reach a kernel; on meta (the
+    # dry run) the wrappers give empty outputs of the kernels' shapes and
+    # launch nothing
     with pytest.raises(ValueError, match="runs on cuda"):
-        wk.wkv6_fwd(*(x.to("meta") for x in (r, k, v, w, u, s0)), **good)
+        wk.wkv6_fwd(r, k, v, w, u, s0.to("meta"), **good)
     with pytest.raises(ValueError, match="runs on cuda"):
-        wk.wkv6_bwd(*(x.to("meta") for x in (r, k, v, w, u, states, r, s0)),
-                    chunk=16)
+        wk.wkv6_bwd(r, k, v, w, u, states, r, s0.to("meta"), chunk=16)
+    before = (wk.wkv6_fwd.launches, wk.wkv6_bwd.launches)
+    o, s_end, st = wk.wkv6_fwd(*(x.to("meta") for x in (r, k, v, w, u, s0)),
+                               **good)
+    grads = wk.wkv6_bwd(*(x.to("meta") for x in (r, k, v, w, u, states, r,
+                                                  s0)), chunk=16)
+    assert (o.device.type, o.shape, s_end.shape) == ("meta", r.shape,
+                                                     s0.shape)
+    assert [g.shape for g in grads] == [r.shape] * 4 + [u.shape, s0.shape]
+    assert (wk.wkv6_fwd.launches, wk.wkv6_bwd.launches) == before
 
 
 def test_cpu_calls_do_not_count_launches():
