@@ -81,7 +81,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    gradients 1e-3 / 0.3 with bf16 against the fp32 oracle, states 5e-4,
    o also against the sequential ``ref_wkv6`` where S <= 128), K7 twice for
    bitwise equal gradients, ``torch.autograd.grad`` through ``ops.wkv6``
-   (ragged, padded; and the slice's shape with no copy or pad); then both
+   (ragged, padded; P 48 with chunk 24, padded to P 64 and run at chunk
+   16, ROADMAP F2; and the slice's shape with no copy or pad); then both
    timed at the slice's shape beside their plain versions and bounds,
    with the bytes each kernel's two launches (K6: the state scan, then
    the chunks' outputs; K7: the state-gradient scan, then the chunks'
@@ -92,7 +93,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    results: HuBERT's attention (B 8, H = KH 16, S = T 781 = 12 x 64 + 13,
    non-causal, the model's layout), Zamba2's shared block (B 2, H = KH
    32, S = T 4096, causal) and (48, 32) at B 2, H 4, KH 2, S 300 causal
-   and non-causal; then K1-K3 timed at both D 80 shapes beside their plain
+   and non-causal; (D, Dv) = (40, 24) and (96, 96), pairs no kernel is
+   built for, which the wrappers pad to (48, 32) and (128, 128) (ROADMAP
+   F2); then K1-K3 timed at both D 80 shapes beside their plain
    versions, SDPA and the bounds.
 7. the eval slice: ``repro_torch.launch.train --arch vit-b16 --steps 0
    --eval-every 1 --eval-batch 128`` on procedural CIFAR-10 (500 examples,
@@ -435,7 +438,13 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    recording world's count of the same step for the same rank and layout
    (``core/distributed.py::RecordingWorld`` on ``meta``, the dry run's).
    (e) ``--devices 2 --model-axis 2`` through the CLI on one card raises
-   its clear error.
+   its clear error. (m) serving across ranks (``serve_jobs``, at the end
+   of each world); (m4) DeepSeek-V3's decode at model 2 and 4, and at
+   model 4 with a cache of 2 x 1024 rows (rank 3 holds no live row): its
+   latent cache split on the sequence (a distributed flash-decoding),
+   every rank's fp32 logits within 3e-4 of one rank's, a rank's latent
+   cache 1/M of the whole and the first decode step's collective bytes
+   equal to a recording world's.
 
 ``--profile`` adds a ``torch.profiler`` table of one warm training step of
 each training slice (DeepSeek-V3's included, and the ZeRO-3 step at world
@@ -590,6 +599,9 @@ WKV_CASES = [
     ("strong", (1, 128, 2, 64, 32), "bfloat16", "float32"),
 ]
 WKV_RAGGED = (2, 57, 3, 32, 16)
+# ops.wkv6 at a head size and a chunk no kernel is built for (ROADMAP F2):
+# P 48 padded to 64, chunk 24 run at 16, S 100 padded to 112
+WKV_PADDED = (2, 100, 4, 48, 24)
 TRAIN_ARGS = ["--arch", "vit-b16", "--steps", "10", "--batch", "128",
               "--accum", "2", "--eval-every", "10", "--eval-batch", "128",
               "--log-every", "1"]
@@ -654,6 +666,9 @@ GEMMA_AGREE_SEQ = 2048
 HUBERT_ATTN_SHAPE = (8, 16, 16, 781, 781, 80)
 ZAMBA_ATTN_SHAPE = (2, 32, 32, 4096, 4096, 80)
 MLA_SMOKE_SHAPE = (2, 4, 2, 300, 300, 48, 32)
+# K1-K3 at (D, Dv) pairs no kernel is built for (ROADMAP F2): the wrappers
+# pad to (48, 32) and (128, 128) and slice back
+PAD_ATTN_SHAPES = [(2, 4, 2, 300, 300, 40, 24), (2, 8, 4, 300, 300, 96)]
 REMAT_TOL = 1e-5
 # qwen2.5-14b and glm4-9b at full width (vocabularies 152,064 and 151,552;
 # GLM's norm eps 1.5625e-7), two layers each
@@ -1253,9 +1268,11 @@ def phase_d80_attention(card):
     each run twice for bitwise equal results: HuBERT's shape (non-causal,
     ragged S 781, the model's layout), Zamba2's (causal, S 4096), and the
     (48, 32) case causal in the model's layout and non-causal in
-    contiguous tensors; then K1-K3 timed at both D 80 shapes beside their
-    plain versions, SDPA and the bounds. Returns {"hubert", "zamba2":
-    {"fwd", "dq", "dkv": timing row with the bf16 error}}."""
+    contiguous tensors; K1-K3 at the unbuilt pairs of PAD_ATTN_SHAPES,
+    which the wrappers pad (ROADMAP F2); then K1-K3 timed at both D 80
+    shapes beside their plain versions, SDPA and the bounds. Returns
+    {"hubert", "zamba2": {"fwd", "dq", "dkv": timing row with the bf16
+    error}}."""
     import torch
 
     inputs = model_layout_inputs(
@@ -1269,6 +1286,18 @@ def phase_d80_attention(card):
                     inputs)
     check_attention("d80-attn", "the smoke MLA pair's", MLA_SMOKE_SHAPE,
                     inputs, causal=False, layout=False)
+    # unbuilt pairs, padded by the wrappers: each check calls them five
+    # times a dtype (K1 once, K2 and K3 twice)
+    from repro_torch.kernels import flash_attention as fa
+    fa.pad_head_dims.pads = 0
+    for shape in PAD_ATTN_SHAPES:
+        check_attention("d80-attn", "an unbuilt pair's (padded)", shape,
+                        inputs)
+    print(f"[d80-attn] the padded pairs {PAD_ATTN_SHAPES}: "
+          f"{fa.pad_head_dims.pads} wrapper calls padded (expected "
+          f"{10 * len(PAD_ATTN_SHAPES)})", flush=True)
+    if fa.pad_head_dims.pads != 10 * len(PAD_ATTN_SHAPES):
+        fail("K1-K3 at unbuilt pairs did not pad once a wrapper call")
     out = {}
     for tag, shape, causal in (("hubert", HUBERT_ATTN_SHAPE, False),
                                ("zamba2", ZAMBA_ATTN_SHAPE, True)):
@@ -1452,7 +1481,8 @@ def phase_wkv6(card):
     """K6 (with and without states) and K7 against ``ref_wkv6_fwd``/
     ``ref_wkv6_bwd`` at every case of WKV_CASES, o against the sequential
     ``ref_wkv6`` where it is small, K7 twice for bitwise equal du and ds0,
-    the ragged case and the slice's shape through ``torch.autograd.grad``
+    the ragged case, an unbuilt head size and chunk (WKV_PADDED, padded
+    by ``ops.wkv6``) and the slice's shape through ``torch.autograd.grad``
     of ``ops.wkv6``; then both kernels timed at the slice's shape beside
     their plain versions and their bounds (no PyTorch call computes
     WKV6)."""
@@ -1548,8 +1578,35 @@ def phase_wkv6(card):
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail("autograd through ops.wkv6 disagrees on the ragged case")
+    # the unbuilt head size and chunk: o, s_end and the gradients of
+    # ops.wkv6 (K6/K7 at P 64, chunk 16) against the sequential oracle
+    b, s, h, p, cs = WKV_PADDED
+    wk.pad_to_chunk.pads = wk.pad_head_dim.pads = 0
+    xs = inputs(b, s, h, p, torch.float32, torch.float32)
+    before = (wk.wkv6_fwd.launches, wk.wkv6_bwd.launches)
+    outs = ops.wkv6(*xs[:6], chunk=cs)
+    want_outs = ref_wkv6(*xs[:6])
+    res = [close(x, y, WKV_TOL["float32"]) for x, y in zip(outs, want_outs)]
+    got = grads(lambda *a: ops.wkv6(*a, chunk=cs), xs[:6], *xs[6:])
+    want = grads(ref_wkv6, xs[:6], *xs[6:])
+    res += [close(x, y, WKV_GRAD_TOL["float32"]) for x, y in zip(got, want)]
+    launched = (wk.wkv6_fwd.launches - before[0],
+                wk.wkv6_bwd.launches - before[1])
+    ok = all(x[1] for x in res) and wk.pad_head_dim.pads == 2 and \
+        wk.pad_to_chunk.pads == 2 and launched == (2, 1)
+    print(f"[wkv6] ops.wkv6 at P {p}, chunk {cs} {WKV_PADDED} fp32 (padded "
+          f"to P 64, run at chunk 16) against ref_wkv6 and its autograd: "
+          f"max|do, ds_end|={max(x[0] for x in res[:2]):.3e} (tol "
+          f"{WKV_TOL['float32']}), max|dgrad|="
+          f"{max(x[0] for x in res[2:]):.3e} (tol "
+          f"{WKV_GRAD_TOL['float32']}); head-size pads "
+          f"{wk.pad_head_dim.pads}, chunk pads {wk.pad_to_chunk.pads}, "
+          f"K6/K7 launches {launched} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("ops.wkv6 at an unbuilt head size and chunk disagrees, or did "
+             "not pad and launch")
     b, s, h, p, cs = WKV_SHAPE
-    wk.pad_to_chunk.pads = 0
+    wk.pad_to_chunk.pads = wk.kernel_layout.copies = 0
     xs = inputs(b, s, h, p, torch.bfloat16, torch.float32)
     got = grads(lambda *a: ops.wkv6(*a, chunk=cs), xs[:6], *xs[6:])
     st = ref_wkv6_fwd(*xs[:6], chunk=cs, with_states=True)[2]
@@ -3142,6 +3199,15 @@ TP_PEAK_PAIRS = [(f"vit-b16 fp32 {ULYSSES} 2", "vit-b16 fp32 --model-axis 2"),
 # whole against the one-rank decode's (SERVE_ONE_RANK: phases 15 and 17,
 # and ChatGLM3-6B's in phase 19's parent)
 TP_SERVE_MODELS = DECODE_MODELS + ZAMBA_DECODE
+# (m4) DeepSeek-V3's latent cache split on the sequence over the model
+# group (ROADMAP 16.3b, a distributed flash-decoding): its DECODE_MODELS
+# entry at model 2 (the world of 2, above) and 4, and at model 4 with a
+# cache of 2·LM_SEQ rows (the prompt fills ranks 0-1, the decode rows land
+# on rank 2, rank 3 holds no live row); each against the one-rank decode,
+# its latent cache a 1/M share of the whole, its decode step's collective
+# bytes against a recording world's
+TP_DS_DECODE = next(e for e in DECODE_MODELS if e[0] == "deepseek")
+TP_DS_DECODE_LONG = TP_DS_DECODE[:5] + (2 * LM_SEQ,) + TP_DS_DECODE[6:]
 TP_SERVE_LM = ("chatglm3", "chatglm3-6b", LM_LAYERS, 2, LM_SEQ,
                LM_SEQ + DECODE_STEPS, {}, None)
 TP_SERVE_CLI = {2: ["--devices", "2", "--model-axis", "2"],
@@ -3300,7 +3366,9 @@ def serve_jobs(size):
     off each other through markers: the world of 2 runs its small decodes
     first, then its card-drawn jobs once the world of 4 has left "w4-idle"
     (after ChatGLM3-6B's decode), and leaves "w2-served"; the world of 4
-    then runs its serve CLI (4 ranks, a whole Qwen2.5 each for a moment)."""
+    then runs its serve CLI (4 ranks, a whole Qwen2.5 each for a moment).
+    The world of 4 first runs (m4), DeepSeek-V3 at model 4 with its
+    latents split on the sequence, at both cache lengths."""
     from repro_torch.configs import get_config
 
     qwen = get_config(QWEN)
@@ -3315,11 +3383,14 @@ def serve_jobs(size):
 
     def decode(entry, m, **kw):
         expect, heads, wkv = serve_expect(entry, m)
-        return TPJob(f"serve {entry[0]} --model-axis {m}",
+        rows = f" (cache {entry[5]} rows)" \
+            if entry is TP_DS_DECODE_LONG else ""
+        return TPJob(f"serve {entry[0]} --model-axis {m}{rows}",
                      ["--arch", entry[1]], expect, heads, wkv, entry[0],
                      kind="decode", case=(entry, m), **kw)
     if size == 4:
-        return [decode(TP_SERVE_LM, 4, then="w4-idle"),
+        return [decode(TP_DS_DECODE, 4), decode(TP_DS_DECODE_LONG, 4),
+                decode(TP_SERVE_LM, 4, then="w4-idle"),
                 cli(after="w2-served")]
     drawn = ("qwen2-vl", "gemma3")      # card draws, as phase 15's
     return [decode(e, 2) for e in TP_SERVE_MODELS if e[0] not in drawn] + \
@@ -3524,7 +3595,12 @@ def serve_decode(server, entry):
 
 def rank_decode(world, draws, prints, entry, m):
     """19m2 on one rank: ``serve_decode`` of ``entry`` through a
-    ``Server`` at model axis ``m`` on ``serve_params``."""
+    ``Server`` at model axis ``m`` on ``serve_params``. For MLA (19m4) also
+    whether the Server split the latents, and the collective bytes by
+    kind of the first decode step (``count_collectives``, reset just
+    before it) beside a recording world's count of the same step
+    (``recorded_decode``)."""
+    from repro_torch.core import distributed
     from repro_torch.core.engine import Server
 
     cfg = serve_cfg(entry)
@@ -3532,8 +3608,46 @@ def rank_decode(world, draws, prints, entry, m):
     server = Server(cfg, serve_params(cfg, draws, prints, world.device),
                     world=world, model_axis=m)
     init_s = time.time() - t0
+    step = {}
+    real = server.decode_logits
+
+    def decode_logits(cache, token, index):
+        if step:
+            return real(cache, token, index)
+        distributed.reset_collectives()
+        out = real(cache, token, index)
+        step.update(counts=distributed.count_collectives(), index=index)
+        return out
+    server.decode_logits = decode_logits
     logits, cache_gb = serve_decode(server, entry)
-    return {"logits": logits, "cache_gb": cache_gb, "init_s": init_s}
+    out = {"logits": logits, "cache_gb": cache_gb, "init_s": init_s}
+    if cfg.block_kind == "mla":
+        out.update(latents=server.latents, collectives=(
+            step["counts"], recorded_decode(cfg, entry, world, m,
+                                            step["index"])))
+    return out
+
+
+def recorded_decode(cfg, entry, world, m, index):
+    """The collective bytes by kind of one decode step of ``entry`` at
+    ``index``, taken again by rank ``world.rank`` of a recording world of
+    ``world.size`` on ``meta`` (a ``Server`` at model axis ``m`` with a
+    cache of the entry's rows)."""
+    import torch
+    from repro_torch.core import distributed
+    from repro_torch.core.engine import Server
+    from repro_torch.models.transformer import init_params
+
+    _, _, _, batch, _, max_len, _, _ = entry
+    server = Server(cfg, init_params(cfg, device="meta"), device="meta",
+                    world=distributed.recording_world(world.rank,
+                                                      world.size),
+                    model_axis=m)
+    cache = server.init_cache(batch, max_len, torch.float32)
+    distributed.reset_collectives()
+    server.decode_logits(cache, torch.empty((batch, 1), dtype=torch.int32,
+                                            device="meta"), index)
+    return distributed.count_collectives()
 
 
 @contextlib.contextmanager
@@ -3617,7 +3731,8 @@ def head_spies(routes):
 
     def top_k(probs, k):
         out = real_top_k(probs, k)
-        routes.append(out[1].detach().cpu().numpy())
+        if probs.device.type != "meta":     # not a recording world's step
+            routes.append(out[1].detach().cpu().numpy())
         return out
     attention.flash_mha, rwkv6.wkv6, moe.top_k = mha, wkv6, top_k
     try:
@@ -4039,7 +4154,8 @@ def serve_gates(job, ranks, cli_tokens):
     on every rank, their agreement with phase 15's one-rank ``cli_tokens``
     and its milliseconds printed (host-staged gloo: a reading); a decode
     job's gathered fp32 logits finite and within TP_TOL of the one-rank
-    decode's (SERVE_ONE_RANK), each rank's cache's GB beside one rank's.
+    decode's (SERVE_ONE_RANK), each rank's cache's GB beside one rank's;
+    an MLA decode's split latents and collectives (``mla_split_gates``).
     Returns rank 0's launches."""
     import numpy as np
 
@@ -4076,13 +4192,42 @@ def serve_gates(job, ranks, cli_tokens):
                     f"init (its chunks of the host params to the card) "
                     f"{res['init_s']:.1f}s")
             ok = d <= TP_TOL and bool(np.isfinite(logits).all())
-        print(msg, flush=True)
+            if "latents" in res:
+                ok = mla_split_gates(job, rank, res, one_gb, msg) and ok
+                msg = None
+        if msg:
+            print(msg, flush=True)
         if got["launches"] != expect or got["copies_rms"] or \
                 got["heads"] != job.heads or got["wkv_heads"] != job.wkv:
             fail(f"{job.label} rank {rank}: launches, copies or heads off")
         if not ok:
             fail(f"{job.label} rank {rank} disagrees with one rank")
     return ranks[0][job.label]["launches"]
+
+
+def mla_split_gates(job, rank, res, one_gb, msg):
+    """19m4's gates on one rank of an MLA decode job at model axis M: the
+    latents split on the sequence (M divides the cache's rows), a rank's
+    latent cache exactly 1/M of the whole (D9 kept it whole on every rank:
+    L x B x rows x (kv_lora_rank + rope) fp32), and the first decode
+    step's collective bytes by kind equal to a recording world's and not
+    empty. Prints ``msg`` with the readings; returns whether all hold."""
+    entry, m = job.case
+    cfg = serve_cfg(entry)
+    _, _, layers, batch, _, rows, _, _ = entry
+    whole = layers * batch * rows * (cfg.mla.kv_lora_rank
+                                     + cfg.mla.qk_rope_head_dim) * 4
+    card_b, rec_b = res["collectives"]
+    share = abs(res["cache_gb"] * 1e9 - whole / m) < 0.5
+    same = card_b == rec_b and sum(card_b.values()) > 0
+    print(f"{msg}; latents split on the sequence {res['latents']}: "
+          f"{res['cache_gb']:.4f} GB a rank against D9's whole "
+          f"{whole / 1e9:.4f} GB on every rank ({one_gb:.4f} GB on one rank "
+          f"at {TP_DS_DECODE[5]} rows), 1/{m} {share}; the first decode "
+          f"step's collective bytes by kind on the card {card_b}, a "
+          f"recording world's count of the same step on meta {rec_b} "
+          f"({'equal' if same else 'DIFFERENT'})", flush=True)
+    return res["latents"] and share and same
 
 
 def routing_flips(label, got, want):
@@ -4129,8 +4274,10 @@ def phase_tp(card, f32_ref, family_params, serving):
     (m) serving across ranks: the kernels at a rank's shapes
     (``serve_rank_kernels``), ChatGLM3-6B's one-rank decode in the parent
     beside the one-rank references, then each world's ``serve_jobs``
-    (``serve_gates``). ``serving``: phase 15's {"prefill": K1's one-rank
-    prefill row, "tokens": the serve CLI's}; the ranks draw Qwen2.5,
+    (``serve_gates``; (m4) DeepSeek-V3's latents split on the sequence at
+    model 2 and 4, ``mla_split_gates``). ``serving``: phase 15's
+    {"prefill": K1's one-rank prefill row, "tokens": the serve CLI's}; the
+    ranks draw Qwen2.5,
     Qwen2-VL and Gemma3 again on the card (``serve_params``, against
     SERVE_PRINTS). Returns ({label: rank 0's launches; a pipeline
     run's stage 1 under "<label> stage 1"}, the sliced-KV check's bf16

@@ -103,7 +103,8 @@ returns the last position's logits; ``decode_step`` runs one token a
 sequence at a given index and returns the greedy next token (int32). Both
 run under ``torch.inference_mode()``, on one device or as one rank of a
 data x model layout (each data rank its rows, each model rank its model
-chunks of the params and its heads of the cache; ROADMAP D9).
+chunks of the params and its heads of the cache, ROADMAP D9, or its rows
+of MLA's latents).
 
 Checkpoints (``repro_torch.checkpoint``, the reference's
 ``repro-elastic-ckpt/v2``): ``checkpoint_tree`` names the state's leaves as
@@ -971,7 +972,11 @@ class Server:
     served whole by each, and :meth:`gather_rows` keeps data rank 0's, as
     the reference's ``_sanitize`` replicates it); the M ranks of a model group split each
     layer as training does (``core/sharding.py::model_dims``) and cache
-    their own heads (``cache_dims``, ROADMAP deviation D9). Only this
+    their own heads of attention K and V (``cache_dims``, ROADMAP
+    deviation D9), their heads of RWKV6's and Mamba2's states, and their
+    rows of MLA's latents where M divides the cache's rows
+    (``latents_split``: decode is then a distributed flash-decoding over
+    the group, ``models/attention.py::mla_block``). Only this
     rank's parts of the host params are copied to its device. The logits
     of a vocabulary split over the model group are gathered whole before
     the greedy token is taken, so every rank of a group decodes the same
@@ -1005,6 +1010,8 @@ class Server:
             return self.tp.chunk(v, d).to(self.device, copy=True)
         self.params = {k: local(k, v) for k, v in params.items()}
         self.batch = None
+        # the last init_cache's MLA latents split on the sequence
+        self.latents = False
         # the data ranks the batch's rows are split over (1: each serves
         # every row)
         self.row_split = self.dp
@@ -1017,14 +1024,19 @@ class Server:
         """This rank's part of a zero cache of ``batch`` sequences (the
         whole batch; a data rank holds ``batch / dp`` rows, or every row
         where dp does not divide ``batch``) in ``dtype`` (the compute dtype
-        by default)."""
+        by default): MLA's latents, where the model axis divides
+        ``max_len``, as this model rank's ``max_len / M`` rows (the
+        prefill and decode calls after it take the cache so)."""
         check_serving(self.cfg, batch, self.dp, self.model)
         self.batch = batch
         self.row_split = serving_rows(batch, self.dp)
-        return model.init_cache(
+        cache = model.init_cache(
             self.cfg, batch, max_len, device=self.device,
             dtype=dtype or model.compute_dtype(self.cfg),
             data=self.row_split, model=self.model)
+        self.latents = any(leaves["c_kv"].shape[2] != max_len
+                           for leaves in cache.values() if "c_kv" in leaves)
+        return cache
 
     def _rows(self, t):
         """This data rank's rows of ``t``, a leaf of the whole batch (a
@@ -1048,7 +1060,7 @@ class Server:
         cache)."""
         batch = to_device({k: self._rows(v) for k, v in batch.items()},
                           self.device)
-        with torch.inference_mode(), shardctx.use(self.tp):
+        with torch.inference_mode(), shardctx.use(self.tp, self.latents):
             logits, cache, _ = model.forward(
                 self.cfg, self.params, batch, mode="prefill", cache=cache)
             return self._whole(logits[:, -1:]), cache
@@ -1059,7 +1071,7 @@ class Server:
         data rank's rows, the vocabulary whole (B/dp, 1, vocab), the
         cache)."""
         token = self._rows(token).to(self.device)
-        with torch.inference_mode(), shardctx.use(self.tp):
+        with torch.inference_mode(), shardctx.use(self.tp, self.latents):
             logits, cache, _ = model.forward(
                 self.cfg, self.params, {"token": token, "index": int(index)},
                 mode="decode", cache=cache)

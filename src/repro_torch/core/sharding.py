@@ -278,6 +278,18 @@ _CACHE_BLOCK = {"k": "attn", "v": "attn", "c_kv": "attn", "k_rope": "attn",
                 "ffn_shift": "channel_mix", "ssd": "mamba", "conv": "mamba"}
 
 
+def latents_split(cfg, max_len: int, model: int) -> bool:
+    """Whether MLA's latent cache (``c_kv``, ``k_rope``) of ``max_len``
+    rows is split on the sequence over ``model`` model ranks: where the
+    model axis divides the rows and the attention block is split (not in
+    :func:`whole_blocks`), as ``cache_specs`` with ``_sanitize``
+    (``repro/core/sharding.py:101-108,220-252``) puts it on the model axis
+    where it divides. Decode is then a distributed flash-decoding
+    (``models/attention.py::mla_block``)."""
+    return model > 1 and max_len % model == 0 and \
+        "attn" not in whole_blocks(cfg, model)
+
+
 def cache_dims(cfg, cache_shapes: dict, data: int, model: int) -> dict:
     """``{group: {leaf: (batch dimension, model dimension or None, why)}}``
     for the cache tree ``cache_shapes`` (``{group: {leaf: shape}}``, each
@@ -285,14 +297,16 @@ def cache_dims(cfg, cache_shapes: dict, data: int, model: int) -> dict:
     ``data`` data ranks and ``model`` model ranks: the counterpart of
     ``cache_specs`` (``repro/core/sharding.py:220-252``). Every leaf's
     batch (dimension 1) goes over the data axis. The model axis splits
-    heads where the reference's does (RWKV6's ``wkv``, Mamba2's ``ssd``)
-    and where the port's tensor parallelism gives a rank whole KV heads
-    (attention ``k``/``v``; the reference splits their sequence: ROADMAP
-    deviation D9). ``why`` says why a leaf is not split on the model
-    axis, or which part a rank keeps: D6's one KV head, MLA's latents,
-    the shifts, D7's conv channels, the whole leaf of a block that runs
-    whole on every model rank (F2, :func:`whole_blocks`); None for a plain
-    split or with no model axis."""
+    heads where the reference's does (RWKV6's ``wkv``, Mamba2's ``ssd``),
+    MLA's latents on the sequence (dimension 2) as the reference's does
+    (:func:`latents_split`), and attention ``k``/``v`` where the port's
+    tensor parallelism gives a rank whole KV heads (the reference splits
+    their sequence: ROADMAP deviation D9). ``why`` says why a leaf is not
+    split on the model axis, or which part a rank keeps: D6's one KV head,
+    MLA's latents where the model axis does not divide their rows, the
+    shifts, D7's conv channels, the whole leaf of a block that runs whole
+    on every model rank (F2, :func:`whole_blocks`); None for a plain split
+    or with no model axis."""
     whole = whole_blocks(cfg, model)
     out = {}
     for group, leaves in cache_shapes.items():
@@ -311,7 +325,11 @@ def cache_dims(cfg, cache_shapes: dict, data: int, model: int) -> dict:
                     else:
                         m = 3
                 elif key in ("c_kv", "k_rope"):
-                    why = "MLA: the latents whole, every head shares them"
+                    if latents_split(cfg, shape[2], model):
+                        m = 2
+                    else:
+                        why = (f"MLA: the latents whole, {model} model "
+                               f"ranks do not divide {shape[2]} rows")
                 elif key == "conv":
                     why = ("D7: the x channels of this rank's heads, then "
                            "the B and C channels whole")

@@ -20,6 +20,13 @@ to two CTAs) and DeepSeek's MLA pairs, (192, 128) and its smoke config's
 (48, 32), whose V is not padded: K1's output, dO and dv are Dv wide, the
 products over V run over Dv. The CUDA sources' dispatch keys on
 the same table (``FLASH_HEAD_DIM_PAIRS`` in ``csrc/flash_common.cuh``).
+A call at another pair runs at the smallest built pair at least as wide
+(:func:`built_pair`): each wrapper pads q and k with zero columns on D
+and v, out and dO on Dv (:func:`pad_head_dims`), passes the true width's
+scale D ** -0.5, and slices out, dq, dk and dv back. Zero columns add
+exact zeros to q·kᵀ, to P·V and to every gradient, and leave lse as it
+is; D or Dv above 256 still raises (ROADMAP F2). The CPU's plain path
+pads the same way, so the tests run that code.
 Each wrapper's ``.launches`` counts one per call that launched its kernel
 (CPU calls do not count), so a run can show that its attention went
 through the kernels.
@@ -28,7 +35,8 @@ backward kernels do not take and that were therefore copied to a
 contiguous buffer. On ``meta`` tensors (the dry run) a wrapper checks its
 inputs as on the card and returns empty outputs of the kernel's shapes,
 launching nothing; on ``meta`` and on the card alike it charges an active
-op counter with its kernel's work (``launch/op_count.py::attn_work``).
+op counter with its kernel's work (``launch/op_count.py::attn_work``), at
+the padded widths where it pads.
 """
 from __future__ import annotations
 
@@ -83,6 +91,47 @@ def _lib():
         lib.repro_cuda_error_string.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def built_pair(d, dv):
+    """The (D, Dv) pair of ``HEAD_DIM_PAIRS`` a call at head dims (d, dv)
+    runs at: the pair itself where it is built, else the smallest built
+    pair (by D + Dv) at least as wide on both. Raises above the largest
+    (D or Dv > 256)."""
+    if (d, dv) in HEAD_DIM_PAIRS:
+        return d, dv
+    fits = [p for p in HEAD_DIM_PAIRS if p[0] >= d and p[1] >= dv]
+    if not fits:
+        top = max(HEAD_DIMS)
+        raise ValueError(f"kernel head dims go up to D = Dv = {top}; got "
+                         f"D={d}, Dv={dv}")
+    return min(fits, key=sum)
+
+
+def _pad_last(x, width):
+    if x.shape[-1] == width:
+        return x
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+def _unpad(x, width):
+    return x if x.shape[-1] == width else x[..., :width]
+
+
+def pad_head_dims(q, k, v, *dvs):
+    """``((q, k, v, *dvs), scale)``: q and k zero-padded on D, v and each
+    of ``dvs`` (tensors Dv wide: out, dO) on Dv, up to :func:`built_pair`,
+    and the true width's scale D ** -0.5 (the tensors as they are at a
+    built pair). A call that pads counts once in ``pad_head_dims.pads``."""
+    d, dv = q.shape[-1], v.shape[-1]
+    wd, wdv = built_pair(d, dv)
+    if (wd, wdv) != (d, dv):
+        pad_head_dims.pads += 1
+    return (_pad_last(q, wd), _pad_last(k, wd), _pad_last(v, wdv),
+            *(_pad_last(x, wdv) for x in dvs)), d ** -0.5
+
+
+pad_head_dims.pads = 0
 
 
 def check_shapes(q, k, v):
@@ -151,9 +200,12 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0):
     dtype, lse (B,H,S) fp32). ``out`` keeps q's memory layout, so a
     (B,S,H,D) view in gives a (B,S,H,Dv) buffer out."""
     check_shapes(q, k, v)
+    width_v = v.shape[-1]
+    (q, k, v), scale = pad_head_dims(q, k, v)
     if q.device.type == "cpu":
-        out, lse = ref_attention(q, k, v, causal=causal, window=window)
-        return out.to(q.dtype), lse
+        out, lse = ref_attention(q, k, v, causal=causal, window=window,
+                                 scale=scale)
+        return _unpad(out.to(q.dtype), width_v), lse
     _check_device(q, k, v)
     check_kernel_inputs(q, k, v)
     b, h, s, d = q.shape
@@ -162,7 +214,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0):
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     _charge("flash_fwd", "fwd", q, k, v, causal, window)
     if q.device.type == "meta":
-        return out, lse
+        return _unpad(out, width_v), lse
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -170,13 +222,13 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0):
             _DTYPE_CODE[q.dtype], d, dv, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, kh, s, t,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], int(bool(causal)), int(window), d ** -0.5,
+            *out.stride()[:3], int(bool(causal)), int(window), scale,
             stream)
     if err:
         raise RuntimeError("flash_fwd launch failed: "
                            + lib.repro_cuda_error_string(err).decode())
     flash_attention_fwd.launches += 1
-    return out, lse
+    return _unpad(out, width_v), lse
 
 
 flash_attention_fwd.launches = 0
@@ -256,27 +308,30 @@ def flash_attention_bwd_dq(q, k, v, out, lse, do, *, causal=True, window=0):
     """K2: (dq (B,H,S,D) in q's dtype and memory layout, Δ = rowsum(dO∘O)
     (B,H,S) fp32, over Dv) from the forward's ``out`` (B,H,S,Dv) and fp32
     ``lse``."""
+    d = q.shape[-1]
+    (q, k, v, out, do), scale = pad_head_dims(q, k, v, out, do)
     if q.device.type == "cpu":
         dq, _, _, delta = ref_attention_bwd(q, k, v, out, lse, do,
-                                            causal=causal, window=window)
-        return dq, delta
+                                            causal=causal, window=window,
+                                            scale=scale)
+        return _unpad(dq, d), delta
     do = _bwd_inputs(q, k, v, lse, do)
     _check_device(q, out)
     if out.shape != _out_shape(q, v) or out.dtype != q.dtype:
         raise ValueError(f"out must be {_out_shape(q, v)} {q.dtype}; got "
                          f"{tuple(out.shape)} {out.dtype}")
     _check_strides("out", out)
-    b, h, s, d = q.shape
+    b, h, s, _ = q.shape
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     _charge("flash_bwd_dq", "dq", q, k, v, causal, window)
     flash_attention_bwd_dq.launches += _launch(
         "repro_flash_bwd_dq", "flash_bwd_dq", (
-        _DTYPE_CODE[q.dtype], d, v.shape[3], q, k, v, out, do, lse, dq,
-        delta, b, h,
+        _DTYPE_CODE[q.dtype], q.shape[3], v.shape[3], q, k, v, out, do, lse,
+        dq, delta, b, h,
         k.shape[1], s, k.shape[2], _strides(q, k, v, do, out, dq),
-        int(bool(causal)), int(window), d ** -0.5))
-    return dq, delta
+        int(bool(causal)), int(window), scale))
+    return _unpad(dq, d), delta
 
 
 class DkvSplit(NamedTuple):
@@ -311,11 +366,13 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
     over the GQA group, from the fp32 ``lse`` and K2's ``delta``. In bf16
     the group may be split over CTAs (:func:`dkv_group_split`); the kernel's
     two launches then count as one."""
+    width, width_v = q.shape[-1], v.shape[-1]
+    (q, k, v, do), scale = pad_head_dims(q, k, v, do)
     if q.device.type == "cpu":
         _, dk, dv, _ = ref_attention_bwd(q, k, v, None, lse, do,
                                          causal=causal, window=window,
-                                         delta=delta)
-        return dk, dv
+                                         delta=delta, scale=scale)
+        return _unpad(dk, width), _unpad(dv, width_v)
     do = _bwd_inputs(q, k, v, lse, do)
     if delta.shape != lse.shape or delta.dtype != torch.float32 or \
             not delta.is_contiguous() or delta.device != q.device:
@@ -340,8 +397,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True,
         "repro_flash_bwd_dkv", "flash_bwd_dkv", (
             _DTYPE_CODE[q.dtype], d, d_v, q, k, v, do, lse, delta, dk, dv,
             b, h, kh, s, t, _strides(q, k, v, do, dk, dv),
-            int(bool(causal)), int(window), d ** -0.5, split.gs, scratch))
-    return dk, dv
+            int(bool(causal)), int(window), scale, split.gs, scratch))
+    return _unpad(dk, width), _unpad(dv, width_v)
 
 
 flash_attention_bwd_dq.launches = 0

@@ -4,7 +4,8 @@ from __future__ import annotations
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import fused_rmsnorm as _fused_rmsnorm
 from repro_torch.kernels.rmsnorm import split_rmsnorm as _split_rmsnorm
-from repro_torch.kernels.wkv6 import WKV_CHUNK_MAX, pad_to_chunk
+from repro_torch.kernels.wkv6 import built_chunk, pad_head_dim, \
+    pad_to_chunk
 from repro_torch.kernels.wkv6 import wkv6 as _wkv6
 
 
@@ -43,13 +44,17 @@ def split_rmsnorm(x, scale, *, eps, width, reduce, kernels=True):
 
 def wkv6(r, k, v, wlog, u, s0, *, chunk):
     """r/k/v/wlog (B,S,H,P), u (H,P), s0 (B,H,P,P) -> (o (B,S,H,P) fp32,
-    s_end (B,H,P,P) fp32). The chunk is clamped to ``WKV_CHUNK_MAX``
-    (``repro/kernels/vjp.py:124-130``) and S padded to a chunk multiple
-    with zero r/k/v and a zero log-decay, so the state and the gradients
-    pass the padded steps untouched. Differentiable through ``WKV6``: K6
-    forward, K7 backward."""
-    chunk = min(int(chunk), WKV_CHUNK_MAX)
-    s = r.shape[1]
+    s_end (B,H,P,P) fp32). The chunk goes to a built one
+    (``wkv6.built_chunk``: clamped to 32 as ``repro/kernels/vjp.py:124-130``
+    clamps it, else 16), S is padded to a chunk multiple with zero r/k/v
+    and a zero log-decay, so the state and the gradients pass the padded
+    steps untouched, and a P outside {32, 64} is padded to the next
+    (``wkv6.pad_head_dim``); o, s_end and, through autograd, the gradients
+    are sliced back. Differentiable through ``WKV6``: K6 forward, K7
+    backward."""
+    chunk = built_chunk(int(chunk))
+    s, p = r.shape[1], r.shape[3]
+    r, k, v, wlog, u, s0 = pad_head_dim(r, k, v, wlog, u, s0)
     r, k, v, wlog = pad_to_chunk((r, k, v, wlog), chunk)
     o, s_end = _wkv6(r, k, v, wlog, u, s0, chunk=chunk)
-    return o[:, :s], s_end
+    return o[:, :s, :, :p], s_end[..., :p, :p]

@@ -36,10 +36,11 @@ def _live_mask(s, t, *, causal, window, device):
     return ok
 
 
-def ref_attention(q, k, v, *, causal=True, window=0):
+def ref_attention(q, k, v, *, causal=True, window=0, scale=None):
     """Exact softmax attention. q (B,H,S,D), k/v (B,KH,T,D|Dv), GQA
     internal (``kv_head = h // (H // KH)``). window: 0 = full, > 0 keeps
-    ``q_pos - k_pos < window``.
+    ``q_pos - k_pos < window``. ``scale``: the scores' factor, D ** -0.5
+    by default (a head dim padded with zeros passes its true width's).
 
     Returns ``(out (B,H,S,Dv) in v's dtype, lse (B,H,S) fp32)``: lse is
     the logsumexp of the masked, scaled fp32 scores. A row with no live key
@@ -50,7 +51,8 @@ def ref_attention(q, k, v, *, causal=True, window=0):
     g = h // kh
     qg = q.reshape(b, kh, g, s, d)
     scores = torch.einsum("bkgsd,bktd->bkgst", qg.to(torch.float32),
-                          k.to(torch.float32)) * (d ** -0.5)
+                          k.to(torch.float32)) * \
+        (d ** -0.5 if scale is None else scale)
     ok = _live_mask(s, t, causal=causal, window=window, device=q.device)
     scores = torch.where(ok, scores, NEG_INF)
     lse = torch.logsumexp(scores, dim=-1)
@@ -63,7 +65,7 @@ def ref_attention(q, k, v, *, causal=True, window=0):
 
 
 def ref_attention_bwd(q, k, v, out, lse, do, *, causal=True, window=0,
-                      delta=None):
+                      delta=None, scale=None):
     """The attention backward from the forward's saved fp32 ``lse``, by
     the formulas of the Pallas ``_dq_kernel``/``_dkv_kernel``, all in fp32:
     Δ = rowsum(dO∘O), P = exp(S·scale − lse), dS = P∘(dO·Vᵀ − Δ)·scale,
@@ -73,12 +75,13 @@ def ref_attention_bwd(q, k, v, out, lse, do, *, causal=True, window=0,
 
     Returns ``(dq, dk, dv, delta)``: each gradient in its primal's dtype,
     delta (B,H,S) fp32. A given ``delta`` (K2's, for the plain K3) is used
-    as it is, and ``out`` is then not read."""
+    as it is, and ``out`` is then not read. ``scale`` as in
+    :func:`ref_attention`."""
     b, h, s, d = q.shape
     kh, t, dv_dim = k.shape[1], k.shape[2], v.shape[-1]
     g = h // kh
     f32 = torch.float32
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     qf = q.to(f32).reshape(b, kh, g, s, d)
     dof = do.to(f32).reshape(b, kh, g, s, dv_dim)
     kf, vf = k.to(f32), v.to(f32)

@@ -25,7 +25,13 @@ Each wrapper's ``.launches`` counts one per call that launched its kernel
 (B,S,H,P) strides, with a unit stride on the last dim; ``kernel_layout.copies``
 counts the inputs that had another layout and were therefore copied.
 ``pad_to_chunk.pads`` counts the calls of ``ops.wkv6`` whose sequence was
-padded to a chunk multiple. On ``meta`` tensors (the dry run) a wrapper
+padded to a chunk multiple. ``ops.wkv6`` also runs a head size P outside
+``HEAD_DIMS`` at the next built one (:func:`pad_head_dim`: zero r, k, v,
+u and s0 columns and a zero log-decay, whose rows and columns of the
+state stay 0 and add exact zeros; P above 64 still raises, ROADMAP F2),
+counted in ``pad_head_dim.pads``, and a chunk outside ``CHUNKS`` at a
+built one (:func:`built_chunk`). The kernels then do, and the op counter
+is charged with, the padded work. On ``meta`` tensors (the dry run) a wrapper
 returns empty outputs of the kernel's shapes, launching nothing; there and
 on the card it charges an active op counter with its kernel's work
 (``launch/op_count.py::wkv6_work``).
@@ -120,6 +126,37 @@ def pad_to_chunk(xs, chunk):
 
 
 pad_to_chunk.pads = 0
+
+
+def built_chunk(chunk: int) -> int:
+    """The built chunk a requested ``chunk`` runs at: ``WKV_CHUNK_MAX``
+    (32) at 32 and above (the reference's clamp, ``vjp.py:124-130``), else
+    16. The tile size is not part of the function: any chunk gives the same
+    arithmetic."""
+    return WKV_CHUNK_MAX if chunk >= WKV_CHUNK_MAX else min(CHUNKS)
+
+
+def pad_head_dim(r, k, v, wlog, u, s0):
+    """r/k/v/wlog (B,S,H,P), u (H,P) and s0 (B,H,P,P) zero-padded from a P
+    outside ``HEAD_DIMS`` up to the next built one: the padded rows of the
+    state (k's zero columns, decay e^0 = 1) and its columns (v's zero
+    columns) stay 0, so o, s_end and the gradients on the true columns
+    are exact. Raises above the largest (P > 64); a call that pads counts
+    once in ``pad_head_dim.pads``."""
+    p = r.shape[-1]
+    if p in HEAD_DIMS:
+        return r, k, v, wlog, u, s0
+    if p > max(HEAD_DIMS):
+        raise ValueError(f"the kernels take P up to {max(HEAD_DIMS)}; got "
+                         f"P={p}")
+    pad_head_dim.pads += 1
+    extra = next(d for d in HEAD_DIMS if d > p) - p
+    pad = torch.nn.functional.pad
+    return (*(pad(x, (0, extra)) for x in (r, k, v, wlog, u)),
+            pad(s0, (0, extra, 0, extra)))
+
+
+pad_head_dim.pads = 0
 
 
 def _check_device(*xs):

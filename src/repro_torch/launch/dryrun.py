@@ -35,6 +35,10 @@ encoder's prefill, which the reference lowers as its forward writing a
 cache, is the port's forward in eval mode; ``embed`` "vocab", the only
 embedding layout the port has). A pair the port refuses is recorded with
 ``status: "fail"`` and the refusal's text, and ``--all`` then exits 1.
+A DeepSeek-V3 serving pair's cache holds a rank's rows of the latents
+(split on the sequence over the model group, as the reference's
+``cache_specs``), and its decode counts the distributed flash-decoding's
+collectives (``models/attention.py::mla_block``).
 """
 from __future__ import annotations
 

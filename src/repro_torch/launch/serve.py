@@ -26,9 +26,12 @@ splits each replica's layers over M of them, so ``--devices N`` is dp x M
 Each data rank serves ``batch / dp`` of the rows, each model rank its heads
 (``core/engine.py::Server``, ROADMAP D9); a batch the data ranks do not
 divide is served whole by each of them; rank 0 prints the two lines over
-every row. ``--model-axis`` without a world, a world that is not a
-multiple of it, a family without a decode step and more ranks than cards
-are refused before any rank starts. :func:`run` serves as one rank of a world its caller owns.
+every row, then a third: the bytes of its part of the cache (a rank's
+share; MLA's latents split on the sequence where the model axis divides
+the cache's rows, ``core/sharding.py::latents_split``). ``--model-axis``
+without a world, a world that is not a multiple of it, a family without a
+decode step and more ranks than cards are refused before any rank starts.
+:func:`run` serves as one rank of a world its caller owns.
 """
 from __future__ import annotations
 
@@ -176,6 +179,13 @@ def run(args, world) -> dict:
               f"decode={t_decode * 1e3:.1f}ms ({tps:.1f} tok/s)")
         print(f"[serve] sample generations (token ids):\n{gen[:2, :16]}",
               flush=True)
+    if world is not None and world.rank == 0:
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for leaves in cache.values()
+                          for t in leaves.values())
+        print(f"[serve] cache {cache_bytes} bytes a rank (data "
+              f"{server.row_split} x model {args.model_axis}; latents split "
+              f"on the sequence: {server.latents})", flush=True)
     return {"prefill_ms": t_prefill * 1e3, "decode_ms": t_decode * 1e3,
             "tok_s": tps, "tokens": gen}
 

@@ -50,9 +50,17 @@ sum over the group. ``copy_to_model`` sits on the three latents (``cq``,
 ``c_kv``, the rotated rope key: q_lora + kv_lora + rope columns, 2112 in
 DeepSeek-V3) rather than on x (7168): the backward's all-reduce moves
 those, and the replicated leaves' gradients come out whole on every rank.
-Serving under a model group caches the latents whole on every rank (D9):
-prefill and the absorbed decode run this rank's heads of ``w_uk`` and
-``w_uv`` over them.
+Serving under a model group splits the latent cache on the sequence
+where the model axis divides its rows (``core/sharding.py::
+latents_split``, the reference's ``cache_specs``): rank m holds rows
+``[m·Tm, (m+1)·Tm)``. Prefill writes the prompt's rows of its range and
+attends over the fresh whole latents (every rank computes them); decode
+writes the new row on the rank that holds it and runs the absorbed
+decode over its own rows for every head, then merges the ranks' partial
+softmaxes (:func:`_split_decode`, a distributed flash-decoding). Where
+the model axis does not divide the rows the latents stay whole on every
+rank, and prefill and the absorbed decode run this rank's heads of
+``w_uk`` and ``w_uv`` over them.
 
 Ulysses (``core/ulysses.py``): given the forward's ``seq`` split,
 ``attention_block`` gets this rank's S_m rows and whole weights. It
@@ -119,18 +127,23 @@ def sdpa(q, k, v, mask, *, softcap=0.0):
     return out.reshape(b, s, h, v.shape[-1])
 
 
-def write_cache(cache, key, x, at):
+def write_cache(cache, key, x, at, lo=0, rows=None):
     """Write ``x`` (B, S, ...) into ``cache[key]`` (B, Smax, ...) at rows
     ``at``..``at + S`` in place and return the whole cache tensor. Raises
-    when the cache's dtype is not ``x``'s (the compute dtype)."""
+    when the cache's dtype is not ``x``'s (the compute dtype). A cache
+    split on the sequence holds global rows ``lo``..``lo + Smax`` of
+    ``rows`` in all: only the rows of ``x`` in that range are written."""
     c = cache[key]
     if c.dtype != x.dtype:
         raise ValueError(f"cache {key!r} is {c.dtype}, the compute dtype "
                          f"{x.dtype}: make the cache in the compute dtype")
-    if at + x.shape[1] > c.shape[1]:
-        raise ValueError(f"cache {key!r} holds {c.shape[1]} rows; writing "
+    rows = c.shape[1] if rows is None else rows
+    if at + x.shape[1] > rows:
+        raise ValueError(f"cache {key!r} holds {rows} rows; writing "
                          f"{x.shape[1]} at row {at} overflows it")
-    c[:, at:at + x.shape[1]] = x
+    a, b = max(at, lo), min(at + x.shape[1], lo + c.shape[1])
+    if a < b:
+        c[:, a - lo:b - lo] = x[:, a - at:b - at]
     return c
 
 
@@ -226,7 +239,10 @@ def mla_block(p, x, cfg, *, positions, cache=None, cache_index=0):
     :func:`sdpa`. Decode is absorbed: scores ``(q_nope w_uk) c_kvᵀ +
     q_rope k_ropeᵀ`` in fp32 over the cached rows at or before
     ``cache_index``, the context in latent space, then ``w_uv``. Both
-    norms take K4/K5 with ``cfg.use_kernels``."""
+    norms take K4/K5 with ``cfg.use_kernels``. With the latents split on
+    the sequence over the model group (``shardctx.latent_group``) prefill
+    attends over the fresh latents (T = S) and decode is
+    :func:`_split_decode`; ``cache_index`` stays global."""
     m = cfg.mla
     b, s, _ = x.shape
     nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
@@ -245,13 +261,26 @@ def mla_block(p, x, cfg, *, positions, cache=None, cache_index=0):
     k_rope = apply_rope_1d(dkv[..., m.kv_lora_rank:][:, :, None], positions,
                            theta=cfg.rope_theta)
     q_nope = q[..., :nope]
-    if cache is not None:
+    split = shardctx.latent_group() if cache is not None else None
+    if split is not None:
+        # this rank's rows of the latents split on the sequence; prefill
+        # attends over the fresh whole latents (rows past S are causally
+        # masked in the whole-cache route: the same arithmetic)
+        tm = cache["c_kv"].shape[1]
+        at, lo = (cache_index if s == 1 else 0), split.rank * tm
+        write_cache(cache, "c_kv", c_kv, at, lo, split.size * tm)
+        write_cache(cache, "k_rope", k_rope[:, :, 0], at, lo,
+                    split.size * tm)
+    elif cache is not None:
         at = cache_index if s == 1 else 0
         c_kv = write_cache(cache, "c_kv", c_kv, at)
         k_rope = write_cache(cache, "k_rope", k_rope[:, :, 0], at)[:, :,
                                                                   None]
     t = c_kv.shape[1]
-    if cache is not None and s == 1:
+    if split is not None and s == 1:
+        out = _split_decode(p, cfg, q_nope, q_rope, cache, cache_index,
+                            split)
+    elif cache is not None and s == 1:
         f32 = torch.float32
         w_uk = p["w_uk"].to(dt).reshape(m.kv_lora_rank, h, nope)
         q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)
@@ -276,3 +305,43 @@ def mla_block(p, x, cfg, *, positions, cache=None, cache_index=0):
                       True)
     return shardctx.reduce_from_model(out.reshape(b, s, h * vd)
                                       @ p["wo"].to(dt))
+
+
+def _split_decode(p, cfg, q_nope, q_rope, cache, cache_index, group):
+    """MLA's absorbed decode over latents split on the sequence (a
+    distributed flash-decoding): this rank holds global rows ``[m·Tm,
+    (m+1)·Tm)`` of ``c_kv`` (B, Tm, R) and ``k_rope`` (B, Tm, rope) and
+    its H/M heads of ``w_uk``/``w_uv``. ``q_lat = q_nope·w_uk`` and the
+    rotated ``q_rope`` of its heads are gathered to every head; the fp32
+    scores over its rows (NEG_INF past ``cache_index``) give its partial
+    softmax, accumulated in fp32 (the row max, Σ exp(s − max) and
+    Σ exp(s − max)·c_kv), which ``shardctx.combine_softmax`` merges over
+    the group and scatters to the rank's heads; ``ctx / den``, cast to the
+    compute dtype, goes through its heads of ``w_uv``. Returns (B, 1,
+    H/M, v). The reference casts the softmax weights to the compute dtype
+    before ``w·c_kv`` (``attention.py:229-230``); here the weighted sum
+    stays in fp32 until the division. In fp32 the two agree to rounding;
+    in bf16 they differ by the weights' rounding (the bf16 gate is the
+    cosine's)."""
+    m = cfg.mla
+    nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    h, dt, f32 = q_nope.shape[2], q_nope.dtype, torch.float32
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    w_uk = p["w_uk"].to(dt).reshape(m.kv_lora_rank, h, nope)
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)
+    q_lat, q_rope = shardctx.gather_heads([q_lat, q_rope], group)
+    scores = (torch.einsum("bshr,btr->bsht", q_lat.to(f32), c_kv.to(f32))
+              + torch.einsum("bshd,btd->bsht", q_rope.to(f32),
+                             k_rope.to(f32))) * (nope + rope_d) ** -0.5
+    tm = c_kv.shape[1]
+    live = torch.arange(tm, device=c_kv.device) + group.rank * tm <= \
+        cache_index
+    scores = torch.where(live, scores, NEG_INF)
+    mx = scores.amax(-1)
+    e = torch.exp(scores - mx[..., None])
+    ctx, den = shardctx.combine_softmax(
+        mx, e.sum(-1), torch.einsum("bsht,btr->bshr", e, c_kv.to(f32)),
+        group)
+    w_uv = p["w_uv"].to(dt).reshape(m.kv_lora_rank, h, vd)
+    return torch.einsum("bshr,rhd->bshd", (ctx / den[..., None]).to(dt),
+                        w_uv)

@@ -23,6 +23,19 @@ identity, so a model runs unchanged on one rank.
 :func:`vocab_parallel_nll` is the cross-entropy of logits whose vocabulary
 is split over the group (Megatron's vocab-parallel loss, in fp32).
 
+The serving cache's latents split on the sequence (MLA,
+``core/sharding.py::latents_split``): the server installs the group with
+``use(group, latents=True)``, :func:`latent_group` gives it to
+``mla_block``, whose decode is a distributed flash-decoding over two plain
+collectives (decode takes no gradient, so neither is an autograd
+Function; each refuses a call under grad):
+
+  gather_heads        this rank's heads of the absorbed query, gathered
+                      to every head (an all-gather on the head dimension)
+  combine_softmax     each rank's partial softmax over its rows (max,
+                      sum of exponentials, weighted sum of values) merged
+                      over the group and scattered to each rank's heads
+
 The sequence group (DeepSpeed-Ulysses, ``core/ulysses.py``): the engine
 installs the same M ranks with :func:`use_sequence` instead, and the TP
 operators above stay the identity (the weights are whole on every rank).
@@ -39,8 +52,8 @@ ranks take one row more), and three operators move rows:
                       no collective
 
 Models never import ``repro_torch.core``, so this lives under models/ and
-reads the group's ``rank``, ``size``, ``all_reduce``, ``all_gather_many``
-and ``all_to_all`` by duck typing.
+reads the group's ``rank``, ``size``, ``all_reduce``, ``all_gather_many``,
+``reduce_scatter_many`` and ``all_to_all`` by duck typing.
 """
 from __future__ import annotations
 
@@ -51,6 +64,7 @@ import torch
 
 _GROUP = None
 _SEQ = None
+_LATENTS = False
 
 
 def active():
@@ -60,15 +74,54 @@ def active():
 
 
 @contextlib.contextmanager
-def use(group):
+def use(group, latents: bool = False):
     """Install ``group`` (a World, or None) for the forwards (and the
-    backwards' recomputes) run inside."""
-    global _GROUP
-    prev, _GROUP = _GROUP, group
+    backwards' recomputes) run inside; ``latents``: the serving cache's
+    MLA latents are split on the sequence over it (:func:`latent_group`)."""
+    global _GROUP, _LATENTS
+    prev, _GROUP, _LATENTS = (_GROUP, _LATENTS), group, latents
     try:
         yield
     finally:
-        _GROUP = prev
+        _GROUP, _LATENTS = prev
+
+
+def latent_group():
+    """The installed model group where the serving cache's latents are
+    split on the sequence over it, else None (no group, a group of one, a
+    whole cache, or a block run whole with the group lifted)."""
+    return active() if _LATENTS else None
+
+
+def _no_grad(what):
+    if torch.is_grad_enabled():
+        raise RuntimeError(f"{what} is decode-only and takes no gradient: "
+                           f"run it under torch.inference_mode()")
+
+
+def gather_heads(xs, group):
+    """Each of ``xs`` (B, S, H/M, ...), this rank's heads, gathered to
+    (B, S, H, ...) over ``group`` in one all-gather (one per dtype)."""
+    _no_grad("gather_heads")
+    return group.all_gather_many([x.contiguous() for x in xs],
+                                 [2] * len(xs))
+
+
+def combine_softmax(mx, den, ctx, group):
+    """Merge each rank's partial softmax over its own key rows into this
+    rank's heads' whole one: ``mx`` (B, S, H) the rank's fp32 row maxima,
+    ``den`` (B, S, H) its Σ exp(s − mx), ``ctx`` (B, S, H, R) its
+    Σ exp(s − mx)·value. One all-reduce of the maxima (``mx_all =
+    max_m mx_m``), then one reduce-scatter on the head dimension of
+    ``ctx·e^{mx − mx_all}`` and ``den·e^{mx − mx_all}``: the sums over
+    the ranks of this rank's H/M heads, (B, S, H/M, R) and (B, S, H/M).
+    The reduce-scatter moves each rank only its heads' sums, where an
+    all-reduce and a slice would move every head's. A rank whose rows are
+    all masked (scores at the finite ``NEG_INF``) has ``mx`` = NEG_INF, so
+    its factor e^{NEG_INF − mx_all} is exactly 0 and its share vanishes."""
+    _no_grad("combine_softmax")
+    f = torch.exp(mx - group.all_reduce(mx.clone(), "max"))
+    return group.reduce_scatter_many([ctx * f[..., None], den * f], [2, 2])
 
 
 def _sum(x, group):

@@ -54,8 +54,10 @@ RWKV6's ``att_shift``/``ffn_shift``/``wkv``; a Mamba2 model's ``{"mamba":
 KH, hd), one slot per group of the shared block), and ``forward(...,
 mode="prefill"|"decode", cache=...)`` threads it layer by layer, each layer
 writing its slice in place. Across ranks ``init_cache(..., data=, model=)``
-makes one rank's part (``core/sharding.py::cache_dims``, ROADMAP D9) and
-the forward runs under the installed model group as in training.
+makes one rank's part (``core/sharding.py::cache_dims``: heads, D9, or
+MLA's latents' rows) and the forward runs under the installed model group
+as in training (installed with ``latents=True`` where the latents are
+split on the sequence; ``cache_index`` stays global).
 
 Tensor parallelism (``models/shardctx.py``): under an installed model
 group the params are this rank's model chunks (``core/sharding.py::
@@ -190,7 +192,9 @@ def init_cache(cfg, batch, max_len, *, dtype=torch.bfloat16, device="cuda",
     ``data`` and ``model``: one rank's part of the cache of a layout of
     ``data`` data ranks and ``model`` model ranks
     (``core/sharding.py::cache_dims``): ``batch / data`` rows, and on the
-    model axis this rank's heads (D9). The defaults give the whole cache."""
+    model axis this rank's heads (D9) or, for MLA's latents where the
+    model axis divides ``max_len``, this rank's ``max_len / model`` rows
+    of the sequence. The defaults give the whole cache."""
     if not cfg.supports_decode():
         raise ValueError(f"{cfg.name} has no decode step")
     meta = {"dtype": dtype, "device": "meta"}       # one layer's shapes

@@ -143,6 +143,36 @@ def test_dryrun_cli_pair(arch, shape, argv, chips, tmp_path):
         assert rec["collectives_network"] == rec["collectives"]
 
 
+def test_deepseek_decode_counts_a_ranks_share_of_the_latents(monkeypatch):
+    """DeepSeek-V3 x decode_32k: rank 0 holds 1/16 of the latent cache
+    (its 2,048 of 32,768 rows, ``cache_specs``' sequence split), so its
+    argument bytes are the whole-latent layout's (D9's, counted again
+    with ``latents_split`` forced off) less exactly 15/16 of the latents,
+    61 layers x 8 rows x 32,768 x (512 + 64) x 2 B; and its collectives
+    add, a layer, the decode's all-gather of the absorbed query (B H (R +
+    rope) bf16), the all-reduce of the partial maxima (B H fp32) and the
+    reduce-scatter of the merged context and sums (B H/M (R + 1) fp32)."""
+    from repro_torch.core import sharding
+    split, cfg, shape, _, layout = dryrun.count_pair("deepseek-v3-671b",
+                                                     "decode_32k")
+    monkeypatch.setattr(sharding, "latents_split", lambda *a: False)
+    whole = dryrun.count_pair("deepseek-v3-671b", "decode_32k")[0]
+    m, L, M = cfg.mla, cfg.num_layers, layout.model
+    rows, h = shape.global_batch // layout.data, cfg.num_heads
+    latents = L * rows * shape.seq_len * (m.kv_lora_rank
+                                          + m.qk_rope_head_dim) * 2
+    assert whole.args_bytes - split.args_bytes == latents * (M - 1) // M \
+        == 17_270_046_720
+    got = {k: split.totals.coll[k] - whole.totals.coll[k]
+           for k in split.totals.coll}
+    assert got == {
+        "all-gather": L * rows * h * (m.kv_lora_rank + m.qk_rope_head_dim)
+        * 2,
+        "all-reduce": L * rows * h * 4,
+        "reduce-scatter": L * rows * (h // M) * (m.kv_lora_rank + 1) * 4,
+        "all-to-all": 0, "collective-permute": 0}
+
+
 def test_a_pair_that_fails_is_recorded_and_all_exits_one(tmp_path,
                                                         monkeypatch):
     def refuse(arch, shape, **kw):

@@ -186,9 +186,11 @@ def _case(world, case):
 
 
 def _mla_serve(world=None):
-    """``mla_block`` with a cache on this rank's chunks: a prefill of the
-    first SEQ - 4 rows, then 4 absorbed decode steps -> the outputs,
-    summed over the model group (2, SEQ, d)."""
+    """``mla_block`` with a cache on this rank's chunks and, where the
+    model axis divides its SEQ rows, its rows of the latents (installed
+    as split, as ``Server`` installs it): a prefill of the first SEQ - 4
+    rows, then 4 absorbed decode steps -> the outputs, summed over the
+    model group (2, SEQ, d)."""
     p, x, pos, _ = _block_inputs()
     rank, size = (0, 1) if world is None else (world.rank, world.size)
     params = {k: torch.tensor(_chunk(k, v, rank, size))
@@ -200,7 +202,8 @@ def _mla_serve(world=None):
     x, pos = torch.from_numpy(x), torch.from_numpy(pos).long()
     s = SEQ - 4
     outs = []
-    with torch.inference_mode(), shardctx.use(world):
+    split = cache["c_kv"].shape[1] != SEQ
+    with torch.inference_mode(), shardctx.use(world, latents=split):
         outs.append(attention.mla_block(params, x[:, :s], cfg,
                                         positions=pos[:, :s], cache=cache))
         for i in range(s, SEQ):
@@ -293,9 +296,11 @@ def test_mla_block_gradients_across_ranks(lay, route, worlds, one_process):
 
 def test_mla_decode_is_refused_on_the_model_axis(worlds):
     """MLA's prefill and absorbed decode at model axis 2, each rank its
-    heads of ``w_uq``/``w_uk``/``w_uv``/``wo`` over the whole latent cache
-    (ROADMAP D9), summed over the group: within 1e-5 of one rank's, the
-    same on both ranks."""
+    heads of ``w_uq``/``w_uk``/``w_uv``/``wo`` and its half of the latent
+    cache's rows (split on the sequence, as the reference's
+    ``cache_specs``; the decode's partial softmaxes merged over the
+    group), summed over the group: within 1e-5 of one rank's, the same on
+    both ranks."""
     want = _mla_serve()
     ranks = worlds["m2"]
     for rank, res in enumerate(ranks):
