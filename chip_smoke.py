@@ -3184,10 +3184,19 @@ SPLIT_NAMES = ("rmsnorm_sumsq", "rmsnorm_fwd_split", "rmsnorm_bwd_dot",
 # 2, each held against its one-rank run; a rank's peak beside the
 # tensor-parallel job's at the same model axis (TP_PEAK_PAIRS)
 ULYSSES = "--seq-parallel ulysses --model-axis"
+# 19n: Granite-MoE under Ulysses (ROADMAP 16.2b), the TP_FAMILIES runs
+# (GShard and gather) at model 2 and 4 on the same host draw: a rank's
+# 1,024 / M rows of each sequence, its H/M query and KH/M KV heads over
+# every row inside attention, E/M routed experts on the gathered rows;
+# against the one-rank runs (losses, grad norms and moe_aux within
+# TP_TOL), the routings that differ printed
+GRANITE_ULYSSES = ("granite", "granite-gather")
 TP_PEAK_PAIRS = [(f"vit-b16 fp32 {ULYSSES} 2", "vit-b16 fp32 --model-axis 2"),
                  (f"vit-b16 fp32 {ULYSSES} 4", None),
                  (f"chatglm3-6b fp32 {ULYSSES} 2",
-                  "chatglm3-6b fp32 --model-axis 2")]
+                  "chatglm3-6b fp32 --model-axis 2")] + [
+    (f"{tag} fp32 {ULYSSES} {m}", f"{tag} fp32 --model-axis {m}")
+    for tag in GRANITE_ULYSSES for m in (2, 4)]
 # 19m: serving across ranks (ROADMAP item 16.3, deviation D9), in the two
 # worlds above after their training jobs. (m1) the serve CLI's run
 # (SERVE_ARGS) at model axis 2 in the world of 2 and at data 2 x model 2
@@ -3440,6 +3449,17 @@ def tp_jobs():
     def uly(m):
         return ["--devices", str(m), "--model-axis", str(m),
                 "--seq-parallel", "ulysses"]
+
+    def granite_ulysses(m):
+        # 19n: K1-K3 at (24/M, 8/M) heads over all 1,024 rows, K4/K5 on
+        # a rank's 1,024/M rows of each sequence: the TP runs' counts
+        out = []
+        for tag in GRANITE_ULYSSES:
+            expect, heads, wkv = family_expect(tag, m)
+            out.append(TPJob(f"{tag} fp32 {ULYSSES} {m}",
+                             family_argv(tag) + uly(m), expect, heads, wkv,
+                             tag, TP_FAMILIES[tag][3]))
+        return out
     lm_pp = pp_tp_expect(LM_LAYERS // 2, TP_LM_STEPS * 2, 2)
     return {
         2: [TPJob("vit-b16 fp32 --model-axis 2",
@@ -3456,7 +3476,8 @@ def tp_jobs():
                   [(16, 1)], [], "lm", then="ds-m2"),
             TPJob("vit-b16 bf16 --model-axis 2",
                   TP_VIT_BF16_ARGS + ["--devices", "2", "--model-axis", "2"],
-                  vit_bf16, [(6, 6)], [], None)] + families(2) + [
+                  vit_bf16, [(6, 6)], [], None)] + families(2) + \
+            granite_ulysses(2) + [
             TPJob("chatglm3-6b fp32 --model-axis 2",
                   TP_LM_ARGS + ["--devices", "2", "--model-axis", "2"], lm,
                   [(16, 1)], [], "lm")] + serve_jobs(2),
@@ -3478,7 +3499,7 @@ def tp_jobs():
             TPJob("chatglm3-6b fp32 --pp 2 --pp-interleave 2 --model-axis 2",
                   TP_PP_LM_ARGS + TP_PP + ["--pp-interleave", "2"], lm_pp,
                   [(16, 1)], [], "lm")]
-        + families(4) + serve_jobs(4)}
+        + families(4) + granite_ulysses(4) + serve_jobs(4)}
 
 
 def held_params(draws, cfg):
@@ -4241,6 +4262,37 @@ def routing_flips(label, got, want):
           flush=True)
 
 
+def granite_ulysses_gates(job, rank, size, rows, ref, state_gb):
+    """19n's gates on one rank of a Granite-MoE Ulysses job: ``moe_aux``
+    within TP_TOL of the one-rank run's at every step (the aux counted
+    once over the model group), and the rank's params on the card after
+    init its E/M routed experts and every other leaf whole (counted from
+    their bytes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params as meta_init
+
+    m = int(job.argv[job.argv.index("--model-axis") + 1])
+    cfg = get_config(GRANITE).replace(
+        num_layers=TP_FAMILIES[job.ref][1], **job.fields)
+    e = cfg.moe.num_experts
+    params = meta_init(cfg, device="meta")
+    experts = sum(p.numel() * 4 for k, p in params.items()
+                  if ".experts." in k)
+    rest = sum(p.numel() * 4 for k, p in params.items()
+               if ".experts." not in k)
+    held = (state_gb * 1e9 - rest) / (experts / e)
+    d_aux = max_diff(rows, ref, "moe_aux")
+    ok = d_aux <= TP_TOL and abs(held - e // m) < 1e-3
+    print(f"[tp] {job.label} rank {rank}/{size}: moe_aux "
+          f"{[round(r['moe_aux'], 6) for r in rows]}, max |dmoe_aux| "
+          f"{d_aux:.3e} against one rank (tol {TP_TOL}); routed experts on "
+          f"the card after init {held:.3f} of {e} (expected E/M = "
+          f"{e // m}), every other leaf whole ({rest / 1e9:.3f} GB) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{job.label} rank {rank}: moe_aux or the experts held off")
+
+
 def phase_tp(card, f32_ref, family_params, serving):
     """Phase 19, tensor parallelism with every rank on the one card (gloo,
     collectives staged through host memory; NCCL refuses two ranks on one
@@ -4465,6 +4517,9 @@ def phase_tp(card, f32_ref, family_params, serving):
                          f"off")
                 if ref and not (d_loss <= TP_TOL and d_norm <= TP_TOL):
                     fail(f"{label} rank {rank} disagrees with one rank")
+                if ULYSSES in label and ref in GRANITE_ULYSSES:
+                    granite_ulysses_gates(job, rank, size, rows, refs[ref],
+                                          state_gb)
                 # the card held no more than the rank's own params and
                 # moments at any time of the init: never the whole draw
                 if ref == "deepseek" and not (

@@ -86,16 +86,21 @@ replicated leaf by model rank 0.
 Ulysses sequence parallelism (``ecfg.sequence_parallel`` "ulysses", where
 ``core/ulysses.py::applies`` says the model allows it; elsewhere the
 tensor-parallel layout above): the same data x model layout, but every
-model rank holds every leaf whole (``model_dims`` None), and the model
+model rank holds every leaf whole (``model_dims`` None) but an MoE's
+routed experts, split on E (``ulysses.model_dims``), and the model
 group is installed as the sequence group (``shardctx.use_sequence``), so
-each rank runs its rows of the sequence. Each rank's gradient of a leaf is
-its rows' share, summed over the model group (``model_summed``), but the
-ViT's final norm and head, computed whole on every rank
-(``ulysses.whole``); a decoder's or HuBERT's loss and metrics are summed
-over the group too, so every rank's guard decides on the whole loss. The
-global grad norm then needs no model-group sum. Checkpoints go as
-``Blocks`` with every leaf whole on the model axis, written by model rank
-0, and restore into any layout.
+each rank runs its rows of the sequence. Each rank's gradient of a whole
+leaf is its rows' share, summed over the model group (``model_summed``),
+but the ViT's final norm and head, computed whole on every rank
+(``ulysses.whole``); a split expert's gradient is its rank's own. A
+decoder's or HuBERT's loss and metrics are summed over the group too, so
+every rank's guard decides on the whole loss (the MoE's aux enters them
+on model rank 0 only). The global grad norm sums the split experts'
+squares over the model group and counts every other leaf once. ZeRO
+shards a rank's expert chunk over the data group, as under tensor
+parallelism. Checkpoints go as ``Blocks`` (the experts as model chunks,
+every other leaf whole on the model axis, written by model rank 0), and
+restore into any layout.
 
 ``Server`` serves (the reference's ``_prefill`` and ``_decode_step``,
 ``engine.py:517-568``): ``prefill`` runs a prompt batch into a cache and
@@ -302,18 +307,22 @@ class Trainer:
                                       ecfg.warmup_steps, ecfg.total_steps)
         self.param_dims = self.opt_dims = None
         # the dimension of each (whole) leaf split over the model group
+        # (under Ulysses only an MoE's routed experts, on E)
         shapes = {k: p.shape
                   for k, p in model.init_params(cfg, device="meta").items()}
-        self.model_dims = model_dims(shapes, cfg, M) \
-            if self.tp is not None and not self.ulysses \
-            else dict.fromkeys(shapes)
+        if self.tp is None:
+            self.model_dims = dict.fromkeys(shapes)
+        elif self.ulysses:
+            self.model_dims = ulysses.model_dims(shapes, cfg, M)
+        else:
+            self.model_dims = model_dims(shapes, cfg, M)
         # the leaves whole on every model rank whose gradients are summed
         # over the model group (D6's KV projections, D7's Mamba2 leaves,
-        # the MoE router; under Ulysses every leaf a rank computes on its
-        # rows)
+        # the MoE router; under Ulysses every whole leaf a rank computes
+        # on its rows)
         self.model_summed = [k for k in shapes if self.tp is not None and (
-            not ulysses.whole(k, cfg) if self.ulysses
-            else model_summed(k, cfg, M))]
+            not ulysses.whole(k, cfg) and self.model_dims[k] is None
+            if self.ulysses else model_summed(k, cfg, M))]
         # the executor's schedule accounting of the last pipelined step
         self.schedule_out = {}
 
@@ -712,10 +721,10 @@ class Trainer:
         the executor as around the plain path). Under a model group each
         is this rank's model chunk (the ``model_summed`` leaves' summed
         over the group: a stacked one's stage-local rows under a pipe
-        group). Under Ulysses (:attr:`ulysses`) every gradient is whole,
-        summed over the model group but for ``ulysses.whole``'s leaves, and
-        a decoder's or HuBERT's metrics are summed over the group (each
-        rank's loss is its rows' share)."""
+        group). Under Ulysses (:attr:`ulysses`) every gradient but a split
+        expert's is whole, summed over the model group but for
+        ``ulysses.whole``'s leaves, and a decoder's or HuBERT's metrics
+        are summed over the group (each rank's loss is its rows' share)."""
         if self.aug is not None and rngs is None:
             raise ValueError("augmented training needs the microbatch "
                              "seeds (rngs)")

@@ -28,13 +28,21 @@ down to ``--micro`` 2 rows a data rank, ``model_flops`` of 6·N_active·
 tokens for training, 2·N_active·tokens for prefill and 2·N_active·B for
 decode. There is no compiler here, so ``lower_s``/``compile_s`` are one
 ``count_s`` and ``xla_cost_analysis`` is the counter's totals by aten op
-and kernel. Where the port's layout differs from the reference's the
-record says what ran (``seq_parallel`` "none" for a prefill the reference
-runs under Ulysses: the port's ``Server`` has no sequence layout; an
-encoder's prefill, which the reference lowers as its forward writing a
-cache, is the port's forward in eval mode; ``embed`` "vocab", the only
-embedding layout the port has). A pair the port refuses is recorded with
-``status: "fail"`` and the refusal's text, and ``--all`` then exits 1.
+and kernel. ``seq_parallel`` is the reference's: "ulysses" for a prefill
+pair and "none" for the rest unless ``--seq-parallel`` says otherwise,
+and the layout follows ``core/ulysses.py::applies`` as the reference's
+``make_hints`` does. At the production layout that is HuBERT-XLarge's
+prefill (16 query and 16 KV heads at model 16), counted as its forward in
+eval mode (the reference lowers an encoder's prefill as its forward
+writing a cache) with every leaf whole under the sequence group; every
+decoder's heads fall back to the tensor-parallel layout there, as
+``make_hints``' do. A decoder's serving pair where the Ulysses layout
+would apply (no production layout reaches one) is refused: the port's
+``Server`` has no sequence layout yet (ROADMAP 16.2c). Where the port's
+layout differs from the reference's the record says what ran (``embed``
+"vocab", the only embedding layout the port has). A pair the port
+refuses is recorded with ``status: "fail"`` and the refusal's text, and
+``--all`` then exits 1.
 A DeepSeek-V3 serving pair's cache holds a rank's rows of the latents
 (split on the sequence over the model group, as the reference's
 ``cache_specs``), and its decode counts the distributed flash-decoding's
@@ -54,6 +62,7 @@ import torch
 
 from repro_torch.configs import ASSIGNED_ARCHS, SHAPES, EngineConfig, \
     applicable, get_config, get_shape
+from repro_torch.core import ulysses
 from repro_torch.core.comm_model import H100_SXM, roofline
 from repro_torch.core.distributed import recording_world
 from repro_torch.core.engine import Server, Trainer
@@ -97,8 +106,8 @@ def engine_for(arch: str, shape_name: str, layout, *, zero: int = None,
     if chunk and cfg.ssm is not None:
         cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm, chunk_size=chunk))
     zero = 3 if zero is None else zero
-    if seq_parallel is None or shape.kind != "train":
-        seq_parallel = "none"
+    if seq_parallel is None:
+        seq_parallel = "ulysses" if shape.kind == "prefill" else "none"
     dp = layout.data
     gb = shape.global_batch
     mb = micro or 2
@@ -131,18 +140,23 @@ def count_train(cfg, ecfg, world, model_axis, batch, *, where=False):
     return counter
 
 
-def count_serve(cfg, shape, world, model_axis, *, where=False):
+def count_serve(cfg, shape, world, model_axis, seq_parallel="none", *,
+                where=False):
     """A ``Server``'s prefill of the shape's prompt batch into a cache of
     its length, or one decode step against a cache of the shape's length,
     for rank ``world.rank`` on ``meta``; an encoder's prefill is its
-    forward (eval mode) on the data rank's rows under the model group.
-    Returns the counter."""
+    forward (eval mode) on the data rank's rows under the model group,
+    installed as the sequence group with every leaf whole where
+    ``ulysses.applies`` (else the tensor-parallel layout). A decoder where
+    it applies is refused (ROADMAP 16.2c). Returns the counter."""
     params = model.init_params(cfg, device="meta")
     b, s = shape.global_batch, shape.seq_len
+    seq = ulysses.applies(cfg, model_axis, seq_parallel)
     if not cfg.supports_decode():
         lay = make_layout(world, 1, model_axis)
         dims = model_dims({k: v.shape for k, v in params.items()}, cfg,
-                          model_axis) if lay.model is not None else {}
+                          model_axis) if lay.model is not None and not seq \
+            else {}
         params = {k: lay.model.chunk(v, dims[k]) if dims.get(k) is not None
                   else v for k, v in params.items()}
         n = b // serving_rows(b, lay.data.size)
@@ -153,9 +167,14 @@ def count_serve(cfg, shape, world, model_axis, *, where=False):
                                 args_bytes=_bytes(list(params.values())
                                                   + list(batch.values()))
                                 ) as counter, torch.inference_mode(), \
-                shardctx.use(lay.model):
+                (shardctx.use_sequence if seq else shardctx.use)(lay.model):
             model.forward(cfg, params, batch, mode="eval")
         return counter
+    if seq:
+        raise ValueError(f"{cfg.name}: the Server's sequence layout "
+                         f"(--seq-parallel ulysses at model axis "
+                         f"{model_axis}) is not yet ported to repro_torch "
+                         f"(ROADMAP item 16.2c)")
     server = Server(cfg, params, device="meta", world=world,
                     model_axis=model_axis)
     cache = server.init_cache(b, s)
@@ -185,7 +204,8 @@ def count_pair(arch, shape_name, *, multi_pod=False, where=False, **kw):
         counter = count_train(cfg, ecfg, world, layout.model,
                               input_specs(cfg, shape), where=where)
     else:
-        counter = count_serve(cfg, shape, world, layout.model, where=where)
+        counter = count_serve(cfg, shape, world, layout.model,
+                              ecfg.sequence_parallel, where=where)
     return counter, cfg, shape, ecfg, layout
 
 

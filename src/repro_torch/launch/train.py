@@ -102,15 +102,20 @@ pipeline takes (the ViT, HuBERT, the dense decoders):
 
 Ulysses sequence parallelism (``core/ulysses.py``, DeepSpeed-Ulysses):
 ``--seq-parallel ulysses`` makes the ``--model-axis`` ranks split each
-sequence (the ViT's patches) instead of the weights, for the ViT, HuBERT
-and the dense and vision-language decoders where M divides the query and
-the KV heads; elsewhere, and for the MoE, MLA, RWKV6 and Mamba2 families,
-the run keeps the tensor-parallel layout (ROADMAP D8). On one process the
-flag changes nothing; with ``--pp`` it is refused:
+sequence (the ViT's patches) instead of the weights, for the ViT, HuBERT,
+the dense and vision-language decoders and Granite-MoE (its routed
+experts stay split on E, E/M a rank) where M divides the query and the KV
+heads; elsewhere, and for the MLA, RWKV6 and Mamba2 families, the run
+keeps the tensor-parallel layout (ROADMAP D8), and the header line then
+does not say ``seq=ulysses``. On one process the flag changes nothing;
+with ``--pp`` it is refused:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch vit-b16 \\
         --smoke --device cpu --devices 4 --model-axis 4 \\
         --seq-parallel ulysses --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch granite-moe-3b-a800m --smoke --device cpu --devices 2 \\
+        --model-axis 2 --seq-parallel ulysses --steps 3
 
 Options of the reference that are not ported yet are refused, never
 ignored.

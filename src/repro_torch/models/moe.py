@@ -26,7 +26,27 @@ capacity one rank would count, runs them, combines only their outputs
 and sums the partial outputs over the group (``reduce_from_model``). The
 router's gradient is then each rank's share (summed by the engine), and
 the load-balance aux, the same value on every rank, keeps its gradient on
-model rank 0 only, so the sum counts it once.
+model rank 0 only, so the sum counts it once. Collectives a layer: the
+copy's all-reduce of the input's gradient (backward) and the sum of the
+outputs (forward), B·S·d elements of the compute dtype each.
+
+Under the Ulysses layout (a ``shardctx.SeqSplit`` as ``seq``,
+``core/ulysses.py``) each rank holds its rows of the sequence and E/M
+experts (every expert where M does not divide E), the rest whole. The
+MoE gathers the rows over the sequence group (``all_gather_seq``: every
+rank then sees the data rank's whole (B, S, d)), routes every token with
+the whole fp32 router at the capacity one process counts, runs this
+rank's experts, combines only their outputs and reduce-scatters the
+partial sums onto the rank's rows (``reduce_scatter_seq``; with every
+expert on every rank, the output's rows are the rank's own and need no
+collective); shared experts run on the rank's rows. The routings are one
+process's. Collectives a layer: the gather and the reduce-scatter in the
+forward and each the other's in the backward, B·S·d elements of the
+compute dtype received by each rank for each (all-to-alls, as the rows
+split unevenly). The router's gradient is each rank's share (the engine
+sums it over the group), and the aux enters the loss, value and
+gradient, on model rank 0 only (the engine sums a rank's loss and
+metrics over the group).
 """
 from __future__ import annotations
 
@@ -123,18 +143,47 @@ def expert_ffn(we, expert_in):
     return torch.bmm(h, we["experts.w_out"].to(dt)).reshape(expert_in.shape)
 
 
-def _expert_part(p):
-    """The ``[lo, hi)`` of the experts this rank holds (all of them
-    without a model group)."""
-    tp, n = shardctx.active(), p["experts.w_gate"].shape[0]
-    lo = 0 if tp is None else tp.rank * n
+def _expert_part(p, cfg, seq=None):
+    """The ``[lo, hi)`` of the experts this rank holds: its E/M under a
+    model group (the tensor-parallel one, or ``seq``'s group where the
+    experts are split), else all of them."""
+    group = seq.group if seq is not None else shardctx.active()
+    n = p["experts.w_gate"].shape[0]
+    lo = 0 if group is None or n == cfg.moe.num_experts else group.rank * n
     return lo, lo + n
 
 
-def _aux_once(aux):
-    """The aux term with its gradient on model rank 0 only."""
+def _aux_once(aux, seq=None):
+    """The aux term counted once over the model group: under tensor
+    parallelism its gradient on model rank 0 only (every rank reports its
+    value); under a sequence split its value and gradient on model rank 0
+    only (the engine sums the ranks' losses and metrics)."""
+    if seq is not None:
+        return aux if seq.group.rank == 0 else torch.zeros_like(aux)
     tp = shardctx.active()
     return aux if tp is None or tp.rank == 0 else aux.detach()
+
+
+def _rows_in(x, seq):
+    """The rows the MoE routes: under a sequence split every rank's
+    (gathered, the backward reduce-scattered), else ``x`` (the model
+    group's copy under tensor parallelism)."""
+    return shardctx.copy_to_model(x) if seq is None else \
+        shardctx.all_gather_seq(x, seq)
+
+
+def _rows_out(p, cfg, rows, x, out, seq):
+    """The layer's output from ``out``, this rank's experts' partial sums
+    over the routed rows ``x``: under tensor parallelism, with the shared
+    experts' split part, summed over the model group; under a sequence
+    split, reduce-scattered onto this rank's ``rows`` (sliced where every
+    rank holds every expert), then the shared experts on ``rows``."""
+    if seq is None:
+        return shardctx.reduce_from_model(_shared(p, x, out))
+    split = p["experts.w_gate"].shape[0] < cfg.moe.num_experts
+    out = shardctx.reduce_scatter_seq(out, seq) if split else \
+        out[:, seq.rows]
+    return _shared(p, rows, out)
 
 
 def _shared(p, x, out):
@@ -145,24 +194,24 @@ def _shared(p, x, out):
     return out + hs @ p["shared.w_out"].to(dt)
 
 
-def moe_ffn(p, x, cfg, reduce=None):
+def moe_ffn(p, x, cfg, reduce=None, seq=None):
     """GShard MoE (``moe.py:73-109``): x (B, S, D) -> (out (B, S, D),
     ``router_aux_coef``·aux). ``p``: one layer's {router, experts.*,
-    shared.*}."""
+    shared.*}; ``seq``: the Ulysses split (``x`` this rank's rows)."""
     m = cfg.moe
+    rows, x = x, _rows_in(x, seq)
     b, s, d = x.shape
-    x = shardctx.copy_to_model(x)
     logits = x.to(torch.float32) @ p["router"].to(torch.float32)
     dispatch, combine, aux = top_k_routing(logits, m.top_k, capacity(s, cfg),
                                            reduce)
-    lo, hi = _expert_part(p)
+    lo, hi = _expert_part(p, cfg, seq)
     dispatch, combine = (t[:, :, lo:hi].to(x.dtype)
                          for t in (dispatch, combine))
     expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, x)
     expert_out = expert_ffn(p, expert_in)
     out = torch.einsum("bsec,ebcd->bsd", combine, expert_out)
-    return shardctx.reduce_from_model(_shared(p, x, out)), \
-        m.router_aux_coef * _aux_once(aux)
+    return _rows_out(p, cfg, rows, x, out, seq), \
+        m.router_aux_coef * _aux_once(aux, seq)
 
 
 def gather_slots(expert_idx, e, capacity):
@@ -192,23 +241,23 @@ def gather_slots(expert_idx, e, capacity):
     return slot_tok, valid, safe_pos, keep
 
 
-def moe_ffn_gather(p, x, cfg, reduce=None):
+def moe_ffn_gather(p, x, cfg, reduce=None, seq=None):
     """Gather-based MoE (``moe.py:116-184``): an (E, C) slot -> token table
     instead of the (B,S,E,C) einsums, capacity counted over the flattened
     T = B·S tokens, token-major; the combine gathers each (token, choice)'s
     slot back and scales it by its gate. Same signature and aux statistic
     as ``moe_ffn``."""
     m = cfg.moe
+    rows, x = x, _rows_in(x, seq)
     b, s, d = x.shape
     t, e, k = b * s, m.num_experts, m.top_k
-    x = shardctx.copy_to_model(x)
     x_flat = x.reshape(t, d)
     logits = x_flat.to(torch.float32) @ p["router"].to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = top_k(probs, k)                   # (T, k)
     slot_tok, valid, safe_pos, keep = gather_slots(expert_idx, e,
                                                    capacity(t, cfg))
-    lo, hi = _expert_part(p)
+    lo, hi = _expert_part(p, cfg, seq)
     expert_in = x_flat[slot_tok[lo:hi]] * \
         valid[lo:hi, :, None].to(x.dtype)                   # (E/M,C,D)
     expert_out = expert_ffn(p, expert_in)
@@ -219,5 +268,5 @@ def moe_ffn_gather(p, x, cfg, reduce=None):
     out = (expert_out[torch.where(mine, ek - lo, 0), safe_pos]
            * gates[:, None]).reshape(t, k, d).sum(1)
     aux = _aux(expert_idx, probs, e, reduce)
-    return shardctx.reduce_from_model(_shared(p, x, out.reshape(b, s, d))), \
-        m.router_aux_coef * _aux_once(aux)
+    return _rows_out(p, cfg, rows, x, out.reshape(b, s, d), seq), \
+        m.router_aux_coef * _aux_once(aux, seq)

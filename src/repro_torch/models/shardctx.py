@@ -49,7 +49,15 @@ ranks take one row more), and three operators move rows:
   heads_to_seq        the inverse; its backward is seq_to_heads
   gather_seq          (B, S_m, ...) -> (B, S, ...), every rank's rows; the
                       backward takes this rank's rows of the gradient, with
-                      no collective
+                      no collective (for what every rank then computes
+                      whole and alike: the ViT's final norm and head)
+  all_gather_seq      the same forward; its backward sums the ranks'
+                      gradients of the whole rows and keeps this rank's (a
+                      reduce-scatter), for rows each rank uses for its own
+                      part of the work (the MoE's experts)
+  reduce_scatter_seq  (B, S, ...) partial sums -> (B, S_m, ...), the sum
+                      over the group of this rank's rows; its backward is
+                      all_gather_seq's forward
 
 Models never import ``repro_torch.core``, so this lives under models/ and
 reads the group's ``rank``, ``size``, ``all_reduce``, ``all_gather_many``,
@@ -280,6 +288,27 @@ def _heads_to_seq(y, split):
     return torch.stack(recv, 2).reshape(b, n, m * hm, d)
 
 
+def _gather_rows(x, split):
+    """Every rank's rows (B, S_m, ...) joined in rank order: one
+    all-to-all that sends each rank this rank's rows."""
+    rest = tuple(x.shape[2:])
+    recv = split.group.all_to_all(
+        [x] * split.group.size,
+        [(x.shape[0], s) + rest for s in split.sizes])
+    return torch.cat(recv, 1)
+
+
+def _scatter_rows(y, split):
+    """The sum over the group of this rank's rows of every rank's (B, S,
+    ...): one all-to-all of each rank's block of rows to its owner, then
+    the blocks summed in rank order."""
+    g = split.group
+    b, n, rest = y.shape[0], split.sizes[g.rank], tuple(y.shape[2:])
+    recv = g.all_to_all(list(y.split(split.sizes, 1)),
+                        [(b, n) + rest] * g.size)
+    return torch.stack(recv).sum(0)
+
+
 class _SeqToHeads(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, split):
@@ -306,15 +335,33 @@ class _GatherSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, split):
         ctx.split = split
-        rest = tuple(x.shape[2:])
-        recv = split.group.all_to_all(
-            [x] * split.group.size,
-            [(x.shape[0], s) + rest for s in split.sizes])
-        return torch.cat(recv, 1)
+        return _gather_rows(x, split)
 
     @staticmethod
     def backward(ctx, g):
         return g[:, ctx.split.rows].contiguous(), None
+
+
+class _AllGatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return _gather_rows(x, split)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_rows(g, ctx.split), None
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, split):
+        ctx.split = split
+        return _scatter_rows(y, split)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_rows(g.contiguous(), ctx.split), None
 
 
 def seq_to_heads(x, split):
@@ -331,3 +378,17 @@ def heads_to_seq(y, split):
 def gather_seq(x, split):
     """(B, S_m, ...) -> (B, S, ...): every rank's rows, in rank order."""
     return _GatherSeq.apply(x, split)
+
+
+def all_gather_seq(x, split):
+    """(B, S_m, ...) -> (B, S, ...): every rank's rows, as
+    :func:`gather_seq`; the backward is a reduce-scatter (each rank's
+    gradient of the whole rows is its own part, summed over the group)."""
+    return _AllGatherSeq.apply(x, split)
+
+
+def reduce_scatter_seq(y, split):
+    """(B, S, ...) -> (B, S_m, ...): this rank's rows of ``y`` summed over
+    the group (each rank's ``y`` a partial sum); the backward gathers the
+    gradient's rows from every rank."""
+    return _ReduceScatterSeq.apply(y, split)

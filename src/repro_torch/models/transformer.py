@@ -85,7 +85,9 @@ training and eval forwards embed whole, then keep this rank's rows of the
 hidden state and the positions (``shardctx.split_sequence``; the vlm
 splice, M-RoPE's grid and HuBERT's mask and sinusoidal rows are taken
 whole first); every layer runs on those rows with whole params, attention
-moving them to heads and back. A decoder's and HuBERT's logits are this
+moving them to heads and back (Granite-MoE's MoE gathers the rows, runs
+the rank's E/M experts and reduce-scatters its partial sums back,
+``models/moe.py``). A decoder's and HuBERT's logits are this
 rank's rows, and :func:`loss_from_logits` divides their loss by the whole
 microbatch's count (a partial sum: the engine sums it over the group);
 the ViT gathers its final rows first, so its logits and loss are whole on
@@ -483,7 +485,11 @@ def _whole_if(cfg, kind):
     """The model group lifted around a block of ``kind`` that runs whole on
     every model rank because the model axis does not divide its split
     count (``core/sharding.py::whole_blocks``, ROADMAP F2): inside it the
-    block's collectives are the identity. Else nothing changes."""
+    block's collectives are the identity. Else nothing changes. Under a
+    sequence group (Ulysses) no model group is installed: an MoE whose
+    experts M does not divide holds them whole, runs every one on the
+    gathered rows and keeps its own rows of the output, with no
+    reduce-scatter (``models/moe.py``)."""
     tp = shardctx.active()
     if tp is not None and kind in whole_blocks(cfg, tp.size):
         return shardctx.use(None)
@@ -527,7 +533,7 @@ def _block(cfg, layer, h, window, positions, use_moe=False, reduce=None,
             return h + mlp(_layer(layer, "mlp.", None), m_in, cfg.act), None
     moe = moe_ffn_gather if cfg.moe_impl == "gather" else moe_ffn
     with _whole_if(cfg, "moe"):
-        ff, aux = moe(_layer(layer, "moe.", None), m_in, cfg, reduce)
+        ff, aux = moe(_layer(layer, "moe.", None), m_in, cfg, reduce, seq)
     return h + ff, aux
 
 

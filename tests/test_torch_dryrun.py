@@ -13,8 +13,13 @@ train_4k at 256 ranks, granite-moe-3b-a800m x train_4k at 512 with
 ``--multi-pod``) and qwen2.5-14b x train_4k, which F2 once blocked, each
 with the reference test's checks; a refused pair recorded as a failure;
 the four tools on JSONL files the test writes. Each pair counts on
-``meta`` in seconds.
+``meta`` in seconds. The reference's ``seq_parallel`` default ("ulysses"
+for a prefill pair): HuBERT's smoke prefill on a small layout counted in
+the Ulysses layout (all-to-all bytes by formula, no all-reduce), a
+decoder's at the production layout keeping its tensor-parallel count,
+and a decoder's Ulysses prefill refused (ROADMAP 16.2c).
 """
+import dataclasses
 import json
 
 import pytest
@@ -29,7 +34,10 @@ from repro_torch.core.comm_model import H100_SXM, comm_time_seconds, \
     roofline  # noqa: E402
 from repro_torch.core.engine import Trainer, resolve_device  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import ProductionLayout, \
+    production_layout  # noqa: E402
 from repro_torch.launch.op_count import Totals  # noqa: E402
+from repro_torch.models.transformer import compute_dtype  # noqa: E402
 from repro_torch.launch.specs import input_specs  # noqa: E402
 from repro_torch.tools import profile_pair, render_experiments, \
     roofline_report, zero_memory_table  # noqa: E402
@@ -171,6 +179,82 @@ def test_deepseek_decode_counts_a_ranks_share_of_the_latents(monkeypatch):
         "all-reduce": L * rows * h * 4,
         "reduce-scatter": L * rows * (h // M) * (m.kv_lora_rank + 1) * 4,
         "all-to-all": 0, "collective-permute": 0}
+
+
+def _small_pairs(monkeypatch, layout, seq=64, batch=4):
+    """The dry run on the smoke configs at ``seq`` tokens and ``batch``
+    sequences, on ``layout`` (a ``ProductionLayout``)."""
+    real = dryrun.get_shape
+    monkeypatch.setattr(dryrun, "get_config", configs.get_smoke_config)
+    monkeypatch.setattr(dryrun, "get_shape", lambda name: dataclasses.replace(
+        real(name), seq_len=seq, global_batch=batch))
+    monkeypatch.setattr(dryrun, "production_layout",
+                        lambda multi_pod=False: layout)
+
+
+def test_prefill_pairs_take_the_references_ulysses_default():
+    """``engine_for``'s ``seq_parallel`` is the reference's
+    (``repro/launch/dryrun.py:95-96``): "ulysses" for a prefill pair,
+    "none" for a training or decode pair, an explicit value honoured on
+    every pair."""
+    lay = production_layout()
+    for shape, want in (("prefill_32k", "ulysses"), ("train_4k", "none"),
+                        ("decode_32k", "none")):
+        assert dryrun.engine_for("glm4-9b", shape, lay)[1] \
+            .sequence_parallel == want
+        for sp in ("none", "ulysses"):
+            assert dryrun.engine_for("glm4-9b", shape, lay,
+                                     seq_parallel=sp)[1] \
+                .sequence_parallel == sp
+
+
+def test_hubert_prefill_counts_the_ulysses_layout(monkeypatch):
+    """HuBERT's smoke prefill (4 query and 4 KV heads, 2 layers) on rank
+    0 of data 2 x model 4 under the default: the record says "ulysses",
+    every leaf is whole on the rank (its arguments hold the whole
+    params), and its only collectives are the four all-to-alls a layer
+    (q, k and v to heads, the output back to rows), each receiving the
+    data rank's B/2 x S rows of H/M heads of hd in the compute dtype; the
+    same pair with ``--seq-parallel none`` counts the tensor-parallel
+    layout's all-reduces and no all-to-all."""
+    layout = ProductionLayout(data=2, pipe=1, model=4)
+    _small_pairs(monkeypatch, layout)
+    rec = dryrun.run_pair("hubert-xlarge", "prefill_32k", verbose=False)
+    tp = dryrun.run_pair("hubert-xlarge", "prefill_32k", verbose=False,
+                         seq_parallel="none")
+    cfg = configs.get_smoke_config("hubert-xlarge")
+    assert rec["status"] == tp["status"] == "ok"
+    assert (rec["seq_parallel"], tp["seq_parallel"]) == ("ulysses", "none")
+    rows, seq = 4 // layout.data, 64
+    nbytes = torch.empty((), dtype=compute_dtype(cfg)).element_size()
+    a2a = 4 * cfg.num_layers * rows * seq * \
+        (cfg.num_heads // layout.model) * cfg.head_dim * nbytes
+    assert rec["collectives"] == {"all-reduce": 0, "all-gather": 0,
+                                  "reduce-scatter": 0, "all-to-all": a2a,
+                                  "collective-permute": 0}
+    assert tp["collectives"]["all-to-all"] == 0 and \
+        tp["collectives"]["all-reduce"] > 0
+    assert rec["argument_bytes_per_dev"] > tp["argument_bytes_per_dev"]
+
+
+def test_decoder_prefill_keeps_its_tensor_parallel_count(monkeypatch):
+    """A decoder's prefill at the production layout (16 x 16) under the
+    Ulysses default: the smoke Qwen2.5's 4 query and 2 KV heads do not
+    split 16 ways, so ``make_hints``' fallback holds and the count is the
+    ``--seq-parallel none`` count, op for op; the record still says the
+    reference's "ulysses". Where the Ulysses layout would apply (model
+    axis 2), a decoder's prefill is refused, naming ROADMAP 16.2c."""
+    _small_pairs(monkeypatch, production_layout(), batch=32)
+    rec = dryrun.run_pair("qwen2.5-14b", "prefill_32k", verbose=False)
+    tp = dryrun.run_pair("qwen2.5-14b", "prefill_32k", verbose=False,
+                         seq_parallel="none")
+    assert (rec["seq_parallel"], tp["seq_parallel"]) == ("ulysses", "none")
+    for key in ("collectives", "xla_cost_analysis", "peak_bytes_per_dev",
+                "argument_bytes_per_dev"):
+        assert rec[key] == tp[key], key
+    _small_pairs(monkeypatch, ProductionLayout(data=2, pipe=1, model=2))
+    with pytest.raises(ValueError, match="16.2c"):
+        dryrun.run_pair("qwen2.5-14b", "prefill_32k", verbose=False)
 
 
 def test_a_pair_that_fails_is_recorded_and_all_exits_one(tmp_path,

@@ -7,10 +7,14 @@ Ulysses layout against the one-process ``Trainer`` on the same params
 (seed 0) and batches, for the ViT (model 2 and 4, and data 2 x model 2 at
 ZeRO 2), Qwen2.5 (model 2; and data 2 x model 4 at ZeRO 3, the reference
 test's own case, which takes the tensor-parallel fallback: its 2 KV heads
-do not split 4 ways), Gemma3 (its sliding window biting) and HuBERT (the
-masked-frame loss); checkpoints between the Ulysses layout, one process
-and the tensor-parallel layout; the ViT's eval counts; a NaN batch that
-every rank skips alike; the refusals.
+do not split 4 ways), Gemma3 (its sliding window biting), HuBERT (the
+masked-frame loss) and Granite-MoE (GShard and gather at model 2, GShard
+at data 2 x model 2 under ZeRO 3 and at 33 rows: the MoE on the gathered
+rows with E/M experts a rank, its aux counted once); the sequence
+all-gather and reduce-scatter of ``shardctx`` with ranks as threads;
+checkpoints between the Ulysses layout, one process and the
+tensor-parallel layout (Qwen2.5 and Granite-MoE); the ViT's eval counts; a
+NaN batch that every rank skips alike; the refusals.
 
 Tolerances: the reference's tensor-parallel bound for losses and grad
 norms (3e-4, ``tests/test_engine_distributed.py:79-101``), 2e-4 for each
@@ -26,6 +30,7 @@ torch.set_num_threads(1)
 
 import concurrent.futures  # noqa: E402
 import os  # noqa: E402
+import threading  # noqa: E402
 from types import SimpleNamespace  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -49,8 +54,9 @@ EVAL_SIZE, EVAL_BATCH = 40, 8
 DEADLINE_S = 240
 A2A_SEQS = (65, 197)
 A2A_HEADS, A2A_DIM = 8, 3
+GRANITE = "granite-moe-3b-a800m"
 # case -> (arch, tokens a sequence (None: the ViT's 65), world size,
-# model axis, ZeRO stage)
+# model axis, ZeRO stage[, the MoE's dispatch])
 CASES = {
     "vit-m2": ("vit-b16", None, 2, 2, 0),
     "vit-m4": ("vit-b16", None, 4, 4, 0),
@@ -59,16 +65,26 @@ CASES = {
     "qwen-dp2-m4-z3": ("qwen2.5-14b", 32, 8, 4, 3),
     "gemma3-m2": ("gemma3-12b", 129, 2, 2, 0),
     "hubert-m2": ("hubert-xlarge", 33, 2, 2, 0),
+    "granite-m2": (GRANITE, 32, 2, 2, 0),
+    "granite-gather-m2": (GRANITE, 32, 2, 2, 0, "gather"),
+    "granite-dp2-m2-z3": (GRANITE, 32, 4, 2, 3),
+    "granite-m2-s33": (GRANITE, 33, 2, 2, 0),
 }
 FALLBACK = {"qwen-dp2-m4-z3"}
 CKPT_CASE = "qwen-m2"
+# the cases whose step-2 save resumes elsewhere, and Granite's
+CKPT_CASES = (CKPT_CASE, "granite-m2")
+GRANITE_CASES = [n for n in CASES if CASES[n][0] == GRANITE]
 
 
-def _trainer(arch, seq, *, zero=0, model=1, world=None, sp="ulysses"):
+def _trainer(arch, seq, *, zero=0, model=1, world=None, sp="ulysses",
+             impl=None):
     """(trainer, host batch source, fresh params of seed 0), fp32, batch 8
     in 2 microbatches: procedural CIFAR-10 for the ViT, ``concrete_batch``
-    of ``seq`` positions for the rest."""
+    of ``seq`` positions for the rest; ``impl`` the MoE's dispatch."""
     cfg = configs.get_smoke_config(arch).replace(dtype="float32")
+    if impl is not None:
+        cfg = cfg.replace(moe_impl=impl)
     ecfg = EngineConfig(train_batch_size=BATCH,
                         gradient_accumulation_steps=ACCUM, zero_stage=zero,
                         lr=1e-3, total_steps=10, warmup_steps=1,
@@ -92,7 +108,7 @@ def _trainer(arch, seq, *, zero=0, model=1, world=None, sp="ulysses"):
                                                    device="cpu")
 
 
-def _train(trainer, batch, state, start=0, save=None):
+def _train(trainer, batch, state, start=0, save=None, auxes=None):
     losses, gnorms = [], []
     for i in range(start, STEPS):
         if i == 2 and save is not None:
@@ -101,6 +117,8 @@ def _train(trainer, batch, state, start=0, save=None):
         assert m["step_ok"] == 1
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
+        if auxes is not None:
+            auxes.append(float(m["moe_aux"]))
     return state, losses, gnorms
 
 
@@ -161,26 +179,40 @@ def _a2a(world, s):
             "dg": dg.numpy(), "cot_rows": dx_rows.numpy()}
 
 
+def _impl(name):
+    return CASES[name][5] if len(CASES[name]) > 5 else None
+
+
+def _experts(state):
+    """The routed experts a rank holds (their E axis), or None."""
+    w = state.params.get("moe_stack.moe.experts.w_gate")
+    return None if w is None else w.shape[1]
+
+
 def _case(world, name, root):
-    arch, seq, _, m, zero = CASES[name]
+    arch, seq, _, m, zero = CASES[name][:5]
     trainer, batch, params = _trainer(arch, seq, zero=zero, model=m,
-                                      world=world)
+                                      world=world, impl=_impl(name))
     state = trainer.init_state(params)
+    experts = _experts(state)
     grads = _first_grads(trainer, state, batch)
+    auxes = []
     state, losses, gnorms = _train(
         trainer, batch, state,
-        save=os.path.join(root, name) if name == CKPT_CASE else None)
+        save=os.path.join(root, name) if name in CKPT_CASES else None,
+        auxes=auxes)
     return {"ulysses": trainer.ulysses, "losses": losses, "gnorms": gnorms,
+            "auxes": auxes, "experts": experts,
             "grads": grads if world.rank == 0 else None,
             "grad_sums": {k: float(np.abs(g).sum())
                           for k, g in grads.items()},
             "eval": _eval(trainer, state) if arch == "vit-b16" else None}
 
 
-def _resume(world, path, sp):
-    """Restore ``path``'s step 2 under model axis 2 (``sp``: the Ulysses
-    or the tensor-parallel layout), then step 2."""
-    arch, seq = CASES[CKPT_CASE][:2]
+def _resume(world, path, sp, case=CKPT_CASE):
+    """Restore ``path``'s step 2 of ``case``'s run under model axis 2
+    (``sp``: the Ulysses or the tensor-parallel layout), then step 2."""
+    arch, seq = CASES[case][:2]
     trainer, batch, _ = _trainer(arch, seq, model=2, world=world, sp=sp)
     state = trainer.restore_state(path)
     _, losses, gnorms = _train(trainer, batch, state, start=2)
@@ -217,31 +249,45 @@ def _run_jobs(world, root):
                                    "none")
         out["resume-ulysses"] = _resume(world, os.path.join(root, "one"),
                                         "ulysses")
+        for case in CKPT_CASES[1:]:
+            out[f"resume-tp:{case}"] = _resume(
+                world, os.path.join(root, case), "none", case)
+            out[f"resume-ulysses:{case}"] = _resume(
+                world, os.path.join(root, _one_dir(case)), "ulysses", case)
     return out
 
 
 def _one_key(name):
     arch, seq = CASES[name][:2]
-    return arch, seq
+    return arch, seq, _impl(name)
+
+
+def _one_dir(case):
+    """The directory of the one-process save of ``case``'s run."""
+    return "one" if case == CKPT_CASE else f"one-{case}"
 
 
 @pytest.fixture(scope="module")
 def one_process(tmp_path_factory):
-    """{(arch, seq): the one-process run's losses, grad norms, first-step
-    gradients and (ViT) eval counts}; Qwen2.5's run at 33 tokens saves
-    after step 2 under ``root/one``. Returns (runs, root)."""
+    """{(arch, seq, MoE dispatch): the one-process run's losses, grad
+    norms, ``moe_aux``, first-step gradients and (ViT) eval counts}; the
+    runs of CKPT_CASES save after step 2 under ``root/one`` (Qwen2.5's)
+    and ``root/one-<case>``. Returns (runs, root)."""
     root = tmp_path_factory.mktemp("ulysses-ckpt")
+    saves = {_one_key(c): _one_dir(c) for c in CKPT_CASES}
     out = {}
     for key in sorted({_one_key(n) for n in CASES}, key=str):
-        arch, seq = key
-        trainer, batch, params = _trainer(arch, seq, sp="none")
+        arch, seq, impl = key
+        trainer, batch, params = _trainer(arch, seq, sp="none", impl=impl)
         state = trainer.init_state(params)
         grads = _first_grads(trainer, state, batch)
+        auxes = []
         state, losses, gnorms = _train(
             trainer, batch, state,
-            save=os.path.join(root, "one")
-            if key == _one_key(CKPT_CASE) else None)
-        out[key] = {"losses": losses, "gnorms": gnorms, "grads": grads,
+            save=os.path.join(root, saves[key]) if key in saves else None,
+            auxes=auxes)
+        out[key] = {"losses": losses, "gnorms": gnorms, "auxes": auxes,
+                    "grads": grads, "experts": _experts(state),
                     "eval": _eval(trainer, state)
                     if arch == "vit-b16" else None}
     return out, root
@@ -272,8 +318,9 @@ def test_layout_decision_matches_make_hints(arch, m):
     """``applies`` holds exactly where the reference's ``make_hints``
     returns the Ulysses hints (``attn_seq`` sequence-sharded on the model
     axis: M divides the query and the KV heads) and the family is one
-    D8 names; the MoE, MLA, RWKV6 and Mamba2 families keep the
-    tensor-parallel layout at every M."""
+    D8 names (Granite-MoE's plain attention blocks among them, its
+    experts kept on the ``expert`` hint's model axis); the MLA, RWKV6 and
+    Mamba2 families keep the tensor-parallel layout at every M."""
     from jax.sharding import PartitionSpec as P
     from repro import configs as ref_configs
     from repro.core.ulysses import make_hints
@@ -284,10 +331,12 @@ def test_layout_decision_matches_make_hints(arch, m):
                        sequence_parallel="ulysses")
     cfg = configs.get_config(arch)
     ulysses_hints = hints.attn_seq == P("data", "model", None, None)
-    d8 = cfg.arch_type in ("vit", "dense", "vlm", "audio") and \
-        cfg.block_kind == "attn" and not cfg.has_moe
+    d8 = cfg.arch_type in ("vit", "dense", "vlm", "audio", "moe") and \
+        cfg.block_kind == "attn"
     assert ulysses.applies(cfg, m, "ulysses") == (ulysses_hints and d8)
-    if cfg.has_moe or cfg.block_kind in ("mla", "rwkv6", "mamba2"):
+    if cfg.has_moe:
+        assert hints.expert == "model"
+    if cfg.block_kind in ("mla", "rwkv6", "mamba2"):
         assert not ulysses.applies(cfg, m, "ulysses")
     assert not ulysses.applies(cfg, m, "none")
     assert not ulysses.applies(cfg, 1, "ulysses")
@@ -340,7 +389,7 @@ def test_ulysses_matches_one_process(name, worlds, one_process):
     """Losses and grad norms within 3e-4 of one process's, the same on
     every rank; every leaf's first-step gradient within 2e-4 (the same
     on every rank); the layout is Ulysses but for the fallback case."""
-    _, _, size, _, _ = CASES[name]
+    size = CASES[name][2]
     ranks = [r[name] for r in worlds[size]]
     want = one_process[0][_one_key(name)]
     for r in ranks:
@@ -357,6 +406,26 @@ def test_ulysses_matches_one_process(name, worlds, one_process):
         assert g.shape == want["grads"][k].shape, k
         np.testing.assert_allclose(g, want["grads"][k], atol=GRAD_TOL,
                                    rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("name", GRANITE_CASES)
+def test_ulysses_moe_aux_counted_once(name, worlds, one_process):
+    """Granite-MoE under Ulysses: every rank's ``moe_aux`` and loss (each
+    the model group's sum) within 3e-4 of one process's at every step,
+    so the aux, the same value on every rank, enters them once (counted
+    M times it would add (M - 1)·moe_aux, ~0.01 here); each rank holds
+    E/M of the routed experts, one process all E."""
+    arch, _, size, m, _ = CASES[name][:5]
+    want = one_process[0][_one_key(name)]
+    e = configs.get_smoke_config(arch).moe.num_experts
+    assert want["experts"] == e and min(want["auxes"]) > 1e-3
+    for r in worlds[size]:
+        got = r[name]
+        assert got["ulysses"] and got["experts"] == e // m
+        assert np.max(np.abs(np.subtract(got["auxes"],
+                                         want["auxes"]))) <= TP_TOL
+        assert np.max(np.abs(np.subtract(got["losses"],
+                                         want["losses"]))) <= TP_TOL
 
 
 @pytest.mark.parametrize("name", [n for n in CASES
@@ -407,6 +476,132 @@ def test_one_process_save_resumes_under_ulysses(worlds, one_process):
         assert got["step"] == 2 and got["ulysses"]
         assert abs(got["losses"][0] - want["losses"][2]) <= RESUME_TOL
         assert abs(got["gnorms"][0] - want["gnorms"][2]) <= RESUME_TOL
+
+
+def test_granite_ulysses_save_resumes_in_one_process(worlds, one_process):
+    """Granite-MoE's Ulysses save after step 2 (the experts as each model
+    rank's E/M, every other leaf whole), then step 2 in one process:
+    within 1e-5 of the Ulysses run's own step 2."""
+    case = CKPT_CASES[1]
+    arch, seq = CASES[case][:2]
+    trainer, batch, _ = _trainer(arch, seq, sp="none")
+    state = trainer.restore_state(os.path.join(one_process[1], case))
+    assert state.step == 2
+    _, tail, tail_g = _train(trainer, batch, state, start=2)
+    want = worlds[2][0][case]
+    assert abs(tail[0] - want["losses"][2]) <= RESUME_TOL
+    assert abs(tail_g[0] - want["gnorms"][2]) <= RESUME_TOL
+
+
+def test_granite_ulysses_save_resumes_under_tensor_parallelism(worlds):
+    """The same save restored at model axis 2 in the tensor-parallel
+    layout: step 2 within 1e-5 of the Ulysses run's."""
+    case = CKPT_CASES[1]
+    want = worlds[2][0][case]
+    for r in worlds[2]:
+        got = r[f"resume-tp:{case}"]
+        assert got["step"] == 2 and not got["ulysses"]
+        assert abs(got["losses"][0] - want["losses"][2]) <= RESUME_TOL
+        assert abs(got["gnorms"][0] - want["gnorms"][2]) <= RESUME_TOL
+
+
+def test_one_process_granite_save_resumes_under_ulysses(worlds,
+                                                        one_process):
+    """Granite-MoE's one-process save after step 2 restored under Ulysses
+    at model axis 2 (each rank reads its experts' chunk): step 2 within
+    1e-5 of the one-process run's, on every rank."""
+    case = CKPT_CASES[1]
+    want = one_process[0][_one_key(case)]
+    for r in worlds[2]:
+        got = r[f"resume-ulysses:{case}"]
+        assert got["step"] == 2 and got["ulysses"]
+        assert abs(got["losses"][0] - want["losses"][2]) <= RESUME_TOL
+        assert abs(got["gnorms"][0] - want["gnorms"][2]) <= RESUME_TOL
+
+
+# --- (g) the sequence all-gather and reduce-scatter ---------------------------
+
+class _ThreadRank:
+    """Rank ``rank`` of ranks run as threads of one process, with
+    ``World.all_to_all``'s contract: block ``sends[i]`` to rank i, a block
+    of ``shapes[i]`` back from each rank i, in rank order."""
+
+    def __init__(self, rank, shared):
+        self.rank, self.size, self.shared = rank, len(shared["slots"]), \
+            shared
+
+    def all_to_all(self, sends, shapes):
+        slots, barrier = self.shared["slots"], self.shared["barrier"]
+        slots[self.rank] = [t.clone() for t in sends]
+        barrier.wait()
+        got = [slots[i][self.rank] for i in range(self.size)]
+        barrier.wait()
+        assert [tuple(t.shape) for t in got] == [tuple(x) for x in shapes]
+        return got
+
+
+@pytest.mark.parametrize("s", A2A_SEQS)
+@pytest.mark.parametrize("size", (2, 4))
+def test_sequence_gather_and_reduce_scatter_are_adjoint(size, s):
+    """``all_gather_seq`` joins every rank's rows (uneven: 65 and 197 do
+    not divide by 2 or 4) and its backward is ``reduce_scatter_seq``'s
+    forward on the same cotangents, bitwise; ``reduce_scatter_seq`` sums
+    the ranks' rows of their partial sums (against numpy's sum, 1e-6)
+    and its backward is ``all_gather_seq``'s forward, bitwise. Unlike
+    ``gather_seq``, whose backward only slices, the gather's backward
+    sums the ranks' gradients."""
+    gen = np.random.default_rng(s + size)
+    shape = (2, s, A2A_DIM)
+    full = gen.standard_normal(shape).astype(np.float32)
+    # a different cotangent of the whole rows (and partial sum) a rank
+    parts = gen.standard_normal((size,) + shape).astype(np.float32)
+    row_cot = gen.standard_normal(shape).astype(np.float32)
+    shared = {"slots": [None] * size,
+              "barrier": threading.Barrier(size, timeout=30)}
+    got, errors = [None] * size, []
+
+    def rank(m):
+        try:
+            split = shardctx.SeqSplit(_ThreadRank(m, shared),
+                                      shardctx.seq_split(s, size))
+            rows = split.rows
+            x = torch.from_numpy(full[:, rows].copy()).requires_grad_()
+            gathered = shardctx.all_gather_seq(x, split)
+            dx, = torch.autograd.grad(gathered, x,
+                                      torch.from_numpy(parts[m]))
+            y = torch.from_numpy(parts[m].copy()).requires_grad_()
+            reduced = shardctx.reduce_scatter_seq(y, split)
+            dy, = torch.autograd.grad(reduced, y, torch.from_numpy(
+                row_cot[:, rows].copy()))
+            with torch.no_grad():
+                fwd_rs = shardctx.reduce_scatter_seq(
+                    torch.from_numpy(parts[m]), split)
+                fwd_ag = shardctx.all_gather_seq(torch.from_numpy(
+                    row_cot[:, rows].copy()), split)
+            got[m] = {"rows": rows, "gathered": gathered.detach().numpy(),
+                      "dx": dx.numpy(), "fwd_rs": fwd_rs.numpy(),
+                      "reduced": reduced.detach().numpy(),
+                      "dy": dy.numpy(), "fwd_ag": fwd_ag.numpy()}
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+            shared["barrier"].abort()
+    threads = [threading.Thread(target=rank, args=(m,)) for m in range(size)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    assert len({r["rows"].stop - r["rows"].start for r in got}) == 2
+    total = parts.sum(0)
+    for r in got:
+        np.testing.assert_array_equal(r["gathered"], full)
+        np.testing.assert_array_equal(r["dx"], r["fwd_rs"])
+        np.testing.assert_allclose(r["reduced"], total[:, r["rows"]],
+                                   atol=1e-6, rtol=0)
+        np.testing.assert_array_equal(r["reduced"], r["fwd_rs"])
+        np.testing.assert_array_equal(r["dy"], r["fwd_ag"])
+        np.testing.assert_array_equal(r["fwd_ag"], row_cot)
 
 
 # --- (f) the guard and the refusals --------------------------------------------
