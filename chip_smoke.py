@@ -444,7 +444,17 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    latent cache split on the sequence (a distributed flash-decoding),
    every rank's fp32 logits within 3e-4 of one rank's, a rank's latent
    cache 1/M of the whole and the first decode step's collective bytes
-   equal to a recording world's.
+   equal to a recording world's. (o) ``embed_sharding="dmodel"`` (each
+   model rank its feature columns of ``embed.tok``; a tied head a
+   row-parallel product) at model axis 2, at the end of the world of 2:
+   Gemma3-12B's 19m2 decode (fp32 logits within 5e-4 of one rank's, the
+   same greedy tokens), and Gemma3-12B (tied) and Qwen2.5-14B (untied) at
+   full width, 2 layers, fp32, 2 SGD steps of 2 x 256 through the
+   ``Trainer`` on the card's seed-0 draw: every rank's losses and grad
+   norms within 5e-5 of the parent's one-rank run, its gradient columns
+   of ``embed.tok`` within 5e-5 and 1e-2 of their largest magnitude of
+   the one-rank gradient's (taken before the counts are set to 0), its
+   K1-K5 launches and heads exact.
 
 ``--profile`` adds a ``torch.profiler`` table of one warm training step of
 each training slice (DeepSeek-V3's included, and the ZeRO-3 step at world
@@ -467,7 +477,8 @@ and 4 (and ChatGLM3's at pipe 2 x model 2, each stage's) under
 ``tp_chatglm3_launches``, ``tp_zamba2_launches``, ``tp_granite_launches``
 (GShard and gather), ``tp_rwkv6_launches`` and ``tp_deepseek_launches``
 (a rank's, on every kernel's row; the Ulysses runs among them, their
-labels naming ``--seq-parallel ulysses``) and K1-K3's errors at a model-axis-4
+labels naming ``--seq-parallel ulysses``), 19o's "dmodel" training runs'
+under ``tp_embed_dmodel_launches`` and K1-K3's errors at a model-axis-4
 rank's shape under ``tp_rank_shape``, and at MLA's shape at a rank's 64
 and 32 heads (times, bounds, plain, SDPA, errors) under ``tp_mla``,
 the data-parallel runs' launches there under ``dp_launches``, the ``--pp
@@ -565,6 +576,13 @@ RMS_CASES = [
 # 1024 tokens in micro-batches of 4; one WKV6 call there is B 4, S 1024,
 # H 64, P 64 in chunks of 32
 RWKV_LAYERS = 4
+# the rate runs' timed and warm-up steps: 3 and 1 (the other decoders
+# take 4 and 2), which leaves the time of phase 19o to the script: two
+# steps fewer in each of the four rate runs (kernel, naive, naive,
+# kernel): 9.2 to 13.2 s at the per-step times the phase has read, the
+# kernel path's 0.30 s and the naive path's 2.0 to 3.0 s (NVIDIA H100
+# 80GB HBM3, 700 W)
+RWKV_TIMED = (3, 1)
 RWKV_TRAIN_ARGS = ["--arch", "rwkv6-7b", "--layers", str(RWKV_LAYERS),
                    "--seq", str(LM_SEQ), "--batch", "8", "--accum", "2",
                    "--steps", "10", "--log-every", "1"]
@@ -3249,6 +3267,26 @@ SERVE_ONE_RANK = {}
 # chip machine takes ~45 GiB of disk writes a call, and its host 96 GiB
 # of memory: neither holds their 33.5 GB besides)
 SERVE_PRINTS = {}
+# 19o: ``embed_sharding="dmodel"`` (ROADMAP item 18) in the world of 2 at
+# model axis 2, after its serving jobs: Gemma3-12B (tied: the head a
+# row-parallel product over the split features) and Qwen2.5-14B (untied:
+# the lookup alone changes) at full width cut to EMBED_LAYERS layers,
+# fp32, EMBED_STEPS steps of 2 x EMBED_SEQ (accum 1), SGD, through the
+# ``Trainer``; each rank draws the seed-0 params again on the card
+# (CARD_DRAWS: the parent's one-rank run draws the same), takes the
+# one-rank loss's gradient of ``embed.tok`` on them whole (no model group)
+# and keeps its own columns of it on the host, all before its counts are
+# set to 0; then the main path: the first batch's gradient of its columns
+# against those, its steps' losses and grad norms against the parent's
+# one-rank run, all within EMBED_TOL; and Gemma3's
+# decode of 19m2 under "dmodel", its fp32 logits within EMBED_SERVE_TOL
+# of the one-rank decode's and the same greedy tokens
+EMBED_TRAIN = {"gemma3": "gemma3-12b", "qwen2.5": QWEN}
+EMBED_LAYERS, EMBED_SEQ, EMBED_STEPS = 2, 256, 2
+EMBED_TOL, EMBED_SERVE_TOL = 5e-5, 5e-4
+# 19o's gradient columns: also within this share of their largest
+# magnitude (the loss is a mean over 512 tokens, so the entries are small)
+EMBED_GRAD_REL = 1e-2
 
 
 def family_argv(tag):
@@ -3296,12 +3334,14 @@ def family_expect(tag, m):
 # without a CLI flag; ``after`` a marker the ranks wait for before the
 # job and ``then`` one they leave after it (once every rank has freed its
 # memory), so the other world's jobs keep off the card's memory; ``kind``
-# "train" (the training CLI's ``run``), "serve" (the serve CLI's ``run``)
-# or "decode" (``rank_decode`` of ``case``: (a TP_SERVE_MODELS entry,
-# model axis))
+# "train" (the training CLI's ``run``), "serve" (the serve CLI's ``run``),
+# "decode" (``rank_decode`` of ``case``: (a TP_SERVE_MODELS entry, model
+# axis)) or "embed" (``rank_embed_train`` of ``case``: (an EMBED_TRAIN
+# tag,)); ``embed`` the embedding's layout (``embed_sharding``)
 TPJob = collections.namedtuple(
-    "TPJob", "label argv expect heads wkv ref fields after then kind case",
-    defaults=({}, None, None, "train", None))
+    "TPJob",
+    "label argv expect heads wkv ref fields after then kind case embed",
+    defaults=({}, None, None, "train", None, "vocab"))
 
 
 def ds_expect(steps):
@@ -3390,22 +3430,201 @@ def serve_jobs(size):
                      [(qwen.num_heads // 2, qwen.num_kv_heads // 2)], [],
                      "serve", kind="serve", **kw)
 
-    def decode(entry, m, **kw):
+    def decode(entry, m, embed="vocab", **kw):
         expect, heads, wkv = serve_expect(entry, m)
         rows = f" (cache {entry[5]} rows)" \
             if entry is TP_DS_DECODE_LONG else ""
+        if embed != "vocab":
+            rows += f" ({embed})"
         return TPJob(f"serve {entry[0]} --model-axis {m}{rows}",
                      ["--arch", entry[1]], expect, heads, wkv, entry[0],
-                     kind="decode", case=(entry, m), **kw)
+                     kind="decode", case=(entry, m), embed=embed, **kw)
     if size == 4:
         return [decode(TP_DS_DECODE, 4), decode(TP_DS_DECODE_LONG, 4),
                 decode(TP_SERVE_LM, 4, then="w4-idle"),
                 cli(after="w2-served")]
     drawn = ("qwen2-vl", "gemma3")      # card draws, as phase 15's
+    gemma = next(e for e in TP_SERVE_MODELS if e[0] == "gemma3")
     return [decode(e, 2) for e in TP_SERVE_MODELS if e[0] not in drawn] + \
         [cli(after="w4-idle")] + \
-        [decode(e, 2, then="w2-served" if e[0] == drawn[-1] else None)
-         for e in TP_SERVE_MODELS if e[0] in drawn]
+        [decode(e, 2) for e in TP_SERVE_MODELS if e[0] in drawn] + \
+        [decode(gemma, 2, "dmodel")] + embed_jobs(then="w2-served")
+
+
+def embed_expect(tag):
+    """(launches a rank, the (query, KV) heads ``flash_mha`` sees) of a
+    19o training job's main path at model axis 2: the first batch's
+    gradients and EMBED_STEPS steps, each a forward and a backward: K1-K3
+    once a layer, K4/K5 twice a layer and once for the final norm, at a
+    rank's heads (the one-rank reference gradient runs before the counts
+    are set to 0)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(EMBED_TRAIN[tag])
+    passes = 1 + EMBED_STEPS
+    attn, norms = passes * EMBED_LAYERS, passes * (2 * EMBED_LAYERS + 1)
+    return dict(dict.fromkeys(("flash_fwd", "flash_bwd_dq",
+                               "flash_bwd_dkv"), attn),
+                rmsnorm_fwd=norms, rmsnorm_bwd=norms), \
+        [(cfg.num_heads // 2, cfg.num_kv_heads // 2)]
+
+
+def embed_jobs(then=None):
+    """19o's training jobs (``rank_embed_train``), the last leaving the
+    marker ``then``."""
+    out = []
+    for i, tag in enumerate(EMBED_TRAIN):
+        expect, heads = embed_expect(tag)
+        out.append(TPJob(f"{tag} fp32 --model-axis 2 (dmodel)",
+                         ["--arch", EMBED_TRAIN[tag]], expect, heads, [],
+                         tag, kind="embed", case=(tag,), embed="dmodel",
+                         then=then if i == len(EMBED_TRAIN) - 1 else None))
+    return out
+
+
+def embed_setup(tag, embed, world=None):
+    """(the config, the ``Trainer``) of a 19o run: ``EMBED_TRAIN[tag]`` at
+    full width cut to EMBED_LAYERS layers, fp32, batch 2 (accum 1), SGD,
+    the embedding laid out by ``embed``; on one card, or at model axis 2
+    of ``world``."""
+    from repro_torch.configs import EngineConfig, get_config
+    from repro_torch.core.engine import Trainer
+
+    cfg = get_config(EMBED_TRAIN[tag]).replace(num_layers=EMBED_LAYERS,
+                                               dtype="float32")
+    ecfg = EngineConfig(train_batch_size=2, optimizer="sgd", lr=1e-2,
+                        warmup_steps=1, total_steps=10,
+                        embed_sharding=embed)
+    return cfg, Trainer(cfg, ecfg, device="cuda", world=world,
+                        model_axis=1 if world is None else 2)
+
+
+def embed_batch(cfg, step):
+    """Batch ``step`` of a 19o run: 2 x EMBED_SEQ tokens on the card."""
+    from repro_torch.core.engine import to_device
+    from repro_torch.launch.specs import concrete_batch
+
+    return to_device(concrete_batch(cfg, 2, EMBED_SEQ, seed=step), "cuda")
+
+
+def embed_steps(trainer, state):
+    """EMBED_STEPS steps of a 19o run: the rows (loss, grad norm,
+    step_ok)."""
+    rows = []
+    for i in range(EMBED_STEPS):
+        state, m = trainer.train_step(state, embed_batch(trainer.cfg, i))
+        rows.append({k: float(m[k]) for k in ("loss", "grad_norm",
+                                              "step_ok")})
+    return rows
+
+
+def embed_one_rank(tag):
+    """19o's one-rank run in the parent, on the card's seed-0 draw: (its
+    rows, the draw's fingerprint)."""
+    from repro_torch.models.transformer import init_params
+
+    cfg, trainer = embed_setup(tag, "vocab")
+    params = init_params(cfg, seed=0, device="cuda", draw_on="cuda")
+    prints = fingerprint(params)
+    return embed_steps(trainer, trainer.init_state(params)), prints
+
+
+def rank_embed_ref(world, tag):
+    """19o's check on one rank of model axis 2, run before the rank's
+    counts are set to 0: the ``Trainer`` under "dmodel"; the card's
+    seed-0 draw whole; the one-rank loss's gradient of ``embed.tok`` on
+    it (no model group installed), this rank's columns of it on the host,
+    their largest magnitude, and the largest difference between this
+    rank's columns and the other rank's (what a gradient sliced from the
+    wrong rank would miss by). Returns ``rank_embed_train``'s argument:
+    {"trainer", "params", "check"}."""
+    import torch
+    from repro_torch.models import shardctx, transformer
+
+    cfg, trainer = embed_setup(tag, "dmodel", world)
+    params = transformer.init_params(cfg, seed=0, device=world.device,
+                                     draw_on="cuda")
+    tok = params["embed.tok"].requires_grad_()
+    with shardctx.use(None):
+        loss, _ = transformer.loss_fn(cfg, params, embed_batch(cfg, 0))
+    whole, = torch.autograd.grad(loss, [tok])
+    tok.requires_grad_(False)
+    parts, rank = whole.chunk(trainer.tp.size, 1), trainer.tp.rank
+    mine, other = parts[rank], parts[(rank + 1) % trainer.tp.size]
+    check = {"print": fingerprint(params),
+             "ref_max": float(mine.abs().max()),
+             "swap_err": float((mine - other).abs().max()),
+             "ref": mine.cpu()}
+    del whole, parts, mine, other, tok, loss
+    return {"trainer": trainer, "params": params, "check": check}
+
+
+def rank_embed_train(pre):
+    """19o's main path on one rank of model axis 2 under "dmodel": the
+    rank's chunks of the draw (``init_state``), the first batch's
+    gradient of its columns of ``embed.tok`` against the one-rank
+    gradient's, then EMBED_STEPS steps. ``pre``: ``rank_embed_ref``'s
+    result, emptied (the whole draw goes once the chunks are made)."""
+    trainer, check = pre.pop("trainer"), pre.pop("check")
+    state = trainer.init_state(pre.pop("params"))
+    grads, _ = trainer.grads(state.params, embed_batch(trainer.cfg, 0))
+    ref = check.pop("ref")
+    err = float((grads["embed.tok"].cpu() - ref).abs().max())
+    del grads, ref
+    return dict(check, rows=embed_steps(trainer, state), grad_err=err,
+                embed_dim=trainer.model_dims["embed.tok"])
+
+
+def embed_gates(job, ranks, one_rank):
+    """19o's gates on every rank of a training job: the main path's
+    launches exact, no layout copy, the heads ``flash_mha`` saw (a rank's
+    alone); ``embed.tok`` split on its columns; the rank's draw the
+    parent's; its losses and grad norms within EMBED_TOL of one rank's,
+    ``step_ok`` 1; its gradient columns within EMBED_TOL of one rank's and
+    within EMBED_GRAD_REL of their largest magnitude, a bound that zeroed
+    columns and the other rank's columns would both miss (checked on the
+    reference: its largest magnitude and the two ranks' columns'
+    largest difference above it). Returns rank 0's launches."""
+    import numpy as np
+
+    want, prints = one_rank
+    for rank, got in enumerate(r[job.label] for r in ranks):
+        expect = dict({name: 0 for name in counters()}, **job.expect)
+        res = got["hist"]
+        rows = res["rows"]
+        d_loss = max_diff(rows, want, "loss")
+        d_norm = max_diff(rows, want, "grad_norm")
+        bound = min(EMBED_TOL, EMBED_GRAD_REL * res["ref_max"])
+        print(f"[tp-embed] {job.label} rank {rank}/{len(ranks)}: launches "
+              f"{got['launches']} (expected {expect}); layout copies "
+              f"{got['copies']}; (query, KV) heads {got['heads']} (expected "
+              f"{job.heads}); embed.tok split on dimension "
+              f"{res['embed_dim']}; losses "
+              f"{[round(r['loss'], 5) for r in rows]}; max |dloss| "
+              f"{d_loss:.3e}, |dgnorm| {d_norm:.3e}, the embedding's "
+              f"gradient columns max |d| {res['grad_err']:.3e} against one "
+              f"rank's (tol {EMBED_TOL} and {EMBED_GRAD_REL} x their max "
+              f"|g| {res['ref_max']:.3e}: {bound:.3e}; the other rank's "
+              f"columns differ by {res['swap_err']:.3e}); "
+              f"{got['s']:.1f}s (waited "
+              f"{got['waited']:.1f}s before it); peak {got['peak_gb']:.2f} "
+              f"GB", flush=True)
+        if got["launches"] != expect or got["copies"] or \
+                got["heads"] != job.heads:
+            fail(f"{job.label} rank {rank}: launches, copies or heads off")
+        if res["print"] != prints or res["embed_dim"] != 1:
+            fail(f"{job.label} rank {rank}: not the parent's draw, or "
+                 f"embed.tok not split on its columns")
+        finite = all(np.isfinite([r["loss"], r["grad_norm"]]).all()
+                     for r in rows)
+        if not (finite and all(r["step_ok"] == 1 for r in rows)
+                and d_loss <= EMBED_TOL and d_norm <= EMBED_TOL
+                and res["grad_err"] <= bound):
+            fail(f"{job.label} rank {rank} disagrees with one rank")
+        if not (res["ref_max"] > bound and res["swap_err"] > bound):
+            fail(f"{job.label} rank {rank}: the gradient gate would pass "
+                 f"zeroed columns or the other rank's")
+    return ranks[0][job.label]["launches"]
 
 
 def tp_jobs():
@@ -3614,9 +3833,10 @@ def serve_decode(server, entry):
     return logits, nbytes(cache) / 1e9
 
 
-def rank_decode(world, draws, prints, entry, m):
+def rank_decode(world, draws, prints, entry, m, embed="vocab"):
     """19m2 on one rank: ``serve_decode`` of ``entry`` through a
-    ``Server`` at model axis ``m`` on ``serve_params``. For MLA (19m4) also
+    ``Server`` at model axis ``m`` on ``serve_params``, its embedding laid
+    out by ``embed`` (19o: "dmodel"). For MLA (19m4) also
     whether the Server split the latents, and the collective bytes by
     kind of the first decode step (``count_collectives``, reset just
     before it) beside a recording world's count of the same step
@@ -3627,7 +3847,7 @@ def rank_decode(world, draws, prints, entry, m):
     cfg = serve_cfg(entry)
     t0 = time.time()
     server = Server(cfg, serve_params(cfg, draws, prints, world.device),
-                    world=world, model_axis=m)
+                    world=world, model_axis=m, embed_sharding=embed)
     init_s = time.time() - t0
     step = {}
     real = server.decode_logits
@@ -3641,7 +3861,8 @@ def rank_decode(world, draws, prints, entry, m):
         return out
     server.decode_logits = decode_logits
     logits, cache_gb = serve_decode(server, entry)
-    out = {"logits": logits, "cache_gb": cache_gb, "init_s": init_s}
+    out = {"logits": logits, "cache_gb": cache_gb, "init_s": init_s,
+           "embed_dim": server.model_dims.get("embed.tok")}
     if cfg.block_kind == "mla":
         out.update(latents=server.latents, collectives=(
             step["counts"], recorded_decode(cfg, entry, world, m,
@@ -3907,6 +4128,10 @@ def tp_rank(world, jobs, draw=(), markers=None, prints=None):
                 for path in draw or ():
                     draws.update(read_draws(path))
             waited = marker_wait(markers, job.after) if job.after else 0.0
+            # 19o's one-rank reference gradient runs outside the counted
+            # window: its launches, heads, time and peak are not the job's
+            pre = rank_embed_ref(world, *job.case) \
+                if job.kind == "embed" else None
             routes, seen, step = [], [], {}
             torch.cuda.reset_peak_memory_stats()
             reset_counters()
@@ -3919,7 +4144,10 @@ def tp_rank(world, jobs, draw=(), markers=None, prints=None):
                     with held_serve(draws, prints, world.device):
                         hist = serve.run(serve.parse_args(job.argv), world)
                 elif job.kind == "decode":
-                    hist = rank_decode(world, draws, prints, *job.case)
+                    hist = rank_decode(world, draws, prints, *job.case,
+                                       embed=job.embed)
+                elif job.kind == "embed":
+                    hist = rank_embed_train(pre)
                 else:
                     hist = train.run(train.parse_args(job.argv), world)
             torch.cuda.synchronize()
@@ -4207,12 +4435,23 @@ def serve_gates(job, ranks, cli_tokens):
             logits = res["logits"]
             d = float(np.abs(logits - want).max()) \
                 if logits.shape == want.shape else float("inf")
+            # 19o: the decode under "dmodel", embed.tok split on its
+            # columns, the greedy tokens one rank's
+            dmodel = job.embed == "dmodel"
+            tol = EMBED_SERVE_TOL if dmodel else TP_TOL
             msg += (f"; logits {logits.shape} max|d| {d:.3e} against one "
-                    f"rank's (tol {TP_TOL}); cache {res['cache_gb']:.4f} GB "
+                    f"rank's (tol {tol}); cache {res['cache_gb']:.4f} GB "
                     f"a rank, {one_gb:.4f} GB on one rank; the Server's "
                     f"init (its chunks of the host params to the card) "
                     f"{res['init_s']:.1f}s")
-            ok = d <= TP_TOL and bool(np.isfinite(logits).all())
+            ok = d <= tol and bool(np.isfinite(logits).all())
+            if dmodel:
+                same = d < float("inf") and np.array_equal(
+                    logits.argmax(-1), want.argmax(-1))
+                msg += (f"; embed.tok split on dimension "
+                        f"{res['embed_dim']}; greedy tokens "
+                        f"{'equal to' if same else 'NOT'} one rank's")
+                ok = ok and same and res["embed_dim"] == 1
             if "latents" in res:
                 ok = mla_split_gates(job, rank, res, one_gb, msg) and ok
                 msg = None
@@ -4327,14 +4566,19 @@ def phase_tp(card, f32_ref, family_params, serving):
     (``serve_rank_kernels``), ChatGLM3-6B's one-rank decode in the parent
     beside the one-rank references, then each world's ``serve_jobs``
     (``serve_gates``; (m4) DeepSeek-V3's latents split on the sequence at
-    model 2 and 4, ``mla_split_gates``). ``serving``: phase 15's
+    model 2 and 4, ``mla_split_gates``). (o) ``embed_sharding="dmodel"``
+    at model 2 in the world of 2, after its serving jobs: Gemma3-12B's
+    decode, and Gemma3-12B and Qwen2.5-14B training (``embed_jobs``,
+    ``rank_embed_train``, ``embed_gates``) against the parent's one-rank
+    runs (``embed_one_rank``). ``serving``: phase 15's
     {"prefill": K1's one-rank prefill row, "tokens": the serve CLI's}; the
     ranks draw Qwen2.5,
     Qwen2-VL and Gemma3 again on the card (``serve_params``, against
     SERVE_PRINTS). Returns ({label: rank 0's launches; a pipeline
     run's stage 1 under "<label> stage 1"}, the sliced-KV check's bf16
     errors, 19i's kernel rows, {"model_axis_2"/"_4": K1-K3's rows at MLA's
-    per-rank shape}, {19m label: rank 0's launches}, 19m3's K1 rows)."""
+    per-rank shape}, {19m label: rank 0's launches}, 19m3's K1 rows, the
+    recorded collectives, {19o training label: rank 0's launches})."""
     import concurrent.futures
     import gc
     import shutil
@@ -4434,6 +4678,12 @@ def phase_tp(card, f32_ref, family_params, serving):
                                        steps)
                 one_rank_routes[tag] = routes
         free()
+        # 19o: the one-rank runs of the "dmodel" training jobs, each on
+        # the card's seed-0 draw, which the ranks draw again
+        embed_refs = {}
+        for tag in EMBED_TRAIN:
+            embed_refs[tag] = embed_one_rank(tag)
+            free()
         # 19m2: ChatGLM3-6B's one-rank decode on the same draw
         lm_cfg = serve_cfg(TP_SERVE_LM)
         reset_counters()
@@ -4474,10 +4724,15 @@ def phase_tp(card, f32_ref, family_params, serving):
           f"{max(r['draws_waited'] for w in results.values() for r in w):.1f}"
           f"s for the draws", flush=True)
     launches, peaks, serve_launches, collectives = {}, {}, {}, {}
+    embed_launches = {}
     for size, world_jobs in jobs.items():
         ranks = results[size]
         for job in world_jobs:
             label, ref = job.label, job.ref
+            if job.kind == "embed":
+                embed_launches[label] = embed_gates(job, ranks,
+                                                    embed_refs[ref])
+                continue
             if job.kind != "train":
                 serve_launches[label] = serve_gates(job, ranks,
                                                     serving["tokens"])
@@ -4588,7 +4843,7 @@ def phase_tp(card, f32_ref, family_params, serving):
             fail("the serve CLI's --devices 2 on one card did not raise")
     print(f"[tp] phase 19 in {time.time() - t0:.1f}s on {card}", flush=True)
     return launches, errs, split_rows, mla_tp, serve_launches, serve_rows, \
-        collectives
+        collectives, embed_launches
 
 
 def augment_on_card():
@@ -4715,7 +4970,8 @@ def phase_rwkv_train(profile):
     launches, hist, params = decoder_train(
         "rwkv6-7b", RWKV_LAYERS, RWKV_TRAIN_ARGS, {
             "wkv6_fwd": wkv, "wkv6_bwd": wkv, "rmsnorm_fwd": norms,
-            "rmsnorm_bwd": norms}, "rwkv", profile, fp32_eps=RWKV_GATE_EPS)
+            "rmsnorm_bwd": norms}, "rwkv", profile, fp32_eps=RWKV_GATE_EPS,
+        timed=RWKV_TIMED)
     rwkv_after_steps(hist)
     return launches, decode_params("rwkv6", params)
 
@@ -6445,7 +6701,7 @@ def main():
     zamba_launches, zamba_serve_launches, tp_params["zamba2"] = timed(
         "17 Zamba2", phase_zamba2, card)
     tp_launches, tp_errs, split_rows, tp_mla, tp_serve, tp_serve_k1, \
-        tp_collectives = timed(
+        tp_collectives, tp_embed = timed(
             "19 tensor parallel", phase_tp, card, f32_ref, tp_params,
             {"prefill": prefill, "tokens": cli_tokens})
     del tp_params
@@ -6467,8 +6723,13 @@ def main():
                             "deepseek")}
     def tp_serve_launches(name):
         """Phase 19m's serving runs' launches of kernel ``name``, a
-        rank's, by run."""
+        rank's, by run (19o's decode under "dmodel" among them)."""
         return {label: n[name] for label, n in tp_serve.items()}
+
+    def tp_embed_launches(name):
+        """Phase 19o's "dmodel" training runs' launches of kernel
+        ``name``, a rank's, by run."""
+        return {label: n[name] for label, n in tp_embed.items()}
     # K1-K3 run on both training paths: the row's numbers are the
     # decoder's (this slice's path), with the ViT's beside them under "vit"
     kernels = []
@@ -6533,7 +6794,8 @@ def main():
                   tp_rank_shape={"shape": list(TP_RANK_SHAPE),
                                  "max_abs_err": tp_errs[key]},
                   tp_mla={m: rows[key] for m, rows in tp_mla.items()},
-                  tp_serve_launches=tp_serve_launches(row["name"]))
+                  tp_serve_launches=tp_serve_launches(row["name"]),
+                  tp_embed_dmodel_launches=tp_embed_launches(row["name"]))
         if key == "fwd":
             # serving across ranks (19m): K1 at a model-axis-2 rank's
             # prefill shapes, beside the one-rank shape's
@@ -6570,6 +6832,7 @@ def main():
             extra["pipeline_chatglm3_launches"] = pp_lm_launches[row["name"]]
         extra.update(tp_family_launches(row["name"]))
         extra["tp_serve_launches"] = tp_serve_launches(row["name"])
+        extra["tp_embed_dmodel_launches"] = tp_embed_launches(row["name"])
         if row["name"] in REDESIGNED:
             extra.update(redesigned=True, routes=ROUTES[row["name"]])
         kernels.append(dict(row, **extra))

@@ -251,6 +251,16 @@ class ModelConfig:
 
 
 SEQUENCE_PARALLEL = ("none", "ulysses")
+EMBED_SHARDING = ("vocab", "dmodel")
+
+
+def check_embed_sharding(value: str) -> None:
+    """Refuse an embedding layout other than "vocab" or "dmodel" (the
+    reference reads any value but "vocab" as "dmodel": ROADMAP caveat
+    R7)."""
+    if value not in EMBED_SHARDING:
+        raise ValueError(f"embed_sharding must be one of {EMBED_SHARDING}: "
+                         f"{value!r}")
 
 
 @dataclass(frozen=True)
@@ -271,7 +281,12 @@ class EngineConfig:
     runs DeepSpeed-Ulysses on the model axis where the model allows it
     (``core/ulysses.py::applies``); it does not compose with a pipeline,
     and a value other than "none" or "ulysses" is refused (the reference
-    reads any other value as "none": ROADMAP caveat R6)."""
+    reads any other value as "none": ROADMAP caveat R6).
+    ``embed_sharding`` lays out a decoder's token embedding over the model
+    axis (``core/sharding.py``): "vocab" splits ``embed.tok``'s rows
+    (Megatron's vocab-parallel), "dmodel" its feature columns, with no
+    ZeRO split; any other value is refused (the reference reads any value
+    other than "vocab" as "dmodel": ROADMAP caveat R7)."""
     train_batch_size: int = 32
     micro_batch_per_gpu: int = 0        # 0 -> derived
     gradient_accumulation_steps: int = 1
@@ -286,6 +301,7 @@ class EngineConfig:
     seed: int = 0
     cast_params_bf16: bool = False
     sequence_parallel: str = "none"     # none | ulysses
+    embed_sharding: str = "vocab"       # vocab | dmodel
     pipeline_stages: int = 1
     pipeline_interleave: int = 1
     # elastic checkpointing (repro_torch.checkpoint): cadence in optimizer
@@ -306,6 +322,7 @@ class EngineConfig:
         if self.zero_stage not in (0, 1, 2, 3):
             raise ValueError(f"zero_stage must be 0, 1, 2 or 3: "
                              f"{self.zero_stage}")
+        check_embed_sharding(self.embed_sharding)
 
     def derived_micro_batch(self, dp_world: int) -> int:
         if self.micro_batch_per_gpu:

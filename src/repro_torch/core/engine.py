@@ -67,8 +67,10 @@ reference's ``model`` mesh axis): a world is laid out data x model, or
 data x pipe x model with pipeline stages (``launch/mesh.py``), and each
 rank keeps its model chunk of every leaf
 the model axis splits
-(``core/sharding.py::model_dims``: Megatron's column/row split and the
-vocab-parallel embedding and head), then ZeRO's data chunk of that. The
+(``core/sharding.py::model_dims``: Megatron's column/row split, the
+vocab-parallel head, and the embedding split on its rows or, under
+``ecfg.embed_sharding`` "dmodel", on its features, where the tied head is
+a row-parallel product), then ZeRO's data chunk of that. The
 forward and backward run with the model group installed
 (``models/shardctx.py``), so the layers' collectives sum the partial
 products; every other leaf is replicated over the model group and its
@@ -89,7 +91,9 @@ tensor-parallel layout above): the same data x model layout, but every
 model rank holds every leaf whole (``model_dims`` None) but an MoE's
 routed experts, split on E (``ulysses.model_dims``), and the model
 group is installed as the sequence group (``shardctx.use_sequence``), so
-each rank runs its rows of the sequence. Each rank's gradient of a whole
+each rank runs its rows of the sequence; ``ecfg.embed_sharding`` has no
+effect there (``embed.tok`` is whole on the model group and keeps the
+"vocab" layout's ZeRO split). Each rank's gradient of a whole
 leaf is its rows' share, summed over the model group (``model_summed``),
 but the ViT's final norm and head, computed whole on every rank
 (``ulysses.whole``); a split expert's gradient is its rank's own. A
@@ -136,7 +140,7 @@ import torch
 from repro_torch.checkpoint import AsyncCheckpointer, Blocks, Sharded, \
     last_restore_stats, restore_checkpoint, restore_latest_valid, \
     save_checkpoint
-from repro_torch.configs.base import EngineConfig
+from repro_torch.configs.base import EngineConfig, check_embed_sharding
 from repro_torch.core import pipeline, ulysses
 from repro_torch.core.grad_accum import accumulate_gradients
 from repro_torch.core.sharding import check_model_axis, check_serving, \
@@ -263,9 +267,11 @@ class Trainer:
         a world of more than one rank is laid out data x pipe, with
         ``model_axis`` M > 1 data x (pipe x) model
         (``launch.mesh.make_layout``, a collective): each replica's (each
-        stage's) layers split over M ranks. With ``ecfg.sequence_parallel``
-        "ulysses" the M ranks split the sequence instead where
-        ``ulysses.applies``."""
+        stage's) layers split over M ranks, the token embedding on its
+        rows or its features by ``ecfg.embed_sharding``. With
+        ``ecfg.sequence_parallel`` "ulysses" the M ranks split the sequence
+        instead where ``ulysses.applies``, every leaf but an MoE's experts
+        whole on each (D8), so ``embed_sharding`` has no effect there."""
         self.data = self.pipe = self.tp = None
         M = model_axis
         # the Ulysses layout on the model group, else tensor parallelism
@@ -306,6 +312,9 @@ class Trainer:
         self.schedule = make_schedule(ecfg.lr_schedule, ecfg.lr,
                                       ecfg.warmup_steps, ecfg.total_steps)
         self.param_dims = self.opt_dims = None
+        # the embedding's layout (under Ulysses every leaf is whole on the
+        # model group: "vocab"'s ZeRO split)
+        self.embed = "vocab" if self.ulysses else ecfg.embed_sharding
         # the dimension of each (whole) leaf split over the model group
         # (under Ulysses only an MoE's routed experts, on E)
         shapes = {k: p.shape
@@ -315,7 +324,7 @@ class Trainer:
         elif self.ulysses:
             self.model_dims = ulysses.model_dims(shapes, cfg, M)
         else:
-            self.model_dims = model_dims(shapes, cfg, M)
+            self.model_dims = model_dims(shapes, cfg, M, self.embed)
         # the leaves whole on every model rank whose gradients are summed
         # over the model group (D6's KV projections, D7's Mamba2 leaves,
         # the MoE router; under Ulysses every whole leaf a rank computes
@@ -343,9 +352,11 @@ class Trainer:
         shapes = {k: p.shape for k, p in params.items()}
         size = self.data.size if self.data is not None else 1
         stage = self.ecfg.zero_stage
-        self.param_dims = shard_dims(shapes, zero_stage=stage, world=size)
+        self.param_dims = shard_dims(shapes, zero_stage=stage, world=size,
+                                     embed_sharding=self.embed)
         self.opt_dims = shard_dims(shapes, zero_stage=stage, world=size,
-                                   for_opt_state=True)
+                                   for_opt_state=True,
+                                   embed_sharding=self.embed)
 
     def _opt_view(self, params: dict) -> dict:
         """The part of each leaf this rank's optimizer state covers: its
@@ -989,16 +1000,19 @@ class Server:
     rank's parts of the host params are copied to its device. The logits
     of a vocabulary split over the model group are gathered whole before
     the greedy token is taken, so every rank of a group decodes the same
-    tokens."""
+    tokens. ``embed_sharding`` lays out the token embedding as the
+    ``Trainer``'s ``ecfg.embed_sharding`` does: under "dmodel" a model
+    rank holds its feature columns, and a tied head gives whole logits."""
 
     def __init__(self, cfg, params: dict, *, device="cuda", world=None,
-                 model_axis: int = 1):
+                 model_axis: int = 1, embed_sharding: str = "vocab"):
         if not cfg.supports_decode():
             raise ValueError(f"{cfg.name} has no decode step")
         if world is None and model_axis > 1:
             raise ValueError(f"model_axis {model_axis} needs a world of "
                              f"ranks")
         check_model_axis(cfg, model_axis)
+        check_embed_sharding(embed_sharding)
         self.cfg = cfg
         self.data = self.tp = None
         if world is not None:
@@ -1009,7 +1023,8 @@ class Server:
             self.device = resolve_device(device)
         self.model = model_axis
         shapes = {k: v.shape for k, v in params.items()}
-        self.model_dims = model_dims(shapes, cfg, model_axis) \
+        self.model_dims = model_dims(shapes, cfg, model_axis,
+                                     embed_sharding) \
             if self.tp is not None else dict.fromkeys(shapes)
 
         def local(k, v):

@@ -24,6 +24,15 @@ the layers of its own chunks (:func:`stage_chunks`), and ZeRO shards those
 over its stage's data group on the same dimension as above; the
 non-stacked leaves (embed, positions, head, final norm) are replicated on
 every stage.
+
+A decoder's token embedding ``embed.tok`` (V, d) takes the layout of
+``embed_sharding`` (``EngineConfig``): "vocab" (the default, Megatron's
+vocab-parallel) puts the model axis on its rows and ZeRO's data split on
+its columns; "dmodel" puts the model axis on its columns, with no data
+split at any stage or for the optimizer state (``P(None, tp)``,
+``repro/core/sharding.py:65-69``). Either split is dropped where the
+axis does not divide the dimension. An untied ``head.w`` keeps
+``(fsdp, tp)`` in both layouts.
 """
 from __future__ import annotations
 
@@ -37,10 +46,11 @@ _TP = "model"       # the tensor-parallel axis
 TP_ARCH_TYPES = ("vit", "audio", "dense", "vlm", "moe", "ssm", "hybrid")
 
 
-def _rules(fsdp, tp=None):
+def _rules(fsdp, tp=None, embed_sharding="vocab"):
     """``repro/core/sharding.py:32-76``: (pattern on the slash-joined key,
-    spec of the unstacked leaf), first match wins; the embedding in the
-    reference's default "vocab" layout (Megatron's vocab-parallel)."""
+    spec of the unstacked leaf), first match wins; the embedding split on
+    its rows ("vocab", Megatron's vocab-parallel) or on its features
+    ("dmodel", no data split)."""
     return [
         # --- MoE experts (leading E axis: expert parallel over tp) ---
         (r"experts/w_(gate|up)$", (tp, fsdp, None)),
@@ -73,7 +83,8 @@ def _rules(fsdp, tp=None):
         (r"channel_mix/w_v$", (tp, fsdp)),
         (r"channel_mix/w_r$", (fsdp, tp)),
         # --- embeddings / head ---
-        (r"embed/tok$", (tp, fsdp)),
+        (r"embed/tok$", (tp, fsdp) if embed_sharding == "vocab"
+         else (None, tp)),
         (r"head/w$", (fsdp, tp)),
         (r"embed/(patch_w|feat_proj)$", (None, fsdp)),
         (r"embed/pos$", (None, fsdp)),
@@ -109,12 +120,12 @@ def _sanitize(spec, shape, world):
                  for i, ax in enumerate(spec))
 
 
-def _spec(key, shape, fsdp, world, tp=None):
+def _spec(key, shape, fsdp, world, tp=None, embed_sharding="vocab"):
     """``param_specs``' ``spec_one`` for one leaf of ``shape``, on one
     axis (``fsdp`` or ``tp``) of ``world`` ranks."""
     ks = key.replace(".", "/")
     stacked = is_stacked(ks)
-    base = next((spec for pat, spec in _rules(fsdp, tp)
+    base = next((spec for pat, spec in _rules(fsdp, tp, embed_sharding)
                  if re.search(pat, ks)), None)
     if base is None:
         # norms, scalars, small vectors: sharded where the world divides
@@ -129,18 +140,21 @@ def _spec(key, shape, fsdp, world, tp=None):
 
 
 def shard_dims(shapes: dict, *, zero_stage: int, world: int,
-               for_opt_state: bool = False) -> dict:
+               for_opt_state: bool = False,
+               embed_sharding: str = "vocab") -> dict:
     """``{key: sharded dimension or None}`` for ``{key: shape}`` (flat
     dotted keys, e.g. ``stack.attn.wq``), as ``param_specs(...,
     tensor_parallel=False)`` gives on a ``data`` axis of ``world`` ranks.
 
     ``for_opt_state``: stages 1 and 2 shard the optimizer state while the
-    params stay replicated; stage 3 shards both."""
+    params stay replicated; stage 3 shards both. Under
+    ``embed_sharding`` "dmodel" ``embed.tok`` has no data dimension."""
     shard = zero_stage >= 3 or for_opt_state and zero_stage >= 1
     fsdp = _F if shard else None
     out = {}
     for key, shape in shapes.items():
-        spec = _spec(key, tuple(shape), fsdp, world)
+        spec = _spec(key, tuple(shape), fsdp, world,
+                     embed_sharding=embed_sharding)
         out[key] = spec.index(_F) if _F in spec else None
     return out
 
@@ -222,19 +236,21 @@ def model_summed(key: str, cfg, model: int) -> bool:
                 or _D7.search(ks) or _ROUTER.search(ks))
 
 
-def model_dims(shapes: dict, cfg, model: int) -> dict:
+def model_dims(shapes: dict, cfg, model: int,
+               embed_sharding: str = "vocab") -> dict:
     """``{key: the dimension split over the model axis, or None}`` for
     ``{key: shape}`` (whole leaves), as ``param_specs(...,
-    tensor_parallel=True)`` puts ``"model"`` on a mesh of ``model`` model
-    ranks, but for the leaves of :func:`model_summed`, whole on every
-    rank: D6's KV projections where the model axis does not divide the KV
-    heads, and D7's Mamba2 in-projection and conv (the reference splits
-    them by contiguous columns); and the leaves of the blocks that run
-    whole (:func:`whole_blocks`, F2)."""
+    tensor_parallel=True, embed_sharding=...)`` puts ``"model"`` on a mesh
+    of ``model`` model ranks, but for the leaves of :func:`model_summed`,
+    whole on every rank: D6's KV projections where the model axis does not
+    divide the KV heads, and D7's Mamba2 in-projection and conv (the
+    reference splits them by contiguous columns); and the leaves of the
+    blocks that run whole (:func:`whole_blocks`, F2). ``embed.tok`` is
+    split on its rows ("vocab") or its columns ("dmodel")."""
     whole = whole_blocks(cfg, model)
     out = {}
     for key, shape in shapes.items():
-        spec = _spec(key, tuple(shape), None, model, _TP)
+        spec = _spec(key, tuple(shape), None, model, _TP, embed_sharding)
         dim = spec.index(_TP) if _TP in spec else None
         out[key] = None if model_summed(key, cfg, model) \
             or in_whole_block(key, whole) else dim

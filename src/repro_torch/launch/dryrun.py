@@ -38,11 +38,15 @@ writing a cache) with every leaf whole under the sequence group; every
 decoder's heads fall back to the tensor-parallel layout there, as
 ``make_hints``' do. A decoder's serving pair where the Ulysses layout
 would apply (no production layout reaches one) is refused: the port's
-``Server`` has no sequence layout yet (ROADMAP 16.2c). Where the port's
-layout differs from the reference's the record says what ran (``embed``
-"vocab", the only embedding layout the port has). A pair the port
-refuses is recorded with ``status: "fail"`` and the refusal's text, and
-``--all`` then exits 1.
+``Server`` has no sequence layout yet (ROADMAP 16.2c). ``--embed`` is the
+embedding's layout (``EngineConfig.embed_sharding``, "vocab" by default,
+or "dmodel"), for the ``Trainer`` and the ``Server`` alike, and the
+record's ``embed`` says which ran: under "dmodel" the lookup's rows are
+all-gathered on the features where "vocab" all-reduces them, and a tied
+head's partial logits (B, S, V) are all-reduced in fp32 where "vocab"
+runs the vocab-parallel NLL's reductions. A pair the port refuses is recorded
+with ``status: "fail"`` and the refusal's text, and ``--all`` then
+exits 1.
 A DeepSeek-V3 serving pair's cache holds a rank's rows of the latents
 (split on the sequence over the model group, as the reference's
 ``cache_specs``), and its decode counts the distributed flash-decoding's
@@ -62,6 +66,7 @@ import torch
 
 from repro_torch.configs import ASSIGNED_ARCHS, SHAPES, EngineConfig, \
     applicable, get_config, get_shape
+from repro_torch.configs.base import EMBED_SHARDING
 from repro_torch.core import ulysses
 from repro_torch.core.comm_model import H100_SXM, roofline
 from repro_torch.core.distributed import recording_world
@@ -116,7 +121,8 @@ def engine_for(arch: str, shape_name: str, layout, *, zero: int = None,
         train_batch_size=max(gb, dp) if gb % dp == 0 else gb,
         gradient_accumulation_steps=accum, zero_stage=zero,
         sequence_parallel=seq_parallel, cast_params_bf16=bf16_gather,
-        pipeline_stages=layout.pipe, guard_anomalies=False)
+        embed_sharding=embed or "vocab", pipeline_stages=layout.pipe,
+        guard_anomalies=False)
     return cfg, ecfg, shape
 
 
@@ -141,10 +147,11 @@ def count_train(cfg, ecfg, world, model_axis, batch, *, where=False):
 
 
 def count_serve(cfg, shape, world, model_axis, seq_parallel="none", *,
-                where=False):
+                embed_sharding="vocab", where=False):
     """A ``Server``'s prefill of the shape's prompt batch into a cache of
     its length, or one decode step against a cache of the shape's length,
-    for rank ``world.rank`` on ``meta``; an encoder's prefill is its
+    for rank ``world.rank`` on ``meta``, its embedding laid out by
+    ``embed_sharding``; an encoder's prefill is its
     forward (eval mode) on the data rank's rows under the model group,
     installed as the sequence group with every leaf whole where
     ``ulysses.applies`` (else the tensor-parallel layout). A decoder where
@@ -176,7 +183,7 @@ def count_serve(cfg, shape, world, model_axis, seq_parallel="none", *,
                          f"{model_axis}) is not yet ported to repro_torch "
                          f"(ROADMAP item 16.2c)")
     server = Server(cfg, params, device="meta", world=world,
-                    model_axis=model_axis)
+                    model_axis=model_axis, embed_sharding=embed_sharding)
     cache = server.init_cache(b, s)
     leaves = [t for group in cache.values() for t in group.values()]
     if shape.kind == "prefill":
@@ -205,7 +212,9 @@ def count_pair(arch, shape_name, *, multi_pod=False, where=False, **kw):
                               input_specs(cfg, shape), where=where)
     else:
         counter = count_serve(cfg, shape, world, layout.model,
-                              ecfg.sequence_parallel, where=where)
+                              ecfg.sequence_parallel,
+                              embed_sharding=ecfg.embed_sharding,
+                              where=where)
     return counter, cfg, shape, ecfg, layout
 
 
@@ -253,7 +262,7 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
         "seq_parallel": ecfg.sequence_parallel,
         "layout": {"data": layout.data, "pipe": layout.pipe,
                    "model": layout.model},
-        "embed": "vocab",
+        "embed": ecfg.embed_sharding,
         "attn": "kernels" if cfg.use_kernels else cfg.attn_impl,
         "argument_bytes_per_dev": counter.args_bytes,
         # the port's step updates its state in place
@@ -297,7 +306,9 @@ def parse_args(argv=None):
                          "analytic work) instead of blockwise attention")
     ap.add_argument("--moe-impl", default=None)
     ap.add_argument("--bf16-gather", action="store_true")
-    ap.add_argument("--embed", default=None)
+    ap.add_argument("--embed", default=None, choices=EMBED_SHARDING,
+                    help="the token embedding's layout over the model "
+                         "axis (default vocab)")
     ap.add_argument("--chunk", type=int, default=0)
     ap.add_argument("--micro", type=int, default=0)
     ap.add_argument("--tag", default="")

@@ -384,9 +384,12 @@ def _run(args, world):
         max(world.size // (args.pp * args.model_axis), 1)
     lead = world is None or world.rank == 0
 
-    def say(*a, **kw):
+    def say(msg, flush=False):
+        # the line and its newline in one write: unbuffered
+        # (PYTHONUNBUFFERED), print() writes them apart, and another
+        # rank's line (its preemption notice) can land between the two
         if lead:
-            print(*a, **kw)
+            print(f"{msg}\n", end="", flush=flush)
 
     cfg = _config(args)
     vit = cfg.arch_type == "vit"

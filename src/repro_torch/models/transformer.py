@@ -67,8 +67,15 @@ rows looks up zeros, then the rows are summed over the group, before the
 Gemma3 scale and the vlm splice); the LM head (``head.w``'s column chunk,
 or the tied ``embed.tok`` chunk transposed) leaves the logits
 vocab-sharded, and the loss takes them through ``vocab_parallel_nll``
-(HuBERT's masked-frame loss too). The ViT's ``head.w``, split on the
-classes where M divides them, gives logits gathered whole before the
+(HuBERT's masked-frame loss too). Under ``embed_sharding`` "dmodel"
+``embed.tok`` holds this rank's feature columns: the lookup is local and
+its rows are gathered whole on the features (before the scale and the
+splice), and a tied head is row-parallel (this rank's columns of the
+hidden state against its columns of the table, the partial logits
+summed over the group in fp32), so the logits are whole and the loss is
+the plain NLL; an untied ``head.w`` stays vocab-parallel. The ViT's
+``head.w``, split on the classes where M divides them, gives logits
+gathered whole before the
 replicated ``head.b``, so its loss, accuracy and eval counts see whole
 logits. A leaf the model axis does not divide comes whole and is used as
 on one rank (Granite-MoE's tied embedding at vocabulary 49,155: a whole
@@ -406,7 +413,7 @@ def _embed(cfg, params, batch, mode="train"):
     if not _is_vit(cfg):
         decode = mode == "decode"
         tokens = (batch["token"] if decode else batch["tokens"]).long()
-        h = _lookup(params["embed.tok"], tokens, cfg.vocab_size).to(dt)
+        h = _lookup(cfg, params["embed.tok"], tokens, dt)
         if cfg.embed_scale:
             h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=dt,
                                  device=h.device)
@@ -441,18 +448,27 @@ def _embed(cfg, params, batch, mode="train"):
     return h + params["embed.pos"].to(dt)[None], None
 
 
-def _lookup(table, tokens, vocab):
-    """``table[tokens]``; where a model group splits the table's ``vocab``
-    rows, this rank's rows looked up (zeros for the others' tokens) and
-    summed over the group (an exact sum: one rank holds each row)."""
+def _lookup(cfg, table, tokens, dtype):
+    """``table[tokens]`` in ``dtype``. Where a model group splits the
+    table's vocabulary rows ("vocab"), this rank's rows looked up (zeros
+    for the others' tokens) and summed over the group (an exact sum: one
+    rank holds each row). Where it splits the feature columns ("dmodel"),
+    this rank's columns looked up and gathered whole on the features.
+    That gather's backward keeps this rank's columns of the gradient with
+    no collective: right because the residual stream's gradient is the
+    same on every model rank (each split product's input passes
+    ``copy_to_model``, whose backward sums over the group)."""
     tp = shardctx.active()
-    n = table.shape[0]
-    if tp is None or n == vocab:
-        return table[tokens]
+    n, d = table.shape
+    if tp is None or (n, d) == (cfg.vocab_size, cfg.d_model):
+        return table[tokens].to(dtype)
+    if d != cfg.d_model:
+        return shardctx.gather_from_model(table[tokens].to(dtype))
     local = tokens - tp.rank * n
     mine = (local >= 0) & (local < n)
     rows = table[torch.where(mine, local, 0)]
-    return shardctx.reduce_from_model(torch.where(mine[..., None], rows, 0))
+    return shardctx.reduce_from_model(
+        torch.where(mine[..., None], rows, 0)).to(dtype)
 
 
 def _head(cfg, params, h):
@@ -474,8 +490,20 @@ def _head(cfg, params, h):
 
 def _lm_head(cfg, params, h):
     """``h @ head.w`` (the embedding transposed when tied); where a model
-    group splits the vocabulary, this rank's chunk of the logits."""
+    group splits the vocabulary, this rank's chunk of the logits. A tied
+    embedding split on its features ("dmodel") is a row-parallel product:
+    this rank's columns of ``h`` against its columns of the table, summed
+    over the group into whole logits. The partial logits are summed in
+    fp32 and rounded to ``h``'s dtype once: a bf16 sum would round at
+    every step of the reduction, an error that grows with the group's
+    size."""
     w = params["embed.tok"].T if cfg.tie_embeddings else params["head.w"]
+    if w.shape[0] != cfg.d_model:
+        n = w.shape[0]
+        lo = shardctx.active().rank * n
+        x = shardctx.copy_to_model(h)[..., lo:lo + n]
+        return shardctx.reduce_from_model(
+            (x @ w.to(h.dtype)).float()).to(h.dtype)
     if w.shape[1] != cfg.vocab_size:
         h = shardctx.copy_to_model(h)
     return h @ w.to(h.dtype)
@@ -726,12 +754,12 @@ def _mtp_logits(cfg, params, batch, h, positions):
     ``mtp.final_norm`` and the LM head (the embedding transposed when
     tied). Its logits feed the loss's 0.3-weighted term for the token two
     ahead (:func:`loss_from_logits`). Under a model group the next tokens
-    take the vocab-parallel lookup, ``mtp.proj`` is replicated, the block
-    splits as a dense layer and the logits stay vocab-sharded, as the
-    main head's."""
+    take the main lookup's path (vocab-parallel, or gathered on the
+    features under "dmodel"), ``mtp.proj`` is replicated, the block
+    splits as a dense layer and the logits take the main head's path."""
     tok = batch["tokens"].long()
     nxt = torch.cat([tok[:, 1:], tok[:, -1:]], dim=1)
-    e_next = _lookup(params["embed.tok"], nxt, cfg.vocab_size).to(h.dtype)
+    e_next = _lookup(cfg, params["embed.tok"], nxt, h.dtype)
     mh = torch.cat([_apply_norm(cfg, params, "mtp.norm_h.", h),
                     _apply_norm(cfg, params, "mtp.norm_e.", e_next)],
                    dim=-1) @ params["mtp.proj"].to(h.dtype)
@@ -806,7 +834,8 @@ def loss_from_logits(cfg, logits, batch, aux=None, reduce=None):
     moe_aux = aux["moe_aux"] if aux is not None else torch.zeros(
         (), dtype=torch.float32, device=logits.device)
     # a decoder's or the audio encoder's logits hold this rank's chunk of
-    # the vocabulary where a model group splits the head
+    # the vocabulary where a model group splits the head (a tied head
+    # under "dmodel" gives them whole: the plain NLL)
     sharded = not _is_vit(cfg) and shardctx.active() is not None and \
         logits.shape[-1] != cfg.vocab_size
     seq = None if _is_vit(cfg) else shardctx.split_sequence(

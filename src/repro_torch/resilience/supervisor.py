@@ -68,9 +68,12 @@ def install_preemption_handler(signals=(signal.SIGTERM, signal.SIGINT)
         flag.signum = signum
         for s in signals:
             signal.signal(s, signal.SIG_DFL)
+        # one write (every rank of a world prints it): unbuffered, print()
+        # writes the text and its newline apart, and another process's
+        # line can land between them
         print(f"[supervisor] caught signal {signum}: finishing step, "
-              f"emergency-saving, then exiting {RESTARTABLE_EXIT}",
-              flush=True)
+              f"emergency-saving, then exiting {RESTARTABLE_EXIT}\n",
+              end="", flush=True)
 
     for s in signals:
         signal.signal(s, handler)
